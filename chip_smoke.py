@@ -199,9 +199,10 @@ def make_package(root: str, dtype: str, dw_impl: str, variables) -> str:
 
 def seeded_variables(images):
     """Flax-layout weights of the full-width model from a seeded generator,
-    with the head calibrated on the smoke images (logits centred, unit
-    spread) so that the classes differ across images: a random backbone maps
-    every image to nearly one feature vector."""
+    with the head calibrated on the smoke images as served (bf16): logits
+    centred per class and of unit spread, so that the classes differ across
+    images. (A random backbone maps every image to nearly one feature
+    vector; uncalibrated, one class wins everywhere.)"""
     import torch
 
     from ddw_tpu_torch.data.loader import dequantize_raw_u8
@@ -211,7 +212,7 @@ def seeded_variables(images):
     from ddw_tpu_torch.utils.config import ModelCfg
 
     model = build_model(ModelCfg(name="mobilenet_v2", num_classes=5,
-                                 dtype="float32"))
+                                 dtype="bfloat16", dw_impl="pallas"))
     init_weights(model, torch.Generator().manual_seed(SEED))
     x = images[:BATCH].astype("float32")
     dequantize_raw_u8(x)
@@ -305,6 +306,8 @@ def phase_main(tmp: str):
     check(bf16_err <= tol, f"bf16 logits within {tol:.3g} of the plain path")
     check(bool(agree[decisive].all()), "bf16 argmax equal where decisive")
     check(len(set(np.argmax(ref, -1))) > 1, "classes differ across images")
+    check(decisive.sum() >= N_IMAGES // 2,
+          "most images have a decisive top-2 margin")
     check([c for _, c in scored] ==
           [pm.classes[i] for i in np.argmax(logits, -1)],
           "scorer classes equal predict_logits argmax")

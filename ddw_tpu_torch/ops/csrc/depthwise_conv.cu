@@ -17,20 +17,25 @@
 //
 // Design. The TPU kernel holds a whole [H, W, C] image in VMEM per grid step;
 // an H100 block has at most 227 KB of shared memory, so that blocking does
-// not carry over. Here one thread computes V adjacent channels of one output
-// pixel, with the channel index innermost in the thread numbering, so that
-// neighbouring threads read neighbouring addresses (16-byte vector loads when
-// C and the pointers allow, V = 8 for bf16 and V = 4 for f32; else V = 1).
-// The nine taps re-read neighbouring pixels, which the L1 and L2 caches serve;
-// boundary taps are skipped by bounds checks instead of a padded copy, and a
-// grid-stride loop covers the tensor. The C entry returns cudaGetLastError()
-// right after the launch.
+// not carry over. Here one thread computes V adjacent channels of a column of
+// kRows = 4 output pixels (same w, rows h0..h0+3), with the channel index
+// innermost in the thread numbering, so that neighbouring threads read
+// neighbouring addresses (16-byte vector loads when C and the pointers allow:
+// V = 8 for bf16, V = 4 for f32; else V = 1). The thread walks the 6 input
+// rows h0-1..h0+4 once, each row feeding up to three output rows, so it loads
+// 18 input vectors for 4 outputs instead of 36; the left and right taps are
+// the neighbouring threads' columns, served by L1. Index arithmetic is 32-bit
+// (the launcher refuses tensors of 2^30 work items or more). Border taps are
+// skipped by bounds checks instead of a padded copy, and a grid-stride loop
+// covers the tensor. The C entry returns cudaGetLastError() after the launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr int kRows = 4;  // output rows per thread (a sliding 3-row window)
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
@@ -50,55 +55,72 @@ struct alignas(sizeof(T) * V) Pack {
   T v[V];
 };
 
-template <typename T, int V>
+template <typename T, int V, int R>
 __global__ void __launch_bounds__(256)
 dw3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
                  T* __restrict__ y, int B, int H, int W, int C) {
-  const int cv = C / V;  // channel vectors per pixel
-  const long long total = (long long)B * H * W * cv;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < total; i += stride) {
-    const int c0 = (int)(i % cv) * V;
-    long long p = i / cv;
-    const int wo = (int)(p % W);
+  const int cv = C / V;              // channel vectors per pixel
+  const int hb = (H + R - 1) / R;    // row blocks per image
+  const int total = B * hb * W * cv;  // launch() keeps this below 2^30
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += gridDim.x * blockDim.x) {
+    const int c0 = (i % cv) * V;
+    int p = i / cv;
+    const int wo = p % W;
     p /= W;
-    const int ho = (int)(p % H);
-    const int b = (int)(p / H);
+    const int h0 = (p % hb) * R;
+    const int b = p / hb;
+    const T* xb = x + (long long)b * H * W * C + c0;
 
-    float acc[V];
+    float acc[R][V];
 #pragma unroll
-    for (int k = 0; k < V; ++k) acc[k] = 0.0f;
+    for (int o = 0; o < R; ++o)
+#pragma unroll
+      for (int k = 0; k < V; ++k) acc[o][k] = 0.0f;
 
+    // Input rows h0-1 .. h0+R in ascending order: every output row then
+    // receives its taps dy = 0, 1, 2 in that order, dx innermost.
 #pragma unroll
-    for (int dy = 0; dy < 3; ++dy) {
-      const int hi = ho + dy - 1;
+    for (int r = 0; r < R + 2; ++r) {
+      const int hi = h0 - 1 + r;
       if (hi < 0 || hi >= H) continue;
 #pragma unroll
       for (int dx = 0; dx < 3; ++dx) {
         const int wi = wo + dx - 1;
         if (wi < 0 || wi >= W) continue;
         const Pack<T, V> xv = *reinterpret_cast<const Pack<T, V>*>(
-            x + (((long long)b * H + hi) * W + wi) * C + c0);
-        const Pack<T, V> wv = *reinterpret_cast<const Pack<T, V>*>(
-            w + (dy * 3 + dx) * C + c0);
+            xb + ((long long)hi * W + wi) * C);
 #pragma unroll
-        for (int k = 0; k < V; ++k)
-          acc[k] = __fadd_rn(acc[k], __fmul_rn(to_f32(xv.v[k]), to_f32(wv.v[k])));
+        for (int o = 0; o < R; ++o) {
+          const int dy = r - o;
+          if (dy < 0 || dy > 2) continue;
+          const Pack<T, V> wv = *reinterpret_cast<const Pack<T, V>*>(
+              w + (dy * 3 + dx) * C + c0);
+#pragma unroll
+          for (int k = 0; k < V; ++k)
+            acc[o][k] = __fadd_rn(acc[o][k],
+                                  __fmul_rn(to_f32(xv.v[k]), to_f32(wv.v[k])));
+        }
       }
     }
 
-    Pack<T, V> out;
 #pragma unroll
-    for (int k = 0; k < V; ++k) out.v[k] = from_f32<T>(acc[k]);
-    *reinterpret_cast<Pack<T, V>*>(y + (((long long)b * H + ho) * W + wo) * C + c0) = out;
+    for (int o = 0; o < R; ++o) {
+      if (h0 + o >= H) break;
+      Pack<T, V> out;
+#pragma unroll
+      for (int k = 0; k < V; ++k) out.v[k] = from_f32<T>(acc[o][k]);
+      *reinterpret_cast<Pack<T, V>*>(
+          y + (((long long)b * H + h0 + o) * W + wo) * C + c0) = out;
+    }
   }
 }
 
 template <typename T, int V>
 int launch(const void* x, const void* w, void* y, int B, int H, int W, int C,
            cudaStream_t stream) {
-  const long long total = (long long)B * H * W * (C / V);
+  const long long total = (long long)B * ((H + kRows - 1) / kRows) * W * (C / V);
+  if (total >= (1LL << 30)) return (int)cudaErrorInvalidValue;  // int math
   const int threads = 256;
   int device = 0, sms = 132;
   cudaGetDevice(&device);
@@ -107,7 +129,7 @@ int launch(const void* x, const void* w, void* y, int B, int H, int W, int C,
   const long long cap = (long long)sms * 32;  // grid-stride beyond this
   if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
-  dw3x3_fwd_kernel<T, V><<<(unsigned)blocks, threads, 0, stream>>>(
+  dw3x3_fwd_kernel<T, V, kRows><<<(unsigned)blocks, threads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
       B, H, W, C);
   return (int)cudaGetLastError();

@@ -8,9 +8,11 @@ Three implementations of the same SAME-padded function:
   that kernel it is bound by memory — about 9 multiply-adds per element read,
   one read of x and one write of y — so its least time on an H100 SXM is
   ``(2*B*H*W*C + 9*C) * bytes / 3.35 TB/s``. One thread computes a few
-  adjacent channels of one output pixel with the channel innermost
-  (coalesced 16-byte loads), taps at the border are skipped by bounds checks
-  and a grid-stride loop covers the tensor (design notes in the source).
+  adjacent channels of a column of four output pixels with the channel
+  innermost (coalesced 16-byte loads, each input row loaded once for the
+  three output rows it feeds), taps at the border are skipped by bounds
+  checks and a grid-stride loop covers the tensor (design notes in the
+  source).
 - :func:`depthwise_conv3x3_plain`, the plain PyTorch version: nine shifted
   multiply-adds in f32 over ``F.pad``, in the kernel's order. The CPU path and
   the reference the kernel is held against.
@@ -103,6 +105,9 @@ def depthwise_conv3x3_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError("the depthwise kernel needs NHWC-contiguous x and "
                          "contiguous w")
     b, h, wd, c = x.shape
+    if x.numel() >= 1 << 30:
+        raise ValueError(f"x has {x.numel()} elements; the kernel indexes "
+                         f"with 32-bit integers (fewer than 2**30)")
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
