@@ -219,7 +219,8 @@ def seeded_variables(images):
     model.cuda().eval()
     with torch.inference_mode():
         logits = model(torch.from_numpy(x).cuda())
-        mean, std = logits.mean(0), logits.std()
+        mean = logits.mean(0)
+        std = (logits - mean).std()
         model.head.weight.div_(std)
         model.head.bias.sub_(mean).div_(std)
     return to_flax_variables(model)
@@ -303,31 +304,32 @@ def phase_main(tmp: str):
     decisive = (top2[:, 1] - top2[:, 0]) > tol
     agree = np.argmax(logits, -1) == np.argmax(ref, -1)
     bf16_err = float(np.abs(logits - ref).max())
+    emit(phase="main", bf16_max_abs_diff=bf16_err, bf16_tolerance=tol,
+         decisive=int(decisive.sum()), argmax_agree=int(agree.sum()),
+         classes_seen=sorted({int(c) for c in np.argmax(ref, -1)}))
     check(bf16_err <= tol, f"bf16 logits within {tol:.3g} of the plain path")
-    check(bool(agree[decisive].all()), "bf16 argmax equal where decisive")
+    check(bool(decisive.any()) and bool(agree[decisive].all()),
+          "bf16 argmax equal wherever the top-2 margin exceeds the tolerance")
     check(len(set(np.argmax(ref, -1))) > 1, "classes differ across images")
-    check(decisive.sum() >= N_IMAGES // 2,
-          "most images have a decisive top-2 margin")
     check([c for _, c in scored] ==
           [pm.classes[i] for i in np.argmax(logits, -1)],
           "scorer classes equal predict_logits argmax")
     check(all(p == c for p, (_, c), d in zip(preds, scored, decisive) if d),
           "predict equals the scorer where decisive")
 
-    f32_variables_pkg = make_package(tmp, "float32", "pallas", variables)
+    f32_pkg = make_package(tmp, "float32", "pallas", variables)
     f32_plain_pkg = make_package(tmp, "float32", "pallas_interpret", variables)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     x128 = x_all[:BATCH]
-    f32_k = PackagedModel(f32_variables_pkg).predict_logits(x128)
+    f32_k = PackagedModel(f32_pkg).predict_logits(x128)
     f32_p = PackagedModel(f32_plain_pkg).predict_logits(x128)
     f32_rel = float(np.abs(f32_k - f32_p).max()
                     / max(np.abs(f32_p).max(), 1e-30))
     check(f32_rel <= 1e-3, f"f32 logits within 1e-3 relative ({f32_rel:.3g})")
     torch.backends.cudnn.allow_tf32 = True
-    emit(phase="main", bf16_max_abs_diff=bf16_err, bf16_tolerance=tol,
-         decisive=int(decisive.sum()), argmax_agree=int(agree.sum()),
-         f32_max_rel_diff=f32_rel, tf32_for_f32_check=False)
+    emit(phase="main", f32_max_rel_diff=f32_rel, f32_tolerance=1e-3,
+         tf32_for_f32_check=False)
 
     # --- throughput of predict_logits (bf16, sub-batch 128) ---------------
     x_tp = np.ascontiguousarray(np.tile(x_all, (4, 1, 1, 1))[:1024])
