@@ -92,10 +92,6 @@ class Table:
             self.manifest = json.load(f)
 
     @property
-    def num_records(self) -> int:
-        return self.manifest["num_records"]
-
-    @property
     def shard_paths(self) -> list[str]:
         return [os.path.join(self.version_dir, "shards", s["file"])
                 for s in self.manifest["shards"]]
@@ -107,14 +103,6 @@ class Table:
     def iter_records(self) -> Iterator[Record]:
         for sp in self.shard_paths:
             yield from read_shard(sp)
-
-    def take(self, n: int) -> list[Record]:
-        out = []
-        for r in self.iter_records():
-            out.append(r)
-            if len(out) >= n:
-                break
-        return out
 
 
 class TableWriter:
@@ -181,13 +169,6 @@ class TableWriter:
         self._closed = True
         return Table(self.vdir)
 
-    def __enter__(self) -> "TableWriter":
-        return self
-
-    def __exit__(self, exc_type, exc, tb) -> None:
-        if exc_type is None:
-            self.close()
-
 
 class TableStore:
     """Versioned table namespace rooted at a directory."""
@@ -198,10 +179,6 @@ class TableStore:
 
     def _table_dir(self, name: str) -> str:
         return os.path.join(self.root, name)
-
-    def writer(self, name: str, shard_size: int = 256,
-               meta: dict | None = None) -> TableWriter:
-        return TableWriter(self, name, shard_size, meta)
 
     def write(self, name: str, records: Iterable[Record],
               shard_size: int = 256, meta: dict | None = None) -> Table:
@@ -220,9 +197,6 @@ class TableStore:
             vstr = f"v{version:04d}"
         return Table(os.path.join(tdir, vstr))
 
-    def exists(self, name: str) -> bool:
-        return os.path.exists(os.path.join(self._table_dir(name), "latest"))
-
     @staticmethod
     def run_token(*components) -> str:
         """Deterministic 16-hex run token from the run's inputs (the same
@@ -232,9 +206,3 @@ class TableStore:
             h.update(repr(c).encode())
             h.update(b"\x00")
         return h.hexdigest()[:16]
-
-    def list_tables(self) -> list[str]:
-        if not os.path.isdir(self.root):
-            return []
-        return sorted(d for d in os.listdir(self.root)
-                      if os.path.isdir(self._table_dir(d)))

@@ -175,9 +175,6 @@ class DepthwiseConv3x3(nn.Module):
         self.weight = nn.Parameter(torch.empty(3, 3, features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.shape[-1] != self.weight.shape[-1]:
-            raise ValueError(f"depthwise conv needs C_in == C_out, got "
-                             f"{x.shape[-1]} vs {self.weight.shape[-1]}")
         return depthwise_conv3x3(x.to(self.dtype).contiguous(),
                                  self.weight.to(self.dtype).contiguous(),
                                  stride=self.stride, impl=self.impl,

@@ -126,10 +126,6 @@ def save_packaged_model(
                              _FORMAT_VERSION_QUANT)
 
 
-def load_packaged_model(model_dir: str, device=None) -> "PackagedModel":
-    return PackagedModel(model_dir, device=device)
-
-
 class PackagedModel:
     """Self-contained predictor (the ``FlowerPyFunc`` role) on one device.
 

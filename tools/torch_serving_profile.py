@@ -2,12 +2,12 @@
 """Where the time of one ``PackagedModel.predict_logits`` call goes, on the
 card, for the port's serving main path (ddw_tpu_torch).
 
-    python3 tools/torch_serving_profile.py [--images 512] [--dw-impl pallas]
+    python3 tools/torch_serving_profile.py [--dw-impl pallas|xla]
 
 Builds the full-width bf16 MobileNetV2 (width 1.0, 224x224x3, 5 classes) from
 seeded random weights, packages and loads it, warms it up, then runs
-``predict_logits`` over ``--images`` decoded images under ``torch.profiler``
-(CPU + CUDA activities). Prints one JSON line: the wall time per image, the
+``predict_logits`` over 512 decoded images (4 sub-batches of 128) under
+``torch.profiler`` (CPU + CUDA activities). Prints one JSON line: the wall time per image, the
 device time by kernel category (the port's depthwise kernel, library
 convolutions, elementwise/BatchNorm work, copies between host and device,
 other), the device's idle share of the wall time, and the top kernels by
@@ -25,6 +25,8 @@ import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+IMAGES = 512
 
 
 def _category(name: str) -> str:
@@ -49,9 +51,7 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--images", type=int, default=512)
-    ap.add_argument("--dw-impl", default="pallas",
-                    choices=("pallas", "xla", "pallas_interpret"))
+    ap.add_argument("--dw-impl", default="pallas", choices=("pallas", "xla"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_serving_profile: needs a CUDA card", file=sys.stderr)
@@ -73,7 +73,7 @@ def main() -> int:
     init_weights(model, torch.Generator().manual_seed(0))
     v = to_flax_variables(model)
     x = np.random.RandomState(0).uniform(
-        -1, 1, (args.images, 224, 224, 3)).astype(np.float32)
+        -1, 1, (IMAGES, 224, 224, 3)).astype(np.float32)
     with tempfile.TemporaryDirectory(prefix="ddw_profile_") as tmp:
         pm = PackagedModel(save_packaged_model(
             os.path.join(tmp, "pkg"), cfg, list("abcde"), v["params"],
@@ -115,10 +115,10 @@ def main() -> int:
                          text=True, timeout=60).stdout.strip()
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "dw_impl": args.dw_impl, "images": args.images,
-        "sub_batches": -(-args.images // 128),
-        "wall_ms": wall_ms, "wall_ms_per_image": wall_ms / args.images,
-        "images_per_s": args.images / wall_ms * 1e3,
+        "dw_impl": args.dw_impl, "images": IMAGES,
+        "sub_batches": -(-IMAGES // 128),
+        "wall_ms": wall_ms, "wall_ms_per_image": wall_ms / IMAGES,
+        "images_per_s": IMAGES / wall_ms * 1e3,
         "device_ms": device_ms,
         # one stream: kernels and copies do not overlap
         "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
