@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of ddw_tpu_torch on one NVIDIA card: build, check and time the
-port's CUDA kernels, then drive the serving main path end to end.
+port's CUDA kernels, then drive the serving and training main paths end to
+end.
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -10,12 +11,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
    Without CUDA the script exits 2 at once.
 2. build  — compile every kernel of the path from ``ddw_tpu_torch/ops/csrc``
    with ``nvcc`` (one process per source, all started together).
-3. kernel — the depthwise 3x3 kernel (K1) against its plain PyTorch version
-   at the six stride-1 shapes of MobileNetV2-224 at batch 128, in bf16 and
-   f32 (TF32 off): f32 within 1e-5 * max|y|, bf16 within one bf16 ulp (both
-   accumulate in f32). Times (CUDA events, median of 25 single launches,
-   L2 flushed before each) for the kernel, the plain version and
-   ``F.conv2d(groups=C)`` (timed only, the yardstick), beside the bound.
+3. kernel — at the six stride-1 shapes of MobileNetV2-224 at batch 128, in
+   bf16 and f32 (TF32 off): the depthwise 3x3 kernel (K1) against its plain
+   PyTorch version, f32 within 1e-5 * max|y|, bf16 within one bf16 ulp (both
+   accumulate in f32); the weight-gradient kernel (K2) against its plain
+   version within 1e-5 * sum|xpad*g| per (dy, dx, c) (the sum in float64),
+   and two K2 launches bit-identical; the autograd Function's dx
+   bit-identical and dw within one bf16 ulp (f32: 1e-5 * sum|xpad*g|) of
+   the plain path's autograd. Times (CUDA events, median of 25 single
+   launches, L2 flushed before each) for each kernel, its plain version and
+   one library call (timed only, the yardstick: ``F.conv2d(groups=C)`` for
+   K1, ``aten.convolution_backward`` weight gradient for K2), beside the
+   bound.
 4. main   — a full-width bf16 MobileNetV2 (width 1.0, 224x224x3, 5 classes,
    ``dw_impl="pallas"``) from seeded random weights is saved with
    ``save_packaged_model``, loaded with ``PackagedModel`` on the card, scores a
@@ -24,7 +31,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
    Logits are held against the same package with the plain depthwise on the
    card (bf16: equal argmax wherever the top-2 margin exceeds the tolerance;
    f32: within 1e-3 relative), and ``predict_logits`` images/s is measured.
-5. The ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
+5. train  — ``Trainer.fit`` trains a full-width unfrozen bf16 MobileNetV2
+   (default ``ModelCfg`` freeze fields, so the registry auto-unfreezes;
+   ``dw_impl="pallas"``) from a seeded init on a seeded class-dependent
+   ``raw_u8`` table (1,152 train, 256 val images at 224x224) for 2 epochs at
+   batch 128 with adam, checkpointing; then ``fit(resume=True)`` to epoch 3
+   continues at epoch 2. Checks: 26 K1 launches (13 forward, 13 dx) and 13
+   K2 launches per train step, 13 K1 per eval batch; finite losses, epoch 2
+   below epoch 1; one train step with the kernels against one with the
+   plain depthwise from the same weights and batch (bf16 loss within 2e-2
+   relative, f32 per-leaf gradients within 1e-3 of the leaf's max |grad|,
+   TF32 off); the checkpoint's weights served through
+   ``save_packaged_model`` -> ``PackagedModel`` -> ``BatchScorer`` on the
+   val table, at the trainer's val accuracy. Step ms (median of 10) and
+   training images/s.
+6. The ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
    line ``{"ok": true, "device": {...}}``.
 """
 
@@ -117,23 +138,44 @@ def phase_build():
     emit(phase="build", wall_seconds=round(time.perf_counter() - t0, 3))
 
 
-def phase_kernel(flush):
-    """K1 against its plain version at the main path's shapes."""
+def wgrad_tolerance(x, g):
+    """Per (dy, dx, c): 1e-5 * sum_{b,h,w} |xpad * g|, in float64."""
     import torch
     import torch.nn.functional as F
 
-    from ddw_tpu_torch.ops.depthwise_conv import (depthwise_conv3x3_cuda,
-                                                  depthwise_conv3x3_plain)
+    _, h, w, c = x.shape
+    xp = F.pad(x.double(), (0, 0, 1, 1, 1, 1))
+    gd = g.double()
+    return 1e-5 * torch.stack(
+        [(xp[:, dy:dy + h, dx:dx + w] * gd).abs().sum((0, 1, 2))
+         for dy in range(3) for dx in range(3)]).reshape(3, 3, c)
+
+
+def phase_kernel(flush):
+    """K1 and K2, and the autograd Function, against their plain versions at
+    the main path's shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from ddw_tpu_torch.ops.depthwise_conv import (
+        depthwise_conv3x3, depthwise_conv3x3_cuda, depthwise_conv3x3_plain,
+        depthwise_conv3x3_wgrad_cuda, depthwise_conv3x3_wgrad_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    per_forward = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                   "bound_ms": 0.0}
-    max_err = 0.0
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    per_pass = {"k1": dict.fromkeys(keys, 0.0), "k2": dict.fromkeys(keys, 0.0)}
+    max_err = {"k1": 0.0, "k2": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
         for (h, w, c), layers in DW_SHAPES:
             x = torch.randn(BATCH, h, w, c, device="cuda", generator=gen)
             taps = torch.randn(3, 3, c, device="cuda", generator=gen)
-            x, taps = x.to(dtype), taps.to(dtype)
+            g = torch.randn(BATCH, h, w, c, device="cuda", generator=gen)
+            x, taps, g = x.to(dtype), taps.to(dtype), g.to(dtype)
+            name = str(dtype).removeprefix("torch.")
+            elems = BATCH * h * w * c
+            flops = 2 * 9 * elems
+
+            # -- K1 --------------------------------------------------------
             y = depthwise_conv3x3_cuda(x, taps)
             torch.cuda.synchronize()
             ref = depthwise_conv3x3_plain(x, taps)
@@ -147,42 +189,105 @@ def phase_kernel(flush):
                 tol_desc = "1 bf16 ulp elementwise"
             check(ok and bool(torch.isfinite(y).all()),
                   f"K1 {dtype} {(h, w, c)} within {tol_desc}")
-            max_err = max(max_err, err.max().item())
-
+            k1_err = err.max().item()
+            max_err["k1"] = max(max_err["k1"], k1_err)
             cl = x.permute(0, 3, 1, 2)           # channels_last view
             wl = taps.permute(2, 0, 1).unsqueeze(1).contiguous()
-            ms = median_ms(lambda: depthwise_conv3x3_cuda(x, taps), flush)
-            plain_ms = median_ms(lambda: depthwise_conv3x3_plain(x, taps),
-                                 flush)
-            lib_ms = median_ms(lambda: F.conv2d(cl, wl, padding=1, groups=c),
-                               flush)
-            elems = BATCH * h * w * c
             nbytes = (2 * elems + 9 * c) * x.element_size()
-            flops = 2 * 9 * elems
-            bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
-            emit(phase="kernel", kernel="depthwise_conv3x3_fwd",
-                 dtype=str(dtype).removeprefix("torch."),
+            k1 = {"ms": median_ms(lambda: depthwise_conv3x3_cuda(x, taps),
+                                  flush),
+                  "plain_ms": median_ms(
+                      lambda: depthwise_conv3x3_plain(x, taps), flush),
+                  "library_ms": median_ms(
+                      lambda: F.conv2d(cl, wl, padding=1, groups=c), flush),
+                  "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                  flops / F32_FLOPS) * 1e3}
+            emit(phase="kernel", kernel="depthwise_conv3x3_fwd", dtype=name,
                  shape=[BATCH, h, w, c], layers_per_forward=layers,
-                 max_abs_err=err.max().item(), tolerance=tol_desc, ms=ms,
-                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                 max_abs_err=k1_err, tolerance=tol_desc, **k1,
                  bound_by="bytes" if nbytes / HBM_BYTES_PER_S
                  >= flops / F32_FLOPS else "operations",
                  bytes=nbytes, flops=flops)
+            del y, ref, err
+
+            # -- K2 --------------------------------------------------------
+            d1 = depthwise_conv3x3_wgrad_cuda(x, g)
+            d2 = depthwise_conv3x3_wgrad_cuda(x, g)
+            torch.cuda.synchronize()
+            check(torch.equal(d1, d2), f"K2 {dtype} {(h, w, c)}: two "
+                  f"launches give the same bits")
+            ref = depthwise_conv3x3_wgrad_plain(x, g)
+            wtol = wgrad_tolerance(x, g)
+            err = (d1.double() - ref.double()).abs()
+            check(bool((err <= wtol).all()) and bool(torch.isfinite(d1).all()),
+                  f"K2 {dtype} {(h, w, c)} within 1e-5*sum|xpad*g|")
+            k2_err = err.max().item()
+            max_err["k2"] = max(max_err["k2"], k2_err)
+            gl = g.permute(0, 3, 1, 2)
+            k2nbytes = 2 * elems * x.element_size() + 9 * c * 4
+            k2 = {"ms": median_ms(lambda: depthwise_conv3x3_wgrad_cuda(x, g),
+                                  flush),
+                  "plain_ms": median_ms(
+                      lambda: depthwise_conv3x3_wgrad_plain(x, g), flush),
+                  "library_ms": median_ms(
+                      lambda: torch.ops.aten.convolution_backward(
+                          gl, cl, wl, None, [1, 1], [1, 1], [1, 1], False,
+                          [0, 0], c, [False, True, False]), flush),
+                  "bound_ms": max(k2nbytes / HBM_BYTES_PER_S,
+                                  flops / F32_FLOPS) * 1e3}
+            emit(phase="kernel", kernel="depthwise_conv3x3_wgrad",
+                 dtype=name, shape=[BATCH, h, w, c],
+                 layers_per_step=layers, max_abs_err=k2_err,
+                 max_err_over_tolerance=(err / wtol).max().item(),
+                 tolerance="1e-5*sum|xpad*g| per (dy,dx,c)", **k2,
+                 bound_by="bytes" if k2nbytes / HBM_BYTES_PER_S
+                 >= flops / F32_FLOPS else "operations",
+                 bytes=k2nbytes, flops=flops, deterministic=True)
             if dtype == torch.bfloat16:  # the main path's dtype
-                for key, val in (("ms", ms), ("plain_ms", plain_ms),
-                                 ("library_ms", lib_ms),
-                                 ("bound_ms", bound_ms)):
-                    per_forward[key] += layers * val
-            del x, taps, y, ref, err, cl, wl
+                for kern, vals in (("k1", k1), ("k2", k2)):
+                    for key in keys:
+                        per_pass[kern][key] += layers * vals[key]
+            del d1, d2, ref, err, wtol
+
+            # -- the Function: dx (K1 on flipped taps) and dw (K2) ---------
+            grads = []
+            for interpret in (False, True):
+                xa = x.clone().requires_grad_(True)
+                wa = taps.clone().requires_grad_(True)
+                depthwise_conv3x3(xa, wa, impl="pallas",
+                                  interpret=interpret).backward(g)
+                grads.append((xa.grad, wa.grad))
+            torch.cuda.synchronize()
+            (dx_k, dw_k), (dx_p, dw_p) = grads
+            check(torch.equal(dx_k, dx_p), f"Function dx {dtype} {(h, w, c)} "
+                  f"bit-identical to the plain path")
+            dw_err = (dw_k.float() - dw_p.float()).abs()
+            if dtype == torch.float32:
+                dw_ok = bool((dw_err.double()
+                              <= wgrad_tolerance(x, g)).all())
+            else:
+                dw_ok = bool((dw_err <= bf16_ulp(dw_p.float())).all())
+            check(dw_ok and dw_k.dtype == dtype,
+                  f"Function dw {dtype} {(h, w, c)} against the plain path")
+            emit(phase="kernel", kernel="DepthwiseKernelFn", dtype=name,
+                 shape=[BATCH, h, w, c], dx_bit_identical=True,
+                 dw_max_abs_diff=dw_err.max().item())
+            del x, taps, g, cl, wl, gl, grads, dx_k, dw_k, dx_p, dw_p
     # the scalar path (odd C, no vector loads)
     x = torch.randn(2, 9, 7, 13, device="cuda", generator=gen)
     taps = torch.randn(3, 3, 13, device="cuda", generator=gen)
+    g = torch.randn(2, 9, 7, 13, device="cuda", generator=gen)
     for dtype in (torch.bfloat16, torch.float32):
-        y = depthwise_conv3x3_cuda(x.to(dtype), taps.to(dtype))
-        ref = depthwise_conv3x3_plain(x.to(dtype), taps.to(dtype))
-        check(torch.equal(y, ref), f"K1 scalar path {dtype} equals plain")
-    emit(phase="kernel", kernel="depthwise_conv3x3_fwd", odd_c_scalar_path="ok")
-    return per_forward, max_err
+        xd, td, gd = x.to(dtype), taps.to(dtype), g.to(dtype)
+        y = depthwise_conv3x3_cuda(xd, td)
+        check(torch.equal(y, depthwise_conv3x3_plain(xd, td)),
+              f"K1 scalar path {dtype} equals plain")
+        dw = depthwise_conv3x3_wgrad_cuda(xd, gd)
+        err = (dw.double() - depthwise_conv3x3_wgrad_plain(xd, gd).double())
+        check(bool((err.abs() <= wgrad_tolerance(xd, gd)).all()),
+              f"K2 scalar path {dtype} within tolerance")
+    emit(phase="kernel", odd_c_scalar_path="ok")
+    return per_pass, max_err
 
 
 def make_package(root: str, dtype: str, dw_impl: str, variables) -> str:
@@ -347,6 +452,212 @@ def phase_main(tmp: str):
     return launches
 
 
+TRAIN_IMAGES, VAL_IMAGES = 1152, 256
+
+
+def class_table(store, name: str, n: int, seed: int):
+    """A seeded raw_u8 table of 224x224 images whose class (5) sets a
+    dominant colour and a stripe frequency, under shifts and noise."""
+    import numpy as np
+
+    from ddw_tpu_torch.data.store import Record
+
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:224, 0:224].astype(np.float32) / 224.0
+    templates = []
+    for c in range(5):
+        t = np.full((224, 224, 3), 60.0, np.float32)
+        t[..., c % 3] += 120.0 * (1 + c // 3) / 2
+        t += 40.0 * np.sin(2 * np.pi * (c + 1) * 2 * (xx + yy))[..., None]
+        templates.append(t)
+
+    def records():
+        for i in range(n):
+            c = i % 5
+            img = np.roll(templates[c], rng.randint(224, size=2), (0, 1))
+            img = img + rng.normal(0, 20.0, img.shape)
+            yield Record(f"{name}/{i:05d}",
+                         np.clip(img, 0, 255).astype(np.uint8).tobytes(),
+                         f"c{c}", c)
+
+    return store.write(name, records(), shard_size=128,
+                       meta={"encoding": "raw_u8", "height": 224,
+                             "width": 224})
+
+
+def step_once(model_cfg, variables, images, labels, seed):
+    """One forward+backward in training mode of a fresh model loaded with
+    ``variables``; returns (loss, {name: grad})."""
+    import torch
+
+    from ddw_tpu_torch.models.convert import load_flax_variables
+    from ddw_tpu_torch.models.registry import build_model
+    from ddw_tpu_torch.train.step import (TrainState, dropout_generator,
+                                          forward_and_grads)
+
+    model = load_flax_variables(build_model(model_cfg), variables).cuda()
+    state = TrainState(model, {}, 0)
+    loss, _, _, grads = forward_and_grads(state, images, labels,
+                                          dropout_generator(seed, 0, 0))
+    torch.cuda.synchronize()
+    return loss.float().item(), grads
+
+
+def phase_train(tmp: str):
+    """The training main path: Trainer.fit, resume, kernel-vs-plain step,
+    and the trained checkpoint served."""
+    import dataclasses
+    import statistics
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from ddw_tpu_torch.checkpoint.ckpt import restore_checkpoint
+    from ddw_tpu_torch.data.loader import ShardedLoader
+    from ddw_tpu_torch.data.store import TableStore
+    from ddw_tpu_torch.ops.depthwise_conv import (depthwise_conv3x3_cuda,
+                                                  depthwise_conv3x3_wgrad_cuda)
+    from ddw_tpu_torch.serving.batch import BatchScorer
+    from ddw_tpu_torch.serving.package import (PackagedModel,
+                                               save_packaged_model)
+    from ddw_tpu_torch.train.step import make_optimizer, make_train_step
+    from ddw_tpu_torch.train.trainer import Trainer
+    from ddw_tpu_torch.utils.config import DataCfg, ModelCfg, TrainCfg
+
+    store = TableStore(os.path.join(tmp, "train_tables"))
+    t0 = time.perf_counter()
+    train_t = class_table(store, "train_raw_u8", TRAIN_IMAGES, SEED + 1)
+    val_t = class_table(store, "val_raw_u8", VAL_IMAGES, SEED + 2)
+    emit(phase="train", tables_seconds=time.perf_counter() - t0)
+    data_cfg = DataCfg(img_height=224, img_width=224)
+    model_cfg = ModelCfg(name="mobilenet_v2", num_classes=5, dtype="bfloat16",
+                         dw_impl="pallas")      # default freeze fields
+    ckdir = os.path.join(tmp, "ckpt")
+    train_cfg = TrainCfg(batch_size=BATCH, epochs=2, warmup_epochs=0,
+                         optimizer="adam", checkpoint_dir=ckdir, seed=SEED)
+    steps_per_epoch = TRAIN_IMAGES // BATCH
+    val_steps = VAL_IMAGES // BATCH
+
+    # --- the main path, counted ------------------------------------------
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        trainer = Trainer(data_cfg, model_cfg, train_cfg)
+    check(any("auto-unfreezing" in str(w.message) for w in caught),
+          "the registry auto-unfroze the random backbone")
+    check(trainer.model.freeze_base is False and trainer.device.type == "cuda",
+          "unfrozen model on the card")
+    depthwise_conv3x3_cuda.launches = 0
+    depthwise_conv3x3_wgrad_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = trainer.fit(train_t, val_t)
+    fit_s = time.perf_counter() - t0
+    k1, k2 = depthwise_conv3x3_cuda.launches, depthwise_conv3x3_wgrad_cuda.launches
+    steps, evals = 2 * steps_per_epoch, 2 * val_steps
+    exp_k1 = LAYERS_PER_FORWARD * (2 * steps + evals)
+    exp_k2 = LAYERS_PER_FORWARD * steps
+    hist = [{k: v for k, v in r.items()} for r in res.history]
+    emit(phase="train", fit_seconds=fit_s, history=hist, train_steps=steps,
+         eval_batches=evals, k1_launches=k1, k1_expected=exp_k1,
+         k2_launches=k2, k2_expected=exp_k2)
+    check(k1 == exp_k1, f"K1 launched {k1} times, expected {exp_k1} = 13 x "
+          f"(2 x {steps} train steps + {evals} eval batches)")
+    check(k2 == exp_k2, f"K2 launched {k2} times, expected {exp_k2} = 13 x "
+          f"{steps} train steps")
+    check(all(np.isfinite([r["loss"], r["val_loss"]]).all() for r in hist),
+          "finite train and val losses")
+    check(hist[1]["loss"] < hist[0]["loss"],
+          f"epoch-2 train loss {hist[1]['loss']:.4f} below epoch 1's "
+          f"{hist[0]['loss']:.4f}")
+
+    # --- resume continues at epoch 2 -------------------------------------
+    depthwise_conv3x3_cuda.launches = 0
+    depthwise_conv3x3_wgrad_cuda.launches = 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        res3 = Trainer(data_cfg, model_cfg,
+                       dataclasses.replace(train_cfg, epochs=3)).fit(
+                           train_t, val_t, resume=True)
+    k1r = depthwise_conv3x3_cuda.launches
+    k2r = depthwise_conv3x3_wgrad_cuda.launches
+    emit(phase="train", resumed_epochs=[r["epoch"] for r in res3.history],
+         resumed_history=res3.history, k1_launches=k1r, k2_launches=k2r,
+         state_step=res3.state.step)
+    check([r["epoch"] for r in res3.history] == [2], "resume ran epoch 2 only")
+    check(res3.state.step == 3 * steps_per_epoch, "resumed step count")
+    check(k1r == LAYERS_PER_FORWARD * (2 * steps_per_epoch + val_steps)
+          and k2r == LAYERS_PER_FORWARD * steps_per_epoch,
+          "resumed run's launch counts")
+
+    # --- step time and training images/s ---------------------------------
+    images_per_s = [r["images_per_sec"] for r in hist + res3.history]
+    it = iter(ShardedLoader(train_t, BATCH, prefetch_to="cuda"))
+    images, labels = next(it)
+    it.close()
+    state = res3.state
+    step = make_train_step(make_optimizer(train_cfg, ()))
+    times = []
+    for _ in range(12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, images, labels, SEED + 1)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times[2:])
+    emit(phase="train", step_ms_median=step_ms, step_ms_runs=times[2:],
+         batch=BATCH, step_images_per_s=BATCH / step_ms * 1e3,
+         epoch_images_per_s=images_per_s)
+
+    # --- kernels against the plain depthwise: one step -------------------
+    tree, at = restore_checkpoint(ckdir, {})
+    variables = {"params": tree["params"], "batch_stats": tree["batch_stats"]}
+    x_step, y_step = images[:32].clone(), labels[:32].clone()
+    no_drop = dataclasses.replace(model_cfg, dropout=0.0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        loss_k, _ = step_once(no_drop, variables, x_step, y_step, SEED)
+        loss_p, _ = step_once(dataclasses.replace(
+            no_drop, dw_impl="pallas_interpret"), variables, x_step, y_step,
+            SEED)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        f32 = dataclasses.replace(no_drop, dtype="float32")
+        loss_kf, g_k = step_once(f32, variables, x_step, y_step, SEED)
+        loss_pf, g_p = step_once(dataclasses.replace(
+            f32, dw_impl="pallas_interpret"), variables, x_step, y_step, SEED)
+        torch.backends.cudnn.allow_tf32 = True
+    bf16_rel = abs(loss_k - loss_p) / max(abs(loss_p), 1e-12)
+    leaf_rel = max((g_k[n] - g_p[n]).abs().max().item()
+                   / max(g_p[n].abs().max().item(), 1e-30) for n in g_p)
+    emit(phase="train", kernel_vs_plain_bf16_loss=[loss_k, loss_p],
+         bf16_loss_rel_diff=bf16_rel, bf16_tolerance=2e-2,
+         f32_loss=[loss_kf, loss_pf], f32_grad_leaf_rel_diff_max=leaf_rel,
+         f32_tolerance=1e-3, tf32_for_f32_check=False, leaves=len(g_p))
+    check(bf16_rel <= 2e-2, f"bf16 loss within 2e-2 relative ({bf16_rel:.3g})")
+    check(leaf_rel <= 1e-3, f"f32 per-leaf grads within 1e-3 of the leaf's "
+          f"max |grad| ({leaf_rel:.3g})")
+
+    # --- the trained checkpoint, served ----------------------------------
+    tree, at = restore_checkpoint(ckdir, {})
+    check(at == 3 * steps_per_epoch, "latest checkpoint is the resumed run's")
+    pkg = save_packaged_model(os.path.join(tmp, "trained_pkg"), model_cfg,
+                              [f"c{i}" for i in range(5)], tree["params"],
+                              tree["batch_stats"])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        pm = PackagedModel(pkg)
+    scored = BatchScorer(pm).score_table(val_t)
+    labels_val = [rec.label for rec in val_t.iter_records()]
+    acc = float(np.mean([c == lbl for (_, c), lbl in zip(scored, labels_val)]))
+    emit(phase="train", served_records=len(scored), served_accuracy=acc,
+         trainer_val_accuracy=res3.val_accuracy)
+    check(len(scored) == VAL_IMAGES, "every val record scored")
+    check(abs(acc - res3.val_accuracy) <= 2.0 / VAL_IMAGES,
+          f"served accuracy {acc:.4f} equals the trainer's val accuracy "
+          f"{res3.val_accuracy:.4f} (within 2 images)")
+    return {"k1": k1, "k2": k2}, step_ms
+
+
 def main() -> int:
     import torch
 
@@ -365,26 +676,39 @@ def main() -> int:
     phase_build()
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     torch.backends.cudnn.allow_tf32 = False
-    per_forward, max_err = phase_kernel(flush)
+    per_pass, max_err = phase_kernel(flush)
     torch.backends.cudnn.allow_tf32 = True
     del flush
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="ddw_chip_smoke_") as tmp:
-        launches = phase_main(tmp)
+        serving_k1 = phase_main(tmp)
+        train_launches, step_ms = phase_train(tmp)
+    src = "ddw_tpu_torch/ops/csrc/depthwise_conv.cu"
     print(json.dumps({"kernels": [{
         "name": "depthwise_conv3x3_fwd",
         "route": "cuda",
-        "source": "ddw_tpu_torch/ops/csrc/depthwise_conv.cu",
+        "source": src,
         "replaces": "ddw_tpu/ops/depthwise_conv.py:74",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": per_forward["ms"],
-        "plain_ms": per_forward["plain_ms"],
-        "bound_ms": per_forward["bound_ms"],
+        "launches": train_launches["k1"],
+        "launches_by_path": {"train": train_launches["k1"],
+                             "serving": serving_k1},
+        "max_abs_err": max_err["k1"],
+        **per_pass["k1"],
         "bound_by": "bytes",
-        "library_ms": per_forward["library_ms"],
-        "per": "one bf16 forward at batch 128: the 13 stride-1 layers",
-    }]}), flush=True)
+        "per": "one bf16 pass at batch 128 over the 13 stride-1 layers "
+               "(a forward, or the dx of a backward)",
+    }, {
+        "name": "depthwise_conv3x3_wgrad",
+        "route": "cuda",
+        "source": src,
+        "replaces": "ddw_tpu/ops/depthwise_conv.py:91",
+        "launches": train_launches["k2"],
+        "launches_by_path": {"train": train_launches["k2"]},
+        "max_abs_err": max_err["k2"],
+        **per_pass["k2"],
+        "bound_by": "bytes",
+        "per": "one bf16 backward at batch 128 over the 13 stride-1 layers",
+    }], "train_step_ms": step_ms}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

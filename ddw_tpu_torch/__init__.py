@@ -7,8 +7,11 @@ on a ported path becomes a hand-written CUDA kernel for ``sm_90a``
 (``ddw_tpu_torch/ops/csrc``), with a plain PyTorch version beside it.
 
 Ported so far: packaged-model serving of MobileNetV2 (``serving.package``,
-``serving.batch``), with the stride-1 depthwise 3x3 layers on the CUDA kernel
-``ops/csrc/depthwise_conv.cu``. What remains is listed in ``ROADMAP.md``.
+``serving.batch``) and its data-parallel training (``train.trainer``, with
+``train.step``, ``data.loader``, ``checkpoint.ckpt``, ``runtime.dist``), with
+the stride-1 depthwise 3x3 layers on the CUDA kernels of
+``ops/csrc/depthwise_conv.cu`` forward and backward. What remains is listed
+in ``ROADMAP.md``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with no
 CUDA device and no explicit CPU request they raise.

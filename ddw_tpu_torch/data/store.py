@@ -65,6 +65,16 @@ def _write_shard(path: str, records: list[Record]) -> dict:
 
 def read_shard(path: str) -> Iterator[Record]:
     """Stream the records of one shard file."""
+    yield from _walk_shard(path, full=True)
+
+
+def read_shard_contents(path: str) -> Iterator[tuple[bytes, int]]:
+    """Loader hot path: ``(content, label_idx)`` only, no path/label
+    decoding."""
+    yield from _walk_shard(path, full=False)
+
+
+def _walk_shard(path: str, full: bool):
     with open(path, "rb") as f:
         head = f.read(12)
         if head[:4] != _MAGIC:
@@ -74,13 +84,13 @@ def read_shard(path: str) -> Iterator[Record]:
             raise ValueError(f"{path}: unsupported format version {fmt}")
         for _ in range(n):
             (plen,) = struct.unpack("<I", f.read(4))
-            p = f.read(plen).decode()
+            p = f.read(plen).decode() if full else f.seek(plen, 1)
             (clen,) = struct.unpack("<I", f.read(4))
             content = f.read(clen)
             (llen,) = struct.unpack("<I", f.read(4))
-            label = f.read(llen).decode()
+            label = f.read(llen).decode() if full else f.seek(llen, 1)
             (idx,) = struct.unpack("<i", f.read(4))
-            yield Record(p, content, label, idx)
+            yield Record(p, content, label, idx) if full else (content, idx)
 
 
 class Table:
@@ -99,6 +109,10 @@ class Table:
     @property
     def meta(self) -> dict:
         return self.manifest.get("meta", {})
+
+    @property
+    def num_records(self) -> int:
+        return self.manifest["num_records"]
 
     def iter_records(self) -> Iterator[Record]:
         for sp in self.shard_paths:
@@ -169,6 +183,13 @@ class TableWriter:
         self._closed = True
         return Table(self.vdir)
 
+    def __enter__(self) -> "TableWriter":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc_type is None:
+            self.close()
+
 
 class TableStore:
     """Versioned table namespace rooted at a directory."""
@@ -179,6 +200,10 @@ class TableStore:
 
     def _table_dir(self, name: str) -> str:
         return os.path.join(self.root, name)
+
+    def writer(self, name: str, shard_size: int = 256,
+               meta: dict | None = None) -> TableWriter:
+        return TableWriter(self, name, shard_size, meta)
 
     def write(self, name: str, records: Iterable[Record],
               shard_size: int = 256, meta: dict | None = None) -> Table:

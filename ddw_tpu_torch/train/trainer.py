@@ -1,0 +1,281 @@
+"""Trainer — the port of ``ddw_tpu.train.trainer`` (``model.fit`` plus the
+reference's ``train_and_evaluate_hvd``).
+
+The distributed data-parallel contract, one process per card:
+
+1. process bootstrap      -> :func:`ddw_tpu_torch.runtime.dist.init_distributed`
+                             (done by the caller or launcher);
+2. tracking               -> a :class:`ddw_tpu_torch.tracking.tracker.Run`,
+                             written by rank 0;
+3. LR x world             -> ``TrainCfg.scale_lr_by_world``;
+4. gradient averaging     -> ``all_reduce`` inside the step (train/step.py);
+5. callback suite         -> :mod:`ddw_tpu_torch.train.schedule`;
+6. shard-by-rank loading  -> a :class:`ShardedLoader` per rank, infinite repeat;
+7. step accounting        -> ``train_size // (batch * world)`` steps per epoch,
+                             floor-divided ``val_steps``;
+8. checkpoint after the callbacks, keep-best, and ``resume=True`` continuing
+   the loader stream with ``skip_records``.
+
+"Worker" = one process = one card; the global batch is ``batch_size *
+world``. Not yet ported, refused by :func:`ddw_tpu_torch.utils.config.
+require_ported` (naming ``ROADMAP.md``): ZeRO/FSDP, pipelines, profiler
+tracing, the sysmon monitor; elastic restarts, fault injection and
+preemption hooks have no counterpart yet either.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import torch
+from torch import nn
+
+from ddw_tpu_torch.checkpoint.ckpt import (BestCheckpointKeeper,
+                                           CheckpointManager)
+from ddw_tpu_torch.data.loader import ShardedLoader
+from ddw_tpu_torch.data.store import Table
+from ddw_tpu_torch.models.mobilenet_v2 import init_params
+from ddw_tpu_torch.models.registry import build_model
+from ddw_tpu_torch.runtime.dist import process_topology
+from ddw_tpu_torch.tracking.tracker import Run
+from ddw_tpu_torch.train.schedule import ScheduleSuite
+from ddw_tpu_torch.train.step import (TrainState, chain_plan, ema_params,
+                                      fetch_metrics_mean, get_lr, init_state,
+                                      make_eval_step, make_optimizer,
+                                      make_train_chain, make_train_step,
+                                      params_checksum, set_lr, with_param_ema)
+from ddw_tpu_torch.utils.config import (DataCfg, ModelCfg, TrainCfg,
+                                        require_ported, to_dict)
+from ddw_tpu_torch.utils.device import resolve_device
+
+
+@dataclasses.dataclass
+class TrainResult:
+    val_loss: float
+    val_accuracy: float
+    history: list[dict[str, float]]
+    state: TrainState
+    epochs_run: int
+
+
+class Trainer:
+    def __init__(self, data_cfg: DataCfg, model_cfg: ModelCfg,
+                 train_cfg: TrainCfg, run: Run | None = None,
+                 model: nn.Module | None = None, initial=None, on_epoch=None,
+                 device=None):
+        """``model`` overrides the registry module; ``initial=(state, tx)``
+        supplies a built :class:`TrainState` and optimizer instead of a
+        fresh seeded init. ``on_epoch(row)`` runs after each epoch's metrics
+        and callbacks; returning True stops training. ``device`` is the card
+        unless the caller asks for ``"cpu"``."""
+        require_ported(train_cfg)
+        self.data_cfg = data_cfg
+        self.model_cfg = model_cfg
+        self.train_cfg = train_cfg
+        self.run = run
+        self.device = resolve_device(device)
+        self.model = model if model is not None else build_model(model_cfg)
+        self._initial = initial
+        self._on_epoch = on_epoch
+
+    @property
+    def world_size(self) -> int:
+        """Data-parallel workers: the processes of the group."""
+        return process_topology()[1]
+
+    def _init_state(self):
+        cfg = self.train_cfg
+        if self._initial is not None:
+            state, tx = self._initial
+            if cfg.ema_decay and ema_params(state) is None:
+                raise ValueError(
+                    "train.ema_decay is set but the provided initial "
+                    "optimizer state carries no EMA shadow — build the tx "
+                    "with ddw_tpu_torch.train.step.with_param_ema or drop "
+                    "the flag")
+            return state, tx
+        if self.model_cfg.pretrained_path:
+            raise NotImplementedError(
+                "model.pretrained_path (converted pretrained weights) is not "
+                "yet ported to ddw_tpu_torch; see ROADMAP.md")
+        # Seeded init, identical on every rank: the rank-0 weight broadcast.
+        init_params(self.model, torch.Generator().manual_seed(cfg.seed))
+        self.model.to(self.device)
+        frozen = type(self.model).frozen_prefixes(
+            getattr(self.model, "freeze_base", False))
+        tx = make_optimizer(cfg, frozen)
+        if cfg.ema_decay:
+            tx = with_param_ema(tx, cfg.ema_decay)
+        return init_state(self.model, tx), tx
+
+    def _loaders(self, train_table: Table, val_table: Table,
+                 consumed_batches: int = 0, super_plan=None):
+        rank, world = process_topology()
+        size = (self.data_cfg.img_height, self.data_cfg.img_width)
+        batch = self.train_cfg.batch_size
+        train_loader = ShardedLoader(
+            train_table, batch_size=batch, image_size=size, cur_shard=rank,
+            shard_count=world, num_epochs=None, shuffle=True,
+            seed=self.train_cfg.seed,
+            shuffle_buffer=self.data_cfg.shuffle_buffer,
+            workers=self.data_cfg.loader_workers,
+            prefetch=self.data_cfg.prefetch, prefetch_to=self.device,
+            skip_records=consumed_batches * batch, super_batch=super_plan)
+
+        def val_loader():  # a fresh pass per epoch
+            return ShardedLoader(
+                val_table, batch_size=batch, image_size=size, cur_shard=rank,
+                shard_count=world, num_epochs=None, shuffle=False,
+                workers=self.data_cfg.loader_workers,
+                prefetch=self.data_cfg.prefetch, prefetch_to=self.device)
+
+        return train_loader, val_loader
+
+    def fit(self, train_table: Table, val_table: Table,
+            resume: bool = False) -> TrainResult:
+        cfg = self.train_cfg
+        require_ported(cfg)
+        world = self.world_size
+        if cfg.num_devices not in (0, world):
+            raise ValueError(f"train.num_devices={cfg.num_devices} but the "
+                             f"process group has {world} workers (one card "
+                             f"each); launch that many processes")
+        if cfg.steps_per_dispatch < 1:
+            raise ValueError(f"train.steps_per_dispatch must be >= 1, got "
+                             f"{cfg.steps_per_dispatch}")
+        state, tx = self._init_state()
+        train_step = make_train_step(tx, cfg.grad_accum_steps)
+        train_chain = (make_train_chain(tx, cfg.grad_accum_steps)
+                       if cfg.steps_per_dispatch > 1 else None)
+        eval_step = make_eval_step()
+
+        ckpt = (CheckpointManager(cfg.checkpoint_dir,
+                                  async_write=cfg.async_checkpoint,
+                                  max_inflight=cfg.async_checkpoint_inflight)
+                if cfg.checkpoint_dir else None)
+        start_epoch = 0
+        steps_per_epoch = max(1, train_table.num_records
+                              // (cfg.batch_size * world))
+        val_steps = max(1, val_table.num_records // (cfg.batch_size * world))
+        restored_meta = None
+        if ckpt and resume:
+            state, at_step = ckpt.restore(state)
+            if at_step is not None:
+                start_epoch = int(at_step) // steps_per_epoch
+                restored_meta = ckpt.read_metadata(at_step)
+
+        best = None
+        if cfg.checkpoint_keep_best:
+            if not ckpt:
+                raise ValueError("checkpoint_keep_best needs a checkpoint_dir")
+            best = BestCheckpointKeeper(
+                cfg.checkpoint_dir,
+                lambda d: CheckpointManager(d, keep=1,
+                                            async_write=cfg.async_checkpoint))
+
+        sched = ScheduleSuite.build(cfg, world, restored_meta)
+        if self.run is not None:
+            self.run.log_params({f"train.{k}": v
+                                 for k, v in to_dict(cfg).items()})
+            self.run.log_params({f"model.{k}": v
+                                 for k, v in to_dict(self.model_cfg).items()})
+            self.run.log_params({"world_size": world,
+                                 "steps_per_epoch": steps_per_epoch,
+                                 "global_batch": cfg.batch_size * world})
+
+        plan = chain_plan(steps_per_epoch, cfg.steps_per_dispatch)
+        chained = train_chain is not None and any(k > 1 for k in plan)
+        train_loader, val_loader = self._loaders(
+            train_table, val_table,
+            consumed_batches=start_epoch * steps_per_epoch,
+            super_plan=plan if chained else None)
+        train_iter = iter(train_loader)
+        dropout_seed = cfg.seed + 1
+
+        history: list[dict[str, float]] = []
+        val_loss = val_acc = float("nan")
+        epochs_run = 0
+        resumed = ckpt is not None and resume and start_epoch > 0
+        state = sched.initial_state(state, start_epoch, resumed)
+        try:
+            for epoch in range(start_epoch, cfg.epochs):
+                t0 = time.time()
+                losses, accs = [], []
+                step_i = 0
+                for k_chain in plan:
+                    # per-batch LR: cosine, or the warmup ramp; None past
+                    # warmup in the plateau regime (chain boundaries when
+                    # chained)
+                    lr_b = sched.lr_for_batch(epoch, step_i, steps_per_epoch)
+                    if lr_b is not None:
+                        state = set_lr(state, lr_b)
+                    images, labels = next(train_iter)
+                    if chained:
+                        metrics = train_chain(state, images, labels,
+                                              dropout_seed)
+                    else:
+                        metrics = train_step(state, images, labels,
+                                             dropout_seed)
+                    losses.append(metrics["loss"])
+                    accs.append(metrics["accuracy"])
+                    step_i += k_chain
+                # one fetch for the whole epoch
+                train_loss = fetch_metrics_mean(losses)
+                train_acc = fetch_metrics_mean(accs)
+                epoch_s = time.time() - t0
+
+                vlosses, vaccs = [], []
+                viter = iter(val_loader())
+                eval_params = ema_params(state) if cfg.ema_decay else None
+                try:
+                    for _ in range(val_steps):
+                        images, labels = next(viter)
+                        m = eval_step(state, images, labels, eval_params)
+                        vlosses.append(m["loss"])
+                        vaccs.append(m["accuracy"])
+                finally:
+                    viter.close()
+                val_loss = fetch_metrics_mean(vlosses)
+                val_acc = fetch_metrics_mean(vaccs)
+
+                row = {
+                    "epoch": epoch, "loss": train_loss,
+                    "accuracy": train_acc, "val_loss": val_loss,
+                    "val_accuracy": val_acc, "lr": get_lr(state),
+                    "epoch_seconds": epoch_s,
+                    "images_per_sec": (steps_per_epoch * cfg.batch_size
+                                       * world / epoch_s),
+                }
+                history.append(row)
+                epochs_run = epoch + 1
+                if self.run is not None:
+                    self.run.log_metrics(
+                        {k: v for k, v in row.items() if k != "epoch"},
+                        step=epoch)
+                if cfg.debug_cross_host_checks and self.run is not None:
+                    # equal across ranks iff params are in lockstep
+                    self.run.log_metric("params_checksum",
+                                        params_checksum(state), epoch)
+
+                # plateau / early stop on world-consistent metrics
+                state, stop = sched.epoch_end(state, val_loss, epoch)
+                if self._on_epoch is not None and self._on_epoch(row):
+                    stop = True
+                # checkpoint AFTER the callbacks: resume = continuation
+                if ckpt and (epoch + 1) % cfg.checkpoint_every_epochs == 0:
+                    ckpt.save(state, state.step,
+                              metadata={"epoch": epoch, "val_loss": val_loss,
+                                        "val_accuracy": val_acc,
+                                        "callbacks": sched.state_dicts()})
+                if best is not None:
+                    best.maybe_save(state, state.step, row, {"epoch": epoch})
+                if stop:
+                    break
+        finally:
+            train_iter.close()
+            if ckpt is not None:
+                ckpt.close()
+            if best is not None:
+                best.close()
+        return TrainResult(val_loss, val_acc, history, state, epochs_run)

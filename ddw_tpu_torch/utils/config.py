@@ -1,16 +1,40 @@
-"""The port's copy of ``ddw_tpu.utils.config.ModelCfg``.
+"""The port's copy of ``ddw_tpu.utils.config``: ``DataCfg``, ``ModelCfg``,
+``TrainCfg`` and the ``section.key=value`` overrides.
 
-A packaged model's ``package.json`` stores ``dataclasses.asdict(model_cfg)``
-as the JAX package writes it, so this dataclass carries every field of the
-original with the same names and defaults: a package round-trips between the
-two packages in both directions. Fields that belong to families or features
-not yet ported are kept for that reason and refused by
-:func:`ddw_tpu_torch.models.registry.build_model` when set.
+Every field keeps the original's name and default, so configs (and a
+packaged model's ``package.json``, which stores ``dataclasses.asdict(
+model_cfg)``) mean the same in both packages. Fields of model features not
+yet ported are refused by :func:`ddw_tpu_torch.models.registry.build_model`
+when set; fields of training features not yet ported are refused by
+:func:`require_ported` (run by ``TrainCfg`` and by the trainer), naming
+``ROADMAP.md`` — never silently ignored.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass
+from typing import Any
+
+
+@dataclass
+class DataCfg:
+    """Dataset + preprocessing config (the reference ``DataCfg``: image
+    size, the 50% sample, the 90/10 split with seed 42)."""
+
+    table_root: str = "/tmp/ddw_tpu/tables"
+    source_dir: str = ""                # raw JPEG class-dir tree (tf_flowers layout)
+    img_height: int = 224
+    img_width: int = 224
+    channels: int = 3
+    sample_fraction: float = 0.5        # reference samples 50% of the raw images
+    train_fraction: float = 0.9         # 90/10 split
+    split_seed: int = 42                # reference seed
+    shard_size: int = 256               # records per shard file in the table store
+    shuffle_buffer: int = 1024
+    prefetch: int = 2                   # host->device prefetch depth
+    loader_workers: int = 4             # decode thread pool
 
 
 @dataclass
@@ -37,3 +61,101 @@ class ModelCfg:
     lora_rank: int = 0                  # LoRA (ViT/LM families only)
     lora_alpha: float = 16.0
     lora_targets: tuple[str, ...] = ("query", "value")
+
+
+@dataclass
+class TrainCfg:
+    """Training loop + distribution config (the reference's batch 32, Adam
+    1e-3; batch per worker, LR x world, 5-epoch warmup, plateau patience 10).
+    """
+
+    batch_size: int = 32                # per-worker batch (reference semantics)
+    epochs: int = 3
+    optimizer: str = "adam"             # adam | adamw | adadelta | sgd
+    learning_rate: float = 1e-3
+    weight_decay: float = 0.0           # adamw decoupled weight decay
+    grad_clip_norm: float = 0.0         # >0: clip grads by global norm
+    scale_lr_by_world: bool = True      # Adam(0.001 * hvd.size()) semantics
+    warmup_epochs: int = 5              # LearningRateWarmupCallback(warmup_epochs=5)
+    plateau_patience: int = 10          # ReduceLROnPlateau(patience=10)
+    plateau_factor: float = 0.5
+    lr_schedule: str = "plateau"        # "plateau" or "cosine"
+    cosine_final_lr_frac: float = 0.0   # cosine floor, fraction of the target LR
+    ema_decay: float = 0.0              # >0: Polyak shadow of the params,
+                                        # evaluated by the trainer
+    early_stop_patience: int = 0        # 0 = disabled
+    seed: int = 0
+    grad_accum_steps: int = 1           # >1: sequential microbatches per step
+    steps_per_dispatch: int = 1         # >1: K steps per chained call over a
+                                        # [K, B, ...] super-batch
+    moment_dtype: str = "float32"       # "bfloat16": Adam/SGD first moments
+    data_axis: str = "data"             # name of the data-parallel axis
+    num_devices: int = 0                # 0 = the whole process group
+    zero: bool = False                  # not yet ported (ROADMAP.md)
+    fsdp: bool = False                  # not yet ported (ROADMAP.md)
+    pipeline_stages: int = 0            # not yet ported (ROADMAP.md)
+    pipeline_schedule: str = "gpipe"    # not yet ported (ROADMAP.md)
+    pipeline_microbatches: int = 4      # not yet ported (ROADMAP.md)
+    pipeline_virtual_stages: int = 2    # not yet ported (ROADMAP.md)
+    checkpoint_dir: str = ""            # "" = no per-epoch checkpoints
+    async_checkpoint: bool = False      # write checkpoints on a background thread
+    async_checkpoint_inflight: int = 2  # bounded async write queue depth
+    checkpoint_every_epochs: int = 1
+    checkpoint_keep_best: bool = False  # also keep the best-val_loss state
+    log_every_steps: int = 10
+    trace_dir: str = ""                 # not yet ported (ROADMAP.md)
+    debug_cross_host_checks: bool = False  # params checksum into the tracker
+    monitor_interval_s: float = 0.0     # not yet ported (ROADMAP.md)
+
+    def __post_init__(self):
+        require_ported(self)
+
+
+def require_ported(cfg: TrainCfg) -> None:
+    """Refuse training features the port does not have yet; each names
+    ``ROADMAP.md``. Set fields differ from their defaults."""
+    defaults = TrainCfg.__dataclass_fields__
+    unported = ("zero", "fsdp", "pipeline_stages", "pipeline_schedule",
+                "pipeline_microbatches", "pipeline_virtual_stages",
+                "trace_dir", "monitor_interval_s")
+    for name in unported:
+        if getattr(cfg, name) != defaults[name].default:
+            raise NotImplementedError(
+                f"train.{name}={getattr(cfg, name)!r} is not yet ported to "
+                f"ddw_tpu_torch; see ROADMAP.md for the slice that brings it")
+
+
+def apply_overrides(cfgs: dict[str, Any],
+                    overrides: list[str]) -> dict[str, Any]:
+    """Apply ``section.key=value`` CLI overrides to a dict of config
+    dataclasses. Values parse as JSON when possible, else string."""
+    for ov in overrides:
+        if "=" not in ov or "." not in ov.split("=", 1)[0]:
+            raise ValueError(f"override must look like section.key=value, "
+                             f"got {ov!r}")
+        path, raw = ov.split("=", 1)
+        section, key = path.split(".", 1)
+        if section not in cfgs:
+            raise KeyError(f"unknown config section {section!r} "
+                           f"(have {sorted(cfgs)})")
+        cfg = cfgs[section]
+        if not hasattr(cfg, key):
+            raise KeyError(f"{type(cfg).__name__} has no field {key!r}")
+        try:
+            val = json.loads(raw)
+        except json.JSONDecodeError:
+            val = raw
+        old = getattr(cfg, key)
+        setattr(cfg, key, val)
+        if isinstance(cfg, TrainCfg):
+            try:
+                require_ported(cfg)
+            except NotImplementedError:
+                setattr(cfg, key, old)
+                raise
+    return cfgs
+
+
+def to_dict(cfg: Any) -> dict[str, Any]:
+    """Flatten a dataclass config to a JSON-able dict."""
+    return dataclasses.asdict(cfg)

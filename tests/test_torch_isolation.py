@@ -41,7 +41,7 @@ def _imported_roots(path):
 
 def test_no_port_module_imports_jax_or_the_jax_package():
     sources = list(_port_sources())
-    assert len(sources) > 15
+    assert len(sources) > 25
     bad = [(os.path.relpath(p, REPO), root) for p in sources
            for root in _imported_roots(p) if root in BANNED]
     assert bad == []
@@ -50,7 +50,11 @@ def test_no_port_module_imports_jax_or_the_jax_package():
 def test_every_port_module_imports_with_jax_blocked():
     modules = [m.name for m in pkgutil.walk_packages(
         ddw_tpu_torch.__path__, "ddw_tpu_torch.")]
-    assert "ddw_tpu_torch.serving.batch" in modules
+    for name in ("serving.batch", "train.trainer", "train.step",
+                 "train.schedule", "train.callbacks", "data.prep",
+                 "data.loader", "checkpoint.ckpt", "runtime.dist",
+                 "tracking.tracker"):
+        assert f"ddw_tpu_torch.{name}" in modules
     code = (
         "import sys\n"
         f"for name in {BANNED!r}:\n"

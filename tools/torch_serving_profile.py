@@ -33,6 +33,8 @@ def _category(name: str) -> str:
     n = name.lower()
     if "dw3x3_fwd_kernel" in n:
         return "depthwise_kernel"
+    if "dw3x3_wgrad" in n:
+        return "depthwise_wgrad_kernel"
     if "memcpy" in n or "memset" in n:
         return "copies"
     if any(k in n for k in ("conv", "xmma", "cudnn", "gemm", "sm90", "cutlass",
