@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of ddw_tpu_torch on one NVIDIA card: build, check and time the
-port's CUDA kernels, then drive the serving and training main paths end to
-end.
+port's CUDA kernels, then drive the serving, training and LM-scoring main
+paths end to end.
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -45,7 +45,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``save_packaged_model`` -> ``PackagedModel`` -> ``BatchScorer`` on the
    val table, at the trainer's val accuracy. Step ms (median of 10) and
    training images/s.
-6. The ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
+6. lm_kernel — the flash-attention forward kernel (K3) against its plain
+   PyTorch version: at the LM slice's shape [512, 2048, 64] causal in bf16
+   and f32, a ring hop's offset (keys from global 192: query rows 0-191 see
+   no key and must give out 0, lse <= -1e29), non-causal at head dim 128, a
+   short block with a key mask at head dim 32, a bf16 block of 40 keys (the
+   CUDA-core path; bf16 blocks of 16k keys run on the tensor cores), and
+   S=2047 padded through
+   ``flash_mha``. f32 within 1e-5 * max|v| (lse 1e-5 * max(1, |lse|)), bf16
+   within max(2 bf16 ulp, 1e-3 * max|v|) elementwise (lse 1e-4). Times at
+   the slice shape (median of 10, L2 flushed) beside the bound (989 TFLOP/s
+   bf16), the plain version and ``F.scaled_dot_product_attention`` (timed
+   only, the yardstick).
+7. lm     — bench.py's ``lm_flash`` LM (vocab 8192, 2048 positions, hidden
+   512, 6 layers of 8 heads, bf16) from seeded flax-layout weights
+   (``init_lm_weights``), saved with ``save_lm_package`` and loaded by
+   ``LMPackagedModel``; ``LMBatchScorer`` (batch 64) scores a 256 x 2,049
+   ``tokens_i32`` table with exactly 6 K3 launches per batch (24), twice
+   (cold, warm; tokens/s); logits of one batch of 64 with K3 against the
+   ``xla`` tier (bf16: rms within 2e-2 * std and max within 1e-1 * std,
+   the tiers rounding p against different maxima; f32: max within 1e-4 *
+   std; TF32 off);
+   ``score`` at batch 8 (the ``xla_ckpt`` tier: no K3); greedy ``generate``
+   of 32 tokens from 256-token prompts at batch 8 (first token = the full
+   forward's argmax, padded-bucket decode = unpadded decode, both up to
+   near-ties below 2e-2 * std) and one seeded sampled run repeated.
+8. The ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
    line ``{"ok": true, "device": {...}}``.
 """
 
@@ -288,6 +313,158 @@ def phase_kernel(flush):
               f"K2 scalar path {dtype} within tolerance")
     emit(phase="kernel", odd_c_scalar_path="ok")
     return per_pass, max_err
+
+
+BF16_FLOPS = 989e12         # H100 SXM, dense bf16 tensor cores
+# the LM slice: lm_flash of bench.py at LMBatchScorer's batch of 64
+LM_BATCH, LM_HEADS, LM_SEQ, LM_HEAD_DIM = 64, 8, 2048, 64
+
+
+def causal_pairs(sq: int, sk: int, q_offset: int, k_offset: int,
+                 causal: bool, k_valid) -> int:
+    """(query, key) pairs one row block attends: the work this data needs."""
+    import numpy as np
+
+    kpos = k_offset + np.arange(sk)
+    keep = np.ones((sq, sk), bool)
+    if causal:
+        keep &= kpos[None, :] <= (q_offset + np.arange(sq))[:, None]
+    if k_valid is not None:
+        keep &= kpos[None, :] < k_valid
+    return int(keep.sum())
+
+
+def k3_check(name, q, k, v, *, causal, q_offset=0, k_offset=0, k_valid=None,
+             block_k=128, fully_masked_rows=0):
+    """K3 against its plain version on the same inputs, with the slice's
+    tolerances; returns the max |out| error."""
+    import torch
+
+    from ddw_tpu_torch.ops.flash_attention import (flash_attention_cuda,
+                                                   flash_attention_plain)
+
+    out, lse = flash_attention_cuda(q, k, v, causal, q_offset, k_offset,
+                                    block_k=block_k, k_valid=k_valid)
+    torch.cuda.synchronize()
+    ref, ref_lse = flash_attention_plain(q, k, v, causal, q_offset, k_offset,
+                                         block_k=block_k, k_valid=k_valid)
+    err = (out.float() - ref.float()).abs()
+    vmax = v.float().abs().max().item()
+    lse_tol = ref_lse.abs().clamp_min(1.0)
+    live = slice(fully_masked_rows, None)
+    lse_err = ((lse - ref_lse).abs() / lse_tol)[:, live]
+    if q.dtype == torch.float32:
+        ok = err.max().item() <= 1e-5 * vmax
+        lse_ok = lse_err.max().item() <= 1e-5
+        tol = "|dout| <= 1e-5*max|v|, |dlse| <= 1e-5*max(1,|lse|)"
+    else:
+        elt = torch.maximum(2 * bf16_ulp(ref.float()),
+                            torch.full_like(err, 1e-3 * vmax))
+        ok = bool((err <= elt).all())
+        lse_ok = lse_err.max().item() <= 1e-4
+        tol = ("|dout| <= max(2 bf16 ulp, 1e-3*max|v|), "
+               "|dlse| <= 1e-4*max(1,|lse|)")
+    check(ok and bool(torch.isfinite(out).all()), f"K3 {name}: out within {tol}")
+    check(lse_ok and bool(torch.isfinite(lse).all()),
+          f"K3 {name}: lse within {tol}")
+    if fully_masked_rows:
+        dead = slice(0, fully_masked_rows)
+        check(bool((out[:, dead] == 0).all())
+              and bool((lse[:, dead] <= -1e29).all()),
+              f"K3 {name}: fully masked rows give out 0 and lse <= -1e29")
+    emit(phase="lm_kernel", case=name, shape=list(q.shape),
+         sk=k.shape[1], dtype=str(q.dtype).removeprefix("torch."),
+         causal=causal, q_offset=q_offset, k_offset=k_offset,
+         k_valid=k_valid, block_k=block_k, max_abs_err=err.max().item(),
+         lse_max_rel_err=lse_err.max().item(), tolerance=tol,
+         fully_masked_rows=fully_masked_rows)
+    return err.max().item()
+
+
+def phase_lm_kernel(flush):
+    """K3 against its plain version at the LM slice's shapes and the edge
+    cases a ring hop or a padded sequence gives it; times at the slice
+    shape beside the bound, the plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from ddw_tpu_torch.ops.flash_attention import (
+        flash_attention_cuda, flash_attention_plain, flash_mha)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+
+    def qkv(bh, sq, sk, d, dtype):
+        mk = lambda s: torch.randn(bh, s, d, device="cuda", generator=gen)
+        return mk(sq).to(dtype), mk(sk).to(dtype), mk(sk).to(dtype)
+
+    bh, s, d = LM_BATCH * LM_HEADS, LM_SEQ, LM_HEAD_DIM
+    max_err = 0.0
+    q, k, v = qkv(bh, s, s, d, torch.bfloat16)
+    max_err = max(max_err, k3_check("slice_bf16_causal", q, k, v,
+                                    causal=True))
+    # times at the slice shape (bf16, causal)
+    pairs = bh * causal_pairs(s, s, 0, 0, True, None)
+    flops = 4 * d * pairs
+    nbytes = 4 * bh * s * d * 2 + bh * s * 4
+    q4, k4, v4 = (t.view(LM_BATCH, LM_HEADS, s, d) for t in (q, k, v))
+    times = {
+        "ms": median_ms(lambda: flash_attention_cuda(q, k, v, True), flush,
+                        reps=10),
+        "plain_ms": median_ms(lambda: flash_attention_plain(q, k, v, True),
+                              flush, reps=5, warmup=1),
+        "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True), flush, reps=10),
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+    }
+    emit(phase="lm_kernel", kernel="flash_attention_fwd", dtype="bfloat16",
+         shape=[bh, s, d], causal=True, **times,
+         bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS
+         else "operations", bytes=nbytes, flops=flops,
+         library="F.scaled_dot_product_attention(is_causal=True)")
+    del q, k, v, q4, k4, v4
+
+    q, k, v = qkv(bh, s, s, d, torch.float32)
+    max_err = max(max_err, k3_check("slice_f32_causal", q, k, v,
+                                    causal=True))
+    del q, k, v
+    # a ring hop's offset: keys start at global 192, so query rows 0-191
+    # see no key at all
+    q, k, v = qkv(64, 1024, 1024, d, torch.bfloat16)
+    max_err = max(max_err, k3_check("offset_k192_bf16", q, k, v, causal=True,
+                                    k_offset=192, fully_masked_rows=192))
+    q, k, v = (t.float() for t in (q, k, v))
+    max_err = max(max_err, k3_check("offset_k192_f32", q, k, v, causal=True,
+                                    k_offset=192, fully_masked_rows=192))
+    q, k, v = qkv(64, 1024, 1024, 128, torch.bfloat16)
+    max_err = max(max_err, k3_check("noncausal_d128_bf16", q, k, v,
+                                    causal=False))
+    q, k, v = qkv(6, 48, 80, 32, torch.float32)
+    max_err = max(max_err, k3_check("d32_block40_kvalid70_f32", q, k, v,
+                                    causal=False, block_k=40, k_valid=70))
+    # bf16 blocks that are not a multiple of 16 take the CUDA-core path
+    q, k, v = qkv(64, 640, 640, d, torch.bfloat16)
+    max_err = max(max_err, k3_check("block40_causal_bf16_cuda_cores", q, k, v,
+                                    causal=True, block_k=40))
+    # a padded sequence through flash_mha: S=2047 pads to 2048 with
+    # k_valid=2047 (K3 against the plain version inside the same padding)
+    q, k, v = (t.view(8, LM_HEADS, s, d)[:, :, :s - 1]
+               for t in qkv(8 * LM_HEADS, s, s, d, torch.bfloat16))
+    before = flash_attention_cuda.launches
+    out = flash_mha(q, k, v, causal=True, impl="pallas")
+    check(flash_attention_cuda.launches == before + 1,
+          "flash_mha(impl='pallas') launched K3 once")
+    ref = flash_mha(q, k, v, causal=True, impl="pallas", interpret=True)
+    err = (out.float() - ref.float()).abs()
+    vmax = v.float().abs().max().item()
+    check(out.shape == q.shape and bool(
+        (err <= torch.maximum(2 * bf16_ulp(ref.float()),
+                              torch.full_like(err, 1e-3 * vmax))).all()),
+        "K3 padded S=2047 through flash_mha within max(2 bf16 ulp, "
+        "1e-3*max|v|)")
+    emit(phase="lm_kernel", case="padded_s2047_flash_mha_bf16",
+         shape=list(q.shape), max_abs_err=err.max().item())
+    max_err = max(max_err, err.max().item())
+    return times, max_err
 
 
 def make_package(root: str, dtype: str, dw_impl: str, variables) -> str:
@@ -658,6 +835,185 @@ def phase_train(tmp: str):
     return {"k1": k1, "k2": k2}, step_ms
 
 
+# lm_flash of bench.py: vocab 8192, max_len 2048, hidden 512, depth 6, 8 heads
+# of 64, MLP 2048, bf16, learned positions
+LM_CFG = dict(vocab_size=8192, max_len=LM_SEQ, hidden=512, depth=6,
+              num_heads=LM_HEADS, mlp_dim=2048, dtype="bfloat16")
+LM_ROWS = 256
+
+
+def first_divergence_margins(logits, ref_tokens, got_tokens):
+    """For each row whose tokens differ from ``ref_tokens``: the reference
+    logits' top-2 margin at the first differing step. ``logits [B, T, V]``
+    are the reference's logits at the steps that chose ``ref_tokens``."""
+    import torch
+
+    margins = []
+    top2 = torch.topk(logits.float(), 2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]).cpu()
+    for r in range(ref_tokens.shape[0]):
+        diff = (ref_tokens[r] != got_tokens[r]).nonzero()[0]
+        if len(diff):
+            margins.append(float(gap[r, diff[0]]))
+    return margins
+
+
+def phase_lm(tmp: str):
+    """The LM serving path: LMBatchScorer over a 256 x 2,049 token table
+    (K3 on every layer of every batch of 64), kernel against the xla tier,
+    LMPackagedModel.score at batch 8 (xla_ckpt, no K3) and generate."""
+    import numpy as np
+    import torch
+
+    from ddw_tpu_torch.data.prep import write_token_table
+    from ddw_tpu_torch.data.store import TableStore
+    from ddw_tpu_torch.models.convert import (init_lm_weights,
+                                              to_flax_variables)
+    from ddw_tpu_torch.models.lm import build_lm, generate
+    from ddw_tpu_torch.ops import flash_attention as fa
+    from ddw_tpu_torch.serving.batch import LMBatchScorer
+    from ddw_tpu_torch.serving.lm_package import (LMPackagedModel,
+                                                  save_lm_package)
+    from ddw_tpu_torch.utils.config import LMCfg
+
+    depth, k3 = LM_CFG["depth"], fa.flash_attention_cuda
+    params = to_flax_variables(init_lm_weights(
+        build_lm(LMCfg(**LM_CFG)), torch.Generator().manual_seed(SEED)))[
+            "params"]
+    pkg = {dt: save_lm_package(os.path.join(tmp, f"lm_{dt}"),
+                               LMCfg(**dict(LM_CFG, dtype=dt)), params)
+           for dt in ("bfloat16", "float32")}
+    pm = LMPackagedModel(pkg["bfloat16"])       # the card, by default
+    check(pm.device.type == "cuda", "LMPackagedModel resolved to the card")
+    store = TableStore(os.path.join(tmp, "lm_tables"))
+    toks = np.random.RandomState(SEED + 4).randint(
+        0, LM_CFG["vocab_size"], (LM_ROWS, LM_SEQ + 1)).astype(np.int32)
+    table = write_token_table(store, "lm_tokens", toks, shard_size=64)
+
+    # --- the main path, counted ------------------------------------------
+    scorer = LMBatchScorer(pm)                  # batch_per_device=64
+    batches = -(-LM_ROWS // scorer.batch)
+    runs = []
+    for i in range(2):                          # cold, then warm
+        k3.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = scorer.score_table(table, out_store=store,
+                                  out_name=f"lm_scores_{i}")
+        runs.append(time.perf_counter() - t0)   # NLLs fetched: work done
+        launches = k3.launches
+        check(launches == depth * batches,
+              f"K3 launched {launches} times, expected {depth} x {batches}")
+    nll = np.array([v for _, v in rows])
+    scored_tokens = LM_ROWS * LM_SEQ
+    emit(phase="lm", rows=len(rows), batch=scorer.batch, k3_launches=launches,
+         expected_launches=depth * batches, score_table_seconds=runs,
+         tokens_per_s=[scored_tokens / r for r in runs],
+         nll_mean=float(nll.mean()), nll_min=float(nll.min()),
+         nll_max=float(nll.max()))
+    check(len(rows) == LM_ROWS and bool(np.isfinite(nll).all()),
+          "256 finite NLLs")
+    check([p for p, _ in rows] == [r.path for r in table.iter_records()],
+          "scores in table order")
+
+    # --- kernel tier against the xla tier, one batch of 64 ----------------
+    # bf16: the two tiers round p to bf16 against different maxima (the K
+    # block's, the whole row's), so single attention outputs differ by a
+    # bf16 ulp and a few of the 1e9 logits by several percent of their std
+    # (3.8% over 16.7M logits at this width on the CPU); the RMS stays near
+    # 0.65%. bf16 holds the RMS to 2e-2 * std and the max to 1e-1 * std;
+    # f32 holds the max to 1e-4 * std.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cmp = {}
+    for dt, rel, rms_rel in (("bfloat16", 1e-1, 2e-2),
+                             ("float32", 1e-4, 1e-4)):
+        model = pm.model if dt == "bfloat16" else \
+            LMPackagedModel(pkg[dt]).model
+        batch = torch.from_numpy(toks[:scorer.batch, :-1]).long().cuda()
+        with torch.inference_mode():
+            before = k3.launches
+            logits_k = model(batch)
+            check(k3.launches == before + depth, f"{dt}: K3 on every layer")
+            saved = fa._XLA_PLAIN_MAX, fa._XLA_CKPT_MAX
+            fa._XLA_PLAIN_MAX = fa._XLA_CKPT_MAX = 1 << 62  # the xla tier
+            try:
+                logits_x = model(batch)
+            finally:
+                fa._XLA_PLAIN_MAX, fa._XLA_CKPT_MAX = saved
+            check(k3.launches == before + depth, f"{dt}: xla tier, no K3")
+            diff = (logits_k - logits_x).abs_()
+            err = diff.max().item()
+            rms = diff.square_().mean().sqrt().item()
+            std = logits_x.std().item()
+            finite = bool(torch.isfinite(logits_k).all())
+        cmp[dt] = {"max_abs_diff": err, "rms_diff": rms, "logits_std": std,
+                   "max_tolerance": rel * std, "rms_tolerance": rms_rel * std}
+        check(err <= rel * std and rms <= rms_rel * std and finite,
+              f"{dt} logits with K3 against the xla tier's: max {err:.3g} "
+              f"<= {rel} * std, rms {rms:.3g} <= {rms_rel} * std "
+              f"(std {std:.3g})")
+        del diff
+        del logits_k, logits_x, model
+        torch.cuda.empty_cache()
+    emit(phase="lm", kernel_vs_xla_logits=cmp, tf32=False)
+
+    # --- LMPackagedModel.score at batch 8: xla_ckpt, no K3 ----------------
+    before = k3.launches
+    s8 = pm.score(toks[:8])
+    check(k3.launches == before, "score at batch 8 launched no K3")
+    check(fa._attn_impl(torch.empty(8, LM_HEADS, LM_SEQ, 0),
+                        torch.empty(8, LM_HEADS, LM_SEQ, 0), "auto")
+          == "xla_ckpt", "batch 8 dispatches to xla_ckpt")
+    d8 = float(np.abs(s8 - nll[:8]).max())
+    emit(phase="lm", score_batch8=s8.tolist(), scorer_nll=nll[:8].tolist(),
+         max_abs_diff=d8)
+    check(d8 <= 2e-2, f"batch-8 score within 2e-2 of the scorer's ({d8:.3g})")
+
+    # --- generate: greedy from 256-token prompts, batch 8 -----------------
+    prompts = toks[:8, :256]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    greedy = pm.generate(prompts, 32)
+    gen_s = time.perf_counter() - t0
+    check(k3.launches == before, "generate launched no K3")
+    check(greedy.shape == (8, 32) and greedy.min() >= 0
+          and greedy.max() < LM_CFG["vocab_size"], "greedy tokens [8, 32]")
+    with torch.inference_mode():
+        full = pm.model(torch.from_numpy(prompts).long().cuda())[:, -1]
+    tol = 2e-2 * full.std().item()
+    first = full.argmax(-1).cpu().numpy()
+    top2 = torch.topk(full, 2, -1).values
+    decisive = ((top2[:, 0] - top2[:, 1]) > tol).cpu().numpy()
+    check(bool(decisive.any()) and bool(
+        (first == greedy[:, 0])[decisive].all()),
+        "first generated token = argmax of the full forward's last logits "
+        "wherever the top-2 margin exceeds 2e-2 * std")
+    # decode from the padded bucket (200 -> 256) against the unpadded prompt
+    short = toks[:8, :200]
+    padded = pm.generate(short, 32)
+    ref = generate(pm.model, torch.from_numpy(short), 32).cpu().numpy()
+    with torch.inference_mode():
+        seq = torch.from_numpy(np.concatenate([short, ref], 1)).long().cuda()
+        ref_logits = pm.model(seq)[:, 199:231]
+    margins = first_divergence_margins(ref_logits, ref, padded)
+    same_rows = int((padded == ref).all(1).sum())
+    check(all(m <= tol for m in margins),
+          f"padded-bucket decode equals unpadded decode up to near-ties "
+          f"(diverging rows' margins {margins}, tolerance {tol:.3g})")
+    # a seeded sampled run, twice
+    sampled = [pm.generate(prompts, 32,
+                           torch.Generator(device="cuda").manual_seed(SEED),
+                           temperature=1.0, top_k=50, top_p=0.95)
+               for _ in range(2)]
+    check(np.array_equal(*sampled), "seeded sampling repeats token for token")
+    emit(phase="lm", generate_seconds=gen_s,
+         decode_tokens_per_s=8 * 32 / gen_s, first_token_decisive_rows=int(
+             decisive.sum()), padded_equals_unpadded_rows=same_rows,
+         diverging_row_margins=margins, near_tie_tolerance=tol,
+         sampled_distinct_tokens=int(len(np.unique(sampled[0]))))
+    return launches, runs
+
+
 def main() -> int:
     import torch
 
@@ -678,11 +1034,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     per_pass, max_err = phase_kernel(flush)
     torch.backends.cudnn.allow_tf32 = True
+    k3_times, k3_err = phase_lm_kernel(flush)
     del flush
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="ddw_chip_smoke_") as tmp:
         serving_k1 = phase_main(tmp)
         train_launches, step_ms = phase_train(tmp)
+        torch.cuda.empty_cache()
+        k3_launches, score_runs = phase_lm(tmp)
     src = "ddw_tpu_torch/ops/csrc/depthwise_conv.cu"
     print(json.dumps({"kernels": [{
         "name": "depthwise_conv3x3_fwd",
@@ -708,7 +1067,21 @@ def main() -> int:
         **per_pass["k2"],
         "bound_by": "bytes",
         "per": "one bf16 backward at batch 128 over the 13 stride-1 layers",
-    }], "train_step_ms": step_ms}), flush=True)
+    }, {
+        "name": "flash_attention_fwd",
+        "route": "cuda",
+        "source": "ddw_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": "ddw_tpu/ops/flash_attention.py:217",
+        "launches": k3_launches,
+        "launches_by_path": {"lm_batch_scoring": k3_launches},
+        "max_abs_err": k3_err,
+        **k3_times,
+        "bound_by": "operations",
+        "per": "one bf16 causal call at [512, 2048, 64]: one layer of a "
+               "64-row LM scoring batch",
+    }], "train_step_ms": step_ms,
+        "lm_score_tokens_per_s": LM_ROWS * LM_SEQ / score_runs[-1]}),
+        flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -6,11 +6,12 @@ directory name -> seeded 90/10 train/val split -> ``label_to_idx`` from the
 sorted distinct labels -> silver train/val tables; and
 :func:`materialize_decoded`, the pre-decoded ``raw_u8`` table the training
 loader reads with no JPEG work. Same plans, same split membership, same
-label index and same table bytes as ``ddw_tpu``'s for the same inputs.
+label index and same table bytes as ``ddw_tpu``'s for the same inputs; and
+:func:`write_token_table`, the LM family's ``tokens_i32`` table.
 
 JPEG decode goes through :func:`ddw_tpu_torch.data.loader.preprocess_image`
-(PIL, or raise). Not yet ported: ``prepare_flowers_distributed``,
-``write_token_table`` and the synthetic-flowers generator (``ROADMAP.md``).
+(PIL, or raise). Not yet ported: ``prepare_flowers_distributed`` and the
+synthetic-flowers generator (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -165,3 +166,23 @@ def materialize_decoded(
             out_name,
             bounded_map(pool, decode, table.iter_records(), io_workers * 4),
             shard_size=shard_size, meta=meta)
+
+
+def write_token_table(
+    store: TableStore,
+    name: str,
+    tokens,
+    shard_size: int = 2048,
+) -> Table:
+    """Materialize a token corpus ``[N, S+1]`` int32 as a ``tokens_i32``
+    table (record ``seq/{i:08d}``, content the row's int32 bytes, meta
+    ``seq_plus_one``) — byte for byte the table ``ddw_tpu`` writes."""
+    tokens = np.asarray(tokens, np.int32)
+    if tokens.ndim != 2 or tokens.shape[1] < 2 or tokens.shape[0] < 1:
+        raise ValueError(f"tokens must be a non-empty [num_seqs, seq_len+1], "
+                         f"got {tokens.shape}")
+    meta = {"encoding": "tokens_i32", "seq_plus_one": int(tokens.shape[1])}
+    recs = (Record(path=f"seq/{i:08d}",
+                   content=np.ascontiguousarray(row).tobytes())
+            for i, row in enumerate(tokens))
+    return store.write(name, recs, shard_size=shard_size, meta=meta)

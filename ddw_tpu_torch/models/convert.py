@@ -7,9 +7,14 @@ flax's names, leaf by leaf:
 - conv ``kernel`` ``[kh, kw, in, out]`` -> ``weight`` ``[out, in, kh, kw]``;
 - depthwise ``kernel`` ``[3, 3, 1, C]`` -> the kernel's ``weight`` ``[3, 3, C]``;
 - Dense ``kernel`` ``[in, out]`` -> ``weight`` ``[out, in]``, ``bias`` as is;
-- BatchNorm ``scale``/``bias`` (params) and ``mean``/``var`` (batch_stats).
+- BatchNorm ``scale``/``bias`` (params) and ``mean``/``var`` (batch_stats);
+- the LM's modules (``flax_layout = True``: ``DenseGeneral`` and its LoRA
+  form, ``LayerNorm``, ``Embed``, and ``TransformerLM``'s own ``pos_embed``)
+  hold their parameters in flax's layout and names, leaf for leaf.
 
-:func:`to_flax_variables` is the exact inverse.
+:func:`to_flax_variables` is the exact inverse. :func:`init_lm_weights` draws
+an LM's weights with flax's initialisers from a ``torch.Generator`` (the card
+has no JAX to initialise with).
 """
 
 from __future__ import annotations
@@ -25,6 +30,9 @@ from ddw_tpu_torch.ops.depthwise_conv import DepthwiseConv3x3
 def _leaf_map(mod: nn.Module):
     """``[(collection, flax leaf, tensor, to_torch, to_flax)]`` of a module
     that owns flax leaves, else ``[]``."""
+    if getattr(mod, "flax_layout", False):
+        return [("params", name, p, None, None)
+                for name, p in mod.named_parameters(recurse=False)]
     if isinstance(mod, Conv):
         return [("params", "kernel", mod.weight,
                  lambda a: a.transpose(3, 2, 0, 1),
@@ -92,3 +100,43 @@ def to_flax_variables(module: nn.Module) -> dict:
                 node = node.setdefault(p, {})
             node[leaf] = np.ascontiguousarray(arr)
     return out
+
+
+@torch.no_grad()
+def init_lm_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw a :class:`~ddw_tpu_torch.models.lm.TransformerLM`'s weights with
+    flax's default initialisers, in module order from ``generator`` (a CPU
+    generator; the draws are not JAX's bits): ``Embed`` normal with std
+    ``1/sqrt(hidden)`` (flax's ``variance_scaling(1, fan_in, normal)`` over
+    ``[vocab, hidden]``), ``pos_embed`` normal(0.02), every kernel and
+    ``lora_a`` lecun-normal (truncated normal, std ``sqrt(1/fan_in) /
+    0.8796``, cut at two of those stds, fan_in the product of the contracted
+    dims), biases and ``lora_b`` zeros, LayerNorm scales ones."""
+    from ddw_tpu_torch.models.lm import DenseGeneral, Embed, LayerNorm
+
+    def lecun(p: torch.Tensor, fan_in: int) -> None:
+        std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+        cpu = torch.empty(p.shape)
+        nn.init.trunc_normal_(cpu, 0.0, std, -2 * std, 2 * std,
+                              generator=generator)
+        p.copy_(cpu)
+
+    def normal(p: torch.Tensor, std: float) -> None:
+        p.copy_(torch.randn(p.shape, generator=generator) * std)
+
+    for mod in model.modules():
+        if isinstance(mod, Embed):
+            normal(mod.embedding, mod.embedding.shape[1] ** -0.5)
+        elif isinstance(mod, DenseGeneral):
+            fan_in = int(np.prod(mod.in_dims))
+            lecun(mod.kernel, fan_in)
+            mod.bias.zero_()
+            if hasattr(mod, "lora_a"):
+                lecun(mod.lora_a, fan_in)
+                mod.lora_b.zero_()
+        elif isinstance(mod, LayerNorm):
+            mod.scale.fill_(1.0)
+            mod.bias.zero_()
+        if isinstance(getattr(mod, "pos_embed", None), nn.Parameter):
+            normal(mod.pos_embed, 0.02)
+    return model

@@ -1,0 +1,429 @@
+"""Decoder-only transformer LM — the port of ``ddw_tpu.models.lm`` (eval).
+
+Pre-LN blocks, learned absolute or rotary positions, GQA, optional LoRA
+adapters, an untied f32 vocab head. Submodules carry flax's names
+(``tok_embed``, ``pos_embed``, ``backbone_block{i}/{LayerNorm_0, attn/{query,
+key, value, out}, LayerNorm_1, fc1, fc2}``, ``LayerNorm_0``, ``head``) and
+hold their parameters in flax's layout, so ``ddw_tpu``'s parameter tree maps
+onto them leaf for leaf (:mod:`ddw_tpu_torch.models.convert`). Dtype
+placement follows flax: embeddings and projections compute in ``dtype``
+(bf16 by default; flax's ``promote_dtype`` casts the f32 params), LayerNorm
+and the head in f32, ``gelu`` is the tanh approximation.
+
+Two modes off one module, as ``ddw_tpu``'s ``decode`` flag gives:
+
+- full mode, ``model(tokens)``: causal attention through
+  :func:`ddw_tpu_torch.ops.flash_attention.flash_mha`, which dispatches on
+  the score-matrix size — at the LM's batch-scoring shapes to K3;
+- decode mode, ``model(tokens, cache=init_cache(model, batch))``: the
+  contiguous KV cache and the tiled online-softmax attention of
+  ``lm.py:112-264`` (tile 256, tiles past the filled position skipped and
+  counted in ``tiles_computed``, NaN output once a write passes ``max_len``).
+  The cache is a dict with flax's leaf names; the port updates its K/V
+  tensors in place and keeps the indices as host integers.
+
+Not yet ported (each refused, naming ``ROADMAP.md``): MoE, sequence
+parallelism (``seq_axis``), the serving pools' ``slot_decode`` /
+``paged_decode`` and per-row ``adapters``. ``remat`` only changes training
+and is accepted and ignored here; training mode with dropout is refused.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ddw_tpu_torch.ops.flash_attention import flash_mha
+from ddw_tpu_torch.ops.rope import apply_rope
+from ddw_tpu_torch.utils.device import torch_dtype
+
+_NEG = -1e30
+_TILE = 256
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not yet ported to ddw_tpu_torch; "
+                               f"see ROADMAP.md for the slice that brings it")
+
+
+class DenseGeneral(nn.Module):
+    """flax ``nn.DenseGeneral`` (and ``nn.Dense``): ``kernel [*in, *feats]``
+    in flax's layout contracts the last ``len(in_dims)`` axes of x; inputs,
+    kernel and bias are cast to ``dtype`` first."""
+
+    flax_layout = True
+
+    def __init__(self, in_dims: tuple[int, ...], features: tuple[int, ...],
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.in_dims, self.features, self.dtype = in_dims, features, dtype
+        self.kernel = nn.Parameter(torch.empty(*in_dims, *features))
+        self.bias = nn.Parameter(torch.empty(*features))
+
+    def project(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        return torch.tensordot(x, w.to(self.dtype), dims=len(self.in_dims))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.project(x.to(self.dtype), self.kernel) \
+            + self.bias.to(self.dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(dtype=float32)``: statistics in f32 with the fast
+    variance ``E[x^2] - E[x]^2`` clipped at 0, eps 1e-6,
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``; f32 out."""
+
+    flax_layout = True
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(torch.float32)
+        mean = x.mean(-1, keepdim=True)
+        var = ((x * x).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.scale) \
+            + self.bias
+
+
+class Embed(nn.Module):
+    """flax ``nn.Embed``: the table cast to ``dtype``, then gathered (the
+    port gathers first; the cast is elementwise, so the bits are the same)."""
+
+    flax_layout = True
+
+    def __init__(self, num: int, features: int, dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.embedding = nn.Parameter(torch.empty(num, features))
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return F.embedding(tokens, self.embedding).to(self.dtype)
+
+
+class CausalSelfAttention(nn.Module):
+    """Causal self-attention, full or contiguous-cache decode mode."""
+
+    def __init__(self, hidden: int, num_heads: int, dtype: torch.dtype,
+                 max_len: int = 2048, num_kv_heads: int = 0,
+                 lora_rank: int = 0, lora_alpha: float = 16.0,
+                 lora_targets: tuple[str, ...] = ("query", "value")):
+        from ddw_tpu_torch.models.lora import maybe_lora_dense
+
+        super().__init__()
+        self.num_heads, self.max_len = num_heads, max_len
+        self.head_dim = hidden // num_heads
+        self.kv_heads = num_kv_heads or num_heads
+        if num_heads % self.kv_heads:
+            raise ValueError(f"num_heads {num_heads} not divisible by "
+                             f"num_kv_heads {self.kv_heads}")
+        self.groups = num_heads // self.kv_heads
+        lora = dict(rank=lora_rank, alpha=lora_alpha, targets=lora_targets,
+                    dtype=dtype)
+        hd = self.head_dim
+        self.query = maybe_lora_dense((hidden,), (num_heads, hd), "query",
+                                      **lora)
+        self.key = maybe_lora_dense((hidden,), (self.kv_heads, hd), "key",
+                                    **lora)
+        self.value = maybe_lora_dense((hidden,), (self.kv_heads, hd), "value",
+                                      **lora)
+        self.out = maybe_lora_dense((num_heads, hd), (hidden,), "out", **lora)
+
+    def forward(self, x: torch.Tensor, positions=None,
+                cache: dict | None = None) -> torch.Tensor:
+        q, k, v = self.query(x), self.key(x), self.value(x)  # [B, S, H, hd]
+        if positions is not None:
+            q = apply_rope(q, positions, seq_axis=1)
+            k = apply_rope(k, positions, seq_axis=1)
+        if cache is not None:
+            out = self._decode(q, k, v, cache).to(x.dtype)
+        else:
+            if self.groups > 1:  # K/V heads broadcast over their query group
+                k = k.repeat_interleave(self.groups, dim=2)
+                v = v.repeat_interleave(self.groups, dim=2)
+            out = flash_mha(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=True).transpose(1, 2)
+        return self.out(out)
+
+    def _decode(self, q, k, v, cache: dict) -> torch.Tensor:
+        """``lm.py:112-264``, contiguous cache: write K/V at the cache index
+        (clamped to fit, as ``dynamic_update_slice`` does), then online
+        softmax over 256-key tiles in f32, skipping tiles past the newest
+        filled position. Returns ``[B, S, H, hd]`` f32, NaN when the write
+        ran past ``max_len``."""
+        b, s = q.shape[:2]
+        tile = min(_TILE, self.max_len)
+        cap = -(-self.max_len // tile) * tile
+        if s > cap:
+            raise ValueError(f"{s} tokens exceed the cache capacity {cap}")
+        ck, cv = cache["cached_key"], cache["cached_value"]
+        pos = cache["cache_index"]
+        start = max(0, min(pos, cap - s))
+        ck[:, start:start + s] = k.to(ck.dtype)
+        cv[:, start:start + s] = v.to(cv.dtype)
+        cache["cache_index"] = pos + s
+        hd, dev = self.head_dim, q.device
+        q32 = (q.to(torch.float32) / float(hd) ** 0.5).transpose(1, 2)
+        qpos = pos + torch.arange(s, device=dev)
+        last = pos + s - 1
+        m = torch.full((b, self.num_heads, s), _NEG, device=dev)
+        l = torch.zeros((b, self.num_heads, s), device=dev)
+        o = torch.zeros((b, self.num_heads, s, hd), device=dev)
+        tiles = 0
+        for t in range(cap // tile):
+            st = t * tile
+            if st > last:
+                break
+            k_t = ck[:, st:st + tile].to(torch.float32)
+            v_t = cv[:, st:st + tile].to(torch.float32)
+            if self.groups > 1:
+                k_t = k_t.repeat_interleave(self.groups, dim=2)
+                v_t = v_t.repeat_interleave(self.groups, dim=2)
+            s_t = torch.einsum("bhqd,bkhd->bhqk", q32, k_t)
+            kpos = st + torch.arange(tile, device=dev)
+            s_t = s_t.masked_fill(kpos[None, :] > qpos[:, None], _NEG)
+            m_new = torch.maximum(m, s_t.amax(-1))
+            p = torch.exp(s_t - m_new[..., None])
+            scale = torch.exp(m - m_new)
+            l = l * scale + p.sum(-1)
+            o = o * scale[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, v_t)
+            m = m_new
+            tiles += 1
+        cache["tiles_computed"] += tiles
+        out = (o / l[..., None]).transpose(1, 2)
+        if pos + s > self.max_len:  # a write past max_len: fail loudly
+            out = torch.full_like(out, float("nan"))
+        return out
+
+
+class DecoderBlock(nn.Module):
+    def __init__(self, hidden: int, num_heads: int, mlp_dim: int,
+                 dtype: torch.dtype, max_len: int, num_kv_heads: int = 0,
+                 lora_rank: int = 0, lora_alpha: float = 16.0,
+                 lora_targets: tuple[str, ...] = ("query", "value")):
+        from ddw_tpu_torch.models.lora import maybe_lora_dense
+
+        super().__init__()
+        lora = dict(rank=lora_rank, alpha=lora_alpha, targets=lora_targets,
+                    dtype=dtype)
+        self.LayerNorm_0 = LayerNorm(hidden)
+        self.attn = CausalSelfAttention(hidden, num_heads, dtype, max_len,
+                                        num_kv_heads, lora_rank, lora_alpha,
+                                        lora_targets)
+        self.LayerNorm_1 = LayerNorm(hidden)
+        self.fc1 = maybe_lora_dense((hidden,), (mlp_dim,), "fc1", **lora)
+        self.fc2 = maybe_lora_dense((mlp_dim,), (hidden,), "fc2", **lora)
+
+    def forward(self, x, positions=None, cache=None):
+        x = x + self.attn(self.LayerNorm_0(x), positions, cache)
+        h = F.gelu(self.fc1(self.LayerNorm_1(x)), approximate="tanh")
+        return x + self.fc2(h)
+
+
+class TransformerLM(nn.Module):
+    """Decoder-only LM over integer token ids: ``forward(tokens [B, S]) ->
+    logits [B, S, vocab]`` (f32); with ``cache=`` the decode mode."""
+
+    flax_layout = True
+
+    def __init__(self, vocab_size: int = 256, max_len: int = 2048,
+                 hidden: int = 256, depth: int = 4, num_heads: int = 4,
+                 mlp_dim: int = 1024, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.bfloat16, seq_axis=None,
+                 slot_decode: bool = False, paged_decode: bool = False,
+                 num_experts: int = 0, num_kv_heads: int = 0,
+                 lora_rank: int = 0, lora_alpha: float = 16.0,
+                 lora_targets: tuple[str, ...] = ("query", "value"),
+                 pos_encoding: str = "learned", remat: str = "none"):
+        super().__init__()
+        if num_experts:
+            raise _not_ported("the MoE MLP (num_experts > 0)")
+        if seq_axis is not None:
+            raise _not_ported("sequence-parallel attention (seq_axis)")
+        if slot_decode or paged_decode:
+            raise _not_ported("slot_decode / paged_decode (the serving pools)")
+        if lora_rank:
+            from ddw_tpu_torch.models.lora import validate_lora_targets
+
+            validate_lora_targets(lora_targets)
+        if pos_encoding not in ("learned", "rope"):
+            raise ValueError(f"unknown pos_encoding {pos_encoding!r}; use "
+                             f"'learned' or 'rope'")
+        if pos_encoding == "rope" and (hidden // num_heads) % 2:
+            raise ValueError("RoPE needs an even head_dim")
+        if remat not in ("none", "full", "dots"):
+            raise ValueError(f"unknown remat {remat!r}; use 'none', 'full' or "
+                             f"'dots'")
+        self.vocab_size, self.max_len, self.hidden = vocab_size, max_len, hidden
+        self.depth, self.num_heads, self.dropout = depth, num_heads, dropout
+        self.dtype, self.pos_encoding = dtype, pos_encoding
+        self.kv_heads = num_kv_heads or num_heads
+        self.tok_embed = Embed(vocab_size, hidden, dtype)
+        if pos_encoding == "learned":
+            self.pos_embed = nn.Parameter(torch.empty(max_len, hidden))
+        for i in range(depth):
+            setattr(self, f"backbone_block{i}", DecoderBlock(
+                hidden, num_heads, mlp_dim, dtype, max_len, num_kv_heads,
+                lora_rank, lora_alpha, lora_targets))
+        self.LayerNorm_0 = LayerNorm(hidden)
+        self.head = DenseGeneral((hidden,), (vocab_size,), torch.float32)
+
+    def blocks(self) -> list[DecoderBlock]:
+        return [getattr(self, f"backbone_block{i}") for i in range(self.depth)]
+
+    def forward(self, tokens: torch.Tensor, cache: dict | None = None,
+                adapters=None) -> torch.Tensor:
+        if adapters is not None:
+            raise _not_ported("per-row LoRA adapters (serve/adapters)")
+        if self.training and self.dropout > 0:
+            raise _not_ported("LM training (dropout in training mode)")
+        s = tokens.shape[1]
+        x = self.tok_embed(tokens)
+        offset = 0
+        if cache is not None:
+            offset = cache["pos_index"]
+            cache["pos_index"] = offset + s
+        positions = None
+        if self.pos_encoding == "learned":
+            if s > self.max_len:
+                raise ValueError(f"sequence {s} exceeds max_len "
+                                 f"{self.max_len}")
+            start = max(0, min(offset, self.max_len - s))  # slice clamps
+            x = x + self.pos_embed[start:start + s].to(self.dtype)[None]
+        else:
+            positions = offset + torch.arange(s, device=tokens.device)
+        for i, block in enumerate(self.blocks()):
+            layer = None if cache is None \
+                else cache[f"backbone_block{i}"]["attn"]
+            x = block(x, positions, layer)
+        return self.head(self.LayerNorm_0(x))
+
+
+def build_lm(cfg, seq_axis=None, expert_axis=None) -> TransformerLM:
+    """Construct from an :class:`ddw_tpu_torch.utils.config.LMCfg`."""
+    if expert_axis is not None:
+        raise _not_ported("expert parallelism (expert_axis)")
+    return TransformerLM(
+        vocab_size=cfg.vocab_size, max_len=cfg.max_len, hidden=cfg.hidden,
+        depth=cfg.depth, num_heads=cfg.num_heads, mlp_dim=cfg.mlp_dim,
+        dropout=cfg.dropout, dtype=torch_dtype(cfg.dtype), seq_axis=seq_axis,
+        num_experts=cfg.num_experts, num_kv_heads=cfg.num_kv_heads,
+        lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha,
+        lora_targets=tuple(cfg.lora_targets), pos_encoding=cfg.pos_encoding,
+        remat=cfg.remat)
+
+
+def init_cache(model: TransformerLM, batch: int) -> dict:
+    """A fresh zeroed decode cache for ``model`` on its device: per layer
+    ``cached_key``/``cached_value [batch, cap, kv_heads, head_dim]`` in the
+    model dtype (cap = max_len rounded up to the 256 tile), ``cache_index``
+    and ``tiles_computed``; top-level ``pos_index``."""
+    dev = model.head.kernel.device
+    hd = model.hidden // model.num_heads
+    tile = min(_TILE, model.max_len)
+    cap = -(-model.max_len // tile) * tile
+    shape = (batch, cap, model.kv_heads, hd)
+    cache: dict = {"pos_index": 0}
+    for i in range(model.depth):
+        cache[f"backbone_block{i}"] = {"attn": {
+            "cached_key": torch.zeros(shape, dtype=model.dtype, device=dev),
+            "cached_value": torch.zeros(shape, dtype=model.dtype, device=dev),
+            "cache_index": 0, "tiles_computed": 0}}
+    return cache
+
+
+def set_cache_lengths(cache: dict, length: int) -> dict:
+    """The cache with every ``cache_index`` and the ``pos_index`` set to
+    ``length`` (K/V tensors shared, not copied). After a padded-bucket
+    prefill the indices snap back to the true prompt length, so decode
+    overwrites the pad rows before any query attends them."""
+    out = {}
+    for key, val in cache.items():
+        if isinstance(val, dict):
+            out[key] = set_cache_lengths(val, length)
+        else:
+            out[key] = int(length) if key in ("cache_index", "pos_index") \
+                else val
+    return out
+
+
+def _pick(logits: torch.Tensor, temperature: float, top_k: int, top_p: float,
+          generator: torch.Generator | None) -> torch.Tensor:
+    """Greedy argmax, or a categorical draw (Gumbel-max, as
+    ``jax.random.categorical``) after the top-k then top-p masks."""
+    if temperature == 0.0:
+        return logits.argmax(-1)
+    logits = logits.to(torch.float32) / temperature
+    if top_k:
+        kth = torch.topk(logits, min(top_k, logits.shape[-1])).values[..., -1:]
+        logits = logits.masked_fill(logits < kth, float("-inf"))
+    if top_p:
+        srt = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(srt, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        keep = ((cum - probs) < top_p).sum(-1, keepdim=True)
+        cutoff = torch.gather(srt, -1, keep - 1)
+        logits = logits.masked_fill(logits < cutoff, float("-inf"))
+    u = torch.rand(logits.shape, generator=generator,
+                   device=generator.device).to(logits.device)
+    u = u.clamp(torch.finfo(torch.float32).tiny, 1.0)
+    return (logits - torch.log(-torch.log(u))).argmax(-1)
+
+
+@torch.inference_mode()
+def generate(model: TransformerLM, prompt, num_steps: int,
+             generator: torch.Generator | None = None,
+             temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
+             prompt_len: int | None = None) -> torch.Tensor:
+    """Autoregressive continuation through the decode mode: one batched
+    prefill of ``prompt [B, P]`` into a fresh cache, then ``num_steps``
+    one-token steps. Returns ``[B, num_steps]`` int32 on the model's device.
+    Greedy when ``temperature == 0``; else categorical sampling from
+    ``generator`` with optional ``top_k``/``top_p`` masks (k first, then p).
+    ``prompt_len``: the true prompt length when ``prompt`` is right-padded to
+    a bucket — continuation starts after position ``prompt_len - 1`` and
+    decode overwrites the pad region."""
+    dev = model.head.kernel.device
+    prompt = torch.as_tensor(prompt).to(device=dev, dtype=torch.long)
+    b, plen = prompt.shape
+    if plen > model.max_len or (
+            prompt_len is None and plen + num_steps > model.max_len):
+        raise ValueError(f"prompt {plen} + steps {num_steps} exceeds "
+                         f"max_len {model.max_len}")
+    if temperature < 0.0:
+        raise ValueError(f"temperature must be >= 0, got {temperature}")
+    if temperature != 0.0 and generator is None:
+        raise ValueError("sampling (temperature > 0) requires a generator")
+    if top_k < 0:
+        raise ValueError(f"top_k must be >= 0, got {top_k}")
+    if not 0.0 <= top_p <= 1.0:
+        raise ValueError(f"top_p must be in [0, 1], got {top_p}")
+    if (top_k or top_p) and temperature == 0.0:
+        raise ValueError("top_k/top_p require temperature > 0 (greedy decode "
+                         "ignores them silently otherwise)")
+    was_training = model.training
+    model.eval()
+    try:
+        cache = init_cache(model, b)
+        logits = model(prompt, cache=cache)
+        if prompt_len is None:
+            last = logits[:, -1]
+        else:
+            last = logits[:, prompt_len - 1]
+            cache = set_cache_lengths(cache, prompt_len)
+        toks = []
+        for _ in range(num_steps):
+            tok = _pick(last, temperature, top_k, top_p, generator)
+            toks.append(tok)
+            last = model(tok[:, None], cache=cache)[:, 0]
+    finally:
+        model.train(was_training)
+    if not toks:
+        return torch.zeros((b, 0), dtype=torch.int32, device=dev)
+    return torch.stack(toks, 1).to(torch.int32)

@@ -1,12 +1,16 @@
-"""Batch scorer — the port of ``ddw_tpu.serving.batch.BatchScorer`` (the
-``mlflow.pyfunc.spark_udf`` role) for one process on one device.
+"""Batch scorers — the port of ``ddw_tpu.serving.batch`` (the
+``mlflow.pyfunc.spark_udf`` role) for one process on one device:
+:class:`BatchScorer` for image tables, :class:`LMBatchScorer` for
+``tokens_i32`` tables with a packaged LM.
 
 Shards of the input table are the unit of work. A ``raw_u8`` table (pixels
 pre-decoded by ``ddw_tpu.data.prep.materialize_decoded``) is reinterpreted and
 dequantized with no decode at all; any other table is decoded record by record
 on a thread pool. Batches go through :meth:`PackagedModel.predict_logits`
 (fixed device sub-batch of 128). Results are written as a predictions table
-stamped with the same run token ``ddw_tpu`` derives.
+stamped with the same run token ``ddw_tpu`` derives. The LM scorer gathers
+fixed batches of ``batch_per_device`` rows (zero-padded at the end), checks
+the token ids and scores each row's mean next-token NLL.
 
 This process's rank and world come from ``DDW_PROCESS_ID`` /
 ``DDW_NUM_PROCESSES`` when set (else 0 and 1) and select its shards. Merging
@@ -141,5 +145,74 @@ class BatchScorer:
                 (Record(path=p, content=b"", label=pred)
                  for p, pred in results),
                 {"model_classes": self.model.classes}, table,
+                self.model.content_digest, rank, world)
+        return results
+
+
+class LMBatchScorer:
+    """Score a ``tokens_i32`` table with a packaged LM on one device —
+    per-sequence mean next-token NLL in fixed batches of
+    ``batch_per_device`` rows (64 by default, ``ddw_tpu``'s; at the LM's
+    2,048-token rows that batch takes attention to K3)."""
+
+    def __init__(self, model, device=None, batch_per_device: int = 64):
+        from ddw_tpu_torch.serving.lm_package import LMPackagedModel
+
+        self.model = (LMPackagedModel(model, device=device)
+                      if isinstance(model, str) else model)
+        self.batch = batch_per_device
+
+    def score_table(self, table: Table, out_store: TableStore | None = None,
+                    out_name: str = "lm_scores",
+                    merge: bool = True) -> list[tuple[str, float]]:
+        """Returns [(path, nll)] for this process's shard subset; with
+        ``out_store`` also writes a scores table (label = formatted NLL,
+        content = f32 bytes) stamped with the run token. Several processes
+        with ``merge=True`` raise, as :meth:`BatchScorer.score_table` does."""
+        from ddw_tpu_torch.serving.lm_package import check_token_ids
+
+        if table.meta.get("encoding") != "tokens_i32":
+            raise ValueError(f"LMBatchScorer needs a tokens_i32 table, got "
+                             f"encoding {table.meta.get('encoding')!r} — "
+                             f"materialize with prep.write_token_table")
+        rank, world = process_topology()
+        if merge and world > 1:
+            raise NotImplementedError(
+                "merging per-process score parts is not yet ported to "
+                "ddw_tpu_torch; pass merge=False to write the parts only")
+        t = table.meta["seq_plus_one"]
+        cfg = self.model.lm_cfg
+        if t - 1 > cfg.max_len:
+            raise ValueError(f"table sequences ({t - 1}) exceed the packaged "
+                             f"model's max_len {cfg.max_len}")
+        results: list[tuple[str, float]] = []
+        buf = np.zeros((self.batch, t), np.int32)
+        paths: list[str] = []
+
+        def flush():
+            if not paths:
+                return
+            n = len(paths)
+            buf[n:] = 0  # padded rows: valid ids, sliced off below
+            check_token_ids(buf[:n], cfg.vocab_size)
+            nll = self.model.nll(buf)[:n]
+            results.extend((p, float(v)) for p, v in zip(paths, nll))
+            paths.clear()
+
+        for sp in _process_shards(table, rank, world):
+            for rec in read_shard(sp):
+                buf[len(paths)] = np.frombuffer(rec.content, np.int32,
+                                                count=t)
+                paths.append(rec.path)
+                if len(paths) == self.batch:
+                    flush()
+        flush()
+
+        if out_store is not None:
+            _write_scored_table(
+                out_store, out_name,
+                (Record(path=p, content=np.float32(v).tobytes(),
+                        label=f"{v:.6f}") for p, v in results),
+                {"metric": "mean_next_token_nll"}, table,
                 self.model.content_digest, rank, world)
         return results

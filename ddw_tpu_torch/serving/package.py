@@ -140,7 +140,8 @@ class PackagedModel:
         # content_digest: identity of this packaged model (weights + meta).
         self.meta, restored, self.content_digest = read_package_dir(
             model_dir, "image", _SUPPORTED_VERSIONS,
-            "LM packages are not yet ported to ddw_tpu_torch")
+            "LM packages load via ddw_tpu_torch.serving.lm_package."
+            "LMPackagedModel")
         self.model_cfg = ModelCfg(**self.meta["model_cfg"])
         self.classes: list[str] = self.meta["classes"]
         self.height, self.width = self.meta["img_height"], self.meta["img_width"]

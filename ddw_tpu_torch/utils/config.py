@@ -1,5 +1,5 @@
 """The port's copy of ``ddw_tpu.utils.config``: ``DataCfg``, ``ModelCfg``,
-``TrainCfg`` and the ``section.key=value`` overrides.
+``TrainCfg``, ``LMCfg`` and the ``section.key=value`` overrides.
 
 Every field keeps the original's name and default, so configs (and a
 packaged model's ``package.json``, which stores ``dataclasses.asdict(
@@ -109,6 +109,35 @@ class TrainCfg:
 
     def __post_init__(self):
         require_ported(self)
+
+
+@dataclass
+class LMCfg:
+    """Decoder-only LM config (:class:`ddw_tpu_torch.models.lm.TransformerLM`),
+    field for field ``ddw_tpu``'s, so a packaged LM's ``package.json``
+    (``dataclasses.asdict(lm_cfg)``) means the same in both packages. MoE
+    (``num_experts > 0``) is refused by ``build_lm``, naming ``ROADMAP.md``.
+    """
+
+    vocab_size: int = 256
+    max_len: int = 2048                 # global sequence length bound
+    hidden: int = 256
+    depth: int = 4
+    num_heads: int = 4
+    mlp_dim: int = 1024
+    dropout: float = 0.0
+    dtype: str = "bfloat16"
+    num_experts: int = 0                # >0: MoE MLP blocks (not yet ported)
+    capacity_factor: float = 1.25       # static expert capacity = cf*k*T/E
+    moe_router: str = "top1"            # "top1" (Switch) or "top2" (GShard)
+    num_kv_heads: int = 0               # GQA: KV heads (0 = num_heads / MHA)
+    lora_rank: int = 0                  # >0: rank-r LoRA adapters on
+                                        # lora_targets (models.lora)
+    lora_alpha: float = 16.0
+    lora_targets: tuple[str, ...] = ("query", "value")
+    pos_encoding: str = "learned"       # "learned" absolute table or "rope"
+    remat: str = "none"                 # per-block activation remat (training
+                                        # only; accepted and ignored in eval)
 
 
 def require_ported(cfg: TrainCfg) -> None:

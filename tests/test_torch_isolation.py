@@ -53,7 +53,9 @@ def test_every_port_module_imports_with_jax_blocked():
     for name in ("serving.batch", "train.trainer", "train.step",
                  "train.schedule", "train.callbacks", "data.prep",
                  "data.loader", "checkpoint.ckpt", "runtime.dist",
-                 "tracking.tracker"):
+                 "tracking.tracker", "ops.flash_attention", "ops.rope",
+                 "models.lm", "models.lora", "serve.bucketing",
+                 "serving.lm_package"):
         assert f"ddw_tpu_torch.{name}" in modules
     code = (
         "import sys\n"
@@ -115,6 +117,32 @@ def test_entry_points_need_an_explicit_cpu_request(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         PackagedModel(pkg, device="cuda")
     assert PackagedModel(pkg, device="cpu").device.type == "cpu"
+
+
+def test_lm_entry_points_need_an_explicit_cpu_request(tmp_path,
+                                                     monkeypatch):
+    from ddw_tpu_torch.models.convert import init_lm_weights, \
+        to_flax_variables
+    from ddw_tpu_torch.models.lm import build_lm
+    from ddw_tpu_torch.serving.batch import LMBatchScorer
+    from ddw_tpu_torch.serving.lm_package import (LMPackagedModel,
+                                                  save_lm_package)
+    from ddw_tpu_torch.utils.config import LMCfg
+
+    cfg = LMCfg(vocab_size=16, max_len=16, hidden=16, depth=1, num_heads=2,
+                mlp_dim=32, dtype="float32")
+    model = init_lm_weights(build_lm(cfg), torch.Generator().manual_seed(0))
+    pkg = save_lm_package(str(tmp_path / "lm"), cfg,
+                          to_flax_variables(model)["params"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LMPackagedModel(pkg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LMBatchScorer(pkg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LMPackagedModel(pkg, device="cuda")
+    assert LMPackagedModel(pkg, device="cpu").device.type == "cpu"
+    assert LMBatchScorer(pkg, device="cpu").model.device.type == "cpu"
 
 
 def test_device_and_dtype_helpers():
