@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of ddw_tpu_torch on one NVIDIA card: build, check and time the
-port's CUDA kernels, then drive the serving, training and LM-scoring main
-paths end to end.
+port's CUDA kernels, then drive the serving, training, LM-scoring and
+LM-training main paths end to end.
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -70,7 +70,39 @@ Phases, each printing one JSON line; any failure exits non-zero:
    of 32 tokens from 256-token prompts at batch 8 (first token = the full
    forward's argmax, padded-bucket decode = unpadded decode, both up to
    near-ties below 2e-2 * std) and one seeded sampled run repeated.
-8. The ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
+8. lm_bwd_kernel — the flash-attention backward kernels, K4 (dQ) and K5
+   (dK/dV), against their plain PyTorch versions on the same inputs (q, k,
+   v, do, the forward's lse and delta = rowsum(do * out) - g_lse with a
+   nonzero g_lse): at the LM-training shape [256, 2048, 64] causal in bf16
+   and f32 (TF32 off), a ring hop's offset (query rows that see no key must
+   get exactly zero dq), non-causal at head dim 128, head dim 32 with a key
+   mask, a ragged f32 case on the CUDA cores (100 queries, 200 keys in
+   40-key blocks), and S=2047 padded through ``flash_mha``'s backward. f32
+   within 1e-5 * max|ref|, bf16 within max(2 bf16 ulp, 5e-3 * max|ref|)
+   elementwise; two launches of each bit-identical. Times at [256, 2048,
+   64] bf16 (median of 10, L2 flushed) beside the bound, the plain versions
+   and the backward of causal ``F.scaled_dot_product_attention`` (timed
+   only, the yardstick; one call gives dq, dk and dv), and K3's time at
+   that shape.
+9. lm_train — the same full-width bf16 LM from ``init_lm_weights`` with a
+   seeded generator, trained by ``LMTrainer.fit_tables`` on a seeded,
+   learnable ``tokens_i32`` table (arithmetic sequences mod the vocab, 160
+   train and 32 val rows of 2,049 tokens) at batch 32 with adam 3e-4 for 2
+   epochs with checkpoints, then ``resume=True`` to epoch 3. Checks: 6 K3 +
+   6 K4 + 6 K5 launches per train step and 6 K3 per val batch; finite
+   losses, epoch 2 below epoch 1, the resume at epoch 2; one bf16 step with
+   the kernels against one with the plain versions on the card (loss
+   within 5e-3 relative, per-leaf gradients within 5e-2 RMS gap over RMS;
+   the key projections' biases, whose exact gradient is zero, left out);
+   in f32 at batch 4 the kernel tier against the ``xla`` tier, TF32 off
+   (loss within 1e-5 relative, per-leaf max gap within 1e-4 of the leaf's
+   max |grad|, the key biases left out); one ``remat="full"`` step (12 K3,
+   6 K4, 6 K5 launches; the loss within 1e-6 relative and gradients within
+   1e-5 of each leaf's max of those without remat); the checkpoint through
+   ``save_lm_package`` -> ``LMPackagedModel.score`` on the val rows at the
+   trainer's last val_loss (within 1e-4 relative). Step ms (median of 10)
+   and training tokens/s.
+10. The ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
    line ``{"ok": true, "device": {...}}``.
 """
 
@@ -465,6 +497,457 @@ def phase_lm_kernel(flush):
          shape=list(q.shape), max_abs_err=err.max().item())
     max_err = max(max_err, err.max().item())
     return times, max_err
+
+
+# the LM-training slice: lm_flash at the trainer's batch of 32
+TRAIN_LM_BATCH = 32
+
+
+def bwd_inputs(q, k, v, gen, causal, q_offset=0, k_offset=0, k_valid=None,
+               block_k=128):
+    """do, the forward's lse (K3) and delta = rowsum(do * out) - g_lse with
+    a nonzero g_lse: what FlashAttentionFn's backward hands K4 and K5."""
+    import torch
+
+    from ddw_tpu_torch.ops.flash_attention import flash_attention_cuda
+
+    do = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
+    out, lse = flash_attention_cuda(q, k, v, causal, q_offset, k_offset,
+                                    block_k=block_k, k_valid=k_valid)
+    g_lse = 0.1 * torch.randn(lse.shape, device="cuda", generator=gen)
+    delta = ((do.float() * out.float()).sum(-1) - g_lse).contiguous()
+    return do, lse, delta
+
+
+def bwd_close(got, ref):
+    """The slice's tolerance: f32 within 1e-5 * max|ref|, bf16 within
+    max(2 bf16 ulp, 5e-3 * max|ref|) elementwise."""
+    import torch
+
+    err = (got.float() - ref.float()).abs()
+    top = ref.float().abs().max().item()
+    if got.dtype == torch.float32:
+        ok = err.max().item() <= 1e-5 * top
+    else:
+        ok = bool((err <= torch.maximum(
+            2 * bf16_ulp(ref.float()),
+            torch.full_like(err, 5e-3 * top))).all())
+    return ok and bool(torch.isfinite(got).all()), err.max().item(), \
+        err.max().item() / max(top, 1e-30)
+
+
+def k45_check(name, q, k, v, gen, *, causal, q_offset=0, k_offset=0,
+              k_valid=None, block_q=128, block_k=128, fully_masked_rows=0):
+    """K4 and K5 against their plain versions on the same inputs; two
+    launches of each bit-identical. Returns K4's and K5's max |error|."""
+    import torch
+
+    from ddw_tpu_torch.ops.flash_attention import (
+        flash_attention_dkv_cuda, flash_attention_dkv_plain,
+        flash_attention_dq_cuda, flash_attention_dq_plain)
+
+    do, lse, delta = bwd_inputs(q, k, v, gen, causal, q_offset, k_offset,
+                                k_valid, block_k)
+    args = (q, k, v, do, lse, delta, causal, q_offset, k_offset, None)
+    dq = flash_attention_dq_cuda(*args, k_valid)
+    dq2 = flash_attention_dq_cuda(*args, k_valid)
+    dk, dv = flash_attention_dkv_cuda(*args, k_valid)
+    dk2, dv2 = flash_attention_dkv_cuda(*args, k_valid)
+    torch.cuda.synchronize()
+    check(torch.equal(dq, dq2) and torch.equal(dk, dk2)
+          and torch.equal(dv, dv2),
+          f"K4/K5 {name}: two launches give the same bits")
+    rq = flash_attention_dq_plain(*args, block_q, block_k, k_valid)
+    rk, rv = flash_attention_dkv_plain(*args, block_q, block_k, k_valid)
+    row = {}
+    for out_name, got, ref in (("dq", dq, rq), ("dk", dk, rk),
+                               ("dv", dv, rv)):
+        ok, err, rel = bwd_close(got, ref)
+        check(ok, f"K4/K5 {name}: {out_name} within the slice's tolerance "
+              f"(max |err| {err:.3g}, {rel:.3g} of max |ref|)")
+        row[out_name] = {"max_abs_err": err, "err_over_max_ref": rel}
+    if fully_masked_rows:
+        check(bool((dq[:, :fully_masked_rows] == 0).all()),
+              f"K4 {name}: rows that see no key get exactly zero dq")
+    emit(phase="lm_bwd_kernel", case=name, shape=list(q.shape),
+         sk=k.shape[1], dtype=str(q.dtype).removeprefix("torch."),
+         causal=causal, q_offset=q_offset, k_offset=k_offset,
+         k_valid=k_valid, bit_identical_relaunch=True,
+         fully_masked_rows=fully_masked_rows, **row)
+    return {"dq": row["dq"]["max_abs_err"],
+            "dkv": max(row["dk"]["max_abs_err"], row["dv"]["max_abs_err"])}
+
+
+def phase_lm_bwd_kernel(flush):
+    """K4 and K5 against their plain versions at the training shape and the
+    edge cases; times at the training shape beside the bounds, the plain
+    versions and SDPA's backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from ddw_tpu_torch.ops.flash_attention import (
+        flash_attention_cuda, flash_attention_dkv_cuda,
+        flash_attention_dkv_plain, flash_attention_dq_cuda,
+        flash_attention_dq_plain, flash_mha)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+
+    def qkv(bh, sq, sk, d, dtype):
+        mk = lambda s: torch.randn(bh, s, d, device="cuda", generator=gen)
+        return mk(sq).to(dtype), mk(sk).to(dtype), mk(sk).to(dtype)
+
+    bh, s, d = TRAIN_LM_BATCH * LM_HEADS, LM_SEQ, LM_HEAD_DIM
+    errs = {"dq": 0.0, "dkv": 0.0}
+
+    def case(*a, **kw):  # K4's and K5's max |error| over every case
+        for key, err in k45_check(*a, **kw).items():
+            errs[key] = max(errs[key], err)
+
+    q, k, v = qkv(bh, s, s, d, torch.bfloat16)
+    case("train_shape_bf16_causal", q, k, v, gen, causal=True)
+    # times at the training shape (bf16, causal)
+    do, lse, delta = bwd_inputs(q, k, v, gen, True)
+    args = (q, k, v, do, lse, delta, True, 0, 0, None)
+    pairs = bh * causal_pairs(s, s, 0, 0, True, None)
+    q4, k4, v4, do4 = (t.view(TRAIN_LM_BATCH, LM_HEADS, s, d).detach()
+                       .requires_grad_(t is not do) for t in (q, k, v, do))
+    sdpa = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    library_ms = median_ms(lambda: torch.autograd.grad(
+        sdpa, (q4, k4, v4), do4, retain_graph=True), flush, reps=10)
+    # K3 at the training shape, beside its bound there
+    k3_nbytes = 4 * bh * s * d * 2 + bh * s * 4
+    times = {"k3_train_shape": {
+        "ms": median_ms(lambda: flash_attention_cuda(q, k, v, True), flush,
+                        reps=10),
+        "bound_ms": max(k3_nbytes / HBM_BYTES_PER_S,
+                        4 * d * pairs / BF16_FLOPS) * 1e3}}
+    emit(phase="lm_bwd_kernel", kernel="flash_attention_fwd",
+         dtype="bfloat16", shape=[bh, s, d], causal=True,
+         **times["k3_train_shape"])
+    for key, fn, plain, products, outs in (
+            ("dq", lambda: flash_attention_dq_cuda(*args),
+             lambda: flash_attention_dq_plain(*args), 3, 1),
+            ("dkv", lambda: flash_attention_dkv_cuda(*args),
+             lambda: flash_attention_dkv_plain(*args), 4, 2)):
+        flops = products * 2 * d * pairs
+        nbytes = (4 + outs) * bh * s * d * 2 + 2 * bh * s * 4
+        times[key] = {
+            "ms": median_ms(fn, flush, reps=10),
+            "plain_ms": median_ms(plain, flush, reps=5, warmup=1),
+            "library_ms": library_ms,
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                            flops / BF16_FLOPS) * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+            >= flops / BF16_FLOPS else "operations"}
+        emit(phase="lm_bwd_kernel", kernel=f"flash_attention_{key}",
+             dtype="bfloat16", shape=[bh, s, d], causal=True,
+             **times[key], bytes=nbytes, flops=flops,
+             library="backward of F.scaled_dot_product_attention"
+                     "(is_causal=True): dq, dk and dv in one call")
+    del q, k, v, do, lse, delta, args, q4, k4, v4, do4, sdpa
+    torch.cuda.empty_cache()
+
+    q, k, v = qkv(bh, s, s, d, torch.float32)
+    case("train_shape_f32_causal", q, k, v, gen, causal=True)
+    del q, k, v
+    # a ring hop's offset: keys from global 192, rows 0-191 see no key
+    q, k, v = qkv(64, 1024, 1024, d, torch.bfloat16)
+    case("offset_k192_bf16", q, k, v, gen, causal=True, k_offset=192,
+         fully_masked_rows=192)
+    q, k, v = (t.float() for t in (q, k, v))
+    case("offset_k192_f32", q, k, v, gen, causal=True, k_offset=192,
+         fully_masked_rows=192)
+    q, k, v = qkv(64, 1024, 1024, 128, torch.bfloat16)
+    case("noncausal_d128_bf16", q, k, v, gen, causal=False)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = qkv(6, 48, 80, 32, dtype)
+        case(f"d32_kvalid70_{str(dtype)[6:]}", q, k, v, gen, causal=False,
+             block_q=48, block_k=40, k_valid=70)
+    # ragged tiles on the CUDA cores: 100 queries at global 100, 200 keys
+    q, k, v = qkv(6, 100, 200, 64, torch.float32)
+    case("ragged_f32_block40_cuda_cores", q, k, v, gen, causal=True,
+         q_offset=100, block_q=100, block_k=40)
+    # S=2047 padded through flash_mha's backward (K4/K5 against the plain
+    # path inside the same padding)
+    q, k, v = (t.view(8, LM_HEADS, s, d)[:, :, :s - 1].contiguous()
+               for t in qkv(8 * LM_HEADS, s, s, d, torch.bfloat16))
+    g = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
+    grads = []
+    for interpret in (False, True):
+        before = (flash_attention_dq_cuda.launches,
+                  flash_attention_dkv_cuda.launches)
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        flash_mha(*ins, causal=True, impl="pallas",
+                  interpret=interpret).backward(g)
+        grads.append([t.grad for t in ins])
+        want = (1, 1) if not interpret else (0, 0)
+        check((flash_attention_dq_cuda.launches - before[0],
+               flash_attention_dkv_cuda.launches - before[1]) == want,
+              f"flash_mha backward (interpret={interpret}) launched K4/K5 "
+              f"{want}")
+    row = {}
+    for name, got, ref in zip(("dq", "dk", "dv"), *grads):
+        ok, err, rel = bwd_close(got, ref)
+        check(ok and got.shape == q.shape,
+              f"padded S=2047 {name} through flash_mha's backward within "
+              f"max(2 bf16 ulp, 5e-3*max|ref|)")
+        row[name] = err
+        key = "dq" if name == "dq" else "dkv"
+        errs[key] = max(errs[key], err)
+    emit(phase="lm_bwd_kernel", case="padded_s2047_flash_mha_bwd_bf16",
+         shape=list(q.shape), max_abs_err=row)
+    return times, errs
+
+
+def arithmetic_tokens(n: int, seed: int, vocab: int, seq: int):
+    """A learnable corpus: arithmetic sequences mod the vocab."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    starts = rng.randint(0, vocab, size=(n, 1))
+    steps = rng.randint(1, 8, size=(n, 1))
+    return ((starts + steps * np.arange(seq + 1)[None, :])
+            % vocab).astype(np.int32)
+
+
+def lm_grads(lm_cfg, params, inputs, targets):
+    """Loss and {name: grad} of one training-mode forward and backward of a
+    fresh LM on the card loaded with ``params``; no optimizer update."""
+    import torch
+
+    from ddw_tpu_torch.models.convert import load_flax_variables
+    from ddw_tpu_torch.models.lm import build_lm
+    from ddw_tpu_torch.train.lm_step import lm_forward_and_grads
+    from ddw_tpu_torch.train.step import TrainState
+
+    model = load_flax_variables(build_lm(lm_cfg), {"params": params}).cuda()
+    loss, _, grads = lm_forward_and_grads(TrainState(model, {}, 0), inputs,
+                                          targets, None)
+    torch.cuda.synchronize()
+    return loss.float().item(), grads
+
+
+# Softmax is invariant to the key projection's bias (it adds q . b_k to a
+# whole row of scores), so that leaf's exact gradient is zero and both
+# computations give rounding noise there: it is left out of the gradient
+# comparisons.
+ZERO_GRAD_LEAVES = ("attn.key.bias",)
+
+
+def grad_gaps(got, ref):
+    """Per leaf: the RMS gap over the leaf's RMS, and the max gap over the
+    leaf's max |grad|; the largest of each over all leaves but the key
+    biases, with the leaf that gives it."""
+    rms, mx = [], []
+    for n in ref:
+        if n.endswith(ZERO_GRAD_LEAVES):
+            continue
+        diff, r = got[n].float() - ref[n].float(), ref[n].float()
+        rms.append(((diff.square().mean().sqrt()
+                     / r.square().mean().sqrt().clamp_min(1e-30)).item(), n))
+        mx.append(((diff.abs().max() / r.abs().max().clamp_min(1e-30))
+                   .item(), n))
+    return max(rms), max(mx)
+
+
+def phase_lm_train(tmp: str):
+    """The LM-training main path: LMTrainer.fit_tables at full width with
+    K3, K4 and K5 on every layer, resume, kernel-vs-plain and kernel-vs-xla
+    steps, a remat step, and the trained checkpoint packaged and scored."""
+    import dataclasses
+    import functools
+    import statistics
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from ddw_tpu_torch.checkpoint.ckpt import restore_checkpoint
+    from ddw_tpu_torch.data.prep import write_token_table
+    from ddw_tpu_torch.data.store import TableStore
+    from ddw_tpu_torch.models import lm as lm_mod
+    from ddw_tpu_torch.ops import flash_attention as fa
+    from ddw_tpu_torch.serving.lm_package import (LMPackagedModel,
+                                                  save_lm_package)
+    from ddw_tpu_torch.train.lm_step import make_lm_train_step
+    from ddw_tpu_torch.train.lm_trainer import LMTrainer
+    from ddw_tpu_torch.train.step import make_optimizer
+    from ddw_tpu_torch.utils.config import LMCfg, TrainCfg
+
+    counters = (fa.flash_attention_cuda, fa.flash_attention_dq_cuda,
+                fa.flash_attention_dkv_cuda)
+
+    def zero_counts():
+        for c in counters:
+            c.launches = 0
+
+    def counts():
+        return tuple(c.launches for c in counters)
+
+    depth, vocab = LM_CFG["depth"], LM_CFG["vocab_size"]
+    store = TableStore(os.path.join(tmp, "lm_train_tables"))
+    n_train, n_val = 160, 32
+    toks = arithmetic_tokens(n_train + n_val, SEED + 6, vocab, LM_SEQ)
+    train_t = write_token_table(store, "lm_train", toks[:n_train],
+                                shard_size=32)
+    val_t = write_token_table(store, "lm_val", toks[n_train:], shard_size=32)
+    lm_cfg = LMCfg(**LM_CFG)
+    ckdir = os.path.join(tmp, "lm_ckpt")
+    train_cfg = TrainCfg(batch_size=TRAIN_LM_BATCH, epochs=2, warmup_epochs=0,
+                         optimizer="adam", learning_rate=3e-4,
+                         checkpoint_dir=ckdir, seed=SEED)
+    steps_per_epoch = n_train // TRAIN_LM_BATCH
+    val_steps = n_val // TRAIN_LM_BATCH
+
+    # --- the main path, counted ------------------------------------------
+    trainer = LMTrainer(lm_cfg, train_cfg)
+    check(trainer.device.type == "cuda", "LMTrainer resolved to the card")
+    zero_counts()
+    t0 = time.perf_counter()
+    res = trainer.fit_tables(train_t, val_t)
+    fit_s = time.perf_counter() - t0
+    k3, k4, k5 = counts()
+    steps, evals = 2 * steps_per_epoch, 2 * val_steps
+    hist = res.history
+    emit(phase="lm_train", fit_seconds=fit_s, history=hist,
+         train_steps=steps, eval_batches=evals, k3_launches=k3,
+         k4_launches=k4, k5_launches=k5,
+         expected=[depth * (steps + evals), depth * steps, depth * steps])
+    check((k3, k4, k5) == (depth * (steps + evals), depth * steps,
+                           depth * steps),
+          f"launches K3 {k3}, K4 {k4}, K5 {k5}: expected 6 K3 + 6 K4 + 6 K5 "
+          f"per train step ({steps}) and 6 K3 per val batch ({evals})")
+    check(all(np.isfinite([r["loss"], r["val_loss"]]).all() for r in hist),
+          "finite train and val losses")
+    check(hist[1]["loss"] < hist[0]["loss"],
+          f"epoch-2 train loss {hist[1]['loss']:.4f} below epoch 1's "
+          f"{hist[0]['loss']:.4f}")
+
+    # --- resume continues at epoch 2 -------------------------------------
+    zero_counts()
+    res3 = LMTrainer(lm_cfg, dataclasses.replace(train_cfg, epochs=3)
+                     ).fit_tables(train_t, val_t, resume=True)
+    emit(phase="lm_train", resumed_history=res3.history,
+         launches=list(counts()), state_step=res3.state.step)
+    check([r["epoch"] for r in res3.history] == [2], "resume ran epoch 2 only")
+    check(res3.state.step == 3 * steps_per_epoch, "resumed step count")
+    check(counts() == (depth * (steps_per_epoch + val_steps),
+                       depth * steps_per_epoch, depth * steps_per_epoch),
+          "resumed run's launch counts")
+
+    # --- step time and training tokens/s ---------------------------------
+    batch = torch.from_numpy(toks[:TRAIN_LM_BATCH]).cuda()
+    inputs, targets = batch[:, :-1], batch[:, 1:]
+    state = res3.state
+    step = make_lm_train_step(state.model, make_optimizer(train_cfg))
+    times = []
+    for _ in range(12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, inputs, targets, SEED + 1)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times[2:])
+    tokens_per_s = TRAIN_LM_BATCH * LM_SEQ / step_ms * 1e3
+    emit(phase="lm_train", step_ms_median=step_ms, step_ms_runs=times[2:],
+         batch=TRAIN_LM_BATCH, step_tokens_per_s=tokens_per_s,
+         epoch_tokens_per_s=[r["tokens_per_sec"]
+                             for r in hist + res3.history],
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del step, state, trainer, res
+    torch.cuda.empty_cache()
+
+    # --- kernels against the plain versions: one bf16 step ---------------
+    tree, at = restore_checkpoint(ckdir, {})
+    check(at == 3 * steps_per_epoch, "latest checkpoint is the resumed run's")
+    params = tree["params"]
+    zero_counts()
+    loss_k, g_k = lm_grads(lm_cfg, params, inputs, targets)
+    check(counts() == (depth, depth, depth), "the kernel step ran 6 K3, "
+          "6 K4 and 6 K5")
+    mha = lm_mod.flash_mha
+    lm_mod.flash_mha = functools.partial(mha, interpret=True)  # plain
+    try:
+        loss_p, g_p = lm_grads(lm_cfg, params, inputs, targets)
+    finally:
+        lm_mod.flash_mha = mha
+    check(counts() == (depth, depth, depth), "the plain step ran no kernel")
+    loss_rel = abs(loss_k - loss_p) / max(abs(loss_p), 1e-12)
+    (rms, rms_leaf), (mx, mx_leaf) = grad_gaps(g_k, g_p)
+    emit(phase="lm_train", kernel_vs_plain_bf16_loss=[loss_k, loss_p],
+         loss_rel_diff=loss_rel, loss_tolerance=5e-3,
+         grad_rms_gap_over_rms_max=rms, worst_rms_leaf=rms_leaf,
+         grad_rms_tolerance=5e-2, grad_max_gap_over_max=mx,
+         worst_max_leaf=mx_leaf, leaves=len(g_p),
+         left_out=list(ZERO_GRAD_LEAVES))
+    check(loss_rel <= 5e-3, f"bf16 loss within 5e-3 relative ({loss_rel:.3g})")
+    check(rms <= 5e-2, f"bf16 per-leaf gradients within 5e-2 RMS gap over "
+          f"RMS ({rms:.3g})")
+    del g_k, g_p
+
+    # --- f32 at batch 4: the kernel tier against the xla tier -------------
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = dataclasses.replace(lm_cfg, dtype="float32")
+    saved = fa._XLA_PLAIN_MAX, fa._XLA_CKPT_MAX
+    try:
+        fa._XLA_PLAIN_MAX = fa._XLA_CKPT_MAX = 0           # the kernel tier
+        zero_counts()
+        loss_kf, g_kf = lm_grads(f32, params, inputs[:4], targets[:4])
+        check(counts() == (depth, depth, depth), "f32: K3, K4 and K5 on "
+              "every layer")
+        fa._XLA_PLAIN_MAX = fa._XLA_CKPT_MAX = 1 << 62     # the xla tier
+        loss_xf, g_xf = lm_grads(f32, params, inputs[:4], targets[:4])
+        check(counts() == (depth, depth, depth), "f32 xla tier: no kernel")
+    finally:
+        fa._XLA_PLAIN_MAX, fa._XLA_CKPT_MAX = saved
+    f32_rel = abs(loss_kf - loss_xf) / max(abs(loss_xf), 1e-12)
+    (f32_rms, _), (f32_mx, f32_leaf) = grad_gaps(g_kf, g_xf)
+    emit(phase="lm_train", kernel_vs_xla_f32_loss=[loss_kf, loss_xf],
+         loss_rel_diff=f32_rel, loss_tolerance=1e-5,
+         grad_max_gap_over_max=f32_mx, worst_max_leaf=f32_leaf,
+         grad_max_tolerance=1e-4, grad_rms_gap_over_rms_max=f32_rms,
+         tf32=False)
+    check(f32_rel <= 1e-5, f"f32 loss within 1e-5 relative ({f32_rel:.3g})")
+    check(f32_mx <= 1e-4, f"f32 per-leaf gradients within 1e-4 of the "
+          f"leaf's max |grad| ({f32_mx:.3g})")
+    del g_kf, g_xf
+
+    # --- remat="full": the block forward runs again in the backward -------
+    zero_counts()
+    loss_r, g_r = lm_grads(dataclasses.replace(lm_cfg, remat="full"), params,
+                           inputs, targets)
+    remat_counts = counts()
+    loss_n, g_n = lm_grads(lm_cfg, params, inputs, targets)
+    bit_identical = loss_r == loss_n and all(torch.equal(g_r[n], g_n[n])
+                                             for n in g_n)
+    _, (r_mx, _) = grad_gaps(g_r, g_n)
+    emit(phase="lm_train", remat_full_launches=list(remat_counts),
+         remat_loss=[loss_r, loss_n], remat_bit_identical=bit_identical,
+         remat_grad_max_gap_over_max=r_mx)
+    check(remat_counts == (2 * depth, depth, depth),
+          f"remat='full' step launched {remat_counts}, expected 12 K3, "
+          f"6 K4, 6 K5")
+    check(abs(loss_r - loss_n) <= 1e-6 * abs(loss_n) and r_mx <= 1e-5,
+          "remat='full' gives the loss (within 1e-6 relative) and the "
+          "gradients (within 1e-5 of each leaf's max) of no remat")
+    del g_r, g_n
+    torch.cuda.empty_cache()
+
+    # --- the trained checkpoint, packaged and scored ----------------------
+    pkg = save_lm_package(os.path.join(tmp, "lm_trained_pkg"), lm_cfg,
+                          params)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        pm = LMPackagedModel(pkg)
+    nll = pm.score(toks[n_train:n_train + TRAIN_LM_BATCH])
+    mean_nll = float(np.mean(nll))
+    rel = abs(mean_nll - res3.val_loss) / max(abs(res3.val_loss), 1e-12)
+    emit(phase="lm_train", packaged_mean_nll=mean_nll,
+         trainer_val_loss=res3.val_loss, rel_diff=rel, tolerance=1e-4)
+    check(bool(np.isfinite(nll).all()) and rel <= 1e-4,
+          f"packaged checkpoint's mean NLL {mean_nll:.5f} equals the "
+          f"trainer's val_loss {res3.val_loss:.5f} within 1e-4 relative")
+    return {"k3": k3, "k4": k4, "k5": k5}, step_ms, tokens_per_s
 
 
 def make_package(root: str, dtype: str, dw_impl: str, variables) -> str:
@@ -1035,6 +1518,8 @@ def main() -> int:
     per_pass, max_err = phase_kernel(flush)
     torch.backends.cudnn.allow_tf32 = True
     k3_times, k3_err = phase_lm_kernel(flush)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bwd_times, bwd_err = phase_lm_bwd_kernel(flush)
     del flush
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="ddw_chip_smoke_") as tmp:
@@ -1042,6 +1527,8 @@ def main() -> int:
         train_launches, step_ms = phase_train(tmp)
         torch.cuda.empty_cache()
         k3_launches, score_runs = phase_lm(tmp)
+        torch.cuda.empty_cache()
+        lm_train_launches, lm_step_ms, lm_tokens_per_s = phase_lm_train(tmp)
     src = "ddw_tpu_torch/ops/csrc/depthwise_conv.cu"
     print(json.dumps({"kernels": [{
         "name": "depthwise_conv3x3_fwd",
@@ -1072,15 +1559,32 @@ def main() -> int:
         "route": "cuda",
         "source": "ddw_tpu_torch/ops/csrc/flash_attention.cu",
         "replaces": "ddw_tpu/ops/flash_attention.py:217",
-        "launches": k3_launches,
-        "launches_by_path": {"lm_batch_scoring": k3_launches},
+        "launches": lm_train_launches["k3"],
+        "launches_by_path": {"lm_training": lm_train_launches["k3"],
+                             "lm_batch_scoring": k3_launches},
         "max_abs_err": k3_err,
         **k3_times,
         "bound_by": "operations",
         "per": "one bf16 causal call at [512, 2048, 64]: one layer of a "
                "64-row LM scoring batch",
-    }], "train_step_ms": step_ms,
-        "lm_score_tokens_per_s": LM_ROWS * LM_SEQ / score_runs[-1]}),
+        "ms_at_train_shape": bwd_times["k3_train_shape"]["ms"],
+        "bound_ms_at_train_shape": bwd_times["k3_train_shape"]["bound_ms"],
+    }] + [{
+        "name": f"flash_attention_{key}",
+        "route": "cuda",
+        "source": "ddw_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": f"ddw_tpu/ops/flash_attention.py:{line}",
+        "launches": lm_train_launches[kern],
+        "launches_by_path": {"lm_training": lm_train_launches[kern]},
+        "max_abs_err": bwd_err[key],
+        **bwd_times[key],
+        "per": "one bf16 causal call at [256, 2048, 64]: one layer of a "
+               "32-row LM train step; library_ms is SDPA's whole backward",
+    } for key, line, kern in (("dq", 425, "k4"), ("dkv", 445, "k5"))],
+        "train_step_ms": step_ms,
+        "lm_score_tokens_per_s": LM_ROWS * LM_SEQ / score_runs[-1],
+        "lm_train_step_ms": lm_step_ms,
+        "lm_train_tokens_per_s": lm_tokens_per_s}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

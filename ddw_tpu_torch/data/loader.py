@@ -15,9 +15,11 @@ epoch-varying shard shuffle and shuffle buffer (bounded to 64 MB on
 a background thread copies each batch from pinned host memory on its own
 CUDA stream (``non_blocking``) and records an event the consumer's stream
 waits on; ``raw_u8`` batches cross as uint8 and are dequantized on the
-device. Super-batches ``[k, B, ...]`` for ``steps_per_dispatch`` are stacked
-on the device in ``chain_plan`` order. Cached-feature and token tables are
-not yet ported (``ROADMAP.md``).
+device. Token tables (``tokens_i32``, :func:`ddw_tpu_torch.data.prep.
+write_token_table`) yield next-token pairs ``(inputs [B, S], targets [B,
+S])`` int32, a memcpy per record. Super-batches ``[k, B, ...]`` for
+``steps_per_dispatch`` are stacked on the device in ``chain_plan`` order.
+Cached-feature tables are not yet ported (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -106,7 +108,8 @@ class ShardedLoader:
 
     Arguments as ``ddw_tpu``'s, except ``prefetch_to``, which here is a
     ``torch.device`` (``"cuda"`` or ``"cpu"``): batches then arrive as
-    tensors on it — f32 images ``[B, H, W, 3]`` and int32 labels ``[B]``
+    tensors on it — f32 images ``[B, H, W, 3]`` and int32 labels ``[B]``,
+    or for a ``tokens_i32`` table int32 ``(inputs, targets)`` ``[B, S]``
     (``[k, B, ...]`` with ``super_batch``) — from a background thread
     ``prefetch`` batches ahead. Without it, host numpy batches.
     """
@@ -146,7 +149,7 @@ class ShardedLoader:
                                      "prefetch thread)")
                 self._super_plan = plan
         encoding = table.meta.get("encoding")
-        if encoding in ("features_f32", "tokens_i32"):
+        if encoding == "features_f32":
             raise NotImplementedError(
                 f"{encoding} tables are not yet ported to ddw_tpu_torch's "
                 f"loader; see ROADMAP.md")
@@ -165,6 +168,9 @@ class ShardedLoader:
                             if prefetch_to is not None else None)
         self.skip_records = skip_records
 
+        # a token table's content is an int32 [S+1] sequence
+        self._token_len = (table.meta.get("seq_plus_one")
+                           if encoding == "tokens_i32" else None)
         self._raw_u8 = encoding == "raw_u8"
         if self._raw_u8:
             th, tw = table.meta["height"], table.meta["width"]
@@ -260,6 +266,18 @@ class ShardedLoader:
         return it
 
     def _iter_batches(self) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        if self._token_len:
+            t = self._token_len
+            toks = np.empty((self.batch_size, t), np.int32)
+            i = 0
+            for content, _ in self._iter_raw_resumed():
+                toks[i] = np.frombuffer(content, np.int32, count=t)
+                i += 1
+                if i == self.batch_size:
+                    yield toks[:, :-1].copy(), toks[:, 1:].copy()
+                    i = 0
+            return  # drop remainder: static shapes
+
         lbls = np.empty((self.batch_size,), np.int32)
         if self._raw_u8:
             # uint8 batches when a device prefetcher dequantizes downstream

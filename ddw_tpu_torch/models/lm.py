@@ -22,19 +22,28 @@ Two modes off one module, as ``ddw_tpu``'s ``decode`` flag gives:
   The cache is a dict with flax's leaf names; the port updates its K/V
   tensors in place and keeps the indices as host integers.
 
+Training mode (``model.train()``) applies flax's dropout after attention
+and after the MLP of every block, with masks drawn from an explicit
+generator (``dropout_rng``); ``remat`` rematerialises each block in the
+backward (``"full"``: ``torch.utils.checkpoint``; ``"dots"``: a selective
+checkpoint that keeps the matrix products). Each block seeds its own mask
+generator from a seed drawn up front, so a checkpoint's replay draws the
+masks of the first run.
+
 Not yet ported (each refused, naming ``ROADMAP.md``): MoE, sequence
 parallelism (``seq_axis``), the serving pools' ``slot_decode`` /
-``paged_decode`` and per-row ``adapters``. ``remat`` only changes training
-and is accepted and ignored here; training mode with dropout is refused.
+``paged_decode`` and per-row ``adapters``.
 """
 
 from __future__ import annotations
 
-import math
+import functools
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ddw_tpu_torch.ops.flash_attention import flash_mha
 from ddw_tpu_torch.ops.rope import apply_rope
@@ -202,14 +211,26 @@ class CausalSelfAttention(nn.Module):
         return out
 
 
+def dropout(h: torch.Tensor, rate: float,
+            gen: torch.Generator) -> torch.Tensor:
+    """``flax.linen.Dropout`` in training: keep each element with
+    probability ``1 - rate`` (a uniform draw below it, from ``gen`` on h's
+    device) and rescale the kept ones by ``1 / (1 - rate)``."""
+    keep_prob = 1.0 - rate
+    u = torch.rand(h.shape, generator=gen, device=h.device)
+    return torch.where(u < keep_prob, h / keep_prob, torch.zeros_like(h))
+
+
 class DecoderBlock(nn.Module):
     def __init__(self, hidden: int, num_heads: int, mlp_dim: int,
                  dtype: torch.dtype, max_len: int, num_kv_heads: int = 0,
                  lora_rank: int = 0, lora_alpha: float = 16.0,
-                 lora_targets: tuple[str, ...] = ("query", "value")):
+                 lora_targets: tuple[str, ...] = ("query", "value"),
+                 dropout_rate: float = 0.0):
         from ddw_tpu_torch.models.lora import maybe_lora_dense
 
         super().__init__()
+        self.dropout_rate = dropout_rate
         lora = dict(rank=lora_rank, alpha=lora_alpha, targets=lora_targets,
                     dtype=dtype)
         self.LayerNorm_0 = LayerNorm(hidden)
@@ -220,10 +241,34 @@ class DecoderBlock(nn.Module):
         self.fc1 = maybe_lora_dense((hidden,), (mlp_dim,), "fc1", **lora)
         self.fc2 = maybe_lora_dense((mlp_dim,), (hidden,), "fc2", **lora)
 
-    def forward(self, x, positions=None, cache=None):
-        x = x + self.attn(self.LayerNorm_0(x), positions, cache)
+    def forward(self, x, positions=None, cache=None,
+                dropout_seed: int | None = None):
+        """``dropout_seed`` (training only) seeds this block's mask
+        generator, so that a rematerialised replay draws the same masks."""
+        gen = None
+        if dropout_seed is not None:
+            gen = torch.Generator(device=x.device).manual_seed(dropout_seed)
+        h = self.attn(self.LayerNorm_0(x), positions, cache)
+        if gen is not None:
+            h = dropout(h, self.dropout_rate, gen)
+        x = x + h
         h = F.gelu(self.fc1(self.LayerNorm_1(x)), approximate="tanh")
-        return x + self.fc2(h)
+        h = self.fc2(h)
+        if gen is not None:
+            h = dropout(h, self.dropout_rate, gen)
+        return x + h
+
+
+# The matrix products a "dots" checkpoint keeps (jax.checkpoint_policies.
+# checkpoint_dots); everything else is recomputed in the backward.
+_DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default,
+                      torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 class TransformerLM(nn.Module):
@@ -263,6 +308,7 @@ class TransformerLM(nn.Module):
         self.vocab_size, self.max_len, self.hidden = vocab_size, max_len, hidden
         self.depth, self.num_heads, self.dropout = depth, num_heads, dropout
         self.dtype, self.pos_encoding = dtype, pos_encoding
+        self.remat, self.lora_rank = remat, lora_rank
         self.kv_heads = num_kv_heads or num_heads
         self.tok_embed = Embed(vocab_size, hidden, dtype)
         if pos_encoding == "learned":
@@ -270,7 +316,7 @@ class TransformerLM(nn.Module):
         for i in range(depth):
             setattr(self, f"backbone_block{i}", DecoderBlock(
                 hidden, num_heads, mlp_dim, dtype, max_len, num_kv_heads,
-                lora_rank, lora_alpha, lora_targets))
+                lora_rank, lora_alpha, lora_targets, dropout))
         self.LayerNorm_0 = LayerNorm(hidden)
         self.head = DenseGeneral((hidden,), (vocab_size,), torch.float32)
 
@@ -278,11 +324,19 @@ class TransformerLM(nn.Module):
         return [getattr(self, f"backbone_block{i}") for i in range(self.depth)]
 
     def forward(self, tokens: torch.Tensor, cache: dict | None = None,
-                adapters=None) -> torch.Tensor:
+                adapters=None,
+                dropout_rng: torch.Generator | None = None) -> torch.Tensor:
+        """``dropout_rng`` (a CPU generator) is required in training mode
+        with ``dropout > 0``: one seed per block is drawn from it."""
         if adapters is not None:
             raise _not_ported("per-row LoRA adapters (serve/adapters)")
+        seeds = [None] * self.depth
         if self.training and self.dropout > 0:
-            raise _not_ported("LM training (dropout in training mode)")
+            if dropout_rng is None:
+                raise ValueError("dropout in training mode needs a "
+                                 "dropout_rng torch.Generator")
+            seeds = torch.randint(1 << 62, (self.depth,),
+                                  generator=dropout_rng).tolist()
         s = tokens.shape[1]
         x = self.tok_embed(tokens)
         offset = 0
@@ -298,10 +352,20 @@ class TransformerLM(nn.Module):
             x = x + self.pos_embed[start:start + s].to(self.dtype)[None]
         else:
             positions = offset + torch.arange(s, device=tokens.device)
+        remat = (self.remat != "none" and cache is None
+                 and torch.is_grad_enabled())
+        kw = {}
+        if self.remat == "dots":
+            kw["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _save_dots)
         for i, block in enumerate(self.blocks()):
-            layer = None if cache is None \
-                else cache[f"backbone_block{i}"]["attn"]
-            x = block(x, positions, layer)
+            if remat:
+                x = checkpoint(block, x, positions, None, seeds[i],
+                               use_reentrant=False, **kw)
+            else:
+                layer = None if cache is None \
+                    else cache[f"backbone_block{i}"]["attn"]
+                x = block(x, positions, layer, seeds[i])
         return self.head(self.LayerNorm_0(x))
 
 

@@ -1,16 +1,22 @@
-"""LoRA for inference — the port of ``ddw_tpu.models.lora``'s forward pieces.
+"""LoRA — the port of ``ddw_tpu.models.lora``: the adapted projection and
+its training pieces.
 
 A targeted projection carries a rank-``r`` update ``dW = A B * alpha / r``
 beside its frozen kernel, under the same parameter names and shapes as the
 ``DenseGeneral`` it replaces (``kernel``, ``bias``, ``lora_a [*in, r]``,
 ``lora_b [r, *feats]``), so a LoRA-trained LM package loads and scores.
-Training (``lora_optimizer``, ``merge_base_params``) comes with LM training
-and ``row_lora_delta`` (per-row adapters) with the serving pools
-(``ROADMAP.md``).
+Training freezes the base: :func:`lora_mask` marks the adapter leaves (and
+the head) trainable, :func:`lora_optimizer` applies it to an optimizer at
+leaf granularity, :func:`merge_base_params` grafts a base checkpoint into a
+LoRA tree, :func:`count_trainable` counts what trains. ``row_lora_delta``
+(per-row adapters) comes with the serving pools (``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
+import copy
+import functools
+import math
 from typing import Sequence
 
 import torch
@@ -21,6 +27,7 @@ from ddw_tpu_torch.models.lm import DenseGeneral
 # Projections the LM routes through maybe_lora_dense; anything else in
 # lora_targets is a config error.
 LM_LORA_TARGETS = ("query", "key", "value", "out", "fc1", "fc2")
+LORA_PARAM_NAMES = ("lora_a", "lora_b")
 
 
 class LoRADenseGeneral(DenseGeneral):
@@ -64,3 +71,78 @@ def maybe_lora_dense(in_dims: tuple[int, ...], features: tuple[int, ...],
     if rank and name in tuple(targets):
         return LoRADenseGeneral(in_dims, features, rank, alpha, dtype)
     return DenseGeneral(in_dims, features, dtype)
+
+
+def _path(key: str) -> tuple[str, ...]:
+    return tuple(key.split("."))
+
+
+def is_lora_trainable(name: str,
+                      extra_trainable: Sequence[str] = ("head",)) -> bool:
+    """Whether the leaf at ``name`` (dotted, as ``named_parameters`` gives
+    it) trains under LoRA: an adapter leaf anywhere, or any leaf under a
+    top-level key in ``extra_trainable``."""
+    path = _path(name)
+    return (any(p in LORA_PARAM_NAMES for p in path)
+            or path[0] in tuple(extra_trainable))
+
+
+def lora_mask(params, extra_trainable: Sequence[str] = ("head",)):
+    """Bool tree over ``params`` (a nested flax-layout dict, or a flat dict
+    of dotted names): True where the optimizer should update: adapter
+    leaves (``lora_a``/``lora_b``) anywhere, plus every leaf under a
+    top-level key in ``extra_trainable``."""
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + _path(k)) for k, v in node.items()}
+        return is_lora_trainable(".".join(path), extra_trainable)
+    return walk(params, ())
+
+
+def lora_optimizer(tx, extra_trainable: Sequence[str] = ("head",)):
+    """A copy of the port's optimizer ``tx`` that updates only adapter
+    (and ``extra_trainable``) leaves: optax ``multi_transform`` with
+    ``set_to_zero`` on the rest, at leaf granularity. Frozen leaves get no
+    update, no optimizer state and no share of the clipping norm."""
+    out = copy.copy(tx)
+    out.trainable_mask = functools.partial(
+        is_lora_trainable, extra_trainable=tuple(extra_trainable))
+    return out
+
+
+def merge_base_params(lora_params, base_params, _path_str: str = ""):
+    """Graft a base (non-LoRA) checkpoint into a LoRA parameter tree (nested
+    dicts): every base leaf replaces its counterpart; adapter leaves keep
+    their init. Raises on a base key missing from the LoRA tree or a shape
+    mismatch: a silent partial graft would fine-tune from garbage."""
+    if not isinstance(base_params, dict):
+        if (getattr(lora_params, "shape", None) is not None
+                and tuple(lora_params.shape) != tuple(base_params.shape)):
+            raise ValueError(f"shape mismatch at {_path_str!r}: "
+                             f"{tuple(lora_params.shape)} vs "
+                             f"{tuple(base_params.shape)}")
+        return base_params
+    if not isinstance(lora_params, dict):
+        raise ValueError(f"base has subtree at {_path_str!r}, LoRA tree has "
+                         f"leaf")
+    out = dict(lora_params)
+    for k, v in base_params.items():
+        if k not in lora_params:
+            raise ValueError(f"base key {_path_str + '/' + k!r} absent from "
+                             f"the LoRA param tree")
+        out[k] = merge_base_params(lora_params[k], v, _path_str + "/" + k)
+    return out
+
+
+def count_trainable(params, extra_trainable: Sequence[str] = ("head",)
+                    ) -> tuple[int, int]:
+    """``(trainable, total)`` parameter counts under the LoRA mask."""
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                yield from walk(v, path + _path(k))
+        else:
+            yield (math.prod(tuple(node.shape)),
+                   is_lora_trainable(".".join(path), extra_trainable))
+    sizes = list(walk(params, ()))
+    return sum(n for n, m in sizes if m), sum(n for n, _ in sizes)

@@ -1,5 +1,6 @@
-// Flash-attention forward (K3) for Hopper: online-softmax attention that
-// never writes the score matrix to device memory.
+// Flash attention for Hopper: the forward (K3), online-softmax attention that
+// never writes the score matrix to device memory, and the backward (K4 dQ,
+// K5 dK/dV, further below), which rebuilds p from the saved logsumexp.
 //
 // K3 replaces ddw_tpu/ops/flash_attention.py `_flash_kernel` / `_flash_forward`
 // (the Pallas TPU kernel). For q [BH, Sq, D] and k, v [BH, Sk, D] it computes
@@ -606,6 +607,591 @@ int dispatch_d(int d, const void* q, const void* k, const void* v, void* out,
   }
 }
 
+
+// ---- K4 (dQ) and K5 (dK/dV): the backward, from the saved logsumexp --------
+//
+// K4 replaces ddw_tpu/ops/flash_attention.py `_dq_kernel` (the pallas_call of
+// `_partitioned_bwd` at :425) and K5 `_dkv_kernel` (the one at :445). For
+// q, do [BH, Sq, D], k, v [BH, Sk, D], lse and delta = rowsum(do * out) -
+// g_lse [BH, Sq] (f32, computed outside the kernels) they compute, pair by
+// (query, key) pair, what those kernels compute block by block:
+//   s  = (q . k) * sm_scale, masked to -1e30 as in K3
+//   p  = exp(s - lse), re-zeroed where s was masked (`_guarded_exp`)
+//   dp = do . v                                  (input-dtype products, f32)
+//   ds = p * (dp - delta)
+//   dq = sm_scale * sum_k round(ds) k      dv = sum_q round(p) do
+//   dk = sm_scale * sum_q round(ds) q
+// where round() is the rounding to the input dtype (bf16; none for f32), and
+// sm_scale multiplies the f32 sums after the products. The TPU's block sizes
+// set only the grouping of the f32 partial sums; the kernels use their own
+// tiles (64 x 64 on the tensor cores, 32 x 32 on the CUDA cores), take any
+// Sq and Sk, and mask the ragged edge: keys past Sk give p = 0, and query
+// rows past Sq load lse = +inf, so their p is 0 too. A row that sees no key
+// has lse ~ -1e30 and every s masked, so the guard gives p = 0 and its dq,
+// and its share of dk and dv, are exactly 0. Tiles wholly in the causal
+// future, or at or past k_valid, are skipped (an exact no-op), and a block
+// whose rows see nothing writes zeros.
+//
+// Determinism: each output element is summed by one thread, over tiles in a
+// fixed order; there are no atomics, so two launches give the same bits.
+// K4: one block owns a tile of query rows and walks the visible key tiles;
+// K5: one block owns a tile of key rows and walks the visible query tiles
+// (at or after the diagonal when causal). (FA2's single-pass backward adds
+// dQ with float atomics from the dK/dV pass; that is what these avoid.)
+//
+// What bounds them: operations. A causal K4 at the LM's training shape
+// [256, 2048, 64] does three products of 2 * D FLOPs over the 256 * 2048 *
+// 2049 / 2 visible pairs, 2.06e11 FLOP (0.208 ms at 989 TFLOP/s bf16), K5
+// four, 2.75e11 (0.278 ms), against 0.34 and 0.40 GB of traffic (0.10 and
+// 0.12 ms at 3.35 TB/s).
+//
+// Design, simple and right first: bf16 runs on the tensor cores with the
+// mma.sync m16n8k16 fragments, ldmatrix staging and pack_bf16x2 of K3; f32
+// on the CUDA cores. Operands are staged in shared memory with synchronous
+// 16-byte copies per tile (no cp.async, TMA or wgmma yet). The C entries
+// return cudaGetLastError() after the launch.
+
+constexpr int BT = 64;          // columns (keys in K4, queries in K5) per tile
+
+// A-operand fragments (16 rows of a warp x D) of a [rows][QS] bf16 tile.
+template <int D>
+__device__ __forceinline__ void load_a_frags(uint32_t (&f)[D / 16][4],
+                                             const __nv_bfloat16* tile,
+                                             int warp, int g, int t) {
+  constexpr int QS = D + MPAD;
+  const __nv_bfloat16* w = tile + warp * 16 * QS + 2 * t;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    f[ks][0] = lds32(w + g * QS + ks * 16);
+    f[ks][1] = lds32(w + (g + 8) * QS + ks * 16);
+    f[ks][2] = lds32(w + g * QS + ks * 16 + 8);
+    f[ks][3] = lds32(w + (g + 8) * QS + ks * 16 + 8);
+  }
+}
+
+// acc[j] (16 x 8 tile j of a warp's 16 x BT block) += A . B^T, A from
+// fragments, B the BT rows of a [BT][QS] tile (contraction over D).
+template <int D>
+__device__ __forceinline__ void mma_abt(float (&acc)[BT / 8][4],
+                                        const uint32_t (&a)[D / 16][4],
+                                        const __nv_bfloat16* tile, int lane) {
+  constexpr int QS = D + MPAD;
+#pragma unroll
+  for (int j = 0; j < BT / 8; ++j) {
+    const __nv_bfloat16* r = tile + (j * 8 + (lane & 7)) * QS + (lane >> 3) * 8;
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ks += 2) {
+      uint32_t b[4];
+      ldsm_x4(b, r + ks * 16);
+      mma_16816(acc[j], a[ks], b[0], b[1]);
+      mma_16816(acc[j], a[ks + 1], b[2], b[3]);
+    }
+  }
+}
+
+// out[j] (16 x 8 tile j of a warp's 16 x D block) += round(x) . B, x the
+// warp's 16 x BT f32 block in the accumulator layout (rounded to bf16 as it
+// becomes the A operand) and B a [BT][QS] tile (contraction over its rows).
+template <int D>
+__device__ __forceinline__ void mma_xb(float (&out)[D / 8][4],
+                                       const float (&x)[BT / 8][4],
+                                       const __nv_bfloat16* tile, int lane) {
+  constexpr int QS = D + MPAD;
+#pragma unroll
+  for (int kk = 0; kk < BT / 16; ++kk) {
+    const uint32_t a[4] = {pack_bf16x2(x[2 * kk][0], x[2 * kk][1]),
+                           pack_bf16x2(x[2 * kk][2], x[2 * kk][3]),
+                           pack_bf16x2(x[2 * kk + 1][0], x[2 * kk + 1][1]),
+                           pack_bf16x2(x[2 * kk + 1][2], x[2 * kk + 1][3])};
+    const __nv_bfloat16* r = tile + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * QS
+                             + (lane >> 4) * 8;
+#pragma unroll
+    for (int j = 0; j < D / 8; j += 2) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, r + j * 8);
+      mma_16816(out[j], a, b[0], b[1]);
+      mma_16816(out[j + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+template <int D>
+constexpr int bwd_mma_smem_bytes() {
+  return 4 * BT * (D + MPAD) * 2 + 2 * BT * 4;
+}
+
+template <int D>
+__global__ void __launch_bounds__(MTHREADS, D <= 64 ? 2 : 1)
+flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dq, int sq, int sk,
+                        int causal, int q_offset, int k_offset, float sm_scale,
+                        int k_valid) {
+  constexpr int QS = D + MPAD;
+  constexpr int NT = BT / 8, DT = D / 8;
+  static_assert((D / 16) % 2 == 0 && DT % 2 == 0, "fragments come in pairs");
+  extern __shared__ uint4 smem_bwd[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_bwd);
+  __nv_bfloat16* Os = Qs + MQ * QS;
+  __nv_bfloat16* Ks = Os + MQ * QS;
+  __nv_bfloat16* Vs = Ks + BT * QS;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * MQ;  // heaviest causal tiles first
+  const int qrows = min(MQ, sq - q0);
+  const size_t qbase = (size_t)bh * sq + q0;
+  stage_bf16<D>(q + qbase * D, Qs, MQ, qrows, QS);
+  stage_bf16<D>(dout + qbase * D, Os, MQ, qrows, QS);
+  __syncthreads();
+  uint32_t qf[D / 16][4], of[D / 16][4];
+  load_a_frags<D>(qf, Qs, warp, g, t);
+  load_a_frags<D>(of, Os, warp, g, t);
+  float lrow[2], drow[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = warp * 16 + g + 8 * h;
+    lrow[h] = r < qrows ? lse[qbase + r] : INFINITY;  // rows past Sq: p = 0
+    drow[h] = r < qrows ? delta[qbase + r] : 0.f;
+  }
+  float acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  const int qpos0 = q_offset + q0 + warp * 16 + g;  // rows qpos0, qpos0 + 8
+  const int q_last = q_offset + q0 + qrows - 1;
+  const int n_kt = (sk + BT - 1) / BT;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k_first = k_offset + kt * BT;
+    if (causal && k_first > q_last) break;
+    if (k_valid >= 0 && k_first >= k_valid) break;
+    const int kvalid = min(BT, sk - kt * BT);
+    const size_t kv_base = ((size_t)bh * sk + (size_t)kt * BT) * D;
+    __syncthreads();  // the previous tile's readers of Ks and Vs are done
+    stage_bf16<D>(k + kv_base, Ks, BT, kvalid, QS);
+    stage_bf16<D>(v + kv_base, Vs, BT, kvalid, QS);
+    __syncthreads();
+
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    mma_abt<D>(s, qf, Ks, lane);
+    mma_abt<D>(dp, of, Vs, lane);
+
+    const int k_last = k_first + BT - 1;
+    const bool edge = (causal && k_last > qpos0 - g) ||
+                      (k_valid >= 0 && k_last >= k_valid) || kvalid < BT;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const int c = j * 8 + 2 * t + (e & 1);
+        float x = s[j][e] * sm_scale;
+        bool dead = false;
+        if (edge) {
+          const int kpos = k_first + c;
+          const bool keep = (!causal || kpos <= qpos0 + 8 * h) &&
+                            (k_valid < 0 || kpos < k_valid);
+          if (!keep) x = kNeg;
+          dead = c >= kvalid || !(x > kNeg / 2);  // a padded key, or masked
+        }
+        const float p = dead ? 0.f : exp2f((x - lrow[h]) * kLog2e);
+        dp[j][e] = p * (dp[j][e] - drow[h]);  // ds
+      }
+    mma_xb<D>(acc, dp, Ks, lane);  // dq += round(ds) . k
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = warp * 16 + g + 8 * h;
+    if (r >= qrows) continue;
+    const size_t row = qbase + r;
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+      *reinterpret_cast<uint32_t*>(dq + row * D + j * 8 + 2 * t) =
+          pack_bf16x2(acc[j][2 * h] * sm_scale, acc[j][2 * h + 1] * sm_scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(MTHREADS, D <= 64 ? 2 : 1)
+flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int sq, int sk,
+                         int causal, int q_offset, int k_offset,
+                         float sm_scale, int k_valid) {
+  constexpr int QS = D + MPAD;
+  constexpr int NT = BT / 8, DT = D / 8;
+  static_assert((D / 16) % 2 == 0 && DT % 2 == 0, "fragments come in pairs");
+  extern __shared__ uint4 smem_bwd[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_bwd);
+  __nv_bfloat16* Vs = Ks + MQ * QS;
+  __nv_bfloat16* Qs = Vs + MQ * QS;
+  __nv_bfloat16* Os = Qs + BT * QS;
+  float* Ls = reinterpret_cast<float*>(Os + BT * QS);
+  float* Dl = Ls + BT;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * MQ;  // low key tiles, the most causal work, first
+  const int krows = min(MQ, sk - k0);
+  const size_t kbase = (size_t)bh * sk + k0;
+  stage_bf16<D>(k + kbase * D, Ks, MQ, krows, QS);
+  stage_bf16<D>(v + kbase * D, Vs, MQ, krows, QS);
+  __syncthreads();
+  uint32_t kf[D / 16][4], vf[D / 16][4];
+  load_a_frags<D>(kf, Ks, warp, g, t);
+  load_a_frags<D>(vf, Vs, warp, g, t);
+  float dka[DT][4], dva[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+  const int kpos0 = k_offset + k0 + warp * 16 + g;  // keys kpos0, kpos0 + 8
+  const int k_first = k_offset + k0;
+  const int k_last_w = kpos0 - g + 15;              // the warp's last key
+  int qt0 = 0;  // causal: the first query tile whose last row reaches k_first
+  if (causal) {
+    const int need = k_first - q_offset - (BT - 1);
+    qt0 = need <= 0 ? 0 : (need + BT - 1) / BT;
+  }
+  const int n_qt = (k_valid >= 0 && k_first >= k_valid) ? 0 : (sq + BT - 1) / BT;
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int qvalid = min(BT, sq - qt * BT);
+    const size_t qrow = (size_t)bh * sq + (size_t)qt * BT;
+    __syncthreads();  // the previous tile's readers are done
+    stage_bf16<D>(q + qrow * D, Qs, BT, qvalid, QS);
+    stage_bf16<D>(dout + qrow * D, Os, BT, qvalid, QS);
+    for (int i = threadIdx.x; i < BT; i += MTHREADS) {
+      Ls[i] = i < qvalid ? lse[qrow + i] : INFINITY;  // rows past Sq: p = 0
+      Dl[i] = i < qvalid ? delta[qrow + i] : 0.f;
+    }
+    __syncthreads();
+
+    // the transposed products: rows are this warp's 16 keys, columns the
+    // tile's queries
+    float st[NT][4], dpt[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+    mma_abt<D>(st, kf, Qs, lane);
+    mma_abt<D>(dpt, vf, Os, lane);
+
+    const int q_first = q_offset + qt * BT;
+    const bool edge = (causal && q_first < k_last_w) ||
+                      (k_valid >= 0 && k_last_w >= k_valid) || qvalid < BT;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const int c = j * 8 + 2 * t + (e & 1);
+        float x = st[j][e] * sm_scale;
+        bool dead = false;
+        if (edge) {
+          const int kpos = kpos0 + 8 * h;
+          const bool keep = (!causal || kpos <= q_first + c) &&
+                            (k_valid < 0 || kpos < k_valid);
+          if (!keep) x = kNeg;
+          dead = c >= qvalid || !(x > kNeg / 2);  // a padded query, or masked
+        }
+        const float p = dead ? 0.f : exp2f((x - Ls[c]) * kLog2e);
+        st[j][e] = p;
+        dpt[j][e] = p * (dpt[j][e] - Dl[c]);  // ds
+      }
+    mma_xb<D>(dva, st, Os, lane);   // dv += round(p)^T . do
+    mma_xb<D>(dka, dpt, Qs, lane);  // dk += round(ds)^T . q
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = warp * 16 + g + 8 * h;
+    if (r >= krows) continue;
+    const size_t row = kbase + r;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + row * D + j * 8 + 2 * t) =
+          pack_bf16x2(dka[j][2 * h] * sm_scale, dka[j][2 * h + 1] * sm_scale);
+      *reinterpret_cast<uint32_t*>(dv + row * D + j * 8 + 2 * t) =
+          pack_bf16x2(dva[j][2 * h], dva[j][2 * h + 1]);
+    }
+  }
+}
+
+// ---- f32 on the CUDA cores: 32 x 32 tiles, 256 threads ---------------------
+//
+// A thread owns one row of the block's 32 (r = tid / 8) and the columns
+// tid % 8 + 8 i of each tile: four (row, column) pairs of s and dp, then
+// D / 8 output columns per accumulated tensor. Tiles are staged as f32 with
+// rows padded to D + 1 floats (conflict-free column walks).
+
+constexpr int FR = 32, FC = 32, FTHREADS = 256;
+
+template <int D>
+constexpr int bwd_f32_smem_bytes() {
+  return (4 * FR * (D + 1) + 2 * FR * (FC + 1) + 2 * FC) * 4;
+}
+
+template <int D>
+__device__ __forceinline__ void stage_f32(const float* __restrict__ src,
+                                          float* dst, int rows, int valid) {
+  for (int idx = threadIdx.x; idx < rows * D; idx += FTHREADS) {
+    const int r = idx / D, d = idx % D;
+    dst[r * (D + 1) + d] = r < valid ? src[(size_t)r * D + d] : 0.f;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(FTHREADS)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, float* __restrict__ dq,
+                        int sq, int sk, int causal, int q_offset, int k_offset,
+                        float sm_scale, int k_valid) {
+  constexpr int DS = D + 1, NDL = D / 8;
+  extern __shared__ float4 smem_f32[];
+  float* Qs = reinterpret_cast<float*>(smem_f32);
+  float* Os = Qs + FR * DS;
+  float* Ks = Os + FR * DS;
+  float* Vs = Ks + FC * DS;
+  float* Ds = Vs + FC * DS;  // [FR][FC + 1]
+
+  const int r = threadIdx.x >> 3, l8 = threadIdx.x & 7;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * FR;
+  const int qrows = min(FR, sq - q0);
+  const size_t qbase = (size_t)bh * sq + q0;
+  stage_f32<D>(q + qbase * D, Qs, FR, qrows);
+  stage_f32<D>(dout + qbase * D, Os, FR, qrows);
+  const float lrow = r < qrows ? lse[qbase + r] : INFINITY;
+  const float drow = r < qrows ? delta[qbase + r] : 0.f;
+  float acc[NDL];
+#pragma unroll
+  for (int i = 0; i < NDL; ++i) acc[i] = 0.f;
+  const bool masked = causal || k_valid >= 0;
+  const int qpos = q_offset + q0 + r;
+  const int q_last = q_offset + q0 + qrows - 1;
+  const int n_kt = (sk + FC - 1) / FC;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k_first = k_offset + kt * FC;
+    if (causal && k_first > q_last) break;
+    if (k_valid >= 0 && k_first >= k_valid) break;
+    const int kvalid = min(FC, sk - kt * FC);
+    const size_t kv_base = ((size_t)bh * sk + (size_t)kt * FC) * D;
+    __syncthreads();
+    stage_f32<D>(k + kv_base, Ks, FC, kvalid);
+    stage_f32<D>(v + kv_base, Vs, FC, kvalid);
+    __syncthreads();
+    float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int d = 0; d < D; ++d) {
+      const float qv = Qs[r * DS + d], ov = Os[r * DS + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[i] = fmaf(qv, Ks[(l8 + 8 * i) * DS + d], s[i]);
+        dp[i] = fmaf(ov, Vs[(l8 + 8 * i) * DS + d], dp[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = l8 + 8 * i, kpos = k_first + c;
+      float x = s[i] * sm_scale;
+      if (masked && !((!causal || kpos <= qpos) && (k_valid < 0 || kpos < k_valid)))
+        x = kNeg;
+      const bool dead = c >= kvalid || (masked && !(x > kNeg / 2));
+      const float p = dead ? 0.f : expf(x - lrow);
+      Ds[r * (FC + 1) + c] = p * (dp[i] - drow);
+    }
+    __syncthreads();
+    for (int c = 0; c < FC; ++c) {
+      const float ds = Ds[r * (FC + 1) + c];
+#pragma unroll
+      for (int i = 0; i < NDL; ++i)
+        acc[i] = fmaf(ds, Ks[c * DS + l8 + 8 * i], acc[i]);
+    }
+  }
+  if (r < qrows)
+#pragma unroll
+    for (int i = 0; i < NDL; ++i) dq[(qbase + r) * D + l8 + 8 * i] = acc[i] * sm_scale;
+}
+
+template <int D>
+__global__ void __launch_bounds__(FTHREADS)
+flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, float* __restrict__ dk,
+                         float* __restrict__ dv, int sq, int sk, int causal,
+                         int q_offset, int k_offset, float sm_scale,
+                         int k_valid) {
+  constexpr int DS = D + 1, NDL = D / 8;
+  extern __shared__ float4 smem_f32[];
+  float* Ks = reinterpret_cast<float*>(smem_f32);
+  float* Vs = Ks + FR * DS;
+  float* Qs = Vs + FR * DS;
+  float* Os = Qs + FC * DS;
+  float* Ps = Os + FC * DS;        // [FR][FC + 1]
+  float* Ds = Ps + FR * (FC + 1);  // [FR][FC + 1]
+  float* Ls = Ds + FR * (FC + 1);
+  float* Dl = Ls + FC;
+
+  const int r = threadIdx.x >> 3, l8 = threadIdx.x & 7;
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * FR;
+  const int krows = min(FR, sk - k0);
+  const size_t kbase = (size_t)bh * sk + k0;
+  stage_f32<D>(k + kbase * D, Ks, FR, krows);
+  stage_f32<D>(v + kbase * D, Vs, FR, krows);
+  float dka[NDL], dva[NDL];
+#pragma unroll
+  for (int i = 0; i < NDL; ++i) dka[i] = dva[i] = 0.f;
+  const bool masked = causal || k_valid >= 0;
+  const int kpos = k_offset + k0 + r;
+  const int k_first = k_offset + k0;
+  int qt0 = 0;
+  if (causal) {
+    const int need = k_first - q_offset - (FC - 1);
+    qt0 = need <= 0 ? 0 : (need + FC - 1) / FC;
+  }
+  const int n_qt = (k_valid >= 0 && k_first >= k_valid) ? 0 : (sq + FC - 1) / FC;
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int qvalid = min(FC, sq - qt * FC);
+    const size_t qrow = (size_t)bh * sq + (size_t)qt * FC;
+    __syncthreads();
+    stage_f32<D>(q + qrow * D, Qs, FC, qvalid);
+    stage_f32<D>(dout + qrow * D, Os, FC, qvalid);
+    for (int i = threadIdx.x; i < FC; i += FTHREADS) {
+      Ls[i] = i < qvalid ? lse[qrow + i] : INFINITY;
+      Dl[i] = i < qvalid ? delta[qrow + i] : 0.f;
+    }
+    __syncthreads();
+    float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int d = 0; d < D; ++d) {
+      const float kv = Ks[r * DS + d], vv = Vs[r * DS + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[i] = fmaf(kv, Qs[(l8 + 8 * i) * DS + d], s[i]);
+        dp[i] = fmaf(vv, Os[(l8 + 8 * i) * DS + d], dp[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = l8 + 8 * i, qpos = q_offset + qt * FC + c;
+      float x = s[i] * sm_scale;
+      if (masked && !((!causal || kpos <= qpos) && (k_valid < 0 || kpos < k_valid)))
+        x = kNeg;
+      const bool dead = c >= qvalid || (masked && !(x > kNeg / 2));
+      const float p = dead ? 0.f : expf(x - Ls[c]);
+      Ps[r * (FC + 1) + c] = p;
+      Ds[r * (FC + 1) + c] = p * (dp[i] - Dl[c]);
+    }
+    __syncthreads();
+    for (int c = 0; c < FC; ++c) {
+      const float p = Ps[r * (FC + 1) + c], ds = Ds[r * (FC + 1) + c];
+#pragma unroll
+      for (int i = 0; i < NDL; ++i) {
+        dva[i] = fmaf(p, Os[c * DS + l8 + 8 * i], dva[i]);
+        dka[i] = fmaf(ds, Qs[c * DS + l8 + 8 * i], dka[i]);
+      }
+    }
+  }
+  if (r < krows)
+#pragma unroll
+    for (int i = 0; i < NDL; ++i) {
+      dk[(kbase + r) * D + l8 + 8 * i] = dka[i] * sm_scale;
+      dv[(kbase + r) * D + l8 + 8 * i] = dva[i];
+    }
+}
+
+struct BwdArgs {
+  const void *q, *k, *v, *dout, *lse, *delta;
+  void *dq, *dk, *dv;
+  int bh, sq, sk, causal, q_offset, k_offset, k_valid;
+  float sm_scale;
+  cudaStream_t stream;
+};
+
+template <typename Kernel>
+int set_smem(Kernel kernel, int bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int D>
+int launch_bwd(const BwdArgs& a, int dtype, bool dq_pass) {
+  using bf = __nv_bfloat16;
+  if (dtype == 1) {  // bf16: the tensor cores
+    const int smem = bwd_mma_smem_bytes<D>();
+    if (dq_pass) {
+      auto kern = flash_bwd_dq_mma_kernel<D>;
+      if (int err = set_smem(kern, smem)) return err;
+      kern<<<dim3(a.bh, (a.sq + MQ - 1) / MQ), MTHREADS, smem, a.stream>>>(
+          (const bf*)a.q, (const bf*)a.k, (const bf*)a.v, (const bf*)a.dout,
+          (const float*)a.lse, (const float*)a.delta, (bf*)a.dq, a.sq, a.sk,
+          a.causal, a.q_offset, a.k_offset, a.sm_scale, a.k_valid);
+    } else {
+      auto kern = flash_bwd_dkv_mma_kernel<D>;
+      if (int err = set_smem(kern, smem)) return err;
+      kern<<<dim3(a.bh, (a.sk + MQ - 1) / MQ), MTHREADS, smem, a.stream>>>(
+          (const bf*)a.q, (const bf*)a.k, (const bf*)a.v, (const bf*)a.dout,
+          (const float*)a.lse, (const float*)a.delta, (bf*)a.dk, (bf*)a.dv,
+          a.sq, a.sk, a.causal, a.q_offset, a.k_offset, a.sm_scale, a.k_valid);
+    }
+  } else {  // f32: the CUDA cores
+    const int smem = bwd_f32_smem_bytes<D>();
+    if (dq_pass) {
+      auto kern = flash_bwd_dq_f32_kernel<D>;
+      if (int err = set_smem(kern, smem)) return err;
+      kern<<<dim3(a.bh, (a.sq + FR - 1) / FR), FTHREADS, smem, a.stream>>>(
+          (const float*)a.q, (const float*)a.k, (const float*)a.v,
+          (const float*)a.dout, (const float*)a.lse, (const float*)a.delta,
+          (float*)a.dq, a.sq, a.sk, a.causal, a.q_offset, a.k_offset,
+          a.sm_scale, a.k_valid);
+    } else {
+      auto kern = flash_bwd_dkv_f32_kernel<D>;
+      if (int err = set_smem(kern, smem)) return err;
+      kern<<<dim3(a.bh, (a.sk + FR - 1) / FR), FTHREADS, smem, a.stream>>>(
+          (const float*)a.q, (const float*)a.k, (const float*)a.v,
+          (const float*)a.dout, (const float*)a.lse, (const float*)a.delta,
+          (float*)a.dk, (float*)a.dv, a.sq, a.sk, a.causal, a.q_offset,
+          a.k_offset, a.sm_scale, a.k_valid);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+int dispatch_bwd(const BwdArgs& a, int d, int dtype, bool dq_pass) {
+  if (a.bh < 1 || a.sq < 1 || a.sk < 1 || (dtype != 0 && dtype != 1) ||
+      (a.sq + FR - 1) / FR > 65535 || (a.sk + FR - 1) / FR > 65535)
+    return (int)cudaErrorInvalidValue;
+  switch (d) {
+    case 32: return launch_bwd<32>(a, dtype, dq_pass);
+    case 64: return launch_bwd<64>(a, dtype, dq_pass);
+    case 128: return launch_bwd<128>(a, dtype, dq_pass);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -630,6 +1216,33 @@ int ddw_flash_fwd(const void* q, const void* k, const void* v, void* out,
                                      q_offset, k_offset, sm_scale, block_k,
                                      k_valid, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// K4: q, do [bh, sq, d], k/v [bh, sk, d] in float32 (dtype 0) or bfloat16
+// (dtype 1), lse and delta [bh, sq] float32, all contiguous and 16-byte
+// aligned; dq [bh, sq, d] in the input dtype. d in {32, 64, 128}; any sq,
+// sk >= 1; k_valid < 0 means no key mask. Returns a cudaError_t code.
+int ddw_flash_bwd_dq(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     void* dq, int bh, int sq, int sk, int d, int dtype,
+                     int causal, int q_offset, int k_offset, float sm_scale,
+                     int k_valid, void* stream) {
+  const BwdArgs a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, bh, sq,
+                  sk, causal, q_offset, k_offset, k_valid, sm_scale,
+                  static_cast<cudaStream_t>(stream)};
+  return dispatch_bwd(a, d, dtype, true);
+}
+
+// K5: the inputs of K4; dk, dv [bh, sk, d] in the input dtype.
+int ddw_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      void* dk, void* dv, int bh, int sq, int sk, int d,
+                      int dtype, int causal, int q_offset, int k_offset,
+                      float sm_scale, int k_valid, void* stream) {
+  const BwdArgs a{q, k, v, dout, lse, delta, nullptr, dk, dv, bh, sq, sk,
+                  causal, q_offset, k_offset, k_valid, sm_scale,
+                  static_cast<cudaStream_t>(stream)};
+  return dispatch_bwd(a, d, dtype, false);
 }
 
 }  // extern "C"

@@ -7,13 +7,22 @@ package's ``[B, H, S, D]`` layout at the public entries:
   ``csrc/flash_attention.cu`` on ``[B*H, S, D]`` tensors. It replaces the
   Pallas kernel ``ddw_tpu/ops/flash_attention.py`` ``_flash_kernel`` /
   ``_flash_forward``. It is bound by operations (a causal call at the LM's
-  ``[512, 2048, 64]`` is 2.75e11 FLOP against 537 MB), and this first version
-  computes in f32 on the CUDA cores, far from the tensor-core bound; the
-  design notes are in the source.
-- :func:`flash_attention_plain`, its plain PyTorch version: the TPU kernel's
-  online softmax step for step, one K block at a time, vectorised over every
-  (batch*head, query row) at once. The CPU path and the reference K3 is held
-  against on the card.
+  ``[512, 2048, 64]`` is 2.75e11 FLOP against 537 MB); bf16 runs on the
+  tensor cores (``mma.sync``), f32 on the CUDA cores. The design notes are in
+  the source.
+- :func:`flash_attention_dq_cuda` (K4) and :func:`flash_attention_dkv_cuda`
+  (K5) launch the backward kernels of the same source, which replace
+  ``_dq_kernel`` and ``_dkv_kernel`` (``_partitioned_bwd``): dQ, and dK/dV,
+  from the saved logsumexp, with ``p`` rebuilt tile by tile. Neither uses
+  float atomics, so two launches give the same bits.
+- :func:`flash_attention_plain`, :func:`flash_attention_dq_plain` and
+  :func:`flash_attention_dkv_plain`, their plain PyTorch versions: the TPU
+  kernels' arithmetic block by block, vectorised over every (batch*head,
+  row) at once. The CPU path, and the reference the kernels are held against
+  on the card.
+- :class:`FlashAttentionFn`, the autograd Function of the ``pallas`` tier:
+  K3 forward, K4 and K5 backward on CUDA tensors, the plain versions on CPU
+  tensors. Differentiable in both outputs (``out`` and ``lse``).
 - :func:`xla_attention_lse`, the ``xla`` tier of ``flash_mha``: one masked
   score matrix in plain torch ops (``_xla_attention_lse``), which the JAX
   package computes outside any Pallas kernel.
@@ -22,11 +31,9 @@ package's ``[B, H, S, D]`` layout at the public entries:
 bytes ``B*H*Sq*Sk*4`` exactly as ``ddw_tpu`` does (same thresholds, same
 environment names, read at import): ``xla`` up to 256 MiB, ``xla_ckpt`` (the
 ``xla`` tier under ``torch.utils.checkpoint`` when grad is enabled) up to
-2 GiB, ``pallas`` (K3 through :class:`FlashAttentionFn`) above. The
-thresholds were set on a TPU; they are kept so both packages pick the same
-tier for the same shapes, and re-setting them for the H100 needs
-measurements. The ``pallas`` tier has no backward yet: K4/K5 come with LM
-training (``ROADMAP.md``).
+2 GiB, ``pallas`` (:class:`FlashAttentionFn`) above. The thresholds were set
+on a TPU; they are kept so both packages pick the same tier for the same
+shapes, and re-setting them for the H100 needs measurements.
 """
 
 from __future__ import annotations
@@ -77,6 +84,52 @@ def mha_reference(q, k, v, causal: bool = False, q_offset: int = 0,
     return torch.einsum("bhqk,bhkd->bhqd", probs, v.to(acc)).to(q.dtype)
 
 
+def _masked_scores(qf, kf, q_first: int, k_first: int, causal: bool,
+                   sm_scale: float, k_valid: int | None) -> torch.Tensor:
+    """``_masked_scores``: ``q . k^T * sm_scale`` over upcast rows (an
+    f32 product of upcast bf16 operands is exact, the sum is f32) with the
+    causal and key-padding masks at global positions set to ``-1e30``.
+    Shared by the forward and both backward versions, as in ``ddw_tpu``."""
+    s = torch.matmul(qf, kf.transpose(1, 2)) * sm_scale
+    if causal or k_valid is not None:
+        dev = qf.device
+        kpos = k_first + torch.arange(kf.shape[1], device=dev)
+        keep = torch.ones((qf.shape[1], kf.shape[1]), dtype=torch.bool,
+                          device=dev)
+        if causal:
+            qpos = q_first + torch.arange(qf.shape[1], device=dev)
+            keep = kpos[None, :] <= qpos[:, None]
+        if k_valid is not None:
+            keep = keep & (kpos < k_valid)[None, :]
+        s = torch.where(keep, s, torch.full_like(s, _NEG_INF))
+    return s
+
+
+def _guarded_exp(s: torch.Tensor, ref: torch.Tensor,
+                 masked: bool) -> torch.Tensor:
+    """``p = exp(s - ref)``, re-zeroed where ``s`` was masked: there the
+    subtraction cancels (``-1e30 - -1e30``), so a row that sees no key would
+    otherwise get p = 1. Keeps such rows at zero output and zero gradient."""
+    p = torch.exp(s - ref)
+    if masked:
+        p = torch.where(s > _NEG_INF / 2, p, torch.zeros_like(p))
+    return p
+
+
+def _first_visible_row(k_first: int, q_offset: int, block_q: int) -> int:
+    """The first row of the first query block whose last row reaches a K
+    block starting at global position ``k_first`` (causal)."""
+    return max(0, -(-(k_first - q_offset - block_q + 1) // block_q)) * block_q
+
+
+def _blocks(sq: int, sk: int, block_q: int, block_k: int) -> tuple[int, int]:
+    block_q, block_k = min(block_q, sq), min(block_k, sk)
+    if sq % block_q or sk % block_k:
+        raise ValueError(f"seq lengths ({sq},{sk}) must divide blocks "
+                         f"({block_q},{block_k})")
+    return block_q, block_k
+
+
 def flash_attention_plain(q, k, v, causal: bool = False, q_offset: int = 0,
                           k_offset: int = 0, sm_scale: float | None = None,
                           block_q: int = 128, block_k: int = 128,
@@ -92,15 +145,11 @@ def flash_attention_plain(q, k, v, causal: bool = False, q_offset: int = 0,
     is re-zeroed where ``s`` was masked (``_guarded_exp``); ``p`` is cast to
     the input dtype for the P.V product. K blocks wholly in the future of a
     query block, or at or past ``k_valid``, are skipped (their update would
-    be an exact no-op)."""
+    be an exact no-op). ``lse`` is f32 (f64 for f64 inputs)."""
     bh, sq, d = q.shape
     sk = k.shape[1]
     sm_scale = _default_scale(sm_scale, d)
-    block_q = min(block_q, sq)
-    block_k = min(block_k, sk)
-    if sq % block_q or sk % block_k:
-        raise ValueError(f"seq lengths ({sq},{sk}) must divide blocks "
-                         f"({block_q},{block_k})")
+    block_q, block_k = _blocks(sq, sk, block_q, block_k)
     acc_dtype = _acc_dtype(q.dtype)
     qf, kf, vf = q.to(acc_dtype), k.to(acc_dtype), v.to(acc_dtype)
     dev = q.device
@@ -108,34 +157,19 @@ def flash_attention_plain(q, k, v, causal: bool = False, q_offset: int = 0,
     l = torch.zeros((bh, sq), dtype=acc_dtype, device=dev)
     acc = torch.zeros((bh, sq, d), dtype=acc_dtype, device=dev)
     masked = causal or k_valid is not None
-    qpos = q_offset + torch.arange(sq, device=dev)
     for kb in range(sk // block_k):
         k_first = k_offset + kb * block_k
         if k_valid is not None and k_first >= k_valid:
             continue
-        r0 = 0
-        if causal:
-            # first query block whose last row reaches this K block
-            qi0 = max(0, -(-(k_first - q_offset - block_q + 1) // block_q))
-            if qi0 * block_q >= sq:
-                continue
-            r0 = qi0 * block_q
+        r0 = _first_visible_row(k_first, q_offset, block_q) if causal else 0
+        if r0 >= sq:
+            continue
         ks = slice(kb * block_k, (kb + 1) * block_k)
-        s = torch.matmul(qf[:, r0:], kf[:, ks].transpose(1, 2)) * sm_scale
-        if masked:
-            kpos = k_first + torch.arange(block_k, device=dev)
-            keep = torch.ones((sq - r0, block_k), dtype=torch.bool,
-                              device=dev)
-            if causal:
-                keep = kpos[None, :] <= qpos[r0:, None]
-            if k_valid is not None:
-                keep = keep & (kpos < k_valid)[None, :]
-            s = torch.where(keep, s, torch.full_like(s, _NEG_INF))
+        s = _masked_scores(qf[:, r0:], kf[:, ks], q_offset + r0, k_first,
+                           causal, sm_scale, k_valid)
         m_prev = m[:, r0:]
         m_new = torch.maximum(m_prev, s.amax(-1))
-        p = torch.exp(s - m_new[..., None])
-        if masked:
-            p = torch.where(s > _NEG_INF / 2, p, torch.zeros_like(p))
+        p = _guarded_exp(s, m_new[..., None], masked)
         alpha = torch.exp(m_prev - m_new)
         l[:, r0:] = alpha * l[:, r0:] + p.sum(-1)
         acc[:, r0:] = acc[:, r0:] * alpha[..., None] + torch.matmul(
@@ -143,8 +177,92 @@ def flash_attention_plain(q, k, v, causal: bool = False, q_offset: int = 0,
         m[:, r0:] = m_new
     l = l.clamp_min(1e-30)
     out = (acc / l[..., None]).to(q.dtype)
-    lse = (m + torch.log(l)).to(torch.float32)
-    return out, lse
+    return out, m + torch.log(l)
+
+
+def flash_attention_dq_plain(q, k, v, do, lse, delta, causal: bool = False,
+                             q_offset: int = 0, k_offset: int = 0,
+                             sm_scale: float | None = None,
+                             block_q: int = 128, block_k: int = 128,
+                             k_valid: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of K4 (``_dq_kernel``): ``dq [BH, Sq, D]`` in
+    q's dtype from ``q, do [BH, Sq, D]``, ``k, v [BH, Sk, D]``, the saved
+    ``lse [BH, Sq]`` and ``delta = rowsum(do * out) - g_lse [BH, Sq]``.
+
+    Per visible K block, in order: ``p = exp(s - lse)`` re-zeroed where ``s``
+    was masked; ``dp = do . v^T`` (input-dtype products, f32 sums); ``ds =
+    p * (dp - delta)``; ``dq += sm_scale * (ds in the input dtype) . k``.
+    Blocks are skipped by the same causal / ``k_valid`` test as K3's."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    sm_scale = _default_scale(sm_scale, d)
+    block_q, block_k = _blocks(sq, sk, block_q, block_k)
+    acc_dtype = _acc_dtype(q.dtype)
+    qf, kf, vf, dof = (t.to(acc_dtype) for t in (q, k, v, do))
+    lse_, dl = lse.to(acc_dtype)[..., None], delta.to(acc_dtype)[..., None]
+    dq = torch.zeros((bh, sq, d), dtype=acc_dtype, device=q.device)
+    masked = causal or k_valid is not None
+    for kb in range(sk // block_k):
+        k_first = k_offset + kb * block_k
+        if k_valid is not None and k_first >= k_valid:
+            continue
+        r0 = _first_visible_row(k_first, q_offset, block_q) if causal else 0
+        if r0 >= sq:
+            continue
+        ks = slice(kb * block_k, (kb + 1) * block_k)
+        s = _masked_scores(qf[:, r0:], kf[:, ks], q_offset + r0, k_first,
+                           causal, sm_scale, k_valid)
+        p = _guarded_exp(s, lse_[:, r0:], masked)
+        dp = torch.matmul(dof[:, r0:], vf[:, ks].transpose(1, 2))
+        ds = (p * (dp - dl[:, r0:])).to(q.dtype).to(acc_dtype)
+        dq[:, r0:] += sm_scale * torch.matmul(ds, kf[:, ks])
+    return dq.to(q.dtype)
+
+
+def flash_attention_dkv_plain(q, k, v, do, lse, delta, causal: bool = False,
+                              q_offset: int = 0, k_offset: int = 0,
+                              sm_scale: float | None = None,
+                              block_q: int = 128, block_k: int = 128,
+                              k_valid: int | None = None):
+    """Plain PyTorch version of K5 (``_dkv_kernel``): ``(dk, dv [BH, Sk,
+    D])`` in k's and v's dtypes, from the inputs of
+    :func:`flash_attention_dq_plain`.
+
+    Per query block, in order, over the K blocks it sees: ``dv += (p in the
+    input dtype)^T . do``; ``dk += sm_scale * (ds in the input dtype)^T .
+    q``, with ``p`` and ``ds`` as in the dQ pass."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    sm_scale = _default_scale(sm_scale, d)
+    block_q, block_k = _blocks(sq, sk, block_q, block_k)
+    acc_dtype = _acc_dtype(q.dtype)
+    qf, kf, vf, dof = (t.to(acc_dtype) for t in (q, k, v, do))
+    lse_, dl = lse.to(acc_dtype)[..., None], delta.to(acc_dtype)[..., None]
+    dk = torch.zeros((bh, sk, d), dtype=acc_dtype, device=q.device)
+    dv = torch.zeros_like(dk)
+    masked = causal or k_valid is not None
+    for qb in range(sq // block_q):
+        q_first = q_offset + qb * block_q
+        # the visible K blocks are a prefix: k_first <= the block's last
+        # row (causal) and k_first < k_valid
+        n_kb = sk // block_k
+        if causal:
+            n_kb = min(n_kb, (q_first + block_q - 1 - k_offset)
+                       // block_k + 1)
+        if k_valid is not None:
+            n_kb = min(n_kb, -(-(k_valid - k_offset) // block_k))
+        if n_kb <= 0:
+            continue
+        qs, kc = slice(qb * block_q, (qb + 1) * block_q), n_kb * block_k
+        s = _masked_scores(qf[:, qs], kf[:, :kc], q_first, k_offset, causal,
+                           sm_scale, k_valid)
+        p = _guarded_exp(s, lse_[:, qs], masked)
+        dv[:, :kc] += torch.matmul(
+            p.to(do.dtype).to(acc_dtype).transpose(1, 2), dof[:, qs])
+        dp = torch.matmul(dof[:, qs], vf[:, :kc].transpose(1, 2))
+        ds = (p * (dp - dl[:, qs])).to(q.dtype).to(acc_dtype)
+        dk[:, :kc] += sm_scale * torch.matmul(ds.transpose(1, 2), qf[:, qs])
+    return dk.to(k.dtype), dv.to(v.dtype)
 
 
 @functools.cache
@@ -156,58 +274,79 @@ def _kernel_lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float]
         + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     lib.ddw_flash_fwd.restype = ctypes.c_int
+    # q, k, v, do, lse, delta, then dq or (dk, dv); bh, sq, sk, d, dtype,
+    # causal, q_offset, k_offset; sm_scale; k_valid; the stream
+    for fn, outs in ((lib.ddw_flash_bwd_dq, 1), (lib.ddw_flash_bwd_dkv, 2)):
+        fn.argtypes = ([ctypes.c_void_p] * (6 + outs) + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     return lib
+
+
+def _check_kernel_inputs(q, k, v, *extra) -> None:
+    """The contract every flash-attention kernel checks before it launches:
+    contiguous, 16-byte aligned ``q [BH, Sq, D]``, ``k``/``v [BH, Sk, D]``
+    CUDA tensors of one dtype, float32 or bfloat16, D in (32, 64, 128),
+    non-empty and under 2**31 elements; ``extra`` tensors on the same
+    device, contiguous and aligned too."""
+    tensors = (q, k, v, *extra)
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError(f"the flash-attention kernel needs q, k, v on one "
+                         f"CUDA device, got {[str(t.device) for t in tensors]}")
+    if q.dtype not in _KERNEL_DTYPES or any(t.dtype != q.dtype
+                                            for t in (k, v)):
+        raise ValueError(f"the flash-attention kernel takes float32 or "
+                         f"bfloat16 q, k, v of one dtype, got "
+                         f"{[t.dtype for t in (q, k, v)]}")
+    if q.dim() != 3 or k.shape != v.shape or k.dim() != 3 or \
+            k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
+        raise ValueError(f"need q [BH, Sq, D] and k, v [BH, Sk, D], got "
+                         f"{[tuple(t.shape) for t in (q, k, v)]}")
+    if q.shape[2] not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"the flash-attention kernel supports head dims "
+                         f"{_KERNEL_HEAD_DIMS}, got {q.shape[2]}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in tensors):
+        raise ValueError("the flash-attention kernel needs contiguous, "
+                         "16-byte aligned q, k, v")
+    if min(q.shape[0], q.shape[1], k.shape[1]) < 1 or \
+            max(q.numel(), k.numel()) >= 1 << 31:
+        raise ValueError(f"need non-empty q, k, v of fewer than 2**31 "
+                         f"elements, got {[tuple(t.shape) for t in tensors]}")
+
+
+def _check_launch(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def flash_attention_cuda(q, k, v, causal: bool = False, q_offset: int = 0,
                          k_offset: int = 0, sm_scale: float | None = None,
                          block_k: int = 128, k_valid: int | None = None):
     """Launch K3 on the current stream, without synchronising: ``(out [BH,
-    Sq, D]`` in q's dtype, ``lse [BH, Sq]`` f32) from contiguous, 16-byte
-    aligned ``q [BH, Sq, D]``, ``k``/``v [BH, Sk, D]`` CUDA tensors of one
-    dtype, float32 or bfloat16, with D in (32, 64, 128) and ``block_k <=
-    128`` dividing Sk. Raises on anything else; never falls back."""
-    tensors = (q, k, v)
-    if not all(t.is_cuda and t.device == q.device for t in tensors):
-        raise ValueError(f"the flash-attention kernel needs q, k, v on one "
-                         f"CUDA device, got {[str(t.device) for t in tensors]}")
-    if q.dtype not in _KERNEL_DTYPES or any(t.dtype != q.dtype
-                                            for t in tensors):
-        raise ValueError(f"the flash-attention kernel takes float32 or "
-                         f"bfloat16 q, k, v of one dtype, got "
-                         f"{[t.dtype for t in tensors]}")
-    if q.dim() != 3 or k.shape != v.shape or k.dim() != 3 or \
-            k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
-        raise ValueError(f"need q [BH, Sq, D] and k, v [BH, Sk, D], got "
-                         f"{[tuple(t.shape) for t in tensors]}")
+    Sq, D]`` in q's dtype, ``lse [BH, Sq]`` f32) from inputs that meet
+    :func:`_check_kernel_inputs`, with ``block_k <= 128`` dividing Sk.
+    Raises on anything else; never falls back."""
+    _check_kernel_inputs(q, k, v)
     bh, sq, d = q.shape
     sk = k.shape[1]
-    if d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"the flash-attention kernel supports head dims "
-                         f"{_KERNEL_HEAD_DIMS}, got {d}")
     if not 1 <= block_k <= _KERNEL_MAX_BLOCK_K or sk % block_k:
         raise ValueError(f"block_k {block_k} must be in [1, "
                          f"{_KERNEL_MAX_BLOCK_K}] and divide Sk={sk}")
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
-               for t in tensors):
-        raise ValueError("the flash-attention kernel needs contiguous, "
-                         "16-byte aligned q, k, v")
-    if min(bh, sq, sk) < 1 or max(q.numel(), k.numel()) >= 1 << 31:
-        raise ValueError(f"need non-empty q, k, v of fewer than 2**31 "
-                         f"elements, got {[tuple(t.shape) for t in tensors]}")
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     lib = _kernel_lib()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.ddw_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), bh, sq, sk, d, _KERNEL_DTYPES[q.dtype],
             int(causal), q_offset, k_offset, _default_scale(sm_scale, d),
-            block_k, -1 if k_valid is None else k_valid, stream)
-    if err != 0:
-        raise RuntimeError(f"flash-attention kernel launch failed: CUDA "
-                           f"error {err}")
+            block_k, -1 if k_valid is None else k_valid, _stream(q.device))
+    _check_launch(err, "flash-attention forward (K3)")
     flash_attention_cuda.launches += 1
     return out, lse
 
@@ -215,29 +354,131 @@ def flash_attention_cuda(q, k, v, causal: bool = False, q_offset: int = 0,
 flash_attention_cuda.launches = 0
 
 
+def _check_bwd_inputs(q, k, v, do, lse, delta) -> None:
+    _check_kernel_inputs(q, k, v, do, lse, delta)
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"do must match q [BH, Sq, D] {q.dtype}, got "
+                         f"{tuple(do.shape)} {do.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != q.shape[:2] or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 [BH, Sq] = "
+                             f"{tuple(q.shape[:2])}, got {tuple(t.shape)} "
+                             f"{t.dtype}")
+
+
+def flash_attention_dq_cuda(q, k, v, do, lse, delta, causal: bool = False,
+                            q_offset: int = 0, k_offset: int = 0,
+                            sm_scale: float | None = None,
+                            k_valid: int | None = None) -> torch.Tensor:
+    """Launch K4 on the current stream, without synchronising: ``dq [BH, Sq,
+    D]`` in q's dtype from the inputs of :func:`flash_attention_dq_plain`
+    (``do`` like q; ``lse`` and ``delta`` float32 ``[BH, Sq]``), all meeting
+    :func:`_check_kernel_inputs`. Any Sq and Sk: the kernel's tiles are its
+    own, and masks the ragged edge. Raises on anything else; never falls
+    back."""
+    _check_bwd_inputs(q, k, v, do, lse, delta)
+    bh, sq, d = q.shape
+    dq = torch.empty_like(q)
+    lib = _kernel_lib()
+    with torch.cuda.device(q.device):
+        err = lib.ddw_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, sq,
+            k.shape[1], d, _KERNEL_DTYPES[q.dtype], int(causal), q_offset,
+            k_offset, _default_scale(sm_scale, d),
+            -1 if k_valid is None else k_valid, _stream(q.device))
+    _check_launch(err, "flash-attention dQ (K4)")
+    flash_attention_dq_cuda.launches += 1
+    return dq
+
+
+flash_attention_dq_cuda.launches = 0
+
+
+def flash_attention_dkv_cuda(q, k, v, do, lse, delta, causal: bool = False,
+                             q_offset: int = 0, k_offset: int = 0,
+                             sm_scale: float | None = None,
+                             k_valid: int | None = None):
+    """Launch K5 on the current stream, without synchronising: ``(dk, dv
+    [BH, Sk, D])`` in k's dtype, from the inputs of
+    :func:`flash_attention_dq_cuda`. Raises on bad input; never falls
+    back."""
+    _check_bwd_inputs(q, k, v, do, lse, delta)
+    bh, sq, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = _kernel_lib()
+    with torch.cuda.device(q.device):
+        err = lib.ddw_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            bh, sq, k.shape[1], d, _KERNEL_DTYPES[q.dtype], int(causal),
+            q_offset, k_offset, _default_scale(sm_scale, d),
+            -1 if k_valid is None else k_valid, _stream(q.device))
+    _check_launch(err, "flash-attention dK/dV (K5)")
+    flash_attention_dkv_cuda.launches += 1
+    return dk, dv
+
+
+flash_attention_dkv_cuda.launches = 0
+
+
 class FlashAttentionFn(torch.autograd.Function):
-    """The ``pallas`` tier on ``[B*H, S, D]``: forward K3 on a CUDA tensor,
-    the plain version on a CPU tensor (or with ``plain=True``). Returns
-    ``(out, lse)``. The backward kernels (K4 dQ, K5 dK/dV) are not ported
-    yet, so the backward raises on every device: the CPU never trains on a
-    path the card cannot."""
+    """The ``pallas`` tier on ``[B*H, S, D]``: returns ``(out, lse)``, both
+    differentiable. On CUDA tensors the forward launches K3 and the backward
+    K4 (dQ) and K5 (dK/dV); on CPU tensors, or with ``plain=True``, the
+    plain versions run. The backward computes ``delta = rowsum(g_out * out)
+    - g_lse`` in f32 outside the kernels (``_bwd_impl``): the lse cotangent
+    folds into the score gradient as ``ds = p * (dp - delta)``. It returns
+    only the gradients the inputs need."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset, k_offset, sm_scale, block_q,
                 block_k, k_valid, plain):
-        if plain or q.device.type == "cpu":
-            return flash_attention_plain(q, k, v, causal, q_offset, k_offset,
-                                         sm_scale, block_q, block_k, k_valid)
-        return flash_attention_cuda(q, k, v, causal, q_offset, k_offset,
-                                    sm_scale, min(block_k, k.shape[1]),
-                                    k_valid)
+        plain = bool(plain) or q.device.type == "cpu"
+        if plain:
+            out, lse = flash_attention_plain(q, k, v, causal, q_offset,
+                                             k_offset, sm_scale, block_q,
+                                             block_k, k_valid)
+        else:
+            out, lse = flash_attention_cuda(q, k, v, causal, q_offset,
+                                            k_offset, sm_scale,
+                                            min(block_k, k.shape[1]), k_valid)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg = (causal, q_offset, k_offset, sm_scale, block_q, block_k,
+                   k_valid, plain)
+        ctx.set_materialize_grads(False)
+        return out, lse
 
     @staticmethod
     def backward(ctx, g_out, g_lse):
-        raise NotImplementedError(
-            "the flash-attention backward (K4 dQ, K5 dK/dV) is not yet ported "
-            "to ddw_tpu_torch; it comes with LM training (see ROADMAP.md). "
-            "Use impl='xla' or 'xla_ckpt' to differentiate attention")
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, q_offset, k_offset, sm_scale, block_q, block_k, k_valid, \
+            plain = ctx.cfg
+        need_q, need_k, need_v = ctx.needs_input_grad[:3]
+        acc = _acc_dtype(q.dtype)
+        if g_out is None:
+            g_out = torch.zeros_like(out)
+        g_out = g_out.to(q.dtype).contiguous()
+        delta = (g_out.to(acc) * out.to(acc)).sum(-1)
+        if g_lse is not None:
+            delta = delta - g_lse.to(acc)
+        args = (q, k, v, g_out, lse, delta, causal, q_offset, k_offset,
+                sm_scale)
+        dq = dk = dv = None
+        if plain:
+            if need_q:
+                dq = flash_attention_dq_plain(*args, block_q, block_k,
+                                              k_valid)
+            if need_k or need_v:
+                dk, dv = flash_attention_dkv_plain(*args, block_q, block_k,
+                                                   k_valid)
+        else:
+            if need_q:
+                dq = flash_attention_dq_cuda(*args, k_valid)
+            if need_k or need_v:
+                dk, dv = flash_attention_dkv_cuda(*args, k_valid)
+        return (dq, dk if need_k else None, dv if need_v else None,
+                None, None, None, None, None, None, None, None)
 
 
 def _flash_forward(q, k, v, causal, q_offset, k_offset, sm_scale, block_q,

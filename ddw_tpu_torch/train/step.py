@@ -70,8 +70,11 @@ def _decayed(decay: float, t: torch.Tensor) -> torch.Tensor:
 class Optimizer:
     """adam | adamw | adadelta | sgd (momentum 0.9) with optax's arithmetic,
     a dynamic learning rate in the state, optional global-norm clipping, and
-    leaves under ``frozen_prefixes`` left alone (optax ``multi_transform``
-    with ``set_to_zero``: no update, no state, not in the clipping norm).
+    frozen leaves left alone (optax ``multi_transform`` with
+    ``set_to_zero``: no update, no state, not in the clipping norm). A leaf
+    is frozen when its top-level name is in ``frozen_prefixes`` or when
+    ``trainable_mask(name)`` (a leaf-level mask over dotted parameter names,
+    e.g. :func:`ddw_tpu_torch.models.lora.lora_optimizer`'s) is False.
 
     The state is ``{"learning_rate", "count", <moments>}`` with one tensor
     per trainable leaf in each moment dict: ``mu``/``nu`` (adam, adamw),
@@ -86,7 +89,8 @@ class Optimizer:
     def __init__(self, name: str, learning_rate: float,
                  weight_decay: float = 0.0, moment_dtype: str = "float32",
                  grad_clip_norm: float = 0.0,
-                 frozen_prefixes: tuple[str, ...] = ()):
+                 frozen_prefixes: tuple[str, ...] = (),
+                 trainable_mask: Callable[[str], bool] | None = None):
         if weight_decay and name != "adamw":
             raise ValueError(f"weight_decay is only implemented for "
                              f"optimizer='adamw', got {name!r}")
@@ -107,9 +111,12 @@ class Optimizer:
                          else torch.float32)
         self.clip = grad_clip_norm
         self.frozen_prefixes = tuple(frozen_prefixes)
+        self.trainable_mask = trainable_mask
 
     def trainable(self, name: str) -> bool:
-        return name.split(".", 1)[0] not in self.frozen_prefixes
+        if name.split(".", 1)[0] in self.frozen_prefixes:
+            return False
+        return self.trainable_mask is None or self.trainable_mask(name)
 
     def init(self, params: dict[str, torch.Tensor]) -> dict:
         train = {n: p for n, p in params.items() if self.trainable(n)}

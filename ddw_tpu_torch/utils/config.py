@@ -136,8 +136,8 @@ class LMCfg:
     lora_alpha: float = 16.0
     lora_targets: tuple[str, ...] = ("query", "value")
     pos_encoding: str = "learned"       # "learned" absolute table or "rope"
-    remat: str = "none"                 # per-block activation remat (training
-                                        # only; accepted and ignored in eval)
+    remat: str = "none"                 # per-block activation remat in
+                                        # training: none | full | dots
 
 
 def require_ported(cfg: TrainCfg) -> None:

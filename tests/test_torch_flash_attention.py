@@ -1,9 +1,11 @@
 """Flash attention in the PyTorch port (``ddw_tpu_torch.ops.flash_attention``)
-against ``ddw_tpu.ops.flash_attention`` on the CPU: K3's plain version
-against the Pallas kernel in interpret mode (the cases of
-``tests/test_ops_parallel.py``), the ``xla`` tier, the size dispatch and
-block picking, and the refusals of the kernel path (no backward yet, no CPU
-tensors for the CUDA wrapper)."""
+against ``ddw_tpu.ops.flash_attention`` on the CPU: the plain versions of
+K3 (forward), K4 (dQ) and K5 (dK/dV) against the Pallas kernels in
+interpret mode (the cases of ``tests/test_ops_parallel.py``),
+``FlashAttentionFn``'s gradients against ``jax.grad`` (the lse cotangent
+and fully masked rows included) and a float64 gradcheck, the ``xla`` tier,
+the size dispatch and block picking, and the refusals of the CUDA wrappers
+(no CPU tensors)."""
 
 import importlib
 import os
@@ -22,6 +24,17 @@ from ddw_tpu_torch.ops import flash_attention as tfa
 jfa = importlib.import_module("ddw_tpu.ops.flash_attention")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread per test: under several test workers per host,
+    torch's default pool (one thread per core, in every worker) spends its
+    time waiting at OpenMP barriers for descheduled threads."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _qkv(b=2, h=2, s=256, d=64, seed=0, sk=None):
@@ -238,13 +251,6 @@ def test_tiers_agree_and_xla_ckpt_differentiates():
         tfa.flash_mha(*_torch(arrs), impl="triton")
 
 
-def test_pallas_tier_backward_raises_naming_k4_k5():
-    q, k, v = (t.requires_grad_(True) for t in _torch(_qkv(s=32, d=32)))
-    out = tfa.flash_mha(q, k, v, True, impl="pallas")
-    with pytest.raises(NotImplementedError, match="K4.*K5.*ROADMAP.md"):
-        out.sum().backward()
-
-
 def test_cuda_wrapper_refuses_cpu_tensors_and_bad_shapes():
     q, k, v = _torch(_qkv(b=1, h=1, s=64, d=64))
     q, k, v = (t[0] for t in (q, k, v))
@@ -256,3 +262,205 @@ def test_cuda_wrapper_refuses_cpu_tensors_and_bad_shapes():
     assert tfa.flash_attention_cuda.launches == before  # CPU: plain version
     ref, ref_lse = tfa.flash_attention_plain(q, k, v, True, 0, 0, 0.125)
     assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
+    d = torch.zeros(1, 64)
+    for fn in (tfa.flash_attention_dq_cuda, tfa.flash_attention_dkv_cuda):
+        with pytest.raises(ValueError, match="one CUDA device"):
+            fn(q, k, v, q, d, d)
+
+
+# -- the backward: K4 (dQ) and K5 (dK/dV) ------------------------------------
+
+def _bf16_tol(want, ref_max):
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+    return np.maximum(2 * ulp, 5e-3 * ref_max)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,causal,q_offset,k_offset,k_valid", [
+    (32, True, 0, 0, None), (64, False, 0, 0, None), (128, True, 0, 64, None),
+    (32, True, 48, 0, 100), (64, False, 0, 0, 72)])
+def test_plain_backward_matches_jax_partitioned_bwd(dtype, d, causal,
+                                                    q_offset, k_offset,
+                                                    k_valid):
+    """flash_attention_dq_plain / _dkv_plain against ``_partitioned_bwd``
+    (the Pallas ``_dq_kernel`` and ``_dkv_kernel`` in interpret mode) on the
+    same q, k, v, do, lse and delta, with 32-row blocks so several blocks
+    are skipped or partly masked. f32 within 1e-5 * max|ref| (sums in
+    another order); bf16 within max(2 bf16 ulp, 5e-3 * max|ref|) (a sum
+    that lands on the other side of a bf16 rounding of ds moves it by an
+    ulp)."""
+    b, h, s, sk = 1, 2, 96, 128
+    rng = np.random.RandomState(d + q_offset)
+    q, g = (rng.randn(b, h, s, d).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(b, h, sk, d).astype(np.float32) for _ in range(2))
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    jq, jk, jv, jg = (jnp.asarray(x, jd) for x in (q, k, v, g))
+    scale = 1.0 / np.sqrt(d)
+    _, lse = jfa.flash_attention_lse(jq, jk, jv, causal, q_offset, k_offset,
+                                     scale, 32, 32, k_valid=k_valid)
+    dvec = rng.randn(b, h, s).astype(np.float32)
+    jdq, jdk, jdv = jfa._partitioned_bwd(
+        causal, q_offset, k_offset, scale, 32, 32, True, k_valid)(
+            jq, jk, jv, lse, jg, jnp.asarray(dvec))
+    flat = lambda x, n: torch.from_numpy(np.array(x, np.float32)).to(
+        td).reshape(b * h, n, d)
+    tq, tg = flat(jq, s), flat(jg, s)
+    tk, tv = flat(jk, sk), flat(jv, sk)
+    tl = torch.from_numpy(np.asarray(lse)).reshape(b * h, s)
+    tdv = torch.from_numpy(dvec).reshape(b * h, s)
+    args = (tq, tk, tv, tg, tl, tdv, causal, q_offset, k_offset, scale, 32,
+            32, k_valid)
+    dq = tfa.flash_attention_dq_plain(*args)
+    dk, dv = tfa.flash_attention_dkv_plain(*args)
+    for got, want in ((dq, jdq), (dk, jdk), (dv, jdv)):
+        assert got.dtype == td
+        got = _np(got).reshape(np.shape(want))
+        want = _np(want)
+        ref_max = np.abs(want).max()
+        tol = 1e-5 * ref_max if dtype == "float32" else \
+            _bf16_tol(want, ref_max)
+        assert (np.abs(got - want) <= tol).all(), np.abs(got - want).max()
+    if k_offset > q_offset and causal:  # rows that see no key
+        assert (_np(dq)[:, :k_offset - q_offset] == 0).all()
+
+
+def _grads_port(fn, arrs, dtype=torch.float32):
+    ts = [t.requires_grad_(True) for t in _torch(arrs, dtype)]
+    fn(*ts).backward()
+    return [_np(t.grad) for t in ts]
+
+
+def _grads_jax(fn, arrs, dtype=jnp.float32):
+    return [_np(g) for g in jax.jit(jax.grad(fn, argnums=(0, 1, 2)))(
+        *_jax(arrs, dtype))]
+
+
+def test_flash_gradients():
+    """``test_ops_parallel.py::test_flash_gradients``: FlashAttentionFn's
+    backward (K4/K5's plain versions) against jax.grad through the Pallas
+    backward, causal, within 1e-5; and against the f32 reference within
+    1e-4 as the JAX test holds it."""
+    arrs = _qkv(b=1, h=1, s=128, d=32)
+    port = _grads_port(lambda q, k, v: (tfa.flash_attention(
+        q, k, v, True) ** 2).sum(), arrs)
+    jaxg = _grads_jax(lambda q, k, v: jnp.sum(jfa.flash_attention(
+        q, k, v, True) ** 2), arrs)
+    ref = _grads_port(lambda q, k, v: (tfa.mha_reference(
+        q, k, v, True) ** 2).sum(), arrs)
+    for a, b, r in zip(port, jaxg, ref):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(a, r, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kw", [dict(causal=False),
+                                dict(causal=True, q_offset=256),
+                                dict(causal=True, q_offset=64, k_offset=0)])
+def test_flash_gradients_noncausal_and_offsets(kw):
+    arrs = _qkv(b=2, h=2, s=256, d=32, seed=5)
+    args = (kw["causal"], kw.get("q_offset", 0), kw.get("k_offset", 0))
+    port = _grads_port(lambda q, k, v: (tfa.flash_attention(
+        q, k, v, *args) ** 2).sum(), arrs)
+    jaxg = _grads_jax(lambda q, k, v: jnp.sum(jfa.flash_attention(
+        q, k, v, *args) ** 2), arrs)
+    for a, b in zip(port, jaxg):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_flash_gradients_bf16_multiblock():
+    """bf16 across three 128-row blocks: the port's bf16 gradients against
+    JAX's bf16 gradients within max(2 bf16 ulp, 5e-3 * max|g|), and both
+    within 0.1 of the f32 reference, as the JAX test holds its own."""
+    arrs = _qkv(b=1, h=2, s=384, d=32, seed=7)
+    port = _grads_port(lambda q, k, v: (tfa.flash_attention(
+        q, k, v, True).float() ** 2).sum(), arrs, torch.bfloat16)
+    jaxg = _grads_jax(lambda q, k, v: jnp.sum(jfa.flash_attention(
+        q, k, v, True).astype(jnp.float32) ** 2), arrs, jnp.bfloat16)
+    ref = _grads_port(lambda q, k, v: (tfa.mha_reference(
+        q, k, v, True) ** 2).sum(), arrs)
+    for a, b, r in zip(port, jaxg, ref):
+        assert (np.abs(a - b) <= _bf16_tol(b, np.abs(b).max())).all()
+        np.testing.assert_allclose(a, r, rtol=0.1, atol=0.1)
+
+
+def test_flash_gradients_fully_masked_rows_zero():
+    """Rows that see no key (keys from global 64) get exactly zero dQ and
+    add nothing to dK/dV; every gradient finite and equal to JAX's."""
+    arrs = _qkv(s=128, seed=9)
+    port = _grads_port(lambda q, k, v: (tfa.flash_attention(
+        q, k, v, True, 0, 64) ** 2).sum(), arrs)
+    jaxg = _grads_jax(lambda q, k, v: jnp.sum(jfa.flash_attention(
+        q, k, v, True, 0, 64) ** 2), arrs)
+    assert all(np.isfinite(g).all() for g in port)
+    assert (port[0][:, :, :64] == 0).all()
+    for a, b in zip(port, jaxg):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+
+
+def _combine(o1, l1, o2, l2):
+    """ring_attention's softmax combine of two partial attentions."""
+    lse = torch.logaddexp(l1, l2)
+    return o1 * torch.exp(l1 - lse)[..., None] + \
+        o2 * torch.exp(l2 - lse)[..., None]
+
+
+def test_flash_lse_split_combine_gradients():
+    """Keys split over two flash_attention_lse calls and softmax-combined
+    equal full attention in value and gradients: the lse cotangent folds
+    into delta (``delta = rowsum(g * out) - g_lse``). Against jax.grad of
+    the same split loss within 1e-5, and the full reference within 1e-4."""
+    from ddw_tpu.parallel.ring_attention import _combine as jax_combine
+
+    q, k, v = _qkv(b=1, h=1, s=128, d=32, seed=5)
+    arrs = (q, np.concatenate([k, k], 2), np.concatenate([v, v + 1.0], 2))
+
+    def split_port(q, k2, v2):
+        o1, l1 = tfa.flash_attention_lse(q, k2[:, :, :128], v2[:, :, :128])
+        o2, l2 = tfa.flash_attention_lse(q, k2[:, :, 128:], v2[:, :, 128:])
+        return (_combine(o1, l1, o2, l2) ** 2).sum()
+
+    def split_jax(q, k2, v2):
+        o1, l1 = jfa.flash_attention_lse(q, k2[:, :, :128], v2[:, :, :128])
+        o2, l2 = jfa.flash_attention_lse(q, k2[:, :, 128:], v2[:, :, 128:])
+        return jnp.sum(jax_combine(o1, l1, o2, l2)[0] ** 2)
+
+    port = _grads_port(split_port, arrs)
+    jaxg = _grads_jax(split_jax, arrs)
+    full = _grads_port(lambda q, k, v: (tfa.mha_reference(q, k, v) ** 2)
+                       .sum(), arrs)
+    for a, b, f in zip(port, jaxg, full):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(a, f, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("causal,q_offset,k_offset,k_valid", [
+    (True, 0, 4, 14), (False, 0, 0, None), (True, 8, 0, None)])
+def test_flash_attention_fn_float64_gradcheck(causal, q_offset, k_offset,
+                                              k_valid):
+    """gradcheck of FlashAttentionFn on the plain path in float64, both
+    outputs (out and lse) differentiated, 8-row blocks over 16 rows."""
+    gen = torch.Generator().manual_seed(0)
+    qkv = [torch.randn(1, 16, 4, dtype=torch.float64, generator=gen,
+                       requires_grad=True) for _ in range(3)]
+    fn = lambda q, k, v: tfa.FlashAttentionFn.apply(  # noqa: E731
+        q, k, v, causal, q_offset, k_offset, 0.3, 8, 8, k_valid, True)
+    assert torch.autograd.gradcheck(fn, qkv)
+    only_q = lambda q: fn(q, *qkv[1:])[0]  # noqa: E731
+    assert torch.autograd.gradcheck(only_q, (qkv[0],))
+
+
+@pytest.mark.parametrize("s", [100, 255])
+def test_flash_mha_backward_through_padding(s, monkeypatch):
+    """flash_mha(impl='pallas') pads S to a block multiple (f32 blocks
+    are multiples of 8: 100 -> 104, 255 -> 256), masks the padded keys with
+    k_valid and slices the padded rows off: its gradients equal the xla
+    tier's within 1e-5 and JAX's pallas tier's within 1e-5."""
+    arrs = _qkv(b=1, h=2, s=s, d=32, seed=s)
+    grads = {impl: _grads_port(lambda q, k, v: (tfa.flash_mha(
+        q, k, v, True, impl=impl) ** 2).sum(), arrs)
+        for impl in ("pallas", "xla")}
+    jaxg = _grads_jax(lambda q, k, v: jnp.sum(jfa.flash_mha(
+        q, k, v, True, impl="pallas") ** 2), arrs)
+    for a, b, c in zip(grads["pallas"], grads["xla"], jaxg):
+        assert a.shape == (1, 2, s, 32)
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(a, c, rtol=1e-5, atol=1e-5)

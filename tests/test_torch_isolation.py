@@ -1,9 +1,10 @@
-"""The PyTorch port stands alone: no module of ``ddw_tpu_torch``, and not
-``chip_smoke.py``, imports JAX, flax, optax or the JAX package; every module
-imports with those blocked; and entry points refuse to run quietly on the
-CPU."""
+"""The PyTorch port stands alone: no module of ``ddw_tpu_torch``, no
+``tools/torch_*.py`` and not ``chip_smoke.py`` imports JAX, flax, optax or
+the JAX package; every module imports with those blocked; and entry points
+refuse to run quietly on the CPU."""
 
 import ast
+import glob
 import os
 import pkgutil
 import shutil
@@ -26,6 +27,7 @@ def _port_sources():
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
+    yield from sorted(glob.glob(os.path.join(REPO, "tools", "torch_*.py")))
     yield os.path.join(REPO, "chip_smoke.py")
 
 
@@ -45,6 +47,8 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     bad = [(os.path.relpath(p, REPO), root) for p in sources
            for root in _imported_roots(p) if root in BANNED]
     assert bad == []
+    tools = {os.path.basename(p) for p in sources if "tools" in p}
+    assert {"torch_lm_profile.py", "torch_lm_train_profile.py"} <= tools
 
 
 def test_every_port_module_imports_with_jax_blocked():
@@ -55,7 +59,8 @@ def test_every_port_module_imports_with_jax_blocked():
                  "data.loader", "checkpoint.ckpt", "runtime.dist",
                  "tracking.tracker", "ops.flash_attention", "ops.rope",
                  "models.lm", "models.lora", "serve.bucketing",
-                 "serving.lm_package"):
+                 "serving.lm_package", "train.lm_step",
+                 "train.lm_trainer"):
         assert f"ddw_tpu_torch.{name}" in modules
     code = (
         "import sys\n"
@@ -143,6 +148,18 @@ def test_lm_entry_points_need_an_explicit_cpu_request(tmp_path,
         LMPackagedModel(pkg, device="cuda")
     assert LMPackagedModel(pkg, device="cpu").device.type == "cpu"
     assert LMBatchScorer(pkg, device="cpu").model.device.type == "cpu"
+
+
+def test_lm_trainer_needs_an_explicit_cpu_request(monkeypatch):
+    from ddw_tpu_torch.train.lm_trainer import LMTrainer
+    from ddw_tpu_torch.utils.config import LMCfg, TrainCfg
+
+    cfg = LMCfg(vocab_size=16, max_len=16, hidden=16, depth=1, num_heads=2,
+                mlp_dim=32, dtype="float32")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LMTrainer(cfg, TrainCfg())
+    assert LMTrainer(cfg, TrainCfg(), device="cpu").device.type == "cpu"
 
 
 def test_device_and_dtype_helpers():

@@ -2,7 +2,8 @@
 ``ddw_tpu.models.lm`` on the CPU: logits for learned and rotary positions,
 GQA and LoRA in f32 (through both attention tiers) and bf16, greedy
 generation; and inside the port, decode against the full forward, the cache
-overflow poison, the tile skipping, sampling and the refusals."""
+overflow poison, the tile skipping, sampling, training-mode dropout and the
+refusals."""
 
 import functools
 import importlib
@@ -235,10 +236,32 @@ def test_unported_options_are_refused_naming_the_roadmap():
         build_lm(LMCfg(**dict(BASE, lora_rank=2, lora_targets=("qkv",))))
     with pytest.raises(ValueError, match="unknown pos_encoding"):
         build_lm(LMCfg(**dict(BASE, pos_encoding="alibi")))
+
+
+def test_training_mode_dropout():
+    """flax's Dropout after attention and after the MLP of each block, in
+    training mode only: masks from the dropout_rng generator (required),
+    kept elements scaled by 1 / (1 - rate), the same generator seed giving
+    the same logits; eval mode and rate 0 draw nothing."""
+    from ddw_tpu_torch.models.lm import dropout
+
     drop = build_lm(LMCfg(**dict(BASE, dropout=0.1)))
     init_lm_weights(drop, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        drop.train()(torch.zeros((1, 4), dtype=torch.long))
+    toks = torch.from_numpy(_tokens(seed=9)).long()
+    with pytest.raises(ValueError, match="dropout_rng"):
+        drop.train()(toks)
+    with torch.no_grad():
+        a = drop.train()(toks, dropout_rng=torch.Generator().manual_seed(1))
+        b = drop.train()(toks, dropout_rng=torch.Generator().manual_seed(1))
+        c = drop.train()(toks, dropout_rng=torch.Generator().manual_seed(2))
+        ev = drop.eval()(toks)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert not torch.equal(a, ev)
+    h = torch.ones(20000)
+    out = dropout(h, 0.25, torch.Generator().manual_seed(0))
+    kept = out != 0
+    assert torch.allclose(out[kept], torch.full_like(out[kept], 1 / 0.75))
+    assert abs(kept.float().mean().item() - 0.75) < 0.02
 
 
 def test_remat_is_accepted_and_changes_nothing_in_eval():

@@ -131,8 +131,70 @@ def test_prep_matches_jax(flowers_dir, tmp_path):
 
 
 def test_feature_and_token_tables_are_refused(tmp_path):
+    """Cached-feature tables are still refused, naming the roadmap; token
+    tables are read (the LM training slice) as next-token pairs."""
     store = TableStore(str(tmp_path))
-    for enc in ("features_f32", "tokens_i32"):
-        t = store.write(enc, [Record("a", b"\0" * 16)], meta={"encoding": enc})
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ShardedLoader(t, 1, (H, W))
+    t = store.write("features_f32", [Record("a", b"\0" * 16)],
+                    meta={"encoding": "features_f32"})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ShardedLoader(t, 1, (H, W))
+    toks = np.arange(4, dtype=np.int32)
+    t = store.write("tokens_i32", [Record("a", toks.tobytes())],
+                    meta={"encoding": "tokens_i32", "seq_plus_one": 4})
+    x, y = _take(ShardedLoader(t, 1), 1)[0]
+    assert x.tolist() == [[0, 1, 2]] and y.tolist() == [[1, 2, 3]]
+
+
+@pytest.fixture(scope="module")
+def token_tables(tmp_path_factory):
+    """The same 45 seeded [17]-token rows (shards of 8) written by both
+    packages' write_token_table."""
+    from ddw_tpu.data.prep import write_token_table as jax_write_token_table
+    from ddw_tpu_torch.data.prep import write_token_table
+
+    toks = np.random.RandomState(1).randint(0, 1000, (45, 17)).astype(
+        np.int32)
+    root = tmp_path_factory.mktemp("tok")
+    write_token_table(TableStore(str(root / "port")), "toks", toks,
+                      shard_size=8)
+    jax_write_token_table(JaxStore(str(root / "jax")), "toks", toks,
+                          shard_size=8)
+    return str(root / "port"), str(root / "jax")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(shuffle=False),
+    dict(shuffle=True, seed=3, shuffle_buffer=16),
+    dict(shuffle=True, seed=3, shuffle_buffer=16, skip_records=19),
+    dict(shuffle=True, seed=1, cur_shard=1, shard_count=2),
+    dict(shuffle=True, seed=2, cur_shard=3, shard_count=7),  # stride
+])
+def test_token_batches_byte_identical_to_jax(token_tables, kw):
+    """tokens_i32 batches: (inputs [B, S], targets [B, S]) int32 next-token
+    pairs, byte for byte the JAX loader's, including skip_records resume
+    and both kinds of sharding; the table files are byte-identical too."""
+    port_root, jax_root = token_tables
+    port = _take(ShardedLoader(TableStore(port_root).table("toks"), 4,
+                               **kw), 8)
+    ref = _take(JaxLoader(JaxStore(jax_root).table("toks"), 4, **kw), 8)
+    for (x, y), (xr, yr) in zip(port, ref):
+        assert x.dtype == y.dtype == np.int32 and x.shape == (4, 16)
+        assert x.tobytes() == np.asarray(xr).tobytes()
+        assert y.tobytes() == np.asarray(yr).tobytes()
+        assert (x[:, 1:] == y[:, :-1]).all()
+
+
+def test_token_batches_on_device_and_super_batches(token_tables):
+    """prefetch_to gives the same batches as tensors; super-batches stack
+    them in plan order."""
+    table = TableStore(token_tables[0]).table("toks")
+    host = _take(ShardedLoader(table, 4, seed=5), 6)
+    dev = _take(ShardedLoader(table, 4, seed=5, prefetch_to="cpu"), 6)
+    sup = _take(ShardedLoader(table, 4, seed=5, prefetch_to="cpu",
+                              super_batch=(2, 1)), 4)
+    assert [tuple(x.shape) for x, _ in sup] == [(2, 4, 16), (1, 4, 16)] * 2
+    stacked = [b for x, y in sup for b in zip(x, y)]
+    for (x, y), (xd, yd), (xs, ys) in zip(host, dev, stacked):
+        assert xd.dtype == torch.int32 and np.array_equal(x, xd.numpy())
+        assert np.array_equal(y, yd.numpy())
+        assert torch.equal(xd, xs) and torch.equal(yd, ys)
