@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of ddw_tpu_torch on one NVIDIA card: build, check and time the
-port's CUDA kernels, then drive the serving, training, LM-scoring and
-LM-training main paths end to end.
+port's CUDA kernels, then drive the serving, training, LM-scoring,
+LM-training and collective main paths end to end.
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -102,7 +102,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``save_lm_package`` -> ``LMPackagedModel.score`` on the val rows at the
    trainer's last val_loss (within 1e-4 relative). Step ms (median of 10)
    and training tokens/s.
-10. The ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
+10. ring — the collective layer (K6, the ring all-reduce) at N = 2, then
+   N = 4 ranks: processes from ``spawn_cpu`` joined by gloo, all on this
+   one card (NCCL refuses two ranks on one device; K6 maps its neighbours'
+   buffers through CUDA IPC instead). Each rank takes one bf16 backward of
+   the same full-width LM (``init_lm_weights``, one seed) on its own batch
+   of 4 x 2,049 tokens and sums the f32 gradient tree (102 leaves,
+   28,360,704 values) with ``all_reduce_sum(impl="pallas")``. Checks: K6
+   launched leaves x segments times; every rank holds the same bits; bit
+   for bit ``all_reduce_sum`` on CPU copies (the plain version over the
+   same gloo group); within 1e-6 * sum|g| per value of the float64 sum;
+   every later call identical to the first; the tree in bf16 bit-equal
+   to the plain version's; leaves of 1, 33 and n*128-7 values and an int32
+   leaf; a leaf that a
+   small-slot ``RingComm`` splits into 3+ segments; at N = 4 a (data=2,
+   seq=2) mesh whose seq rings stay in their rows; a size-1 axis launches
+   nothing; at N = 2, last, a peer that never arrives makes K6 trap and
+   the rank fail within 5 s of a 2 s wait bound. Times: CUDA events, a
+   group barrier before each call, max over ranks, median of 5 calls of
+   the whole tree, beside the bound (every
+   rank's input read and output written once, 2 * N * bytes / 3.35 TB/s,
+   and over NVLink on four cards) and the plain version's time. The ranks
+   are time-sliced on the card, so the times include the scheduling.
+11. The ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
    line ``{"ok": true, "device": {...}}``.
 """
 
@@ -1497,6 +1519,283 @@ def phase_lm(tmp: str):
     return launches, runs
 
 
+RING_RANKS = (2, 4)
+RING_BATCH = 4             # rows of 2,049 tokens per rank's backward
+RING_TIMED_CALLS = 5
+RING_SMALL_SLOT_BYTES = 4096   # 1,024-value slots: a leaf of several segments
+NVLINK_BYTES_PER_S = 450e9     # H100 SXM, each way
+
+
+def bits_equal(a, b) -> bool:
+    """Same dtype, shape and bytes (NaNs and signed zeros included)."""
+    import torch
+
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+
+
+def ring_rank(seed: int) -> dict:
+    """One rank of the ``ring`` phase, spawned; every rank works on cuda:0.
+    The full-width LM's f32 gradient tree from one bf16 backward on this
+    rank's own batch, summed over the group by ``all_reduce_sum(impl=
+    "pallas")`` (K6), with every check of the phase; returns its numbers."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ddw_tpu_torch.models.convert import init_lm_weights
+    from ddw_tpu_torch.models.lm import build_lm
+    from ddw_tpu_torch.ops import ring_reduce as rr
+    from ddw_tpu_torch.runtime import MeshSpec, all_reduce_sum, make_mesh
+    from ddw_tpu_torch.runtime.dist import process_topology
+    from ddw_tpu_torch.train.lm_step import lm_forward_and_grads
+    from ddw_tpu_torch.train.step import TrainState
+    from ddw_tpu_torch.utils.config import LMCfg
+
+    torch.cuda.set_device(0)
+    rank, n = process_topology()
+    torch.set_num_threads(max(1, (os.cpu_count() or n) // n))  # host share
+    k6 = rr.ring_all_reduce_cuda
+    steps, t_step = {}, [time.perf_counter()]
+
+    def step(name):  # host seconds of each step, for the phase line
+        now = time.perf_counter()
+        steps[name] = round(now - t_step[0], 3)
+        t_step[0] = now
+
+    cfg = LMCfg(**LM_CFG)
+    model = init_lm_weights(build_lm(cfg),
+                            torch.Generator().manual_seed(SEED)).cuda()
+    step("model")
+    toks = torch.from_numpy(np.random.RandomState(seed + rank).randint(
+        0, cfg.vocab_size, (RING_BATCH, LM_SEQ + 1)).astype(np.int64)).cuda()
+    _, _, grads = lm_forward_and_grads(TrainState(model, {}, 0),
+                                       toks[:, :-1], toks[:, 1:], None)
+    del model, toks
+    step("backward")
+    names = sorted(grads)
+    numel = sum(grads[k].numel() for k in names)
+    check(all(grads[k].dtype == torch.float32 for k in names),
+          "the gradient tree is f32")
+    slot = rr.slot_elems_of(rr.SLOT_BYTES)
+    expect = sum(len(rr.ring_segments(
+        rr.ring_chunk_len(grads[k].numel(), n, 128), slot)) for k in names)
+
+    def synced():
+        torch.cuda.synchronize()
+        dist.barrier()
+
+    # The main path: one all_reduce_sum of the whole tree, counted.
+    synced()
+    k6.launches = 0
+    out = all_reduce_sum(grads, impl="pallas")
+    torch.cuda.synchronize()
+    launches = k6.launches
+    check(launches == expect, f"{n} ranks: K6 launched {launches} times, "
+          f"expected {expect} (leaves x segments)")
+    step("main_call")
+    cpu_out = {k: out[k].cpu() for k in names}
+    digests = [hashlib.sha256(cpu_out[k].numpy().tobytes()).hexdigest()
+               for k in names]
+    every = [None] * n
+    dist.all_gather_object(every, digests)
+    check(all(d == digests for d in every),
+          f"{n} ranks: every rank holds the same bits")
+    cpu = {k: grads[k].cpu() for k in names}
+    t0 = time.perf_counter()
+    plain = all_reduce_sum(cpu, impl="pallas")
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(all(bits_equal(cpu_out[k], plain[k]) for k in names),
+          f"{n} ranks: K6 equals its plain version over gloo bit for bit")
+    max_err = max(float((cpu_out[k] - plain[k]).abs().max()) for k in names)
+    del plain
+    step("hashes_and_plain")
+    flat = torch.cat([cpu[k].reshape(-1).double() for k in names])
+    mag = flat.abs()
+    dist.all_reduce(flat)
+    dist.all_reduce(mag)
+    got = torch.cat([cpu_out[k].reshape(-1).double() for k in names])
+    gap = (got - flat).abs()
+    check(bool((gap <= 1e-6 * mag).all()), f"{n} ranks: within 1e-6 * "
+          f"sum|g| of the float64 sum (worst gap {float(gap.max()):.3e})")
+    worst_rel = float((gap / mag.clamp_min(1e-300)).max())
+    del flat, mag, got, gap, cpu_out
+    step("float64_sum")
+
+    # The same tree in bf16: an f32 ring, bf16 back, the plain version's
+    # bits.
+    gb = {k: grads[k].to(torch.bfloat16) for k in names}
+    outb = all_reduce_sum(gb, impl="pallas")
+    plainb = all_reduce_sum({k: gb[k].cpu() for k in names}, impl="pallas")
+    check(all(bits_equal(outb[k].cpu(), plainb[k]) for k in names),
+          f"{n} ranks: the bf16 tree equals the plain version's bf16 bits")
+    del gb, outb, plainb
+    step("bf16")
+
+    # Edge leaves: sizes 1, 33 and under n*128 (f32), an int32 leaf, and a
+    # leaf that a small-slot RingComm splits into several segments.
+    def edge(size, dtype, r):
+        g = np.random.RandomState(seed + 1000 * size + r)
+        if dtype == torch.int32:
+            return torch.from_numpy(g.randint(-2**28, 2**28, size)
+                                    .astype(np.int32))  # no overflow at 4
+        return torch.from_numpy(g.randn(size).astype(np.float32))
+
+    cases = [(1, torch.float32), (33, torch.float32),
+             (n * 128 - 7, torch.float32), (1000, torch.int32)]
+    for size, dtype in cases:
+        x = edge(size, dtype, rank)
+        got = all_reduce_sum(x.cuda(), impl="pallas").cpu()
+        check(bits_equal(got, all_reduce_sum(x, impl="pallas")),
+              f"{n} ranks: edge leaf of {size} {dtype} equals plain")
+        ref = sum(edge(size, dtype, r).double() for r in range(n))
+        if dtype == torch.int32:
+            check(torch.equal(got.double(), ref), f"int32 leaf of {size} is "
+                  f"the exact sum")
+        else:
+            check(bool(((got.double() - ref).abs() <= 1e-6 * sum(
+                edge(size, dtype, r).double().abs() for r in range(n))).all()),
+                f"{n} ranks: edge leaf of {size} within 1e-6 * sum|x|")
+    comm = rr.RingComm(None, torch.device("cuda", 0),
+                       slot_bytes=RING_SMALL_SLOT_BYTES)
+    x = edge(n * 3 * comm.slot_elems + 77, torch.float32, rank)
+    before = k6.launches
+    got = rr.ring_all_reduce_pallas(x.cuda(), comm=comm).cpu()
+    segments = k6.launches - before
+    check(segments >= 3, f"{n} ranks: the small-slot leaf ran as {segments} "
+          f"segments (>= 3)")
+    check(bits_equal(got, rr.ring_all_reduce_plain(
+        x, None, slot_bytes=RING_SMALL_SLOT_BYTES)),
+        f"{n} ranks: the segmented leaf equals the plain version")
+    comm.close()
+
+    # A size-1 mesh axis is a world of one: the input back, no launch.
+    solo = make_mesh(MeshSpec((("data", -1), ("seq", 1))))
+    before = k6.launches
+    leaf = grads[names[0]]
+    check(all_reduce_sum(leaf, (solo, "seq"), impl="pallas") is leaf
+          and k6.launches == before, "a world of one launches nothing")
+    step("edge_segment_solo")
+    sub = None
+    if n == 4:
+        mesh = make_mesh(MeshSpec((("data", 2), ("seq", 2))))
+        x = edge(5000, torch.float32, rank)
+        got = all_reduce_sum(x.cuda(), (mesh, "seq"), impl="pallas").cpu()
+        check(bits_equal(got, all_reduce_sum(x, (mesh, "seq"),
+                                             impl="pallas")),
+              "the seq-axis ring equals its plain version")
+        mates = [rank - rank % 2, rank - rank % 2 + 1]
+        ref = sum(edge(5000, torch.float32, r).double() for r in mates)
+        check(bool(((got.double() - ref).abs() <= 1e-6 * sum(
+            edge(5000, torch.float32, r).double().abs() for r in mates))
+            .all()), "the seq ring sums its own data row's two ranks only")
+        sub = mates
+
+    step("subgroup")
+
+    # Time: a group barrier before each call, CUDA events on every rank;
+    # every timed call must give the main call's bits.
+    times = []
+    for _ in range(RING_TIMED_CALLS):
+        synced()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        again = all_reduce_sum(grads, impl="pallas")
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        check(all(bits_equal(out[k], again[k]) for k in names),
+              f"{n} ranks: every call gives identical bits")
+    every = [None] * n
+    dist.all_gather_object(every, times)
+    rr.close_comms()
+    step("timed_calls_and_close")
+    trap = ring_trap(rank) if n == 2 else None
+    return {"leaves": len(names), "values": numel, "launches": launches,
+            "segments_small_slot": segments, "max_abs_err": max_err,
+            "worst_gap_over_sum_abs": worst_rel, "plain_ms": plain_ms,
+            "call_ms_max_over_ranks": [max(t) for t in zip(*every)],
+            "seq_group": sub, "trap": trap, "host_s_by_step": steps}
+
+
+RING_TRAP_BOUND_S = 2.0
+
+
+def ring_trap(rank: int):
+    """A peer that never arrives: rank 0 launches K6 with a 2 s wait bound
+    while rank 1 stays away (its buffer mapped, its process alive). The
+    kernel must trap and the rank see a CUDA error within a few seconds of
+    the bound, not hang. Rank 0's CUDA context is dead afterwards, so this
+    is the last thing the rank does."""
+    import torch
+
+    from ddw_tpu_torch.ops import ring_reduce as rr
+
+    comm = rr.RingComm(None, torch.device("cuda", 0),
+                       timeout_s=RING_TRAP_BOUND_S)
+    if rank != 0:
+        time.sleep(RING_TRAP_BOUND_S + 3)
+        return None
+    t0 = time.perf_counter()
+    try:
+        rr.ring_all_reduce_cuda(torch.ones(1000, device="cuda"), comm)
+        torch.cuda.synchronize()
+    except RuntimeError as e:  # torch's AcceleratorError is one
+        return {"seconds": time.perf_counter() - t0,
+                "error": str(e).splitlines()[0]}
+    raise RuntimeError("check failed: K6 with an absent peer returned "
+                       "without an error")
+
+
+def phase_ring():
+    """The collective layer at N = 2 and 4 ranks sharing the card: K6 over
+    the full-width LM's gradient tree, through ``all_reduce_sum``."""
+    import statistics
+
+    import torch
+
+    from ddw_tpu_torch.runtime.dist import spawn_cpu
+
+    torch.cuda.empty_cache()
+    rows = {}
+    for n in RING_RANKS:
+        t0 = time.perf_counter()
+        res = spawn_cpu(ring_rank, n, SEED + 40, timeout_s=300)
+        r = res[0]
+        check(r["leaves"] == 102 and r["values"] == 28_360_704,
+              f"the LM's gradient tree: {r['leaves']} leaves, "
+              f"{r['values']} values")
+        tree_bytes = r["values"] * 4
+        row = {"ms": statistics.median(r["call_ms_max_over_ranks"]),
+               "plain_ms": max(x["plain_ms"] for x in res),
+               "bound_ms": 2 * n * tree_bytes / HBM_BYTES_PER_S * 1e3,
+               "bound_ms_4_cards_nvlink": 2 * (n - 1) / n * tree_bytes
+               / NVLINK_BYTES_PER_S * 1e3,
+               "launches": r["launches"],
+               "max_abs_err": max(x["max_abs_err"] for x in res)}
+        emit(phase="ring", ranks=n, leaves=r["leaves"], values=r["values"],
+             tree_bytes=tree_bytes,
+             call_ms_max_over_ranks=r["call_ms_max_over_ranks"],
+             segments_small_slot=r["segments_small_slot"],
+             worst_gap_over_sum_abs=max(x["worst_gap_over_sum_abs"]
+                                        for x in res),
+             seq_groups=[x["seq_group"] for x in res],
+             rank0_host_s_by_step=r["host_s_by_step"],
+             wall_s=time.perf_counter() - t0, **row)
+        if n == 2:
+            trap = r["trap"]
+            check(trap["seconds"] < RING_TRAP_BOUND_S + 5, f"an absent peer "
+                  f"failed the rank after {trap['seconds']:.2f} s (bound "
+                  f"{RING_TRAP_BOUND_S} s)")
+            emit(phase="ring", absent_peer_trap=trap,
+                 wait_bound_s=RING_TRAP_BOUND_S)
+        rows[n] = row
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1529,6 +1828,8 @@ def main() -> int:
         k3_launches, score_runs = phase_lm(tmp)
         torch.cuda.empty_cache()
         lm_train_launches, lm_step_ms, lm_tokens_per_s = phase_lm_train(tmp)
+    torch.cuda.empty_cache()
+    ring = phase_ring()
     src = "ddw_tpu_torch/ops/csrc/depthwise_conv.cu"
     print(json.dumps({"kernels": [{
         "name": "depthwise_conv3x3_fwd",
@@ -1580,7 +1881,28 @@ def main() -> int:
         **bwd_times[key],
         "per": "one bf16 causal call at [256, 2048, 64]: one layer of a "
                "32-row LM train step; library_ms is SDPA's whole backward",
-    } for key, line, kern in (("dq", 425, "k4"), ("dkv", 445, "k5"))],
+    } for key, line, kern in (("dq", 425, "k4"), ("dkv", 445, "k5"))] + [{
+        "name": "ring_all_reduce",
+        "route": "cuda",
+        "source": "ddw_tpu_torch/ops/csrc/ring_reduce.cu",
+        "replaces": "ddw_tpu/ops/ring_reduce.py:112",
+        "launches": sum(ring[n]["launches"] for n in RING_RANKS),
+        "launches_by_path": {f"all_reduce_sum_{n}_ranks": ring[n]["launches"]
+                             for n in RING_RANKS},
+        "max_abs_err": max(ring[n]["max_abs_err"] for n in RING_RANKS),
+        **{k: ring[4][k] for k in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": "bytes",
+        "library_ms": None,
+        "library": "none on one card: NCCL refuses two ranks on one device",
+        **{f"{k}_2_ranks": ring[2][k] for k in ("ms", "plain_ms",
+                                                 "bound_ms")},
+        "bound_ms_4_cards_nvlink": ring[4]["bound_ms_4_cards_nvlink"],
+        "per": "one all_reduce_sum(impl='pallas') of the full-width LM's f32 "
+               "gradient tree (102 leaves, 28,360,704 values) at 4 ranks "
+               "that share the card (max over ranks; *_2_ranks at 2); "
+               "launches are rank 0's at 2 and 4 ranks; plain_ms is the "
+               "plain version over gloo on the host",
+    }],
         "train_step_ms": step_ms,
         "lm_score_tokens_per_s": LM_ROWS * LM_SEQ / score_runs[-1],
         "lm_train_step_ms": lm_step_ms,

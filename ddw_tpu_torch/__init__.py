@@ -10,8 +10,11 @@ Ported so far: packaged-model serving of MobileNetV2 (``serving.package``,
 ``serving.batch``) and its data-parallel training (``train.trainer``, with
 ``train.step``, ``data.loader``, ``checkpoint.ckpt``, ``runtime.dist``), with
 the stride-1 depthwise 3x3 layers on the CUDA kernels of
-``ops/csrc/depthwise_conv.cu`` forward and backward. What remains is listed
-in ``ROADMAP.md``.
+``ops/csrc/depthwise_conv.cu`` forward and backward; TransformerLM scoring,
+generation and training with the flash-attention kernels of
+``ops/csrc/flash_attention.cu``; and the collective layer (``runtime``),
+whose kernel ring all-reduce is ``ops/csrc/ring_reduce.cu``. What remains
+is listed in ``ROADMAP.md``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with no
 CUDA device and no explicit CPU request they raise.

@@ -23,19 +23,22 @@ import torch
 import torch.distributed as dist
 
 
-def init_distributed(device: torch.device | None = None) -> tuple[int, int]:
-    """Join the process group named by the environment and return
-    ``(rank, world)``; a no-op returning ``(0, 1)`` without
-    ``DDW_COORDINATOR``. The backend is NCCL for a CUDA ``device`` (which
-    also selects the process's card, ``rank % device_count``) and gloo
-    otherwise."""
-    addr = os.environ.get("DDW_COORDINATOR")
+def init_distributed(device: torch.device | None = None,
+                     addr: str | None = None, world: int | None = None,
+                     rank: int | None = None) -> tuple[int, int]:
+    """Join the process group named by the arguments or, for those not
+    given, the environment, and return ``(rank, world)``; a no-op returning
+    ``(0, 1)`` without a coordinator address. The backend is NCCL for a
+    CUDA ``device`` (which also selects the process's card,
+    ``rank % device_count``) and gloo otherwise."""
+    addr = addr or os.environ.get("DDW_COORDINATOR")
     if not addr:
         return 0, 1
     if dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
-    world = int(os.environ.get("DDW_NUM_PROCESSES", "1"))
-    rank = int(os.environ.get("DDW_PROCESS_ID", "0"))
+    world = world or int(os.environ.get("DDW_NUM_PROCESSES", "1"))
+    rank = rank if rank is not None else int(
+        os.environ.get("DDW_PROCESS_ID", "0"))
     if not 0 <= rank < world:
         raise ValueError(f"DDW_PROCESS_ID {rank} out of range for "
                          f"DDW_NUM_PROCESSES {world}")

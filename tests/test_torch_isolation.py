@@ -60,7 +60,8 @@ def test_every_port_module_imports_with_jax_blocked():
                  "tracking.tracker", "ops.flash_attention", "ops.rope",
                  "models.lm", "models.lora", "serve.bucketing",
                  "serving.lm_package", "train.lm_step",
-                 "train.lm_trainer"):
+                 "train.lm_trainer", "runtime.collectives", "runtime.mesh",
+                 "ops.ring_reduce"):
         assert f"ddw_tpu_torch.{name}" in modules
     code = (
         "import sys\n"
@@ -160,6 +161,37 @@ def test_lm_trainer_needs_an_explicit_cpu_request(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LMTrainer(cfg, TrainCfg())
     assert LMTrainer(cfg, TrainCfg(), device="cpu").device.type == "cpu"
+
+
+def test_pallas_all_reduce_on_cpu_launches_nothing(monkeypatch):
+    """A CPU tensor takes K6's plain version: the kernel's launch count does
+    not move, in a world of one and in a faked world of two whose left
+    neighbour echoes every row it is sent (so both rows end as their
+    sum)."""
+    from ddw_tpu_torch.ops import ring_reduce as rr
+    from ddw_tpu_torch.runtime.collectives import all_reduce_sum
+
+    before = rr.ring_all_reduce_cuda.launches
+    x = torch.arange(300.0)
+    assert all_reduce_sum(x, impl="pallas") is x
+    monkeypatch.setattr(rr, "group_size_rank", lambda group=None: (2, 0))
+    monkeypatch.setattr(rr, "ring_shift", lambda t, group=None: t.clone())
+    out = all_reduce_sum({"x": x}, impl="pallas")["x"]
+    rows = rr.ring_chunks(x, 2, lane=128)
+    assert torch.equal(out, (rows[0] + rows[1]).repeat(2)[:300])
+    assert rr.ring_all_reduce_cuda.launches == before
+
+
+def test_unported_collectives_raise_naming_roadmap():
+    from ddw_tpu_torch.runtime import (HybridMeshSpec, host_all_reduce,
+                                       make_hybrid_mesh)
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        host_all_reduce("tag", 1.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        make_hybrid_mesh()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        HybridMeshSpec((("data", -1, -1),))
 
 
 def test_device_and_dtype_helpers():
