@@ -46,22 +46,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
    val table, at the trainer's val accuracy. Step ms (median of 10) and
    training images/s.
 6. lm_kernel — the flash-attention forward kernel (K3) against its plain
-   PyTorch version: at the LM slice's shape [512, 2048, 64] causal in bf16
-   and f32, a ring hop's offset (keys from global 192: query rows 0-191 see
-   no key and must give out 0, lse <= -1e29), non-causal at head dim 128, a
-   short block with a key mask at head dim 32, a bf16 block of 40 keys (the
-   CUDA-core path; bf16 blocks of 16k keys run on the tensor cores), and
-   S=2047 padded through
-   ``flash_mha``. f32 within 1e-5 * max|v| (lse 1e-5 * max(1, |lse|)), bf16
-   within max(2 bf16 ulp, 1e-3 * max|v|) elementwise (lse 1e-4). Times at
-   the slice shape (median of 10, L2 flushed) beside the bound (989 TFLOP/s
-   bf16), the plain version and ``F.scaled_dot_product_attention`` (timed
-   only, the yardstick).
+   PyTorch version. Three variants, chosen by shape (``_fwd_variant``): sm90
+   (TMA and wgmma, ``flash_fwd_sm90.cu``) for bf16 at block_k 128 and head
+   dim 64 or 128, mma (``mma.sync``) for other bf16 blocks of 16k keys and
+   head dim 32, CUDA cores for f32 and other bf16 blocks. Cases: the LM
+   slice's shape [512, 2048, 64] causal in bf16 and f32, a ring hop's offset
+   (keys from global 192: query rows 0-191 see no key and must give out 0,
+   lse <= -1e29), non-causal at head dim 128, a short block with a key mask
+   at head dim 32, a bf16 block of 40 keys (CUDA cores) and one of 64 keys
+   (mma), and S=2047 padded through ``flash_mha``; on the sm90 path also a
+   query tail tile inside a head (sq 200 against sk 256), sq 2112 against sk
+   2048 at q_offset 64, a ring hop at q_offset 1000 and k_offset 1152 (152
+   fully masked rows), k_valid 1000 inside a K block, and head dim 128
+   causal. Every case runs twice and must give the same bits, on the variant
+   its shape picks. f32 within 1e-5 * max|v| (lse 1e-5 * max(1, |lse|)),
+   bf16 within max(2 bf16 ulp, 1e-3 * max|v|) elementwise (lse 1e-4). Times
+   at [512, 2048, 64] and at the training shape [256, 2048, 64], causal
+   bf16 (median of 10, L2 flushed), of the sm90 and mma kernels in turns
+   (sm90, mma, mma, sm90) beside the bound (989 TFLOP/s bf16), the plain
+   version and ``F.scaled_dot_product_attention`` (timed only, the
+   yardstick).
 7. lm     — bench.py's ``lm_flash`` LM (vocab 8192, 2048 positions, hidden
    512, 6 layers of 8 heads, bf16) from seeded flax-layout weights
    (``init_lm_weights``), saved with ``save_lm_package`` and loaded by
    ``LMPackagedModel``; ``LMBatchScorer`` (batch 64) scores a 256 x 2,049
-   ``tokens_i32`` table with exactly 6 K3 launches per batch (24), twice
+   ``tokens_i32`` table with exactly 6 K3 launches per batch (24, all on the
+   sm90 variant), twice
    (cold, warm; tokens/s); logits of one batch of 64 with K3 against the
    ``xla`` tier (bf16: rms within 2e-2 * std and max within 1e-1 * std,
    the tiers rounding p against different maxima; f32: max within 1e-4 *
@@ -82,14 +92,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
    elementwise; two launches of each bit-identical. Times at [256, 2048,
    64] bf16 (median of 10, L2 flushed) beside the bound, the plain versions
    and the backward of causal ``F.scaled_dot_product_attention`` (timed
-   only, the yardstick; one call gives dq, dk and dv), and K3's time at
-   that shape.
+   only, the yardstick; one call gives dq, dk and dv).
 9. lm_train — the same full-width bf16 LM from ``init_lm_weights`` with a
    seeded generator, trained by ``LMTrainer.fit_tables`` on a seeded,
    learnable ``tokens_i32`` table (arithmetic sequences mod the vocab, 160
    train and 32 val rows of 2,049 tokens) at batch 32 with adam 3e-4 for 2
    epochs with checkpoints, then ``resume=True`` to epoch 3. Checks: 6 K3 +
-   6 K4 + 6 K5 launches per train step and 6 K3 per val batch; finite
+   6 K4 + 6 K5 launches per train step and 6 K3 per val batch, every K3 on
+   the sm90 variant; finite
    losses, epoch 2 below epoch 1, the resume at epoch 2; one bf16 step with
    the kernels against one with the plain versions on the card (loss
    within 5e-3 relative, per-leaf gradients within 5e-2 RMS gap over RMS;
@@ -122,8 +132,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
    group barrier before each call, max over ranks, median of 5 calls of
    the whole tree, beside the bound (every
    rank's input read and output written once, 2 * N * bytes / 3.35 TB/s,
-   and over NVLink on four cards) and the plain version's time. The ranks
-   are time-sliced on the card, so the times include the scheduling.
+   and over NVLink on four cards) and the plain version's time; the
+   yardstick ``torch.distributed.all_reduce`` over the same gloo group on
+   each CUDA leaf by the same protocol (median of 3 calls, held to K6's
+   sum), or its error if gloo refuses. The ranks are time-sliced on the
+   card, so the times include the scheduling.
 11. The ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
    line ``{"ok": true, "device": {...}}``.
 """
@@ -391,17 +404,32 @@ def causal_pairs(sq: int, sk: int, q_offset: int, k_offset: int,
 def k3_check(name, q, k, v, *, causal, q_offset=0, k_offset=0, k_valid=None,
              block_k=128, fully_masked_rows=0):
     """K3 against its plain version on the same inputs, with the slice's
-    tolerances; returns the max |out| error."""
+    tolerances, launched twice (the same bits, on the variant its shape
+    picks); returns the max |out| error."""
     import torch
 
-    from ddw_tpu_torch.ops.flash_attention import (flash_attention_cuda,
+    from ddw_tpu_torch.ops.flash_attention import (_fwd_variant,
+                                                   flash_attention_cuda,
                                                    flash_attention_plain)
 
+    variant = _fwd_variant(q.dtype, q.shape[2], block_k)
+    before = flash_attention_cuda.launches_by_variant[variant]
     out, lse = flash_attention_cuda(q, k, v, causal, q_offset, k_offset,
                                     block_k=block_k, k_valid=k_valid)
+    out2, lse2 = flash_attention_cuda(q, k, v, causal, q_offset, k_offset,
+                                      block_k=block_k, k_valid=k_valid)
     torch.cuda.synchronize()
+    check(flash_attention_cuda.launches_by_variant[variant] == before + 2,
+          f"K3 {name}: both launches on the {variant} variant")
+    check(torch.equal(out, out2) and torch.equal(lse, lse2),
+          f"K3 {name}: two launches give the same bits")
+    del out2, lse2
+    # the plain version needs a query block that divides Sq; its numerics
+    # do not depend on which (tests/test_torch_flash_attention.py)
+    block_q = next(b for b in (128, 64, q.shape[1]) if q.shape[1] % b == 0)
     ref, ref_lse = flash_attention_plain(q, k, v, causal, q_offset, k_offset,
-                                         block_k=block_k, k_valid=k_valid)
+                                         block_q=block_q, block_k=block_k,
+                                         k_valid=k_valid)
     err = (out.float() - ref.float()).abs()
     vmax = v.float().abs().max().item()
     lse_tol = ref_lse.abs().clamp_min(1.0)
@@ -426,24 +454,58 @@ def k3_check(name, q, k, v, *, causal, q_offset=0, k_offset=0, k_valid=None,
         check(bool((out[:, dead] == 0).all())
               and bool((lse[:, dead] <= -1e29).all()),
               f"K3 {name}: fully masked rows give out 0 and lse <= -1e29")
-    emit(phase="lm_kernel", case=name, shape=list(q.shape),
+    emit(phase="lm_kernel", case=name, variant=variant, shape=list(q.shape),
          sk=k.shape[1], dtype=str(q.dtype).removeprefix("torch."),
          causal=causal, q_offset=q_offset, k_offset=k_offset,
          k_valid=k_valid, block_k=block_k, max_abs_err=err.max().item(),
          lse_max_rel_err=lse_err.max().item(), tolerance=tol,
-         fully_masked_rows=fully_masked_rows)
+         fully_masked_rows=fully_masked_rows, identical_bits=True)
     return err.max().item()
+
+
+def k3_times(q, k, v, flush, batch):
+    """K3's sm90 and mma kernels at one causal bf16 shape, timed in turns
+    (sm90, mma, mma, sm90), beside the bound, the plain version and SDPA."""
+    import torch.nn.functional as F
+
+    from ddw_tpu_torch.ops.flash_attention import (flash_attention_cuda,
+                                                   flash_attention_plain)
+
+    bh, s, d = q.shape
+    flops = 4 * d * bh * causal_pairs(s, s, 0, 0, True, None)
+    nbytes = 4 * bh * s * d * 2 + bh * s * 4
+    turns = {"sm90": [], "mma": []}
+    for var in ("sm90", "mma", "mma", "sm90"):
+        turns[var].append(median_ms(lambda: flash_attention_cuda(
+            q, k, v, True, _variant=var), flush, reps=10))
+    q4, k4, v4 = (t.view(batch, LM_HEADS, s, d) for t in (q, k, v))
+    times = {
+        "ms": min(turns["sm90"]),
+        "ms_mma": min(turns["mma"]),
+        "turns_ms": turns,
+        "plain_ms": median_ms(lambda: flash_attention_plain(q, k, v, True),
+                              flush, reps=3, warmup=1),
+        "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True), flush, reps=10),
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS
+        else "operations"}
+    times["sm90_tflops"] = flops / times["ms"] / 1e9
+    emit(phase="lm_kernel", kernel="flash_attention_fwd", dtype="bfloat16",
+         shape=[bh, s, d], causal=True, **times, bytes=nbytes, flops=flops,
+         library="F.scaled_dot_product_attention(is_causal=True)")
+    return times
 
 
 def phase_lm_kernel(flush):
     """K3 against its plain version at the LM slice's shapes and the edge
-    cases a ring hop or a padded sequence gives it; times at the slice
-    shape beside the bound, the plain version and SDPA."""
+    cases a ring hop, a padded sequence or the sm90 kernel's tiles give it;
+    times of the sm90 and mma kernels at the scoring and training shapes
+    beside the bound, the plain version and SDPA."""
     import torch
-    import torch.nn.functional as F
 
-    from ddw_tpu_torch.ops.flash_attention import (
-        flash_attention_cuda, flash_attention_plain, flash_mha)
+    from ddw_tpu_torch.ops.flash_attention import (flash_attention_cuda,
+                                                   flash_mha)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
 
@@ -453,34 +515,24 @@ def phase_lm_kernel(flush):
 
     bh, s, d = LM_BATCH * LM_HEADS, LM_SEQ, LM_HEAD_DIM
     max_err = 0.0
+
+    def case(name, shape, dtype, **kw):
+        nonlocal max_err
+        q, k, v = qkv(*shape, dtype)
+        max_err = max(max_err, k3_check(name, q, k, v, **kw))
+
     q, k, v = qkv(bh, s, s, d, torch.bfloat16)
     max_err = max(max_err, k3_check("slice_bf16_causal", q, k, v,
                                     causal=True))
-    # times at the slice shape (bf16, causal)
-    pairs = bh * causal_pairs(s, s, 0, 0, True, None)
-    flops = 4 * d * pairs
-    nbytes = 4 * bh * s * d * 2 + bh * s * 4
-    q4, k4, v4 = (t.view(LM_BATCH, LM_HEADS, s, d) for t in (q, k, v))
-    times = {
-        "ms": median_ms(lambda: flash_attention_cuda(q, k, v, True), flush,
-                        reps=10),
-        "plain_ms": median_ms(lambda: flash_attention_plain(q, k, v, True),
-                              flush, reps=5, warmup=1),
-        "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True), flush, reps=10),
-        "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
-    }
-    emit(phase="lm_kernel", kernel="flash_attention_fwd", dtype="bfloat16",
-         shape=[bh, s, d], causal=True, **times,
-         bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS
-         else "operations", bytes=nbytes, flops=flops,
-         library="F.scaled_dot_product_attention(is_causal=True)")
-    del q, k, v, q4, k4, v4
-
-    q, k, v = qkv(bh, s, s, d, torch.float32)
-    max_err = max(max_err, k3_check("slice_f32_causal", q, k, v,
-                                    causal=True))
+    times = {"scoring": k3_times(q, k, v, flush, LM_BATCH)}
     del q, k, v
+    tb = TRAIN_LM_BATCH * LM_HEADS
+    q, k, v = qkv(tb, s, s, d, torch.bfloat16)
+    times["training"] = k3_times(q, k, v, flush, TRAIN_LM_BATCH)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    case("slice_f32_causal", (bh, s, s, d), torch.float32, causal=True)
     # a ring hop's offset: keys start at global 192, so query rows 0-191
     # see no key at all
     q, k, v = qkv(64, 1024, 1024, d, torch.bfloat16)
@@ -489,24 +541,36 @@ def phase_lm_kernel(flush):
     q, k, v = (t.float() for t in (q, k, v))
     max_err = max(max_err, k3_check("offset_k192_f32", q, k, v, causal=True,
                                     k_offset=192, fully_masked_rows=192))
-    q, k, v = qkv(64, 1024, 1024, 128, torch.bfloat16)
-    max_err = max(max_err, k3_check("noncausal_d128_bf16", q, k, v,
-                                    causal=False))
-    q, k, v = qkv(6, 48, 80, 32, torch.float32)
-    max_err = max(max_err, k3_check("d32_block40_kvalid70_f32", q, k, v,
-                                    causal=False, block_k=40, k_valid=70))
-    # bf16 blocks that are not a multiple of 16 take the CUDA-core path
-    q, k, v = qkv(64, 640, 640, d, torch.bfloat16)
-    max_err = max(max_err, k3_check("block40_causal_bf16_cuda_cores", q, k, v,
-                                    causal=True, block_k=40))
+    case("noncausal_d128_bf16", (64, 1024, 1024, 128), torch.bfloat16,
+         causal=False)
+    case("d32_block40_kvalid70_f32", (6, 48, 80, 32), torch.float32,
+         causal=False, block_k=40, k_valid=70)
+    # bf16 blocks that are not a multiple of 16 take the CUDA-core path,
+    # other multiples of 16 than 128 the mma.sync one
+    case("block40_causal_bf16_cuda_cores", (64, 640, 640, d), torch.bfloat16,
+         causal=True, block_k=40)
+    case("block64_causal_bf16_mma", (64, 640, 640, d), torch.bfloat16,
+         causal=True, block_k=64)
+    # the sm90 kernel's edges: a query tile past Sq inside one head, more
+    # queries than keys at an offset, a ring hop whose first 152 rows see no
+    # key, a key mask inside a K block, head dim 128 causal
+    case("sm90_q_tail_sq200", (3, 200, 256, d), torch.bfloat16, causal=True)
+    case("sm90_sq2112_sk2048_qoff64", (64, 2112, 2048, d), torch.bfloat16,
+         causal=True, q_offset=64)
+    case("sm90_ring_hop_q1000_k1152", (64, 1024, 1024, d), torch.bfloat16,
+         causal=True, q_offset=1000, k_offset=1152, fully_masked_rows=152)
+    case("sm90_kvalid1000_sk2048", (64, 1024, 2048, d), torch.bfloat16,
+         causal=False, k_valid=1000)
+    case("sm90_causal_d128", (64, 1024, 1024, 128), torch.bfloat16,
+         causal=True)
     # a padded sequence through flash_mha: S=2047 pads to 2048 with
     # k_valid=2047 (K3 against the plain version inside the same padding)
     q, k, v = (t.view(8, LM_HEADS, s, d)[:, :, :s - 1]
                for t in qkv(8 * LM_HEADS, s, s, d, torch.bfloat16))
-    before = flash_attention_cuda.launches
+    before = flash_attention_cuda.launches_by_variant["sm90"]
     out = flash_mha(q, k, v, causal=True, impl="pallas")
-    check(flash_attention_cuda.launches == before + 1,
-          "flash_mha(impl='pallas') launched K3 once")
+    check(flash_attention_cuda.launches_by_variant["sm90"] == before + 1,
+          "flash_mha(impl='pallas') launched K3 once, on the sm90 variant")
     ref = flash_mha(q, k, v, causal=True, impl="pallas", interpret=True)
     err = (out.float() - ref.float()).abs()
     vmax = v.float().abs().max().item()
@@ -608,9 +672,8 @@ def phase_lm_bwd_kernel(flush):
     import torch.nn.functional as F
 
     from ddw_tpu_torch.ops.flash_attention import (
-        flash_attention_cuda, flash_attention_dkv_cuda,
-        flash_attention_dkv_plain, flash_attention_dq_cuda,
-        flash_attention_dq_plain, flash_mha)
+        flash_attention_dkv_cuda, flash_attention_dkv_plain,
+        flash_attention_dq_cuda, flash_attention_dq_plain, flash_mha)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
 
@@ -636,16 +699,7 @@ def phase_lm_bwd_kernel(flush):
     sdpa = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
     library_ms = median_ms(lambda: torch.autograd.grad(
         sdpa, (q4, k4, v4), do4, retain_graph=True), flush, reps=10)
-    # K3 at the training shape, beside its bound there
-    k3_nbytes = 4 * bh * s * d * 2 + bh * s * 4
-    times = {"k3_train_shape": {
-        "ms": median_ms(lambda: flash_attention_cuda(q, k, v, True), flush,
-                        reps=10),
-        "bound_ms": max(k3_nbytes / HBM_BYTES_PER_S,
-                        4 * d * pairs / BF16_FLOPS) * 1e3}}
-    emit(phase="lm_bwd_kernel", kernel="flash_attention_fwd",
-         dtype="bfloat16", shape=[bh, s, d], causal=True,
-         **times["k3_train_shape"])
+    times = {}
     for key, fn, plain, products, outs in (
             ("dq", lambda: flash_attention_dq_cuda(*args),
              lambda: flash_attention_dq_plain(*args), 3, 1),
@@ -800,6 +854,7 @@ def phase_lm_train(tmp: str):
                 fa.flash_attention_dkv_cuda)
 
     def zero_counts():
+        fa.reset_forward_counts()
         for c in counters:
             c.launches = 0
 
@@ -829,12 +884,16 @@ def phase_lm_train(tmp: str):
     res = trainer.fit_tables(train_t, val_t)
     fit_s = time.perf_counter() - t0
     k3, k4, k5 = counts()
+    k3_by_variant = dict(fa.flash_attention_cuda.launches_by_variant)
     steps, evals = 2 * steps_per_epoch, 2 * val_steps
     hist = res.history
     emit(phase="lm_train", fit_seconds=fit_s, history=hist,
          train_steps=steps, eval_batches=evals, k3_launches=k3,
-         k4_launches=k4, k5_launches=k5,
+         k3_launches_by_variant=k3_by_variant, k4_launches=k4,
+         k5_launches=k5,
          expected=[depth * (steps + evals), depth * steps, depth * steps])
+    check(k3_by_variant["sm90"] == k3, f"every K3 launch of the fit on the "
+          f"sm90 variant: {k3_by_variant}")
     check((k3, k4, k5) == (depth * (steps + evals), depth * steps,
                            depth * steps),
           f"launches K3 {k3}, K4 {k4}, K5 {k5}: expected 6 K3 + 6 K4 + 6 K5 "
@@ -969,7 +1028,8 @@ def phase_lm_train(tmp: str):
     check(bool(np.isfinite(nll).all()) and rel <= 1e-4,
           f"packaged checkpoint's mean NLL {mean_nll:.5f} equals the "
           f"trainer's val_loss {res3.val_loss:.5f} within 1e-4 relative")
-    return {"k3": k3, "k4": k4, "k5": k5}, step_ms, tokens_per_s
+    return ({"k3": k3, "k4": k4, "k5": k5, "k3_by_variant": k3_by_variant},
+            step_ms, tokens_per_s)
 
 
 def make_package(root: str, dtype: str, dw_impl: str, variables) -> str:
@@ -1400,18 +1460,22 @@ def phase_lm(tmp: str):
     batches = -(-LM_ROWS // scorer.batch)
     runs = []
     for i in range(2):                          # cold, then warm
-        k3.launches = 0
+        fa.reset_forward_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rows = scorer.score_table(table, out_store=store,
                                   out_name=f"lm_scores_{i}")
         runs.append(time.perf_counter() - t0)   # NLLs fetched: work done
         launches = k3.launches
+        by_variant = dict(k3.launches_by_variant)
         check(launches == depth * batches,
               f"K3 launched {launches} times, expected {depth} x {batches}")
+        check(by_variant["sm90"] == launches, f"every K3 launch of the "
+              f"scoring run on the sm90 variant: {by_variant}")
     nll = np.array([v for _, v in rows])
     scored_tokens = LM_ROWS * LM_SEQ
     emit(phase="lm", rows=len(rows), batch=scorer.batch, k3_launches=launches,
+         k3_launches_by_variant=by_variant,
          expected_launches=depth * batches, score_table_seconds=runs,
          tokens_per_s=[scored_tokens / r for r in runs],
          nll_mean=float(nll.mean()), nll_min=float(nll.min()),
@@ -1516,7 +1580,7 @@ def phase_lm(tmp: str):
              decisive.sum()), padded_equals_unpadded_rows=same_rows,
          diverging_row_margins=margins, near_tie_tolerance=tol,
          sampled_distinct_tokens=int(len(np.unique(sampled[0]))))
-    return launches, runs
+    return by_variant, runs
 
 
 RING_RANKS = (2, 4)
@@ -1713,12 +1777,61 @@ def ring_rank(seed: int) -> dict:
     dist.all_gather_object(every, times)
     rr.close_comms()
     step("timed_calls_and_close")
+    library = gloo_all_reduce_times(grads, out, names, synced)
+    step("library_gloo")
     trap = ring_trap(rank) if n == 2 else None
     return {"leaves": len(names), "values": numel, "launches": launches,
             "segments_small_slot": segments, "max_abs_err": max_err,
             "worst_gap_over_sum_abs": worst_rel, "plain_ms": plain_ms,
             "call_ms_max_over_ranks": [max(t) for t in zip(*every)],
-            "seq_group": sub, "trap": trap, "host_s_by_step": steps}
+            "library": library, "seq_group": sub, "trap": trap,
+            "host_s_by_step": steps}
+
+
+RING_LIBRARY_CALLS = 3
+
+
+def gloo_all_reduce_times(grads, out, names, synced):
+    """K6's yardstick: ``torch.distributed.all_reduce`` over the same gloo
+    group on each leaf of the same CUDA gradient tree (gloo stages CUDA
+    tensors through the host), timed by K6's protocol: a barrier, CUDA
+    events, the max over ranks, the median of 3 calls. Each call sums fresh
+    copies and is held to K6's sum (within 1e-5 of the leaf's max |sum|,
+    gloo adds in its own order). Returns ``{"ms_max_over_ranks": [...]}``
+    or, when gloo refuses, ``{"error": ...}``."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    times = []
+    try:
+        for _ in range(RING_LIBRARY_CALLS):
+            bufs = [grads[k].clone() for k in names]
+            synced()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for b in bufs:
+                dist.all_reduce(b)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            check(all(float((b - out[k]).abs().max()) <= 1e-5 * float(
+                out[k].abs().max()) for b, k in zip(bufs, names)),
+                "gloo's all_reduce of the tree agrees with K6's sum")
+            del bufs
+    except RuntimeError as e:
+        if str(e).startswith("check failed"):
+            raise
+        return {"call": "torch.distributed.all_reduce (gloo, CUDA leaves)",
+                "error": str(e).splitlines()[0]}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, times)
+    per_call = [max(t) for t in zip(*every)]
+    return {"call": "torch.distributed.all_reduce per leaf (gloo, CUDA "
+                    "leaves)", "ms_max_over_ranks": per_call,
+            "ms": statistics.median(per_call)}
 
 
 RING_TRAP_BOUND_S = 2.0
@@ -1775,7 +1888,8 @@ def phase_ring():
                "bound_ms_4_cards_nvlink": 2 * (n - 1) / n * tree_bytes
                / NVLINK_BYTES_PER_S * 1e3,
                "launches": r["launches"],
-               "max_abs_err": max(x["max_abs_err"] for x in res)}
+               "max_abs_err": max(x["max_abs_err"] for x in res),
+               "library": r["library"]}
         emit(phase="ring", ranks=n, leaves=r["leaves"], values=r["values"],
              tree_bytes=tree_bytes,
              call_ms_max_over_ranks=r["call_ms_max_over_ranks"],
@@ -1858,18 +1972,29 @@ def main() -> int:
     }, {
         "name": "flash_attention_fwd",
         "route": "cuda",
-        "source": "ddw_tpu_torch/ops/csrc/flash_attention.cu",
+        "source": "ddw_tpu_torch/ops/csrc/flash_fwd_sm90.cu",
         "replaces": "ddw_tpu/ops/flash_attention.py:217",
+        "variant": "sm90",
         "launches": lm_train_launches["k3"],
         "launches_by_path": {"lm_training": lm_train_launches["k3"],
-                             "lm_batch_scoring": k3_launches},
+                             "lm_batch_scoring": sum(k3_launches.values())},
+        "launches_by_variant": {
+            "lm_training": lm_train_launches["k3_by_variant"],
+            "lm_batch_scoring": k3_launches},
         "max_abs_err": k3_err,
-        **k3_times,
-        "bound_by": "operations",
+        **{k: k3_times["scoring"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "ms_mma", "sm90_tflops")},
         "per": "one bf16 causal call at [512, 2048, 64]: one layer of a "
-               "64-row LM scoring batch",
-        "ms_at_train_shape": bwd_times["k3_train_shape"]["ms"],
-        "bound_ms_at_train_shape": bwd_times["k3_train_shape"]["bound_ms"],
+               "64-row LM scoring batch; ms_mma is the mma.sync kernel it "
+               "replaces on this path, timed in turns with it",
+        "other_variants": {
+            "mma": "ddw_tpu_torch/ops/csrc/flash_attention.cu "
+                   "(bf16, block_k a multiple of 16 other than 128, or D 32)",
+            "cuda_cores": "ddw_tpu_torch/ops/csrc/flash_attention.cu "
+                          "(f32, other bf16 blocks)"},
+        "at_train_shape": {k: k3_times["training"][k] for k in (
+            "ms", "ms_mma", "library_ms", "bound_ms", "sm90_tflops")},
     }] + [{
         "name": f"flash_attention_{key}",
         "route": "cuda",
@@ -1892,8 +2017,10 @@ def main() -> int:
         "max_abs_err": max(ring[n]["max_abs_err"] for n in RING_RANKS),
         **{k: ring[4][k] for k in ("ms", "plain_ms", "bound_ms")},
         "bound_by": "bytes",
-        "library_ms": None,
-        "library": "none on one card: NCCL refuses two ranks on one device",
+        "library_ms": ring[4]["library"].get("ms"),
+        "library": ring[4]["library"]["call"],
+        "library_error": ring[4]["library"].get("error"),
+        "library_ms_2_ranks": ring[2]["library"].get("ms"),
         **{f"{k}_2_ranks": ring[2][k] for k in ("ms", "plain_ms",
                                                  "bound_ms")},
         "bound_ms_4_cards_nvlink": ring[4]["bound_ms_4_cards_nvlink"],

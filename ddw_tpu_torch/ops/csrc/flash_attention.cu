@@ -42,8 +42,10 @@
 // through shared memory (aliasing the dead K tile) for the P.V product.
 // Shared memory: (64 D + max(128 D, 64 * 132) + 128 D) * 4 bytes, 81 KB at
 // D = 64, so two blocks fit on an SM. Neither path uses wgmma, TMA or
-// pipelining yet (later work). The C entry returns cudaGetLastError() after
-// the launch.
+// pipelining: the main path's attention (bf16, block_k = 128, head dim 64 or
+// 128) runs on the Hopper kernel of flash_fwd_sm90.cu instead, and these two
+// keep the other shapes (ops/flash_attention.py `_fwd_variant`). The C entry
+// returns cudaGetLastError() after the launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

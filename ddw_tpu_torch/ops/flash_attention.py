@@ -3,13 +3,18 @@
 Implementations of the same masked softmax attention, all in the JAX
 package's ``[B, H, S, D]`` layout at the public entries:
 
-- :func:`flash_attention_cuda` launches the hand-written kernel K3 of
-  ``csrc/flash_attention.cu`` on ``[B*H, S, D]`` tensors. It replaces the
-  Pallas kernel ``ddw_tpu/ops/flash_attention.py`` ``_flash_kernel`` /
-  ``_flash_forward``. It is bound by operations (a causal call at the LM's
-  ``[512, 2048, 64]`` is 2.75e11 FLOP against 537 MB); bf16 runs on the
-  tensor cores (``mma.sync``), f32 on the CUDA cores. The design notes are in
-  the source.
+- :func:`flash_attention_cuda` launches the hand-written kernel K3 on
+  ``[B*H, S, D]`` tensors. It replaces the Pallas kernel
+  ``ddw_tpu/ops/flash_attention.py`` ``_flash_kernel`` / ``_flash_forward``.
+  It is bound by operations (a causal call at the LM's ``[512, 2048, 64]`` is
+  2.75e11 FLOP against 537 MB). Three variants, chosen by shape in
+  :func:`_fwd_variant`: ``sm90`` (``csrc/flash_fwd_sm90.cu``: TMA loads fed
+  by a producer warp, ``wgmma`` on two consumer warpgroups) for bf16 with
+  ``block_k`` = 128 at head dim 64 or 128, the main path's attention; ``mma``
+  (``mma.sync`` in ``csrc/flash_attention.cu``) for bf16 with other
+  ``block_k`` multiples of 16 and for head dim 32; ``cuda_cores`` (the same
+  file) for f32 and for other bf16 blocks. The design notes are in the
+  sources.
 - :func:`flash_attention_dq_cuda` (K4) and :func:`flash_attention_dkv_cuda`
   (K5) launch the backward kernels of the same source, which replace
   ``_dq_kernel`` and ``_dkv_kernel`` (``_partitioned_bwd``): dQ, and dK/dV,
@@ -50,6 +55,9 @@ _NEG_INF = -1e30
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (32, 64, 128)
 _KERNEL_MAX_BLOCK_K = 128
+_SM90_HEAD_DIMS = (64, 128)
+_SM90_BLOCK_K = 128
+_FWD_VARIANTS = ("sm90", "mma", "cuda_cores")
 
 # Score-matrix bytes (B*H*Sq*Sk*4, f32) thresholds; env-overridable, as in
 # ddw_tpu (values set on a TPU, see the module docstring).
@@ -283,6 +291,34 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _sm90_lib() -> ctypes.CDLL:
+    from ddw_tpu_torch.ops import _build
+
+    lib = _build.load("flash_fwd_sm90.cu")
+    # q, k, v, out, lse; bh, sq, sk, d, causal, q_offset, k_offset;
+    # sm_scale; k_valid; the stream
+    lib.ddw_flash_fwd_sm90.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float,
+                                                     ctypes.c_int,
+                                                     ctypes.c_void_p])
+    lib.ddw_flash_fwd_sm90.restype = ctypes.c_int
+    return lib
+
+
+def _fwd_variant(dtype: torch.dtype, head_dim: int, block_k: int) -> str:
+    """Which K3 kernel a forward of this shape launches: ``"sm90"`` (TMA and
+    ``wgmma``, ``csrc/flash_fwd_sm90.cu``) for bf16 with ``block_k`` = 128 at
+    head dim 64 or 128; ``"mma"`` (``mma.sync``) for bf16 with another
+    ``block_k`` multiple of 16, or head dim 32; ``"cuda_cores"`` for f32 and
+    for bf16 blocks that are not multiples of 16."""
+    if dtype == torch.bfloat16 and block_k % 16 == 0:
+        if block_k == _SM90_BLOCK_K and head_dim in _SM90_HEAD_DIMS:
+            return "sm90"
+        return "mma"
+    return "cuda_cores"
+
+
 def _check_kernel_inputs(q, k, v, *extra) -> None:
     """The contract every flash-attention kernel checks before it launches:
     contiguous, 16-byte aligned ``q [BH, Sq, D]``, ``k``/``v [BH, Sk, D]``
@@ -324,34 +360,70 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _forced_variant(dtype: torch.dtype, head_dim: int, block_k: int,
+                    forced: str | None) -> str:
+    """:func:`_fwd_variant`, or ``forced`` where that kernel takes the shape
+    too: only ``"mma"`` in place of ``"sm90"``. Raises otherwise."""
+    variant = _fwd_variant(dtype, head_dim, block_k)
+    if forced is None or forced == variant:
+        return variant
+    if forced == "mma" and variant == "sm90":
+        return forced
+    raise ValueError(f"cannot run the {forced!r} forward kernel on {dtype}, "
+                     f"head dim {head_dim}, block_k {block_k} (its kernel "
+                     f"is {variant!r})")
+
+
 def flash_attention_cuda(q, k, v, causal: bool = False, q_offset: int = 0,
                          k_offset: int = 0, sm_scale: float | None = None,
-                         block_k: int = 128, k_valid: int | None = None):
+                         block_k: int = 128, k_valid: int | None = None, *,
+                         _variant: str | None = None):
     """Launch K3 on the current stream, without synchronising: ``(out [BH,
     Sq, D]`` in q's dtype, ``lse [BH, Sq]`` f32) from inputs that meet
-    :func:`_check_kernel_inputs`, with ``block_k <= 128`` dividing Sk.
-    Raises on anything else; never falls back."""
+    :func:`_check_kernel_inputs`, with ``block_k <= 128`` dividing Sk. The
+    kernel is :func:`_fwd_variant`'s; ``_variant="mma"`` runs the ``mma.sync``
+    kernel where ``sm90`` would run (to time the two side by side). Raises on
+    anything else; never falls back. ``launches`` counts every launch,
+    ``launches_by_variant`` each kernel's."""
     _check_kernel_inputs(q, k, v)
     bh, sq, d = q.shape
     sk = k.shape[1]
     if not 1 <= block_k <= _KERNEL_MAX_BLOCK_K or sk % block_k:
         raise ValueError(f"block_k {block_k} must be in [1, "
                          f"{_KERNEL_MAX_BLOCK_K}] and divide Sk={sk}")
+    variant = _forced_variant(q.dtype, d, block_k, _variant)
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-    lib = _kernel_lib()
+    scale = _default_scale(sm_scale, d)
+    kv = -1 if k_valid is None else k_valid
     with torch.cuda.device(q.device):
-        err = lib.ddw_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), bh, sq, sk, d, _KERNEL_DTYPES[q.dtype],
-            int(causal), q_offset, k_offset, _default_scale(sm_scale, d),
-            block_k, -1 if k_valid is None else k_valid, _stream(q.device))
-    _check_launch(err, "flash-attention forward (K3)")
+        if variant == "sm90":
+            err = _sm90_lib().ddw_flash_fwd_sm90(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), bh, sq, sk, d, int(causal), q_offset,
+                k_offset, scale, kv, _stream(q.device))
+        else:
+            err = _kernel_lib().ddw_flash_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), bh, sq, sk, d, _KERNEL_DTYPES[q.dtype],
+                int(causal), q_offset, k_offset, scale, block_k, kv,
+                _stream(q.device))
+    if err >= 1000:
+        raise RuntimeError(f"flash-attention forward (K3, sm90): encoding a "
+                           f"TMA tensor map failed with CUresult {err - 1000}")
+    _check_launch(err, f"flash-attention forward (K3, {variant})")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.launches_by_variant[variant] += 1
     return out, lse
 
 
-flash_attention_cuda.launches = 0
+def reset_forward_counts() -> None:
+    """Set K3's launch counts, the total and each variant's, to zero."""
+    flash_attention_cuda.launches = 0
+    flash_attention_cuda.launches_by_variant = dict.fromkeys(_FWD_VARIANTS, 0)
+
+
+reset_forward_counts()
 
 
 def _check_bwd_inputs(q, k, v, do, lse, delta) -> None:

@@ -268,6 +268,86 @@ def test_cuda_wrapper_refuses_cpu_tensors_and_bad_shapes():
             fn(q, k, v, q, d, d)
 
 
+# -- the forward's Q tile, and the choice of kernel --------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,q_offset,k_offset,k_valid", [
+    (True, 40, 0, None), (True, 0, 192, None), (False, 0, 0, 300),
+    (False, 0, 0, None)])
+def test_plain_forward_bits_do_not_depend_on_block_q(dtype, causal, q_offset,
+                                                     k_offset, k_valid):
+    """The numerics of K3 do not depend on the query tile: a row that sees no
+    key of a K block takes an exact no-op update there (alpha = 1, p = 0).
+    So the sm90 kernel may pick its own Q tile (128 rows) and still follow
+    the TPU kernel. Same bits for block_q 16 to 192 (rows 0-191 fully masked
+    in the k_offset case), and the Pallas kernel in interpret mode agrees."""
+    arrs = _qkv(b=1, h=2, s=384, d=64, seed=11)
+    tdt = getattr(torch, dtype)
+    q, k, v = (t[0] for t in _torch(arrs, tdt))
+    runs = [tfa.flash_attention_plain(q, k, v, causal, q_offset, k_offset,
+                                      block_q=bq, block_k=128,
+                                      k_valid=k_valid)
+            for bq in (16, 64, 128, 192)]
+    for out, lse in runs[1:]:
+        assert torch.equal(out, runs[0][0]) and torch.equal(lse, runs[0][1])
+    jout, jlse = jfa.flash_attention_lse(
+        *_jax(arrs, getattr(jnp, dtype)), causal, q_offset, k_offset, None,
+        128, 128, interpret=True, k_valid=k_valid)
+    got, want = _np(runs[0][0]), _np(jout)[0]
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    else:  # bf16 outputs: two bf16 ulps or 1e-3 * max|v|, as test_flash_bf16
+        ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+        assert (np.abs(got - want) <= np.maximum(
+            2 * ulp, 1e-3 * np.abs(arrs[2]).max())).all()
+    np.testing.assert_allclose(_np(runs[0][1]), _np(jlse)[0], rtol=2e-5,
+                               atol=2e-5)
+    if k_offset:
+        assert (_np(runs[0][0])[:, :k_offset] == 0).all()
+
+
+def test_forward_variant_by_shape():
+    """K3's kernel is a pure function of (dtype, head dim, block_k): sm90
+    (TMA, wgmma) for bf16 at block_k 128 and head dim 64 or 128, mma.sync
+    for other bf16 multiples of 16 and head dim 32, CUDA cores for f32 and
+    for other bf16 blocks. The LM's S = 2,048 takes sm90."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert tfa._fwd_variant(bf, 64, 128) == "sm90"
+    assert tfa._fwd_variant(bf, 128, 128) == "sm90"
+    assert tfa._fwd_variant(bf, 32, 128) == "mma"
+    assert tfa._fwd_variant(bf, 64, 48) == "mma"
+    assert tfa._fwd_variant(bf, 64, 64) == "mma"
+    assert tfa._fwd_variant(bf, 64, 40) == "cuda_cores"
+    assert tfa._fwd_variant(f32, 64, 128) == "cuda_cores"
+    assert tfa._fwd_variant(f32, 64, 48) == "cuda_cores"
+    block = tfa._pick_block(2048, 128, bf)
+    assert block == 128 and tfa._fwd_variant(bf, 64, block) == "sm90"
+    # a short sequence pads to a smaller block and stays on mma.sync
+    assert tfa._fwd_variant(bf, 64, tfa._pick_block(100, 128, bf)) == "mma"
+
+
+def test_forward_counts_reset_and_refuse_bad_variants():
+    """The counts, total and per variant, start at zero after a reset; a
+    CPU tensor launches nothing; a forced variant the shape cannot take is
+    refused before anything launches."""
+    tfa.reset_forward_counts()
+    assert tfa.flash_attention_cuda.launches == 0
+    assert tfa.flash_attention_cuda.launches_by_variant == {
+        "sm90": 0, "mma": 0, "cuda_cores": 0}
+    q = torch.zeros(1, 128, 64)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tfa.flash_attention_cuda(q, q, q, _variant="sm90")
+    assert tfa.flash_attention_cuda.launches_by_variant["sm90"] == 0
+    bf = torch.bfloat16
+    assert tfa._forced_variant(bf, 64, 128, None) == "sm90"
+    assert tfa._forced_variant(bf, 64, 128, "mma") == "mma"
+    assert tfa._forced_variant(bf, 64, 48, "mma") == "mma"
+    for args in ((bf, 64, 48, "sm90"), (torch.float32, 64, 128, "sm90"),
+                 (bf, 64, 128, "cuda_cores"), (bf, 32, 128, "sm90")):
+        with pytest.raises(ValueError, match="cannot run"):
+            tfa._forced_variant(*args)
+
+
 # -- the backward: K4 (dQ) and K5 (dK/dV) ------------------------------------
 
 def _bf16_tol(want, ref_max):
