@@ -83,23 +83,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
 8. lm_bwd_kernel — the flash-attention backward kernels, K4 (dQ) and K5
    (dK/dV), against their plain PyTorch versions on the same inputs (q, k,
    v, do, the forward's lse and delta = rowsum(do * out) - g_lse with a
-   nonzero g_lse): at the LM-training shape [256, 2048, 64] causal in bf16
-   and f32 (TF32 off), a ring hop's offset (query rows that see no key must
-   get exactly zero dq), non-causal at head dim 128, head dim 32 with a key
-   mask, a ragged f32 case on the CUDA cores (100 queries, 200 keys in
-   40-key blocks), and S=2047 padded through ``flash_mha``'s backward. f32
-   within 1e-5 * max|ref|, bf16 within max(2 bf16 ulp, 5e-3 * max|ref|)
-   elementwise; two launches of each bit-identical. Times at [256, 2048,
-   64] bf16 (median of 10, L2 flushed) beside the bound, the plain versions
-   and the backward of causal ``F.scaled_dot_product_attention`` (timed
-   only, the yardstick; one call gives dq, dk and dv).
+   nonzero g_lse). Three variants, chosen by shape (``_bwd_variant``): sm90
+   (TMA and wgmma, ``flash_bwd_sm90.cu``) for bf16 at head dim 64 or 128,
+   mma (``mma.sync``) for bf16 at head dim 32, CUDA cores for f32. Cases:
+   the LM-training shape [256, 2048, 64] causal in bf16 (sm90, and mma
+   forced) and f32 (TF32 off), a ring hop's offset (query rows that see no
+   key must get exactly zero dq), non-causal at head dim 128, head dim 32
+   with a key mask, 100 queries at global 100 against 200 keys on the CUDA
+   cores (f32) and on sm90 (bf16: query and key tail tiles), and S=2047
+   padded through ``flash_mha``'s backward. f32 within 1e-5 * max|ref|,
+   bf16 within max(2 bf16 ulp, 5e-3 * max|ref|) elementwise; two launches
+   of each bit-identical, on the variant the case names. Times at [256,
+   2048, 64] bf16 causal (median of 10, L2 flushed) of the sm90 and mma
+   kernels in turns (sm90, mma, mma, sm90), and of the whole backward
+   (delta, K4, K5) on each, beside the bounds, the plain versions and the
+   backward of causal ``F.scaled_dot_product_attention`` (timed only, the
+   yardstick; one call gives dq, dk and dv).
 9. lm_train — the same full-width bf16 LM from ``init_lm_weights`` with a
    seeded generator, trained by ``LMTrainer.fit_tables`` on a seeded,
    learnable ``tokens_i32`` table (arithmetic sequences mod the vocab, 160
    train and 32 val rows of 2,049 tokens) at batch 32 with adam 3e-4 for 2
    epochs with checkpoints, then ``resume=True`` to epoch 3. Checks: 6 K3 +
-   6 K4 + 6 K5 launches per train step and 6 K3 per val batch, every K3 on
-   the sm90 variant; finite
+   6 K4 + 6 K5 launches per train step and 6 K3 per val batch, every K3,
+   K4 and K5 on the sm90 variant; finite
    losses, epoch 2 below epoch 1, the resume at epoch 2; one bf16 step with
    the kernels against one with the plain versions on the card (loss
    within 5e-3 relative, per-leaf gradients within 5e-2 RMS gap over RMS;
@@ -623,45 +629,134 @@ def bwd_close(got, ref):
 
 
 def k45_check(name, q, k, v, gen, *, causal, q_offset=0, k_offset=0,
-              k_valid=None, block_q=128, block_k=128, fully_masked_rows=0):
+              k_valid=None, block_q=128, block_k=128, fully_masked_rows=0,
+              variants=(None,)):
     """K4 and K5 against their plain versions on the same inputs; two
-    launches of each bit-identical. Returns K4's and K5's max |error|."""
+    launches of each bit-identical, on the variant its shape picks (None)
+    or on each forced one of ``variants``. Returns K4's and K5's max
+    |error| on the variant the shape picks."""
     import torch
 
     from ddw_tpu_torch.ops.flash_attention import (
-        flash_attention_dkv_cuda, flash_attention_dkv_plain,
+        _bwd_variant, flash_attention_dkv_cuda, flash_attention_dkv_plain,
         flash_attention_dq_cuda, flash_attention_dq_plain)
 
     do, lse, delta = bwd_inputs(q, k, v, gen, causal, q_offset, k_offset,
                                 k_valid, block_k)
     args = (q, k, v, do, lse, delta, causal, q_offset, k_offset, None)
-    dq = flash_attention_dq_cuda(*args, k_valid)
-    dq2 = flash_attention_dq_cuda(*args, k_valid)
-    dk, dv = flash_attention_dkv_cuda(*args, k_valid)
-    dk2, dv2 = flash_attention_dkv_cuda(*args, k_valid)
-    torch.cuda.synchronize()
-    check(torch.equal(dq, dq2) and torch.equal(dk, dk2)
-          and torch.equal(dv, dv2),
-          f"K4/K5 {name}: two launches give the same bits")
     rq = flash_attention_dq_plain(*args, block_q, block_k, k_valid)
     rk, rv = flash_attention_dkv_plain(*args, block_q, block_k, k_valid)
-    row = {}
-    for out_name, got, ref in (("dq", dq, rq), ("dk", dk, rk),
-                               ("dv", dv, rv)):
-        ok, err, rel = bwd_close(got, ref)
-        check(ok, f"K4/K5 {name}: {out_name} within the slice's tolerance "
-              f"(max |err| {err:.3g}, {rel:.3g} of max |ref|)")
-        row[out_name] = {"max_abs_err": err, "err_over_max_ref": rel}
-    if fully_masked_rows:
-        check(bool((dq[:, :fully_masked_rows] == 0).all()),
-              f"K4 {name}: rows that see no key get exactly zero dq")
-    emit(phase="lm_bwd_kernel", case=name, shape=list(q.shape),
-         sk=k.shape[1], dtype=str(q.dtype).removeprefix("torch."),
-         causal=causal, q_offset=q_offset, k_offset=k_offset,
-         k_valid=k_valid, bit_identical_relaunch=True,
-         fully_masked_rows=fully_masked_rows, **row)
-    return {"dq": row["dq"]["max_abs_err"],
-            "dkv": max(row["dk"]["max_abs_err"], row["dv"]["max_abs_err"])}
+    errs = {"dq": 0.0, "dkv": 0.0}
+    for forced in variants:
+        variant = forced or _bwd_variant(q.dtype, q.shape[2])
+        before = (flash_attention_dq_cuda.launches_by_variant[variant],
+                  flash_attention_dkv_cuda.launches_by_variant[variant])
+        run = lambda: (flash_attention_dq_cuda(*args, k_valid,
+                                               _variant=forced),
+                       *flash_attention_dkv_cuda(*args, k_valid,
+                                                 _variant=forced))
+        (dq, dk, dv), (dq2, dk2, dv2) = run(), run()
+        torch.cuda.synchronize()
+        check((flash_attention_dq_cuda.launches_by_variant[variant],
+               flash_attention_dkv_cuda.launches_by_variant[variant])
+              == (before[0] + 2, before[1] + 2),
+              f"K4/K5 {name}: every launch on the {variant} variant")
+        check(torch.equal(dq, dq2) and torch.equal(dk, dk2)
+              and torch.equal(dv, dv2),
+              f"K4/K5 {name} ({variant}): two launches give the same bits")
+        del dq2, dk2, dv2
+        row = {}
+        for out_name, got, ref in (("dq", dq, rq), ("dk", dk, rk),
+                                   ("dv", dv, rv)):
+            ok, err, rel = bwd_close(got, ref)
+            check(ok, f"K4/K5 {name} ({variant}): {out_name} within the "
+                  f"slice's tolerance (max |err| {err:.3g}, {rel:.3g} of "
+                  f"max |ref|)")
+            row[out_name] = {"max_abs_err": err, "err_over_max_ref": rel}
+        if fully_masked_rows:
+            check(bool((dq[:, :fully_masked_rows] == 0).all()),
+                  f"K4 {name} ({variant}): rows that see no key get "
+                  f"exactly zero dq")
+        emit(phase="lm_bwd_kernel", case=name, variant=variant,
+             shape=list(q.shape), sk=k.shape[1],
+             dtype=str(q.dtype).removeprefix("torch."), causal=causal,
+             q_offset=q_offset, k_offset=k_offset, k_valid=k_valid,
+             bit_identical_relaunch=True,
+             fully_masked_rows=fully_masked_rows, **row)
+        if forced is None:  # the kernel this shape runs on the main path
+            errs["dq"] = max(errs["dq"], row["dq"]["max_abs_err"])
+            errs["dkv"] = max(errs["dkv"], row["dk"]["max_abs_err"],
+                              row["dv"]["max_abs_err"])
+    return errs
+
+
+def k45_times(q, k, v, gen, flush):
+    """K4's and K5's sm90 and mma kernels at the training shape (bf16,
+    causal), timed in turns (sm90, mma, mma, sm90), beside the bounds, the
+    plain versions and SDPA's whole backward; and the whole backward as
+    FlashAttentionFn runs it (delta, K4, K5) on each variant."""
+    import torch
+    import torch.nn.functional as F
+
+    from ddw_tpu_torch.ops.flash_attention import (
+        flash_attention_cuda, flash_attention_dkv_cuda,
+        flash_attention_dkv_plain, flash_attention_dq_cuda,
+        flash_attention_dq_plain)
+
+    bh, s, d = q.shape
+    do = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
+    out, lse = flash_attention_cuda(q, k, v, True)
+    g_lse = 0.1 * torch.randn(lse.shape, device="cuda", generator=gen)
+    delta = ((do.float() * out.float()).sum(-1) - g_lse).contiguous()
+    args = (q, k, v, do, lse, delta, True, 0, 0, None)
+    pairs = bh * causal_pairs(s, s, 0, 0, True, None)
+    q4, k4, v4, do4 = (t.view(TRAIN_LM_BATCH, LM_HEADS, s, d).detach()
+                       .requires_grad_(t is not do) for t in (q, k, v, do))
+    sdpa = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    library_ms = median_ms(lambda: torch.autograd.grad(
+        sdpa, (q4, k4, v4), do4, retain_graph=True), flush, reps=10)
+
+    def backward_total(variant):  # FlashAttentionFn.backward's kernel work
+        dl = ((do.float() * out.float()).sum(-1) - g_lse).contiguous()
+        flash_attention_dq_cuda(q, k, v, do, lse, dl, True, _variant=variant)
+        flash_attention_dkv_cuda(q, k, v, do, lse, dl, True, _variant=variant)
+
+    fns = {"dq": lambda var: flash_attention_dq_cuda(*args, _variant=var),
+           "dkv": lambda var: flash_attention_dkv_cuda(*args, _variant=var),
+           "total": backward_total}
+    turns = {key: {"sm90": [], "mma": []} for key in fns}
+    for var in ("sm90", "mma", "mma", "sm90"):
+        for key, fn in fns.items():
+            turns[key][var].append(median_ms(lambda: fn(var), flush, reps=10))
+    total = {var: min(t) for var, t in turns["total"].items()}
+    times = {}
+    for key, plain, products, outs in (
+            ("dq", lambda: flash_attention_dq_plain(*args), 3, 1),
+            ("dkv", lambda: flash_attention_dkv_plain(*args), 4, 2)):
+        flops = products * 2 * d * pairs
+        nbytes = (4 + outs) * bh * s * d * 2 + 2 * bh * s * 4
+        times[key] = {
+            "ms": min(turns[key]["sm90"]),
+            "ms_mma": min(turns[key]["mma"]),
+            "turns_ms": turns[key],
+            "plain_ms": median_ms(plain, flush, reps=5, warmup=1),
+            "library_ms": library_ms,
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                            flops / BF16_FLOPS) * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+            >= flops / BF16_FLOPS else "operations",
+            "backward_total_ms": total["sm90"],
+            "backward_total_ms_mma": total["mma"]}
+        times[key]["tflops"] = flops / times[key]["ms"] / 1e9
+        times[key]["share_of_bound"] = (times[key]["bound_ms"]
+                                        / times[key]["ms"])
+        emit(phase="lm_bwd_kernel", kernel=f"flash_attention_{key}",
+             variant="sm90", dtype="bfloat16", shape=[bh, s, d], causal=True,
+             **times[key], bytes=nbytes, flops=flops,
+             backward_total_turns_ms=turns["total"],
+             library="backward of F.scaled_dot_product_attention"
+                     "(is_causal=True): dq, dk and dv in one call")
+    return times
 
 
 def phase_lm_bwd_kernel(flush):
@@ -669,11 +764,9 @@ def phase_lm_bwd_kernel(flush):
     edge cases; times at the training shape beside the bounds, the plain
     versions and SDPA's backward."""
     import torch
-    import torch.nn.functional as F
 
     from ddw_tpu_torch.ops.flash_attention import (
-        flash_attention_dkv_cuda, flash_attention_dkv_plain,
-        flash_attention_dq_cuda, flash_attention_dq_plain, flash_mha)
+        flash_attention_dkv_cuda, flash_attention_dq_cuda, flash_mha)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
 
@@ -689,38 +782,11 @@ def phase_lm_bwd_kernel(flush):
             errs[key] = max(errs[key], err)
 
     q, k, v = qkv(bh, s, s, d, torch.bfloat16)
-    case("train_shape_bf16_causal", q, k, v, gen, causal=True)
-    # times at the training shape (bf16, causal)
-    do, lse, delta = bwd_inputs(q, k, v, gen, True)
-    args = (q, k, v, do, lse, delta, True, 0, 0, None)
-    pairs = bh * causal_pairs(s, s, 0, 0, True, None)
-    q4, k4, v4, do4 = (t.view(TRAIN_LM_BATCH, LM_HEADS, s, d).detach()
-                       .requires_grad_(t is not do) for t in (q, k, v, do))
-    sdpa = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
-    library_ms = median_ms(lambda: torch.autograd.grad(
-        sdpa, (q4, k4, v4), do4, retain_graph=True), flush, reps=10)
-    times = {}
-    for key, fn, plain, products, outs in (
-            ("dq", lambda: flash_attention_dq_cuda(*args),
-             lambda: flash_attention_dq_plain(*args), 3, 1),
-            ("dkv", lambda: flash_attention_dkv_cuda(*args),
-             lambda: flash_attention_dkv_plain(*args), 4, 2)):
-        flops = products * 2 * d * pairs
-        nbytes = (4 + outs) * bh * s * d * 2 + 2 * bh * s * 4
-        times[key] = {
-            "ms": median_ms(fn, flush, reps=10),
-            "plain_ms": median_ms(plain, flush, reps=5, warmup=1),
-            "library_ms": library_ms,
-            "bound_ms": max(nbytes / HBM_BYTES_PER_S,
-                            flops / BF16_FLOPS) * 1e3,
-            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
-            >= flops / BF16_FLOPS else "operations"}
-        emit(phase="lm_bwd_kernel", kernel=f"flash_attention_{key}",
-             dtype="bfloat16", shape=[bh, s, d], causal=True,
-             **times[key], bytes=nbytes, flops=flops,
-             library="backward of F.scaled_dot_product_attention"
-                     "(is_causal=True): dq, dk and dv in one call")
-    del q, k, v, do, lse, delta, args, q4, k4, v4, do4, sdpa
+    # the sm90 kernels this shape runs, and the mma.sync ones timed beside
+    case("train_shape_bf16_causal", q, k, v, gen, causal=True,
+         variants=(None, "mma"))
+    times = k45_times(q, k, v, gen, flush)
+    del q, k, v
     torch.cuda.empty_cache()
 
     q, k, v = qkv(bh, s, s, d, torch.float32)
@@ -743,24 +809,31 @@ def phase_lm_bwd_kernel(flush):
     q, k, v = qkv(6, 100, 200, 64, torch.float32)
     case("ragged_f32_block40_cuda_cores", q, k, v, gen, causal=True,
          q_offset=100, block_q=100, block_k=40)
+    # the same ragged tiles on sm90: query and key tail tiles under TMA's
+    # bounds (the forward's lse from 40-key blocks)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    case("ragged_bf16_d64_sm90", q, k, v, gen, causal=True, q_offset=100,
+         block_q=100, block_k=40)
     # S=2047 padded through flash_mha's backward (K4/K5 against the plain
     # path inside the same padding)
     q, k, v = (t.view(8, LM_HEADS, s, d)[:, :, :s - 1].contiguous()
                for t in qkv(8 * LM_HEADS, s, s, d, torch.bfloat16))
     g = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
     grads = []
+    counts = lambda: (flash_attention_dq_cuda.launches,
+                      flash_attention_dkv_cuda.launches,
+                      flash_attention_dq_cuda.launches_by_variant["sm90"],
+                      flash_attention_dkv_cuda.launches_by_variant["sm90"])
     for interpret in (False, True):
-        before = (flash_attention_dq_cuda.launches,
-                  flash_attention_dkv_cuda.launches)
+        before = counts()
         ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
         flash_mha(*ins, causal=True, impl="pallas",
                   interpret=interpret).backward(g)
         grads.append([t.grad for t in ins])
-        want = (1, 1) if not interpret else (0, 0)
-        check((flash_attention_dq_cuda.launches - before[0],
-               flash_attention_dkv_cuda.launches - before[1]) == want,
+        want = (1, 1, 1, 1) if not interpret else (0, 0, 0, 0)
+        check(tuple(a - b for a, b in zip(counts(), before)) == want,
               f"flash_mha backward (interpret={interpret}) launched K4/K5 "
-              f"{want}")
+              f"{want[:2]}, on the sm90 variant")
     row = {}
     for name, got, ref in zip(("dq", "dk", "dv"), *grads):
         ok, err, rel = bwd_close(got, ref)
@@ -855,8 +928,7 @@ def phase_lm_train(tmp: str):
 
     def zero_counts():
         fa.reset_forward_counts()
-        for c in counters:
-            c.launches = 0
+        fa.reset_backward_counts()
 
     def counts():
         return tuple(c.launches for c in counters)
@@ -884,16 +956,21 @@ def phase_lm_train(tmp: str):
     res = trainer.fit_tables(train_t, val_t)
     fit_s = time.perf_counter() - t0
     k3, k4, k5 = counts()
-    k3_by_variant = dict(fa.flash_attention_cuda.launches_by_variant)
+    k3_by_variant, k4_by_variant, k5_by_variant = (
+        dict(c.launches_by_variant) for c in counters)
     steps, evals = 2 * steps_per_epoch, 2 * val_steps
     hist = res.history
     emit(phase="lm_train", fit_seconds=fit_s, history=hist,
          train_steps=steps, eval_batches=evals, k3_launches=k3,
          k3_launches_by_variant=k3_by_variant, k4_launches=k4,
-         k5_launches=k5,
+         k4_launches_by_variant=k4_by_variant, k5_launches=k5,
+         k5_launches_by_variant=k5_by_variant,
          expected=[depth * (steps + evals), depth * steps, depth * steps])
-    check(k3_by_variant["sm90"] == k3, f"every K3 launch of the fit on the "
-          f"sm90 variant: {k3_by_variant}")
+    for name, n, by_variant in (("K3", k3, k3_by_variant),
+                                ("K4", k4, k4_by_variant),
+                                ("K5", k5, k5_by_variant)):
+        check(by_variant["sm90"] == n, f"every {name} launch of the fit on "
+              f"the sm90 variant: {by_variant}")
     check((k3, k4, k5) == (depth * (steps + evals), depth * steps,
                            depth * steps),
           f"launches K3 {k3}, K4 {k4}, K5 {k5}: expected 6 K3 + 6 K4 + 6 K5 "
@@ -1028,7 +1105,8 @@ def phase_lm_train(tmp: str):
     check(bool(np.isfinite(nll).all()) and rel <= 1e-4,
           f"packaged checkpoint's mean NLL {mean_nll:.5f} equals the "
           f"trainer's val_loss {res3.val_loss:.5f} within 1e-4 relative")
-    return ({"k3": k3, "k4": k4, "k5": k5, "k3_by_variant": k3_by_variant},
+    return ({"k3": k3, "k4": k4, "k5": k5, "k3_by_variant": k3_by_variant,
+             "k4_by_variant": k4_by_variant, "k5_by_variant": k5_by_variant},
             step_ms, tokens_per_s)
 
 
@@ -1998,14 +2076,27 @@ def main() -> int:
     }] + [{
         "name": f"flash_attention_{key}",
         "route": "cuda",
-        "source": "ddw_tpu_torch/ops/csrc/flash_attention.cu",
+        "source": "ddw_tpu_torch/ops/csrc/flash_bwd_sm90.cu",
         "replaces": f"ddw_tpu/ops/flash_attention.py:{line}",
+        "variant": "sm90",
         "launches": lm_train_launches[kern],
         "launches_by_path": {"lm_training": lm_train_launches[kern]},
+        "launches_by_variant": {
+            "lm_training": lm_train_launches[f"{kern}_by_variant"]},
         "max_abs_err": bwd_err[key],
-        **bwd_times[key],
+        **{k: bwd_times[key][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_mma",
+            "tflops", "share_of_bound", "backward_total_ms",
+            "backward_total_ms_mma")},
         "per": "one bf16 causal call at [256, 2048, 64]: one layer of a "
-               "32-row LM train step; library_ms is SDPA's whole backward",
+               "32-row LM train step; library_ms is SDPA's whole backward "
+               "(dq, dk and dv in one call), to be compared with "
+               "backward_total_ms (delta, K4 and K5 as FlashAttentionFn "
+               "runs them); ms_mma is the mma.sync kernel it replaces on "
+               "this path, timed in turns with it",
+        "other_variants": {
+            "mma": "ddw_tpu_torch/ops/csrc/flash_attention.cu (bf16, D 32)",
+            "cuda_cores": "ddw_tpu_torch/ops/csrc/flash_attention.cu (f32)"},
     } for key, line, kern in (("dq", 425, "k4"), ("dkv", 445, "k5"))] + [{
         "name": "ring_all_reduce",
         "route": "cuda",

@@ -650,8 +650,11 @@ int dispatch_d(int d, const void* q, const void* k, const void* v, void* out,
 // Design, simple and right first: bf16 runs on the tensor cores with the
 // mma.sync m16n8k16 fragments, ldmatrix staging and pack_bf16x2 of K3; f32
 // on the CUDA cores. Operands are staged in shared memory with synchronous
-// 16-byte copies per tile (no cp.async, TMA or wgmma yet). The C entries
-// return cudaGetLastError() after the launch.
+// 16-byte copies per tile (no cp.async, TMA or wgmma). The main path's
+// shapes (bf16 at head dim 64 and 128) run the sm90 variant instead,
+// flash_bwd_sm90.cu (TMA, warp-specialised wgmma, persistent CTAs); these
+// mma.sync kernels take bf16 at head dim 32 and timing comparisons. The C
+// entries return cudaGetLastError() after the launch.
 
 constexpr int BT = 64;          // columns (keys in K4, queries in K5) per tile
 

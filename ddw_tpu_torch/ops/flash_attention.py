@@ -16,10 +16,15 @@ package's ``[B, H, S, D]`` layout at the public entries:
   file) for f32 and for other bf16 blocks. The design notes are in the
   sources.
 - :func:`flash_attention_dq_cuda` (K4) and :func:`flash_attention_dkv_cuda`
-  (K5) launch the backward kernels of the same source, which replace
-  ``_dq_kernel`` and ``_dkv_kernel`` (``_partitioned_bwd``): dQ, and dK/dV,
-  from the saved logsumexp, with ``p`` rebuilt tile by tile. Neither uses
-  float atomics, so two launches give the same bits.
+  (K5) launch the backward kernels, which replace ``_dq_kernel`` and
+  ``_dkv_kernel`` (``_partitioned_bwd``): dQ, and dK/dV, from the saved
+  logsumexp, with ``p`` rebuilt tile by tile. Three variants, chosen by
+  shape in :func:`_bwd_variant`: ``sm90`` (``csrc/flash_bwd_sm90.cu``: TMA
+  loads fed by a producer warp, ``wgmma`` on two consumer warpgroups) for
+  bf16 at head dim 64 or 128, the main path's; ``mma`` (``mma.sync`` in
+  ``csrc/flash_attention.cu``) for bf16 at head dim 32; ``cuda_cores`` (the
+  same file) for f32. None uses float atomics, so two launches give the
+  same bits.
 - :func:`flash_attention_plain`, :func:`flash_attention_dq_plain` and
   :func:`flash_attention_dkv_plain`, their plain PyTorch versions: the TPU
   kernels' arithmetic block by block, vectorised over every (batch*head,
@@ -58,6 +63,7 @@ _KERNEL_MAX_BLOCK_K = 128
 _SM90_HEAD_DIMS = (64, 128)
 _SM90_BLOCK_K = 128
 _FWD_VARIANTS = ("sm90", "mma", "cuda_cores")
+_BWD_VARIANTS = _FWD_VARIANTS
 
 # Score-matrix bytes (B*H*Sq*Sk*4, f32) thresholds; env-overridable, as in
 # ddw_tpu (values set on a TPU, see the module docstring).
@@ -306,6 +312,21 @@ def _sm90_lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _sm90_bwd_lib() -> ctypes.CDLL:
+    from ddw_tpu_torch.ops import _build
+
+    lib = _build.load("flash_bwd_sm90.cu")
+    # q, k, v, do, lse, delta, then dq or (dk, dv); bh, sq, sk, d, causal,
+    # q_offset, k_offset; sm_scale; k_valid; the stream
+    for fn, outs in ((lib.ddw_flash_bwd_dq_sm90, 1),
+                     (lib.ddw_flash_bwd_dkv_sm90, 2)):
+        fn.argtypes = ([ctypes.c_void_p] * (6 + outs) + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def _fwd_variant(dtype: torch.dtype, head_dim: int, block_k: int) -> str:
     """Which K3 kernel a forward of this shape launches: ``"sm90"`` (TMA and
     ``wgmma``, ``csrc/flash_fwd_sm90.cu``) for bf16 with ``block_k`` = 128 at
@@ -316,6 +337,17 @@ def _fwd_variant(dtype: torch.dtype, head_dim: int, block_k: int) -> str:
         if block_k == _SM90_BLOCK_K and head_dim in _SM90_HEAD_DIMS:
             return "sm90"
         return "mma"
+    return "cuda_cores"
+
+
+def _bwd_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """Which K4 and K5 kernels a backward of this shape launches (the two
+    always take the same): ``"sm90"`` (TMA and ``wgmma``,
+    ``csrc/flash_bwd_sm90.cu``) for bf16 at head dim 64 or 128; ``"mma"``
+    (``mma.sync``) for bf16 at head dim 32; ``"cuda_cores"`` for f32. The
+    kernels pick their own tiles, so no block size enters."""
+    if dtype == torch.bfloat16:
+        return "sm90" if head_dim in _SM90_HEAD_DIMS else "mma"
     return "cuda_cores"
 
 
@@ -352,6 +384,11 @@ def _check_kernel_inputs(q, k, v, *extra) -> None:
 
 
 def _check_launch(err: int, what: str) -> None:
+    """Raise on a C entry's non-zero return: a cudaError_t code, or (from the
+    sm90 sources) 1000 plus the CUresult of a failed tensor-map encode."""
+    if err >= 1000:
+        raise RuntimeError(f"{what}: encoding a TMA tensor map failed with "
+                           f"CUresult {err - 1000}")
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
@@ -360,18 +397,32 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _forced_variant(dtype: torch.dtype, head_dim: int, block_k: int,
-                    forced: str | None) -> str:
-    """:func:`_fwd_variant`, or ``forced`` where that kernel takes the shape
-    too: only ``"mma"`` in place of ``"sm90"``. Raises otherwise."""
-    variant = _fwd_variant(dtype, head_dim, block_k)
+def _override(variant: str, forced: str | None, what: str) -> str:
+    """``variant``, or ``forced`` where that kernel takes the shape too:
+    only ``"mma"`` in place of ``"sm90"``. Raises otherwise."""
     if forced is None or forced == variant:
         return variant
     if forced == "mma" and variant == "sm90":
         return forced
-    raise ValueError(f"cannot run the {forced!r} forward kernel on {dtype}, "
-                     f"head dim {head_dim}, block_k {block_k} (its kernel "
-                     f"is {variant!r})")
+    raise ValueError(f"cannot run the {forced!r} {what} (its kernel is "
+                     f"{variant!r})")
+
+
+def _forced_variant(dtype: torch.dtype, head_dim: int, block_k: int,
+                    forced: str | None) -> str:
+    """:func:`_fwd_variant`, or ``forced`` where that kernel takes the shape
+    too: only ``"mma"`` in place of ``"sm90"``. Raises otherwise."""
+    return _override(_fwd_variant(dtype, head_dim, block_k), forced,
+                     f"forward kernel on {dtype}, head dim {head_dim}, "
+                     f"block_k {block_k}")
+
+
+def _forced_bwd_variant(dtype: torch.dtype, head_dim: int,
+                        forced: str | None) -> str:
+    """:func:`_bwd_variant`, or ``forced`` where that kernel takes the shape
+    too: only ``"mma"`` in place of ``"sm90"``. Raises otherwise."""
+    return _override(_bwd_variant(dtype, head_dim), forced,
+                     f"backward kernel on {dtype}, head dim {head_dim}")
 
 
 def flash_attention_cuda(q, k, v, causal: bool = False, q_offset: int = 0,
@@ -408,9 +459,6 @@ def flash_attention_cuda(q, k, v, causal: bool = False, q_offset: int = 0,
                 lse.data_ptr(), bh, sq, sk, d, _KERNEL_DTYPES[q.dtype],
                 int(causal), q_offset, k_offset, scale, block_k, kv,
                 _stream(q.device))
-    if err >= 1000:
-        raise RuntimeError(f"flash-attention forward (K3, sm90): encoding a "
-                           f"TMA tensor map failed with CUresult {err - 1000}")
     _check_launch(err, f"flash-attention forward (K3, {variant})")
     flash_attention_cuda.launches += 1
     flash_attention_cuda.launches_by_variant[variant] += 1
@@ -441,57 +489,81 @@ def _check_bwd_inputs(q, k, v, do, lse, delta) -> None:
 def flash_attention_dq_cuda(q, k, v, do, lse, delta, causal: bool = False,
                             q_offset: int = 0, k_offset: int = 0,
                             sm_scale: float | None = None,
-                            k_valid: int | None = None) -> torch.Tensor:
+                            k_valid: int | None = None, *,
+                            _variant: str | None = None) -> torch.Tensor:
     """Launch K4 on the current stream, without synchronising: ``dq [BH, Sq,
     D]`` in q's dtype from the inputs of :func:`flash_attention_dq_plain`
     (``do`` like q; ``lse`` and ``delta`` float32 ``[BH, Sq]``), all meeting
-    :func:`_check_kernel_inputs`. Any Sq and Sk: the kernel's tiles are its
-    own, and masks the ragged edge. Raises on anything else; never falls
-    back."""
+    :func:`_check_kernel_inputs`. Any Sq and Sk: the kernels' tiles are their
+    own, and mask the ragged edge. The kernel is :func:`_bwd_variant`'s;
+    ``_variant="mma"`` runs the ``mma.sync`` kernel where ``sm90`` would run
+    (to time the two side by side). Raises on anything else; never falls
+    back. ``launches`` counts every launch, ``launches_by_variant`` each
+    kernel's."""
     _check_bwd_inputs(q, k, v, do, lse, delta)
     bh, sq, d = q.shape
+    variant = _forced_bwd_variant(q.dtype, d, _variant)
     dq = torch.empty_like(q)
-    lib = _kernel_lib()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
+    scale = _default_scale(sm_scale, d)
+    kv = -1 if k_valid is None else k_valid
     with torch.cuda.device(q.device):
-        err = lib.ddw_flash_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, sq,
-            k.shape[1], d, _KERNEL_DTYPES[q.dtype], int(causal), q_offset,
-            k_offset, _default_scale(sm_scale, d),
-            -1 if k_valid is None else k_valid, _stream(q.device))
-    _check_launch(err, "flash-attention dQ (K4)")
+        if variant == "sm90":
+            err = _sm90_bwd_lib().ddw_flash_bwd_dq_sm90(
+                *ptrs, bh, sq, k.shape[1], d, int(causal), q_offset, k_offset,
+                scale, kv, _stream(q.device))
+        else:
+            err = _kernel_lib().ddw_flash_bwd_dq(
+                *ptrs, bh, sq, k.shape[1], d, _KERNEL_DTYPES[q.dtype],
+                int(causal), q_offset, k_offset, scale, kv, _stream(q.device))
+    _check_launch(err, f"flash-attention dQ (K4, {variant})")
     flash_attention_dq_cuda.launches += 1
+    flash_attention_dq_cuda.launches_by_variant[variant] += 1
     return dq
-
-
-flash_attention_dq_cuda.launches = 0
 
 
 def flash_attention_dkv_cuda(q, k, v, do, lse, delta, causal: bool = False,
                              q_offset: int = 0, k_offset: int = 0,
                              sm_scale: float | None = None,
-                             k_valid: int | None = None):
+                             k_valid: int | None = None, *,
+                             _variant: str | None = None):
     """Launch K5 on the current stream, without synchronising: ``(dk, dv
     [BH, Sk, D])`` in k's dtype, from the inputs of
-    :func:`flash_attention_dq_cuda`. Raises on bad input; never falls
-    back."""
+    :func:`flash_attention_dq_cuda`, on the same variant. Raises on bad
+    input; never falls back."""
     _check_bwd_inputs(q, k, v, do, lse, delta)
     bh, sq, d = q.shape
+    variant = _forced_bwd_variant(q.dtype, d, _variant)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib = _kernel_lib()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    scale = _default_scale(sm_scale, d)
+    kv = -1 if k_valid is None else k_valid
     with torch.cuda.device(q.device):
-        err = lib.ddw_flash_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            bh, sq, k.shape[1], d, _KERNEL_DTYPES[q.dtype], int(causal),
-            q_offset, k_offset, _default_scale(sm_scale, d),
-            -1 if k_valid is None else k_valid, _stream(q.device))
-    _check_launch(err, "flash-attention dK/dV (K5)")
+        if variant == "sm90":
+            err = _sm90_bwd_lib().ddw_flash_bwd_dkv_sm90(
+                *ptrs, bh, sq, k.shape[1], d, int(causal), q_offset, k_offset,
+                scale, kv, _stream(q.device))
+        else:
+            err = _kernel_lib().ddw_flash_bwd_dkv(
+                *ptrs, bh, sq, k.shape[1], d, _KERNEL_DTYPES[q.dtype],
+                int(causal), q_offset, k_offset, scale, kv, _stream(q.device))
+    _check_launch(err, f"flash-attention dK/dV (K5, {variant})")
     flash_attention_dkv_cuda.launches += 1
+    flash_attention_dkv_cuda.launches_by_variant[variant] += 1
     return dk, dv
 
 
-flash_attention_dkv_cuda.launches = 0
+def reset_backward_counts() -> None:
+    """Set K4's and K5's launch counts, the totals and each variant's, to
+    zero."""
+    for fn in (flash_attention_dq_cuda, flash_attention_dkv_cuda):
+        fn.launches = 0
+        fn.launches_by_variant = dict.fromkeys(_BWD_VARIANTS, 0)
+
+
+reset_backward_counts()
 
 
 class FlashAttentionFn(torch.autograd.Function):

@@ -348,6 +348,48 @@ def test_forward_counts_reset_and_refuse_bad_variants():
             tfa._forced_variant(*args)
 
 
+def test_backward_variant_by_shape():
+    """K4's and K5's kernel is a pure function of (dtype, head dim), the
+    same for both: sm90 (TMA, wgmma) for bf16 at head dim 64 and 128,
+    mma.sync for bf16 at head dim 32, CUDA cores for f32."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert tfa._bwd_variant(bf, 32) == "mma"
+    assert tfa._bwd_variant(bf, 64) == "sm90"
+    assert tfa._bwd_variant(bf, 128) == "sm90"
+    for d in (32, 64, 128):
+        assert tfa._bwd_variant(f32, d) == "cuda_cores"
+
+
+def test_backward_counts_reset_and_refuse_bad_variants():
+    """After a reset both backward wrappers count zero, in total and per
+    variant; a CPU tensor launches nothing; a forced variant the shape
+    cannot take is refused before anything launches."""
+    tfa.reset_backward_counts()
+    for fn in (tfa.flash_attention_dq_cuda, tfa.flash_attention_dkv_cuda):
+        assert fn.launches == 0
+        assert fn.launches_by_variant == {"sm90": 0, "mma": 0,
+                                          "cuda_cores": 0}
+    q = torch.zeros(1, 128, 64, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 128)
+    for fn in (tfa.flash_attention_dq_cuda, tfa.flash_attention_dkv_cuda):
+        with pytest.raises(ValueError, match="one CUDA device"):
+            fn(q, q, q, q, lse, lse, _variant="sm90")
+        with pytest.raises(ValueError, match="one CUDA device"):
+            fn(q, q, q, q, lse, lse, _variant="cuda_cores")
+        assert fn.launches == 0
+        assert sum(fn.launches_by_variant.values()) == 0
+    bf = torch.bfloat16
+    assert tfa._forced_bwd_variant(bf, 64, None) == "sm90"
+    assert tfa._forced_bwd_variant(bf, 64, "mma") == "mma"
+    assert tfa._forced_bwd_variant(bf, 32, "mma") == "mma"
+    assert tfa._forced_bwd_variant(torch.float32, 64, None) == "cuda_cores"
+    for args in ((bf, 32, "sm90"), (torch.float32, 64, "sm90"),
+                 (torch.float32, 64, "mma"), (bf, 64, "cuda_cores"),
+                 (bf, 128, "fast")):
+        with pytest.raises(ValueError, match="cannot run"):
+            tfa._forced_bwd_variant(*args)
+
+
 # -- the backward: K4 (dQ) and K5 (dK/dV) ------------------------------------
 
 def _bf16_tol(want, ref_max):
@@ -369,18 +411,40 @@ def test_plain_backward_matches_jax_partitioned_bwd(dtype, d, causal,
     another order); bf16 within max(2 bf16 ulp, 5e-3 * max|ref|) (a sum
     that lands on the other side of a bf16 rounding of ds moves it by an
     ulp)."""
-    b, h, s, sk = 1, 2, 96, 128
-    rng = np.random.RandomState(d + q_offset)
+    _check_plain_backward(dtype, d, causal, q_offset, k_offset, k_valid,
+                          s=96, sk=128, block_q=32, block_k=32,
+                          seed=d + q_offset)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block_q,causal,q_offset,k_offset,k_valid", [
+    (64, True, 0, 0, None), (128, True, 0, 0, None), (128, True, 0, 192, None),
+    (64, False, 0, 0, 200)])
+def test_plain_backward_matches_jax_partitioned_bwd_at_sm90_tiles(
+        dtype, block_q, causal, q_offset, k_offset, k_valid):
+    """The same comparison at the sm90 backward kernels' tiles: 64- and
+    128-row query blocks against 128-key blocks at head dim 64, a ring hop
+    whose keys start at global 192 (rows 0-191 see no key and get exactly
+    zero dq), and a key mask at 200, inside a 128-key block."""
+    _check_plain_backward(dtype, 64, causal, q_offset, k_offset, k_valid,
+                          s=256, sk=256, block_q=block_q, block_k=128,
+                          seed=block_q + k_offset)
+
+
+def _check_plain_backward(dtype, d, causal, q_offset, k_offset, k_valid, *,
+                          s, sk, block_q, block_k, seed):
+    b, h = 1, 2
+    rng = np.random.RandomState(seed)
     q, g = (rng.randn(b, h, s, d).astype(np.float32) for _ in range(2))
     k, v = (rng.randn(b, h, sk, d).astype(np.float32) for _ in range(2))
     jd, td = getattr(jnp, dtype), getattr(torch, dtype)
     jq, jk, jv, jg = (jnp.asarray(x, jd) for x in (q, k, v, g))
     scale = 1.0 / np.sqrt(d)
     _, lse = jfa.flash_attention_lse(jq, jk, jv, causal, q_offset, k_offset,
-                                     scale, 32, 32, k_valid=k_valid)
+                                     scale, block_q, block_k, k_valid=k_valid)
     dvec = rng.randn(b, h, s).astype(np.float32)
     jdq, jdk, jdv = jfa._partitioned_bwd(
-        causal, q_offset, k_offset, scale, 32, 32, True, k_valid)(
+        causal, q_offset, k_offset, scale, block_q, block_k, True, k_valid)(
             jq, jk, jv, lse, jg, jnp.asarray(dvec))
     flat = lambda x, n: torch.from_numpy(np.array(x, np.float32)).to(
         td).reshape(b * h, n, d)
@@ -388,8 +452,8 @@ def test_plain_backward_matches_jax_partitioned_bwd(dtype, d, causal,
     tk, tv = flat(jk, sk), flat(jv, sk)
     tl = torch.from_numpy(np.asarray(lse)).reshape(b * h, s)
     tdv = torch.from_numpy(dvec).reshape(b * h, s)
-    args = (tq, tk, tv, tg, tl, tdv, causal, q_offset, k_offset, scale, 32,
-            32, k_valid)
+    args = (tq, tk, tv, tg, tl, tdv, causal, q_offset, k_offset, scale,
+            block_q, block_k, k_valid)
     dq = tfa.flash_attention_dq_plain(*args)
     dk, dv = tfa.flash_attention_dkv_plain(*args)
     for got, want in ((dq, jdq), (dk, jdk), (dv, jdv)):
