@@ -124,25 +124,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
    buffers through CUDA IPC instead). Each rank takes one bf16 backward of
    the same full-width LM (``init_lm_weights``, one seed) on its own batch
    of 4 x 2,049 tokens and sums the f32 gradient tree (102 leaves,
-   28,360,704 values) with ``all_reduce_sum(impl="pallas")``. Checks: K6
-   launched leaves x segments times; every rank holds the same bits; bit
+   28,360,704 values) with ``all_reduce_sum(impl="pallas")``, which rings
+   the whole tree in one K6 launch (the pack plan's count, checked to be
+   1). Checks: that launch count; every rank holds the same bits; bit
    for bit ``all_reduce_sum`` on CPU copies (the plain version over the
    same gloo group); within 1e-6 * sum|g| per value of the float64 sum;
-   every later call identical to the first; the tree in bf16 bit-equal
-   to the plain version's; leaves of 1, 33 and n*128-7 values and an int32
-   leaf; a leaf that a
-   small-slot ``RingComm`` splits into 3+ segments; at N = 4 a (data=2,
-   seq=2) mesh whose seq rings stay in their rows; a size-1 axis launches
-   nothing; at N = 2, last, a peer that never arrives makes K6 trap and
-   the rank fail within 5 s of a 2 s wait bound. Times: CUDA events, a
-   group barrier before each call, max over ranks, median of 5 calls of
-   the whole tree, beside the bound (every
-   rank's input read and output written once, 2 * N * bytes / 3.35 TB/s,
-   and over NVLink on four cards) and the plain version's time; the
-   yardstick ``torch.distributed.all_reduce`` over the same gloo group on
-   each CUDA leaf by the same protocol (median of 3 calls, held to K6's
+   every later call identical to the first, the earlier per-leaf K6 too;
+   the tree in bf16 bit-equal to the plain version's; leaves of 1, 33 and
+   n*128-7 values and an int32 leaf; a tree of f32, bf16 and int32 leaves
+   with a view at a 4-byte offset in two launches (one per ring dtype); a
+   300-leaf tree in the two launches its plan makes (256 arrays a launch);
+   a pack that a small-slot ``RingComm`` splits into 3+ launches; at N = 4
+   a (data=2, seq=2) mesh whose seq rings stay in their rows; a size-1
+   axis launches nothing; at N = 2, last, a peer that never arrives makes
+   K6 trap and the rank fail within 5 s of a 2 s wait bound. Times: CUDA
+   events, a group barrier before each call, max over ranks, median of 5
+   calls of the whole tree, in turns with 2 calls of the earlier per-leaf
+   K6 (one launch per leaf), beside the bound (every rank's input read and
+   output written once, 2 * N * bytes / 3.35 TB/s, and over NVLink on four
+   cards; it assumes ranks that run at once) and the plain version's time;
+   the yardstick ``torch.distributed.all_reduce`` over the same gloo group
+   on each CUDA leaf by the same protocol (median of 3 calls, held to K6's
    sum), or its error if gloo refuses. The ranks are time-sliced on the
-   card, so the times include the scheduling.
+   card, so the times include the scheduling. The phase's wall seconds.
 11. The ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
    line ``{"ok": true, "device": {...}}``.
 """
@@ -1663,8 +1667,12 @@ def phase_lm(tmp: str):
 
 RING_RANKS = (2, 4)
 RING_BATCH = 4             # rows of 2,049 tokens per rank's backward
-RING_TIMED_CALLS = 5
-RING_SMALL_SLOT_BYTES = 4096   # 1,024-value slots: a leaf of several segments
+# The timed tree calls, in turns: the packed K6 all_reduce_sum runs (5
+# calls) and the earlier per-leaf K6 (2 calls, one launch per leaf).
+RING_TURNS = ("packed", "per_leaf", "packed", "packed", "per_leaf", "packed",
+              "packed")
+RING_SMALL_SLOT_BYTES = 4096   # 1,024-value slots: a pack of several launches
+RING_MANY_LEAVES = 300         # past the 256 arrays one launch takes
 NVLINK_BYTES_PER_S = 450e9     # H100 SXM, each way
 
 
@@ -1721,22 +1729,27 @@ def ring_rank(seed: int) -> dict:
     numel = sum(grads[k].numel() for k in names)
     check(all(grads[k].dtype == torch.float32 for k in names),
           "the gradient tree is f32")
-    slot = rr.slot_elems_of(rr.SLOT_BYTES)
-    expect = sum(len(rr.ring_segments(
-        rr.ring_chunk_len(grads[k].numel(), n, 128), slot)) for k in names)
+    expect = len(rr.ring_pack_plan([grads[k].numel() for k in names], n,
+                                   rr.slot_elems_of(rr.SLOT_BYTES)).launches)
+    check(expect == 1, f"{n} ranks: the LM tree packs into {expect} launches")
 
     def synced():
         torch.cuda.synchronize()
         dist.barrier()
 
+    def reset_counts():
+        k6.launches = 0
+        k6.launches_by_variant = dict.fromkeys(k6.launches_by_variant, 0)
+
     # The main path: one all_reduce_sum of the whole tree, counted.
     synced()
-    k6.launches = 0
+    reset_counts()
     out = all_reduce_sum(grads, impl="pallas")
     torch.cuda.synchronize()
     launches = k6.launches
-    check(launches == expect, f"{n} ranks: K6 launched {launches} times, "
-          f"expected {expect} (leaves x segments)")
+    check(launches == expect == k6.launches_by_variant["packed"],
+          f"{n} ranks: K6 launched {k6.launches_by_variant}, expected "
+          f"{expect} packed launch (the pack plan's)")
     step("main_call")
     cpu_out = {k: out[k].cpu() for k in names}
     digests = [hashlib.sha256(cpu_out[k].numpy().tobytes()).hexdigest()
@@ -1800,17 +1813,51 @@ def ring_rank(seed: int) -> dict:
             check(bool(((got.double() - ref).abs() <= 1e-6 * sum(
                 edge(size, dtype, r).double().abs() for r in range(n))).all()),
                 f"{n} ranks: edge leaf of {size} within 1e-6 * sum|x|")
+    # A tree of f32 and int32 leaves (a bf16 one among the f32, a view at a
+    # 4-byte offset that K6 copies to align): one launch per ring dtype.
+    base = edge(5001, torch.float32, rank)
+    mixed = {"a": edge(33, torch.float32, rank),
+             "b": edge(1000, torch.int32, rank),
+             "c": edge(700, torch.float32, rank).to(torch.bfloat16),
+             "d": base[1:], "e": edge(n * 128 - 7, torch.int32, rank)}
+    on_card = {k: v.cuda() for k, v in mixed.items()}
+    on_card["d"] = base.cuda()[1:]
+    before = k6.launches
+    got = all_reduce_sum(on_card, impl="pallas")
+    mixed_launches = k6.launches - before
+    check(mixed_launches == 2, f"{n} ranks: the f32 + int32 tree took "
+          f"{mixed_launches} launches, expected 2 (one per ring dtype)")
+    plain = all_reduce_sum(mixed, impl="pallas")
+    check(all(bits_equal(got[k].cpu(), plain[k]) for k in mixed),
+          f"{n} ranks: the mixed tree equals the plain version")
+    # More leaves than one launch takes: the plan's launches, the plain bits.
+    many = [edge(1 + i, torch.float32, rank) for i in range(RING_MANY_LEAVES)]
+    before = k6.launches
+    got = rr.ring_all_reduce_tree_pallas([x.cuda() for x in many])
+    many_launches = k6.launches - before
+    check(many_launches == len(rr.ring_pack_plan(
+        [x.numel() for x in many], n, rr.slot_elems_of(rr.SLOT_BYTES))
+        .launches) == 2, f"{n} ranks: {RING_MANY_LEAVES} leaves took "
+        f"{many_launches} launches, expected 2")
+    check(all(bits_equal(g.cpu(), p) for g, p in zip(
+        got, rr.ring_all_reduce_tree_plain(many))),
+        f"{n} ranks: the {RING_MANY_LEAVES}-leaf tree equals plain")
+    # A pack wider than a small slot: several launches along the plan.
     comm = rr.RingComm(None, torch.device("cuda", 0),
                        slot_bytes=RING_SMALL_SLOT_BYTES)
-    x = edge(n * 3 * comm.slot_elems + 77, torch.float32, rank)
+    xs = [edge(n * 3 * comm.slot_elems + 77, torch.float32, rank),
+          edge(33, torch.float32, rank), edge(n * 700, torch.float32, rank)]
     before = k6.launches
-    got = rr.ring_all_reduce_pallas(x.cuda(), comm=comm).cpu()
+    got = rr.ring_all_reduce_tree_pallas([x.cuda() for x in xs], comm=comm)
     segments = k6.launches - before
-    check(segments >= 3, f"{n} ranks: the small-slot leaf ran as {segments} "
-          f"segments (>= 3)")
-    check(bits_equal(got, rr.ring_all_reduce_plain(
-        x, None, slot_bytes=RING_SMALL_SLOT_BYTES)),
-        f"{n} ranks: the segmented leaf equals the plain version")
+    check(segments == len(rr.ring_pack_plan(
+        [x.numel() for x in xs], n, comm.slot_elems).launches) >= 3,
+        f"{n} ranks: the small-slot pack ran as {segments} launches (>= 3, "
+        f"the plan's)")
+    check(all(bits_equal(g.cpu(), p) for g, p in zip(
+        got, rr.ring_all_reduce_tree_plain(
+            xs, None, slot_bytes=RING_SMALL_SLOT_BYTES))),
+        f"{n} ranks: the small-slot pack equals the plain version")
     comm.close()
 
     # A size-1 mesh axis is a world of one: the input back, no launch.
@@ -1838,19 +1885,29 @@ def ring_rank(seed: int) -> dict:
     step("subgroup")
 
     # Time: a group barrier before each call, CUDA events on every rank;
-    # every timed call must give the main call's bits.
-    times = []
-    for _ in range(RING_TIMED_CALLS):
+    # every timed call must give the main call's bits. The packed K6 through
+    # all_reduce_sum and the earlier per-leaf K6 in turns.
+    leaves = [grads[k] for k in names]
+    times = {"packed": [], "per_leaf": []}
+    per_leaf_launches = 0
+    for variant in RING_TURNS:
         synced()
+        before = k6.launches
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        again = all_reduce_sum(grads, impl="pallas")
+        if variant == "packed":
+            again = all_reduce_sum(grads, impl="pallas")
+        else:
+            again = dict(zip(names, rr.ring_all_reduce_tree_pallas(
+                leaves, _variant="per_leaf")))
+            per_leaf_launches = k6.launches - before
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times[variant].append(start.elapsed_time(end))
         check(all(bits_equal(out[k], again[k]) for k in names),
-              f"{n} ranks: every call gives identical bits")
+              f"{n} ranks: every call gives identical bits ({variant})")
+        del again
     every = [None] * n
     dist.all_gather_object(every, times)
     rr.close_comms()
@@ -1859,9 +1916,14 @@ def ring_rank(seed: int) -> dict:
     step("library_gloo")
     trap = ring_trap(rank) if n == 2 else None
     return {"leaves": len(names), "values": numel, "launches": launches,
-            "segments_small_slot": segments, "max_abs_err": max_err,
+            "segments_small_slot": segments, "mixed_launches": mixed_launches,
+            "many_leaves_launches": many_launches,
+            "per_leaf_launches": per_leaf_launches, "max_abs_err": max_err,
             "worst_gap_over_sum_abs": worst_rel, "plain_ms": plain_ms,
-            "call_ms_max_over_ranks": [max(t) for t in zip(*every)],
+            "call_ms_max_over_ranks": [
+                max(t) for t in zip(*(e["packed"] for e in every))],
+            "per_leaf_ms_max_over_ranks": [
+                max(t) for t in zip(*(e["per_leaf"] for e in every))],
             "library": library, "seq_group": sub, "trap": trap,
             "host_s_by_step": steps}
 
@@ -1951,7 +2013,7 @@ def phase_ring():
     from ddw_tpu_torch.runtime.dist import spawn_cpu
 
     torch.cuda.empty_cache()
-    rows = {}
+    rows, t_phase = {}, time.perf_counter()
     for n in RING_RANKS:
         t0 = time.perf_counter()
         res = spawn_cpu(ring_rank, n, SEED + 40, timeout_s=300)
@@ -1961,6 +2023,9 @@ def phase_ring():
               f"{r['values']} values")
         tree_bytes = r["values"] * 4
         row = {"ms": statistics.median(r["call_ms_max_over_ranks"]),
+               "per_leaf_ms": statistics.median(
+                   r["per_leaf_ms_max_over_ranks"]),
+               "per_leaf_launches": r["per_leaf_launches"],
                "plain_ms": max(x["plain_ms"] for x in res),
                "bound_ms": 2 * n * tree_bytes / HBM_BYTES_PER_S * 1e3,
                "bound_ms_4_cards_nvlink": 2 * (n - 1) / n * tree_bytes
@@ -1971,7 +2036,10 @@ def phase_ring():
         emit(phase="ring", ranks=n, leaves=r["leaves"], values=r["values"],
              tree_bytes=tree_bytes,
              call_ms_max_over_ranks=r["call_ms_max_over_ranks"],
+             per_leaf_ms_max_over_ranks=r["per_leaf_ms_max_over_ranks"],
              segments_small_slot=r["segments_small_slot"],
+             mixed_tree_launches=r["mixed_launches"],
+             many_leaves_launches=r["many_leaves_launches"],
              worst_gap_over_sum_abs=max(x["worst_gap_over_sum_abs"]
                                         for x in res),
              seq_groups=[x["seq_group"] for x in res],
@@ -1985,6 +2053,7 @@ def phase_ring():
             emit(phase="ring", absent_peer_trap=trap,
                  wait_bound_s=RING_TRAP_BOUND_S)
         rows[n] = row
+    emit(phase="ring", seconds=time.perf_counter() - t_phase)
     return rows
 
 
@@ -2102,11 +2171,18 @@ def main() -> int:
         "route": "cuda",
         "source": "ddw_tpu_torch/ops/csrc/ring_reduce.cu",
         "replaces": "ddw_tpu/ops/ring_reduce.py:112",
+        "variant": "packed",
         "launches": sum(ring[n]["launches"] for n in RING_RANKS),
         "launches_by_path": {f"all_reduce_sum_{n}_ranks": ring[n]["launches"]
                              for n in RING_RANKS},
+        "launches_per_tree_call": {f"{n}_ranks": ring[n]["launches"]
+                                   for n in RING_RANKS},
         "max_abs_err": max(ring[n]["max_abs_err"] for n in RING_RANKS),
-        **{k: ring[4][k] for k in ("ms", "plain_ms", "bound_ms")},
+        **{k: ring[4][k] for k in ("ms", "plain_ms", "bound_ms",
+                                   "per_leaf_ms")},
+        "per_leaf_ms_2_ranks": ring[2]["per_leaf_ms"],
+        "per_leaf_launches_per_tree_call": {
+            f"{n}_ranks": ring[n]["per_leaf_launches"] for n in RING_RANKS},
         "bound_by": "bytes",
         "library_ms": ring[4]["library"].get("ms"),
         "library": ring[4]["library"]["call"],
@@ -2119,7 +2195,9 @@ def main() -> int:
                "gradient tree (102 leaves, 28,360,704 values) at 4 ranks "
                "that share the card (max over ranks; *_2_ranks at 2); "
                "launches are rank 0's at 2 and 4 ranks; plain_ms is the "
-               "plain version over gloo on the host",
+               "plain version over gloo on the host; per_leaf_ms is the "
+               "earlier design (one launch per leaf), timed in turns with "
+               "it",
     }],
         "train_step_ms": step_ms,
         "lm_score_tokens_per_s": LM_ROWS * LM_SEQ / score_runs[-1],

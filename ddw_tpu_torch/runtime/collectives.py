@@ -16,7 +16,9 @@ The in-tree rings exist at two levels, as in ``ddw_tpu``:
 :func:`ring_all_reduce` (point-to-point sends take ``ppermute``'s place) and
 :func:`ring_all_reduce_pallas` (K6, ``ddw_tpu_torch.ops.ring_reduce``: a
 hand-written CUDA ring over peer-mapped memory on CUDA tensors, its plain
-version on CPU tensors).
+version on CPU tensors). ``all_reduce_sum(tree, impl="pallas")`` rings the
+whole tree at once: one K6 launch per ring dtype, where ``ddw_tpu`` chains
+one kernel per leaf, with the same bits.
 """
 
 from __future__ import annotations
@@ -49,6 +51,20 @@ def tree_map(fn: Callable, tree: Any) -> Any:
     return fn(tree)
 
 
+def tree_leaves(tree: Any) -> list:
+    """The tensor leaves of ``tree``, in ``jax.tree`` order."""
+    leaves: list = []
+    tree_map(leaves.append, tree)
+    return leaves
+
+
+def tree_unflatten(tree: T, leaves: list) -> T:
+    """``tree``'s structure with ``leaves`` in place of its own, in
+    ``jax.tree`` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
 def _sum(x: torch.Tensor, g) -> torch.Tensor:
     out = x.clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=g)
@@ -60,18 +76,23 @@ def all_reduce_sum(tree: T, group=None, impl: str = "psum") -> T:
 
     ``impl``: ``psum`` (``dist.all_reduce``: NCCL on cards, gloo on the
     CPU), ``ring`` (:func:`ring_all_reduce`) or ``pallas`` (K6,
-    :func:`ring_all_reduce_pallas`: the CUDA kernel on CUDA tensors, its
-    plain version on CPU tensors). ``pallas`` reduces leaf by leaf in the
-    tree's order on the current stream, so two rings are never in flight at
-    once (``ddw_tpu`` chains them through ``optimization_barrier``)."""
-    fns = {"psum": _sum, "ring": ring_all_reduce,
-           "pallas": ring_all_reduce_pallas}
-    if impl not in fns:
+    :func:`ddw_tpu_torch.ops.ring_reduce.ring_all_reduce_tree_pallas`: the
+    CUDA kernel on CUDA tensors, its plain version on CPU tensors). ``psum``
+    and ``ring`` reduce leaf by leaf; ``pallas`` rings every leaf of a ring
+    dtype together, one K6 launch per dtype group (f32 with bf16 and f16
+    widened, int32) while the pack fits a comm slot, each leaf keeping its
+    own framing, so the bits are those of a ring per leaf. Its leaves must
+    lie on one device."""
+    fns = {"psum": _sum, "ring": ring_all_reduce}
+    if impl not in (*fns, "pallas"):
         raise KeyError(f"unknown allreduce impl {impl!r} (have psum, ring, "
                        f"pallas)")
     g = _resolve_group(group)
     if _rr.group_size_rank(g)[0] == 1:
         return tree
+    if impl == "pallas":
+        return tree_unflatten(tree, _rr.ring_all_reduce_tree_pallas(
+            tree_leaves(tree), g))
     return tree_map(lambda x: fns[impl](x, g), tree)
 
 

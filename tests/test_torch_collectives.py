@@ -31,6 +31,14 @@ SEG_SHAPE = (4 * 560,)  # 640-value rows at n=4: five 128-value segments
 SEG_BUDGET = 4 * 128 * 4 * 4  # ddw_tpu's budget for 128-value segments at n=4
 BF16_SHAPE = (96,)
 SUB_SHAPE = (160,)
+# The mixed tree one all_reduce_sum(impl="pallas") rings as one pack per ring
+# dtype: f32 leaves around an int32 and a bf16 leaf (None: n * 128 - 7).
+MIX = {"a": (1,), "b": (33,), "c_int": (300,), "d": None, "e_bf16": (200,),
+       "f": (3, 700)}
+
+
+def _mix_shape(key, n):
+    return MIX[key] or (n * 128 - 7,)
 
 
 @functools.cache
@@ -62,7 +70,19 @@ def _inputs(n):
     x["seg"] = rng.randn(n, *SEG_SHAPE).astype(np.float32)
     x["int"] = rng.randint(-2**30, 2**30, (n, 300)).astype(np.int32)
     x["sub"] = rng.randn(n, *SUB_SHAPE).astype(np.float32)
+    for key in MIX:
+        if key == "c_int":
+            x[f"mix_{key}"] = rng.randint(-2**30, 2**30, (n, 300)).astype(
+                np.int32)
+        else:
+            x[f"mix_{key}"] = rng.randn(n, *_mix_shape(key, n)).astype(
+                np.float32)
     return x
+
+
+def _mix_leaf(key, v, bf16):
+    """A mixed-tree input as its dtype: the bf16 leaf rounded from f32."""
+    return bf16(v) if key == "e_bf16" else v
 
 
 @pytest.fixture(autouse=True)
@@ -105,6 +125,12 @@ def _jax_refs(n, x):
           for impl in ("psum", "ring", "pallas")}), n, x["s3"])
     refs["bf16"] = _smap(lambda t: J.rr.ring_all_reduce_pallas(t, "data"), n,
                          J.jnp.asarray(x["bf16"], J.jnp.bfloat16))
+    keys = sorted(MIX)
+    refs["mix"] = _smap(
+        lambda *a: J.coll.all_reduce_sum(dict(zip(keys, a)), "data",
+                                         impl="pallas"), n,
+        *[_mix_leaf(k, x[f"mix_{k}"],
+                    lambda v: J.jnp.asarray(v, J.jnp.bfloat16)) for k in keys])
     return refs
 
 
@@ -157,6 +183,24 @@ def _rank_cases(x):
         coll.all_reduce_sum({"a": s}, impl="nccl")
     except KeyError as e:
         out["unknown_impl"] = str(e)
+    mix = {k: _mix_leaf(k, t[f"mix_{k}"], lambda v: v.to(torch.bfloat16))
+           for k in MIX}
+    hops, shift = [], rr.ring_shift
+    rr.ring_shift = lambda *a, **kw: hops.append(1) or shift(*a, **kw)
+    try:
+        out["mix"] = coll.all_reduce_sum(mix, impl="pallas")
+    finally:
+        rr.ring_shift = shift
+    out["mix_hops"] = len(hops)
+    out["mix_per_leaf"] = {k: coll.ring_all_reduce_pallas(v)
+                           for k, v in mix.items()}
+    for key in ("mix", "mix_per_leaf"):
+        out[key]["e_bf16"] = out[key]["e_bf16"].view(torch.int16)
+    try:
+        coll.all_reduce_sum({"a": t["s0"], "b": torch.zeros(3, device="meta")},
+                            impl="pallas")
+    except ValueError as e:
+        out["mixed_devices"] = str(e)
     bf = t["bf16"].to(torch.bfloat16)
     out["bf16"] = coll.all_reduce_sum(bf, impl="pallas")
     out["bf16_dtype"] = str(out["bf16"].dtype)
@@ -226,6 +270,27 @@ def test_plain_k6_bf16_rings_in_f32(port, jax_refs, n):
         assert port[n][r]["bf16_dtype"] == "torch.bfloat16"
         np.testing.assert_array_equal(port[n][r]["bf16"],
                                       want[r].view(np.int16))
+
+
+@pytest.mark.parametrize("n", NS)
+def test_plain_k6_tree_packs_bit_equal(port, jax_refs, n):
+    """all_reduce_sum(impl="pallas") of a tree that mixes f32, bf16 and
+    int32 leaves of edge sizes rings one pack per ring dtype (two groups of
+    2(n-1) hops) and equals ddw_tpu's all_reduce_sum(impl="pallas"), one
+    kernel per leaf in interpret mode, and the port's per-leaf ring, bit for
+    bit on every rank; a tree on two devices raises."""
+    for r in range(n):
+        got = port[n][r]["mix"]
+        assert sorted(got) == sorted(MIX)
+        for key in MIX:
+            want = jax_refs[n]["mix"][key][r]
+            if key == "e_bf16":
+                want = want.view(np.int16)
+            _bits_equal(got[key], want)
+            _bits_equal(got[key], port[n][r]["mix_per_leaf"][key])
+        assert got["c_int"].dtype == np.int32
+        assert port[n][r]["mix_hops"] == 2 * 2 * (n - 1)
+        assert "one device" in port[n][r]["mixed_devices"]
 
 
 @pytest.mark.parametrize("n", NS)
@@ -344,6 +409,78 @@ def test_ring_framing_matches_jax():
                                                     lane)))
     assert rr.ring_segments(640, 128) == [(s, 128) for s in range(0, 640, 128)]
     assert rr.ring_segments(300, 128) == [(0, 128), (128, 128), (256, 44)]
+
+
+LM_FLASH = dict(vocab_size=8192, max_len=2048, hidden=512, depth=6,
+                num_heads=8, mlp_dim=2048,
+                dtype="bfloat16")  # bench.py lm_flash
+
+
+def _covers_once(plan):
+    """The launches tile [0, width) in order, and each names exactly the
+    arrays with a column in its range."""
+    p0 = 0
+    for launch in plan.launches:
+        assert launch.p0 == p0 < launch.p1
+        p0 = launch.p1
+        assert launch.leaves == tuple(
+            i for i, (o, c) in enumerate(zip(plan.offsets, plan.chunks))
+            if c and o < launch.p1 and o + c > launch.p0)
+    assert p0 == plan.width
+
+
+@pytest.mark.parametrize("n", NS)
+def test_pack_plan_places_whole_rows_on_lanes(n):
+    sizes = [1, 33, n * 128 - 7, 2100, 0, 96, 300]
+    plan = rr.ring_pack_plan(sizes, n, rr.slot_elems_of(rr.SLOT_BYTES))
+    assert plan.chunks == tuple(rr.ring_chunk_len(s, n, 128) for s in sizes)
+    assert all(o % 128 == 0 for o in plan.offsets)
+    assert plan.offsets == tuple(np.cumsum((0,) + plan.chunks[:-1]))
+    assert plan.width == sum(plan.chunks)
+    assert plan.launches == (rr.PackLaunch(0, plan.width, (0, 1, 2, 3, 5, 6)),)
+
+
+@pytest.mark.parametrize("n", NS)
+def test_pack_plan_lm_tree_is_one_launch(n):
+    """The lm_flash LM's 102-leaf gradient tree packs into one launch under
+    the default slot: 14,180,352 columns a hop at n=2, 7,090,176 at n=4."""
+    from ddw_tpu_torch.models.lm import build_lm
+    from ddw_tpu_torch.utils.config import LMCfg
+
+    with torch.device("meta"):
+        params = dict(build_lm(LMCfg(**LM_FLASH)).named_parameters())
+    sizes = [params[k].numel() for k in sorted(params)]
+    assert len(sizes) == 102 and sum(sizes) == 28_360_704
+    plan = rr.ring_pack_plan(sizes, n, rr.slot_elems_of(rr.SLOT_BYTES))
+    assert plan.width == {2: 14_180_352, 4: 7_090_176}[n]
+    assert plan.launches == (rr.PackLaunch(0, plan.width, tuple(range(102))),)
+
+
+@pytest.mark.parametrize("n", NS)
+def test_pack_plan_small_slot_covers_every_column_once(n):
+    """A 512-byte slot cuts the pack into 128-column launches; 256 arrays
+    (the kernel's table) end a launch before the next array's row."""
+    sizes = [1, 33, n * 128 - 7, 2100, 0, 5000]
+    plan = rr.ring_pack_plan(sizes, n, rr.slot_elems_of(512))
+    assert len(plan.launches) == plan.width // 128
+    assert all(la.p1 - la.p0 == 128 and len(la.leaves) == 1
+               for la in plan.launches)
+    _covers_once(plan)
+    capped = rr.ring_pack_plan([1] * 600 + [5000], n, 1 << 20)
+    assert [la.leaves for la in capped.launches] == [
+        tuple(range(256)), tuple(range(256, 512)), tuple(range(512, 601))]
+    _covers_once(capped)
+
+
+def test_ring_dtype_groups():
+    """One ring per ring dtype: bf16 and f16 join f32, int32 apart, in order
+    of first appearance; other dtypes raise."""
+    f32, bf16, f16, i32 = (torch.float32, torch.bfloat16, torch.float16,
+                           torch.int32)
+    assert rr.ring_dtype_groups([bf16, i32, f32, f16, i32]) == [
+        (f32, [0, 2, 3]), (i32, [1, 4])]
+    with pytest.raises(TypeError, match="ROADMAP.md"):
+        rr.ring_dtype_groups([f32, torch.float64])
 
 
 def test_mesh_spec_resolves_like_jax():
