@@ -12,22 +12,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
 2. build  — compile every kernel of the path from ``ddw_tpu_torch/ops/csrc``
    with ``nvcc`` (one process per source, all started together).
 3. kernel — at the six stride-1 shapes of MobileNetV2-224 at batch 128, in
-   bf16 and f32 (TF32 off): the depthwise 3x3 kernel (K1) against its plain
-   PyTorch version, f32 within 1e-5 * max|y|, bf16 within one bf16 ulp (both
-   accumulate in f32); the weight-gradient kernel (K2) against its plain
-   version within 1e-5 * sum|xpad*g| per (dy, dx, c) (the sum in float64),
-   and two K2 launches bit-identical; the autograd Function's dx
+   bf16 and f32 (TF32 off): the depthwise 3x3 kernel (K1, the ``"tma"``
+   variant of ``depthwise_sm90.cu`` that the shape picks) equal to its plain
+   PyTorch version bit for bit, with and without ``flip``; the
+   weight-gradient kernel (K2, ``"tma"``) against its plain version within
+   1e-5 * sum|xpad*g| per (dy, dx, c) (the sum in float64), and two K2
+   launches bit-identical; the same at the tile plan's edges (B = 1, 15x13
+   and 9x7 at C = 64, C = 40, 200 and 48 not multiples of the channel
+   block; tiles on every border), every launch counted on ``"tma"``; the
+   C = 13 scalar case on ``"simt"``; the autograd Function's dx
    bit-identical and dw within one bf16 ulp (f32: 1e-5 * sum|xpad*g|) of
    the plain path's autograd. Times (CUDA events, median of 25 single
-   launches, L2 flushed before each) for each kernel, its plain version and
-   one library call (timed only, the yardstick: ``F.conv2d(groups=C)`` for
-   K1, ``aten.convolution_backward`` weight gradient for K2), beside the
-   bound.
+   launches, L2 flushed before each) for each kernel, ``"tma"`` and
+   ``"simt"`` in turns (tma, simt, simt, tma; the faster median of each),
+   its plain version and one library call (timed only, the yardstick:
+   ``F.conv2d(groups=C)`` for K1, ``aten.convolution_backward`` weight
+   gradient for K2), beside the bound.
 4. main   — a full-width bf16 MobileNetV2 (width 1.0, 224x224x3, 5 classes,
    ``dw_impl="pallas"``) from seeded random weights is saved with
    ``save_packaged_model``, loaded with ``PackagedModel`` on the card, scores a
    300-image ``raw_u8`` table through ``BatchScorer.score_table`` and predicts
-   a few decoded arrays. K1's launch count must be 13 per forward batch.
+   a few decoded arrays. K1's launch count must be 13 per forward batch,
+   all on ``"tma"``; the bf16 logits must equal the plain path's.
    Logits are held against the same package with the plain depthwise on the
    card (bf16: equal argmax wherever the top-2 margin exceeds the tolerance;
    f32: within 1e-3 relative), and ``predict_logits`` images/s is measured.
@@ -37,7 +43,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``raw_u8`` table (1,152 train, 256 val images at 224x224) for 2 epochs at
    batch 128 with adam, checkpointing; then ``fit(resume=True)`` to epoch 3
    continues at epoch 2. Checks: 26 K1 launches (13 forward, 13 dx) and 13
-   K2 launches per train step, 13 K1 per eval batch; finite losses, epoch 2
+   K2 launches per train step, 13 K1 per eval batch, all on ``"tma"``;
+   finite losses, epoch 2
    below epoch 1; one train step with the kernels against one with the
    plain depthwise from the same weights and batch (bf16 loss within 2e-2
    relative, f32 per-leaf gradients within 1e-3 of the leaf's max |grad|,
@@ -253,19 +260,76 @@ def wgrad_tolerance(x, g):
          for dy in range(3) for dx in range(3)]).reshape(3, 3, c)
 
 
+def k1_k2_turns(fns, flush) -> dict:
+    """Each variant's median in turns (tma, simt, simt, tma): the faster of
+    its two medians."""
+    turns = {"tma": [], "simt": []}
+    for variant in ("tma", "simt", "simt", "tma"):
+        turns[variant].append(median_ms(fns[variant], flush))
+    return {v: min(t) for v, t in turns.items()}
+
+
+# [B, H, W, C] at the edges of the "tma" tile plan, each with the (th, tw,
+# cb) it runs on (None: the plan's own). B = 1; H and W that no tile
+# divides; a C that is not a multiple of the channel block (40 under a
+# forced block of 16, 200 and 48 under the plan's or a forced 32); every
+# case has tiles on all four borders.
+DW_EDGES = (((1, 15, 13, 64), None), ((2, 9, 7, 64), None),
+            ((3, 8, 8, 40), None), ((3, 8, 8, 40), (4, 8, 16)),
+            ((2, 8, 8, 200), None), ((1, 7, 7, 960), None),
+            ((2, 17, 30, 48), (8, 16, 32)))
+
+
+def tma_check(x, taps, g, what: str, plan=None) -> tuple[float, float]:
+    """The tma K1 (plain and flipped) equal to the plain version bit for
+    bit, and the tma K2 within 1e-5 * sum|xpad*g| and bit-identical on two
+    launches, every launch counted as tma. Returns K2's max |error| and its
+    largest error over tolerance."""
+    import torch
+
+    from ddw_tpu_torch.ops.depthwise_conv import (
+        depthwise_conv3x3_cuda, depthwise_conv3x3_plain,
+        depthwise_conv3x3_wgrad_cuda, depthwise_conv3x3_wgrad_plain)
+
+    before = (depthwise_conv3x3_cuda.launches_by_variant["tma"],
+              depthwise_conv3x3_wgrad_cuda.launches_by_variant["tma"])
+    for flip in (False, True):
+        y = depthwise_conv3x3_cuda(x, taps, flip=flip, _plan=plan)
+        torch.cuda.synchronize()
+        check(torch.equal(y, depthwise_conv3x3_plain(x, taps, flip=flip)),
+              f"K1 tma {what} flip={flip}: equal to the plain version bit "
+              f"for bit")
+    d1 = depthwise_conv3x3_wgrad_cuda(x, g, _plan=plan)
+    d2 = depthwise_conv3x3_wgrad_cuda(x, g, _plan=plan)
+    torch.cuda.synchronize()
+    check(torch.equal(d1, d2), f"K2 tma {what}: two launches give the same "
+          f"bits")
+    err = (d1.double() - depthwise_conv3x3_wgrad_plain(x, g).double()).abs()
+    wtol = wgrad_tolerance(x, g)
+    check(bool((err <= wtol).all()) and bool(torch.isfinite(d1).all()),
+          f"K2 tma {what} within 1e-5*sum|xpad*g|")
+    check((depthwise_conv3x3_cuda.launches_by_variant["tma"],
+           depthwise_conv3x3_wgrad_cuda.launches_by_variant["tma"])
+          == (before[0] + 2, before[1] + 2), f"{what}: every launch on tma")
+    return err.max().item(), (err / wtol).max().item()
+
+
 def phase_kernel(flush):
     """K1 and K2, and the autograd Function, against their plain versions at
-    the main path's shapes."""
+    the main path's shapes and at the tile plan's edges; both variants timed
+    in turns."""
     import torch
     import torch.nn.functional as F
 
     from ddw_tpu_torch.ops.depthwise_conv import (
-        depthwise_conv3x3, depthwise_conv3x3_cuda, depthwise_conv3x3_plain,
-        depthwise_conv3x3_wgrad_cuda, depthwise_conv3x3_wgrad_plain)
+        _tile_plan_of, depthwise_conv3x3, depthwise_conv3x3_cuda,
+        depthwise_conv3x3_plain, depthwise_conv3x3_wgrad_cuda,
+        depthwise_conv3x3_wgrad_plain, dw_tile_plan)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    keys = ("ms", "ms_simt", "plain_ms", "library_ms", "bound_ms")
     per_pass = {"k1": dict.fromkeys(keys, 0.0), "k2": dict.fromkeys(keys, 0.0)}
+    per_layer = {"k1": [], "k2": []}
     max_err = {"k1": 0.0, "k2": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
         for (h, w, c), layers in DW_SHAPES:
@@ -276,28 +340,16 @@ def phase_kernel(flush):
             name = str(dtype).removeprefix("torch.")
             elems = BATCH * h * w * c
             flops = 2 * 9 * elems
+            plan = dw_tile_plan(BATCH, h, w, c, dtype)
+            k2_err, k2_ratio = tma_check(x, taps, g, f"{dtype} {(h, w, c)}")
 
             # -- K1 --------------------------------------------------------
-            y = depthwise_conv3x3_cuda(x, taps)
-            torch.cuda.synchronize()
-            ref = depthwise_conv3x3_plain(x, taps)
-            err = (y.float() - ref.float()).abs()
-            if dtype == torch.float32:
-                tol = 1e-5 * ref.abs().max().item()
-                ok = err.max().item() <= tol
-                tol_desc = f"1e-5*max|y| = {tol:.3g}"
-            else:
-                ok = bool((err <= bf16_ulp(ref.float())).all())
-                tol_desc = "1 bf16 ulp elementwise"
-            check(ok and bool(torch.isfinite(y).all()),
-                  f"K1 {dtype} {(h, w, c)} within {tol_desc}")
-            k1_err = err.max().item()
-            max_err["k1"] = max(max_err["k1"], k1_err)
             cl = x.permute(0, 3, 1, 2)           # channels_last view
             wl = taps.permute(2, 0, 1).unsqueeze(1).contiguous()
             nbytes = (2 * elems + 9 * c) * x.element_size()
-            k1 = {"ms": median_ms(lambda: depthwise_conv3x3_cuda(x, taps),
-                                  flush),
+            turns = k1_k2_turns({v: (lambda v=v: depthwise_conv3x3_cuda(
+                x, taps, _variant=v)) for v in ("tma", "simt")}, flush)
+            k1 = {"ms": turns["tma"], "ms_simt": turns["simt"],
                   "plain_ms": median_ms(
                       lambda: depthwise_conv3x3_plain(x, taps), flush),
                   "library_ms": median_ms(
@@ -306,29 +358,20 @@ def phase_kernel(flush):
                                   flops / F32_FLOPS) * 1e3}
             emit(phase="kernel", kernel="depthwise_conv3x3_fwd", dtype=name,
                  shape=[BATCH, h, w, c], layers_per_forward=layers,
-                 max_abs_err=k1_err, tolerance=tol_desc, **k1,
+                 variant="tma", plan=plan._asdict(), max_abs_err=0.0,
+                 tolerance="bit for bit, with and without flip", **k1,
+                 share_of_bound=k1["bound_ms"] / k1["ms"],
                  bound_by="bytes" if nbytes / HBM_BYTES_PER_S
                  >= flops / F32_FLOPS else "operations",
                  bytes=nbytes, flops=flops)
-            del y, ref, err
 
             # -- K2 --------------------------------------------------------
-            d1 = depthwise_conv3x3_wgrad_cuda(x, g)
-            d2 = depthwise_conv3x3_wgrad_cuda(x, g)
-            torch.cuda.synchronize()
-            check(torch.equal(d1, d2), f"K2 {dtype} {(h, w, c)}: two "
-                  f"launches give the same bits")
-            ref = depthwise_conv3x3_wgrad_plain(x, g)
-            wtol = wgrad_tolerance(x, g)
-            err = (d1.double() - ref.double()).abs()
-            check(bool((err <= wtol).all()) and bool(torch.isfinite(d1).all()),
-                  f"K2 {dtype} {(h, w, c)} within 1e-5*sum|xpad*g|")
-            k2_err = err.max().item()
             max_err["k2"] = max(max_err["k2"], k2_err)
             gl = g.permute(0, 3, 1, 2)
             k2nbytes = 2 * elems * x.element_size() + 9 * c * 4
-            k2 = {"ms": median_ms(lambda: depthwise_conv3x3_wgrad_cuda(x, g),
-                                  flush),
+            turns = k1_k2_turns({v: (lambda v=v: depthwise_conv3x3_wgrad_cuda(
+                x, g, _variant=v)) for v in ("tma", "simt")}, flush)
+            k2 = {"ms": turns["tma"], "ms_simt": turns["simt"],
                   "plain_ms": median_ms(
                       lambda: depthwise_conv3x3_wgrad_plain(x, g), flush),
                   "library_ms": median_ms(
@@ -339,9 +382,10 @@ def phase_kernel(flush):
                                   flops / F32_FLOPS) * 1e3}
             emit(phase="kernel", kernel="depthwise_conv3x3_wgrad",
                  dtype=name, shape=[BATCH, h, w, c],
-                 layers_per_step=layers, max_abs_err=k2_err,
-                 max_err_over_tolerance=(err / wtol).max().item(),
+                 layers_per_step=layers, variant="tma", max_abs_err=k2_err,
+                 max_err_over_tolerance=k2_ratio,
                  tolerance="1e-5*sum|xpad*g| per (dy,dx,c)", **k2,
+                 share_of_bound=k2["bound_ms"] / k2["ms"],
                  bound_by="bytes" if k2nbytes / HBM_BYTES_PER_S
                  >= flops / F32_FLOPS else "operations",
                  bytes=k2nbytes, flops=flops, deterministic=True)
@@ -349,7 +393,12 @@ def phase_kernel(flush):
                 for kern, vals in (("k1", k1), ("k2", k2)):
                     for key in keys:
                         per_pass[kern][key] += layers * vals[key]
-            del d1, d2, ref, err, wtol
+                    per_layer[kern].append(
+                        {"shape": [BATCH, h, w, c], "layers": layers,
+                         "tiles": [plan.th, plan.tw, plan.cb],
+                         **{k: vals[k] for k in ("ms", "ms_simt",
+                                                 "library_ms", "bound_ms")},
+                         "share_of_bound": vals["bound_ms"] / vals["ms"]})
 
             # -- the Function: dx (K1 on flipped taps) and dw (K2) ---------
             grads = []
@@ -375,21 +424,46 @@ def phase_kernel(flush):
                  shape=[BATCH, h, w, c], dx_bit_identical=True,
                  dw_max_abs_diff=dw_err.max().item())
             del x, taps, g, cl, wl, gl, grads, dx_k, dw_k, dx_p, dw_p
-    # the scalar path (odd C, no vector loads)
+    # the tile plan's edges, on the tma variant
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, tiles in DW_EDGES:
+            x, g = (torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+                    for _ in range(2))
+            taps = torch.randn(3, 3, shape[-1], device="cuda",
+                               generator=gen).to(dtype)
+            plan = None if tiles is None else _tile_plan_of(
+                *shape, x.element_size(), *tiles)
+            check(tiles is None or plan is not None, f"tiles {tiles} plan "
+                  f"{shape}")
+            what = f"edge {dtype} {list(shape)} tiles {tiles}"
+            k2_err, k2_ratio = tma_check(x, taps, g, what, plan)
+            max_err["k2"] = max(max_err["k2"], k2_err)
+            emit(phase="kernel", edge=list(shape), dtype=str(dtype),
+                 plan=(plan or dw_tile_plan(*shape, dtype))._asdict(),
+                 k1_bit_identical=True, k2_max_err_over_tolerance=k2_ratio)
+    # the scalar path (odd C, no vector loads): the simt variant
     x = torch.randn(2, 9, 7, 13, device="cuda", generator=gen)
     taps = torch.randn(3, 3, 13, device="cuda", generator=gen)
     g = torch.randn(2, 9, 7, 13, device="cuda", generator=gen)
     for dtype in (torch.bfloat16, torch.float32):
         xd, td, gd = x.to(dtype), taps.to(dtype), g.to(dtype)
+        before = (depthwise_conv3x3_cuda.launches_by_variant["simt"],
+                  depthwise_conv3x3_wgrad_cuda.launches_by_variant["simt"])
         y = depthwise_conv3x3_cuda(xd, td)
         check(torch.equal(y, depthwise_conv3x3_plain(xd, td)),
               f"K1 scalar path {dtype} equals plain")
+        check(torch.equal(depthwise_conv3x3_cuda(xd, td, flip=True),
+                          depthwise_conv3x3_plain(xd, td, flip=True)),
+              f"K1 scalar path {dtype} flipped equals plain")
         dw = depthwise_conv3x3_wgrad_cuda(xd, gd)
         err = (dw.double() - depthwise_conv3x3_wgrad_plain(xd, gd).double())
         check(bool((err.abs() <= wgrad_tolerance(xd, gd)).all()),
               f"K2 scalar path {dtype} within tolerance")
-    emit(phase="kernel", odd_c_scalar_path="ok")
-    return per_pass, max_err
+        check((depthwise_conv3x3_cuda.launches_by_variant["simt"],
+               depthwise_conv3x3_wgrad_cuda.launches_by_variant["simt"])
+              == (before[0] + 2, before[1] + 1), f"C = 13 {dtype} on simt")
+    emit(phase="kernel", odd_c_scalar_path="ok", variant="simt")
+    return per_pass, per_layer, max_err
 
 
 BF16_FLOPS = 989e12         # H100 SXM, dense bf16 tensor cores
@@ -1178,7 +1252,8 @@ def phase_main(tmp: str):
 
     from ddw_tpu_torch.data.loader import dequantize_raw_u8
     from ddw_tpu_torch.data.store import Record, TableStore
-    from ddw_tpu_torch.ops.depthwise_conv import depthwise_conv3x3_cuda
+    from ddw_tpu_torch.ops.depthwise_conv import (depthwise_conv3x3_cuda,
+                                                  reset_depthwise_counts)
     from ddw_tpu_torch.serving.batch import BatchScorer
     from ddw_tpu_torch.serving.package import PackagedModel
 
@@ -1200,21 +1275,25 @@ def phase_main(tmp: str):
     check(pm.device.type == "cuda", "PackagedModel resolved to the card")
 
     # --- the main path, counted -------------------------------------------
-    depthwise_conv3x3_cuda.launches = 0
+    reset_depthwise_counts()
     t0 = time.perf_counter()
     scored = BatchScorer(pm).score_table(table, out_store=store,
                                          out_name="smoke_predictions")
     preds = pm.predict(list(decoded))
     wall = time.perf_counter() - t0
     launches = depthwise_conv3x3_cuda.launches
+    by_variant = dict(depthwise_conv3x3_cuda.launches_by_variant)
     forwards = -(-N_IMAGES // BATCH) + 1        # 3 scorer batches + predict
     emit(phase="main", scored=len(scored), predict=preds,
-         k1_launches=launches, forward_batches=forwards,
+         k1_launches=launches, k1_launches_by_variant=by_variant,
+         forward_batches=forwards,
          expected_launches=LAYERS_PER_FORWARD * forwards,
          wall_seconds=wall)
     check(launches == LAYERS_PER_FORWARD * forwards,
           f"K1 launched {launches} times, expected "
           f"{LAYERS_PER_FORWARD} x {forwards}")
+    check(by_variant["tma"] == launches, f"every K1 launch of the serving "
+          f"path on the tma variant: {by_variant}")
     check(len(scored) == N_IMAGES, "every record scored")
     out = store.table("smoke_predictions")
     check([(r.path, r.label) for r in out.iter_records()] == scored,
@@ -1237,6 +1316,8 @@ def phase_main(tmp: str):
          decisive=int(decisive.sum()), argmax_agree=int(agree.sum()),
          classes_seen=sorted({int(c) for c in np.argmax(ref, -1)}))
     check(bf16_err <= tol, f"bf16 logits within {tol:.3g} of the plain path")
+    check(bf16_err == 0.0, f"bf16 logits equal to the plain path's (K1 is "
+          f"bit-identical to its plain version), max |diff| {bf16_err}")
     check(bool(decisive.any()) and bool(agree[decisive].all()),
           "bf16 argmax equal wherever the top-2 margin exceeds the tolerance")
     check(len(set(np.argmax(ref, -1))) > 1, "classes differ across images")
@@ -1273,7 +1354,7 @@ def phase_main(tmp: str):
     emit(phase="main", predict_logits_images=len(x_tp),
          images_per_s_median=len(x_tp) / runs[len(runs) // 2],
          images_per_s_runs=[len(x_tp) / r for r in runs])
-    return launches
+    return launches, by_variant
 
 
 TRAIN_IMAGES, VAL_IMAGES = 1152, 256
@@ -1341,7 +1422,8 @@ def phase_train(tmp: str):
     from ddw_tpu_torch.data.loader import ShardedLoader
     from ddw_tpu_torch.data.store import TableStore
     from ddw_tpu_torch.ops.depthwise_conv import (depthwise_conv3x3_cuda,
-                                                  depthwise_conv3x3_wgrad_cuda)
+                                                  depthwise_conv3x3_wgrad_cuda,
+                                                  reset_depthwise_counts)
     from ddw_tpu_torch.serving.batch import BatchScorer
     from ddw_tpu_torch.serving.package import (PackagedModel,
                                                save_packaged_model)
@@ -1371,23 +1453,27 @@ def phase_train(tmp: str):
           "the registry auto-unfroze the random backbone")
     check(trainer.model.freeze_base is False and trainer.device.type == "cuda",
           "unfrozen model on the card")
-    depthwise_conv3x3_cuda.launches = 0
-    depthwise_conv3x3_wgrad_cuda.launches = 0
+    reset_depthwise_counts()
     t0 = time.perf_counter()
     res = trainer.fit(train_t, val_t)
     fit_s = time.perf_counter() - t0
     k1, k2 = depthwise_conv3x3_cuda.launches, depthwise_conv3x3_wgrad_cuda.launches
+    k1_by = dict(depthwise_conv3x3_cuda.launches_by_variant)
+    k2_by = dict(depthwise_conv3x3_wgrad_cuda.launches_by_variant)
     steps, evals = 2 * steps_per_epoch, 2 * val_steps
     exp_k1 = LAYERS_PER_FORWARD * (2 * steps + evals)
     exp_k2 = LAYERS_PER_FORWARD * steps
     hist = [{k: v for k, v in r.items()} for r in res.history]
     emit(phase="train", fit_seconds=fit_s, history=hist, train_steps=steps,
          eval_batches=evals, k1_launches=k1, k1_expected=exp_k1,
-         k2_launches=k2, k2_expected=exp_k2)
+         k2_launches=k2, k2_expected=exp_k2, k1_launches_by_variant=k1_by,
+         k2_launches_by_variant=k2_by)
     check(k1 == exp_k1, f"K1 launched {k1} times, expected {exp_k1} = 13 x "
           f"(2 x {steps} train steps + {evals} eval batches)")
     check(k2 == exp_k2, f"K2 launched {k2} times, expected {exp_k2} = 13 x "
           f"{steps} train steps")
+    check(k1_by["tma"] == k1 and k2_by["tma"] == k2, f"every K1 and K2 "
+          f"launch of the training path on the tma variant: {k1_by}, {k2_by}")
     check(all(np.isfinite([r["loss"], r["val_loss"]]).all() for r in hist),
           "finite train and val losses")
     check(hist[1]["loss"] < hist[0]["loss"],
@@ -1395,8 +1481,7 @@ def phase_train(tmp: str):
           f"{hist[0]['loss']:.4f}")
 
     # --- resume continues at epoch 2 -------------------------------------
-    depthwise_conv3x3_cuda.launches = 0
-    depthwise_conv3x3_wgrad_cuda.launches = 0
+    reset_depthwise_counts()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         res3 = Trainer(data_cfg, model_cfg,
@@ -1479,7 +1564,8 @@ def phase_train(tmp: str):
     check(abs(acc - res3.val_accuracy) <= 2.0 / VAL_IMAGES,
           f"served accuracy {acc:.4f} equals the trainer's val accuracy "
           f"{res3.val_accuracy:.4f} (within 2 images)")
-    return {"k1": k1, "k2": k2}, step_ms
+    return {"k1": k1, "k2": k2, "k1_by_variant": k1_by,
+            "k2_by_variant": k2_by}, step_ms
 
 
 # lm_flash of bench.py: vocab 8192, max_len 2048, hidden 512, depth 6, 8 heads
@@ -2075,7 +2161,7 @@ def main() -> int:
     phase_build()
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     torch.backends.cudnn.allow_tf32 = False
-    per_pass, max_err = phase_kernel(flush)
+    per_pass, per_layer, max_err = phase_kernel(flush)
     torch.backends.cudnn.allow_tf32 = True
     k3_times, k3_err = phase_lm_kernel(flush)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2083,7 +2169,7 @@ def main() -> int:
     del flush
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="ddw_chip_smoke_") as tmp:
-        serving_k1 = phase_main(tmp)
+        serving_k1, serving_k1_by = phase_main(tmp)
         train_launches, step_ms = phase_train(tmp)
         torch.cuda.empty_cache()
         k3_launches, score_runs = phase_lm(tmp)
@@ -2091,31 +2177,47 @@ def main() -> int:
         lm_train_launches, lm_step_ms, lm_tokens_per_s = phase_lm_train(tmp)
     torch.cuda.empty_cache()
     ring = phase_ring()
-    src = "ddw_tpu_torch/ops/csrc/depthwise_conv.cu"
+    src = "ddw_tpu_torch/ops/csrc/depthwise_sm90.cu"
+    simt = {"simt": "ddw_tpu_torch/ops/csrc/depthwise_conv.cu (C * bytes "
+                    "not a multiple of 16, or unaligned pointers)"}
     print(json.dumps({"kernels": [{
         "name": "depthwise_conv3x3_fwd",
         "route": "cuda",
         "source": src,
         "replaces": "ddw_tpu/ops/depthwise_conv.py:74",
+        "variant": "tma",
         "launches": train_launches["k1"],
         "launches_by_path": {"train": train_launches["k1"],
                              "serving": serving_k1},
+        "launches_by_variant": {"train": train_launches["k1_by_variant"],
+                                "serving": serving_k1_by},
         "max_abs_err": max_err["k1"],
         **per_pass["k1"],
+        "share_of_bound": per_pass["k1"]["bound_ms"] / per_pass["k1"]["ms"],
         "bound_by": "bytes",
         "per": "one bf16 pass at batch 128 over the 13 stride-1 layers "
-               "(a forward, or the dx of a backward)",
+               "(a forward, or the dx of a backward); ms_simt is the "
+               "per-thread-load kernel it replaces on this path, timed in "
+               "turns with it",
+        "layers": per_layer["k1"],
+        "other_variants": simt,
     }, {
         "name": "depthwise_conv3x3_wgrad",
         "route": "cuda",
         "source": src,
         "replaces": "ddw_tpu/ops/depthwise_conv.py:91",
+        "variant": "tma",
         "launches": train_launches["k2"],
         "launches_by_path": {"train": train_launches["k2"]},
+        "launches_by_variant": {"train": train_launches["k2_by_variant"]},
         "max_abs_err": max_err["k2"],
         **per_pass["k2"],
+        "share_of_bound": per_pass["k2"]["bound_ms"] / per_pass["k2"]["ms"],
         "bound_by": "bytes",
-        "per": "one bf16 backward at batch 128 over the 13 stride-1 layers",
+        "per": "one bf16 backward at batch 128 over the 13 stride-1 "
+               "layers; ms_simt as for the forward",
+        "layers": per_layer["k2"],
+        "other_variants": simt,
     }, {
         "name": "flash_attention_fwd",
         "route": "cuda",

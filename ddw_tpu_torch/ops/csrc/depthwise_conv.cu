@@ -1,6 +1,9 @@
 // SAME 3x3 depthwise convolution, stride 1, NHWC — the forward kernel (K1,
 // also the input gradient on flipped taps) and the weight-gradient kernel (K2,
-// below) for Hopper.
+// below) for Hopper: the "simt" variant, per-thread global loads. The main
+// path runs the "tma" variant of depthwise_sm90.cu; this one takes the shapes
+// that one refuses (C * bytes not a multiple of 16, unaligned pointers) and
+// is kept for timing the two in turns (`_variant="simt"`).
 //
 // K1 replaces ddw_tpu/ops/depthwise_conv.py `_fwd_kernel` / `_pallas_fwd` (the
 // Pallas TPU kernel). It computes exactly what that kernel computes:
@@ -60,7 +63,7 @@ struct alignas(sizeof(T) * V) Pack {
 template <typename T, int V, int R>
 __global__ void __launch_bounds__(256)
 dw3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                 T* __restrict__ y, int B, int H, int W, int C) {
+                 T* __restrict__ y, int B, int H, int W, int C, int flip) {
   const int cv = C / V;              // channel vectors per pixel
   const int hb = (H + R - 1) / R;    // row blocks per image
   const int total = B * hb * W * cv;  // launch() keeps this below 2^30
@@ -97,7 +100,7 @@ dw3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
           const int dy = r - o;
           if (dy < 0 || dy > 2) continue;
           const Pack<T, V> wv = *reinterpret_cast<const Pack<T, V>*>(
-              w + (dy * 3 + dx) * C + c0);
+              w + (flip ? 8 - (dy * 3 + dx) : dy * 3 + dx) * C + c0);
 #pragma unroll
           for (int k = 0; k < V; ++k)
             acc[o][k] = __fadd_rn(acc[o][k],
@@ -120,7 +123,7 @@ dw3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
 template <typename T, int V>
 int launch(const void* x, const void* w, void* y, int B, int H, int W, int C,
-           cudaStream_t stream) {
+           int flip, cudaStream_t stream) {
   const long long total = (long long)B * ((H + kRows - 1) / kRows) * W * (C / V);
   if (total >= (1LL << 30)) return (int)cudaErrorInvalidValue;  // int math
   const int threads = 256;
@@ -133,7 +136,7 @@ int launch(const void* x, const void* w, void* y, int B, int H, int W, int C,
   if (blocks < 1) blocks = 1;
   dw3x3_fwd_kernel<T, V, kRows><<<(unsigned)blocks, threads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
-      B, H, W, C);
+      B, H, W, C, flip);
   return (int)cudaGetLastError();
 }
 
@@ -332,14 +335,15 @@ extern "C" int ddw_dw3x3_wgrad(const void* x, const void* g, void* part,
 
 // dtype: 0 = float32, 1 = bfloat16. vec: channels per thread (f32: 4 or 1,
 // bf16: 8 or 1); the caller guarantees C % vec == 0 and 16-byte aligned
-// pointers when vec > 1. Returns the cudaError_t of the launch (0 = success).
+// pointers when vec > 1. flip != 0 reads the taps w[2-dy][2-dx] (the input
+// gradient). Returns the cudaError_t of the launch (0 = success).
 extern "C" int ddw_dw3x3_fwd(const void* x, const void* w, void* y, int B,
                              int H, int W, int C, int dtype, int vec,
-                             void* stream) {
+                             int flip, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && vec == 4) return launch<float, 4>(x, w, y, B, H, W, C, s);
-  if (dtype == 0 && vec == 1) return launch<float, 1>(x, w, y, B, H, W, C, s);
-  if (dtype == 1 && vec == 8) return launch<__nv_bfloat16, 8>(x, w, y, B, H, W, C, s);
-  if (dtype == 1 && vec == 1) return launch<__nv_bfloat16, 1>(x, w, y, B, H, W, C, s);
+  if (dtype == 0 && vec == 4) return launch<float, 4>(x, w, y, B, H, W, C, flip, s);
+  if (dtype == 0 && vec == 1) return launch<float, 1>(x, w, y, B, H, W, C, flip, s);
+  if (dtype == 1 && vec == 8) return launch<__nv_bfloat16, 8>(x, w, y, B, H, W, C, flip, s);
+  if (dtype == 1 && vec == 1) return launch<__nv_bfloat16, 1>(x, w, y, B, H, W, C, flip, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -31,7 +31,7 @@ IMAGES = 512
 
 def _category(name: str) -> str:
     n = name.lower()
-    if "dw3x3_fwd_kernel" in n:
+    if "dw3x3_fwd" in n:          # both variants of K1
         return "depthwise_kernel"
     if "dw3x3_wgrad" in n:
         return "depthwise_wgrad_kernel"
