@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of ddw_tpu_torch on one NVIDIA card: build, check and time the
-port's CUDA kernels, then drive the serving, training, LM-scoring,
-LM-training and collective main paths end to end.
+port's CUDA kernels, then drive the serving, training, workshop (the
+example chain), LM-scoring, LM-training and collective main paths end to
+end.
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -52,6 +53,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``save_packaged_model`` -> ``PackagedModel`` -> ``BatchScorer`` on the
    val table, at the trainer's val accuracy. Step ms (median of 10) and
    training images/s.
+5b. workshop — the workshop chain (BASELINE.json configs 1, 3, 4, 5)
+   through ``examples_torch``'s ``main(argv)`` in this process, on a seeded
+   synthetic flowers tree (5 classes x 64 JPEGs at 256 px; 288 train, 32 val
+   at 224x224), at full width (MobileNetV2 1.0, bf16, ``dw_impl="pallas"``):
+   01 single-process and then with 2 ETL workers and ``--materialize``
+   (split membership and label index equal; raw_u8 at 224); config 1, 02
+   with SmallCNN in f32 for 1 epoch (val accuracy and images/s, no
+   threshold); config 3, 04 with 4 TPE trials 2 at a time on the card (each
+   trial thread on its own CUDA stream), unfrozen, 1 epoch at batch 32:
+   every trial ``STATUS_OK`` (``fmin`` records a trial that raised as
+   failed and goes on, so a kernel that failed would hide there; the errors
+   are printed), exactly 4 x 13 x (2 x 9 + 1) K1 and 4 x 13 x 9 K2
+   launches, all ``tma``, the best trial registered in Production and the
+   HTML report written; 04 ``--cache-features``: 13 K1 launches per
+   featurised batch of 64, all ``tma``, and the cached val features within
+   2e-2 x max|feature| of the full model's GAP output (the head's input)
+   on the same images, then 4 head-only trials; config 4, 05 with 2
+   sequential trials, each 2 gloo ranks (processes) that share the card,
+   every rank's K1/K2 counts exact and on ``tma``; config 5, the Production
+   package scores the val table with ``BatchScorer`` in this process and
+   with ``merge=True`` over 2 gloo ranks, and the merged table equals the
+   single-process one record for record. Each step's wall seconds.
 6. lm_kernel — the flash-attention forward kernel (K3) against its plain
    PyTorch version. Three variants, chosen by shape (``_fwd_variant``): sm90
    (TMA and wgmma, ``flash_fwd_sm90.cu``) for bf16 at block_k 128 and head
@@ -1568,6 +1591,263 @@ def phase_train(tmp: str):
             "k2_by_variant": k2_by}, step_ms
 
 
+WORKSHOP_PER_CLASS, WORKSHOP_SRC_PX = 64, 256
+WORKSHOP_FEATURE_TOL = 2e-2     # bf16 backbone: of the largest |feature|
+
+
+def run_example(name: str, argv: list) -> dict:
+    """``examples_torch/<name>.py``'s ``main(argv)`` in this process (flags
+    before the ``section.key=value`` overrides), its printed lines kept and
+    shown on stderr if it raises."""
+    import contextlib
+    import importlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = importlib.import_module(f"examples_torch.{name}").main(argv)
+    except BaseException:
+        print(buf.getvalue(), file=sys.stderr)
+        raise
+    return {"out": out, "seconds": time.perf_counter() - t0,
+            "lines": buf.getvalue().splitlines()}
+
+
+def dw_counts() -> dict:
+    from ddw_tpu_torch.ops.depthwise_conv import (depthwise_conv3x3_cuda,
+                                                  depthwise_conv3x3_wgrad_cuda)
+
+    return {"k1": dict(depthwise_conv3x3_cuda.launches_by_variant),
+            "k2": dict(depthwise_conv3x3_wgrad_cuda.launches_by_variant)}
+
+
+def check_trials(trials, step: str) -> list:
+    """Every trial ended STATUS_OK (``fmin`` records a trial that raised as
+    failed and carries on: a kernel that failed to build or launch would
+    hide there); returns ``[(status, loss)]``."""
+    rows = [(t["status"], t["loss"]) for t in trials.results]
+    bad = [t for t in trials.results if t["status"] != "ok"]
+    for t in bad:
+        print(f"workshop {step}: trial {t['params']} ended {t['status']}: "
+              f"{t.get('error')}", file=sys.stderr)
+    check(not bad, f"every {step} trial ended STATUS_OK: {rows}")
+    return rows
+
+
+def phase_workshop(tmp: str):
+    """The workshop chain (BASELINE.json configs 1, 3, 4 and 5) through the
+    example scripts' ``main`` on a seeded synthetic flowers tree, at full
+    width: MobileNetV2 1.0, 224x224, bf16, ``dw_impl="pallas"``."""
+    import numpy as np
+    import torch
+
+    from ddw_tpu_torch.data.prep import generate_synthetic_flowers
+    from ddw_tpu_torch.data.store import TableStore
+    from ddw_tpu_torch.ops.depthwise_conv import reset_depthwise_counts
+    from ddw_tpu_torch.serving.batch import BatchScorer
+    from ddw_tpu_torch.tracking.registry import ModelRegistry
+    from ddw_tpu_torch.train.transfer import _decode_record
+    from ddw_tpu_torch.utils.config import DataCfg
+    from examples_torch.common import require_tables, score_distributed
+
+    t_phase = time.perf_counter()
+    work = os.path.join(tmp, "workshop")
+    t0 = time.perf_counter()
+    source = generate_synthetic_flowers(
+        os.path.join(work, "raw_flowers"), WORKSHOP_PER_CLASS,
+        WORKSHOP_SRC_PX, seed=SEED)
+    flags = ["--workdir", work, "--source", source, "--device", "cuda"]
+    data = ["data.sample_fraction=1.0", "data.shard_size=16"]
+    mnv2 = data + ["model.name=mobilenet_v2", "model.width_mult=1.0",
+            "model.dtype=bfloat16", "model.dw_impl=pallas", "train.epochs=1",
+            "train.batch_size=32"]
+    seconds = {"synthetic_tree": time.perf_counter() - t0}
+    launches = {}
+
+    # 1. prep: single process, then 2 workers; then decode at 224
+    one = run_example("01_data_prep", flags + data)
+    two = run_example("01_data_prep", flags + ["--etl-procs", "2",
+                                               "--materialize"] + data)
+    seconds["prep_single"], seconds["prep_2_workers_materialize"] = (
+        one["seconds"], two["seconds"])
+
+    def split(out):
+        return ({r.path for r in out["train"].iter_records()},
+                {r.path for r in out["val"].iter_records()})
+
+    a, b = one["out"], two["out"]
+    prep_equal = (split(a) == split(b)
+                  and a["label_to_idx"] == b["label_to_idx"])
+    n_train, n_val = a["train"].num_records, a["val"].num_records
+    dec = b["silver_train_decoded"]
+    emit(phase="workshop", step="prep", images=5 * WORKSHOP_PER_CLASS,
+         train=n_train, val=n_val, label_to_idx=a["label_to_idx"],
+         split_and_index_equal=prep_equal,
+         decoded=[dec.meta["height"], dec.meta["width"]],
+         seconds=seconds["prep_2_workers_materialize"])
+    check(prep_equal, "2-worker prep: the split membership and label index "
+          "of the single-process prep")
+    check(n_train + n_val == 5 * WORKSHOP_PER_CLASS
+          and (dec.meta["height"], dec.meta["width"]) == (224, 224),
+          "every image prepared, decoded at 224")
+
+    # 2. config 1: small CNN, f32, 1 epoch
+    reset_depthwise_counts()
+    c1 = run_example("02_train_single_node", flags + data + [
+        "model.name=small_cnn", "model.dtype=float32", "train.epochs=1"])
+    seconds["config1_small_cnn"] = c1["seconds"]
+    row = c1["out"].history[-1]
+    launches["config1"] = dw_counts()
+    emit(phase="workshop", step="config1_small_cnn",
+         val_accuracy=c1["out"].val_accuracy,
+         images_per_s=row["images_per_sec"], loss=row["loss"],
+         seconds=c1["seconds"], kernel_launches=launches["config1"])
+    check(np.isfinite([row["loss"], row["val_loss"]]).all(),
+          "config 1: finite losses")
+
+    # 3. config 3: TPE, 4 trials, 2 at a time on the card, unfrozen
+    # MobileNetV2, 1 epoch at batch 32 (K1 and K2)
+    reset_depthwise_counts()
+    c3 = run_example("04_hyperopt_parallel", flags + mnv2 + [
+        "model.freeze_base=false", "tune.max_evals=4", "tune.parallelism=2"])
+    launches["config3"] = dw_counts()
+    seconds["config3_hpo"] = c3["seconds"]
+    trials3 = check_trials(c3["out"]["trials"], "config 3")
+    steps, evals = n_train // 32, max(1, n_val // 32)
+    want_k1 = 4 * LAYERS_PER_FORWARD * (2 * steps + evals)
+    want_k2 = 4 * LAYERS_PER_FORWARD * steps
+    reg = ModelRegistry(os.path.join(work, "registry"))
+    prod = reg.get_version("flowers_classifier", stage="Production")
+    emit(phase="workshop", step="config3_hpo", trials=trials3,
+         best=c3["out"]["best"], registered_version=prod,
+         report=os.path.basename(c3["out"]["report"]),
+         kernel_launches=launches["config3"], k1_expected=want_k1,
+         k2_expected=want_k2, seconds=c3["seconds"])
+    got = launches["config3"]
+    check(got["k1"]["tma"] == want_k1 and got["k1"]["simt"] == 0
+          and got["k2"]["tma"] == want_k2 and got["k2"]["simt"] == 0,
+          f"config 3: K1 {want_k1} and K2 {want_k2} launches, all tma "
+          f"(13 x (2 x {steps} steps + {evals} eval) and 13 x {steps} a "
+          f"trial): {got}")
+    check(prod == c3["out"]["version"] and os.path.exists(
+        c3["out"]["report"]), "best trial registered in Production, report "
+          "written")
+
+    # 4. the --cache-features variant: featurise with K1, head-only trials
+    reset_depthwise_counts()
+    c4 = run_example("04_hyperopt_parallel", flags + ["--cache-features"]
+                     + mnv2 + ["tune.max_evals=4", "tune.parallelism=2"])
+    launches["cache_features"] = dw_counts()
+    seconds["cache_features_hpo"] = c4["seconds"]
+    trials4 = check_trials(c4["out"]["trials"], "cached-feature")
+    feat_train, feat_val, full_state = c4["out"]["features"]
+    batches = -(-n_train // 64) + -(-n_val // 64)
+    want = LAYERS_PER_FORWARD * batches
+    got = launches["cache_features"]
+    check(got["k1"]["tma"] == want and got["k1"]["simt"] == 0
+          and sum(got["k2"].values()) == 0,
+          f"featurisation: {want} K1 launches (13 x {batches} batches), "
+          f"all tma, no K2: {got}")
+    # the cached features against the full model's GAP output (the head's
+    # input), on the val images in one batch
+    model = full_state.model.eval()
+    store = TableStore(os.path.join(work, "tables"))
+    _, val_t = require_tables(store, DataCfg())      # the decoded tables
+    pooled = []
+    hook = model.head.register_forward_hook(
+        lambda mod, inp, out: pooled.append(inp[0].float().cpu()))
+    x = np.stack([_decode_record(r, val_t.meta, 224, 224)
+                  for r in val_t.iter_records()])
+    with torch.inference_mode():
+        model(torch.from_numpy(x).cuda())
+    hook.remove()
+    cached = np.stack([np.frombuffer(r.content, np.float32)
+                       for r in feat_val.iter_records()])
+    ref = pooled[0].numpy()
+    feat_err = float(np.abs(cached - ref).max())
+    feat_scale = float(np.abs(ref).max())
+    emit(phase="workshop", step="cache_features", trials=trials4,
+         feature_dim=feat_train.meta["feature_dim"],
+         featurised=[feat_train.num_records, feat_val.num_records],
+         kernel_launches=got, k1_expected=want,
+         feature_max_abs_err=feat_err, feature_max_abs=feat_scale,
+         feature_tolerance=WORKSHOP_FEATURE_TOL * feat_scale,
+         seconds=c4["seconds"])
+    check(cached.shape == ref.shape and np.isfinite(cached).all(),
+          "cached features of the val table, finite")
+    check(feat_err <= WORKSHOP_FEATURE_TOL * feat_scale,
+          f"cached features within {WORKSHOP_FEATURE_TOL} x max|feature| "
+          f"of the full model's pooled features ({feat_err:.3g})")
+
+    # 5. config 4: 2 sequential trials, each data-parallel over 2 gloo ranks
+    # that share the card
+    c5 = run_example("05_hyperopt_distributed", flags + ["--procs", "2"]
+                     + mnv2 + ["model.freeze_base=false",
+                               "tune.max_evals=2"])
+    seconds["config4_distributed_hpo"] = c5["seconds"]
+    trials5 = check_trials(c5["out"]["trials"], "config 4")
+    rank_counts = [t["kernel_launches"] for t in c5["out"]["trials"].results]
+    for t in c5["out"]["trials"].results:
+        b = int(t["params"]["batch_size"])
+        st, ev = max(1, n_train // (2 * b)), max(1, n_val // (2 * b))
+        for r in t["kernel_launches"]:
+            check(r["k1"] == {"tma": LAYERS_PER_FORWARD * (2 * st + ev),
+                              "simt": 0}
+                  and r["k2"] == {"tma": LAYERS_PER_FORWARD * st, "simt": 0},
+                  f"config 4 rank at batch {b}: 13 x (2 x {st} + {ev}) K1 "
+                  f"and 13 x {st} K2 launches, all tma: {r}")
+    launches["config4_ranks"] = rank_counts
+    emit(phase="workshop", step="config4_distributed_hpo", trials=trials5,
+         batch_sizes=[t["params"]["batch_size"]
+                      for t in c5["out"]["trials"].results],
+         rank_kernel_launches=rank_counts, seconds=c5["seconds"])
+
+    # 6. config 5: the Production package scores the val table, in one
+    # process and merged from 2 gloo ranks
+    pkg = reg.model_path("flowers_classifier", stage="Production")
+    reset_depthwise_counts()
+    t0 = time.perf_counter()
+    single = BatchScorer(pkg).score_table(val_t, out_store=store,
+                                          out_name="single_predictions")
+    launches["config5_single"] = dw_counts()
+    seconds["config5_single"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = score_distributed(pkg, store, val_t.manifest["name"],
+                             "predictions", 2, device="cuda")
+    seconds["config5_2_ranks"] = time.perf_counter() - t0
+
+    def records(name):
+        return sorted((r.path, r.content, r.label, r.label_idx)
+                      for r in store.table(name).iter_records())
+
+    merged = store.table("predictions")
+    merged_equal = (records("predictions") == records("single_predictions")
+                    and sorted(rows) == sorted(single))
+    emit(phase="workshop", step="config5_scoring", records=len(single),
+         merged_records=merged.num_records,
+         merged_from=merged.meta.get("merged_from"),
+         merged_equal=merged_equal, kernel_launches=launches[
+             "config5_single"], seconds=[seconds["config5_single"],
+                                         seconds["config5_2_ranks"]])
+    check(merged_equal and len(single) == n_val, "the 2-rank merged table "
+          "equals the single-process table record for record")
+    check(launches["config5_single"]["k1"]["tma"]
+          == LAYERS_PER_FORWARD * -(-n_val // 128), "single-process scoring:"
+          " 13 K1 launches a batch of 128, all tma")
+
+    k1 = {v: sum(launches[s]["k1"][v] for s in
+                 ("config3", "cache_features", "config5_single"))
+          for v in ("tma", "simt")}
+    k2 = {v: launches["config3"]["k2"][v] for v in ("tma", "simt")}
+    seconds["phase"] = time.perf_counter() - t_phase
+    emit(phase="workshop", k1_launches_by_variant=k1,
+         k2_launches_by_variant=k2, merged_equal=merged_equal,
+         seconds=seconds)
+    return {"k1": k1, "k2": k2, "by_step": launches}
+
+
 # lm_flash of bench.py: vocab 8192, max_len 2048, hidden 512, depth 6, 8 heads
 # of 64, MLP 2048, bf16, learned positions
 LM_CFG = dict(vocab_size=8192, max_len=LM_SEQ, hidden=512, depth=6,
@@ -2172,6 +2452,8 @@ def main() -> int:
         serving_k1, serving_k1_by = phase_main(tmp)
         train_launches, step_ms = phase_train(tmp)
         torch.cuda.empty_cache()
+        workshop = phase_workshop(tmp)
+        torch.cuda.empty_cache()
         k3_launches, score_runs = phase_lm(tmp)
         torch.cuda.empty_cache()
         lm_train_launches, lm_step_ms, lm_tokens_per_s = phase_lm_train(tmp)
@@ -2188,9 +2470,11 @@ def main() -> int:
         "variant": "tma",
         "launches": train_launches["k1"],
         "launches_by_path": {"train": train_launches["k1"],
-                             "serving": serving_k1},
+                             "serving": serving_k1,
+                             "workshop": sum(workshop["k1"].values())},
         "launches_by_variant": {"train": train_launches["k1_by_variant"],
-                                "serving": serving_k1_by},
+                                "serving": serving_k1_by,
+                                "workshop": workshop["k1"]},
         "max_abs_err": max_err["k1"],
         **per_pass["k1"],
         "share_of_bound": per_pass["k1"]["bound_ms"] / per_pass["k1"]["ms"],
@@ -2208,8 +2492,10 @@ def main() -> int:
         "replaces": "ddw_tpu/ops/depthwise_conv.py:91",
         "variant": "tma",
         "launches": train_launches["k2"],
-        "launches_by_path": {"train": train_launches["k2"]},
-        "launches_by_variant": {"train": train_launches["k2_by_variant"]},
+        "launches_by_path": {"train": train_launches["k2"],
+                             "workshop": sum(workshop["k2"].values())},
+        "launches_by_variant": {"train": train_launches["k2_by_variant"],
+                                "workshop": workshop["k2"]},
         "max_abs_err": max_err["k2"],
         **per_pass["k2"],
         "share_of_bound": per_pass["k2"]["bound_ms"] / per_pass["k2"]["ms"],

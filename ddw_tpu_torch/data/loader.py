@@ -19,7 +19,8 @@ device. Token tables (``tokens_i32``, :func:`ddw_tpu_torch.data.prep.
 write_token_table`) yield next-token pairs ``(inputs [B, S], targets [B,
 S])`` int32, a memcpy per record. Super-batches ``[k, B, ...]`` for
 ``steps_per_dispatch`` are stacked on the device in ``chain_plan`` order.
-Cached-feature tables are not yet ported (``ROADMAP.md``).
+Cached-feature tables (``features_f32``, :mod:`ddw_tpu_torch.train.transfer`)
+yield ``(features [B, D] f32, labels [B])`` for a head-only model.
 """
 
 from __future__ import annotations
@@ -109,7 +110,8 @@ class ShardedLoader:
     Arguments as ``ddw_tpu``'s, except ``prefetch_to``, which here is a
     ``torch.device`` (``"cuda"`` or ``"cpu"``): batches then arrive as
     tensors on it — f32 images ``[B, H, W, 3]`` and int32 labels ``[B]``,
-    or for a ``tokens_i32`` table int32 ``(inputs, targets)`` ``[B, S]``
+    for a ``features_f32`` table f32 features ``[B, D]``, or for a
+    ``tokens_i32`` table int32 ``(inputs, targets)`` ``[B, S]``
     (``[k, B, ...]`` with ``super_batch``) — from a background thread
     ``prefetch`` batches ahead. Without it, host numpy batches.
     """
@@ -149,10 +151,6 @@ class ShardedLoader:
                                      "prefetch thread)")
                 self._super_plan = plan
         encoding = table.meta.get("encoding")
-        if encoding == "features_f32":
-            raise NotImplementedError(
-                f"{encoding} tables are not yet ported to ddw_tpu_torch's "
-                f"loader; see ROADMAP.md")
         self.table = table
         self.batch_size = batch_size
         self.height, self.width = image_size
@@ -168,6 +166,10 @@ class ShardedLoader:
                             if prefetch_to is not None else None)
         self.skip_records = skip_records
 
+        # a cached-feature table's content is the frozen backbone's pooled
+        # f32 feature vector (train/transfer.py); batches go to the head
+        self._feature_dim = (table.meta.get("feature_dim")
+                             if encoding == "features_f32" else None)
         # a token table's content is an int32 [S+1] sequence
         self._token_len = (table.meta.get("seq_plus_one")
                            if encoding == "tokens_i32" else None)
@@ -275,6 +277,20 @@ class ShardedLoader:
                 i += 1
                 if i == self.batch_size:
                     yield toks[:, :-1].copy(), toks[:, 1:].copy()
+                    i = 0
+            return  # drop remainder: static shapes
+
+        if self._feature_dim:
+            d = self._feature_dim
+            feats = np.empty((self.batch_size, d), np.float32)
+            flbls = np.empty((self.batch_size,), np.int32)
+            i = 0
+            for content, label_idx in self._iter_raw_resumed():
+                feats[i] = np.frombuffer(content, np.float32, count=d)
+                flbls[i] = label_idx
+                i += 1
+                if i == self.batch_size:
+                    yield feats.copy(), flbls.copy()
                     i = 0
             return  # drop remainder: static shapes
 

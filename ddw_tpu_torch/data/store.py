@@ -11,9 +11,11 @@ Shard file format (little-endian):
     then per record: u32 path_len, path, u32 content_len, content,
                      u32 label_len, label, i32 label_idx   (label_idx -1 = unlabeled)
 
-Not yet ported: the native C++ codec, and the multi-process part/merge
-protocol (``await_parts``, ``merge_shards``) that comes with distributed
-scoring.
+Several processes that share the store's filesystem write per-worker part
+tables stamped with a run token (:meth:`TableStore.run_token`); the
+coordinator waits for every part of this run (:meth:`TableStore.await_parts`)
+and commits one table whose shards are the parts' files
+(:meth:`TableStore.merge_shards`). Not yet ported: the native C++ codec.
 """
 
 from __future__ import annotations
@@ -22,13 +24,21 @@ import dataclasses
 import hashlib
 import json
 import os
+import shutil
 import struct
 import time
 from typing import Iterable, Iterator
 
 _MAGIC = b"DDWS"
 _FORMAT_VERSION = 1
-_SCHEMA = ("path", "content", "label", "label_idx")
+
+
+@dataclasses.dataclass
+class RecordSchema:
+    """Fixed schema shared by bronze (label empty, label_idx -1) and silver
+    tables."""
+
+    fields: tuple[str, ...] = ("path", "content", "label", "label_idx")
 
 
 @dataclasses.dataclass
@@ -118,6 +128,15 @@ class Table:
         for sp in self.shard_paths:
             yield from read_shard(sp)
 
+    def take(self, n: int) -> list[Record]:
+        """The first ``n`` records."""
+        out = []
+        for r in self.iter_records():
+            out.append(r)
+            if len(out) >= n:
+                break
+        return out
+
 
 class TableWriter:
     """Incremental single-writer handle for one new table version; the
@@ -159,6 +178,22 @@ class TableWriter:
         self._total += len(self._buf)
         self._buf = []
 
+    def add_shard_file(self, src_path: str, shard_meta: dict) -> None:
+        """Adopt an existing shard file verbatim (hardlink, else a copy):
+        the building block of :meth:`TableStore.merge_shards`.
+        ``shard_meta`` is the source manifest's entry; its checksum carries
+        over because the bytes do. Buffered appends are flushed first, so
+        shard numbers stay in write order."""
+        self._flush()
+        fn = f"shard-{len(self._shard_metas):05d}.ddws"
+        dst = os.path.join(self.shards_dir, fn)
+        try:
+            os.link(src_path, dst)
+        except OSError:
+            shutil.copy2(src_path, dst)
+        self._shard_metas.append({**shard_meta, "file": fn})
+        self._total += shard_meta["num_records"]
+
     def close(self) -> Table:
         if self._closed:
             return Table(self.vdir)
@@ -166,7 +201,7 @@ class TableWriter:
         manifest = {
             "name": self.name,
             "version": self.vnum,
-            "schema": list(_SCHEMA),
+            "schema": list(RecordSchema().fields),
             "num_records": self._total,
             "shards": self._shard_metas,
             "created_unix": time.time(),
@@ -222,12 +257,69 @@ class TableStore:
             vstr = f"v{version:04d}"
         return Table(os.path.join(tdir, vstr))
 
+    def exists(self, name: str) -> bool:
+        return os.path.exists(os.path.join(self._table_dir(name), "latest"))
+
     @staticmethod
     def run_token(*components) -> str:
         """Deterministic 16-hex run token from the run's inputs (the same
-        derivation as ``ddw_tpu``, so both packages stamp equal tokens)."""
+        derivation as ``ddw_tpu``, so both packages stamp equal tokens):
+        every worker of a part/merge flow derives it alone, and
+        :meth:`await_parts` checks it."""
         h = hashlib.sha256()
         for c in components:
             h.update(repr(c).encode())
             h.update(b"\x00")
         return h.hexdigest()[:16]
+
+    def await_parts(self, part_names: list[str], run_id: str,
+                    timeout_s: float = 300.0, abort=None) -> list[Table]:
+        """Wait (bounded) until every part table's latest version carries
+        ``meta.run_id == run_id``; return those versions.
+
+        Existence alone is not enough: an earlier run's version exists too,
+        and merging it while a slower worker still writes this run's part
+        would mix runs. The returned tables are the versions that passed the
+        check (re-opening ``latest`` later could see a newer commit).
+        ``abort``, a zero-argument callable polled each round, ends the wait
+        with ``RuntimeError`` when it returns a reason string (a coordinator
+        whose worker died fails at once instead of sleeping out the
+        timeout)."""
+        deadline = time.monotonic() + timeout_s
+        good: dict[str, Table] = {}
+        while True:
+            pending = []
+            for n in part_names:
+                if n in good:
+                    continue
+                if not self.exists(n):
+                    pending.append(n)
+                    continue
+                t = self.table(n)
+                if t.meta.get("run_id") == run_id:
+                    good[n] = t
+                else:
+                    pending.append(f"{n} (stale run_id)")
+            if not pending:
+                return [good[n] for n in part_names]
+            if abort is not None:
+                reason = abort()
+                if reason:
+                    raise RuntimeError(
+                        f"await_parts aborted for run {run_id!r}: {reason} "
+                        f"(still pending: {pending})")
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"parts never appeared for run {run_id!r}: {pending}")
+            time.sleep(0.2)
+
+    def merge_shards(self, name: str, parts: list[Table],
+                     meta: dict | None = None) -> Table:
+        """A new version of ``name`` whose shards are the parts' shard files
+        (hardlinked where the filesystem allows, else copied), in part
+        order: the manifests concatenate, no record is re-encoded."""
+        w = TableWriter(self, name, meta=meta)
+        for t in parts:
+            for sm, sp in zip(t.manifest["shards"], t.shard_paths):
+                w.add_shard_file(sp, sm)
+        return w.close()

@@ -8,6 +8,7 @@ flax's names, leaf by leaf:
 - depthwise ``kernel`` ``[3, 3, 1, C]`` -> the kernel's ``weight`` ``[3, 3, C]``;
 - Dense ``kernel`` ``[in, out]`` -> ``weight`` ``[out, in]``, ``bias`` as is;
 - BatchNorm ``scale``/``bias`` (params) and ``mean``/``var`` (batch_stats);
+- GroupNorm ``scale``/``bias`` (params; SmallCNN's);
 - the LM's modules (``flax_layout = True``: ``DenseGeneral`` and its LoRA
   form, ``LayerNorm``, ``Embed``, and ``TransformerLM``'s own ``pos_embed``)
   hold their parameters in flax's layout and names, leaf for leaf.
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ddw_tpu_torch.models.cnn import GroupNorm
 from ddw_tpu_torch.models.mobilenet_v2 import BatchNorm, Conv
 from ddw_tpu_torch.ops.depthwise_conv import DepthwiseConv3x3
 
@@ -48,6 +50,9 @@ def _leaf_map(mod: nn.Module):
                 ("params", "bias", mod.bias, None, None),
                 ("batch_stats", "mean", mod.mean, None, None),
                 ("batch_stats", "var", mod.var, None, None)]
+    if isinstance(mod, GroupNorm):
+        return [("params", "scale", mod.scale, None, None),
+                ("params", "bias", mod.bias, None, None)]
     return []
 
 

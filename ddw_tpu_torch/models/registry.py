@@ -1,6 +1,6 @@
 """Model registry: :class:`ModelCfg` -> ``nn.Module`` (the port of
-``ddw_tpu.models.registry``). Only MobileNetV2 is ported so far; the other
-families of ``ddw_tpu`` raise, naming ``ROADMAP.md``.
+``ddw_tpu.models.registry``). MobileNetV2 and SmallCNN are ported so far; the
+other families of ``ddw_tpu`` raise, naming ``ROADMAP.md``.
 
 A frozen random backbone is guarded as in ``ddw_tpu`` (``registry.py``):
 ``freeze_base=True`` without ``pretrained_path`` auto-unfreezes, with a
@@ -17,7 +17,7 @@ from torch import nn
 from ddw_tpu_torch.utils.config import ModelCfg
 from ddw_tpu_torch.utils.device import torch_dtype
 
-_NOT_YET_PORTED = ("small_cnn", "resnet18", "resnet34", "resnet50",
+_NOT_YET_PORTED = ("resnet18", "resnet34", "resnet50",
                    "convnext_tiny", "convnext_small", "vit")
 
 
@@ -29,11 +29,17 @@ def build_model(cfg: ModelCfg) -> nn.Module:
         raise NotImplementedError(
             f"model {cfg.name!r} is not yet ported to ddw_tpu_torch; see "
             f"ROADMAP.md for the order of the remaining slices")
-    if cfg.name != "mobilenet_v2":
-        raise KeyError(f"unknown model {cfg.name!r}; have ['mobilenet_v2']")
+    if cfg.name not in ("mobilenet_v2", "small_cnn"):
+        raise KeyError(f"unknown model {cfg.name!r}; have ['mobilenet_v2', "
+                       f"'small_cnn']")
     if cfg.lora_rank:
-        raise ValueError("'mobilenet_v2' does not support LoRA "
-                         "(model.lora_rank); use the vit or LM families")
+        raise ValueError(f"{cfg.name!r} does not support LoRA "
+                         f"(model.lora_rank); use the vit or LM families")
+    if cfg.name == "small_cnn":
+        from ddw_tpu_torch.models.cnn import SmallCNN
+
+        return SmallCNN(num_classes=cfg.num_classes, dropout=cfg.dropout,
+                        dtype=torch_dtype(cfg.dtype))
     if cfg.stem_s2d:
         raise NotImplementedError("model.stem_s2d is not yet ported to "
                                   "ddw_tpu_torch; see ROADMAP.md")

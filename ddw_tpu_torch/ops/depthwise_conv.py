@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import torch
@@ -393,8 +394,7 @@ def depthwise_conv3x3_cuda(x: torch.Tensor, w: torch.Tensor, *,
                       w.data_ptr(), y.data_ptr(), b, h, wd, c, code, vec,
                       int(flip))
     _check_launch(err, f"depthwise 3x3 forward (K1, {variant})")
-    depthwise_conv3x3_cuda.launches += 1
-    depthwise_conv3x3_cuda.launches_by_variant[variant] += 1
+    _count_launch(depthwise_conv3x3_cuda, variant)
     return y
 
 
@@ -433,17 +433,30 @@ def depthwise_conv3x3_wgrad_cuda(x: torch.Tensor, g: torch.Tensor, *,
                       g.data_ptr(), part.data_ptr(), dw.data_ptr(), b, h, wd,
                       c, code, vec)
     _check_launch(err, f"depthwise 3x3 weight gradient (K2, {variant})")
-    depthwise_conv3x3_wgrad_cuda.launches += 1
-    depthwise_conv3x3_wgrad_cuda.launches_by_variant[variant] += 1
+    _count_launch(depthwise_conv3x3_wgrad_cuda, variant)
     return dw
+
+
+# Trials of a parallel search launch from several threads at once; a bare
+# ``+= 1`` on a function attribute is a read and a write that two threads can
+# interleave, losing a count.
+_COUNT_LOCK = threading.Lock()
+
+
+def _count_launch(fn, variant: str) -> None:
+    """One more launch of ``fn``'s kernel on ``variant``, under the lock."""
+    with _COUNT_LOCK:
+        fn.launches += 1
+        fn.launches_by_variant[variant] += 1
 
 
 def reset_depthwise_counts() -> None:
     """Set K1's and K2's launch counts, the totals and each variant's, to
     zero."""
-    for fn in (depthwise_conv3x3_cuda, depthwise_conv3x3_wgrad_cuda):
-        fn.launches = 0
-        fn.launches_by_variant = dict.fromkeys(_VARIANTS, 0)
+    with _COUNT_LOCK:
+        for fn in (depthwise_conv3x3_cuda, depthwise_conv3x3_wgrad_cuda):
+            fn.launches = 0
+            fn.launches_by_variant = dict.fromkeys(_VARIANTS, 0)
 
 
 reset_depthwise_counts()

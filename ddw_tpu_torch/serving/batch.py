@@ -13,9 +13,13 @@ fixed batches of ``batch_per_device`` rows (zero-padded at the end), checks
 the token ids and scores each row's mean next-token NLL.
 
 This process's rank and world come from ``DDW_PROCESS_ID`` /
-``DDW_NUM_PROCESSES`` when set (else 0 and 1) and select its shards. Merging
-the per-process parts (``merge_predictions``) and the native JPEG pipeline
-are not yet ported.
+``DDW_NUM_PROCESSES`` when set (else 0 and 1) and select its shards. Several
+processes each write a ``{out_name}_pN`` part stamped with the run token of
+(input table version, packaged-model digest); with ``merge=True`` rank 0
+waits for every part carrying this run's token and commits one ``out_name``
+table (:func:`merge_predictions`), so a part from a run over another table
+version or model is never matched. The native JPEG pipeline is not yet
+ported.
 """
 
 from __future__ import annotations
@@ -49,17 +53,27 @@ def _process_shards(table: Table, rank: int, world: int) -> list[str]:
     return shards if rank == 0 else []
 
 
+def _scoring_run_id(table: Table, content_digest: str) -> str:
+    """The scoring run's token: equal on every process for the same (input
+    table version, packaged model), with no communication, and equal to
+    ``ddw_tpu``'s."""
+    return TableStore.run_token(table.manifest["name"],
+                                table.manifest["version"], content_digest)
+
+
 def _write_scored_table(out_store: TableStore, out_name: str, records,
                         meta: dict, table: Table, content_digest: str,
-                        rank: int, world: int) -> None:
+                        rank: int, world: int, merge: bool) -> None:
     """Per-process ``{out_name}_pN`` parts (one ``out_name`` table for a
-    single process), stamped with the run token."""
-    run_id = TableStore.run_token(table.manifest["name"],
-                                  table.manifest["version"], content_digest)
+    single process), stamped with the run token; with ``merge`` rank 0 then
+    waits for every part of this run and merges them."""
+    run_id = _scoring_run_id(table, content_digest)
     name = out_name if world == 1 else f"{out_name}_p{rank}"
     out_store.write(name, records,
                     meta={**meta, "source_table": table.manifest["name"],
                           "run_id": run_id})
+    if merge and world > 1 and rank == 0:
+        merge_predictions(out_store, out_name, world, run_id)
 
 
 class BatchScorer:
@@ -80,13 +94,10 @@ class BatchScorer:
                     merge: bool = True) -> list[tuple[str, str]]:
         """Returns [(path, predicted_class)] for this process's shard subset;
         with ``out_store`` also writes them as a table (path,
-        label=prediction). Several processes with ``merge=True`` raise: the
-        part merge comes with the distributed slice."""
+        label=prediction): one table for a single process, else a part per
+        process, which rank 0 merges into one ``out_name`` table when
+        ``merge`` is set (module docstring)."""
         rank, world = process_topology()
-        if merge and world > 1:
-            raise NotImplementedError(
-                "merging per-process prediction parts is not yet ported to "
-                "ddw_tpu_torch; pass merge=False to write the parts only")
         h, w = self.model.height, self.model.width
         results: list[tuple[str, str]] = []
 
@@ -145,7 +156,7 @@ class BatchScorer:
                 (Record(path=p, content=b"", label=pred)
                  for p, pred in results),
                 {"model_classes": self.model.classes}, table,
-                self.model.content_digest, rank, world)
+                self.model.content_digest, rank, world, merge)
         return results
 
 
@@ -167,8 +178,8 @@ class LMBatchScorer:
                     merge: bool = True) -> list[tuple[str, float]]:
         """Returns [(path, nll)] for this process's shard subset; with
         ``out_store`` also writes a scores table (label = formatted NLL,
-        content = f32 bytes) stamped with the run token. Several processes
-        with ``merge=True`` raise, as :meth:`BatchScorer.score_table` does."""
+        content = f32 bytes) stamped with the run token, its parts merged
+        by rank 0 as :meth:`BatchScorer.score_table` merges them."""
         from ddw_tpu_torch.serving.lm_package import check_token_ids
 
         if table.meta.get("encoding") != "tokens_i32":
@@ -176,10 +187,6 @@ class LMBatchScorer:
                              f"encoding {table.meta.get('encoding')!r} — "
                              f"materialize with prep.write_token_table")
         rank, world = process_topology()
-        if merge and world > 1:
-            raise NotImplementedError(
-                "merging per-process score parts is not yet ported to "
-                "ddw_tpu_torch; pass merge=False to write the parts only")
         t = table.meta["seq_plus_one"]
         cfg = self.model.lm_cfg
         if t - 1 > cfg.max_len:
@@ -214,5 +221,19 @@ class LMBatchScorer:
                 (Record(path=p, content=np.float32(v).tobytes(),
                         label=f"{v:.6f}") for p, v in results),
                 {"metric": "mean_next_token_nll"}, table,
-                self.model.content_digest, rank, world)
+                self.model.content_digest, rank, world, merge)
         return results
+
+
+def merge_predictions(out_store: TableStore, out_name: str, n_parts: int,
+                      run_id: str, timeout_s: float = 300.0) -> Table:
+    """Merge the per-process ``{out_name}_pN`` tables into one ``out_name``
+    table (the single result table of ``spark_udf`` scoring): wait for every
+    part stamped with this run's token (:meth:`TableStore.await_parts`; an
+    existence check would match an earlier run's parts), then commit the
+    merged table by manifest concatenation."""
+    part_names = [f"{out_name}_p{i}" for i in range(n_parts)]
+    parts = out_store.await_parts(part_names, run_id, timeout_s)
+    return out_store.merge_shards(
+        out_name, parts,
+        meta={**parts[0].meta, "merged_from": part_names, "run_id": run_id})

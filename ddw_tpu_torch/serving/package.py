@@ -126,6 +126,12 @@ def save_packaged_model(
                              _FORMAT_VERSION_QUANT)
 
 
+def load_packaged_model(model_dir: str, device=None) -> "PackagedModel":
+    """The package at ``model_dir`` as a :class:`PackagedModel` on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    return PackagedModel(model_dir, device=device)
+
+
 class PackagedModel:
     """Self-contained predictor (the ``FlowerPyFunc`` role) on one device.
 

@@ -51,3 +51,13 @@ def dequantize_tree(tree):
             return q.astype(np.float32) * scale
         return {k: dequantize_tree(v) for k, v in tree.items()}
     return tree
+
+
+def is_quantized_tree(tree) -> bool:
+    """Whether any leaf of ``tree`` is a quantized ``{values, scale}``
+    pair."""
+    if isinstance(tree, dict):
+        if set(tree) == {_Q8_VALUES, _Q8_SCALE}:
+            return True
+        return any(is_quantized_tree(v) for v in tree.values())
+    return False

@@ -1,5 +1,5 @@
 """The port's copy of ``ddw_tpu.utils.config``: ``DataCfg``, ``ModelCfg``,
-``TrainCfg``, ``LMCfg`` and the ``section.key=value`` overrides.
+``TrainCfg``, ``TuneCfg``, ``LMCfg`` and the ``section.key=value`` overrides.
 
 Every field keeps the original's name and default, so configs (and a
 packaged model's ``package.json``, which stores ``dataclasses.asdict(
@@ -140,6 +140,31 @@ class LMCfg:
                                         # training: none | full | dots
 
 
+@dataclass
+class TuneCfg:
+    """Hyperparameter-search config: ``fmin(max_evals=20,
+    SparkTrials(parallelism=4))`` and the sequential distributed mode of the
+    reference, field for field ``ddw_tpu``'s."""
+
+    max_evals: int = 20
+    parallelism: int = 4                # >1 = parallel trial executor; 1 = sequential
+    seed: int = 0
+    algo: str = "tpe"                   # tpe | random
+    n_startup_trials: int = 5           # random trials before TPE kicks in
+    gamma: float = 0.25                 # TPE good/bad split quantile
+    prune: bool = False                 # stop hopeless trials early on their
+                                        # per-epoch val_loss
+    pruner: str = "median"              # "median" or "asha"
+    prune_warmup_epochs: int = 1        # median: never prune below this epoch
+    prune_min_trials: int = 3           # median: peers needed before trusted
+    asha_min_resource: int = 1          # asha: first rung (epochs)
+    asha_reduction_factor: int = 3      # asha: eta — top 1/eta survive a rung
+
+
+_TYPES = {"data": DataCfg, "model": ModelCfg, "train": TrainCfg,
+          "tune": TuneCfg, "lm": LMCfg}
+
+
 def require_ported(cfg: TrainCfg) -> None:
     """Refuse training features the port does not have yet; each names
     ``ROADMAP.md``. Set fields differ from their defaults."""
@@ -188,3 +213,9 @@ def apply_overrides(cfgs: dict[str, Any],
 def to_dict(cfg: Any) -> dict[str, Any]:
     """Flatten a dataclass config to a JSON-able dict."""
     return dataclasses.asdict(cfg)
+
+
+def default_cfgs() -> dict[str, Any]:
+    """One default instance of every config section, keyed by its override
+    prefix (``data``, ``model``, ``train``, ``tune``, ``lm``)."""
+    return {name: typ() for name, typ in _TYPES.items()}

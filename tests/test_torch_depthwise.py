@@ -5,6 +5,8 @@ stride-2 library arm against ``impl="xla"``, and the dispatch rules. The CUDA
 kernels themselves are held against the plain versions on the card by
 ``chip_smoke.py``."""
 
+import time
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -393,6 +395,50 @@ def test_counters_count_by_variant(fake_launch):
     assert depthwise_conv3x3_cuda.launches_by_variant == {"tma": 0,
                                                           "simt": 0}
     assert depthwise_conv3x3_wgrad_cuda.launches == 0
+
+
+class _YieldingCounts(dict):
+    """Per-variant counts that hand the interpreter to another thread
+    between the read and the write of an increment, as a thread preempted
+    there would."""
+
+    def __getitem__(self, key):
+        value = super().__getitem__(key)
+        time.sleep(0)
+        return value
+
+
+def test_counters_lose_no_launch_under_threads(fake_launch):
+    """Trials of a parallel search launch from several threads: every
+    launch is counted, even when a thread is switched out inside an
+    increment."""
+    import threading
+
+    for fn in (depthwise_conv3x3_cuda, depthwise_conv3x3_wgrad_cuda):
+        fn.launches_by_variant = _YieldingCounts(fn.launches_by_variant)
+    x = torch.zeros(1, 6, 6, 16, dtype=torch.bfloat16)
+    w = torch.zeros(3, 3, 16, dtype=torch.bfloat16)
+    x13 = torch.zeros(1, 6, 6, 13, dtype=torch.bfloat16)
+    w13 = torch.zeros(3, 3, 13, dtype=torch.bfloat16)
+    start = threading.Barrier(8)
+
+    def launch(i):
+        start.wait()
+        for _ in range(100):
+            depthwise_conv3x3_cuda(*((x, w) if i % 2 else (x13, w13)))
+            depthwise_conv3x3_wgrad_cuda(x, x)
+
+    threads = [threading.Thread(target=launch, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+        assert not t.is_alive()
+    assert depthwise_conv3x3_cuda.launches == 800
+    assert depthwise_conv3x3_cuda.launches_by_variant == {"tma": 400,
+                                                          "simt": 400}
+    assert depthwise_conv3x3_wgrad_cuda.launches_by_variant == {"tma": 800,
+                                                                "simt": 0}
 
 
 def test_unaligned_pointers_take_simt_and_tma_cannot_be_forced(fake_launch):

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module of ``ddw_tpu_torch``, no
-``tools/torch_*.py`` and not ``chip_smoke.py`` imports JAX, flax, optax or
-the JAX package; every module imports with those blocked; and entry points
-refuse to run quietly on the CPU."""
+``tools/torch_*.py``, no ``examples_torch/*.py`` and not ``chip_smoke.py``
+imports JAX, flax, optax or the JAX package; every module and example
+imports with those blocked; and entry points refuse to run quietly on the
+CPU."""
 
 import ast
 import glob
@@ -28,7 +29,12 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield from sorted(glob.glob(os.path.join(REPO, "tools", "torch_*.py")))
+    yield from _example_sources()
     yield os.path.join(REPO, "chip_smoke.py")
+
+
+def _example_sources():
+    return sorted(glob.glob(os.path.join(REPO, "examples_torch", "*.py")))
 
 
 def _imported_roots(path):
@@ -49,6 +55,11 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     assert bad == []
     tools = {os.path.basename(p) for p in sources if "tools" in p}
     assert {"torch_lm_profile.py", "torch_lm_train_profile.py"} <= tools
+    examples = {os.path.basename(p) for p in _example_sources()}
+    assert {"common.py", "01_data_prep.py", "02_train_single_node.py",
+            "03_train_distributed.py", "04_hyperopt_parallel.py",
+            "05_hyperopt_distributed.py",
+            "06_packaged_inference.py"} <= examples
 
 
 def test_every_port_module_imports_with_jax_blocked():
@@ -61,8 +72,13 @@ def test_every_port_module_imports_with_jax_blocked():
                  "models.lm", "models.lora", "serve.bucketing",
                  "serving.lm_package", "train.lm_step",
                  "train.lm_trainer", "runtime.collectives", "runtime.mesh",
-                 "ops.ring_reduce"):
+                 "ops.ring_reduce", "models.cnn", "train.transfer",
+                 "tune.space", "tune.tpe", "tune.pruner",
+                 "tracking.registry", "tracking.report",
+                 "tracking.__main__"):
         assert f"ddw_tpu_torch.{name}" in modules
+    modules += ["examples_torch." + os.path.basename(p)[:-3]
+                for p in _example_sources()]
     code = (
         "import sys\n"
         f"for name in {BANNED!r}:\n"

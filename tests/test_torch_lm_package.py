@@ -189,8 +189,10 @@ def test_lm_batch_scorer_refusals(tmp_path, params, monkeypatch):
     monkeypatch.setenv("DDW_PROCESS_ID", "1")
     monkeypatch.setenv("DDW_NUM_PROCESSES", "2")
     tbl = write_token_table(store, "toks", _tokens(n=6), shard_size=2)
-    with pytest.raises(NotImplementedError, match="merge=False"):
-        scorer.score_table(tbl)
+    # rank 1 of 2 writes its part; the merge is rank 0's
+    assert scorer.score_table(tbl, out_store=store) == \
+        scorer.score_table(tbl, out_store=store, merge=False)
+    assert not store.exists("lm_scores")
     rows = scorer.score_table(tbl, out_store=store, merge=False)
     assert [p for p, _ in rows] == ["seq/00000002", "seq/00000003"]
     assert store.table("lm_scores_p1").num_records == 2

@@ -131,13 +131,18 @@ def test_prep_matches_jax(flowers_dir, tmp_path):
 
 
 def test_feature_and_token_tables_are_refused(tmp_path):
-    """Cached-feature tables are still refused, naming the roadmap; token
-    tables are read (the LM training slice) as next-token pairs."""
+    """Neither special encoding is refused any more: cached-feature tables
+    are read as ``(features [B, D] f32, labels [B])`` (the transfer slice),
+    token tables (the LM training slice) as next-token pairs."""
     store = TableStore(str(tmp_path))
-    t = store.write("features_f32", [Record("a", b"\0" * 16)],
-                    meta={"encoding": "features_f32"})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ShardedLoader(t, 1, (H, W))
+    feats = np.arange(8, dtype=np.float32).reshape(2, 4)
+    t = store.write("features_f32",
+                    [Record(f"r{i}", f.tobytes(), "x", i)
+                     for i, f in enumerate(feats)],
+                    meta={"encoding": "features_f32", "feature_dim": 4})
+    x, y = _take(ShardedLoader(t, 2, (H, W), shuffle=False), 1)[0]
+    assert x.dtype == np.float32 and np.array_equal(x, feats)
+    assert y.tolist() == [0, 1]
     toks = np.arange(4, dtype=np.int32)
     t = store.write("tokens_i32", [Record("a", toks.tobytes())],
                     meta={"encoding": "tokens_i32", "seq_plus_one": 4})

@@ -1,7 +1,8 @@
 """Packaged-model serving in the PyTorch port (``ddw_tpu_torch.serving``)
 against ``ddw_tpu.serving`` on the CPU: the msgpack codec against flax's,
 packages crossing between the two packages in both directions (f32 and int8),
-and both ``BatchScorer``s on one table."""
+both ``BatchScorer``s on one table, and the port's 2-rank ``merge=True``
+scoring (gloo processes) against its single-process table."""
 
 import io
 import json
@@ -20,9 +21,11 @@ from ddw_tpu.serving import package as jax_package
 from ddw_tpu.utils.config import ModelCfg as JaxModelCfg
 from ddw_tpu_torch.data.store import Record, TableStore
 from ddw_tpu_torch.serving import _msgpack
-from ddw_tpu_torch.serving.batch import BatchScorer
+from ddw_tpu_torch.serving.batch import (BatchScorer, _scoring_run_id,
+                                         merge_predictions)
 from ddw_tpu_torch.serving.package import PackagedModel, save_packaged_model
 from ddw_tpu_torch.utils.config import ModelCfg
+from examples_torch.common import score_distributed
 
 HW = 32
 CLASSES = ["daisy", "dandelion", "roses", "sunflowers", "tulips"]
@@ -133,6 +136,26 @@ def test_both_packages_write_identical_artifacts(tmp_path, variables,
 
 
 @pytest.mark.parametrize("quantize", [None, "int8"])
+def test_is_quantized_tree_and_load_packaged_model(tmp_path, variables,
+                                                   images, quantize):
+    from ddw_tpu.serving.quantize import is_quantized_tree as jax_is_q
+    from ddw_tpu_torch.serving.package import load_packaged_model
+    from ddw_tpu_torch.serving.quantize import is_quantized_tree
+
+    pkg = _port_save(tmp_path / "pkg", variables, quantize)
+    with open(os.path.join(pkg, "params.msgpack"), "rb") as f:
+        tree = _msgpack.unpackb(f.read())
+    assert is_quantized_tree(tree) == jax_is_q(tree) == (quantize == "int8")
+    assert not is_quantized_tree(variables) and not is_quantized_tree(1.0)
+    pm = load_packaged_model(pkg, device="cpu")
+    assert isinstance(pm, PackagedModel) and pm.device.type == "cpu"
+    x = _as_float(images[:4])
+    np.testing.assert_array_equal(
+        pm.predict_logits(x), PackagedModel(pkg, device="cpu")
+        .predict_logits(x))
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
 @pytest.mark.parametrize("writer", ["jax", "port"])
 def test_packages_cross_load(tmp_path, variables, images, writer, quantize):
     save = _jax_save if writer == "jax" else _port_save
@@ -223,9 +246,11 @@ def test_scorer_process_topology(tmp_path, variables, images, monkeypatch):
                          device="cpu")
     monkeypatch.setenv("DDW_NUM_PROCESSES", "2")
     monkeypatch.setenv("DDW_PROCESS_ID", "1")
-    with pytest.raises(NotImplementedError, match="merge=False"):
-        scorer.score_table(table, out_store=store)
+    # rank 1 writes its part and leaves the merge to rank 0
+    merged_part = scorer.score_table(table, out_store=store)
+    assert not store.exists("predictions")
     part = scorer.score_table(table, out_store=store, merge=False)
+    assert part == merged_part
     # rank 1 of 2 takes shards 1 and 3 of 4
     assert [p for p, _ in part] == [f"img{i}" for i in (*range(5, 10),
                                                         *range(15, 20))]
@@ -245,3 +270,45 @@ def test_scorer_refuses_wrong_size_table(tmp_path, variables, images):
                          device="cpu")
     with pytest.raises(ValueError, match="materialized table is 16x64"):
         scorer.score_table(table)
+
+
+def test_two_rank_merged_scoring_equals_single_process(tmp_path, variables,
+                                                        images, monkeypatch):
+    store = TableStore(str(tmp_path / "tables"))
+    table = store.write(
+        "u8", (Record(f"img{i:02d}", im.tobytes(), CLASSES[i % 5], i % 5)
+               for i, im in enumerate(images)),
+        shard_size=3, meta={"encoding": "raw_u8", "height": HW, "width": HW})
+    pkg = _port_save(tmp_path / "pkg", variables)
+    scorer = BatchScorer(pkg, device="cpu", batch_per_device=4)
+    single = scorer.score_table(table, out_store=store, out_name="single")
+
+    # an earlier run with other weights left a part under the same name
+    stale = jax.tree_util.tree_map(np.copy, variables)
+    stale["params"]["head"]["bias"] += 1.0
+    old = BatchScorer(_port_save(tmp_path / "old", stale), device="cpu")
+    monkeypatch.setenv("DDW_NUM_PROCESSES", "2")
+    monkeypatch.setenv("DDW_PROCESS_ID", "1")
+    old.score_table(table, out_store=store, out_name="merged", merge=False)
+    monkeypatch.setenv("DDW_PROCESS_ID", "0")
+    scorer.score_table(table, out_store=store, out_name="merged", merge=False)
+    run_id = _scoring_run_id(table, scorer.model.content_digest)
+    assert store.table("merged_p1").meta["run_id"] != run_id
+    with pytest.raises(TimeoutError, match=r"merged_p1 \(stale run_id\)"):
+        merge_predictions(store, "merged", 2, run_id, timeout_s=0.5)
+    assert not store.exists("merged")
+    monkeypatch.delenv("DDW_NUM_PROCESSES")
+    monkeypatch.delenv("DDW_PROCESS_ID")
+
+    # the ranks run examples_torch's scoring rank, which imports no JAX
+    rows = score_distributed(pkg, store, "u8", "merged", 2, device="cpu",
+                             batch_per_device=4)
+    merged = store.table("merged")
+    assert merged.meta["run_id"] == run_id
+    assert merged.meta["merged_from"] == ["merged_p0", "merged_p1"]
+    assert sorted(rows) == sorted(single)
+    want = sorted((r.path, r.content, r.label, r.label_idx)
+                  for r in store.table("single").iter_records())
+    got = sorted((r.path, r.content, r.label, r.label_idx)
+                 for r in merged.iter_records())
+    assert got == want and len(got) == len(images)
