@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of ddw_tpu_torch on one NVIDIA card: build, check and time the
 port's CUDA kernels, then drive the serving, training, workshop (the
-example chain), LM-scoring, LM-training and collective main paths end to
-end.
+example chain), vision-family, pretrained-transfer, LM-scoring,
+LM-training and collective main paths end to end.
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -12,6 +12,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    Without CUDA the script exits 2 at once.
 2. build  — compile every kernel of the path from ``ddw_tpu_torch/ops/csrc``
    with ``nvcc`` (one process per source, all started together).
+2b. decode — the JPEG decoder this machine resolves (``native``: the libjpeg
+   pipeline of ``ddw_tpu_torch/native``, built with g++ at first use; or
+   ``pil``, the reference's fallback, printed with the build error). With
+   the native pipeline: ``decode_batch_native`` equal to
+   ``decode_one_native`` image by image on 128 seeded 256 px JPEGs, within
+   the reference's PIL closeness (mean |diff| < 0.08), and the images/s of
+   one batch call at 224 px beside the host's core count (a host number).
 3. kernel — at the six stride-1 shapes of MobileNetV2-224 at batch 128, in
    bf16 and f32 (TF32 off): the depthwise 3x3 kernel (K1, the ``"tma"``
    variant of ``depthwise_sm90.cu`` that the shape picks) equal to its plain
@@ -75,6 +82,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
    package scores the val table with ``BatchScorer`` in this process and
    with ``merge=True`` over 2 gloo ranks, and the merged table equals the
    single-process one record for record. Each step's wall seconds.
+5c. vision — resnet50, convnext_tiny and ViT (hidden 192, depth 6, 4 heads
+   of 48, MLP 768, patch 16) at full width from the trainer's seeded init,
+   bf16, batch 128, 224x224: ``Trainer.fit`` for 3 epochs of 3 steps on a
+   seeded 384-image class table (finite losses, the last epoch's below the
+   first's), the trained weights packaged and ``predict_logits`` over 512
+   images (bf16 logits within 0.1 x std, rms, of the same package in f32
+   with TF32 off); epoch images/s trained and median images/s scored. ViT
+   runs at the default attention thresholds (the xla tier, as in the
+   reference: no flash launch) and again in a child process with
+   ``DDW_ATTN_XLA_PLAIN_MAX=0 DDW_ATTN_XLA_CKPT_MAX=0``: 6 K3 launches per
+   forward and 6 K4 + 6 K5 per train step, all on mma; against the xla
+   tier from the same weights and batch, the one-step loss within 5e-3
+   relative and every leaf's gradient within 5e-2 RMS gap over RMS (the
+   lm_train bf16 bounds), each epoch's train and val loss within 2e-2
+   relative, the logits of the package it trained within 0.1 x std (rms)
+   of the xla-trained one's, and the same package's logits within 2e-2
+   (rms) and 1e-1 (max) x std; its own loss falling.
+5d. pretrained — ``examples_torch/08_pretrained_transfer.py``'s ``main`` at
+   its quick size (32x32, MobileNetV2 0.35 in f32, batch 8) with
+   ``model.dw_impl=pallas``: pretrain 6 epochs, export both layouts,
+   convert (the two artifacts agree), frozen transfer from the artifact
+   against a frozen random backbone (pretrained must win), package and
+   score; K1/K2 counts exact and all ``tma``. Before it, K1 (bit for bit)
+   and K2 (1e-5 * sum|xpad*g|) in f32 against their plain versions at the
+   six stride-1 depthwise shapes this model gets, [8, 16, 16, 16] down to
+   [8, 1, 1, 336].
 6. lm_kernel — the flash-attention forward kernel (K3) against its plain
    PyTorch version. Three variants, chosen by shape (``_fwd_variant``): sm90
    (TMA and wgmma, ``flash_fwd_sm90.cu``) for bf16 at block_k 128 and head
@@ -129,6 +162,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
    (delta, K4, K5) on each, beside the bounds, the plain versions and the
    backward of causal ``F.scaled_dot_product_attention`` (timed only, the
    yardstick; one call gives dq, dk and dv).
+8b. vit_kernel — K3, K4 and K5 at ViT's shape: 196 tokens padded to 256
+   with k_valid 196, [512, 256, 48], non-causal, in bf16 (the mma.sync
+   kernels) and f32 (CUDA cores), and a ragged case (192 queries against
+   320 keys at k_offset 64, causal: the first 64-row block sees no key),
+   each against its plain version with lm_kernel's and lm_bwd_kernel's
+   tolerances, two launches bit-identical, every launch counted on its
+   variant. Times (median of 10, L2 flushed) of one bf16 call of each at
+   ViT's shape beside the bound (the 256 x 196 pairs a head the call
+   computes; K and V read at their 196 valid rows, every other tensor at
+   256), the plain versions and SDPA on the unpadded [128, 4, 196, 48]
+   (forward, and its whole backward beside K4's and K5's).
 9. lm_train — the same full-width bf16 LM from ``init_lm_weights`` with a
    seeded generator, trained by ``LMTrainer.fit_tables`` on a seeded,
    learnable ``tokens_i32`` table (arithmetic sequences mod the vocab, 160
@@ -509,7 +553,7 @@ def causal_pairs(sq: int, sk: int, q_offset: int, k_offset: int,
 
 
 def k3_check(name, q, k, v, *, causal, q_offset=0, k_offset=0, k_valid=None,
-             block_k=128, fully_masked_rows=0):
+             block_k=128, fully_masked_rows=0, phase="lm_kernel"):
     """K3 against its plain version on the same inputs, with the slice's
     tolerances, launched twice (the same bits, on the variant its shape
     picks); returns the max |out| error."""
@@ -561,7 +605,7 @@ def k3_check(name, q, k, v, *, causal, q_offset=0, k_offset=0, k_valid=None,
         check(bool((out[:, dead] == 0).all())
               and bool((lse[:, dead] <= -1e29).all()),
               f"K3 {name}: fully masked rows give out 0 and lse <= -1e29")
-    emit(phase="lm_kernel", case=name, variant=variant, shape=list(q.shape),
+    emit(phase=phase, case=name, variant=variant, shape=list(q.shape),
          sk=k.shape[1], dtype=str(q.dtype).removeprefix("torch."),
          causal=causal, q_offset=q_offset, k_offset=k_offset,
          k_valid=k_valid, block_k=block_k, max_abs_err=err.max().item(),
@@ -731,7 +775,7 @@ def bwd_close(got, ref):
 
 def k45_check(name, q, k, v, gen, *, causal, q_offset=0, k_offset=0,
               k_valid=None, block_q=128, block_k=128, fully_masked_rows=0,
-              variants=(None,)):
+              variants=(None,), phase="lm_bwd_kernel"):
     """K4 and K5 against their plain versions on the same inputs; two
     launches of each bit-identical, on the variant its shape picks (None)
     or on each forced one of ``variants``. Returns K4's and K5's max
@@ -778,7 +822,7 @@ def k45_check(name, q, k, v, gen, *, causal, q_offset=0, k_offset=0,
             check(bool((dq[:, :fully_masked_rows] == 0).all()),
                   f"K4 {name} ({variant}): rows that see no key get "
                   f"exactly zero dq")
-        emit(phase="lm_bwd_kernel", case=name, variant=variant,
+        emit(phase=phase, case=name, variant=variant,
              shape=list(q.shape), sk=k.shape[1],
              dtype=str(q.dtype).removeprefix("torch."), causal=causal,
              q_offset=q_offset, k_offset=k_offset, k_valid=k_valid,
@@ -949,6 +993,122 @@ def phase_lm_bwd_kernel(flush):
     return times, errs
 
 
+# ViT at 224/16 (hidden 192 over 4 heads, bench.py's vit): 196 tokens of
+# head dim 48, padded by flash_mha to one 128-block multiple, 256, with
+# k_valid 196; at the vision phase's batch of 128 the kernels see [512, 256,
+# 48]
+VIT_BATCH, VIT_HEADS, VIT_TOKENS, VIT_HEAD_DIM, VIT_PADDED = 128, 4, 196, 48, 256
+
+
+def vit_kernel_times(q, k, v, gen, flush):
+    """K3, K4 and K5 (mma, bf16) at ViT's padded shape, non-causal with
+    k_valid 196: CUDA events with the L2 flushed, beside the bound (the
+    pairs this call computes: 256 query rows x 196 keys a head; the bytes
+    of K and V at their 196 valid rows, of Q, dO and the outputs at all
+    256), the plain versions and SDPA (forward, and its whole backward) on
+    the unpadded [128, 4, 196, 48]."""
+    import torch
+    import torch.nn.functional as F
+
+    from ddw_tpu_torch.ops.flash_attention import (
+        flash_attention_cuda, flash_attention_dkv_cuda,
+        flash_attention_dkv_plain, flash_attention_dq_cuda,
+        flash_attention_dq_plain, flash_attention_plain)
+
+    bh, s, d = q.shape
+    kv = VIT_TOKENS
+    pairs = bh * causal_pairs(s, s, 0, 0, False, kv)
+    do = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
+    out, lse = flash_attention_cuda(q, k, v, False, k_valid=kv)
+    delta = (do.float() * out.float()).sum(-1).contiguous()
+    args = (q, k, v, do, lse, delta, False, 0, 0, None)
+    unpad = lambda t: t.view(VIT_BATCH, VIT_HEADS, s, d)[:, :, :kv]
+    q4, k4, v4, do4 = (unpad(t).detach().contiguous().requires_grad_(
+        t is not do) for t in (q, k, v, do))
+    sdpa = F.scaled_dot_product_attention(q4, k4, v4)
+    sdpa_bwd_ms = median_ms(lambda: torch.autograd.grad(
+        sdpa, (q4, k4, v4), do4, retain_graph=True), flush, reps=10)
+    rows = {}
+    for key, fn, plain, products, outs, library_ms in (
+            ("fwd", lambda: flash_attention_cuda(q, k, v, False, k_valid=kv),
+             lambda: flash_attention_plain(q, k, v, False, k_valid=kv),
+             2, 1, median_ms(lambda: F.scaled_dot_product_attention(
+                 q4, k4, v4), flush, reps=10)),
+            ("dq", lambda: flash_attention_dq_cuda(*args, kv),
+             lambda: flash_attention_dq_plain(*args, 128, 128, kv), 3, 1,
+             sdpa_bwd_ms),
+            ("dkv", lambda: flash_attention_dkv_cuda(*args, kv),
+             lambda: flash_attention_dkv_plain(*args, 128, 128, kv), 4, 2,
+             sdpa_bwd_ms)):
+        flops = products * 2 * d * pairs
+        # K and V read at their kv valid rows (no output depends on the
+        # padded ones); Q, dO and every output at all s rows; lse (and
+        # delta) f32 per query row
+        q_rows = 1 if key == "fwd" else 2
+        nbytes = ((q_rows + outs) * s + 2 * kv) * bh * d * 2 \
+            + (1 if key == "fwd" else 2) * bh * s * 4
+        bound_s = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS)
+        rows[key] = {
+            "ms": median_ms(fn, flush, reps=10),
+            "plain_ms": median_ms(plain, flush, reps=3, warmup=1),
+            "library_ms": library_ms,
+            "bound_ms": bound_s * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+            >= flops / BF16_FLOPS else "operations",
+            "flops": flops, "bytes": nbytes}
+        rows[key]["share_of_bound"] = rows[key]["bound_ms"] / rows[key]["ms"]
+        emit(phase="vit_kernel", kernel=key, variant="mma", dtype="bfloat16",
+             shape=[bh, s, d], k_valid=kv, causal=False, **rows[key],
+             library="F.scaled_dot_product_attention at [128, 4, 196, 48]"
+                     + (" (forward)" if key == "fwd" else
+                        ": its whole backward, dq, dk and dv in one call"))
+    return rows
+
+
+def phase_vit_kernel(flush):
+    """K3, K4 and K5 at ViT's shape ([512, 196->256, 48], non-causal,
+    k_valid 196) in bf16 (mma) and f32 (CUDA cores) against their plain
+    versions with lm_kernel's and lm_bwd_kernel's tolerances, a ragged case
+    (Sq 192 against Sk 320 at k_offset 64, causal: the first 64-row block
+    sees no key), and the times at ViT's shape."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+
+    def qkv(bh, sq, sk, d, dtype):
+        mk = lambda n: torch.randn(bh, n, d, device="cuda", generator=gen)
+        return mk(sq).to(dtype), mk(sk).to(dtype), mk(sk).to(dtype)
+
+    bh, s, d = VIT_BATCH * VIT_HEADS, VIT_PADDED, VIT_HEAD_DIM
+    errs = {"k3": 0.0, "dq": 0.0, "dkv": 0.0}
+    times = None
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).removeprefix("torch.")
+        q, k, v = qkv(bh, s, s, d, dtype)
+        errs["k3"] = max(errs["k3"], k3_check(
+            f"vit_{tag}", q, k, v, causal=False, k_valid=VIT_TOKENS,
+            phase="vit_kernel"))
+        for key, err in k45_check(f"vit_{tag}", q, k, v, gen, causal=False,
+                                  k_valid=VIT_TOKENS,
+                                  phase="vit_kernel").items():
+            errs[key] = max(errs[key], err)
+        if dtype == torch.bfloat16:
+            times = vit_kernel_times(q, k, v, gen, flush)
+        del q, k, v
+        q, k, v = qkv(64, 192, 320, d, dtype)
+        errs["k3"] = max(errs["k3"], k3_check(
+            f"vit_ragged_{tag}", q, k, v, causal=True, k_offset=64,
+            block_k=64, fully_masked_rows=64, phase="vit_kernel"))
+        for key, err in k45_check(f"vit_ragged_{tag}", q, k, v, gen,
+                                  causal=True, k_offset=64, block_q=64,
+                                  block_k=64, fully_masked_rows=64,
+                                  phase="vit_kernel").items():
+            errs[key] = max(errs[key], err)
+        del q, k, v
+    torch.cuda.empty_cache()
+    return times, errs
+
+
 def arithmetic_tokens(n: int, seed: int, vocab: int, seq: int):
     """A learnable corpus: arithmetic sequences mod the vocab."""
     import numpy as np
@@ -982,6 +1142,10 @@ def lm_grads(lm_cfg, params, inputs, targets):
 # computations give rounding noise there: it is left out of the gradient
 # comparisons.
 ZERO_GRAD_LEAVES = ("attn.key.bias",)
+# bf16 bounds of a step through K3-K5 against the plain versions (lm_train)
+# or the xla tier (vision's ViT): the loss (relative) and each leaf's
+# gradient (RMS gap over RMS)
+BF16_LOSS_TOL, BF16_GRAD_RMS_TOL = 5e-3, 5e-2
 
 
 def grad_gaps(got, ref):
@@ -1134,14 +1298,15 @@ def phase_lm_train(tmp: str):
     loss_rel = abs(loss_k - loss_p) / max(abs(loss_p), 1e-12)
     (rms, rms_leaf), (mx, mx_leaf) = grad_gaps(g_k, g_p)
     emit(phase="lm_train", kernel_vs_plain_bf16_loss=[loss_k, loss_p],
-         loss_rel_diff=loss_rel, loss_tolerance=5e-3,
+         loss_rel_diff=loss_rel, loss_tolerance=BF16_LOSS_TOL,
          grad_rms_gap_over_rms_max=rms, worst_rms_leaf=rms_leaf,
-         grad_rms_tolerance=5e-2, grad_max_gap_over_max=mx,
+         grad_rms_tolerance=BF16_GRAD_RMS_TOL, grad_max_gap_over_max=mx,
          worst_max_leaf=mx_leaf, leaves=len(g_p),
          left_out=list(ZERO_GRAD_LEAVES))
-    check(loss_rel <= 5e-3, f"bf16 loss within 5e-3 relative ({loss_rel:.3g})")
-    check(rms <= 5e-2, f"bf16 per-leaf gradients within 5e-2 RMS gap over "
-          f"RMS ({rms:.3g})")
+    check(loss_rel <= BF16_LOSS_TOL, f"bf16 loss within {BF16_LOSS_TOL} "
+          f"relative ({loss_rel:.3g})")
+    check(rms <= BF16_GRAD_RMS_TOL, f"bf16 per-leaf gradients within "
+          f"{BF16_GRAD_RMS_TOL} RMS gap over RMS ({rms:.3g})")
     del g_k, g_p
 
     # --- f32 at batch 4: the kernel tier against the xla tier -------------
@@ -1233,7 +1398,7 @@ def seeded_variables(images):
 
     from ddw_tpu_torch.data.loader import dequantize_raw_u8
     from ddw_tpu_torch.models.convert import to_flax_variables
-    from ddw_tpu_torch.models.mobilenet_v2 import init_weights
+    from ddw_tpu_torch.models.layers import init_weights
     from ddw_tpu_torch.models.registry import build_model
     from ddw_tpu_torch.utils.config import ModelCfg
 
@@ -2423,6 +2588,541 @@ def phase_ring():
     return rows
 
 
+DECODE_IMAGES, DECODE_SRC_PX, DECODE_PX = 128, 256, 224
+DECODE_PIL_MEAN_TOL = 0.08   # tests/test_native_decode.py's closeness
+
+
+def smooth_jpegs(n: int, px: int, seed: int) -> list:
+    """Seeded smooth colour fields (the reference's decode-test images, at
+    ``px`` square), JPEG quality 90."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    y, x = np.mgrid[0:px, 0:px].astype(np.float32)
+    out = []
+    for i in range(n):
+        f = rng.uniform(8, 40, size=3)
+        arr = np.stack([(np.sin(x / f[0] + i) + 1) * 120,
+                        (np.cos(y / f[1]) + 1) * 120,
+                        (x + y + f[2] * i) % 255], -1).astype(np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, "JPEG", quality=90)
+        out.append(buf.getvalue())
+    return out
+
+
+def phase_decode():
+    """The JPEG decoder this machine resolves (``native``: the libjpeg
+    pipeline of ``ddw_tpu_torch/native``, built with g++ at first use; or
+    ``pil``, the reference's fallback, with the build error). On 128 seeded
+    JPEGs of 256 px decoded to 224 px: the images/s of PIL on a pool of one
+    thread per host core (the loader's fallback path) and, with the native
+    pipeline, of one ``decode_batch_native`` call, which must equal
+    ``decode_one_native`` image by image and stay within the reference's
+    PIL closeness (mean |native - PIL| < 0.08 on [-1, 1]). Host numbers,
+    beside the host's core count. Returns the decoder's name."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from ddw_tpu_torch.data.loader import _preprocess_image_pil, active_decoder
+    from ddw_tpu_torch.native import decode as native
+
+    t0 = time.perf_counter()
+    decoder = active_decoder()
+    build_s = time.perf_counter() - t0
+    cores = os.cpu_count()
+    jpegs = smooth_jpegs(DECODE_IMAGES, DECODE_SRC_PX, SEED + 21)
+    decode_pil = lambda c: _preprocess_image_pil(c, DECODE_PX, DECODE_PX)
+
+    def rate(fn) -> list:
+        runs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            runs.append(DECODE_IMAGES / (time.perf_counter() - t0))
+        return sorted(runs)
+
+    with ThreadPoolExecutor(max_workers=cores) as pool:
+        pil_runs = rate(lambda: list(pool.map(decode_pil, jpegs)))
+    row = dict(phase="decode", decoder=decoder, host_cores=cores,
+               first_use_seconds=build_s, build_error=native.build_error(),
+               images=DECODE_IMAGES, src_px=DECODE_SRC_PX, out_px=DECODE_PX,
+               pil_pool_images_per_s_median=pil_runs[2],
+               pil_pool_images_per_s_runs=pil_runs)
+    if decoder != "native":
+        emit(**row, note="the native pipeline did not build or load here: "
+                         "the loader, the scorers and materialize_decoded "
+                         "decode with PIL (the reference's fallback)")
+        return decoder
+    imgs, ok = native.decode_batch_native(jpegs, DECODE_PX, DECODE_PX,
+                                          threads=cores)
+    check(bool(ok.all()), "every seeded JPEG decodes natively")
+    check(all(np.array_equal(imgs[i], native.decode_one_native(
+        c, DECODE_PX, DECODE_PX)) for i, c in enumerate(jpegs)),
+        "decode_batch_native equals decode_one_native image by image")
+    pil_gap = [float(np.abs(imgs[i] - decode_pil(c)).mean())
+               for i, c in enumerate(jpegs)]
+    check(max(pil_gap) < DECODE_PIL_MEAN_TOL,
+          f"native within the reference's PIL closeness (mean |diff| "
+          f"{max(pil_gap):.4f} < {DECODE_PIL_MEAN_TOL})")
+    out = np.empty((DECODE_IMAGES, DECODE_PX, DECODE_PX, 3), np.float32)
+    runs = rate(lambda: native.decode_batch_native(
+        jpegs, DECODE_PX, DECODE_PX, threads=cores, out=out))
+    emit(**row, pil_mean_abs_diff_max=max(pil_gap),
+         batch_call_images_per_s_median=runs[2],
+         batch_call_images_per_s_runs=runs, threads=cores)
+    return decoder
+
+
+# the vision families at full width (bench.py's resnet50 and vit rows, and
+# convnext_tiny): bf16, batch 128, 224x224, a seeded raw_u8 table
+VISION_MODELS = ("resnet50", "convnext_tiny", "vit")
+VISION_TRAIN, VISION_VAL, VISION_EPOCHS, VISION_SCORE = 384, 128, 3, 512
+VISION_BF16_RMS_TOL = 0.1       # of the f32 logits' std: bf16 through depth
+VIT_LOSS_TOL = 2e-2             # relative: the K3-K5 tier's fit against
+                                # xla's, per epoch, bf16
+VIT_RMS_TOL, VIT_MAX_TOL = 2e-2, 1e-1   # of std: lm phase's K3-vs-xla bound
+
+
+def flash_counts() -> dict:
+    """K3's, K4's and K5's launches, total and by variant."""
+    from ddw_tpu_torch.ops.flash_attention import (flash_attention_cuda,
+                                                   flash_attention_dkv_cuda,
+                                                   flash_attention_dq_cuda)
+
+    return {k: {"total": fn.launches, **fn.launches_by_variant}
+            for k, fn in (("k3", flash_attention_cuda),
+                          ("k4", flash_attention_dq_cuda),
+                          ("k5", flash_attention_dkv_cuda))}
+
+
+def reset_flash_counts() -> None:
+    from ddw_tpu_torch.ops.flash_attention import (reset_backward_counts,
+                                                   reset_forward_counts)
+
+    reset_forward_counts()
+    reset_backward_counts()
+
+
+def vision_cfgs(name: str):
+    from ddw_tpu_torch.utils.config import DataCfg, ModelCfg, TrainCfg
+
+    return (DataCfg(img_height=224, img_width=224),
+            ModelCfg(name=name, num_classes=5, dtype="bfloat16",
+                     freeze_base=False, dropout=0.0),
+            TrainCfg(batch_size=BATCH, epochs=VISION_EPOCHS, warmup_epochs=0,
+                     optimizer="adam", seed=SEED))
+
+
+def vision_one_step(name: str, images, labels):
+    """The loss and ``{name: grad}`` of one training forward and backward
+    from the trainer's seeded init on a fixed batch (dropout 0): the same
+    weights and batch in any process."""
+    import torch
+
+    from ddw_tpu_torch.models.layers import init_params
+    from ddw_tpu_torch.models.registry import build_model
+    from ddw_tpu_torch.train.step import (TrainState, dropout_generator,
+                                          forward_and_grads)
+
+    _, mcfg, tcfg = vision_cfgs(name)
+    model = build_model(mcfg)
+    init_params(model, torch.Generator().manual_seed(tcfg.seed))
+    loss, _, _, grads = forward_and_grads(TrainState(model.cuda(), {}, 0),
+                                          images, labels,
+                                          dropout_generator(tcfg.seed, 0, 0))
+    torch.cuda.synchronize()
+    return loss.float().item(), grads
+
+
+def vision_run(name: str, tables, pkg_dir: str, score_x) -> dict:
+    """``Trainer.fit`` from the seeded init, then the trained weights
+    packaged and ``PackagedModel.predict_logits`` over ``score_x`` (median
+    of 3 timed calls); the flash kernels' counts on each path."""
+    import numpy as np
+    import torch
+
+    from ddw_tpu_torch.models.convert import to_flax_variables
+    from ddw_tpu_torch.serving.package import (PackagedModel,
+                                               save_packaged_model)
+    from ddw_tpu_torch.train.trainer import Trainer
+
+    data, mcfg, tcfg = vision_cfgs(name)
+    reset_flash_counts()
+    t0 = time.perf_counter()
+    res = Trainer(data, mcfg, tcfg).fit(*tables)
+    fit_s = time.perf_counter() - t0
+    train_counts = flash_counts()
+    v = to_flax_variables(res.state.model)
+    pkg = save_packaged_model(pkg_dir, mcfg, [f"c{i}" for i in range(5)],
+                              v["params"], v.get("batch_stats"))
+    pm = PackagedModel(pkg)
+    reset_flash_counts()
+    logits = pm.predict_logits(score_x)
+    score_counts = flash_counts()
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pm.predict_logits(score_x)
+        runs.append(time.perf_counter() - t0)
+    hist = res.history
+    return {"history": hist, "fit_seconds": fit_s,
+            "train_images_per_s": hist[-1]["images_per_sec"],
+            "score_images_per_s": len(score_x) / sorted(runs)[1],
+            "score_runs_s": runs, "logits": logits, "variables": v,
+            "train_counts": train_counts, "score_counts": score_counts,
+            "finite": bool(np.isfinite([[r["loss"], r["val_loss"]]
+                                        for r in hist]).all()
+                           and np.isfinite(logits).all())}
+
+
+def vit_kernel_child(work: str) -> None:
+    """The ViT run of the vision phase with both attention thresholds at 0
+    (``DDW_ATTN_XLA_PLAIN_MAX=0 DDW_ATTN_XLA_CKPT_MAX=0``, read at import),
+    in its own process: the same fit, the same one-step loss and gradients
+    and the same package scored, every attention through K3 forward and
+    K4/K5 backward. Writes its results to ``work/child.json``, the one-step
+    gradients to ``child_grads.npz`` and the logits to ``child_logits_*``."""
+    import numpy as np
+
+    from ddw_tpu_torch.data.store import TableStore
+    from ddw_tpu_torch.ops import flash_attention as fa
+    from ddw_tpu_torch.serving.package import PackagedModel
+
+    check(fa._XLA_PLAIN_MAX == 0 and fa._XLA_CKPT_MAX == 0,
+          "the child reads both thresholds as 0")
+    store = TableStore(os.path.join(work, "tables"))
+    tables = (store.table("vision_train"), store.table("vision_val"))
+    with np.load(os.path.join(work, "vit_inputs.npz")) as z:
+        score_x, step_x, step_y = z["score_x"], z["step_x"], z["step_y"]
+    import torch
+
+    reset_flash_counts()
+    loss, grads = vision_one_step("vit", torch.from_numpy(step_x).cuda(),
+                                  torch.from_numpy(step_y).cuda())
+    step_counts = flash_counts()
+    np.savez(os.path.join(work, "child_grads.npz"),
+             **{n: g.float().cpu().numpy() for n, g in grads.items()
+                if g is not None})
+    del grads
+    run = vision_run("vit", tables, os.path.join(work, "pkg_vit_kernel"),
+                     score_x)
+    del run["variables"]
+    ref_logits = PackagedModel(os.path.join(work, "pkg_vit")).predict_logits(
+        score_x)
+    np.save(os.path.join(work, "child_logits_same_pkg.npy"), ref_logits)
+    np.save(os.path.join(work, "child_logits_own_pkg.npy"), run.pop("logits"))
+    with open(os.path.join(work, "child.json"), "w") as f:
+        json.dump({"one_step_loss": loss, "step_counts": step_counts,
+                   **{k: run[k] for k in ("history", "fit_seconds",
+                                          "train_images_per_s",
+                                          "score_images_per_s",
+                                          "train_counts", "score_counts",
+                                          "finite")}}, f)
+
+
+def phase_vision(tmp: str) -> dict:
+    """resnet50, convnext_tiny and ViT at full width from the trainer's
+    seeded init, bf16, batch 128, 224x224: ``Trainer.fit`` for 3 epochs of
+    3 steps on a seeded class table (finite losses, the last epoch's below
+    the first's), the trained weights packaged and ``predict_logits`` over
+    512 images, bf16 logits within 0.1 x std (rms) of the same package in
+    f32 (TF32 off); images/s trained and scored. ViT runs at the default
+    attention thresholds (the xla tier, as the reference: no flash launch)
+    and again in a child process with both thresholds at 0, where K3 must
+    launch 6 times per forward and K4 and K5 6 times each per train step,
+    all on mma. Against the default run: the one-step loss and every
+    leaf's gradient from the same weights and batch within lm_train's bf16
+    bounds (5e-3 relative, 5e-2 RMS gap over RMS), each epoch's train and
+    val loss of the fit within 2e-2 relative, the logits of the package it
+    trained within 0.1 x std (rms) of the default-trained package's, and
+    the logits of one package within the lm phase's K3-vs-xla tolerance;
+    its own fit's loss falling."""
+    import numpy as np
+    import torch
+
+    import dataclasses
+
+    from ddw_tpu_torch.data.loader import ShardedLoader, dequantize_raw_u8
+    from ddw_tpu_torch.data.store import TableStore
+    from ddw_tpu_torch.serving.package import (PackagedModel,
+                                               save_packaged_model)
+
+    t_phase = time.perf_counter()
+    work = os.path.join(tmp, "vision")
+    store = TableStore(os.path.join(work, "tables"))
+    tables = (class_table(store, "vision_train", VISION_TRAIN, SEED + 31),
+              class_table(store, "vision_val", VISION_VAL, SEED + 32))
+    score_x = np.stack([np.frombuffer(r.content, np.uint8).reshape(
+        224, 224, 3) for t in tables for r in t.iter_records()]).astype(
+            np.float32)[:VISION_SCORE]
+    dequantize_raw_u8(score_x)
+    it = iter(ShardedLoader(tables[0], BATCH, shuffle=False))
+    step_x, step_y = next(it)
+    it.close()
+    np.savez(os.path.join(work, "vit_inputs.npz"), score_x=score_x,
+             step_x=step_x, step_y=step_y)
+    steps = VISION_EPOCHS * (VISION_TRAIN // BATCH)
+    evals = VISION_EPOCHS * (VISION_VAL // BATCH)
+    forwards = -(-VISION_SCORE // BATCH)
+    out = {}
+    for name in VISION_MODELS:
+        run = vision_run(name, tables, os.path.join(work, f"pkg_{name}"),
+                         score_x)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        v = run.pop("variables")
+        f32_pkg = save_packaged_model(
+            os.path.join(work, f"pkg_{name}_f32"),
+            dataclasses.replace(vision_cfgs(name)[1], dtype="float32"),
+            [f"c{i}" for i in range(5)], v["params"], v.get("batch_stats"))
+        ref = PackagedModel(f32_pkg).predict_logits(score_x[:BATCH])
+        torch.backends.cudnn.allow_tf32 = True
+        got = run["logits"][:BATCH]
+        rms = float(np.sqrt(np.mean((got - ref) ** 2)) / ref.std())
+        hist = run["history"]
+        falling = hist[-1]["loss"] < hist[0]["loss"]
+        row = {k: run[k] for k in ("fit_seconds", "train_images_per_s",
+                                   "score_images_per_s", "train_counts",
+                                   "score_counts")}
+        emit(phase="vision", model=name, history=hist, **row,
+             bf16_vs_f32_rms_over_std=rms, tolerance=VISION_BF16_RMS_TOL,
+             train_steps=steps, eval_batches=evals, score_images=VISION_SCORE)
+        check(run["finite"], f"{name}: finite losses and logits")
+        check(falling, f"{name}: last epoch's loss {hist[-1]['loss']:.4f} "
+              f"below the first's {hist[0]['loss']:.4f}")
+        check(rms <= VISION_BF16_RMS_TOL,
+              f"{name}: bf16 logits within {VISION_BF16_RMS_TOL} x std (rms) "
+              f"of the f32 run of the same weights ({rms:.4f})")
+        if name == "vit":
+            check(all(c["total"] == 0 for c in
+                      (*run["train_counts"].values(),
+                       *run["score_counts"].values())),
+                  "vit at the default thresholds launches no flash kernel "
+                  "(the xla tier, as the reference)")
+        run["bf16_vs_f32_rms_over_std"] = rms
+        out[name] = run
+
+    # --- ViT through K3-K5: a child process with both thresholds at 0 ----
+    default_loss, default_grads = vision_one_step(
+        "vit", torch.from_numpy(step_x).cuda(), torch.from_numpy(step_y).cuda())
+    env = dict(os.environ, DDW_ATTN_XLA_PLAIN_MAX="0",
+               DDW_ATTN_XLA_CKPT_MAX="0")
+    code = ("import sys; sys.path.insert(0, '.'); import chip_smoke; "
+            f"chip_smoke.vit_kernel_child({work!r})")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
+    check(proc.returncode == 0, "the ViT kernel-tier child process ran")
+    with open(os.path.join(work, "child.json")) as f:
+        child = json.load(f)
+    same_pkg = np.load(os.path.join(work, "child_logits_same_pkg.npy"))
+    own_pkg = np.load(os.path.join(work, "child_logits_own_pkg.npy"))
+    ref = out["vit"]["logits"]
+    std = float(ref.std())
+    rms = float(np.sqrt(np.mean((same_pkg - ref) ** 2))) / std
+    mx = float(np.abs(same_pkg - ref).max()) / std
+    own_rms = float(np.sqrt(np.mean((own_pkg - ref) ** 2))) / std
+    rel = abs(child["one_step_loss"] - default_loss) / abs(default_loss)
+    with np.load(os.path.join(work, "child_grads.npz")) as z:
+        (g_rms, g_rms_leaf), (g_mx, g_mx_leaf) = grad_gaps(
+            {n: torch.from_numpy(z[n]) for n in z.files},
+            {n: g.cpu() for n, g in default_grads.items() if g is not None})
+    del default_grads
+    hist, d_hist = child["history"], out["vit"]["history"]
+    epoch_rel = max(abs(c[k] - d[k]) / abs(d[k]) for c, d in
+                    zip(hist, d_hist) for k in ("loss", "val_loss"))
+    sc, tc, st = child["score_counts"], child["train_counts"], \
+        child["step_counts"]
+    exp_train = {"k3": 6 * (steps + evals), "k4": 6 * steps, "k5": 6 * steps}
+    emit(phase="vision", model="vit", tier="pallas (thresholds 0)",
+         child_seconds=child_s, history=child["history"],
+         train_images_per_s=child["train_images_per_s"],
+         score_images_per_s=child["score_images_per_s"],
+         one_step_loss=child["one_step_loss"], default_one_step_loss=
+         default_loss, loss_rel_diff=rel, loss_tolerance=BF16_LOSS_TOL,
+         grad_rms_gap_over_rms_max=g_rms, worst_rms_leaf=g_rms_leaf,
+         grad_max_gap_over_max=g_mx, worst_max_leaf=g_mx_leaf,
+         grad_rms_tolerance=BF16_GRAD_RMS_TOL,
+         left_out=list(ZERO_GRAD_LEAVES), epoch_loss_rel_diff=epoch_rel,
+         epoch_loss_tolerance=VIT_LOSS_TOL,
+         trained_logits_rms_over_std=own_rms,
+         trained_logits_tolerance=VISION_BF16_RMS_TOL,
+         logits_rms_over_std=rms, logits_max_over_std=mx,
+         logits_tolerance=[VIT_RMS_TOL, VIT_MAX_TOL], train_counts=tc,
+         score_counts=sc, step_counts=st, expected_train=exp_train)
+    check(child["finite"], "vit (kernel tier): finite losses and logits")
+    check(hist[-1]["loss"] < hist[0]["loss"],
+          f"vit (kernel tier): last epoch's loss {hist[-1]['loss']:.4f} "
+          f"below the first's {hist[0]['loss']:.4f}")
+    check(st["k3"] == {"total": 6, "sm90": 0, "mma": 6, "cuda_cores": 0}
+          and st["k4"]["mma"] == st["k4"]["total"] == 6
+          and st["k5"]["mma"] == st["k5"]["total"] == 6,
+          f"one ViT train step: 6 K3 + 6 K4 + 6 K5 launches, all mma: {st}")
+    check(all(tc[k]["total"] == tc[k]["mma"] == n
+              for k, n in exp_train.items()),
+          f"ViT Trainer.fit: {exp_train} launches, all mma: {tc}")
+    check(sc["k3"]["total"] == sc["k3"]["mma"] == 6 * forwards
+          and sc["k4"]["total"] == sc["k5"]["total"] == 0,
+          f"ViT scoring: 6 K3 launches per forward of 128, all mma: {sc}")
+    check(rel <= BF16_LOSS_TOL, f"ViT one-step loss through K3-K5 within "
+          f"{BF16_LOSS_TOL} of the xla tier's ({rel:.3g})")
+    check(g_rms <= BF16_GRAD_RMS_TOL,
+          f"ViT one-step gradients through K3-K5 within {BF16_GRAD_RMS_TOL} "
+          f"RMS gap over RMS of the xla tier's, every leaf ({g_rms:.3g}, "
+          f"{g_rms_leaf})")
+    check(len(hist) == len(d_hist) and epoch_rel <= VIT_LOSS_TOL,
+          f"ViT fit through K3-K5: every epoch's loss within {VIT_LOSS_TOL} "
+          f"of the xla tier's fit ({epoch_rel:.3g})")
+    check(own_rms <= VISION_BF16_RMS_TOL,
+          f"ViT package trained through K3-K5: logits within "
+          f"{VISION_BF16_RMS_TOL} x std (rms) of the xla-trained package's "
+          f"({own_rms:.3g})")
+    check(rms <= VIT_RMS_TOL and mx <= VIT_MAX_TOL,
+          f"ViT logits through K3 within {VIT_RMS_TOL} (rms) and "
+          f"{VIT_MAX_TOL} (max) x std of the xla tier's ({rms:.3g}, "
+          f"{mx:.3g})")
+    out["vit_kernel"] = child
+    emit(phase="vision", wall_seconds=time.perf_counter() - t_phase)
+    return out
+
+
+PRETRAIN_EPOCHS = 6
+PRETRAIN_WIDTH, PRETRAIN_PX, PRETRAIN_BATCH = 0.35, 32, 8   # 08's --quick
+
+
+def mbv2_dw_shapes(width: float, px: int) -> list:
+    """(H, W, C) of every stride-1 depthwise layer of MobileNetV2 at
+    ``width`` on ``px`` x ``px`` images, in order, from the port's own
+    block table and width rounding (SAME: a stride-2 layer gives ceil)."""
+    from ddw_tpu_torch.models.mobilenet_v2 import (_INVERTED_RESIDUAL_CFG,
+                                                   _make_divisible)
+
+    h, ch, shapes = -(-px // 2), _make_divisible(32 * width), []
+    for t, c, n, s in _INVERTED_RESIDUAL_CFG:
+        for j in range(n):
+            if s == 1 or j > 0:
+                shapes.append((h, h, ch * t))
+            else:
+                h = -(-h // 2)
+            ch = _make_divisible(c * width)
+    return shapes
+
+
+def pretrained_kernel_check() -> None:
+    """K1 (bit for bit) and K2 (within its tolerance), f32, against their
+    plain versions at every stride-1 depthwise shape 08's MobileNetV2 gets
+    (batch 8, 32x32, width 0.35: 16x16 down to 1x1); the shape rule first
+    held to ``DW_SHAPES`` at 224 and width 1."""
+    import torch
+
+    full = mbv2_dw_shapes(1.0, 224)
+    check([(s, full.count(s)) for s in dict.fromkeys(full)]
+          == [(s, n) for s, n in DW_SHAPES],
+          "the depthwise shape rule gives DW_SHAPES at 224, width 1")
+    shapes = list(dict.fromkeys(mbv2_dw_shapes(PRETRAIN_WIDTH, PRETRAIN_PX)))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    errs = []
+    for h, w, c in shapes:
+        x, g = (torch.randn(PRETRAIN_BATCH, h, w, c, device="cuda",
+                            generator=gen) for _ in range(2))
+        taps = torch.randn(3, 3, c, device="cuda", generator=gen)
+        errs.append(tma_check(x, taps, g, f"08's {(h, w, c)}"))
+    emit(phase="pretrained", kernel_shapes=[[PRETRAIN_BATCH, *s]
+                                            for s in shapes],
+         dtype="float32", k1="bit for bit, with and without flip",
+         k2_max_abs_err=max(e for e, _ in errs),
+         k2_max_err_over_tolerance=max(r for _, r in errs))
+
+
+def phase_pretrained(tmp: str) -> dict:
+    """``examples_torch/08_pretrained_transfer.py``'s ``main`` on the card
+    at its quick size (``--quick``: 32x32 images, MobileNetV2 0.35 in f32,
+    batch 8) with ``model.dw_impl=pallas``, after 01's quick prep: pretrain
+    6 epochs, export both layouts, convert, frozen transfer from the
+    artifact against a frozen random backbone (3 epochs each), package and
+    score. First K1 and K2 against their plain versions at this model's
+    depthwise shapes. Checks: the two artifacts agree (max |diff| < 1e-5),
+    pretrained beats random, and the exact K1/K2 counts of every step, all
+    ``tma``."""
+    from ddw_tpu_torch.data.store import TableStore
+    from ddw_tpu_torch.ops.depthwise_conv import reset_depthwise_counts
+
+    t0 = time.perf_counter()
+    pretrained_kernel_check()
+    work = os.path.join(tmp, "pretrained")
+    flags = ["--quick", "--workdir", work, "--device", "cuda"]
+    run_example("01_data_prep", flags)
+    reset_depthwise_counts()
+    r = run_example("08_pretrained_transfer",
+                    flags + ["--pretrain-epochs", str(PRETRAIN_EPOCHS),
+                             "model.dw_impl=pallas"])
+    k1k2 = {k: dict(c, total=sum(c.values())) for k, c in dw_counts().items()}
+    res = r["out"]
+    store = TableStore(os.path.join(work, "tables"))
+    batch = PRETRAIN_BATCH
+
+    def steps(name):
+        return store.table(name).num_records // batch
+
+    pre_s, pre_v = steps("pretrain_train"), steps("pretrain_val")
+    s, v = steps("silver_train"), steps("silver_val")
+    e = len(res["pretrained"].history)
+    scored = len(res["scored"])
+    exp_k1 = LAYERS_PER_FORWARD * (
+        PRETRAIN_EPOCHS * (2 * pre_s + pre_v)     # unfrozen pretraining
+        + 2 * e * (s + v)                         # two frozen head fits
+        + -(-scored // batch))                    # scoring, batches of 8
+    exp_k2 = LAYERS_PER_FORWARD * PRETRAIN_EPOCHS * pre_s
+    emit(phase="pretrained", seconds=time.perf_counter() - t0,
+         example_seconds=r["seconds"], lines=r["lines"][-8:],
+         artifact_max_diff=res["artifact_max_diff"],
+         pretrain_val_accuracy=res["pretrain"].val_accuracy,
+         pretrained_frozen_val_accuracy=res["pretrained"].val_accuracy,
+         random_frozen_val_accuracy=res["random"].val_accuracy,
+         packaged_accuracy=res["packaged_accuracy"], launches=k1k2,
+         expected={"k1": exp_k1, "k2": exp_k2})
+    check(res["artifact_max_diff"] < 1e-5,
+          "the torch- and keras-layout artifacts agree")
+    check(res["contract_ok"], "frozen-pretrained beats frozen-random")
+    check(k1k2["k1"]["total"] == k1k2["k1"]["tma"] == exp_k1
+          and k1k2["k2"]["total"] == k1k2["k2"]["tma"] == exp_k2,
+          f"K1/K2 launches {k1k2} equal {exp_k1} / {exp_k2}, all tma")
+    return k1k2
+
+
+def vit_paths(vision: dict, kern: str) -> dict:
+    """A flash kernel's launches on the ViT paths of the vision phase (the
+    child run with both thresholds at 0)."""
+    child = vision["vit_kernel"]
+    return {"vit_training": child["train_counts"][kern]["total"],
+            "vit_scoring": child["score_counts"][kern]["total"]}
+
+
+def vit_variants(vision: dict, kern: str) -> dict:
+    child = vision["vit_kernel"]
+    drop = lambda c: {k: v for k, v in c.items() if k != "total"}
+    return {"vit_training": drop(child["train_counts"][kern]),
+            "vit_scoring": drop(child["score_counts"][kern])}
+
+
+def at_vit_shape(row: dict) -> dict:
+    return {"shape": [VIT_BATCH * VIT_HEADS, VIT_PADDED, VIT_HEAD_DIM],
+            "k_valid": VIT_TOKENS, "causal": False, "variant": "mma",
+            **{k: row[k] for k in ("ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by",
+                                   "share_of_bound")}}
+
+
 def main() -> int:
     import torch
 
@@ -2439,6 +3139,7 @@ def main() -> int:
 
     name, smi = phase_device()
     phase_build()
+    decoder = phase_decode()
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     torch.backends.cudnn.allow_tf32 = False
     per_pass, per_layer, max_err = phase_kernel(flush)
@@ -2446,6 +3147,7 @@ def main() -> int:
     k3_times, k3_err = phase_lm_kernel(flush)
     torch.backends.cuda.matmul.allow_tf32 = False
     bwd_times, bwd_err = phase_lm_bwd_kernel(flush)
+    vit_times, vit_err = phase_vit_kernel(flush)
     del flush
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="ddw_chip_smoke_") as tmp:
@@ -2453,6 +3155,10 @@ def main() -> int:
         train_launches, step_ms = phase_train(tmp)
         torch.cuda.empty_cache()
         workshop = phase_workshop(tmp)
+        torch.cuda.empty_cache()
+        vision = phase_vision(tmp)
+        torch.cuda.empty_cache()
+        pretrained = phase_pretrained(tmp)
         torch.cuda.empty_cache()
         k3_launches, score_runs = phase_lm(tmp)
         torch.cuda.empty_cache()
@@ -2471,10 +3177,12 @@ def main() -> int:
         "launches": train_launches["k1"],
         "launches_by_path": {"train": train_launches["k1"],
                              "serving": serving_k1,
-                             "workshop": sum(workshop["k1"].values())},
+                             "workshop": sum(workshop["k1"].values()),
+                             "pretrained": pretrained["k1"]["total"]},
         "launches_by_variant": {"train": train_launches["k1_by_variant"],
                                 "serving": serving_k1_by,
-                                "workshop": workshop["k1"]},
+                                "workshop": workshop["k1"],
+                                "pretrained": pretrained["k1"]},
         "max_abs_err": max_err["k1"],
         **per_pass["k1"],
         "share_of_bound": per_pass["k1"]["bound_ms"] / per_pass["k1"]["ms"],
@@ -2493,9 +3201,11 @@ def main() -> int:
         "variant": "tma",
         "launches": train_launches["k2"],
         "launches_by_path": {"train": train_launches["k2"],
-                             "workshop": sum(workshop["k2"].values())},
+                             "workshop": sum(workshop["k2"].values()),
+                             "pretrained": pretrained["k2"]["total"]},
         "launches_by_variant": {"train": train_launches["k2_by_variant"],
-                                "workshop": workshop["k2"]},
+                                "workshop": workshop["k2"],
+                                "pretrained": pretrained["k2"]},
         "max_abs_err": max_err["k2"],
         **per_pass["k2"],
         "share_of_bound": per_pass["k2"]["bound_ms"] / per_pass["k2"]["ms"],
@@ -2512,10 +3222,12 @@ def main() -> int:
         "variant": "sm90",
         "launches": lm_train_launches["k3"],
         "launches_by_path": {"lm_training": lm_train_launches["k3"],
-                             "lm_batch_scoring": sum(k3_launches.values())},
+                             "lm_batch_scoring": sum(k3_launches.values()),
+                             **vit_paths(vision, "k3")},
         "launches_by_variant": {
             "lm_training": lm_train_launches["k3_by_variant"],
-            "lm_batch_scoring": k3_launches},
+            "lm_batch_scoring": k3_launches,
+            **vit_variants(vision, "k3")},
         "max_abs_err": k3_err,
         **{k: k3_times["scoring"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -2525,11 +3237,14 @@ def main() -> int:
                "replaces on this path, timed in turns with it",
         "other_variants": {
             "mma": "ddw_tpu_torch/ops/csrc/flash_attention.cu "
-                   "(bf16, block_k a multiple of 16 other than 128, or D 32)",
+                   "(bf16, block_k a multiple of 16 other than 128, or D 32 "
+                   "or 48: ViT's)",
             "cuda_cores": "ddw_tpu_torch/ops/csrc/flash_attention.cu "
                           "(f32, other bf16 blocks)"},
         "at_train_shape": {k: k3_times["training"][k] for k in (
             "ms", "ms_mma", "library_ms", "bound_ms", "sm90_tflops")},
+        "at_vit_shape": at_vit_shape(vit_times["fwd"]),
+        "max_abs_err_at_vit_shape": vit_err["k3"],
     }] + [{
         "name": f"flash_attention_{key}",
         "route": "cuda",
@@ -2537,9 +3252,11 @@ def main() -> int:
         "replaces": f"ddw_tpu/ops/flash_attention.py:{line}",
         "variant": "sm90",
         "launches": lm_train_launches[kern],
-        "launches_by_path": {"lm_training": lm_train_launches[kern]},
+        "launches_by_path": {"lm_training": lm_train_launches[kern],
+                             **vit_paths(vision, kern)},
         "launches_by_variant": {
-            "lm_training": lm_train_launches[f"{kern}_by_variant"]},
+            "lm_training": lm_train_launches[f"{kern}_by_variant"],
+            **vit_variants(vision, kern)},
         "max_abs_err": bwd_err[key],
         **{k: bwd_times[key][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_mma",
@@ -2552,8 +3269,11 @@ def main() -> int:
                "runs them); ms_mma is the mma.sync kernel it replaces on "
                "this path, timed in turns with it",
         "other_variants": {
-            "mma": "ddw_tpu_torch/ops/csrc/flash_attention.cu (bf16, D 32)",
+            "mma": "ddw_tpu_torch/ops/csrc/flash_attention.cu (bf16, D 32 "
+                   "or 48: ViT's)",
             "cuda_cores": "ddw_tpu_torch/ops/csrc/flash_attention.cu (f32)"},
+        "at_vit_shape": at_vit_shape(vit_times[key]),
+        "max_abs_err_at_vit_shape": vit_err[key],
     } for key, line, kern in (("dq", 425, "k4"), ("dkv", 445, "k5"))] + [{
         "name": "ring_all_reduce",
         "route": "cuda",
@@ -2587,6 +3307,10 @@ def main() -> int:
                "earlier design (one launch per leaf), timed in turns with "
                "it",
     }],
+        "decoder": decoder,
+        "vision": {m: {k: vision[m][k] for k in (
+            "train_images_per_s", "score_images_per_s")}
+            for m in (*VISION_MODELS, "vit_kernel")},
         "train_step_ms": step_ms,
         "lm_score_tokens_per_s": LM_ROWS * LM_SEQ / score_runs[-1],
         "lm_train_step_ms": lm_step_ms,

@@ -2,9 +2,11 @@
 scheme, and the per-rank :class:`ShardedLoader` (the Petastorm role).
 
 Preprocessing is one definition shared by everything that decodes an image
-(decode -> bilinear resize -> ``x / 127.5 - 1``), the same arithmetic as
-``ddw_tpu``'s PIL path. The native libjpeg pipeline is not yet ported; where
-PIL is not importable, decoding raises and names the missing decoder. Tables
+(decode -> bilinear resize -> ``x / 127.5 - 1``), dispatched as ``ddw_tpu``
+dispatches it: the native libjpeg pipeline (:mod:`ddw_tpu_torch.native.
+decode`, ``ddw_tpu``'s C++ source, so the same pixels bit for bit) where it
+builds, else PIL (the same arithmetic as ``ddw_tpu``'s PIL path). Where
+neither is available, decoding raises and names the missing decoder. Tables
 pre-decoded to ``raw_u8`` need no decoder at all.
 
 :class:`ShardedLoader` yields the same record stream and the same host
@@ -79,21 +81,14 @@ def _pil():
     return Image
 
 
-def active_decoder() -> str:
-    """The decode implementation :func:`preprocess_image` uses here: ``pil``,
-    or ``none`` where PIL is not importable. Packages record it at save time;
-    loading warns when the serving side resolves differently."""
-    return "pil" if _pil() is not None else "none"
-
-
-def preprocess_image(content: bytes, height: int, width: int) -> np.ndarray:
-    """Encoded image bytes -> float32 [H, W, 3] in [-1, 1]."""
+def _preprocess_image_pil(content: bytes, height: int,
+                          width: int) -> np.ndarray:
     image = _pil()
     if image is None:
         raise RuntimeError(
-            "decoding images needs PIL (Pillow), which is not importable "
-            "here; the native libjpeg decoder is not yet ported. Score a "
-            "pre-decoded raw_u8 table or pass decoded arrays instead")
+            "decoding images needs the native libjpeg pipeline or PIL "
+            "(Pillow), and neither is available here; score a pre-decoded "
+            "raw_u8 table or pass decoded arrays instead")
     img = image.open(BytesIO(content))
     # JPEG DCT-scaled decode when the source is larger than the target.
     img.draft("RGB", (width, height))
@@ -102,6 +97,31 @@ def preprocess_image(content: bytes, height: int, width: int) -> np.ndarray:
     img = img.resize((width, height), image.BILINEAR)
     arr = np.asarray(img, dtype=np.float32)
     return arr / 127.5 - 1.0
+
+
+def active_decoder() -> str:
+    """The decode implementation :func:`preprocess_image` uses here:
+    ``native`` (the libjpeg pipeline), ``pil``, or ``none`` where neither is
+    available. Packages record it at save time; loading warns when the
+    serving side resolves differently (decoder skew)."""
+    from ddw_tpu_torch.native.decode import native_available
+
+    if native_available():
+        return "native"
+    return "pil" if _pil() is not None else "none"
+
+
+def preprocess_image(content: bytes, height: int, width: int) -> np.ndarray:
+    """Encoded image bytes -> float32 [H, W, 3] in [-1, 1]: the native
+    pipeline (point-sampled bilinear, ``tf.image.resize``'s semantics) where
+    it builds, else PIL (area-filtered bilinear); an image the native
+    decoder refuses goes to PIL too."""
+    from ddw_tpu_torch.native.decode import decode_one_native
+
+    out = decode_one_native(content, height, width)
+    if out is not None:
+        return out
+    return _preprocess_image_pil(content, height, width)
 
 
 class ShardedLoader:
@@ -268,6 +288,9 @@ class ShardedLoader:
         return it
 
     def _iter_batches(self) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        from ddw_tpu_torch.native.decode import (decode_batch_native,
+                                                 native_available)
+
         if self._token_len:
             t = self._token_len
             toks = np.empty((self.batch_size, t), np.int32)
@@ -314,6 +337,25 @@ class ShardedLoader:
 
         imgs = np.empty((self.batch_size, self.height, self.width, 3),
                         np.float32)
+        if native_available():
+            # one C++ thread-pool call per batch (one GIL release); images
+            # the native decoder refuses fall back to PIL one by one
+            contents: list[bytes] = []
+            for content, label_idx in self._iter_raw_resumed():
+                lbls[len(contents)] = label_idx
+                contents.append(content)
+                if len(contents) == self.batch_size:
+                    _, ok = decode_batch_native(
+                        contents, self.height, self.width,
+                        threads=self.workers, out=imgs)
+                    for j in np.nonzero(~ok)[0]:
+                        imgs[j] = _preprocess_image_pil(
+                            contents[j], self.height, self.width)
+                    yield imgs.copy(), lbls.copy()
+                    contents = []
+            return  # drop remainder: static shapes
+
+        # PIL on a thread pool (PIL releases the GIL in its C decode)
         pool = ThreadPoolExecutor(max_workers=self.workers)
         try:
             def decode(entry):

@@ -1,5 +1,5 @@
 """Sharded binary-record table store — the port's copy of
-``ddw_tpu.data.store`` with the pure-Python DDWS framing only.
+``ddw_tpu.data.store``.
 
 A table is a directory of fixed-schema shard files plus a JSON manifest;
 versions are append-only ``vNNNN`` subdirectories with a ``latest`` pointer.
@@ -15,7 +15,11 @@ Several processes that share the store's filesystem write per-worker part
 tables stamped with a run token (:meth:`TableStore.run_token`); the
 coordinator waits for every part of this run (:meth:`TableStore.await_parts`)
 and commits one table whose shards are the parts' files
-(:meth:`TableStore.merge_shards`). Not yet ported: the native C++ codec.
+(:meth:`TableStore.merge_shards`).
+
+Shards are read by the C++ codec (:mod:`ddw_tpu_torch.native.codec`, one
+index pass over the buffer) where it builds, else by the pure-Python walker;
+``DDW_NATIVE_CODEC=0`` forces the walker. Both give the same records.
 """
 
 from __future__ import annotations
@@ -73,14 +77,39 @@ def _write_shard(path: str, records: list[Record]) -> dict:
     }
 
 
+def _native_reader():
+    """The native codec module, or None (unavailable, or disabled with
+    ``DDW_NATIVE_CODEC=0``). Only a failure to resolve it selects the Python
+    walker; parse errors of an available codec propagate."""
+    if os.environ.get("DDW_NATIVE_CODEC", "1") == "0":
+        return None
+    try:
+        from ddw_tpu_torch.native import codec as native_codec
+
+        return native_codec if native_codec.native_available() else None
+    except Exception:
+        return None
+
+
 def read_shard(path: str) -> Iterator[Record]:
-    """Stream the records of one shard file."""
+    """Stream the records of one shard file: the C++ codec where it builds,
+    else the Python walker (module docstring)."""
+    native = _native_reader()
+    if native is not None:
+        # errors of an available native parser propagate: re-reading a
+        # corrupt shard through the Python path would mask them
+        yield from native.read_shard_native(path)
+        return
     yield from _walk_shard(path, full=True)
 
 
 def read_shard_contents(path: str) -> Iterator[tuple[bytes, int]]:
     """Loader hot path: ``(content, label_idx)`` only, no path/label
-    decoding."""
+    decoding. The C++ index pass where available."""
+    native = _native_reader()
+    if native is not None:
+        yield from native.read_shard_contents_native(path)
+        return
     yield from _walk_shard(path, full=False)
 
 

@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ddw_tpu_torch.models.mobilenet_v2 import Conv, dropout
+from ddw_tpu_torch.models.layers import Conv, dropout
 
 _GN_EPS = 1e-6  # flax.linen.GroupNorm's default
 

@@ -26,7 +26,11 @@ Numerics follow the flax module step for step:
 - ReLU6 output is cast back to the compute dtype; the linear-bottleneck
   output stays f32, so the residual add is f32;
 - GAP and the head run in f32;
-- stride-2 convs pad with JAX's SAME split (``(0, 1)`` on even inputs).
+- stride-2 convs pad with JAX's SAME split (``(0, 1)`` on even inputs);
+  ``stem_s2d`` runs the stem through :mod:`ddw_tpu_torch.ops.s2d_conv`.
+
+The conv, BatchNorm and dropout layers and the init rules are the shared
+ones of :mod:`ddw_tpu_torch.models.layers`.
 
 Stride-1 depthwise layers go through :func:`ddw_tpu_torch.ops.depthwise_conv.
 depthwise_conv3x3` when ``dw_impl`` is "pallas" (the CUDA kernel on the card,
@@ -37,12 +41,11 @@ XLA convs in ``ddw_tpu``.
 
 from __future__ import annotations
 
-import math
-
 import torch
 from torch import nn
 
-from ddw_tpu_torch.ops.depthwise_conv import DepthwiseConv3x3, conv2d_same
+from ddw_tpu_torch.models.layers import BatchNorm, conv_or_s2d, dropout
+from ddw_tpu_torch.ops.depthwise_conv import DepthwiseConv3x3
 
 # (expansion t, out channels c, repeats n, stride s) — Sandler et al. Table 2.
 _INVERTED_RESIDUAL_CFG = (
@@ -55,7 +58,6 @@ _INVERTED_RESIDUAL_CFG = (
     (6, 320, 1, 1),
 )
 _DW_IMPLS = ("xla", "pallas", "pallas_interpret")
-_BN_EPS = 1e-3  # Keras's value, so converted pretrained weights reproduce
 
 
 def _make_divisible(v: float, divisor: int = 8) -> int:
@@ -65,57 +67,11 @@ def _make_divisible(v: float, divisor: int = 8) -> int:
     return new_v
 
 
-class Conv(nn.Module):
-    """Bias-free convolution with SAME padding; ``weight`` is
-    ``[out, in/groups, kh, kw]`` in f32, cast to ``dtype`` for the conv."""
-
-    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 groups: int = 1, dtype: torch.dtype = torch.bfloat16):
-        super().__init__()
-        self.stride, self.groups, self.dtype = stride, groups, dtype
-        self.weight = nn.Parameter(
-            torch.empty(cout, cin // groups, kernel, kernel))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d_same(x.to(self.dtype), self.weight.to(self.dtype),
-                           self.stride, self.groups)
-
-
-class BatchNorm(nn.Module):
-    """flax's BatchNorm in f32 over the last (channel) axis: ``(x - mean) *
-    (rsqrt(var + eps) * scale) + bias``, on the running statistics in eval
-    mode and on the batch's in training mode (which also updates the running
-    statistics in place, see the module docstring)."""
-
-    def __init__(self, features: int, momentum: float = 0.9):
-        super().__init__()
-        self.momentum = momentum
-        self.scale = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
-        self.register_buffer("mean", torch.zeros(features))
-        self.register_buffer("var", torch.ones(features))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
-        if self.training:
-            axes = tuple(range(x.dim() - 1))
-            mean = x.mean(dim=axes)
-            var = ((x * x).mean(dim=axes) - mean * mean).clamp_min(0.0)
-            m = self.momentum
-            with torch.no_grad():
-                self.mean.copy_(m * self.mean + (1 - m) * mean)
-                self.var.copy_(m * self.var + (1 - m) * var)
-        else:
-            mean, var = self.mean, self.var
-        mul = torch.rsqrt(var + _BN_EPS) * self.scale
-        return (x - mean) * mul + self.bias
-
-
 class ConvBN(nn.Module):
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
                  groups: int = 1, act: bool = True,
                  dtype: torch.dtype = torch.bfloat16, dw_impl: str = "xla",
-                 bn_momentum: float = 0.9):
+                 bn_momentum: float = 0.9, s2d: bool = False):
         super().__init__()
         if dw_impl not in _DW_IMPLS:
             raise ValueError(f"unknown dw_impl {dw_impl!r}")
@@ -126,7 +82,8 @@ class ConvBN(nn.Module):
                 impl="xla" if dw_impl == "xla" else "auto",
                 interpret=dw_impl == "pallas_interpret")
         else:
-            self.Conv_0 = Conv(cin, cout, kernel, stride, groups, dtype)
+            self.Conv_0 = conv_or_s2d(cin, cout, kernel, stride=stride,
+                                      groups=groups, dtype=dtype, s2d=s2d)
         self.BatchNorm_0 = BatchNorm(cout, bn_momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -164,12 +121,13 @@ class InvertedResidual(nn.Module):
 class MobileNetV2Backbone(nn.Module):
     def __init__(self, width_mult: float = 1.0,
                  dtype: torch.dtype = torch.bfloat16, dw_impl: str = "xla",
-                 bn_momentum: float = 0.9):
+                 bn_momentum: float = 0.9, stem_s2d: bool = False):
         super().__init__()
         self.dtype = dtype
         bn = bn_momentum
         ch = _make_divisible(32 * width_mult)
-        self.ConvBN_0 = ConvBN(3, ch, 3, stride=2, dtype=dtype, bn_momentum=bn)
+        self.ConvBN_0 = ConvBN(3, ch, 3, stride=2, dtype=dtype, bn_momentum=bn,
+                               s2d=stem_s2d)
         i = 0
         for t, c, n, s in _INVERTED_RESIDUAL_CFG:
             out_ch = _make_divisible(c * width_mult)
@@ -199,11 +157,11 @@ class MobileNetV2(nn.Module):
     def __init__(self, num_classes: int = 5, width_mult: float = 1.0,
                  dtype: torch.dtype = torch.bfloat16, dw_impl: str = "xla",
                  dropout: float = 0.5, freeze_base: bool = True,
-                 bn_momentum: float = 0.9):
+                 bn_momentum: float = 0.9, stem_s2d: bool = False):
         super().__init__()
         self.dropout, self.freeze_base = dropout, freeze_base
         self.backbone = MobileNetV2Backbone(width_mult, dtype, dw_impl,
-                                            bn_momentum)
+                                            bn_momentum, stem_s2d)
         self.head = nn.Linear(self.backbone.out_features, num_classes)
 
     def train(self, mode: bool = True) -> "MobileNetV2":
@@ -226,75 +184,3 @@ class MobileNetV2(nn.Module):
         """Top-level parameter names the optimizer must not update in
         transfer mode."""
         return ("backbone",) if freeze_base else ()
-
-
-def dropout(h: torch.Tensor, rate: float,
-            rng: torch.Generator | None) -> torch.Tensor:
-    """``flax.linen.Dropout`` in training: keep each element with
-    probability ``1 - rate`` (a uniform draw below it) and rescale by
-    ``1 / (1 - rate)``. The uniforms come from ``rng`` (a CPU generator, so
-    the mask does not depend on the device)."""
-    if rng is None:
-        raise ValueError("dropout in training mode needs a dropout_rng "
-                         "torch.Generator")
-    keep_prob = 1.0 - rate
-    u = torch.rand(h.shape, generator=rng).to(h.device)
-    return torch.where(u < keep_prob, h / keep_prob, torch.zeros_like(h))
-
-
-@torch.no_grad()
-def init_params(model: nn.Module, generator: torch.Generator) -> None:
-    """Training init with flax's rules: conv and dense kernels from
-    ``lecun_normal`` (a normal truncated at two standard deviations, scaled
-    to variance 1/fan_in), dense bias zero, BatchNorm scale one, bias zero,
-    running mean zero and variance one. The numbers differ from flax's for
-    the same seed (another generator)."""
-    for mod in model.modules():
-        if isinstance(mod, (Conv, DepthwiseConv3x3, nn.Linear)):
-            w = mod.weight
-            if isinstance(mod, Conv):
-                fan_in = math.prod(w.shape[1:])
-            elif isinstance(mod, DepthwiseConv3x3):
-                fan_in = 9
-            else:
-                fan_in = w.shape[1]
-            std = fan_in ** -0.5 / .87962566103423978
-            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
-                                  generator=generator)
-            if isinstance(mod, nn.Linear):
-                mod.bias.zero_()
-        elif isinstance(mod, BatchNorm):
-            mod.scale.fill_(1.0)
-            mod.bias.zero_()
-            mod.mean.zero_()
-            mod.var.fill_(1.0)
-
-
-@torch.no_grad()
-def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """Random weights from ``generator``: conv and dense kernels normal with
-    variance 1/fan_in (flax's LeCun scale), BatchNorm scale/bias and running
-    statistics drawn around their identity values so that every layer does
-    non-trivial work. The numbers differ from flax's for the same seed; tests
-    that compare the two packages carry weights across instead."""
-    def normal(shape, std, mean=0.0):
-        return torch.randn(shape, generator=generator) * std + mean
-
-    for mod in model.modules():
-        if isinstance(mod, (Conv, DepthwiseConv3x3, nn.Linear)):
-            w = mod.weight
-            if isinstance(mod, Conv):
-                fan_in = math.prod(w.shape[1:])
-            elif isinstance(mod, DepthwiseConv3x3):
-                fan_in = 9
-            else:
-                fan_in = w.shape[1]
-            w.copy_(normal(w.shape, fan_in ** -0.5))
-            if isinstance(mod, nn.Linear):
-                mod.bias.zero_()
-        elif isinstance(mod, BatchNorm):
-            c = mod.scale.shape
-            mod.scale.copy_(normal(c, 0.1, 1.0))
-            mod.bias.copy_(normal(c, 0.1))
-            mod.mean.copy_(normal(c, 0.1))
-            mod.var.copy_(torch.rand(c, generator=generator) + 0.5)

@@ -1,10 +1,13 @@
 """Model registry: :class:`ModelCfg` -> ``nn.Module`` (the port of
-``ddw_tpu.models.registry``). MobileNetV2 and SmallCNN are ported so far; the
-other families of ``ddw_tpu`` raise, naming ``ROADMAP.md``.
+``ddw_tpu.models.registry``): ``mobilenet_v2``, ``small_cnn``,
+``resnet18/34/50``, ``convnext_tiny/small`` and ``vit``.
 
 A frozen random backbone is guarded as in ``ddw_tpu`` (``registry.py``):
 ``freeze_base=True`` without ``pretrained_path`` auto-unfreezes, with a
 warning, unless ``allow_frozen_random`` keeps it frozen (also warned).
+``lora_rank`` is taken by ViT only (the LM family builds through
+:func:`ddw_tpu_torch.models.lm.build_lm`); without ``pretrained_path`` it
+warns that the adapters sit over a random base.
 """
 
 from __future__ import annotations
@@ -17,36 +20,89 @@ from torch import nn
 from ddw_tpu_torch.utils.config import ModelCfg
 from ddw_tpu_torch.utils.device import torch_dtype
 
-_NOT_YET_PORTED = ("resnet18", "resnet34", "resnet50",
-                   "convnext_tiny", "convnext_small", "vit")
+_NAMES = ("mobilenet_v2", "small_cnn", "resnet18", "resnet34", "resnet50",
+          "convnext_tiny", "convnext_small", "vit")
 
 
-def build_model(cfg: ModelCfg) -> nn.Module:
-    """Instantiate the module named by ``cfg.name`` (weights uninitialized:
-    load them with :func:`ddw_tpu_torch.models.convert.load_flax_variables`
-    or draw them with :func:`ddw_tpu_torch.models.mobilenet_v2.init_weights`)."""
-    if cfg.name in _NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"model {cfg.name!r} is not yet ported to ddw_tpu_torch; see "
-            f"ROADMAP.md for the order of the remaining slices")
-    if cfg.name not in ("mobilenet_v2", "small_cnn"):
-        raise KeyError(f"unknown model {cfg.name!r}; have ['mobilenet_v2', "
-                       f"'small_cnn']")
-    if cfg.lora_rank:
-        raise ValueError(f"{cfg.name!r} does not support LoRA "
-                         f"(model.lora_rank); use the vit or LM families")
+def _construct(cfg: ModelCfg, image_size: tuple[int, int]) -> nn.Module:
+    dtype = torch_dtype(cfg.dtype)
     if cfg.name == "small_cnn":
         from ddw_tpu_torch.models.cnn import SmallCNN
 
         return SmallCNN(num_classes=cfg.num_classes, dropout=cfg.dropout,
-                        dtype=torch_dtype(cfg.dtype))
-    if cfg.stem_s2d:
-        raise NotImplementedError("model.stem_s2d is not yet ported to "
-                                  "ddw_tpu_torch; see ROADMAP.md")
-    from ddw_tpu_torch.models.mobilenet_v2 import MobileNetV2
+                        dtype=dtype)
+    if cfg.name == "mobilenet_v2":
+        from ddw_tpu_torch.models.mobilenet_v2 import MobileNetV2
 
+        return MobileNetV2(num_classes=cfg.num_classes,
+                           width_mult=cfg.width_mult, dtype=dtype,
+                           dw_impl=cfg.dw_impl, dropout=cfg.dropout,
+                           freeze_base=cfg.freeze_base,
+                           bn_momentum=cfg.bn_momentum,
+                           stem_s2d=cfg.stem_s2d)
+    if cfg.name.startswith("resnet"):
+        from ddw_tpu_torch.models.resnet import ResNet
+
+        return ResNet(num_classes=cfg.num_classes,
+                      depth=int(cfg.name.removeprefix("resnet")),
+                      width_mult=cfg.width_mult, dropout=cfg.dropout,
+                      freeze_base=cfg.freeze_base, dtype=dtype,
+                      stem_s2d=cfg.stem_s2d)
+    if cfg.name.startswith("convnext"):
+        from ddw_tpu_torch.models.convnext import ConvNeXt
+
+        if cfg.dw_impl != "xla":
+            # the repository's depthwise kernel is 3x3 only; ConvNeXt's 7x7
+            # depthwise is a library grouped conv, so the knob would change
+            # nothing
+            raise ValueError(
+                f"convnext ignores model.dw_impl={cfg.dw_impl!r}: its 7x7 "
+                f"depthwise always runs the library's grouped convolution "
+                f"(the depthwise kernel is 3x3-only — see "
+                f"ddw_tpu_torch/ops/depthwise_conv.py); drop the setting or "
+                f"use mobilenet_v2 for the kernel arm")
+        return ConvNeXt(num_classes=cfg.num_classes,
+                        variant=cfg.name.removeprefix("convnext_"),
+                        width_mult=cfg.width_mult, dropout=cfg.dropout,
+                        freeze_base=cfg.freeze_base, dtype=dtype)
+    from ddw_tpu_torch.models.vit import ViT
+
+    kwargs = {}
+    if cfg.num_heads:
+        kwargs["num_heads"] = cfg.num_heads
+    if cfg.hidden:
+        # mlp_dim keeps the default geometry's 4x ratio
+        kwargs["hidden"] = cfg.hidden
+        kwargs["mlp_dim"] = 4 * cfg.hidden
+    return ViT(num_classes=cfg.num_classes, dropout=cfg.dropout, dtype=dtype,
+               lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha,
+               lora_targets=tuple(cfg.lora_targets), image_size=image_size,
+               **kwargs)
+
+
+def build_model(cfg: ModelCfg,
+                image_size: tuple[int, int] = (224, 224)) -> nn.Module:
+    """Instantiate the module named by ``cfg.name`` (weights uninitialised:
+    load them with :func:`ddw_tpu_torch.models.convert.load_flax_variables`
+    or draw them with :func:`ddw_tpu_torch.models.layers.init_params`).
+    ``image_size`` sizes ViT's position embedding (flax sizes it from the
+    first input); the CNNs take any size."""
+    if cfg.name not in _NAMES:
+        raise KeyError(f"unknown model {cfg.name!r}; have {sorted(_NAMES)}")
+    model = _construct(cfg, image_size)
+    if cfg.lora_rank and not hasattr(model, "lora_rank"):
+        # a silently ignored field would full-fine-tune while the user
+        # believes adapters are training
+        raise ValueError(f"{cfg.name!r} does not support LoRA "
+                         f"(model.lora_rank); use the vit or LM families")
+    if cfg.lora_rank and not cfg.pretrained_path:
+        warnings.warn(
+            f"{cfg.name}: lora_rank={cfg.lora_rank} with no pretrained_path "
+            f"freezes a randomly initialized backbone under the adapters "
+            f"(accuracy will stay near chance unless params are grafted "
+            f"before training)", stacklevel=2)
     if (cfg.freeze_base and not cfg.pretrained_path
-            and MobileNetV2.frozen_prefixes(True)):
+            and type(model).frozen_prefixes(True)):
         # A frozen *random* backbone trains only the head over noise
         # features; unless the caller opts into that, auto-unfreeze.
         if cfg.allow_frozen_random:
@@ -58,12 +114,10 @@ def build_model(cfg: ModelCfg) -> nn.Module:
         else:
             warnings.warn(
                 f"{cfg.name}: freeze_base=True needs model.pretrained_path (a "
-                f"converted-weights artifact; see ddw_tpu.models.convert) — "
-                f"auto-unfreezing the randomly initialized backbone. Set "
-                f"model.allow_frozen_random=true to keep it frozen.",
-                stacklevel=2)
-            cfg = dataclasses.replace(cfg, freeze_base=False)
-    return MobileNetV2(num_classes=cfg.num_classes, width_mult=cfg.width_mult,
-                       dtype=torch_dtype(cfg.dtype), dw_impl=cfg.dw_impl,
-                       dropout=cfg.dropout, freeze_base=cfg.freeze_base,
-                       bn_momentum=cfg.bn_momentum)
+                f"converted-weights artifact; see ddw_tpu_torch.models."
+                f"convert) — auto-unfreezing the randomly initialized "
+                f"backbone. Set model.allow_frozen_random=true to keep it "
+                f"frozen.", stacklevel=2)
+            model = _construct(dataclasses.replace(cfg, freeze_base=False),
+                               image_size)
+    return model

@@ -130,10 +130,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  int q_offset, int k_offset, float sm_scale, int block_k,
                  int k_valid) {
   // head-dim columns of a thread in the output: NCH chunks of W adjacent
-  // columns, chunk c at c * 16 * W + tx * W (conflict-free vector reads)
+  // columns, chunk c at c * 16 * W + tx * W (conflict-free vector reads; at
+  // D = 48, W = 3 columns read one by one: 12-byte runs are not aligned)
   constexpr int NV = D / 16;
   constexpr int W = NV < 4 ? NV : 4;
   constexpr int NCH = NV / W;
+  static_assert(NV % W == 0, "head dim a multiple of 16");
 
   extern __shared__ float4 smem_raw[];
   float* Qt = reinterpret_cast<float*>(smem_raw);  // [D][BQ]
@@ -262,9 +264,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const float4 x = *reinterpret_cast<const float4*>(vrow + ch * 16 * W);
             va[ch * 4 + 0] = x.x; va[ch * 4 + 1] = x.y;
             va[ch * 4 + 2] = x.z; va[ch * 4 + 3] = x.w;
-          } else {
+          } else if constexpr (W == 2) {
             const float2 x = *reinterpret_cast<const float2*>(vrow + ch * 16 * W);
             va[ch * 2 + 0] = x.x; va[ch * 2 + 1] = x.y;
+          } else {
+#pragma unroll
+            for (int e2 = 0; e2 < W; ++e2) va[ch * W + e2] = vrow[ch * 16 * W + e2];
           }
         }
 #pragma unroll
@@ -348,6 +353,15 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4],
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
 }
 
+// Two 8x8 bf16 matrices: lanes 0-15 give the row addresses (row l % 8 of
+// matrix l / 8); every lane receives row l / 4, columns 2 (l % 4) + {0, 1}.
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2],
+                                        const __nv_bfloat16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(a));
+}
+
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
                                               const __nv_bfloat16* p) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -383,7 +397,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int KS = D / 16;     // k-steps of Q.K^T
   constexpr int NT = KT / 8;     // 8-key tiles of a K block
   constexpr int DT = D / 8;      // 8-wide head-dim tiles of P.V
-  static_assert(KS % 2 == 0 && DT % 2 == 0, "fragments are loaded in pairs");
+  static_assert(DT % 2 == 0, "V fragments are loaded in pairs");
 
   extern __shared__ uint4 smem_mma[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_mma);
@@ -437,11 +451,16 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       if (j * 8 < block_k) {
         const __nv_bfloat16* kr = Ks + (j * 8 + (lane & 7)) * QS + (lane >> 3) * 8;
 #pragma unroll
-        for (int ks = 0; ks < KS; ks += 2) {
+        for (int ks = 0; ks + 1 < KS; ks += 2) {
           uint32_t b[4];
           ldsm_x4(b, kr + ks * 16);
           mma_16816(s[j], qf[ks], b[0], b[1]);
           mma_16816(s[j], qf[ks + 1], b[2], b[3]);
+        }
+        if constexpr (KS % 2 == 1) {  // D = 48: the last 16 of the head dim
+          uint32_t b[2];
+          ldsm_x2(b, kr + (KS - 1) * 16);
+          mma_16816(s[j], qf[KS - 1], b[0], b[1]);
         }
       }
     }
@@ -596,6 +615,10 @@ int dispatch_d(int d, const void* q, const void* k, const void* v, void* out,
       return launch_any<T, 32>(q, k, v, out, lse, bh, sq, sk, causal,
                                q_offset, k_offset, sm_scale, block_k, k_valid,
                                stream);
+    case 48:
+      return launch_any<T, 48>(q, k, v, out, lse, bh, sq, sk, causal,
+                               q_offset, k_offset, sm_scale, block_k, k_valid,
+                               stream);
     case 64:
       return launch_any<T, 64>(q, k, v, out, lse, bh, sq, sk, causal,
                                q_offset, k_offset, sm_scale, block_k, k_valid,
@@ -685,11 +708,16 @@ __device__ __forceinline__ void mma_abt(float (&acc)[BT / 8][4],
   for (int j = 0; j < BT / 8; ++j) {
     const __nv_bfloat16* r = tile + (j * 8 + (lane & 7)) * QS + (lane >> 3) * 8;
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ks += 2) {
+    for (int ks = 0; ks + 1 < D / 16; ks += 2) {
       uint32_t b[4];
       ldsm_x4(b, r + ks * 16);
       mma_16816(acc[j], a[ks], b[0], b[1]);
       mma_16816(acc[j], a[ks + 1], b[2], b[3]);
+    }
+    if constexpr ((D / 16) % 2 == 1) {  // D = 48: the last 16 of the head dim
+      uint32_t b[2];
+      ldsm_x2(b, r + (D / 16 - 1) * 16);
+      mma_16816(acc[j], a[D / 16 - 1], b[0], b[1]);
     }
   }
 }
@@ -738,7 +766,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                         int k_valid) {
   constexpr int QS = D + MPAD;
   constexpr int NT = BT / 8, DT = D / 8;
-  static_assert((D / 16) % 2 == 0 && DT % 2 == 0, "fragments come in pairs");
+  static_assert(DT % 2 == 0, "B fragments of P.V come in pairs");
   extern __shared__ uint4 smem_bwd[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_bwd);
   __nv_bfloat16* Os = Qs + MQ * QS;
@@ -842,7 +870,7 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          float sm_scale, int k_valid) {
   constexpr int QS = D + MPAD;
   constexpr int NT = BT / 8, DT = D / 8;
-  static_assert((D / 16) % 2 == 0 && DT % 2 == 0, "fragments come in pairs");
+  static_assert(DT % 2 == 0, "B fragments of P.V come in pairs");
   extern __shared__ uint4 smem_bwd[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_bwd);
   __nv_bfloat16* Vs = Ks + MQ * QS;
@@ -1191,6 +1219,7 @@ int dispatch_bwd(const BwdArgs& a, int d, int dtype, bool dq_pass) {
     return (int)cudaErrorInvalidValue;
   switch (d) {
     case 32: return launch_bwd<32>(a, dtype, dq_pass);
+    case 48: return launch_bwd<48>(a, dtype, dq_pass);
     case 64: return launch_bwd<64>(a, dtype, dq_pass);
     case 128: return launch_bwd<128>(a, dtype, dq_pass);
     default: return (int)cudaErrorInvalidValue;
@@ -1203,7 +1232,7 @@ extern "C" {
 
 // q [bh, sq, d], k/v [bh, sk, d] contiguous, 16-byte aligned, in float32
 // (dtype 0) or bfloat16 (dtype 1); out [bh, sq, d] in that dtype, lse
-// [bh, sq] float32. d in {32, 64, 128}; 1 <= block_k <= 128 dividing sk;
+// [bh, sq] float32. d in {32, 48, 64, 128}; 1 <= block_k <= 128 dividing sk;
 // k_valid < 0 means no key mask. Returns a cudaError_t code.
 int ddw_flash_fwd(const void* q, const void* k, const void* v, void* out,
                   void* lse, int bh, int sq, int sk, int d, int dtype,
@@ -1225,7 +1254,7 @@ int ddw_flash_fwd(const void* q, const void* k, const void* v, void* out,
 
 // K4: q, do [bh, sq, d], k/v [bh, sk, d] in float32 (dtype 0) or bfloat16
 // (dtype 1), lse and delta [bh, sq] float32, all contiguous and 16-byte
-// aligned; dq [bh, sq, d] in the input dtype. d in {32, 64, 128}; any sq,
+// aligned; dq [bh, sq, d] in the input dtype. d in {32, 48, 64, 128}; any sq,
 // sk >= 1; k_valid < 0 means no key mask. Returns a cudaError_t code.
 int ddw_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,

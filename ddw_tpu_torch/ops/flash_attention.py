@@ -12,9 +12,9 @@ package's ``[B, H, S, D]`` layout at the public entries:
   by a producer warp, ``wgmma`` on two consumer warpgroups) for bf16 with
   ``block_k`` = 128 at head dim 64 or 128, the main path's attention; ``mma``
   (``mma.sync`` in ``csrc/flash_attention.cu``) for bf16 with other
-  ``block_k`` multiples of 16 and for head dim 32; ``cuda_cores`` (the same
-  file) for f32 and for other bf16 blocks. The design notes are in the
-  sources.
+  ``block_k`` multiples of 16 and for head dims 32 and 48 (ViT's);
+  ``cuda_cores`` (the same file) for f32 and for other bf16 blocks. The
+  design notes are in the sources.
 - :func:`flash_attention_dq_cuda` (K4) and :func:`flash_attention_dkv_cuda`
   (K5) launch the backward kernels, which replace ``_dq_kernel`` and
   ``_dkv_kernel`` (``_partitioned_bwd``): dQ, and dK/dV, from the saved
@@ -22,8 +22,8 @@ package's ``[B, H, S, D]`` layout at the public entries:
   shape in :func:`_bwd_variant`: ``sm90`` (``csrc/flash_bwd_sm90.cu``: TMA
   loads fed by a producer warp, ``wgmma`` on two consumer warpgroups) for
   bf16 at head dim 64 or 128, the main path's; ``mma`` (``mma.sync`` in
-  ``csrc/flash_attention.cu``) for bf16 at head dim 32; ``cuda_cores`` (the
-  same file) for f32. None uses float atomics, so two launches give the
+  ``csrc/flash_attention.cu``) for bf16 at head dims 32 and 48; ``cuda_cores``
+  (the same file) for f32. None uses float atomics, so two launches give the
   same bits.
 - :func:`flash_attention_plain`, :func:`flash_attention_dq_plain` and
   :func:`flash_attention_dkv_plain`, their plain PyTorch versions: the TPU
@@ -58,7 +58,7 @@ from torch.utils.checkpoint import checkpoint
 
 _NEG_INF = -1e30
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_HEAD_DIMS = (32, 64, 128)
+_KERNEL_HEAD_DIMS = (32, 48, 64, 128)
 _KERNEL_MAX_BLOCK_K = 128
 _SM90_HEAD_DIMS = (64, 128)
 _SM90_BLOCK_K = 128
@@ -330,9 +330,10 @@ def _sm90_bwd_lib() -> ctypes.CDLL:
 def _fwd_variant(dtype: torch.dtype, head_dim: int, block_k: int) -> str:
     """Which K3 kernel a forward of this shape launches: ``"sm90"`` (TMA and
     ``wgmma``, ``csrc/flash_fwd_sm90.cu``) for bf16 with ``block_k`` = 128 at
-    head dim 64 or 128; ``"mma"`` (``mma.sync``) for bf16 with another
-    ``block_k`` multiple of 16, or head dim 32; ``"cuda_cores"`` for f32 and
-    for bf16 blocks that are not multiples of 16."""
+    head dim 64 or 128 (a 96-byte row of head dim 48 fits no TMA swizzle
+    mode); ``"mma"`` (``mma.sync``) for bf16 with another ``block_k``
+    multiple of 16, or head dim 32 or 48; ``"cuda_cores"`` for f32 and for
+    bf16 blocks that are not multiples of 16."""
     if dtype == torch.bfloat16 and block_k % 16 == 0:
         if block_k == _SM90_BLOCK_K and head_dim in _SM90_HEAD_DIMS:
             return "sm90"
@@ -344,8 +345,8 @@ def _bwd_variant(dtype: torch.dtype, head_dim: int) -> str:
     """Which K4 and K5 kernels a backward of this shape launches (the two
     always take the same): ``"sm90"`` (TMA and ``wgmma``,
     ``csrc/flash_bwd_sm90.cu``) for bf16 at head dim 64 or 128; ``"mma"``
-    (``mma.sync``) for bf16 at head dim 32; ``"cuda_cores"`` for f32. The
-    kernels pick their own tiles, so no block size enters."""
+    (``mma.sync``) for bf16 at head dim 32 or 48; ``"cuda_cores"`` for f32.
+    The kernels pick their own tiles, so no block size enters."""
     if dtype == torch.bfloat16:
         return "sm90" if head_dim in _SM90_HEAD_DIMS else "mma"
     return "cuda_cores"
@@ -354,13 +355,11 @@ def _bwd_variant(dtype: torch.dtype, head_dim: int) -> str:
 def _check_kernel_inputs(q, k, v, *extra) -> None:
     """The contract every flash-attention kernel checks before it launches:
     contiguous, 16-byte aligned ``q [BH, Sq, D]``, ``k``/``v [BH, Sk, D]``
-    CUDA tensors of one dtype, float32 or bfloat16, D in (32, 64, 128),
+    CUDA tensors of one dtype, float32 or bfloat16, D in (32, 48, 64, 128),
     non-empty and under 2**31 elements; ``extra`` tensors on the same
-    device, contiguous and aligned too."""
+    device, contiguous and aligned too. The dtype and shape are checked
+    first, so a head dim no kernel takes is named wherever the tensors lie."""
     tensors = (q, k, v, *extra)
-    if not all(t.is_cuda and t.device == q.device for t in tensors):
-        raise ValueError(f"the flash-attention kernel needs q, k, v on one "
-                         f"CUDA device, got {[str(t.device) for t in tensors]}")
     if q.dtype not in _KERNEL_DTYPES or any(t.dtype != q.dtype
                                             for t in (k, v)):
         raise ValueError(f"the flash-attention kernel takes float32 or "
@@ -371,8 +370,12 @@ def _check_kernel_inputs(q, k, v, *extra) -> None:
         raise ValueError(f"need q [BH, Sq, D] and k, v [BH, Sk, D], got "
                          f"{[tuple(t.shape) for t in (q, k, v)]}")
     if q.shape[2] not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"the flash-attention kernel supports head dims "
-                         f"{_KERNEL_HEAD_DIMS}, got {q.shape[2]}")
+        raise ValueError(f"the flash-attention kernels take head dims "
+                         f"{_KERNEL_HEAD_DIMS}; head dim {q.shape[2]} has no "
+                         f"kernel")
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError(f"the flash-attention kernel needs q, k, v on one "
+                         f"CUDA device, got {[str(t.device) for t in tensors]}")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
                for t in tensors):
         raise ValueError("the flash-attention kernel needs contiguous, "

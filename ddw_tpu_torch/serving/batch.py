@@ -5,8 +5,12 @@
 
 Shards of the input table are the unit of work. A ``raw_u8`` table (pixels
 pre-decoded by ``ddw_tpu.data.prep.materialize_decoded``) is reinterpreted and
-dequantized with no decode at all; any other table is decoded record by record
-on a thread pool. Batches go through :meth:`PackagedModel.predict_logits`
+dequantized with no decode at all; a JPEG table is decoded with one native
+``decode_batch_native`` call per batch on a background thread while the
+device scores the batch before it (images the native decoder refuses go to
+PIL one by one), or, where the native pipeline does not build, record by
+record with PIL on a thread pool. Batches go through
+:meth:`PackagedModel.predict_logits`
 (fixed device sub-batch of 128). Results are written as a predictions table
 stamped with the same run token ``ddw_tpu`` derives. The LM scorer gathers
 fixed batches of ``batch_per_device`` rows (zero-padded at the end), checks
@@ -18,8 +22,7 @@ processes each write a ``{out_name}_pN`` part stamped with the run token of
 (input table version, packaged-model digest); with ``merge=True`` rank 0
 waits for every part carrying this run's token and commits one ``out_name``
 table (:func:`merge_predictions`), so a part from a run over another table
-version or model is never matched. The native JPEG pipeline is not yet
-ported.
+version or model is never matched.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import numpy as np
 from ddw_tpu_torch.data.loader import (bounded_map, dequantize_raw_u8,
                                        preprocess_image, raw_u8_view)
 from ddw_tpu_torch.data.store import Record, Table, TableStore, read_shard
+from ddw_tpu_torch.native.decode import decode_batch_native, native_available
 from ddw_tpu_torch.serving.package import PackagedModel
 
 
@@ -133,6 +137,46 @@ class BatchScorer:
             if i:
                 dequantize_raw_u8(imgs[:i])
                 score(imgs, i, paths)
+        elif native_available():
+            # double-buffered: a background thread decodes batch N+1 (the
+            # C++ pool, GIL released) while the device scores batch N
+            bufs = [np.empty((self.batch, h, w, 3), np.float32)
+                    for _ in range(2)]
+
+            def decode_into(contents: list[bytes], buf: np.ndarray) -> int:
+                n = len(contents)
+                _, ok = decode_batch_native(contents, h, w,
+                                            threads=self.workers,
+                                            out=buf[:n])
+                for j in np.nonzero(~ok)[0]:
+                    buf[j] = preprocess_image(contents[j], h, w)
+                return n
+
+            def batches():
+                paths: list[str] = []
+                contents: list[bytes] = []
+                for rec in records():
+                    paths.append(rec.path)
+                    contents.append(rec.content)
+                    if len(contents) == self.batch:
+                        yield paths, contents
+                        paths, contents = [], []
+                if contents:
+                    yield paths, contents
+
+            with ThreadPoolExecutor(max_workers=1) as decoder:
+                in_flight = None  # (future, buffer, paths) being decoded
+                for i, (paths, contents) in enumerate(batches()):
+                    submitted = (decoder.submit(decode_into, contents,
+                                                bufs[i % 2]),
+                                 bufs[i % 2], paths)
+                    if in_flight is not None:
+                        fut, buf, prev_paths = in_flight
+                        score(buf, fut.result(), prev_paths)
+                    in_flight = submitted
+                if in_flight is not None:
+                    fut, buf, prev_paths = in_flight
+                    score(buf, fut.result(), prev_paths)
         else:
             def decode(rec: Record):
                 return rec.path, preprocess_image(rec.content, h, w)

@@ -158,7 +158,7 @@ class PackagedModel:
                 f"decoder but this environment resolves {active_decoder()!r}; "
                 f"decoded pixels differ slightly (train/serve preprocessing "
                 f"skew)", stacklevel=2)
-        self.model = build_model(self.model_cfg)
+        self.model = build_model(self.model_cfg, (self.height, self.width))
         load_flax_variables(self.model, {
             "params": restored["params"],
             "batch_stats": restored.get("batch_stats") or {}})

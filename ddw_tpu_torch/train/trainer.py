@@ -14,7 +14,10 @@ The distributed data-parallel contract, one process per card:
 7. step accounting        -> ``train_size // (batch * world)`` steps per epoch,
                              floor-divided ``val_steps``;
 8. checkpoint after the callbacks, keep-best, and ``resume=True`` continuing
-   the loader stream with ``skip_records``.
+   the loader stream with ``skip_records``;
+9. ``model.pretrained_path``: the converted backbone artifact merged over
+   the seeded init (:func:`ddw_tpu_torch.models.convert.load_pretrained`),
+   and LoRA's leaf-level freezing for ``model.lora_rank`` (ViT).
 
 "Worker" = one process = one card; the global batch is ``batch_size *
 world``. Not yet ported, refused by :func:`ddw_tpu_torch.utils.config.
@@ -35,7 +38,9 @@ from ddw_tpu_torch.checkpoint.ckpt import (BestCheckpointKeeper,
                                            CheckpointManager)
 from ddw_tpu_torch.data.loader import ShardedLoader
 from ddw_tpu_torch.data.store import Table
-from ddw_tpu_torch.models.mobilenet_v2 import init_params
+from ddw_tpu_torch.models.convert import load_pretrained_module
+from ddw_tpu_torch.models.lora import lora_optimizer
+from ddw_tpu_torch.models.layers import init_params
 from ddw_tpu_torch.models.registry import build_model
 from ddw_tpu_torch.runtime.dist import process_topology
 from ddw_tpu_torch.tracking.tracker import Run
@@ -75,7 +80,8 @@ class Trainer:
         self.train_cfg = train_cfg
         self.run = run
         self.device = resolve_device(device)
-        self.model = model if model is not None else build_model(model_cfg)
+        self.model = model if model is not None else build_model(
+            model_cfg, (data_cfg.img_height, data_cfg.img_width))
         self._initial = initial
         self._on_epoch = on_epoch
 
@@ -95,16 +101,26 @@ class Trainer:
                     "with ddw_tpu_torch.train.step.with_param_ema or drop "
                     "the flag")
             return state, tx
-        if self.model_cfg.pretrained_path:
-            raise NotImplementedError(
-                "model.pretrained_path (converted pretrained weights) is not "
-                "yet ported to ddw_tpu_torch; see ROADMAP.md")
         # Seeded init, identical on every rank: the rank-0 weight broadcast.
         init_params(self.model, torch.Generator().manual_seed(cfg.seed))
+        if self.model_cfg.pretrained_path:
+            # transfer mode: the converted backbone artifact over the fresh
+            # init; the head stays as drawn
+            load_pretrained_module(self.model, self.model_cfg.pretrained_path)
         self.model.to(self.device)
         frozen = type(self.model).frozen_prefixes(
             getattr(self.model, "freeze_base", False))
-        tx = make_optimizer(cfg, frozen)
+        if getattr(self.model, "lora_rank", 0):
+            # LoRA freezes the base at leaf granularity itself; stacking
+            # freeze_base on it would freeze the adapters too
+            if frozen:
+                raise ValueError(
+                    "freeze_base and lora_rank are mutually exclusive — "
+                    "LoRA already freezes the base; set "
+                    "model.freeze_base=false")
+            tx = lora_optimizer(make_optimizer(cfg))
+        else:
+            tx = make_optimizer(cfg, frozen)
         if cfg.ema_decay:
             tx = with_param_ema(tx, cfg.ema_decay)
         return init_state(self.model, tx), tx

@@ -6,9 +6,10 @@ dropout below the head, no gradient into it) is a pure function of the
 pixels. This module runs it once per dataset and stores the pooled feature
 vectors (f32, exactly the head's input) as a ``features_f32`` table; head
 training then reads ``(B, feature_dim)`` batches and computes only Dropout
--> Dense forward and backward. On the card the featurisation is
-MobileNetV2's eval forward, whose stride-1 depthwise layers run K1 with
-``dw_impl="pallas"`` (13 launches a batch).
+-> Dense forward and backward. The backbone is MobileNetV2's, ResNet's or
+ConvNeXt's, random (``allow_frozen_random``) or from ``model.
+pretrained_path``; on the card MobileNetV2's stride-1 depthwise layers run
+K1 with ``dw_impl="pallas"`` (13 launches a batch).
 
 Cache fence: the feature table records a fingerprint of the backbone's
 weights and BatchNorm statistics (:func:`backbone_fingerprint`, over the
@@ -34,7 +35,7 @@ import torch
 from torch import nn
 
 from ddw_tpu_torch.data.store import Record, Table, TableStore
-from ddw_tpu_torch.models.mobilenet_v2 import dropout
+from ddw_tpu_torch.models.layers import dropout
 from ddw_tpu_torch.train.step import (TrainState, get_lr, init_state,
                                       make_optimizer, set_lr)
 from ddw_tpu_torch.utils.config import DataCfg, ModelCfg, TrainCfg
@@ -67,11 +68,14 @@ class TransferHead(nn.Module):
 def _pooled_features(model: nn.Module, images: torch.Tensor) -> torch.Tensor:
     """The frozen base's pooled f32 features: the backbone in eval mode on
     images in the compute dtype, then the full model's GAP."""
+    from ddw_tpu_torch.models.convnext import ConvNeXt
     from ddw_tpu_torch.models.mobilenet_v2 import MobileNetV2
+    from ddw_tpu_torch.models.resnet import ResNet
 
-    if not isinstance(model, MobileNetV2):
+    if not isinstance(model, (MobileNetV2, ResNet, ConvNeXt)):
         raise TypeError(f"cached-feature transfer needs a backbone/head "
-                        f"model (MobileNetV2); got {type(model).__name__}")
+                        f"model (MobileNetV2, ResNet, ConvNeXt); got "
+                        f"{type(model).__name__}")
     feats = model.backbone(images)
     return feats.float().mean(dim=(1, 2))
 
@@ -304,7 +308,8 @@ def prepare_feature_tables(
     the Dense head sit above the pooled features, so one cache serves every
     head hyperparameter (HPO over dropout, learning rate, optimizer, batch).
     Raises when the model would not be frozen."""
-    from ddw_tpu_torch.models.mobilenet_v2 import init_params
+    from ddw_tpu_torch.models.convert import load_pretrained_module
+    from ddw_tpu_torch.models.layers import init_params
     from ddw_tpu_torch.models.registry import build_model
 
     if not model_cfg.freeze_base:
@@ -312,17 +317,16 @@ def prepare_feature_tables(
                          "(an unfrozen backbone invalidates the cache every "
                          "step)")
     device = resolve_device(device)
-    full_model = build_model(model_cfg)
+    full_model = build_model(model_cfg,
+                             (data_cfg.img_height, data_cfg.img_width))
     if not getattr(full_model, "freeze_base", False):
         raise ValueError(
             "build_model auto-unfroze the backbone (no pretrained_path); "
             "cached-feature training needs a frozen (pretrained or "
             "allow_frozen_random) base")
-    if model_cfg.pretrained_path:
-        raise NotImplementedError(
-            "model.pretrained_path (converted pretrained weights) is not yet "
-            "ported to ddw_tpu_torch; see ROADMAP.md")
     init_params(full_model, torch.Generator().manual_seed(train_cfg.seed))
+    if model_cfg.pretrained_path:
+        load_pretrained_module(full_model, model_cfg.pretrained_path)
     full_model.to(device)
     tx = make_optimizer(train_cfg,
                         type(full_model).frozen_prefixes(True))

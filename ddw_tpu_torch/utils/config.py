@@ -53,7 +53,7 @@ class ModelCfg:
     allow_frozen_random: bool = False   # training-side freeze guard opt-in
     bn_momentum: float = 0.9            # BatchNorm running-stat momentum
     dtype: str = "bfloat16"             # compute dtype; params stay f32
-    stem_s2d: bool = False              # space-to-depth stem (not yet ported)
+    stem_s2d: bool = False              # space-to-depth stem (ops/s2d_conv)
     dw_impl: str = "xla"                # depthwise 3x3: "xla" library grouped
                                         # conv, "pallas" the CUDA kernel at
                                         # stride 1, "pallas_interpret" its

@@ -1,10 +1,12 @@
 """The port's example chain (``examples_torch/``) on the CPU: each script
 runs ``--quick --device cpu`` against one shared workdir, in dependency
 order, as a user would start it: 01 prep -> 02 single node -> 03 on 2 gloo
-ranks -> 06 package and 2-process merged scoring, and one short 04 run with
+ranks -> 06 package and 2-process merged scoring -> 08 pretrain, export,
+convert and frozen transfer at one epoch each, and one short 04 run with
 2 parallel trials, the only tier-1 representative of the HPO arms. The
 other arms (cached features, the nested space, 05's distributed trials,
-int8, the multi-worker prep) are ``slow``."""
+int8, the multi-worker prep, 08 at its full length, where the pretrained
+backbone must beat the random one) are ``slow``."""
 
 import os
 import subprocess
@@ -25,6 +27,10 @@ _EXAMPLES = [
      "registered flowers_classifier v1 -> Production"),
     ("06_packaged_inference.py", ["train.epochs=1"],
      "predictions table of 20 records written"),
+    ("08_pretrained_transfer.py", ["--pretrain-epochs", "1", "train.epochs=1"],
+     "[score] 20 rows"),
+    pytest.param("08_pretrained_transfer.py", [], "random-frozen 0.",
+                 marks=_slow),
     pytest.param("02_train_single_node.py",
                  ["--cache-features", "train.epochs=1"], "val_accuracy=",
                  marks=_slow),
@@ -68,6 +74,11 @@ def test_example_runs(script, extra, expect, workdir):
     assert expect in proc.stdout, proc.stdout[-1500:]
     if script == "04_hyperopt_parallel.py":
         assert proc.stdout.count("trial status=ok") == 2, proc.stdout
+    if script == "08_pretrained_transfer.py":
+        assert "[convert] torch and keras layout round-trips agree" \
+            in proc.stdout, proc.stdout
+        if not extra:
+            assert "(OK)" in proc.stdout, proc.stdout
 
 
 def test_examples_run_on_the_card_unless_told_otherwise(workdir, monkeypatch):

@@ -440,11 +440,14 @@ def _check_plain_backward(dtype, d, causal, q_offset, k_offset, k_valid, *,
     jd, td = getattr(jnp, dtype), getattr(torch, dtype)
     jq, jk, jv, jg = (jnp.asarray(x, jd) for x in (q, k, v, g))
     scale = 1.0 / np.sqrt(d)
-    _, lse = jfa.flash_attention_lse(jq, jk, jv, causal, q_offset, k_offset,
-                                     scale, block_q, block_k, k_valid=k_valid)
+    # jitted: the same interpret-mode kernels, traced once instead of run
+    # op by op (about half the time)
+    lse = jax.jit(lambda q, k, v: jfa.flash_attention_lse(
+        q, k, v, causal, q_offset, k_offset, scale, block_q, block_k,
+        k_valid=k_valid)[1])(jq, jk, jv)
     dvec = rng.randn(b, h, s).astype(np.float32)
-    jdq, jdk, jdv = jfa._partitioned_bwd(
-        causal, q_offset, k_offset, scale, block_q, block_k, True, k_valid)(
+    jdq, jdk, jdv = jax.jit(jfa._partitioned_bwd(
+        causal, q_offset, k_offset, scale, block_q, block_k, True, k_valid))(
             jq, jk, jv, lse, jg, jnp.asarray(dvec))
     flat = lambda x, n: torch.from_numpy(np.array(x, np.float32)).to(
         td).reshape(b * h, n, d)
@@ -608,3 +611,131 @@ def test_flash_mha_backward_through_padding(s, monkeypatch):
         assert a.shape == (1, 2, s, 32)
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(a, c, rtol=1e-5, atol=1e-5)
+
+
+# -- ViT's head dim: 48 (hidden 192 over 4 heads) ----------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,sk,causal,q_offset,k_offset,k_valid", [
+    (256, 256, False, 0, 0, 196),     # ViT at 224/16, padded to 256
+    (128, 128, True, 0, 96, None),    # causal by offsets: rows 0-95 see
+])                                    # no key
+def test_plain_forward_at_head_dim_48_matches_jax(dtype, s, sk, causal,
+                                                  q_offset, k_offset,
+                                                  k_valid):
+    """K3's plain version at head dim 48 against the Pallas kernel in
+    interpret mode: out and lse, with the tolerances of the other head
+    dims."""
+    arrs = _qkv(b=1, h=2, s=s, d=48, seed=48 + s, sk=sk)
+    tdt = getattr(torch, dtype)
+    q, k, v = (t[0] for t in _torch(arrs, tdt))
+    out, lse = tfa.flash_attention_plain(q, k, v, causal, q_offset, k_offset,
+                                         block_q=128, block_k=64,
+                                         k_valid=k_valid)
+    jout, jlse = jfa.flash_attention_lse(
+        *_jax(arrs, getattr(jnp, dtype)), causal, q_offset, k_offset, None,
+        128, 64, interpret=True, k_valid=k_valid)
+    got, want = _np(out), _np(jout)[0]
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+        assert (np.abs(got - want) <= np.maximum(
+            2 * ulp, 1e-3 * np.abs(arrs[2]).max())).all()
+    np.testing.assert_allclose(_np(lse), _np(jlse)[0], rtol=2e-5, atol=2e-5)
+    if k_offset > q_offset and causal:
+        assert (got[:, :k_offset - q_offset] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,q_offset,k_offset,k_valid", [
+    (False, 0, 0, 72), (True, 0, 32, None)])
+def test_plain_backward_at_head_dim_48_matches_jax(dtype, causal, q_offset,
+                                                   k_offset, k_valid):
+    """K4's and K5's plain versions at head dim 48 against
+    ``_partitioned_bwd`` in interpret mode (the tolerances of
+    test_plain_backward_matches_jax_partitioned_bwd): non-causal with a
+    key mask inside a block, and causal by offsets (rows 0-31 see no
+    key)."""
+    _check_plain_backward(dtype, 48, causal, q_offset, k_offset, k_valid,
+                          s=64, sk=96, block_q=32, block_k=32,
+                          seed=480 + q_offset + k_offset)
+
+
+@pytest.mark.parametrize("kw", [dict(causal=True, q_offset=16, k_valid=80)])
+def test_flash_gradients_at_head_dim_48(kw):
+    """FlashAttentionFn's backward at head dim 48 against jax.grad through
+    the Pallas forward and backward (the VJP of ``flash_attention``)."""
+    arrs = _qkv(b=1, h=2, s=96, d=48, seed=7)
+    port = _grads_port(lambda q, k, v: (tfa.flash_attention(
+        q, k, v, block_q=32, block_k=32, **kw) ** 2).sum(), arrs)
+    jaxg = _grads_jax(lambda q, k, v: jnp.sum(jfa.flash_attention(
+        q, k, v, block_q=32, block_k=32, interpret=True, **kw) ** 2), arrs)
+    for a, b in zip(port, jaxg):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_vit_attention_through_the_kernel_tier_matches_jax(monkeypatch):
+    """ViT's attention shape (196 tokens, head dim 48, non-causal) through
+    ``flash_mha`` with both thresholds at 0, as a ViT run with
+    ``DDW_ATTN_XLA_PLAIN_MAX=0 DDW_ATTN_XLA_CKPT_MAX=0`` takes it: padded to
+    a 128 block (Sq = Sk = 256, ``k_valid`` 196) in both packages, the plain
+    versions here against the Pallas kernels in interpret mode, forward and
+    gradients."""
+    for mod in (tfa, jfa):
+        monkeypatch.setattr(mod, "_XLA_PLAIN_MAX", 0)
+        monkeypatch.setattr(mod, "_XLA_CKPT_MAX", 0)
+    arrs = _qkv(b=1, h=2, s=196, d=48, seed=196)
+    assert tfa._attn_impl(*_torch(arrs)[:2], "auto") == "pallas"
+    assert tfa._pick_block(196, 128, torch.bfloat16) == 128
+    port = _grads_port(lambda q, k, v: (tfa.flash_mha(q, k, v) ** 2).sum(),
+                       arrs)
+    jaxg = _grads_jax(lambda q, k, v: jnp.sum(jfa.flash_mha(
+        q, k, v, interpret=True) ** 2), arrs)
+    for a, b in zip(port, jaxg):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+    out = tfa.flash_mha(*_torch(arrs))
+    ref = jfa.flash_mha(*_jax(arrs), interpret=True)
+    np.testing.assert_allclose(_np(out), _np(ref), rtol=2e-5, atol=2e-5)
+
+
+def test_head_dim_48_takes_mma_or_cuda_cores():
+    """Head dim 48 runs the mma.sync kernels in bf16 and the CUDA-core ones
+    in f32, forward and backward: the sm90 kernels stay at 64 and 128 (a
+    96-byte bf16 row fits no TMA swizzle mode), and forcing sm90 is
+    refused."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert 48 in tfa._KERNEL_HEAD_DIMS
+    assert tfa._fwd_variant(bf, 48, 128) == "mma"
+    assert tfa._fwd_variant(bf, 48, 64) == "mma"
+    assert tfa._fwd_variant(bf, 48, 40) == "cuda_cores"
+    assert tfa._fwd_variant(f32, 48, 128) == "cuda_cores"
+    assert tfa._bwd_variant(bf, 48) == "mma"
+    assert tfa._bwd_variant(f32, 48) == "cuda_cores"
+    with pytest.raises(ValueError, match="cannot run"):
+        tfa._forced_variant(bf, 48, 128, "sm90")
+    with pytest.raises(ValueError, match="cannot run"):
+        tfa._forced_bwd_variant(bf, 48, "sm90")
+
+
+@pytest.mark.parametrize("d", [40, 96])
+def test_kernel_inputs_refuse_other_head_dims_by_name(d):
+    """A head dim no kernel takes is refused by name before anything
+    launches, on any device; head dim 48 passes the shape checks and only
+    the device check refuses a CPU tensor."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros(2, 64, d, dtype=dtype)
+        lse = torch.zeros(2, 64)
+        before = (tfa.flash_attention_cuda.launches,
+                  tfa.flash_attention_dq_cuda.launches)
+        with pytest.raises(ValueError, match=f"head dim {d} has no kernel"):
+            tfa._check_kernel_inputs(q, q, q)
+        with pytest.raises(ValueError, match=f"head dim {d} has no kernel"):
+            tfa.flash_attention_cuda(q, q, q)
+        with pytest.raises(ValueError, match=f"head dim {d} has no kernel"):
+            tfa.flash_attention_dq_cuda(q, q, q, q, lse, lse)
+        assert (tfa.flash_attention_cuda.launches,
+                tfa.flash_attention_dq_cuda.launches) == before
+        q48 = torch.zeros(2, 64, 48, dtype=dtype)
+        with pytest.raises(ValueError, match="one CUDA device"):
+            tfa._check_kernel_inputs(q48, q48, q48)

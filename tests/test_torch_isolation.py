@@ -1,6 +1,8 @@
-"""The PyTorch port stands alone: no module of ``ddw_tpu_torch``, no
-``tools/torch_*.py``, no ``examples_torch/*.py`` and not ``chip_smoke.py``
-imports JAX, flax, optax or the JAX package; every module and example
+"""The PyTorch port stands alone: no module of ``ddw_tpu_torch`` (its
+``native`` subpackage included), no ``tools/torch_*.py``, no
+``examples_torch/*.py`` and not ``chip_smoke.py`` imports JAX, flax, optax
+or the JAX package (not even ``ddw_tpu.native``, which imports no JAX);
+every module and example
 imports with those blocked; and entry points refuse to run quietly on the
 CPU."""
 
@@ -59,7 +61,8 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     assert {"common.py", "01_data_prep.py", "02_train_single_node.py",
             "03_train_distributed.py", "04_hyperopt_parallel.py",
             "05_hyperopt_distributed.py",
-            "06_packaged_inference.py"} <= examples
+            "06_packaged_inference.py",
+            "08_pretrained_transfer.py"} <= examples
 
 
 def test_every_port_module_imports_with_jax_blocked():
@@ -75,7 +78,10 @@ def test_every_port_module_imports_with_jax_blocked():
                  "ops.ring_reduce", "models.cnn", "train.transfer",
                  "tune.space", "tune.tpe", "tune.pruner",
                  "tracking.registry", "tracking.report",
-                 "tracking.__main__"):
+                 "tracking.__main__", "native.build", "native.decode",
+                 "native.codec", "models.resnet", "models.convnext",
+                 "models.vit", "models.export", "ops.s2d_conv",
+                 "models.layers"):
         assert f"ddw_tpu_torch.{name}" in modules
     modules += ["examples_torch." + os.path.basename(p)[:-3]
                 for p in _example_sources()]
@@ -118,7 +124,7 @@ def test_chip_smoke_refuses_alone(tmp_path):
 
 def test_entry_points_need_an_explicit_cpu_request(tmp_path, monkeypatch):
     from ddw_tpu_torch.models.convert import to_flax_variables
-    from ddw_tpu_torch.models.mobilenet_v2 import init_weights
+    from ddw_tpu_torch.models.layers import init_weights
     from ddw_tpu_torch.models.registry import build_model
     from ddw_tpu_torch.serving.batch import BatchScorer
     from ddw_tpu_torch.serving.package import (PackagedModel,

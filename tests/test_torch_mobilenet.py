@@ -13,7 +13,7 @@ import torch
 
 from ddw_tpu.models.mobilenet_v2 import MobileNetV2 as JaxMobileNetV2
 from ddw_tpu_torch.models.convert import load_flax_variables, to_flax_variables
-from ddw_tpu_torch.models.mobilenet_v2 import init_weights
+from ddw_tpu_torch.models.layers import init_weights
 from ddw_tpu_torch.models.registry import build_model
 from ddw_tpu_torch.utils.config import ModelCfg
 
@@ -123,10 +123,11 @@ def test_init_weights_is_seeded():
 
 
 @pytest.mark.parametrize("cfg,err,match", [
-    (ModelCfg(name="resnet50"), NotImplementedError, "ROADMAP.md"),
-    (ModelCfg(name="vit"), NotImplementedError, "not yet ported"),
+    (ModelCfg(name="resnet101"), KeyError, "unknown model"),
+    (ModelCfg(name="convnext_tiny", dw_impl="pallas"), ValueError,
+     "3x3-only"),
     (ModelCfg(name="nope"), KeyError, "unknown model"),
-    (ModelCfg(stem_s2d=True), NotImplementedError, "stem_s2d"),
+    (ModelCfg(name="resnet18", lora_rank=4), ValueError, "LoRA"),
     (ModelCfg(lora_rank=4), ValueError, "LoRA"),
     (ModelCfg(dw_impl="cudnn"), ValueError, "dw_impl"),
     (ModelCfg(dtype="float16"), ValueError, "dtype"),

@@ -180,7 +180,12 @@ def test_decoder_skew_warns(tmp_path, variables):
     meta_path = os.path.join(pkg, "package.json")
     with open(meta_path) as f:
         meta = json.load(f)
-    meta["preprocess_impl"] = "native"
+    # a package trained with the other decoder than this environment's
+    from ddw_tpu_torch.data.loader import active_decoder
+
+    here = active_decoder()
+    assert meta["preprocess_impl"] == here
+    meta["preprocess_impl"] = "pil" if here == "native" else "native"
     with open(meta_path, "w") as f:
         json.dump(meta, f)
     with pytest.warns(UserWarning, match="image decoder"):

@@ -222,7 +222,7 @@ def test_unported_features_are_refused(tables, tmp_path):
     with pytest.raises(KeyError):
         apply_overrides(cfgs, ["train.nope=1"])
     data, model, cfg = _cfgs(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(FileNotFoundError, match="w.npz"):
         Trainer(data, dataclasses.replace(model, pretrained_path="w.npz"),
                 cfg, device="cpu").fit(*tables[1:])
     with pytest.raises(ValueError, match="num_devices"):

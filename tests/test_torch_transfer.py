@@ -25,7 +25,7 @@ from ddw_tpu.utils.config import TrainCfg as JaxTrainCfg
 from ddw_tpu_torch.data.loader import dequantize_raw_u8, raw_u8_view
 from ddw_tpu_torch.data.store import Record, TableStore
 from ddw_tpu_torch.models.convert import load_flax_variables, to_flax_variables
-from ddw_tpu_torch.models.mobilenet_v2 import init_weights
+from ddw_tpu_torch.models.layers import init_weights
 from ddw_tpu_torch.models.registry import build_model
 from ddw_tpu_torch.train import step as tstep
 from ddw_tpu_torch.train import transfer

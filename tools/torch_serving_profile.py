@@ -63,7 +63,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from ddw_tpu_torch.models.convert import to_flax_variables
-    from ddw_tpu_torch.models.mobilenet_v2 import init_weights
+    from ddw_tpu_torch.models.layers import init_weights
     from ddw_tpu_torch.models.registry import build_model
     from ddw_tpu_torch.serving.package import (PackagedModel,
                                                save_packaged_model)

@@ -46,7 +46,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from torch_serving_profile import _category
-    from ddw_tpu_torch.models.mobilenet_v2 import init_params
+    from ddw_tpu_torch.models.layers import init_params
     from ddw_tpu_torch.models.registry import build_model
     from ddw_tpu_torch.train.step import (init_state, make_optimizer,
                                           make_train_step)
