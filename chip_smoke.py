@@ -2,7 +2,7 @@
 """Smoke run of ddw_tpu_torch on one NVIDIA card: build, check and time the
 port's CUDA kernels, then drive the serving, training, workshop (the
 example chain), vision-family, pretrained-transfer, LM-scoring,
-LM-training and collective main paths end to end.
+LM-training, online-serving and collective main paths end to end.
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -192,6 +192,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``save_lm_package`` -> ``LMPackagedModel.score`` on the val rows at the
    trainer's last val_loss (within 1e-4 relative). Step ms (median of 10)
    and training tokens/s.
+9b. serve — the online serving engine (``ServingEngine``) on the card. The
+   same full-width bf16 LM (another seed) through ``save_lm_package`` ->
+   ``LMPackagedModel`` -> ``ServingEngine`` with the default ``EngineCfg``
+   (paged KV blocks of 16, n_slots 8, 16 resident rows, steps_per_tick 4):
+   ``warmup`` over every prompt bucket, then 32 seeded greedy requests from
+   4 threads with staggered arrivals (prompts of 16-1,024 tokens, 8 of them
+   on one 256-token prefix; 32-128 new tokens each), then a repeat of the
+   last to finish (its cached tail is cloned). Each stream's tokens must
+   equal ``LMPackagedModel.generate``'s, or first differ where the
+   sequential path's top-2 margin is under 0.05 of its max |logit| (a bf16
+   near-tie: the engine's GEMMs run 16 rows, sequential ones 1); the count
+   of such streams is printed. Checks: ``prefix_hit_tokens`` > 0,
+   ``cow_copies`` >= 1, ``blocks_used`` == 0 at the end, no K3 launch. The
+   same with ``block_overcommit=3.0`` and 256 blocks (``preemptions`` > 0)
+   and with ``paged=False`` (the slot lane); a full queue gives a
+   structured ``Overloaded``; ``generate_speculative`` with a 2-layer draft
+   against greedy ``generate`` (same near-tie rule). The image lane:
+   bf16 MobileNetV2 1.0 at 224 (the main phase's package, ``pallas``), 64
+   requests through ``predict`` in batches of up to 8: exactly 13 K1
+   launches per image batch, all ``tma``; logits within phase_main's
+   tolerance of ``predict_logits`` with argmax equal wherever decisive.
+   Prints engine and sequential decode tokens/s, TTFT and total p50/p99
+   from ``snapshot()``, image requests/s and the phase's wall seconds.
 10. ring — the collective layer (K6, the ring all-reduce) at N = 2, then
    N = 4 ranks: processes from ``spawn_cpu`` joined by gloo, all on this
    one card (NCCL refuses two ranks on one device; K6 maps its neighbours'
@@ -3123,6 +3146,349 @@ def at_vit_shape(row: dict) -> dict:
                                    "share_of_bound")}}
 
 
+SERVE_REQUESTS = 32          # concurrent greedy LM requests per engine run
+SERVE_SHARED = 256           # the prefix 8 of them share
+SERVE_CLIENTS = 4            # submitting threads
+SERVE_IMAGES = 64
+SERVE_TOKEN_TIE = 0.05       # logits: how far under the argmax a bf16
+#                              near-tie may pick (stream_check)
+SERVE_IMAGE_TOL = 1e-2       # of max |logit|: batch 8 against 128, same K1
+SERVE_DRAFT_NOISE = 0.1      # the twin draft's head noise, of its std
+SERVE_SMALL_POOL = 256       # blocks of the preemption run (the largest
+#                              request needs 72; 16 rows hold ~600)
+
+
+def serve_mix():
+    """32 seeded prompts of 16-1,024 tokens (8 of them, every fourth, start
+    with one 256-token prefix), each asking for 32-128 new tokens."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED + 12)
+    vocab = LM_CFG["vocab_size"]
+    shared = rng.randint(0, vocab, SERVE_SHARED).astype(np.int32)
+    prompts, steps = [], []
+    for i in range(SERVE_REQUESTS):
+        if i % 4 == 0:
+            tail = rng.randint(0, vocab, rng.randint(1, 1025 - SERVE_SHARED))
+            prompts.append(np.concatenate([shared, tail]).astype(np.int32))
+        else:
+            prompts.append(rng.randint(0, vocab, rng.randint(16, 1025)
+                                       ).astype(np.int32))
+        steps.append(int(rng.randint(32, 129)))
+    return prompts, steps
+
+
+def serve_engine_run(pm, prompts, steps, cfg) -> dict:
+    """One engine over the mix: warm up every bucket, then submit from
+    SERVE_CLIENTS threads with seeded staggered arrivals; every future is
+    waited on with a timeout and the engine stopped."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from ddw_tpu_torch.serve import ServingEngine
+
+    eng = ServingEngine(lm=pm, cfg=cfg)
+    try:
+        t0 = time.perf_counter()
+        eng.warmup(sorted({len(p) for p in prompts}))
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        eng.start()
+        futs = [None] * len(prompts)
+
+        def client(c):
+            rng = np.random.RandomState(SEED + 20 + c)
+            for i in range(c, len(prompts), SERVE_CLIENTS):
+                futs[i] = eng.submit_generate(prompts[i], steps[i])
+                time.sleep(float(rng.uniform(0.0, 0.02)))
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        order = []
+        for i, f in enumerate(futs):
+            f.add_done_callback(lambda _, i=i: order.append(i))
+        results = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        # then a repeat of the last request to finish whose prompt does not
+        # end one token into a block: its blocks are the newest idle ones,
+        # so it hits its own cached tail and clones it (copy-on-write)
+        again = [i for i in order if len(prompts[i]) % 16 != 1][-1]
+        repeat = eng.submit_generate(prompts[again], steps[again]).result(
+            timeout=600)
+        snap = eng.snapshot()
+    finally:
+        eng.stop()
+    return {"tokens": [r.tokens for r in results], "snap": snap,
+            "wall": wall, "warmup_s": warm,
+            "tokens_per_s": sum(steps) / wall, "repeat": again,
+            "repeat_tokens": repeat.tokens}
+
+
+def teacher_forced_readings(pm, prompt, tokens):
+    """The logits each of ``tokens`` was picked from, by one decode-mode
+    forward (the contiguous cache at batch 1, generate's prefill path) over
+    ``prompt`` and all but the last token: per token, the top logit minus
+    the token's (0 where it is the argmax), and the top-2 margin."""
+    import numpy as np
+    import torch
+
+    from ddw_tpu_torch.models.lm import init_cache
+
+    tokens = np.asarray(tokens, np.int64).reshape(-1)
+    seq = np.concatenate([np.asarray(prompt, np.int64), tokens[:-1]])
+    with torch.inference_mode():
+        logits = pm.model(torch.from_numpy(seq[None]).to(pm.device),
+                          cache=init_cache(pm.model, 1))[0, len(prompt) - 1:]
+        logits = logits.float()
+        top2 = torch.topk(logits, 2, dim=-1).values
+        picked = logits.gather(1, torch.from_numpy(tokens[:, None]).to(
+            logits.device))[:, 0]
+        deficit = (top2[:, 0] - picked).cpu().numpy()
+        margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    return deficit, margin
+
+
+def stream_check(pm, prompts, refs, got, ref_readings=None) -> dict:
+    """Every token of every stream against the logits it was picked from
+    (teacher_forced_readings over the stream's own tokens): each must be
+    the argmax there or within SERVE_TOKEN_TIE of it, a bf16 near-tie that
+    another batch width may round the other way. The same readings over
+    the sequential tokens give the limit's two sides: their largest
+    deficit (what a sound path reads) and the median top-2 margin (what a
+    wrong token would typically need to hide in). ``ref_readings`` caches
+    the sequential readings by prompt index across calls."""
+    import numpy as np
+
+    ref_readings = {} if ref_readings is None else ref_readings
+    ref_def, ref_margin, got_def, diverged = [], [], [], 0
+    for i, (p, r, g) in enumerate(zip(prompts, refs, got)):
+        key = (len(p), bytes(np.asarray(p, np.int32)), len(r))
+        if key not in ref_readings:
+            ref_readings[key] = teacher_forced_readings(pm, p, r)
+        d_ref, m_ref = ref_readings[key]
+        ref_def.append(d_ref)
+        ref_margin.append(m_ref)
+        if np.array_equal(np.asarray(r), np.asarray(g)):
+            got_def.append(d_ref)
+        else:
+            diverged += 1
+            got_def.append(teacher_forced_readings(pm, p, g)[0])
+    ref_def, got_def = np.concatenate(ref_def), np.concatenate(got_def)
+    return {"diverged": diverged, "tokens_checked": int(got_def.size),
+            "tokens_not_argmax": int((got_def > 0).sum()),
+            "max_deficit": float(got_def.max()),
+            "sequential_max_deficit": float(ref_def.max()),
+            "median_top2_margin": float(np.median(np.concatenate(
+                ref_margin))),
+            "limit": SERVE_TOKEN_TIE,
+            "all_near_ties": bool(max(got_def.max(), ref_def.max())
+                                  <= SERVE_TOKEN_TIE)}
+
+
+def phase_serve(tmp: str) -> dict:
+    """The online serving engine on the card: the full-width bf16 LM
+    through the paged engine (default EngineCfg), under preemption and on
+    the slot lane, each against sequential generate; a full queue's
+    Overloaded; the full-width MobileNetV2 package through the image lane
+    (13 K1 launches a batch, all tma); speculative against greedy."""
+    import numpy as np
+    import torch
+
+    from ddw_tpu_torch.models.convert import (init_lm_weights,
+                                              to_flax_variables)
+    from ddw_tpu_torch.models.lm import build_lm
+    from ddw_tpu_torch.ops.depthwise_conv import (depthwise_conv3x3_cuda,
+                                                  reset_depthwise_counts)
+    from ddw_tpu_torch.serve import EngineCfg, Overloaded, ServingEngine
+    from ddw_tpu_torch.serving.lm_package import (LMPackagedModel,
+                                                  save_lm_package)
+    from ddw_tpu_torch.serving.package import PackagedModel
+    from ddw_tpu_torch.utils.config import LMCfg
+
+    t_phase = time.perf_counter()
+    lm_cfg = LMCfg(**LM_CFG)
+    params = to_flax_variables(init_lm_weights(
+        build_lm(lm_cfg), torch.Generator().manual_seed(SEED + 11)))["params"]
+    pkg = save_lm_package(os.path.join(tmp, "serve_lm"), lm_cfg, params)
+    pm = LMPackagedModel(pkg)                   # the card, by default
+    check(pm.device.type == "cuda", "LMPackagedModel resolved to the card")
+    prompts, steps = serve_mix()
+    k3_before = flash_counts()
+
+    # --- sequential generate: the reference tokens and the baseline -------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refs = [pm.generate(p[None], n)[0] for p, n in zip(prompts, steps)]
+    seq_s = time.perf_counter() - t0
+    seq_tps = sum(steps) / seq_s
+
+    # --- the engine: paged (default), preemption, slot lane ---------------
+    runs, ref_readings = {}, {}
+    for name, cfg in (
+            ("paged", EngineCfg()),
+            ("preemption", EngineCfg(block_overcommit=3.0,
+                                     kv_cache_blocks=SERVE_SMALL_POOL)),
+            ("slot", EngineCfg(paged=False))):
+        run = serve_engine_run(pm, prompts, steps, cfg)
+        again = run["repeat"]
+        tie = stream_check(pm, prompts + [prompts[again]],
+                           refs + [refs[again]],
+                           run["tokens"] + [run["repeat_tokens"]],
+                           ref_readings)
+        snap = run["snap"]
+        runs[name] = {
+            "wall_s": run["wall"], "warmup_s": run["warmup_s"],
+            "tokens_per_s": run["tokens_per_s"],
+            "snapshot_tokens_per_s": snap.get("serve.tokens_per_sec"),
+            **{k: snap.get(f"serve.{k}") for k in (
+                "completed", "prefills", "decode_ticks", "prefix_hit_tokens",
+                "cow_copies", "preemptions", "blocks_used",
+                "decode_rows_skipped", "ttft_ms_p50", "ttft_ms_p99",
+                "total_ms_p50", "total_ms_p99", "queue_ms_p50")},
+            "streams_equal": SERVE_REQUESTS + 1 - tie["diverged"], **tie}
+        emit(phase="serve", run=name, **runs[name])
+        check(snap["serve.completed"] == SERVE_REQUESTS + 1,
+              f"{name}: every request completed")
+        check(tie["all_near_ties"], f"{name}: every token of every stream "
+              f"is the sequential path's argmax or within {SERVE_TOKEN_TIE} "
+              f"of it ({tie})")
+        if cfg.paged:
+            check(snap["serve.blocks_used"] == 0.0,
+                  f"{name}: no block held after the last request")
+            check(snap["serve.prefix_hit_tokens"] > 0,
+                  f"{name}: the shared prefix hit the cache")
+    check(runs["paged"]["cow_copies"] >= 1,
+          "paged: a copy-on-write clone of a shared block")
+    check(runs["preemption"]["preemptions"] > 0,
+          "the small overcommitted pool preempted streams")
+    check(flash_counts() == k3_before,
+          "the LM lane launched no flash-attention kernel")
+
+    # --- a full queue is refused, structured --------------------------------
+    eng = ServingEngine(lm=pm, cfg=EngineCfg(n_slots=1, queue_depth=2))
+    try:
+        eng.submit_generate(prompts[1], 4)
+        eng.submit_generate(prompts[2], 4)
+        try:
+            eng.submit_generate(prompts[3], 4)
+            refused = None
+        except Overloaded as e:
+            refused = e.to_dict()
+    finally:
+        eng.stop()
+    check(refused is not None and refused["error"] == "overloaded"
+          and refused["capacity"] == 2, f"a full queue gives Overloaded "
+          f"({refused})")
+
+    # --- speculative against greedy: a random 2-layer draft of the same
+    # vocab (it agrees with the target almost never), and the target's twin
+    # with SERVE_DRAFT_NOISE on its head, which agrees often enough that
+    # rounds accept some drafts and rewind the rest ---------------------------
+    draft_cfg = LMCfg(**dict(LM_CFG, depth=2))
+    kernel = params["head"]["kernel"]
+    twin = dict(params, head=dict(params["head"], kernel=(
+        kernel + SERVE_DRAFT_NOISE * kernel.std() * np.random.RandomState(
+            SEED + 14).standard_normal(kernel.shape)).astype(np.float32)))
+    drafts = {
+        "two_layer": LMPackagedModel(save_lm_package(
+            os.path.join(tmp, "serve_draft"), draft_cfg, to_flax_variables(
+                init_lm_weights(build_lm(draft_cfg), torch.Generator(
+                ).manual_seed(SEED + 13)))["params"])),
+        "twin": LMPackagedModel(save_lm_package(
+            os.path.join(tmp, "serve_twin"), lm_cfg, twin))}
+    sp_prompt = prompts[5][None, :128]
+    greedy = pm.generate(sp_prompt, 64)
+    spec_stats = {}
+    for name, dm in drafts.items():
+        spec, stats = pm.generate_speculative(dm, sp_prompt, 64, k=4)
+        spec_tie = stream_check(pm, [sp_prompt[0]], greedy, spec)
+        spec_stats[name] = stats
+        emit(phase="serve", speculative=name, stats=stats, **spec_tie)
+        check(spec_tie["all_near_ties"], f"speculative ({name} draft) equals "
+              f"greedy up to bf16 near-ties ({spec_tie})")
+    rate = spec_stats["twin"]["acceptance_rate"]
+    check(0.0 < rate < 1.0, f"the twin draft is partly accepted ({rate})")
+
+    # --- the image lane: the main phase's package, K1 on every batch --------
+    images = synthetic_images(SERVE_IMAGES)
+    img_pkg = os.path.join(tmp, "pkg_bfloat16_pallas")
+    if not os.path.isdir(img_pkg):
+        img_pkg = make_package(tmp, "bfloat16", "pallas",
+                               seeded_variables(synthetic_images(N_IMAGES)))
+    img = PackagedModel(img_pkg)
+    x = images.astype(np.float32)
+    from ddw_tpu_torch.data.loader import dequantize_raw_u8
+
+    dequantize_raw_u8(x)
+    ref = img.predict_logits(x)
+    eng = ServingEngine(image=img, cfg=EngineCfg())
+    try:
+        eng.warmup()                            # builds K1, every bucket
+        eng.start()
+        torch.cuda.synchronize()
+        before = eng.snapshot()["serve.image_batches"]
+        reset_depthwise_counts()
+        t0 = time.perf_counter()
+        out = eng.predict(list(x), timeout_s=600)
+        img_wall = time.perf_counter() - t0
+        batches = int(eng.snapshot()["serve.image_batches"] - before)
+        launches = depthwise_conv3x3_cuda.launches
+        by_variant = dict(depthwise_conv3x3_cuda.launches_by_variant)
+    finally:
+        eng.stop()
+    got = np.stack([r.logits for r in out])
+    tol = SERVE_IMAGE_TOL * max(float(np.abs(ref).max()), 1.0)
+    # the closest two requests' logits: a request-order fault moves a row at
+    # least this far, so the tolerance must sit below it
+    apart = float(min(np.abs(ref[i] - ref[j]).max()
+                      for i in range(len(ref)) for j in range(i)))
+    top2 = np.sort(ref, axis=-1)[:, -2:]
+    decisive = (top2[:, 1] - top2[:, 0]) > tol
+    agree = np.argmax(got, -1) == np.argmax(ref, -1)
+    err = float(np.abs(got - ref).max())
+    emit(phase="serve", image_requests=SERVE_IMAGES, image_batches=batches,
+         k1_launches=launches, k1_launches_by_variant=by_variant,
+         image_requests_per_s=SERVE_IMAGES / img_wall,
+         max_abs_diff_vs_predict_logits=err, tolerance=tol,
+         closest_requests_apart=apart,
+         decisive=int(decisive.sum()), argmax_agree=int(agree.sum()))
+    check(launches == LAYERS_PER_FORWARD * batches,
+          f"K1 launched {launches} times, expected {LAYERS_PER_FORWARD} x "
+          f"{batches} image batches")
+    check(by_variant["tma"] == launches, f"every K1 launch of the image "
+          f"lane on tma: {by_variant}")
+    check(tol < apart, f"the tolerance {tol:.3g} lies below the closest two "
+          f"requests' distance {apart:.3g}, so swapped requests fail")
+    check(err <= tol and bool(decisive.any())
+          and bool(agree[decisive].all()),
+          f"image-lane logits within {tol:.3g} of predict_logits, argmax "
+          f"equal wherever decisive")
+
+    wall = time.perf_counter() - t_phase
+    summary = {
+        "engine_tokens_per_s": runs["paged"]["tokens_per_s"],
+        "sequential_tokens_per_s": seq_tps,
+        "ttft_ms_p50": runs["paged"]["ttft_ms_p50"],
+        "ttft_ms_p99": runs["paged"]["ttft_ms_p99"],
+        "total_ms_p50": runs["paged"]["total_ms_p50"],
+        "total_ms_p99": runs["paged"]["total_ms_p99"],
+        "image_requests_per_s": SERVE_IMAGES / img_wall,
+        "k1_launches": launches, "k1_launches_by_variant": by_variant,
+        "streams_diverged": {n: r["diverged"] for n, r in runs.items()},
+        "speculative_acceptance": {n: st["acceptance_rate"]
+                                   for n, st in spec_stats.items()},
+        "wall_seconds": wall}
+    emit(phase="serve", sequential_seconds=seq_s, **summary)
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -3163,6 +3529,8 @@ def main() -> int:
         k3_launches, score_runs = phase_lm(tmp)
         torch.cuda.empty_cache()
         lm_train_launches, lm_step_ms, lm_tokens_per_s = phase_lm_train(tmp)
+        torch.cuda.empty_cache()
+        serve = phase_serve(tmp)
     torch.cuda.empty_cache()
     ring = phase_ring()
     src = "ddw_tpu_torch/ops/csrc/depthwise_sm90.cu"
@@ -3178,11 +3546,14 @@ def main() -> int:
         "launches_by_path": {"train": train_launches["k1"],
                              "serving": serving_k1,
                              "workshop": sum(workshop["k1"].values()),
-                             "pretrained": pretrained["k1"]["total"]},
+                             "pretrained": pretrained["k1"]["total"],
+                             "online_serving": serve["k1_launches"]},
         "launches_by_variant": {"train": train_launches["k1_by_variant"],
                                 "serving": serving_k1_by,
                                 "workshop": workshop["k1"],
-                                "pretrained": pretrained["k1"]},
+                                "pretrained": pretrained["k1"],
+                                "online_serving": serve[
+                                    "k1_launches_by_variant"]},
         "max_abs_err": max_err["k1"],
         **per_pass["k1"],
         "share_of_bound": per_pass["k1"]["bound_ms"] / per_pass["k1"]["ms"],
@@ -3314,7 +3685,11 @@ def main() -> int:
         "train_step_ms": step_ms,
         "lm_score_tokens_per_s": LM_ROWS * LM_SEQ / score_runs[-1],
         "lm_train_step_ms": lm_step_ms,
-        "lm_train_tokens_per_s": lm_tokens_per_s}),
+        "lm_train_tokens_per_s": lm_tokens_per_s,
+        "online_serving": {k: serve[k] for k in (
+            "engine_tokens_per_s", "sequential_tokens_per_s", "ttft_ms_p50",
+            "ttft_ms_p99", "total_ms_p50", "total_ms_p99",
+            "image_requests_per_s", "streams_diverged", "wall_seconds")}}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -289,6 +289,12 @@ class TableStore:
     def exists(self, name: str) -> bool:
         return os.path.exists(os.path.join(self._table_dir(name), "latest"))
 
+    def list_tables(self) -> list[str]:
+        if not os.path.isdir(self.root):
+            return []
+        return sorted(d for d in os.listdir(self.root)
+                      if os.path.isdir(self._table_dir(d)))
+
     @staticmethod
     def run_token(*components) -> str:
         """Deterministic 16-hex run token from the run's inputs (the same

@@ -10,7 +10,9 @@ placement follows flax: embeddings and projections compute in ``dtype``
 (bf16 by default; flax's ``promote_dtype`` casts the f32 params), LayerNorm
 and the head in f32, ``gelu`` is the tanh approximation.
 
-Two modes off one module, as ``ddw_tpu``'s ``decode`` flag gives:
+Full mode and three decode modes off one module, the modes ``ddw_tpu``'s
+``decode`` / ``slot_decode`` / ``paged_decode`` flags give; here the kind of
+cache passed to ``forward`` selects the mode:
 
 - full mode, ``model(tokens)``: causal attention through
   :func:`ddw_tpu_torch.ops.flash_attention.flash_mha`, which dispatches on
@@ -18,9 +20,20 @@ Two modes off one module, as ``ddw_tpu``'s ``decode`` flag gives:
 - decode mode, ``model(tokens, cache=init_cache(model, batch))``: the
   contiguous KV cache and the tiled online-softmax attention of
   ``lm.py:112-264`` (tile 256, tiles past the filled position skipped and
-  counted in ``tiles_computed``, NaN output once a write passes ``max_len``).
-  The cache is a dict with flax's leaf names; the port updates its K/V
-  tensors in place and keeps the indices as host integers.
+  counted in ``tiles_computed``, NaN output once a write passes ``max_len``);
+- slot mode, ``cache=init_slot_cache(model, n_slots)``: the cache's batch
+  dim is a pool of serving slots, each row at its own depth (one write per
+  row, per-row NaN poison; ``serve/slots.py``);
+- paged mode, ``cache=init_paged_cache(model, n_blocks, block_size)`` with
+  ``block_tables [B, n_tbl]`` and host ``start_pos [B]`` per call: K/V in a
+  global pool of fixed-size blocks (block 0 the null block that takes
+  unallocated and overshoot writes); each tile is gathered back through the
+  table into the contiguous layout, so the tile loop, and its bits, are the
+  contiguous path's (per-query NaN poison; ``serve/blocks.py``).
+
+The cache is a dict with flax's leaf names; the port updates its K/V
+tensors in place and keeps the indices and depths as host integers, so the
+tile-skip rule reads no device value back.
 
 Training mode (``model.train()``) applies flax's dropout after attention
 and after the MLP of every block, with masks drawn from an explicit
@@ -31,14 +44,15 @@ generator from a seed drawn up front, so a checkpoint's replay draws the
 masks of the first run.
 
 Not yet ported (each refused, naming ``ROADMAP.md``): MoE, sequence
-parallelism (``seq_axis``), the serving pools' ``slot_decode`` /
-``paged_decode`` and per-row ``adapters``.
+parallelism (``seq_axis``) and per-row serving ``adapters``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -145,13 +159,14 @@ class CausalSelfAttention(nn.Module):
         self.out = maybe_lora_dense((num_heads, hd), (hidden,), "out", **lora)
 
     def forward(self, x: torch.Tensor, positions=None,
-                cache: dict | None = None) -> torch.Tensor:
+                cache: dict | None = None,
+                step: "_DecodeStep | None" = None) -> torch.Tensor:
         q, k, v = self.query(x), self.key(x), self.value(x)  # [B, S, H, hd]
         if positions is not None:
             q = apply_rope(q, positions, seq_axis=1)
             k = apply_rope(k, positions, seq_axis=1)
         if cache is not None:
-            out = self._decode(q, k, v, cache).to(x.dtype)
+            out = self._decode(q, k, v, cache, step).to(x.dtype)
         else:
             if self.groups > 1:  # K/V heads broadcast over their query group
                 k = k.repeat_interleave(self.groups, dim=2)
@@ -160,43 +175,68 @@ class CausalSelfAttention(nn.Module):
                             v.transpose(1, 2), causal=True).transpose(1, 2)
         return self.out(out)
 
-    def _decode(self, q, k, v, cache: dict) -> torch.Tensor:
-        """``lm.py:112-264``, contiguous cache: write K/V at the cache index
-        (clamped to fit, as ``dynamic_update_slice`` does), then online
-        softmax over 256-key tiles in f32, skipping tiles past the newest
-        filled position. Returns ``[B, S, H, hd]`` f32, NaN when the write
-        ran past ``max_len``."""
+    def _decode(self, q, k, v, cache: dict, step: "_DecodeStep"
+                ) -> torch.Tensor:
+        """``lm.py:112-264``: write K/V (contiguous: at the cache index,
+        clamped to fit as ``dynamic_update_slice`` does; slot: each row at
+        its own depth; paged: through the block table, out-of-capacity
+        positions to the null block 0), then online softmax over 256-key
+        tiles in f32, skipping tiles past the deepest filled position.
+        Returns ``[B, S, H, hd]`` f32, NaN where a write ran past
+        ``max_len`` (contiguous: every row; slot: the row; paged: the
+        query)."""
         b, s = q.shape[:2]
-        tile = min(_TILE, self.max_len)
-        cap = -(-self.max_len // tile) * tile
-        if s > cap:
-            raise ValueError(f"{s} tokens exceed the cache capacity {cap}")
-        ck, cv = cache["cached_key"], cache["cached_value"]
-        pos = cache["cache_index"]
-        start = max(0, min(pos, cap - s))
-        ck[:, start:start + s] = k.to(ck.dtype)
-        cv[:, start:start + s] = v.to(cv.dtype)
-        cache["cache_index"] = pos + s
+        tile, cap = step.tile, step.cap
+        if step.mode == "paged":
+            ck, cv = cache["kv_block_key"], cache["kv_block_value"]
+            ck[step.w_blk, step.w_off] = k.to(ck.dtype)
+            cv[step.w_blk, step.w_off] = v.to(cv.dtype)
+            tpb = tile // ck.shape[1]
+            tables = step.tables
+
+            def kv_tile(src, st):
+                blocks = tables[:, st // ck.shape[1]:st // ck.shape[1] + tpb]
+                return src[blocks].reshape(b, tile, *src.shape[2:])
+        else:
+            ck, cv = cache["cached_key"], cache["cached_value"]
+            if step.mode == "slot":
+                ck[step.rows, step.w_idx] = k[:, 0].to(ck.dtype)
+                cv[step.rows, step.w_idx] = v[:, 0].to(cv.dtype)
+                cache["cache_index"] = cache["cache_index"] + s
+            else:
+                if s > cap:
+                    raise ValueError(
+                        f"{s} tokens exceed the cache capacity {cap}")
+                start = max(0, min(step.pos, cap - s))
+                ck[:, start:start + s] = k.to(ck.dtype)
+                cv[:, start:start + s] = v.to(cv.dtype)
+                cache["cache_index"] = step.pos + s
+
+            def kv_tile(src, st):
+                return src[:, st:st + tile]
         hd, dev = self.head_dim, q.device
         q32 = (q.to(torch.float32) / float(hd) ** 0.5).transpose(1, 2)
-        qpos = pos + torch.arange(s, device=dev)
-        last = pos + s - 1
+        qpos = step.qpos                     # [S] or [B, S]
         m = torch.full((b, self.num_heads, s), _NEG, device=dev)
         l = torch.zeros((b, self.num_heads, s), device=dev)
         o = torch.zeros((b, self.num_heads, s, hd), device=dev)
         tiles = 0
         for t in range(cap // tile):
             st = t * tile
-            if st > last:
+            if st > step.last:
                 break
-            k_t = ck[:, st:st + tile].to(torch.float32)
-            v_t = cv[:, st:st + tile].to(torch.float32)
+            k_t = kv_tile(ck, st).to(torch.float32)
+            v_t = kv_tile(cv, st).to(torch.float32)
             if self.groups > 1:
                 k_t = k_t.repeat_interleave(self.groups, dim=2)
                 v_t = v_t.repeat_interleave(self.groups, dim=2)
             s_t = torch.einsum("bhqd,bkhd->bhqk", q32, k_t)
             kpos = st + torch.arange(tile, device=dev)
-            s_t = s_t.masked_fill(kpos[None, :] > qpos[:, None], _NEG)
+            if qpos.dim() == 2:
+                masked = (kpos[None, None, :] > qpos[:, :, None])[:, None]
+            else:
+                masked = kpos[None, :] > qpos[:, None]
+            s_t = s_t.masked_fill(masked, _NEG)
             m_new = torch.maximum(m, s_t.amax(-1))
             p = torch.exp(s_t - m_new[..., None])
             scale = torch.exp(m - m_new)
@@ -206,9 +246,44 @@ class CausalSelfAttention(nn.Module):
             tiles += 1
         cache["tiles_computed"] += tiles
         out = (o / l[..., None]).transpose(1, 2)
-        if pos + s > self.max_len:  # a write past max_len: fail loudly
-            out = torch.full_like(out, float("nan"))
+        if step.mode == "contiguous":
+            if step.pos + s > self.max_len:  # a write past max_len: loud
+                out = torch.full_like(out, float("nan"))
+        elif step.overflow is not None:      # slot: [B, 1]; paged: [B, S]
+            out = out.masked_fill(step.overflow[:, :, None, None],
+                                  float("nan"))
         return out
+
+
+@dataclasses.dataclass
+class _DecodeStep:
+    """What every layer of one decode-mode call shares, computed once per
+    call: the mode, the host depth(s), the query positions on the device,
+    the deepest filled position (the tile-skip bound, a host int), the
+    write indices and the overflow mask."""
+
+    mode: str                      # "contiguous" | "slot" | "paged"
+    tile: int
+    cap: int
+    pos: object                    # int, or an int64 array [B]
+    qpos: torch.Tensor             # [S] or [B, S]
+    last: int
+    rows: torch.Tensor | None = None     # slot: arange(B)
+    w_idx: torch.Tensor | None = None    # slot: clamped write depth [B]
+    w_blk: torch.Tensor | None = None    # paged: block of each write [B, S]
+    w_off: torch.Tensor | None = None    # paged: offset in it [B, S]
+    tables: torch.Tensor | None = None   # paged: [B, n_tbl]
+    overflow: torch.Tensor | None = None  # slot [B, 1] / paged [B, S]
+
+
+def host_to_device(arr, device: torch.device) -> torch.Tensor:
+    """A small host int array on ``device``. To the card it goes through
+    pinned memory without blocking, so the copy waits for no earlier kernel
+    (a pageable copy would hold the host until the queue drains)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr, np.int64))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
 
 
 def dropout(h: torch.Tensor, rate: float,
@@ -242,13 +317,13 @@ class DecoderBlock(nn.Module):
         self.fc2 = maybe_lora_dense((mlp_dim,), (hidden,), "fc2", **lora)
 
     def forward(self, x, positions=None, cache=None,
-                dropout_seed: int | None = None):
+                dropout_seed: int | None = None, step=None):
         """``dropout_seed`` (training only) seeds this block's mask
         generator, so that a rematerialised replay draws the same masks."""
         gen = None
         if dropout_seed is not None:
             gen = torch.Generator(device=x.device).manual_seed(dropout_seed)
-        h = self.attn(self.LayerNorm_0(x), positions, cache)
+        h = self.attn(self.LayerNorm_0(x), positions, cache, step)
         if gen is not None:
             h = dropout(h, self.dropout_rate, gen)
         x = x + h
@@ -281,7 +356,6 @@ class TransformerLM(nn.Module):
                  hidden: int = 256, depth: int = 4, num_heads: int = 4,
                  mlp_dim: int = 1024, dropout: float = 0.0,
                  dtype: torch.dtype = torch.bfloat16, seq_axis=None,
-                 slot_decode: bool = False, paged_decode: bool = False,
                  num_experts: int = 0, num_kv_heads: int = 0,
                  lora_rank: int = 0, lora_alpha: float = 16.0,
                  lora_targets: tuple[str, ...] = ("query", "value"),
@@ -291,8 +365,6 @@ class TransformerLM(nn.Module):
             raise _not_ported("the MoE MLP (num_experts > 0)")
         if seq_axis is not None:
             raise _not_ported("sequence-parallel attention (seq_axis)")
-        if slot_decode or paged_decode:
-            raise _not_ported("slot_decode / paged_decode (the serving pools)")
         if lora_rank:
             from ddw_tpu_torch.models.lora import validate_lora_targets
 
@@ -325,9 +397,13 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens: torch.Tensor, cache: dict | None = None,
                 adapters=None,
-                dropout_rng: torch.Generator | None = None) -> torch.Tensor:
+                dropout_rng: torch.Generator | None = None,
+                block_tables: torch.Tensor | None = None,
+                start_pos=None) -> torch.Tensor:
         """``dropout_rng`` (a CPU generator) is required in training mode
-        with ``dropout > 0``: one seed per block is drawn from it."""
+        with ``dropout > 0``: one seed per block is drawn from it. A paged
+        cache takes ``block_tables [B, n_tbl]`` (int, on the model's
+        device) and ``start_pos`` (host ints [B]) per call."""
         if adapters is not None:
             raise _not_ported("per-row LoRA adapters (serve/adapters)")
         seeds = [None] * self.depth
@@ -339,19 +415,26 @@ class TransformerLM(nn.Module):
                                   generator=dropout_rng).tolist()
         s = tokens.shape[1]
         x = self.tok_embed(tokens)
-        offset = 0
+        step = None
         if cache is not None:
-            offset = cache["pos_index"]
-            cache["pos_index"] = offset + s
+            step = self._decode_step(tokens, cache, block_tables, start_pos)
         positions = None
         if self.pos_encoding == "learned":
             if s > self.max_len:
                 raise ValueError(f"sequence {s} exceeds max_len "
                                  f"{self.max_len}")
-            start = max(0, min(offset, self.max_len - s))  # slice clamps
-            x = x + self.pos_embed[start:start + s].to(self.dtype)[None]
+            if step is not None and step.mode != "contiguous":
+                # per-row gather at each row's own depth (clamped; the
+                # attention poisons rows past max_len anyway)
+                rows = step.qpos.clamp(0, self.max_len - 1)
+                x = x + self.pos_embed[rows].to(self.dtype)
+            else:
+                offset = 0 if step is None else step.pos
+                start = max(0, min(offset, self.max_len - s))  # slice clamps
+                x = x + self.pos_embed[start:start + s].to(self.dtype)[None]
         else:
-            positions = offset + torch.arange(s, device=tokens.device)
+            positions = (torch.arange(s, device=tokens.device) if step is None
+                         else step.qpos)
         remat = (self.remat != "none" and cache is None
                  and torch.is_grad_enabled())
         kw = {}
@@ -365,8 +448,57 @@ class TransformerLM(nn.Module):
             else:
                 layer = None if cache is None \
                     else cache[f"backbone_block{i}"]["attn"]
-                x = block(x, positions, layer, seeds[i])
+                x = block(x, positions, layer, seeds[i], step)
         return self.head(self.LayerNorm_0(x))
+
+    def _decode_step(self, tokens, cache: dict, block_tables,
+                     start_pos) -> _DecodeStep:
+        """The per-call decode state, from the cache's kind: paged (its
+        layers hold ``kv_block_key``; depth from ``start_pos``), slot (its
+        ``pos_index`` is a [B] host array) or contiguous (an int)."""
+        b, s = tokens.shape
+        dev = tokens.device
+        tile = min(_TILE, self.max_len)
+        cap = -(-self.max_len // tile) * tile
+        ar = torch.arange(s, device=dev)
+        if "kv_block_key" in cache["backbone_block0"]["attn"]:
+            bs = cache["backbone_block0"]["attn"]["kv_block_key"].shape[1]
+            n_tbl = cap // bs
+            pos = (np.zeros((b,), np.int64) if start_pos is None
+                   else np.asarray(start_pos, np.int64).reshape(b))
+            if block_tables is None:
+                block_tables = torch.zeros((b, n_tbl), dtype=torch.long,
+                                           device=dev)
+            tables = block_tables.to(device=dev, dtype=torch.long)
+            qpos = host_to_device(pos, dev)[:, None] + ar   # [B, S]
+            safe = qpos < cap
+            entry = torch.gather(tables, 1,
+                                 (qpos // bs).clamp(0, n_tbl - 1))
+            return _DecodeStep(
+                "paged", tile, cap, pos, qpos, int(pos.max()) + s - 1,
+                w_blk=torch.where(safe, entry, 0),
+                w_off=torch.where(safe, qpos % bs, 0), tables=tables,
+                overflow=qpos >= self.max_len)
+        pos = cache["pos_index"]
+        cache["pos_index"] = pos + s
+        if isinstance(pos, np.ndarray):
+            if s != 1:
+                raise ValueError(f"slot_decode processes one token per slot "
+                                 f"per call, got S={s}")
+            pos_d = host_to_device(pos, dev)
+            return _DecodeStep(
+                "slot", tile, cap, pos, pos_d[:, None] + ar,
+                int(pos.max()) + s - 1,
+                rows=torch.arange(b, device=dev),
+                w_idx=pos_d.clamp(0, cap - s),
+                overflow=host_to_device(pos + s > self.max_len,
+                                        dev).bool()[:, None])
+        return _DecodeStep("contiguous", tile, cap, pos, pos + ar,
+                           pos + s - 1)
+
+    @staticmethod
+    def frozen_prefixes(freeze_base: bool) -> tuple[str, ...]:
+        return ()
 
 
 def build_lm(cfg, seq_axis=None, expert_axis=None) -> TransformerLM:
@@ -383,22 +515,74 @@ def build_lm(cfg, seq_axis=None, expert_axis=None) -> TransformerLM:
         remat=cfg.remat)
 
 
+def _kv_shape(model: TransformerLM) -> tuple[int, int, int]:
+    """(cap, kv_heads, head_dim): cap is max_len rounded up to the tile."""
+    tile = min(_TILE, model.max_len)
+    return (-(-model.max_len // tile) * tile, model.kv_heads,
+            model.hidden // model.num_heads)
+
+
 def init_cache(model: TransformerLM, batch: int) -> dict:
     """A fresh zeroed decode cache for ``model`` on its device: per layer
     ``cached_key``/``cached_value [batch, cap, kv_heads, head_dim]`` in the
     model dtype (cap = max_len rounded up to the 256 tile), ``cache_index``
-    and ``tiles_computed``; top-level ``pos_index``."""
+    and ``tiles_computed``; top-level ``pos_index``. The serving modes take
+    their own caches (:func:`init_slot_cache`, :func:`init_paged_cache`)."""
     dev = model.head.kernel.device
-    hd = model.hidden // model.num_heads
-    tile = min(_TILE, model.max_len)
-    cap = -(-model.max_len // tile) * tile
-    shape = (batch, cap, model.kv_heads, hd)
+    cap, kv, hd = _kv_shape(model)
     cache: dict = {"pos_index": 0}
     for i in range(model.depth):
         cache[f"backbone_block{i}"] = {"attn": {
-            "cached_key": torch.zeros(shape, dtype=model.dtype, device=dev),
-            "cached_value": torch.zeros(shape, dtype=model.dtype, device=dev),
+            "cached_key": torch.zeros((batch, cap, kv, hd), dtype=model.dtype,
+                                      device=dev),
+            "cached_value": torch.zeros((batch, cap, kv, hd),
+                                        dtype=model.dtype, device=dev),
             "cache_index": 0, "tiles_computed": 0}}
+    return cache
+
+
+def init_slot_cache(model: TransformerLM, n_slots: int) -> dict:
+    """The slot-mode cache (``slot_decode``): the contiguous layout over
+    ``n_slots`` rows, with ``cache_index`` and ``pos_index`` host int64
+    arrays [n_slots] — one depth per row."""
+    cache = {"pos_index": np.zeros((n_slots,), np.int64)}
+    dev = model.head.kernel.device
+    cap, kv, hd = _kv_shape(model)
+    for i in range(model.depth):
+        cache[f"backbone_block{i}"] = {"attn": {
+            "cached_key": torch.zeros((n_slots, cap, kv, hd),
+                                      dtype=model.dtype, device=dev),
+            "cached_value": torch.zeros((n_slots, cap, kv, hd),
+                                        dtype=model.dtype, device=dev),
+            "cache_index": np.zeros((n_slots,), np.int64),
+            "tiles_computed": 0}}
+    return cache
+
+
+def init_paged_cache(model: TransformerLM, kv_cache_blocks: int,
+                     block_size: int) -> dict:
+    """The paged-mode cache (``paged_decode``): per layer
+    ``kv_block_key``/``kv_block_value [kv_cache_blocks, block_size,
+    kv_heads, head_dim]`` (block 0 the null block) and ``tiles_computed``.
+    Depths are host state of the caller, passed per call, so the same cache
+    serves a prefill group and the decode batch."""
+    tile = min(_TILE, model.max_len)
+    if block_size < 1 or tile % block_size:
+        raise ValueError(f"kv_block_size {block_size} must be >= 1 and "
+                         f"divide the attention tile {tile}")
+    if kv_cache_blocks < 2:
+        raise ValueError("paged_decode needs kv_cache_blocks >= 2 (block 0 "
+                         "is the reserved null block)")
+    dev = model.head.kernel.device
+    _, kv, hd = _kv_shape(model)
+    shape = (kv_cache_blocks, block_size, kv, hd)
+    cache: dict = {}
+    for i in range(model.depth):
+        cache[f"backbone_block{i}"] = {"attn": {
+            "kv_block_key": torch.zeros(shape, dtype=model.dtype, device=dev),
+            "kv_block_value": torch.zeros(shape, dtype=model.dtype,
+                                          device=dev),
+            "tiles_computed": 0}}
     return cache
 
 

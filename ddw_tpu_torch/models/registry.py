@@ -1,6 +1,7 @@
 """Model registry: :class:`ModelCfg` -> ``nn.Module`` (the port of
 ``ddw_tpu.models.registry``): ``mobilenet_v2``, ``small_cnn``,
-``resnet18/34/50``, ``convnext_tiny/small`` and ``vit``.
+``resnet18/34/50``, ``convnext_tiny/small`` and ``vit``, each registered
+in ``MODEL_REGISTRY`` by :func:`register_model`.
 
 A frozen random backbone is guarded as in ``ddw_tpu`` (``registry.py``):
 ``freeze_base=True`` without ``pretrained_path`` auto-unfreezes, with a
@@ -14,57 +15,82 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
+from typing import Callable
 
 from torch import nn
 
 from ddw_tpu_torch.utils.config import ModelCfg
 from ddw_tpu_torch.utils.device import torch_dtype
 
-_NAMES = ("mobilenet_v2", "small_cnn", "resnet18", "resnet34", "resnet50",
-          "convnext_tiny", "convnext_small", "vit")
+MODEL_REGISTRY: dict[str, Callable] = {}
 
 
-def _construct(cfg: ModelCfg, image_size: tuple[int, int]) -> nn.Module:
-    dtype = torch_dtype(cfg.dtype)
-    if cfg.name == "small_cnn":
-        from ddw_tpu_torch.models.cnn import SmallCNN
+def register_model(name: str):
+    """Register ``fn(cfg, image_size) -> nn.Module`` under ``name`` (the
+    port's factories also take the image size, which sizes ViT's position
+    embedding)."""
+    def deco(fn):
+        MODEL_REGISTRY[name] = fn
+        return fn
+    return deco
 
-        return SmallCNN(num_classes=cfg.num_classes, dropout=cfg.dropout,
-                        dtype=dtype)
-    if cfg.name == "mobilenet_v2":
-        from ddw_tpu_torch.models.mobilenet_v2 import MobileNetV2
 
-        return MobileNetV2(num_classes=cfg.num_classes,
-                           width_mult=cfg.width_mult, dtype=dtype,
-                           dw_impl=cfg.dw_impl, dropout=cfg.dropout,
-                           freeze_base=cfg.freeze_base,
-                           bn_momentum=cfg.bn_momentum,
-                           stem_s2d=cfg.stem_s2d)
-    if cfg.name.startswith("resnet"):
-        from ddw_tpu_torch.models.resnet import ResNet
+@register_model("small_cnn")
+def _small_cnn(cfg: ModelCfg, image_size: tuple[int, int]) -> nn.Module:
+    from ddw_tpu_torch.models.cnn import SmallCNN
 
-        return ResNet(num_classes=cfg.num_classes,
-                      depth=int(cfg.name.removeprefix("resnet")),
-                      width_mult=cfg.width_mult, dropout=cfg.dropout,
-                      freeze_base=cfg.freeze_base, dtype=dtype,
-                      stem_s2d=cfg.stem_s2d)
-    if cfg.name.startswith("convnext"):
-        from ddw_tpu_torch.models.convnext import ConvNeXt
+    return SmallCNN(num_classes=cfg.num_classes, dropout=cfg.dropout,
+                    dtype=torch_dtype(cfg.dtype))
 
-        if cfg.dw_impl != "xla":
-            # the repository's depthwise kernel is 3x3 only; ConvNeXt's 7x7
-            # depthwise is a library grouped conv, so the knob would change
-            # nothing
-            raise ValueError(
-                f"convnext ignores model.dw_impl={cfg.dw_impl!r}: its 7x7 "
-                f"depthwise always runs the library's grouped convolution "
-                f"(the depthwise kernel is 3x3-only — see "
-                f"ddw_tpu_torch/ops/depthwise_conv.py); drop the setting or "
-                f"use mobilenet_v2 for the kernel arm")
-        return ConvNeXt(num_classes=cfg.num_classes,
-                        variant=cfg.name.removeprefix("convnext_"),
-                        width_mult=cfg.width_mult, dropout=cfg.dropout,
-                        freeze_base=cfg.freeze_base, dtype=dtype)
+
+@register_model("mobilenet_v2")
+def _mobilenet_v2(cfg: ModelCfg, image_size: tuple[int, int]) -> nn.Module:
+    from ddw_tpu_torch.models.mobilenet_v2 import MobileNetV2
+
+    return MobileNetV2(num_classes=cfg.num_classes,
+                       width_mult=cfg.width_mult,
+                       dtype=torch_dtype(cfg.dtype), dw_impl=cfg.dw_impl,
+                       dropout=cfg.dropout, freeze_base=cfg.freeze_base,
+                       bn_momentum=cfg.bn_momentum, stem_s2d=cfg.stem_s2d)
+
+
+def _resnet(cfg: ModelCfg, image_size: tuple[int, int]) -> nn.Module:
+    from ddw_tpu_torch.models.resnet import ResNet
+
+    return ResNet(num_classes=cfg.num_classes,
+                  depth=int(cfg.name.removeprefix("resnet")),
+                  width_mult=cfg.width_mult, dropout=cfg.dropout,
+                  freeze_base=cfg.freeze_base, dtype=torch_dtype(cfg.dtype),
+                  stem_s2d=cfg.stem_s2d)
+
+
+def _convnext(cfg: ModelCfg, image_size: tuple[int, int]) -> nn.Module:
+    from ddw_tpu_torch.models.convnext import ConvNeXt
+
+    if cfg.dw_impl != "xla":
+        # the repository's depthwise kernel is 3x3 only; ConvNeXt's 7x7
+        # depthwise is a library grouped conv, so the knob would change
+        # nothing
+        raise ValueError(
+            f"convnext ignores model.dw_impl={cfg.dw_impl!r}: its 7x7 "
+            f"depthwise always runs the library's grouped convolution "
+            f"(the depthwise kernel is 3x3-only — see "
+            f"ddw_tpu_torch/ops/depthwise_conv.py); drop the setting or "
+            f"use mobilenet_v2 for the kernel arm")
+    return ConvNeXt(num_classes=cfg.num_classes,
+                    variant=cfg.name.removeprefix("convnext_"),
+                    width_mult=cfg.width_mult, dropout=cfg.dropout,
+                    freeze_base=cfg.freeze_base, dtype=torch_dtype(cfg.dtype))
+
+
+for _name in ("resnet18", "resnet34", "resnet50"):
+    register_model(_name)(_resnet)
+for _name in ("convnext_tiny", "convnext_small"):
+    register_model(_name)(_convnext)
+
+
+@register_model("vit")
+def _vit(cfg: ModelCfg, image_size: tuple[int, int]) -> nn.Module:
     from ddw_tpu_torch.models.vit import ViT
 
     kwargs = {}
@@ -74,8 +100,9 @@ def _construct(cfg: ModelCfg, image_size: tuple[int, int]) -> nn.Module:
         # mlp_dim keeps the default geometry's 4x ratio
         kwargs["hidden"] = cfg.hidden
         kwargs["mlp_dim"] = 4 * cfg.hidden
-    return ViT(num_classes=cfg.num_classes, dropout=cfg.dropout, dtype=dtype,
-               lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha,
+    return ViT(num_classes=cfg.num_classes, dropout=cfg.dropout,
+               dtype=torch_dtype(cfg.dtype), lora_rank=cfg.lora_rank,
+               lora_alpha=cfg.lora_alpha,
                lora_targets=tuple(cfg.lora_targets), image_size=image_size,
                **kwargs)
 
@@ -87,9 +114,10 @@ def build_model(cfg: ModelCfg,
     or draw them with :func:`ddw_tpu_torch.models.layers.init_params`).
     ``image_size`` sizes ViT's position embedding (flax sizes it from the
     first input); the CNNs take any size."""
-    if cfg.name not in _NAMES:
-        raise KeyError(f"unknown model {cfg.name!r}; have {sorted(_NAMES)}")
-    model = _construct(cfg, image_size)
+    if cfg.name not in MODEL_REGISTRY:
+        raise KeyError(f"unknown model {cfg.name!r}; have "
+                       f"{sorted(MODEL_REGISTRY)}")
+    model = MODEL_REGISTRY[cfg.name](cfg, image_size)
     if cfg.lora_rank and not hasattr(model, "lora_rank"):
         # a silently ignored field would full-fine-tune while the user
         # believes adapters are training
@@ -118,6 +146,6 @@ def build_model(cfg: ModelCfg,
                 f"convert) — auto-unfreezing the randomly initialized "
                 f"backbone. Set model.allow_frozen_random=true to keep it "
                 f"frozen.", stacklevel=2)
-            model = _construct(dataclasses.replace(cfg, freeze_base=False),
-                               image_size)
+            model = MODEL_REGISTRY[cfg.name](
+                dataclasses.replace(cfg, freeze_base=False), image_size)
     return model

@@ -10,9 +10,10 @@ either package loads in the other (f32 and int8):
 :class:`LMPackagedModel` restores it onto a device and exposes
 ``score(tokens [B, S+1]) -> nll [B]`` (mean next-token negative
 log-likelihood; perplexity is ``exp(nll)``) and ``generate`` (the KV-cached
-decode path). Both pad request widths to the shared buckets
-(``serve/bucketing.py``). Speculative decoding comes with the online-serving
-slice (``ROADMAP.md``).
+decode path), both padding request widths to the shared buckets
+(``serve/bucketing.py``), ``generate_speculative`` (draft-verified greedy
+decoding against a second package) and ``engine_handle`` (what the online
+``ServingEngine`` serves).
 """
 
 from __future__ import annotations
@@ -144,11 +145,38 @@ class LMPackagedModel:
                        top_k=top_k, top_p=top_p, prompt_len=plen)
         return out.cpu().numpy()
 
-    def generate_speculative(self, draft, prompt, num_steps: int, k: int = 4):
-        raise NotImplementedError(
-            "speculative decoding (models/spec_decode.py) is not yet ported "
-            "to ddw_tpu_torch; it comes with the online-serving slice (see "
-            "ROADMAP.md)")
+    def generate_speculative(self, draft: "LMPackagedModel", prompt,
+                             num_steps: int, k: int = 4):
+        """Draft-verified greedy decoding against another packaged model
+        (:func:`ddw_tpu_torch.models.spec_decode.generate_speculative`):
+        ``(tokens [1, num_steps] int32, stats)``, the tokens equal to
+        greedy :meth:`generate`'s."""
+        from ddw_tpu_torch.models.spec_decode import generate_speculative
+
+        prompt = np.asarray(prompt, np.int32)
+        check_token_ids(prompt, self.lm_cfg.vocab_size)
+        out, stats = generate_speculative(self.model, draft.model, prompt,
+                                          num_steps, k=k)
+        return out.cpu().numpy(), stats
+
+    def engine_handle(self) -> "LMEngineHandle":
+        """What :class:`ddw_tpu_torch.serve.engine.ServingEngine` needs
+        from this package."""
+        return LMEngineHandle(self.model, self.lm_cfg, self.content_digest,
+                              self.device)
+
+
+@dataclasses.dataclass
+class LMEngineHandle:
+    """What :class:`ddw_tpu_torch.serve.engine.ServingEngine` needs from an
+    LM package: the module (on its device, weights loaded) and the config
+    that bounds admission validation. A handle, not the package object, so
+    any weight source can serve through the engine."""
+
+    model: object               # TransformerLM; the pools build its caches
+    cfg: LMCfg
+    content_digest: str = ""
+    device: torch.device | None = None
 
 
 def load_lm_package(model_dir: str, device=None) -> LMPackagedModel:

@@ -11,7 +11,8 @@ either package loads in the other:
 
 :class:`PackagedModel` restores it onto a device and predicts from encoded
 image bytes, file paths or decoded float arrays, in fixed sub-batches of 128
-padded with zeros, under ``torch.inference_mode()``.
+padded with zeros, under ``torch.inference_mode()``; ``engine_handle()``
+is what the online ``ServingEngine``'s image lane serves.
 """
 
 from __future__ import annotations
@@ -132,6 +133,24 @@ def load_packaged_model(model_dir: str, device=None) -> "PackagedModel":
     return PackagedModel(model_dir, device=device)
 
 
+@dataclasses.dataclass
+class ImageEngineHandle:
+    """What :class:`ddw_tpu_torch.serve.engine.ServingEngine` needs from an
+    image package: its forward and the input coercion it shares with
+    :meth:`PackagedModel.predict` (same preprocessing, no offline/online
+    skew). ``apply`` is the package's own forward with its ``dw_impl`` —
+    with ``"pallas"`` every stride-1 depthwise layer launches K1."""
+
+    model: object
+    classes: list
+    height: int
+    width: int
+    decode_one: object          # item -> [H, W, 3] float array
+    apply: object               # [G, H, W, 3] f32 array -> [G, C] logits
+    content_digest: str = ""
+    device: torch.device | None = None
+
+
 class PackagedModel:
     """Self-contained predictor (the ``FlowerPyFunc`` role) on one device.
 
@@ -163,6 +182,11 @@ class PackagedModel:
             "params": restored["params"],
             "batch_stats": restored.get("batch_stats") or {}})
         self.model.to(self.device).eval()
+
+    def engine_handle(self) -> ImageEngineHandle:
+        return ImageEngineHandle(self.model, self.classes, self.height,
+                                 self.width, self._decode_one, self._forward,
+                                 self.content_digest, self.device)
 
     # -- input coercion (the reference's bytes-vs-str handling, :214-234) -----
     def _decode_one(self, item) -> np.ndarray:

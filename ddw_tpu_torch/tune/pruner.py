@@ -16,6 +16,7 @@ Pruned trials never enter the TPE good/bad split (``Trials.completed`` filters
 on ``STATUS_OK``) — a half-trained loss is not comparable to a final one.
 
 Thread-safe: parallel ``fmin`` reports from worker threads concurrently.
+A trial that runs as spawned ranks reports through a :class:`TrialLink`.
 """
 
 from __future__ import annotations
@@ -185,3 +186,93 @@ def make_pruner(tune_cfg):
                           tune_cfg.asha_reduction_factor)
     raise ValueError(f"unknown tune.pruner {tune_cfg.pruner!r}; "
                      f"use 'median' or 'asha'")
+
+
+class TrialLink:
+    """Pruning for a trial that runs as a set of spawned ranks (the port's
+    example 05; ``ddw_tpu`` reports in process). Rank 0 carries each
+    epoch's row to the coordinating process over a queue; the coordinator
+    feeds it to the trial's :meth:`Trial.report` and sends the verdict
+    back; rank 0 broadcasts the verdict over the trial's process group, so
+    every rank stops at the same epoch boundary and returns normally (no
+    process is killed, no group is left hanging).
+
+    Coordinator::
+
+        link = TrialLink(trial)          # before spawning the ranks
+        with link:                       # answers reports while ranks run
+            spawn_cpu(fn, n, ..., link.ranks_side(), ...)
+        link.raise_if_pruned()           # -> fmin records STATUS_PRUNED
+
+    Ranks: ``Trainer(..., on_epoch=ranks_side.on_epoch)``.
+    """
+
+    def __init__(self, trial: Trial, timeout_s: float = 600.0):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.trial = trial
+        self.timeout_s = timeout_s
+        self._reports = ctx.Queue()
+        self._verdicts = ctx.Queue()
+        self.pruned: Pruned | None = None
+        self._thread: threading.Thread | None = None
+
+    def ranks_side(self) -> "RankReporter":
+        """The picklable half each spawned rank receives."""
+        return RankReporter(self._reports, self._verdicts, self.timeout_s)
+
+    def _serve(self) -> None:
+        while True:
+            msg = self._reports.get()
+            if msg is None:
+                return
+            step, value = msg
+            prune = False
+            if self.pruned is None:
+                try:
+                    self.trial.report(step, value)
+                except Pruned as p:
+                    self.pruned, prune = p, True
+            self._verdicts.put(prune)
+
+    def __enter__(self) -> "TrialLink":
+        self._thread = threading.Thread(target=self._serve, daemon=True,
+                                        name="trial-link")
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._reports.put(None)
+        self._thread.join(timeout=self.timeout_s)
+
+    def raise_if_pruned(self) -> None:
+        if self.pruned is not None:
+            raise self.pruned
+
+
+class RankReporter:
+    """A spawned rank's end of a :class:`TrialLink`: ``on_epoch(row)`` is
+    the trainer's epoch callback. Rank 0 reports ``row["val_loss"]`` at
+    ``row["epoch"]`` and waits for the coordinator's verdict; the verdict
+    goes to every rank by a broadcast from rank 0 over the group, and a True
+    return stops the trainer at this epoch boundary."""
+
+    def __init__(self, reports, verdicts, timeout_s: float):
+        self._reports, self._verdicts = reports, verdicts
+        self.timeout_s = timeout_s
+
+    def on_epoch(self, row: dict) -> bool:
+        import torch
+        import torch.distributed as dist
+
+        from ddw_tpu_torch.runtime.dist import process_topology
+
+        rank, world = process_topology()
+        stop = torch.zeros(1, dtype=torch.int32)
+        if rank == 0:
+            self._reports.put((int(row["epoch"]), float(row["val_loss"])))
+            stop[0] = int(self._verdicts.get(timeout=self.timeout_s))
+        if world > 1:
+            dist.broadcast(stop, src=0)
+        return bool(stop.item())

@@ -36,6 +36,10 @@ class DataCfg:
     prefetch: int = 2                   # host->device prefetch depth
     loader_workers: int = 4             # decode thread pool
 
+    @property
+    def image_shape(self) -> tuple[int, int, int]:
+        return (self.img_height, self.img_width, self.channels)
+
 
 @dataclass
 class ModelCfg:

@@ -9,28 +9,32 @@ under one parent.
 
 Each trial spawns ``--procs`` processes joined by a gloo group
 (``runtime.dist.spawn_cpu``), data-parallel ranks that share the card.
-Pruning (``tune.prune``) needs the coordinating process's pruner to stop
-every rank of a running trial, which this port does not do yet: it is
-refused.
+With ``tune.prune=true`` rank 0 carries each epoch's validation loss to this
+process's pruner through a ``TrialLink`` and broadcasts the verdict, so
+every rank of a pruned trial stops at the same epoch boundary; the trial
+records ``STATUS_PRUNED`` and its run ends ``PRUNED``.
 """
 
+import contextlib
 import copy
 import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from ddw_tpu_torch.tune import (STATUS_OK, Trials, choice,  # noqa: E402
-                                fmin, loguniform, uniform)
+from ddw_tpu_torch.tune import (STATUS_OK, TrialLink, Trials,  # noqa: E402
+                                choice, fmin, loguniform, make_pruner,
+                                uniform)
 from examples_torch.common import (parse_args, rank_threads,  # noqa: E402
                                    require_tables, setup)
 
 
 def _trial_rank(data_cfg, model_cfg, train_cfg, train_tbl, val_tbl, run_dir,
-                run_id, device, procs):
-    """One rank of one trial: the data-parallel trainer, and this rank's
-    depthwise kernel launches by variant (the process is new, so they are
-    the trial's)."""
+                run_id, device, procs, reporter=None):
+    """One rank of one trial: the data-parallel trainer (reporting each
+    epoch to the coordinator's pruner through ``reporter`` when pruning is
+    on), and this rank's depthwise kernel launches by variant (the process
+    is new, so they are the trial's)."""
     from ddw_tpu_torch.ops.depthwise_conv import (
         depthwise_conv3x3_cuda, depthwise_conv3x3_wgrad_cuda)
     from ddw_tpu_torch.tracking.tracker import Run
@@ -38,9 +42,11 @@ def _trial_rank(data_cfg, model_cfg, train_cfg, train_tbl, val_tbl, run_dir,
 
     rank_threads(procs)
     res = Trainer(data_cfg, model_cfg, train_cfg, run=Run(run_dir, run_id),
-                  device=device).fit(train_tbl, val_tbl)
+                  device=device,
+                  on_epoch=None if reporter is None else reporter.on_epoch
+                  ).fit(train_tbl, val_tbl)
     return {"val_accuracy": res.val_accuracy, "val_loss": res.val_loss,
-            "history": res.history,
+            "history": res.history, "epochs_run": res.epochs_run,
             "kernel_launches": {
                 "k1": dict(depthwise_conv3x3_cuda.launches_by_variant),
                 "k2": dict(depthwise_conv3x3_wgrad_cuda.launches_by_variant)}}
@@ -53,10 +59,6 @@ def main(argv=None):
     ws = setup(args)
     cfgs = ws["cfgs"]
     tune_cfg = cfgs["tune"]
-    if tune_cfg.prune:
-        raise SystemExit("tune.prune is not yet ported for distributed "
-                         "trials (the coordinating process's pruner cannot "
-                         "stop the ranks of a running trial); see ROADMAP.md")
     train_tbl, val_tbl = require_tables(ws["store"], cfgs["data"])
 
     space = {
@@ -69,8 +71,10 @@ def main(argv=None):
     ckpt_root = os.path.join(ws["workdir"], "tune_ckpts")
     parent = ws["tracker"].start_run("hyperopt_distributed")
     trial_no = {"n": 0}
+    # pruning pays off most here: every pruned epoch frees every rank
+    pruner = make_pruner(tune_cfg)
 
-    def train_and_evaluate(params):
+    def train_and_evaluate(params, trial=None):
         """Whole-group data-parallel training of one trial."""
         from ddw_tpu_torch.runtime.dist import spawn_cpu
 
@@ -85,14 +89,24 @@ def main(argv=None):
         run = ws["tracker"].start_run(f"trial_{trial_no['n']:03d}",
                                       parent_run_id=parent.run_id)
         run.log_params(params)
+        link = TrialLink(trial) if trial is not None else None
         try:
-            ranks = spawn_cpu(_trial_rank, args.procs, cfgs["data"],
-                              model_cfg, train_cfg, train_tbl, val_tbl,
-                              run.run_dir, run.run_id, ws["device"],
-                              args.procs, timeout_s=3600)
+            with link or contextlib.nullcontext():
+                ranks = spawn_cpu(_trial_rank, args.procs, cfgs["data"],
+                                  model_cfg, train_cfg, train_tbl, val_tbl,
+                                  run.run_dir, run.run_id, ws["device"],
+                                  args.procs,
+                                  link and link.ranks_side(),
+                                  timeout_s=3600)
         except Exception:
             run.end(status="FAILED")
             raise  # fmin records STATUS_FAIL
+        if link is not None and link.pruned is not None:
+            epochs = sorted({r["epochs_run"] for r in ranks})
+            print(f"trial {trial_no['n']:03d} pruned: every rank stopped "
+                  f"after epoch(s) {epochs}")
+            run.end(status="PRUNED")
+            link.raise_if_pruned()  # fmin records STATUS_PRUNED
         res = ranks[0]
         run.log_metric("final_val_accuracy", res["val_accuracy"])
         run.end()
@@ -105,14 +119,16 @@ def main(argv=None):
                 algo=tune_cfg.algo, parallelism=1,  # trials own every rank
                 trials=trials, seed=tune_cfg.seed,
                 n_startup_trials=min(tune_cfg.n_startup_trials,
-                                     tune_cfg.max_evals // 2 or 1))
+                                     tune_cfg.max_evals // 2 or 1),
+                pruner=pruner)
     parent.log_params({f"best.{k}": v for k, v in best.items()})
     parent.end()
     print(f"best params: {best}")
     for t in trials.results:
         print(f"trial status={t['status']} loss={t['loss']}"
               + (f" error={t['error']}" if "error" in t else ""))
-    print(f"best val_accuracy: {trials.best['val_accuracy']:.4f}")
+    if any(t["status"] == STATUS_OK for t in trials.results):
+        print(f"best val_accuracy: {trials.best['val_accuracy']:.4f}")
     print(f"per-trial checkpoints under {ckpt_root}")
 
     from ddw_tpu_torch.tracking.report import write_report

@@ -3,10 +3,12 @@ runs ``--quick --device cpu`` against one shared workdir, in dependency
 order, as a user would start it: 01 prep -> 02 single node -> 03 on 2 gloo
 ranks -> 06 package and 2-process merged scoring -> 08 pretrain, export,
 convert and frozen transfer at one epoch each, and one short 04 run with
-2 parallel trials, the only tier-1 representative of the HPO arms. The
-other arms (cached features, the nested space, 05's distributed trials,
-int8, the multi-worker prep, 08 at its full length, where the pretrained
-backbone must beat the random one) are ``slow``."""
+2 parallel trials, the only tier-1 representative of the HPO arms; then
+the LM examples: 09 LoRA fine-tuning, 11 the LM lifecycle (train, package,
+score, generate, speculative) and 14 the online serving engine. The other
+arms (cached features, the nested space, 05's distributed trials with and
+without pruning, int8, the multi-worker prep, 08 at its full length, where
+the pretrained backbone must beat the random one) are ``slow``."""
 
 import os
 import subprocess
@@ -29,6 +31,9 @@ _EXAMPLES = [
      "predictions table of 20 records written"),
     ("08_pretrained_transfer.py", ["--pretrain-epochs", "1", "train.epochs=1"],
      "[score] 20 rows"),
+    ("09_lora_finetune.py", [], "base_frozen=True"),
+    ("11_lm_lifecycle.py", [], "[speculative] identical tokens"),
+    ("14_online_serving.py", [], "engine_matches_sequential=12/12"),
     pytest.param("08_pretrained_transfer.py", [], "random-frozen 0.",
                  marks=_slow),
     pytest.param("02_train_single_node.py",
@@ -43,6 +48,11 @@ _EXAMPLES = [
                   "train.epochs=1"], "best params", marks=_slow),
     pytest.param("05_hyperopt_distributed.py",
                  ["tune.max_evals=2", "train.epochs=1"], "best val_accuracy",
+                 marks=_slow),
+    pytest.param("05_hyperopt_distributed.py",
+                 ["tune.max_evals=3", "tune.prune=true",
+                  "tune.prune_warmup_epochs=0", "tune.prune_min_trials=1",
+                  "train.epochs=2"], "pruned: every rank stopped",
                  marks=_slow),
     pytest.param("06_packaged_inference.py", ["--int8", "train.epochs=1"],
                  "int8 weight-only", marks=_slow),
@@ -66,8 +76,9 @@ def _id(example):
                          ids=[_id(e) for e in _EXAMPLES])
 def test_example_runs(script, extra, expect, workdir):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    where = [] if script == "09_lora_finetune.py" else ["--workdir", workdir]
     cmd = [sys.executable, os.path.join(REPO, "examples_torch", script),
-           "--quick", "--workdir", workdir, "--device", "cpu", *extra]
+           "--quick", *where, "--device", "cpu", *extra]
     proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
                           timeout=600)
     assert proc.returncode == 0, (proc.stdout[-1500:], proc.stderr[-2500:])

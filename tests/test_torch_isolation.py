@@ -62,7 +62,8 @@ def test_no_port_module_imports_jax_or_the_jax_package():
             "03_train_distributed.py", "04_hyperopt_parallel.py",
             "05_hyperopt_distributed.py",
             "06_packaged_inference.py",
-            "08_pretrained_transfer.py"} <= examples
+            "08_pretrained_transfer.py", "09_lora_finetune.py",
+            "11_lm_lifecycle.py", "14_online_serving.py"} <= examples
 
 
 def test_every_port_module_imports_with_jax_blocked():
@@ -81,7 +82,9 @@ def test_every_port_module_imports_with_jax_blocked():
                  "tracking.__main__", "native.build", "native.decode",
                  "native.codec", "models.resnet", "models.convnext",
                  "models.vit", "models.export", "ops.s2d_conv",
-                 "models.layers"):
+                 "models.layers", "models.spec_decode", "obs.telemetry",
+                 "serve.admission", "serve.metrics", "serve.slots",
+                 "serve.blocks", "serve.engine"):
         assert f"ddw_tpu_torch.{name}" in modules
     modules += ["examples_torch." + os.path.basename(p)[:-3]
                 for p in _example_sources()]

@@ -20,7 +20,7 @@ from ddw_tpu.utils.config import LMCfg as JaxLMCfg
 from ddw_tpu_torch.models.convert import (init_lm_weights,
                                           load_flax_variables,
                                           to_flax_variables)
-from ddw_tpu_torch.models.lm import (TransformerLM, build_lm, generate,
+from ddw_tpu_torch.models.lm import (build_lm, generate,
                                      init_cache, set_cache_lengths)
 from ddw_tpu_torch.ops import flash_attention as tfa
 from ddw_tpu_torch.utils.config import LMCfg
@@ -226,9 +226,6 @@ def test_unported_options_are_refused_naming_the_roadmap():
         build_lm(LMCfg(**dict(BASE, num_experts=2)))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_lm(cfg, seq_axis="seq")
-    for kw in ({"slot_decode": True}, {"paged_decode": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            TransformerLM(vocab_size=VOCAB, hidden=32, num_heads=4, **kw)
     _, _, tm = _pair()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tm(torch.zeros((1, 4), dtype=torch.long), adapters=({}, [0]))

@@ -108,8 +108,15 @@ def test_generate_matches_jax_package(tmp_path, params):
                                       jpm.generate(prompt, 6))
     with pytest.raises(ValueError, match="exceeds"):
         pm.generate(np.zeros((1, 60), np.int32), 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pm.generate_speculative(pm, np.zeros((1, 4), np.int32), 4)
+    # speculative decoding is ported: a self-draft gives greedy's tokens,
+    # as ddw_tpu's does (tests/test_torch_spec_decode.py)
+    prompt = np.random.RandomState(1).randint(0, VOCAB, (1, 5)).astype(
+        np.int32)
+    spec, stats = pm.generate_speculative(pm, prompt, 6, k=2)
+    np.testing.assert_array_equal(spec, jpm.generate_speculative(
+        jpm, prompt, 6, k=2)[0])
+    np.testing.assert_array_equal(spec, pm.generate(prompt, 6))
+    assert stats["acceptance_rate"] == 1.0
 
 
 def test_format_guards(tmp_path, params):
