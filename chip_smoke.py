@@ -59,7 +59,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    TF32 off); the checkpoint's weights served through
    ``save_packaged_model`` -> ``PackagedModel`` -> ``BatchScorer`` on the
    val table, at the trainer's val accuracy. Step ms (median of 10) and
-   training images/s.
+   training images/s. Last, one more resumed epoch with ``trace_dir`` and
+   ``monitor_interval_s`` set: its K1/K2 counts and variants those of the
+   untraced resumed epoch, the Chrome trace naming K1's and K2's kernels
+   (``dw3x3_fwd_tma_kernel`` once per K1 launch of the steps,
+   ``dw3x3_wgrad_tma_kernel`` once per K2 launch), the ``trace_dir`` param
+   and the ``sys.device_hbm_*`` series in the run; the traced epoch's
+   seconds beside the untraced one's.
 5b. workshop — the workshop chain (BASELINE.json configs 1, 3, 4, 5)
    through ``examples_torch``'s ``main(argv)`` in this process, on a seeded
    synthetic flowers tree (5 classes x 64 JPEGs at 256 px; 288 train, 32 val
@@ -191,7 +197,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    1e-5 of each leaf's max of those without remat); the checkpoint through
    ``save_lm_package`` -> ``LMPackagedModel.score`` on the val rows at the
    trainer's last val_loss (within 1e-4 relative). Step ms (median of 10)
-   and training tokens/s.
+   and training tokens/s. Last, one more resumed epoch with ``tracer=``: its
+   spans are ``ddw_tpu``'s chain-boundary ``train_chain`` spans, one per
+   step, and its K3-K5 counts and variants (all sm90) those of the untraced
+   resumed epoch.
 9b. serve — the online serving engine (``ServingEngine``) on the card. The
    same full-width bf16 LM (another seed) through ``save_lm_package`` ->
    ``LMPackagedModel`` -> ``ServingEngine`` with the default ``EngineCfg``
@@ -215,6 +224,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
    tolerance of ``predict_logits`` with argmax equal wherever decisive.
    Prints engine and sequential decode tokens/s, TTFT and total p50/p99
    from ``snapshot()``, image requests/s and the phase's wall seconds.
+9c. serve_plus — the rest of the engine on the same package, mix and
+   drafts. (a) ``EngineCfg(spec_k=4)`` with the twin draft over the 32
+   requests (tokens/s beside serve's paged run, acceptance, the final
+   effective width), then 8 of them with the random 2-layer draft
+   (acceptance near 0); every token of every stream within 0.05 logits of
+   its argmax (serve's rule). (b) ``adapter_slots=4``, rank 8: three seeded
+   adapters (nonzero B) written by ``save_adapter`` and loaded from their
+   ``.npz``, two rows each beside two base rows in one batch; each token
+   within 0.05 of the argmax of a forward that carries the row's adapter;
+   the adapters change their rows; an unknown ``adapter_id`` refused with
+   no pin or queue entry left; an unload/load cycle leaves the pool's
+   gauges as they were; the same prompt under two adapters shares no
+   prefix block, under one it does. (c) Tenants ``gold`` and ``bronze``
+   (weights 3:1) on the batch lane, a ``submit_batch(kind="generate")`` job
+   of 16 items and interactive requests at once: every item recorded once,
+   every stream within the rule; a ``QuotaExceeded`` for a capped tenant,
+   its charge released; ``submit_batch(kind="predict")`` of 64 images
+   through the image lane: 13 K1 launches a batch, all ``tma``, logits
+   within serve's tolerance of ``predict_logits``. (d) The mix with
+   ``trace`` and ``telemetry`` on and ``monitor_interval_s`` into a run,
+   then with both off (tokens/s of each): each request one trace id whose
+   queue, prefill and decode spans chain by parent from submission to its
+   last token, written as a Chrome trace; telemetry samples present and an
+   ``SLOMonitor`` over the feed not paging; ``sys.device_hbm_*`` series in
+   the run (whether ``psutil`` gave the host keys is printed). No K3 launch
+   on the LM lane. The phase's wall seconds.
 10. ring — the collective layer (K6, the ring all-reduce) at N = 2, then
    N = 4 ranks: processes from ``spawn_cpu`` joined by gloo, all on this
    one card (NCCL refuses two ranks on one device; K6 maps its neighbours'
@@ -1394,8 +1429,31 @@ def phase_lm_train(tmp: str):
     check(bool(np.isfinite(nll).all()) and rel <= 1e-4,
           f"packaged checkpoint's mean NLL {mean_nll:.5f} equals the "
           f"trainer's val_loss {res3.val_loss:.5f} within 1e-4 relative")
+
+    # --- one more resumed epoch with a tracer ------------------------------
+    from ddw_tpu_torch.obs.trace import Tracer
+
+    tracer = Tracer(process="train")
+    zero_counts()
+    res4 = LMTrainer(lm_cfg, dataclasses.replace(train_cfg, epochs=4),
+                     tracer=tracer).fit_tables(train_t, val_t, resume=True)
+    traced = counts()
+    traced_by = [dict(c.launches_by_variant) for c in counters]
+    spans = tracer.drain()
+    emit(phase="lm_train", traced_epoch=[r["epoch"] for r in res4.history],
+         spans=[(e["name"], e["cat"], e["args"]["step"]) for e in spans],
+         launches=list(traced), launches_by_variant=traced_by)
+    check([(e["name"], e["cat"]) for e in spans]
+          == [("train_chain", "train")] * steps_per_epoch,
+          "the tracer holds one train_chain span per step, ddw_tpu's names")
+    check(traced == (depth * (steps_per_epoch + val_steps),
+                     depth * steps_per_epoch, depth * steps_per_epoch)
+          and all(b.get("sm90") == n for b, n in zip(traced_by, traced)),
+          f"the traced epoch's launches {traced} are the untraced resumed "
+          f"epoch's, all sm90 ({traced_by})")
     return ({"k3": k3, "k4": k4, "k5": k5, "k3_by_variant": k3_by_variant,
-             "k4_by_variant": k4_by_variant, "k5_by_variant": k5_by_variant},
+             "k4_by_variant": k4_by_variant, "k5_by_variant": k5_by_variant,
+             "traced": traced, "traced_by_variant": traced_by},
             step_ms, tokens_per_s)
 
 
@@ -1775,8 +1833,60 @@ def phase_train(tmp: str):
     check(abs(acc - res3.val_accuracy) <= 2.0 / VAL_IMAGES,
           f"served accuracy {acc:.4f} equals the trainer's val accuracy "
           f"{res3.val_accuracy:.4f} (within 2 images)")
+
+    # --- one more resumed epoch under the profiler and the monitor -------
+    from ddw_tpu_torch.tracking.tracker import Tracker
+
+    trace_dir = os.path.join(tmp, "train_trace")
+    tracker = Tracker(os.path.join(tmp, "train_runs"), "traced")
+    run = tracker.start_run("epoch4")
+    reset_depthwise_counts()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        res4 = Trainer(data_cfg, model_cfg, dataclasses.replace(
+            train_cfg, epochs=4, trace_dir=trace_dir,
+            monitor_interval_s=0.5), run=run).fit(train_t, val_t,
+                                                   resume=True)
+    run.end()
+    k1t, k2t = (depthwise_conv3x3_cuda.launches,
+                depthwise_conv3x3_wgrad_cuda.launches)
+    k1t_by = dict(depthwise_conv3x3_cuda.launches_by_variant)
+    k2t_by = dict(depthwise_conv3x3_wgrad_cuda.launches_by_variant)
+    traces = [os.path.join(trace_dir, n) for n in os.listdir(trace_dir)]
+    check(len(traces) == 1, f"one Chrome trace in trace_dir ({traces})")
+    with open(traces[0]) as f:
+        kernels = [e["name"] for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"]
+    n_fwd = sum("dw3x3_fwd_tma_kernel" in n for n in kernels)
+    n_wgrad = sum("dw3x3_wgrad_tma_kernel" in n for n in kernels)
+    runv = tracker.get_run(run.run_id)
+    hbm = len(runv.metric_history("sys.device_hbm_used_gb"))
+    emit(phase="train", traced_epoch=[r["epoch"] for r in res4.history],
+         traced_epoch_seconds=res4.history[0]["epoch_seconds"],
+         untraced_epoch_seconds=res3.history[0]["epoch_seconds"],
+         k1_launches=k1t, k2_launches=k2t, k1_launches_by_variant=k1t_by,
+         k2_launches_by_variant=k2t_by, trace_bytes=os.path.getsize(
+             traces[0]), trace_kernel_events=len(kernels),
+         trace_k1_kernels=n_fwd, trace_k2_kernels=n_wgrad,
+         trace_dir_param=runv.params().get("trace_dir"),
+         monitor_hbm_samples=hbm)
+    check([r["epoch"] for r in res4.history] == [3], "the traced run ran "
+          "epoch 3 only")
+    check((k1t, k2t) == (k1r, k2r) and k1t_by["tma"] == k1t
+          and k2t_by["tma"] == k2t, f"the traced epoch's K1/K2 launches "
+          f"({k1t}, {k2t}, {k1t_by}, {k2t_by}) are the untraced resumed "
+          f"epoch's ({k1r}, {k2r}), all tma")
+    check(n_fwd == LAYERS_PER_FORWARD * 2 * steps_per_epoch
+          and n_wgrad == LAYERS_PER_FORWARD * steps_per_epoch,
+          f"the trace names K1's kernel once per K1 launch of the steps "
+          f"({n_fwd}) and K2's once per K2 launch ({n_wgrad})")
+    check(runv.params().get("trace_dir") == trace_dir and hbm > 0,
+          "the run holds the trace_dir param and the sys.device_hbm_* "
+          "series")
     return {"k1": k1, "k2": k2, "k1_by_variant": k1_by,
-            "k2_by_variant": k2_by}, step_ms
+            "k2_by_variant": k2_by, "k1_traced": k1t, "k2_traced": k2t,
+            "k1_traced_by_variant": k1t_by,
+            "k2_traced_by_variant": k2t_by}, step_ms
 
 
 WORKSHOP_PER_CLASS, WORKSHOP_SRC_PX = 64, 256
@@ -3178,10 +3288,13 @@ def serve_mix():
     return prompts, steps
 
 
-def serve_engine_run(pm, prompts, steps, cfg) -> dict:
+def serve_engine_run(pm, prompts, steps, cfg, draft=None, **engine_kw
+                     ) -> dict:
     """One engine over the mix: warm up every bucket, then submit from
-    SERVE_CLIENTS threads with seeded staggered arrivals; every future is
-    waited on with a timeout and the engine stopped."""
+    SERVE_CLIENTS threads with seeded staggered arrivals (request i with
+    trace id ``req-i``); every future is waited on with a timeout and the
+    engine stopped. With tracing or telemetry on, the drained ring and feed
+    come back too."""
     import threading
 
     import numpy as np
@@ -3189,7 +3302,7 @@ def serve_engine_run(pm, prompts, steps, cfg) -> dict:
 
     from ddw_tpu_torch.serve import ServingEngine
 
-    eng = ServingEngine(lm=pm, cfg=cfg)
+    eng = ServingEngine(lm=pm, cfg=cfg, draft=draft, **engine_kw)
     try:
         t0 = time.perf_counter()
         eng.warmup(sorted({len(p) for p in prompts}))
@@ -3201,7 +3314,8 @@ def serve_engine_run(pm, prompts, steps, cfg) -> dict:
         def client(c):
             rng = np.random.RandomState(SEED + 20 + c)
             for i in range(c, len(prompts), SERVE_CLIENTS):
-                futs[i] = eng.submit_generate(prompts[i], steps[i])
+                futs[i] = eng.submit_generate(prompts[i], steps[i],
+                                              trace_id=f"req-{i}")
                 time.sleep(float(rng.uniform(0.0, 0.02)))
 
         t0 = time.perf_counter()
@@ -3223,19 +3337,24 @@ def serve_engine_run(pm, prompts, steps, cfg) -> dict:
         repeat = eng.submit_generate(prompts[again], steps[again]).result(
             timeout=600)
         snap = eng.snapshot()
+        trace = eng.trace_events() if cfg.trace else None
+        feed = eng.telemetry_events() if cfg.telemetry else None
     finally:
         eng.stop()
     return {"tokens": [r.tokens for r in results], "snap": snap,
+            "total_ms": [r.total_ms for r in results],
             "wall": wall, "warmup_s": warm,
             "tokens_per_s": sum(steps) / wall, "repeat": again,
-            "repeat_tokens": repeat.tokens}
+            "repeat_tokens": repeat.tokens, "trace": trace, "feed": feed}
 
 
-def teacher_forced_readings(pm, prompt, tokens):
+def teacher_forced_readings(pm, prompt, tokens, adapters=None):
     """The logits each of ``tokens`` was picked from, by one decode-mode
     forward (the contiguous cache at batch 1, generate's prefill path) over
-    ``prompt`` and all but the last token: per token, the top logit minus
-    the token's (0 where it is the argmax), and the top-2 margin."""
+    ``prompt`` and all but the last token, carrying ``adapters`` (an
+    ``(stacks, [slot])`` pair) when the stream had one: per token, the top
+    logit minus the token's (0 where it is the argmax), and the top-2
+    margin."""
     import numpy as np
     import torch
 
@@ -3245,7 +3364,8 @@ def teacher_forced_readings(pm, prompt, tokens):
     seq = np.concatenate([np.asarray(prompt, np.int64), tokens[:-1]])
     with torch.inference_mode():
         logits = pm.model(torch.from_numpy(seq[None]).to(pm.device),
-                          cache=init_cache(pm.model, 1))[0, len(prompt) - 1:]
+                          cache=init_cache(pm.model, 1),
+                          adapters=adapters)[0, len(prompt) - 1:]
         logits = logits.float()
         top2 = torch.topk(logits, 2, dim=-1).values
         picked = logits.gather(1, torch.from_numpy(tokens[:, None]).to(
@@ -3292,12 +3412,32 @@ def stream_check(pm, prompts, refs, got, ref_readings=None) -> dict:
                                   <= SERVE_TOKEN_TIE)}
 
 
-def phase_serve(tmp: str) -> dict:
+def forced_check(pm, prompts, got, adapters=None) -> dict:
+    """stream_check's rule without sequential references: every token of
+    every stream within SERVE_TOKEN_TIE of the argmax of the logits it was
+    picked from, the stream's own adapter carried (``adapters``: the pool's
+    stacks and one slot per stream, or None for base streams)."""
+    import numpy as np
+
+    deficits = []
+    for i, (p, g) in enumerate(zip(prompts, got)):
+        ad = None if adapters is None else (adapters[0], [adapters[1][i]])
+        deficits.append(teacher_forced_readings(pm, p, g, ad)[0])
+    d = np.concatenate(deficits)
+    return {"streams": len(got), "tokens_checked": int(d.size),
+            "tokens_not_argmax": int((d > 0).sum()),
+            "max_deficit": float(d.max()), "limit": SERVE_TOKEN_TIE,
+            "all_near_ties": bool(d.max() <= SERVE_TOKEN_TIE)}
+
+
+def phase_serve(tmp: str) -> tuple[dict, dict]:
     """The online serving engine on the card: the full-width bf16 LM
     through the paged engine (default EngineCfg), under preemption and on
     the slot lane, each against sequential generate; a full queue's
     Overloaded; the full-width MobileNetV2 package through the image lane
-    (13 K1 launches a batch, all tma); speculative against greedy."""
+    (13 K1 launches a batch, all tma); speculative against greedy. Returns
+    the summary and what serve_plus reuses (the package, mix, references,
+    drafts and image inputs)."""
     import numpy as np
     import torch
 
@@ -3486,7 +3626,383 @@ def phase_serve(tmp: str) -> dict:
                                    for n, st in spec_stats.items()},
         "wall_seconds": wall}
     emit(phase="serve", sequential_seconds=seq_s, **summary)
-    return summary
+    return summary, {"pm": pm, "prompts": prompts, "steps": steps,
+                     "refs": refs, "ref_readings": ref_readings,
+                     "drafts": drafts, "img": img, "images": x,
+                     "image_ref": ref, "image_tol": tol,
+                     "paged_tokens_per_s": runs["paged"]["tokens_per_s"]}
+
+
+SERVE_PLUS_SPEC_K = 4
+SERVE_PLUS_SHORT = 8          # requests of the random-draft mix
+SERVE_PLUS_PROMPT = 256       # prompt cut of the adapter / tenant / bulk
+#                               requests (the mix's first 256 tokens)
+SERVE_PLUS_STEPS = 32         # their new tokens
+SERVE_ADAPTERS = 3
+SERVE_ADAPTER_RANK = 8
+SERVE_ADAPTER_B_STD = 0.02    # the seeded adapters' B: a delta of about
+#                               0.1 on unit-scale projection inputs
+SERVE_BULK_ITEMS = 16
+SERVE_TENANT_ITEMS = 8        # batch-lane items of each weighted tenant
+SERVE_TTFT_SLO_MS = 10_000.0  # the healthy-run objective: serve's TTFT p99
+#                               was 2.3-2.9 s on the H100
+
+
+def seeded_adapter(model, seed: int) -> dict:
+    """One LoRA adapter tree over every projection of ``model`` (ddw_tpu's
+    wire format: {block: {target: {lora_a, lora_b}}}), A ~ N(0, 1/fan_in)
+    and a nonzero B ~ N(0, SERVE_ADAPTER_B_STD^2), rank 8."""
+    import math
+
+    import numpy as np
+
+    from ddw_tpu_torch.models.lora import LM_LORA_TARGETS
+
+    rng = np.random.RandomState(seed)
+    out = {}
+    for i, blk in enumerate(model.blocks()):
+        targets = {}
+        for t in LM_LORA_TARGETS:
+            mod = getattr(blk.attn, t) if t in ("query", "key", "value",
+                                                "out") else getattr(blk, t)
+            fan_in = math.prod(mod.in_dims)
+            targets[t] = {
+                "lora_a": (rng.standard_normal(
+                    (*mod.in_dims, SERVE_ADAPTER_RANK)) / math.sqrt(fan_in)
+                    ).astype(np.float32),
+                "lora_b": (SERVE_ADAPTER_B_STD * rng.standard_normal(
+                    (SERVE_ADAPTER_RANK, *mod.features))).astype(np.float32)}
+        out[f"backbone_block{i}"] = targets
+    return out
+
+
+def phase_serve_plus(tmp: str, ctx: dict) -> dict:
+    """The rest of the online serving engine on serve's package, mix and
+    drafts: the speculative tick, LoRA adapters, tenants and bulk jobs,
+    tracing, telemetry and the system monitor (the module docstring's
+    9c)."""
+    import numpy as np
+    import torch
+
+    from ddw_tpu_torch.obs.slo import SLOMonitor, SLOObjective
+    from ddw_tpu_torch.obs.trace import chrome_trace, span_index
+    from ddw_tpu_torch.ops.depthwise_conv import (depthwise_conv3x3_cuda,
+                                                  reset_depthwise_counts)
+    from ddw_tpu_torch.serve import (EngineCfg, QuotaExceeded, ServingEngine,
+                                     UnknownAdapter, save_adapter)
+    from ddw_tpu_torch.tracking.tracker import Tracker
+    from ddw_tpu_torch.utils.sysmon import host_keys_available
+
+    t_phase = time.perf_counter()
+    pm, prompts, steps = ctx["pm"], ctx["prompts"], ctx["steps"]
+    refs, ref_readings = ctx["refs"], ctx["ref_readings"]
+    k3_before = flash_counts()
+    out: dict = {}
+
+    # --- (a) the speculative tick: the twin draft over the mix, then the
+    # random 2-layer draft over a short one --------------------------------
+    spec = {}
+    for name, n in (("twin", len(prompts)), ("two_layer", SERVE_PLUS_SHORT)):
+        run = serve_engine_run(pm, prompts[:n], steps[:n],
+                               EngineCfg(spec_k=SERVE_PLUS_SPEC_K),
+                               draft=ctx["drafts"][name])
+        again = run["repeat"]
+        tie = stream_check(pm, prompts[:n] + [prompts[again]],
+                           refs[:n] + [refs[again]],
+                           run["tokens"] + [run["repeat_tokens"]],
+                           ref_readings)
+        snap = run["snap"]
+        spec[name] = {
+            "requests": n, "tokens_per_s": run["tokens_per_s"],
+            "wall_s": run["wall"], "warmup_s": run["warmup_s"],
+            **{k: snap.get(f"serve.{k}") for k in (
+                "spec_acceptance_rate", "spec_k_effective",
+                "spec_tokens_per_tick", "spec_proposed", "spec_accepted",
+                "spec_bonus", "decode_ticks", "completed", "blocks_used",
+                "ttft_ms_p50", "ttft_ms_p99")},
+            "streams_equal": n + 1 - tie["diverged"], **tie}
+        emit(phase="serve_plus", spec_draft=name, **spec[name])
+        check(snap["serve.completed"] == n + 1,
+              f"spec ({name}): every request completed")
+        check(snap["serve.spec_proposed"] > 0,
+              f"spec ({name}): the speculative tick ran")
+        check(snap["serve.blocks_used"] == 0.0,
+              f"spec ({name}): no block held after the last request")
+        check(tie["all_near_ties"], f"spec ({name}): every token of every "
+              f"stream within {SERVE_TOKEN_TIE} of its argmax ({tie})")
+    check(spec["two_layer"]["spec_acceptance_rate"] < 0.1,
+          f"the random draft is almost never accepted "
+          f"({spec['two_layer']['spec_acceptance_rate']})")
+    check(0.0 < spec["twin"]["spec_acceptance_rate"] < 1.0,
+          f"the twin draft is partly accepted "
+          f"({spec['twin']['spec_acceptance_rate']})")
+    out["spec_tokens_per_s"] = spec["twin"]["tokens_per_s"]
+    out["spec_off_tokens_per_s"] = ctx["paged_tokens_per_s"]
+    out["spec_acceptance"] = {n: r["spec_acceptance_rate"]
+                              for n, r in spec.items()}
+    out["spec_k_effective"] = {n: r["spec_k_effective"]
+                               for n, r in spec.items()}
+    out["spec_streams_diverged"] = {n: r["diverged"] for n, r in spec.items()}
+
+    # --- (b) LoRA adapters: three seeded adapters from their .npz files
+    # and base rows in one batch ---------------------------------------------
+    short = [p[:SERVE_PLUS_PROMPT] for p in prompts]
+    eng = ServingEngine(lm=pm, cfg=EngineCfg(
+        adapter_slots=4, adapter_rank=SERVE_ADAPTER_RANK))
+    try:
+        paths = []
+        for i in range(SERVE_ADAPTERS):
+            path = os.path.join(tmp, f"adapter_{i}.npz")
+            save_adapter(path, seeded_adapter(pm.model, SEED + 30 + i),
+                         rank=SERVE_ADAPTER_RANK, alpha=16.0)
+            paths.append(path)
+            eng.load_adapter(f"a{i}", path=path)
+        eng.warmup([SERVE_PLUS_PROMPT])
+        eng.start()
+        names = [f"a{i}" for i in range(SERVE_ADAPTERS)] * 2 + [None, None]
+        # rows 0-5: each adapter on two prompts; rows 6 and 7: base rows on
+        # the prompts of rows 0 and 1
+        ad_prompts = short[:6] + short[:2]
+        t0 = time.perf_counter()
+        futs = [eng.submit_generate(p, SERVE_PLUS_STEPS, adapter_id=n)
+                for p, n in zip(ad_prompts, names)]
+        got = [f.result(timeout=600).tokens for f in futs]
+        ad_wall = time.perf_counter() - t0
+        slots = [0 if n is None else eng.adapters.slot_of(n) for n in names]
+        ad_tie = forced_check(pm, ad_prompts, got,
+                              (eng.adapters.stacks(), slots))
+        changed = sum(not np.array_equal(got[i], got[6 + i]) for i in (0, 1))
+        # an unknown id: refused, nothing pinned, nothing queued
+        try:
+            eng.submit_generate(short[0], 4, adapter_id="nope")
+            unknown = None
+        except UnknownAdapter as e:
+            unknown = str(e)
+        g_before, view_before = eng.adapters.gauges(), eng.adapter_view()
+        check(unknown is not None and g_before[
+            "serve.adapter.pins_inflight"] == 0
+              and eng.health()["queue_depth"] == 0,
+              f"an unknown adapter_id is refused with no leak ({unknown})")
+        # an unload / load cycle leaves the pool where it was
+        eng.unload_adapter("a2")
+        eng.load_adapter("a2", path=paths[2])
+        g_after, view_after = eng.adapters.gauges(), eng.adapter_view()
+        check(g_after == g_before and {
+            k: (v["slot"], v["digest"], v["pins"])
+            for k, v in view_after["adapters"].items()} == {
+            k: (v["slot"], v["digest"], v["pins"])
+            for k, v in view_before["adapters"].items()},
+              f"an unload/load cycle leaves the pool's gauges and slots as "
+              f"they were ({g_before} -> {g_after})")
+        # prefix isolation: the same prompt under a0, then a1, then a0
+        iso = max((6, 7), key=lambda i: len(short[i]))   # not in the batch
+        hits = [eng.snapshot()["serve.prefix_hit_tokens"]]
+        for n in ("a0", "a1", "a0"):
+            eng.generate(short[iso], 4, adapter_id=n)
+            hits.append(eng.snapshot()["serve.prefix_hit_tokens"])
+        snap = eng.snapshot()
+        check(hits[2] == hits[1] and hits[3] > hits[2],
+              f"same prompt under two adapters shares no prefix block, "
+              f"under one it does (prefix_hit_tokens {hits})")
+        check(eng.adapters.gauges()["serve.adapter.pins_inflight"] == 0,
+              "every pin returned")
+    finally:
+        eng.stop()
+    ad_tokens = len(names) * SERVE_PLUS_STEPS
+    out["adapter_tokens_per_s"] = ad_tokens / ad_wall
+    emit(phase="serve_plus", adapters=SERVE_ADAPTERS,
+         rank=SERVE_ADAPTER_RANK, rows=len(names),
+         tokens_per_s=ad_tokens / ad_wall, wall_s=ad_wall,
+         rows_changed_by_their_adapter=int(changed),
+         adapter_loads=snap["serve.adapter_loads"],
+         adapter_evictions=snap["serve.adapter_evictions"],
+         adapter_pins=snap["serve.adapter_pins"],
+         prefix_hit_tokens=hits, **ad_tie)
+    check(ad_tie["all_near_ties"], f"adapters: every token of every stream "
+          f"within {SERVE_TOKEN_TIE} of the argmax of its own adapter's "
+          f"logits ({ad_tie})")
+    check(changed >= 1, "the adapters change the tokens of their rows")
+
+    # --- (c) tenants on the batch lane, a bulk generate job, interactive
+    # traffic, a quota refusal, then a bulk predict job on the image lane ---
+    cfg = EngineCfg(tenants=({"name": "gold", "weight": 3.0},
+                             {"name": "bronze", "weight": 1.0},
+                             {"name": "capped", "token_quota": 64}))
+    eng = ServingEngine(lm=pm, image=ctx["img"], cfg=cfg)
+    try:
+        eng.warmup([SERVE_PLUS_PROMPT])
+        eng.start()
+        f_cap = eng.submit_generate(short[0], 48, tenant="capped")
+        try:
+            eng.submit_generate(short[1], 48, tenant="capped")
+            quota = None
+        except QuotaExceeded as e:
+            quota = e.to_dict()
+        check(quota is not None and quota["tenant"] == "capped",
+              f"a capped tenant's second request gives QuotaExceeded "
+              f"({quota})")
+        done_order = []
+        tenant_futs = []
+        for i in range(SERVE_TENANT_ITEMS):
+            for t in ("gold", "bronze"):
+                f = eng.submit_batch_item(short[len(tenant_futs) % 8],
+                                          SERVE_PLUS_STEPS, tenant=t)
+                f.add_done_callback(lambda _, t=t: done_order.append(t))
+                tenant_futs.append((t, len(tenant_futs) % 8, f))
+        bulk = [short[8 + i] for i in range(SERVE_BULK_ITEMS)]
+        t0 = time.perf_counter()
+        job = eng.submit_batch(bulk, kind="generate",
+                               num_steps=SERVE_PLUS_STEPS)
+        inter = [eng.submit_generate(short[24 + i], SERVE_PLUS_STEPS)
+                 for i in range(4)]
+        inter_tokens = [f.result(timeout=600).tokens for f in inter]
+        prog = job.wait(timeout_s=600)
+        bulk_wall = time.perf_counter() - t0
+        tenant_tokens = [f.result(timeout=600).tokens
+                         for _, _, f in tenant_futs]
+        f_cap.result(timeout=600)
+        rows = job.result_rows()
+        tenancy = eng.tenancy.view()
+        check(prog["state"] == "done" and prog["completed"]
+              == SERVE_BULK_ITEMS and prog["failed"] == 0
+              and [r["index"] for r in rows] == list(range(SERVE_BULK_ITEMS)),
+              f"the bulk job recorded every item once ({prog})")
+        check(tenancy["capped"]["tokens_held"] == 0
+              and tenancy["gold"]["tokens_held"] == 0,
+              "every quota charge released")
+        bulk_tie = forced_check(
+            pm, bulk + [short[24 + i] for i in range(4)]
+            + [short[j] for _, j, _ in tenant_futs],
+            [r["tokens"] for r in rows] + inter_tokens + tenant_tokens)
+        check(bulk_tie["all_near_ties"], f"bulk, tenant and interactive "
+              f"streams within {SERVE_TOKEN_TIE} of their argmax "
+              f"({bulk_tie})")
+        # the image lane's bulk job: each request's future, to read its
+        # logits beside the job's rows
+        x = list(ctx["images"])
+        by_id = {id(item): i for i, item in enumerate(x)}
+        pred_futs = {}
+        submit_pred = eng.submit_batch_predict
+
+        def recorded(item, timeout_s=0.0):
+            fut = submit_pred(item, timeout_s=timeout_s)
+            pred_futs[by_id[id(item)]] = fut
+            return fut
+
+        eng.submit_batch_predict = recorded
+        torch.cuda.synchronize()
+        before = eng.snapshot()["serve.image_batches"]
+        reset_depthwise_counts()
+        t0 = time.perf_counter()
+        pjob = eng.submit_batch(x, kind="predict")
+        pprog = pjob.wait(timeout_s=600)
+        pred_wall = time.perf_counter() - t0
+        batches = int(eng.snapshot()["serve.image_batches"] - before)
+        launches = depthwise_conv3x3_cuda.launches
+        by_variant = dict(depthwise_conv3x3_cuda.launches_by_variant)
+        logits = np.stack([pred_futs[i].result(timeout=600).logits
+                           for i in range(len(x))])
+        snap = eng.snapshot()
+    finally:
+        eng.stop()
+    err = float(np.abs(logits - ctx["image_ref"]).max())
+    tol = ctx["image_tol"]
+    prow = pjob.result_rows()
+    emit(phase="serve_plus", bulk_items=SERVE_BULK_ITEMS,
+         bulk_wall_s=bulk_wall, bulk_progress=prog,
+         tenant_completion_order=done_order, tenancy=tenancy,
+         quota_refusal=quota, **bulk_tie,
+         batch_items=snap.get("serve.batch_items"),
+         batch_preemptions=snap.get("serve.batch_preemptions"))
+    emit(phase="serve_plus", bulk_predict=len(x), image_batches=batches,
+         k1_launches=launches, k1_launches_by_variant=by_variant,
+         images_per_s=len(x) / pred_wall, max_abs_diff_vs_predict_logits=err,
+         tolerance=tol, progress=pprog)
+    check(pprog["completed"] == len(x) and [r["index"] for r in prow]
+          == list(range(len(x))), "the predict job recorded every image "
+          "once")
+    check(launches == LAYERS_PER_FORWARD * batches and batches > 0,
+          f"bulk predict: K1 launched {launches} times, expected "
+          f"{LAYERS_PER_FORWARD} x {batches} image batches")
+    check(by_variant["tma"] == launches, f"every K1 launch of the bulk "
+          f"predict job on tma: {by_variant}")
+    check(err <= tol and all(r["class_index"] == int(np.argmax(lg))
+                             for r, lg in zip(prow, logits)),
+          f"bulk predict logits within {tol:.3g} of predict_logits ({err:.3g})"
+          f", rows' classes their argmax")
+    out.update(bulk_items_per_s=SERVE_BULK_ITEMS / bulk_wall,
+               bulk_predict_images_per_s=len(x) / pred_wall,
+               k1_launches=launches, k1_launches_by_variant=by_variant)
+
+    # --- (d) tracing, telemetry and the monitor on one run of the mix, then
+    # the same run with both off --------------------------------------------
+    tracker = Tracker(os.path.join(tmp, "serve_runs"), "serve_plus")
+    mrun = tracker.start_run("observed")
+    on = serve_engine_run(pm, prompts, steps,
+                          EngineCfg(trace=True, telemetry=True), run=mrun,
+                          monitor_interval_s=0.1)
+    mrun.end()
+    off = serve_engine_run(pm, prompts, steps, EngineCfg())
+    evs = on["trace"]["events"]
+    idx = span_index(evs)
+    chains_ok = 0
+    for i, total_ms in enumerate(on["total_ms"]):
+        chain = idx.get(f"req-{i}", [])
+        names_i = [e["name"] for e in chain]
+        linked = all(b["parent"] == a["span"]
+                     for a, b in zip(chain, chain[1:]))
+        span_ms = ((chain[-1]["ts"] + chain[-1]["dur"] - chain[0]["ts"])
+                   / 1e3 if chain else 0.0)
+        if (names_i[:1] == ["queue"] and names_i[-1:] == ["decode"]
+                and linked and abs(span_ms - total_ms)
+                <= 1.0 + 1e-3 * total_ms):
+            chains_ok += 1
+    trace_path = os.path.join(tmp, "serve_trace.json")
+    with open(trace_path, "w") as f:
+        json.dump(chrome_trace(evs), f)
+    feed = on["feed"]
+    mon = SLOMonitor([SLOObjective(name="ttft", kind="latency",
+                                   signal="serve.ttft_ms",
+                                   threshold=SERVE_TTFT_SLO_MS,
+                                   target=0.99)])
+    mon.ingest(feed["source"], feed["samples"])
+    now = max(s["ts"] for s in feed["samples"])
+    states = [mon.evaluate([feed], now=now)["ttft"] for _ in range(3)]
+    runv = tracker.get_run(mrun.run_id)
+    hbm = {k: len(runv.metric_history(f"sys.device_hbm_{k}"))
+           for k in ("used_gb", "limit_gb", "percent")}
+    overhead = 1.0 - on["tokens_per_s"] / off["tokens_per_s"]
+    emit(phase="serve_plus", traced_tokens_per_s=on["tokens_per_s"],
+         untraced_tokens_per_s=off["tokens_per_s"],
+         trace_telemetry_overhead=overhead, trace_events=len(evs),
+         spans_dropped=on["trace"]["dropped"], chains_ok=chains_ok,
+         chrome_trace_bytes=os.path.getsize(trace_path),
+         telemetry_samples=len(feed["samples"]),
+         telemetry_dropped=feed["dropped"], slo_states=states,
+         slo_budget=mon.status()["objectives"]["ttft"]["budget"],
+         monitor_series=hbm, host_keys=host_keys_available(),
+         host_keys_note=(None if host_keys_available() else
+                         "psutil does not import here: the sys.host_* "
+                         "keys are absent"))
+    check(chains_ok == len(prompts), f"each request one trace id whose "
+          f"queue -> prefill -> decode spans chain from submission to its "
+          f"last token ({chains_ok} of {len(prompts)})")
+    check(on["trace"]["dropped"] == 0, "no span dropped")
+    check(len(feed["samples"]) > 0 and any(
+        s["name"] == "serve.ttft_ms" for s in feed["samples"]),
+        "telemetry samples, TTFT observations among them")
+    check("page" not in states, f"the SLO monitor does not page on the "
+          f"healthy run ({states})")
+    check(min(hbm.values()) > 0, f"monitor_interval_s logged the "
+          f"sys.device_hbm_* series ({hbm})")
+    check(flash_counts() == k3_before,
+          "the LM lane launched no flash-attention kernel")
+    out.update(traced_tokens_per_s=on["tokens_per_s"],
+               untraced_tokens_per_s=off["tokens_per_s"],
+               trace_telemetry_overhead=overhead,
+               wall_seconds=time.perf_counter() - t_phase)
+    emit(phase="serve_plus", **out)
+    return out
 
 
 def main() -> int:
@@ -3530,7 +4046,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         lm_train_launches, lm_step_ms, lm_tokens_per_s = phase_lm_train(tmp)
         torch.cuda.empty_cache()
-        serve = phase_serve(tmp)
+        serve, serve_ctx = phase_serve(tmp)
+        torch.cuda.empty_cache()
+        serve_plus = phase_serve_plus(tmp, serve_ctx)
+        del serve_ctx
     torch.cuda.empty_cache()
     ring = phase_ring()
     src = "ddw_tpu_torch/ops/csrc/depthwise_sm90.cu"
@@ -3547,13 +4066,20 @@ def main() -> int:
                              "serving": serving_k1,
                              "workshop": sum(workshop["k1"].values()),
                              "pretrained": pretrained["k1"]["total"],
-                             "online_serving": serve["k1_launches"]},
+                             "online_serving": serve["k1_launches"],
+                             "online_bulk_predict": serve_plus["k1_launches"],
+                             "train_traced_epoch": train_launches[
+                                 "k1_traced"]},
         "launches_by_variant": {"train": train_launches["k1_by_variant"],
                                 "serving": serving_k1_by,
                                 "workshop": workshop["k1"],
                                 "pretrained": pretrained["k1"],
                                 "online_serving": serve[
-                                    "k1_launches_by_variant"]},
+                                    "k1_launches_by_variant"],
+                                "online_bulk_predict": serve_plus[
+                                    "k1_launches_by_variant"],
+                                "train_traced_epoch": train_launches[
+                                    "k1_traced_by_variant"]},
         "max_abs_err": max_err["k1"],
         **per_pass["k1"],
         "share_of_bound": per_pass["k1"]["bound_ms"] / per_pass["k1"]["ms"],
@@ -3573,10 +4099,14 @@ def main() -> int:
         "launches": train_launches["k2"],
         "launches_by_path": {"train": train_launches["k2"],
                              "workshop": sum(workshop["k2"].values()),
-                             "pretrained": pretrained["k2"]["total"]},
+                             "pretrained": pretrained["k2"]["total"],
+                             "train_traced_epoch": train_launches[
+                                 "k2_traced"]},
         "launches_by_variant": {"train": train_launches["k2_by_variant"],
                                 "workshop": workshop["k2"],
-                                "pretrained": pretrained["k2"]},
+                                "pretrained": pretrained["k2"],
+                                "train_traced_epoch": train_launches[
+                                    "k2_traced_by_variant"]},
         "max_abs_err": max_err["k2"],
         **per_pass["k2"],
         "share_of_bound": per_pass["k2"]["bound_ms"] / per_pass["k2"]["ms"],
@@ -3594,10 +4124,13 @@ def main() -> int:
         "launches": lm_train_launches["k3"],
         "launches_by_path": {"lm_training": lm_train_launches["k3"],
                              "lm_batch_scoring": sum(k3_launches.values()),
+                             "lm_training_traced": lm_train_launches[
+                                 "traced"][0],
                              **vit_paths(vision, "k3")},
         "launches_by_variant": {
             "lm_training": lm_train_launches["k3_by_variant"],
             "lm_batch_scoring": k3_launches,
+            "lm_training_traced": lm_train_launches["traced_by_variant"][0],
             **vit_variants(vision, "k3")},
         "max_abs_err": k3_err,
         **{k: k3_times["scoring"][k] for k in (
@@ -3624,9 +4157,13 @@ def main() -> int:
         "variant": "sm90",
         "launches": lm_train_launches[kern],
         "launches_by_path": {"lm_training": lm_train_launches[kern],
+                             "lm_training_traced": lm_train_launches[
+                                 "traced"][idx],
                              **vit_paths(vision, kern)},
         "launches_by_variant": {
             "lm_training": lm_train_launches[f"{kern}_by_variant"],
+            "lm_training_traced": lm_train_launches["traced_by_variant"][
+                idx],
             **vit_variants(vision, kern)},
         "max_abs_err": bwd_err[key],
         **{k: bwd_times[key][k] for k in (
@@ -3645,7 +4182,8 @@ def main() -> int:
             "cuda_cores": "ddw_tpu_torch/ops/csrc/flash_attention.cu (f32)"},
         "at_vit_shape": at_vit_shape(vit_times[key]),
         "max_abs_err_at_vit_shape": vit_err[key],
-    } for key, line, kern in (("dq", 425, "k4"), ("dkv", 445, "k5"))] + [{
+    } for key, line, kern, idx in (("dq", 425, "k4", 1),
+                                    ("dkv", 445, "k5", 2))] + [{
         "name": "ring_all_reduce",
         "route": "cuda",
         "source": "ddw_tpu_torch/ops/csrc/ring_reduce.cu",
@@ -3689,7 +4227,13 @@ def main() -> int:
         "online_serving": {k: serve[k] for k in (
             "engine_tokens_per_s", "sequential_tokens_per_s", "ttft_ms_p50",
             "ttft_ms_p99", "total_ms_p50", "total_ms_p99",
-            "image_requests_per_s", "streams_diverged", "wall_seconds")}}),
+            "image_requests_per_s", "streams_diverged", "wall_seconds")},
+        "online_serving_plus": {k: serve_plus[k] for k in (
+            "spec_tokens_per_s", "spec_off_tokens_per_s", "spec_acceptance",
+            "spec_k_effective", "adapter_tokens_per_s",
+            "bulk_items_per_s", "bulk_predict_images_per_s",
+            "traced_tokens_per_s", "untraced_tokens_per_s",
+            "trace_telemetry_overhead", "wall_seconds")}}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

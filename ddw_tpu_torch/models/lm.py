@@ -43,8 +43,15 @@ checkpoint that keeps the matrix products). Each block seeds its own mask
 generator from a seed drawn up front, so a checkpoint's replay draws the
 masks of the first run.
 
-Not yet ported (each refused, naming ``ROADMAP.md``): MoE, sequence
-parallelism (``seq_axis``) and per-row serving ``adapters``.
+Heterogeneous-adapter serving: ``forward(adapters=(stacks, idx))`` gathers
+each row's ``(A, B)`` pair from the adapter stacks of
+:class:`~ddw_tpu_torch.serve.adapters.AdapterPool` by the row's slot index
+and adds its delta (:func:`~ddw_tpu_torch.models.lora.row_lora_delta`) after
+the base projection, never folded into its weight, so a slot-0 row (the
+null adapter, all zeros) gives the adapter-free model's bits.
+
+Not yet ported (each refused, naming ``ROADMAP.md``): MoE and sequence
+parallelism (``seq_axis``).
 """
 
 from __future__ import annotations
@@ -130,6 +137,20 @@ class Embed(nn.Module):
         return F.embedding(tokens, self.embedding).to(self.dtype)
 
 
+def _add_delta(y: torch.Tensor, adapters: dict | None, name: str,
+               x_in: torch.Tensor, contract_ndim: int = 1) -> torch.Tensor:
+    """``y`` plus the per-row adapter delta of projection ``name`` (its
+    gathered ``(a [B, *in, r], b [B, r, *feats])`` in ``adapters``) on the
+    projection's input ``x_in``, cast to ``y``'s dtype as ``ddw_tpu`` adds
+    it — before RoPE and before the cache write."""
+    ab = adapters.get(name) if adapters else None
+    if ab is None:
+        return y
+    from ddw_tpu_torch.models.lora import row_lora_delta
+
+    return y + row_lora_delta(x_in, ab[0], ab[1], contract_ndim).to(y.dtype)
+
+
 class CausalSelfAttention(nn.Module):
     """Causal self-attention, full or contiguous-cache decode mode."""
 
@@ -160,8 +181,11 @@ class CausalSelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, positions=None,
                 cache: dict | None = None,
-                step: "_DecodeStep | None" = None) -> torch.Tensor:
-        q, k, v = self.query(x), self.key(x), self.value(x)  # [B, S, H, hd]
+                step: "_DecodeStep | None" = None,
+                adapters: dict | None = None) -> torch.Tensor:
+        q = _add_delta(self.query(x), adapters, "query", x)  # [B, S, H, hd]
+        k = _add_delta(self.key(x), adapters, "key", x)
+        v = _add_delta(self.value(x), adapters, "value", x)
         if positions is not None:
             q = apply_rope(q, positions, seq_axis=1)
             k = apply_rope(k, positions, seq_axis=1)
@@ -173,7 +197,7 @@ class CausalSelfAttention(nn.Module):
                 v = v.repeat_interleave(self.groups, dim=2)
             out = flash_mha(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=True).transpose(1, 2)
-        return self.out(out)
+        return _add_delta(self.out(out), adapters, "out", out, 2)
 
     def _decode(self, q, k, v, cache: dict, step: "_DecodeStep"
                 ) -> torch.Tensor:
@@ -317,18 +341,22 @@ class DecoderBlock(nn.Module):
         self.fc2 = maybe_lora_dense((mlp_dim,), (hidden,), "fc2", **lora)
 
     def forward(self, x, positions=None, cache=None,
-                dropout_seed: int | None = None, step=None):
+                dropout_seed: int | None = None, step=None, adapters=None):
         """``dropout_seed`` (training only) seeds this block's mask
-        generator, so that a rematerialised replay draws the same masks."""
+        generator, so that a rematerialised replay draws the same masks.
+        ``adapters`` maps this block's projection names to their gathered
+        per-row ``(a, b)`` pairs."""
         gen = None
         if dropout_seed is not None:
             gen = torch.Generator(device=x.device).manual_seed(dropout_seed)
-        h = self.attn(self.LayerNorm_0(x), positions, cache, step)
+        h = self.attn(self.LayerNorm_0(x), positions, cache, step, adapters)
         if gen is not None:
             h = dropout(h, self.dropout_rate, gen)
         x = x + h
-        h = F.gelu(self.fc1(self.LayerNorm_1(x)), approximate="tanh")
-        h = self.fc2(h)
+        h = self.LayerNorm_1(x)
+        h = F.gelu(_add_delta(self.fc1(h), adapters, "fc1", h),
+                   approximate="tanh")
+        h = _add_delta(self.fc2(h), adapters, "fc2", h)
         if gen is not None:
             h = dropout(h, self.dropout_rate, gen)
         return x + h
@@ -403,9 +431,24 @@ class TransformerLM(nn.Module):
         """``dropout_rng`` (a CPU generator) is required in training mode
         with ``dropout > 0``: one seed per block is drawn from it. A paged
         cache takes ``block_tables [B, n_tbl]`` (int, on the model's
-        device) and ``start_pos`` (host ints [B]) per call."""
+        device) and ``start_pos`` (host ints [B]) per call.
+
+        ``adapters``: an optional ``(stacks, idx)`` pair for heterogeneous-
+        adapter serving — ``stacks`` is ``{f"backbone_block{i}": {target:
+        (a_stack [S+1, *in, r], b_stack [S+1, r, *feats])}}`` with slot 0
+        all zeros (the null adapter), ``idx`` a per-row ``[B]`` slot vector.
+        Each row's pair is gathered once here; call arguments of fixed
+        shape, so adapter churn changes contents, never shapes."""
+        row_adapters = None
         if adapters is not None:
-            raise _not_ported("per-row LoRA adapters (serve/adapters)")
+            stacks, idx = adapters
+            if not isinstance(idx, torch.Tensor):
+                idx = host_to_device(idx, tokens.device)
+            idx = idx.to(device=tokens.device, dtype=torch.long)
+            row_adapters = {
+                blk: {name: (a[idx], b[idx])
+                      for name, (a, b) in targets.items()}
+                for blk, targets in stacks.items()}
         seeds = [None] * self.depth
         if self.training and self.dropout > 0:
             if dropout_rng is None:
@@ -448,7 +491,9 @@ class TransformerLM(nn.Module):
             else:
                 layer = None if cache is None \
                     else cache[f"backbone_block{i}"]["attn"]
-                x = block(x, positions, layer, seeds[i], step)
+                x = block(x, positions, layer, seeds[i], step,
+                          None if row_adapters is None
+                          else row_adapters.get(f"backbone_block{i}"))
         return self.head(self.LayerNorm_0(x))
 
     def _decode_step(self, tokens, cache: dict, block_tables,

@@ -8,8 +8,9 @@ beside its frozen kernel, under the same parameter names and shapes as the
 Training freezes the base: :func:`lora_mask` marks the adapter leaves (and
 the head) trainable, :func:`lora_optimizer` applies it to an optimizer at
 leaf granularity, :func:`merge_base_params` grafts a base checkpoint into a
-LoRA tree, :func:`count_trainable` counts what trains. ``row_lora_delta``
-(per-row adapters) comes with the serving pools (``ROADMAP.md``).
+LoRA tree, :func:`count_trainable` counts what trains.
+:func:`row_lora_delta` is the per-row delta of heterogeneous-adapter
+serving (:class:`ddw_tpu_torch.serve.adapters.AdapterPool`).
 """
 
 from __future__ import annotations
@@ -50,6 +51,28 @@ class LoRADenseGeneral(DenseGeneral):
         delta = torch.tensordot(a, self.lora_b.to(self.dtype), dims=1)
         y = self.project(x, self.kernel) + delta * (self.alpha / self.rank)
         return y + self.bias.to(self.dtype)
+
+
+def row_lora_delta(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                   contract_ndim: int = 1) -> torch.Tensor:
+    """Per-ROW adapter delta for heterogeneous-adapter batched serving
+    (S-LoRA, arXiv 2311.03285): each batch row carries its OWN ``(A, B)``
+    pair, gathered from an adapter stack by the row's slot index, so one
+    decode tick serves many adapters (and the base model) at once.
+
+    ``x`` is ``[B, S, *in_dims]``; ``a`` is ``[B, *in_dims, r]``; ``b`` is
+    ``[B, r, *feats]`` with ``alpha / rank`` already folded in (the pool
+    pre-scales at load). ``a`` and ``b`` are cast to ``x``'s dtype, as
+    ``ddw_tpu``'s does. Returns ``[B, S, *feats]``. A zero ``b`` row (the
+    reserved null adapter) contributes exactly ``+0.0``."""
+    bsz, s = x.shape[:2]
+    n_in = math.prod(x.shape[2:2 + contract_ndim])
+    r = a.shape[-1]
+    feats = b.shape[2:]
+    h = torch.bmm(x.reshape(bsz, s, n_in),
+                  a.to(x.dtype).reshape(bsz, n_in, r))
+    out = torch.bmm(h, b.to(x.dtype).reshape(bsz, r, -1))
+    return out.reshape(bsz, s, *feats)
 
 
 def validate_lora_targets(targets: Sequence[str],

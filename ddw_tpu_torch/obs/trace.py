@@ -1,0 +1,341 @@
+"""Low-overhead span tracing with a bounded flight-recorder ring — the
+port of ``ddw_tpu.obs.trace`` (host logic, copied).
+
+The serving fleet's counters (:mod:`ddw_tpu_torch.serve.metrics`) answer "how
+much"; this module answers "where did THIS request's time go". Every layer
+holds a :class:`Tracer` and appends *finished* spans — the caller measures
+with ``time.monotonic()`` it was already taking (the engine's per-request
+``_Times``), so tracing a tick costs one dict append, not a context switch
+or a syscall. Spans carry ``trace``/``span``/``parent`` ids: one trace id
+per request (born at the gateway or honored from an ``x-ddw-trace-id``
+header), span ids unique across processes (random per-tracer prefix +
+counter), parent ids chaining gateway → engine → tick work.
+
+The ring is a drop-oldest ``deque(maxlen=capacity)`` — appends are
+GIL-atomic, readers snapshot, and truncation is never silent: every
+overwrite bumps ``spans_dropped`` (exported in :meth:`Tracer.summary`, and
+as ``obs.spans_dropped`` wherever a summary lands in ``/stats``). The same
+ring doubles as the flight recorder: on engine death its tail rides the
+``ReplicaFailed``/``GangFailure`` forensics and :meth:`Tracer.dump_flight`
+writes ``flight.<gen>.json`` next to the child log.
+
+Exporters:
+
+- :func:`chrome_trace` — Chrome trace-event JSON, loadable in Perfetto /
+  ``chrome://tracing``: one process track per component (gateway, each
+  replica), one thread track per lane of work, and flow arrows stitching
+  each trace id's spans across tracks so a request reads as one causal
+  chain from HTTP arrival to last token;
+- :func:`to_ndjson` / :func:`load_events` — one JSON object per line, the
+  programmatic format ``tools/trace_view.py`` merges and tests assert on.
+
+Timestamps are recorded from the monotonic clock (durations never go
+backwards) but anchored to the epoch once per tracer, so rings drained
+from different processes on one host merge onto a common timeline.
+"""
+
+from __future__ import annotations
+
+import collections
+import itertools
+import json
+import os
+import threading
+import time
+
+__all__ = ["Tracer", "gen_id", "chrome_trace", "to_ndjson", "load_events",
+           "span_index"]
+
+
+def gen_id() -> str:
+    """A fresh 64-bit hex trace id (also usable as a span id seed)."""
+    return os.urandom(8).hex()
+
+
+class _SpanCtx:
+    """Context-manager handle from :meth:`Tracer.span` — ``.id`` is the
+    span id (usable as a child's ``parent`` before the block even exits),
+    ``.set(k=v)`` adds args late (e.g. the routing decision made inside)."""
+
+    __slots__ = ("_tracer", "name", "cat", "trace", "parent", "tid",
+                 "args", "id", "_t0")
+
+    def __init__(self, tracer, name, cat, trace, parent, tid, args):
+        self._tracer = tracer
+        self.name = name
+        self.cat = cat
+        self.trace = trace
+        self.parent = parent
+        self.tid = tid
+        self.args = dict(args) if args else {}
+        self.id = tracer._next_span_id()
+        self._t0 = 0.0
+
+    def set(self, **kw) -> None:
+        self.args.update(kw)
+
+    def __enter__(self) -> "_SpanCtx":
+        self._t0 = self._tracer._clock()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc_type is not None:
+            self.args.setdefault("error", exc_type.__name__)
+        self._tracer.record_span(
+            self.name, self.cat, self._t0, self._tracer._clock(),
+            trace=self.trace, parent=self.parent, tid=self.tid,
+            args=self.args or None, span=self.id)
+
+
+class Tracer:
+    """Bounded-ring span recorder for one process component.
+
+    ``process`` names the Perfetto track ("gateway", "replica0", ...);
+    ``capacity`` bounds the ring (drop-oldest). Thread-safe for the write
+    path by GIL atomicity of ``deque.append``; the drop counter takes a
+    lock only when the ring is already full.
+    """
+
+    def __init__(self, capacity: int = 8192, process: str = "proc",
+                 clock=time.monotonic):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self.capacity = capacity
+        self.process = process
+        self._clock = clock
+        # one-time anchor: monotonic + offset == epoch seconds, so rings
+        # from different processes merge onto a common timeline
+        self._epoch_off = time.time() - time.monotonic()
+        self._ring: collections.deque = collections.deque(maxlen=capacity)
+        self._seq = itertools.count(1)
+        self._sid = itertools.count(1)
+        self._sid_prefix = os.urandom(3).hex()  # span ids unique fleet-wide
+        self._drop_lock = threading.Lock()
+        self.spans_dropped = 0
+
+    # -- ids -----------------------------------------------------------------
+    def _next_span_id(self) -> str:
+        return f"{self._sid_prefix}-{next(self._sid)}"
+
+    # -- recording -----------------------------------------------------------
+    def _append(self, ev: dict) -> None:
+        ring = self._ring
+        if len(ring) == self.capacity:
+            with self._drop_lock:
+                self.spans_dropped += 1
+        ev["seq"] = next(self._seq)
+        ring.append(ev)
+
+    def record_span(self, name: str, cat: str, t0: float, t1: float,
+                    trace: str | None = None, parent: str | None = None,
+                    tid: str = "main", args: dict | None = None,
+                    span: str | None = None) -> str:
+        """Append one finished span measured on THIS tracer's monotonic
+        clock (``t0``/``t1`` in monotonic seconds). Returns its span id."""
+        sid = span or self._next_span_id()
+        self._append({
+            "name": name, "cat": cat, "ph": "X",
+            "ts": (t0 + self._epoch_off) * 1e6,
+            "dur": max(0.0, (t1 - t0)) * 1e6,
+            "pid": self.process, "tid": tid,
+            "trace": trace, "span": sid, "parent": parent,
+            "args": args or {}})
+        return sid
+
+    def instant(self, name: str, cat: str, trace: str | None = None,
+                parent: str | None = None, tid: str = "main",
+                args: dict | None = None) -> str:
+        """Append a zero-duration marker at now."""
+        sid = self._next_span_id()
+        self._append({
+            "name": name, "cat": cat, "ph": "i",
+            "ts": (self._clock() + self._epoch_off) * 1e6, "dur": 0.0,
+            "pid": self.process, "tid": tid,
+            "trace": trace, "span": sid, "parent": parent,
+            "args": args or {}})
+        return sid
+
+    def span(self, name: str, cat: str, trace: str | None = None,
+             parent: str | None = None, tid: str = "main",
+             args: dict | None = None) -> _SpanCtx:
+        """``with tracer.span(...) as sp:`` — for control-path code
+        (gateway handlers, deploy steps, trainer chains) where a context
+        manager's overhead is irrelevant. Hot paths use
+        :meth:`record_span` with timings they already measured."""
+        return _SpanCtx(self, name, cat, trace, parent, tid, args)
+
+    # -- reading / draining --------------------------------------------------
+    def drain(self, since: int = 0) -> list[dict]:
+        """Events with ``seq > since``, oldest first — incremental drains
+        (the parent's ``/v1/trace`` relay) pass the last seq they saw."""
+        return [ev for ev in list(self._ring) if ev["seq"] > since]
+
+    def tail(self, n: int = 64) -> list[dict]:
+        """The last ``n`` events — the flight-recorder view attached to
+        failure forensics."""
+        snap = list(self._ring)
+        return snap[-n:] if n < len(snap) else snap
+
+    def summary(self) -> dict:
+        snap = list(self._ring)
+        return {"process": self.process, "events": len(snap),
+                "dropped": self.spans_dropped, "capacity": self.capacity,
+                "last_seq": snap[-1]["seq"] if snap else 0}
+
+    def dump_flight(self, path: str) -> bool:
+        """Write the whole ring (+ drop accounting) as one JSON file —
+        the crash forensics a dead engine leaves behind. Best-effort:
+        returns False instead of raising on a failed dump (the process is
+        already dying; the dump must not mask the real error)."""
+        try:
+            tmp = f"{path}.tmp"
+            with open(tmp, "w") as f:
+                json.dump({"process": self.process,
+                           "dropped": self.spans_dropped,
+                           "events": list(self._ring)}, f)
+            os.replace(tmp, path)
+            return True
+        except OSError:
+            return False
+
+
+# -- exporters ----------------------------------------------------------------
+
+def to_ndjson(events: list[dict]) -> str:
+    """One event per line — the programmatic merge/assert format."""
+    return "".join(json.dumps(ev) + "\n" for ev in events)
+
+
+def load_events(path: str) -> list[dict]:
+    """Read events back from NDJSON, a JSON list, a flight dump
+    (``{"events": [...]}``), or a Chrome trace (``{"traceEvents": [...]}``,
+    metadata/flow events skipped — they are derivable)."""
+    with open(path) as f:
+        text = f.read()
+    text = text.strip()
+    if not text:
+        return []
+    if text[0] == "{" or text[0] == "[":
+        try:
+            obj = json.loads(text)
+        except json.JSONDecodeError:
+            obj = None          # NDJSON whose rows are objects — fall through
+        if isinstance(obj, list):
+            return obj
+        if isinstance(obj, dict):
+            if "events" in obj:
+                return obj["events"]
+            return _from_chrome(obj.get("traceEvents", []))
+    return [json.loads(line) for line in text.splitlines() if line.strip()]
+
+
+def _from_chrome(rows: list[dict]) -> list[dict]:
+    """Invert :func:`chrome_trace`: numeric pids/tids back to their
+    process/thread names (via the ``M`` metadata rows) and the folded
+    trace/span/parent identity back to top level — so a Chrome export
+    round-trips through :func:`span_index` and the view tools."""
+    pnames: dict = {}
+    tnames: dict = {}
+    for ev in rows:
+        if ev.get("ph") != "M":
+            continue
+        if ev.get("name") == "process_name":
+            pnames[ev["pid"]] = ev.get("args", {}).get("name")
+        elif ev.get("name") == "thread_name":
+            tnames[(ev["pid"], ev["tid"])] = ev.get("args", {}).get("name")
+    out = []
+    for ev in rows:
+        if ev.get("ph") not in ("X", "i") or ev.get("cat") == "flow":
+            continue
+        args = dict(ev.get("args") or {})
+        rec = {"name": ev.get("name", "?"), "cat": ev.get("cat", "obs"),
+               "ph": ev["ph"], "ts": ev.get("ts", 0.0),
+               "pid": pnames.get(ev.get("pid"), ev.get("pid")),
+               "tid": tnames.get((ev.get("pid"), ev.get("tid")),
+                                 ev.get("tid"))}
+        if ev.get("ph") == "X":
+            rec["dur"] = ev.get("dur", 0.0)
+        for key in ("trace", "span", "parent"):
+            if key in args:
+                rec[key] = args.pop(key)
+        rec["args"] = args
+        out.append(rec)
+    return out
+
+
+def _flow_id(trace: str) -> int:
+    try:
+        return int(trace[:15], 16) or 1
+    except (ValueError, TypeError):
+        return abs(hash(trace)) % (1 << 53) or 1
+
+
+def chrome_trace(events: list[dict], flow: bool = True) -> dict:
+    """Render merged events as Chrome trace-event JSON (Perfetto-loadable).
+
+    Process/thread labels become numeric pids/tids with ``M`` metadata
+    rows (one track per replica, one sub-track per lane of work), and —
+    with ``flow=True`` — each trace id's spans are stitched with flow
+    arrows (``s``/``t``/``f``) in timestamp order, so one request reads
+    as a single causal chain across the fleet. Flow generation happens at
+    export time: it costs the hot path nothing.
+    """
+    pids: dict[str, int] = {}
+    tids: dict[tuple[str, str], int] = {}
+    out: list[dict] = []
+    for ev in sorted(events, key=lambda e: e.get("ts", 0.0)):
+        if ev.get("ph") not in ("X", "i"):
+            continue
+        p = str(ev.get("pid", "proc"))
+        t = str(ev.get("tid", "main"))
+        if p not in pids:
+            pids[p] = len(pids) + 1
+            out.append({"ph": "M", "name": "process_name", "pid": pids[p],
+                        "tid": 0, "args": {"name": p}})
+        if (p, t) not in tids:
+            tids[(p, t)] = len(tids) + 1
+            out.append({"ph": "M", "name": "thread_name", "pid": pids[p],
+                        "tid": tids[(p, t)], "args": {"name": t}})
+        args = dict(ev.get("args") or {})
+        for key in ("trace", "span", "parent"):
+            if ev.get(key):
+                args[key] = ev[key]
+        row = {"name": ev.get("name", "?"), "cat": ev.get("cat", "obs"),
+               "ph": ev["ph"], "ts": ev.get("ts", 0.0),
+               "pid": pids[p], "tid": tids[(p, t)], "args": args}
+        if ev["ph"] == "X":
+            row["dur"] = ev.get("dur", 0.0)
+        else:
+            row["s"] = "t"
+        out.append(row)
+    if flow:
+        chains: dict[str, list[dict]] = {}
+        for row in out:
+            tr = row.get("args", {}).get("trace")
+            if tr and row["ph"] == "X":
+                chains.setdefault(tr, []).append(row)
+        for tr, rows in chains.items():
+            if len(rows) < 2:
+                continue
+            fid = _flow_id(tr)
+            for k, row in enumerate(rows):
+                ph = "s" if k == 0 else ("f" if k == len(rows) - 1 else "t")
+                fe = {"ph": ph, "id": fid, "name": "request", "cat": "flow",
+                      "ts": row["ts"] + (row.get("dur", 0.0) if k == 0
+                                         else 0.0),
+                      "pid": row["pid"], "tid": row["tid"]}
+                if ph == "f":
+                    fe["bp"] = "e"
+                out.append(fe)
+    return {"traceEvents": out, "displayTimeUnit": "ms"}
+
+
+def span_index(events: list[dict]) -> dict[str, list[dict]]:
+    """Group span events by trace id (untraced engine-level spans land
+    under ``""``) — the per-request view summaries and tests are built on."""
+    by: dict[str, list[dict]] = {}
+    for ev in events:
+        by.setdefault(ev.get("trace") or "", []).append(ev)
+    for rows in by.values():
+        rows.sort(key=lambda e: e.get("ts", 0.0))
+    return by

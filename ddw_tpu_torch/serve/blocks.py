@@ -18,7 +18,15 @@ batch):
   dispatch narrowed to the smallest power-of-two row bucket covering live
   rows (``decode_buckets``); each tick's ``[rows, n_tbl]`` table is copied
   to the device once and the picks stay there until the chain's fetch;
-- **copy**: clone one block, the copy-on-write primitive.
+- **copy**: clone one block, the copy-on-write primitive;
+- **spec_draft / spec_verify** (the speculative tick): on a DRAFT pool one
+  lagged S=2 step ``(prev, cur)`` then ``k - 1`` single steps propose ``k``
+  tokens per row; on the TARGET pool one S=k+1 pass per row at its own
+  depth scores the current token and the ``k`` drafts. Both write past a
+  row's ``filled`` without advancing it; :meth:`BlockPool.commit_spec`
+  advances by the accepted count, and frees the blocks held only for
+  rejected positions. Stale K/V beyond a row's depth is never attended:
+  each query masks every key past its own position.
 
 The cache is updated in place (where ``ddw_tpu`` donates it). Attention
 gathers each tile of a row's blocks back into the contiguous layout and
@@ -35,9 +43,11 @@ blocks park in an LRU of idle cached blocks, unregistered ones free at
 once. Out of blocks mid-decode (only with ``overcommit > 1``), the tick
 allocator preempts the YOUNGEST stream of the lowest lane by recompute.
 
-Not ported (refused by name, ``ROADMAP.md``): tensor parallelism (a
-``mesh``) and per-row adapter stacks (``adapters``); the speculative
-tick's draft/verify programs come with the engine's spec tick.
+With an :class:`~ddw_tpu_torch.serve.adapters.AdapterPool` attached
+(``adapters=``) every prefill, decode and verify forward takes its stacks
+and the rows' slot indices (slot 0 the null adapter for base, free and
+warmup rows). Not ported (refused by name, ``ROADMAP.md``): tensor
+parallelism (a ``mesh``).
 """
 
 from __future__ import annotations
@@ -123,8 +133,6 @@ class BlockPool:
         if mesh is not None:
             raise _not_ported("tensor-parallel serving (a BlockPool mesh, "
                               "tp > 1)")
-        if adapters is not None:
-            raise _not_ported("per-row LoRA adapter stacks (AdapterPool)")
         if n_blocks < 1:
             raise ValueError(f"n_blocks must be >= 1, got {n_blocks}")
         if interactive_reserve < 0:
@@ -159,6 +167,8 @@ class BlockPool:
         #                             live rows
         self.model = model
         self.device = model.head.kernel.device
+        self._adapters = adapters       # optional AdapterPool: stacks and
+        #                                 per-row slots ride every forward
         cap = -(-model.max_len // tile) * tile
         self.n_tbl = cap // block_size    # block-table width (cap coverage)
         self._cap = cap
@@ -520,6 +530,13 @@ class BlockPool:
         st = self._streams[row]
         st.filled = st.prompt_len
 
+    def set_filled(self, row: int, n: int) -> None:
+        """Pin a row's valid-K/V depth explicitly. The draft pool's P == 1
+        edge: nothing prefills (the lone prompt token is written by the
+        first lagged draft step itself), so the engine rewinds the pointer
+        that :meth:`admit`'s ``prompt_len`` bookkeeping would imply."""
+        self._streams[row].filled = n
+
     def release(self, row: int, preempted: bool = False) -> None:
         """Return a finished (or preempted) stream's row and blocks.
         Unregistered blocks free IMMEDIATELY; registered ones park in the
@@ -775,6 +792,34 @@ class BlockPool:
         draft pools together."""
         self._extend(self._streams[row], k)
 
+    def stream_order(self, row: int) -> tuple[bool, int]:
+        """Preemption sort key for a resident row — ``(is_batch, seq)``:
+        max() over live rows reproduces :meth:`prepare_tick`'s victim
+        policy (batch before interactive, youngest first) at the engine
+        level, where the two spec pools pick ONE joint victim."""
+        st = self._streams[row]
+        return (st.lane == "batch", st.seq)
+
+    def commit_spec(self, row: int, advance: int) -> None:
+        """Advance a row's write pointer by the ACCEPTED positions of a
+        speculative tick and roll back the rest: ``spec_draft`` /
+        ``spec_verify`` wrote up to ``k + 1`` positions past ``filled``
+        without advancing it, so moving ``filled`` forward ``advance``
+        rewinds the pointer inside the partially filled tail block
+        (rejected K/V beyond it is garbage, overwritten before it is read
+        next tick) and any block allocated ONLY for rejected positions is
+        freed here — ``_committed`` re-grows by each freed block, exactly
+        reversing ``_extend``'s decrement, so the admission budget stays
+        worst-case-correct. Prompt blocks (the only ones the prefix cache
+        ever registers) are never freed."""
+        st = self._streams[row]
+        st.filled = min(st.filled + advance, st.total)
+        need = max(self.blocks_for(st.filled),
+                   self.blocks_for(st.prompt_len))
+        while len(st.blocks) > need:
+            self._decref(st.blocks.pop())
+            self._committed += 1
+
     def table(self, row: int) -> np.ndarray:
         out = np.zeros((self.n_tbl,), np.int32)
         st = self._streams[row]
@@ -790,6 +835,20 @@ class BlockPool:
                 tables[i, :len(st.blocks)] = st.blocks
                 starts[i] = st.filled
         return tables, starts
+
+    def _adapter_extras(self, rows):
+        """The forward's ``adapters`` argument: ``(stacks, idx[R])`` with
+        ``idx[i]`` the row's adapter slot (0 = base / free / warmup row →
+        the null stack row, delta exactly 0); None when no pool is
+        attached."""
+        if self._adapters is None:
+            return None
+        idx = np.zeros((len(rows),), np.int64)
+        for i, row in enumerate(rows):
+            st = self._streams.get(row) if row is not None else None
+            if st is not None:
+                idx[i] = st.adapter_slot
+        return (self._adapters.stacks(), host_to_device(idx, self.device))
 
     # -- device work ----------------------------------------------------------
     @torch.no_grad()
@@ -819,6 +878,7 @@ class BlockPool:
                              - int(true_lens[i]))
         logits = self.model(host_to_device(padded_suffixes, self.device),
                             cache=self.cache,
+                            adapters=self._adapter_extras(rows),
                             block_tables=host_to_device(tables, self.device),
                             start_pos=starts)
         idx = host_to_device(np.asarray(true_lens, np.int64) - 1,
@@ -869,13 +929,111 @@ class BlockPool:
         tables_d = host_to_device(tables, self.device)
         tok = host_to_device(tokens, self.device)
         keys = np.asarray(keys)
+        adapters = self._adapter_extras(rows)
         out = []
         for j in range(self.steps_per_tick):
             logits = self.model(tok[:, None], cache=self.cache,
+                                adapters=adapters,
                                 block_tables=tables_d, start_pos=starts + j)
             tok = _pick(logits[:, 0], temps, keys[:, j])
             out.append(tok)
         return torch.stack(out, 1).cpu().numpy().astype(np.int32)
+
+    def spec_draft(self, prev_tokens, cur_tokens, temps, keys) -> np.ndarray:
+        """Draft-model proposal round (called on the DRAFT pool): a live
+        draft row has processed the picked history H up to ``H[:-2]`` (it
+        lags the target one position), so the round first feeds the lag
+        pair ``[H[-2], H[-1]]`` as one S=2 step — its second position
+        proposes draft 1 — then chains ``k - 1`` single-token steps for
+        drafts 2..k (``keys [R, k]``: the ORIGINAL per-step seeds, so a
+        self-draft reproduces the target's own picks). Writes ``k + 1``
+        positions past ``filled`` WITHOUT advancing it; the engine advances
+        via :meth:`commit_spec` after verification. Returns ``[R, k]``."""
+        r = self.max_resident
+        k = np.asarray(keys).shape[1]
+        nb = self._live_bucket()
+        drafts = self._spec_draft_dispatch(
+            np.asarray(prev_tokens)[:nb], np.asarray(cur_tokens)[:nb],
+            np.asarray(temps)[:nb], np.asarray(keys)[:nb], list(range(nb)))
+        if nb < r:
+            out = np.zeros((r, k), drafts.dtype)
+            out[:nb] = drafts
+            drafts = out
+        return drafts
+
+    @torch.no_grad()
+    def _spec_draft_dispatch(self, prev, cur, temps, keys, rows
+                             ) -> np.ndarray:
+        tables, starts = self._tables_starts(rows)
+        tables_d = host_to_device(tables, self.device)
+        keys = np.asarray(keys)
+        k = keys.shape[1]
+        pair = host_to_device(np.stack([prev, cur], axis=1), self.device)
+        logits = self.model(pair, cache=self.cache, block_tables=tables_d,
+                            start_pos=starts)
+        tok = _pick(logits[:, 1], temps, keys[:, 0])
+        out = [tok]
+        for j in range(1, k):
+            logits = self.model(tok[:, None], cache=self.cache,
+                                block_tables=tables_d,
+                                start_pos=starts + 1 + j)
+            tok = _pick(logits[:, 0], temps, keys[:, j])
+            out.append(tok)
+        return torch.stack(out, 1).cpu().numpy().astype(np.int32)
+
+    def spec_verify(self, tokens, temps, keys) -> np.ndarray:
+        """Target verification (called on the TARGET pool): score all
+        ``k + 1`` positions — ``tokens [R, k+1]`` = current token + the k
+        drafts — in ONE multi-token paged pass per row at its own depth,
+        picking position ``j`` with the ORIGINAL step seed ``keys[:, j]``.
+        The engine accepts drafts while they match the picks, so every
+        emitted token is by induction the token sequential decode would
+        have picked. Writes without advancing ``filled`` (:meth:`commit_spec`
+        advances / rolls back); positions past a row's allocated blocks
+        route to the null block and only ever back picks the engine
+        discards. Returns picks ``[R, k+1]``."""
+        r = self.max_resident
+        s = np.asarray(tokens).shape[1]
+        nb = self._live_bucket()
+        picks = self._spec_verify_dispatch(
+            np.asarray(tokens)[:nb], np.asarray(temps)[:nb],
+            np.asarray(keys)[:nb], list(range(nb)))
+        self.last_decode_bucket = nb
+        if nb < r:
+            self.stats["decode_rows_skipped"] += r - nb
+            out = np.zeros((r, s), picks.dtype)
+            out[:nb] = picks
+            picks = out
+        return picks
+
+    @torch.no_grad()
+    def _spec_verify_dispatch(self, tokens, temps, keys, rows) -> np.ndarray:
+        tables, starts = self._tables_starts(rows)
+        keys = np.asarray(keys)
+        logits = self.model(host_to_device(tokens, self.device),
+                            cache=self.cache,
+                            adapters=self._adapter_extras(rows),
+                            block_tables=host_to_device(tables, self.device),
+                            start_pos=starts)
+        picks = [_pick(logits[:, j], temps, keys[:, j])
+                 for j in range(logits.shape[1])]
+        return torch.stack(picks, 1).cpu().numpy().astype(np.int32)
+
+    def warmup_spec(self, spec_k: int, role: str) -> None:
+        """Run one spec program per resident bucket of the ladder
+        (null-table rows, like :meth:`warmup`): the verify pass on the
+        target pool, the lagged draft chain on the draft pool."""
+        for nb in self.resident_ladder():
+            if role == "verify":
+                self._spec_verify_dispatch(
+                    np.zeros((nb, spec_k + 1), np.int32),
+                    np.zeros((nb,), np.float32),
+                    np.zeros((nb, spec_k + 1), np.int64), [None] * nb)
+            else:
+                self._spec_draft_dispatch(
+                    np.zeros((nb,), np.int32), np.zeros((nb,), np.int32),
+                    np.zeros((nb,), np.float32),
+                    np.zeros((nb, spec_k), np.int64), [None] * nb)
 
     def resident_ladder(self) -> tuple[int, ...]:
         """Decode-batch bucket ladder: pow2 row counts up to

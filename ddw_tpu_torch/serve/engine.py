@@ -14,6 +14,22 @@ the card busy:
   advances all active streams ``steps_per_tick`` tokens; finished
   sequences leave without stalling their neighbours. Greedy outputs are
   the tokens of sequential ``generate`` for any admission interleaving.
+- **speculative tick** (``spec_k > 0`` with ``draft=``): a draft model's
+  own paged pool, whose rows mirror the target's, proposes ``spec_k``
+  tokens per stream per tick; the target verifies all ``spec_k + 1``
+  positions in one multi-token pass; drafts are accepted while they match
+  the target's own picks under the original per-step seeds, so every
+  emitted token is the token spec-off decode would have picked (greedy and
+  seeded). The effective width steps down and back up with an acceptance
+  EWMA.
+- **adapters** (``adapter_slots > 0``,
+  :class:`~ddw_tpu_torch.serve.adapters.AdapterPool`): ``load_adapter`` /
+  ``unload_adapter``; a request's ``adapter_id`` pins its adapter until it
+  resolves, its rows carry the adapter's slot through every forward, and
+  its prefix chain is salted by the adapter's digest.
+- **tenants** (:mod:`ddw_tpu_torch.serve.tenancy`): quotas charged at
+  submission (``QuotaExceeded``) and released on every completion path;
+  weighted fair share within priority tiers on the batch lane.
 - **image**: dynamic batching — requests coalesce until ``max_batch`` are
   waiting or the oldest has waited ``max_wait_ms``, the batch pads to a
   power-of-two bucket, and the packaged model's forward serves it (with
@@ -21,12 +37,20 @@ the card busy:
 - **admission** (:mod:`ddw_tpu_torch.serve.admission`): bounded queues
   refuse over-capacity submissions with ``Overloaded``; deadline-expired
   requests are shed before any device work.
-- **lanes**: a throughput-SLO batch lane (``submit_batch_item``,
-  ``submit_batch_predict``) backfills idle blocks behind an
+- **lanes** (:mod:`ddw_tpu_torch.serve.lanes`): a throughput-SLO batch lane
+  (``submit_batch`` bulk jobs, ``submit_batch_item`` /
+  ``submit_batch_predict`` per item) backfills idle blocks behind an
   interactive-reserve watermark; interactive traffic wins admission and
   batch streams are preempted first.
+- **observability** (:mod:`ddw_tpu_torch.obs`): ``trace=True`` records a
+  span per admission, prefill, tick and preemption into a drop-oldest ring
+  (``trace_events``; its tail rides every ``ReplicaFailed``);
+  ``telemetry=True`` samples counters and gauges on a thread
+  (``telemetry_events``) and observes each interactive request's latency.
+  Both off, the hot path touches neither.
 - **metrics** (:mod:`ddw_tpu_torch.serve.metrics`): queue time, TTFT,
-  tokens/s and latency tails, exported into a tracker run.
+  tokens/s and latency tails, exported into a tracker run, with
+  ``monitor_interval_s`` sampling utilization beside them.
 
 Failure containment is ``ddw_tpu``'s: a recoverable error in one tick fails
 the requests that tick touched with a structured
@@ -39,11 +63,9 @@ with ``ReplicaFailed`` (never a hang) and later submissions refused.
 
 The loop is a background thread: it enters ``torch.no_grad()`` itself
 (grad mode is thread-local), and its device work runs on that thread's
-current stream. Not yet ported, each refused at construction or call with
-an error naming ``ROADMAP.md``: the speculative tick (``spec_k``,
-``draft=``), adapters, tenants, tracing and telemetry, tensor parallelism,
-the disaggregation roles, ``DDW_FAULT`` serve faults, ``submit_batch``
-(bulk jobs) and the system monitor.
+current stream. Not yet ported, each refused at construction with an error
+naming ``ROADMAP.md``: tensor parallelism (``tp > 1``, ``mesh=``), the
+disaggregation roles and ``DDW_FAULT`` serve faults.
 """
 
 from __future__ import annotations
@@ -59,6 +81,12 @@ import warnings
 import numpy as np
 import torch
 
+from ddw_tpu_torch.models.spec_decode import match_length
+from ddw_tpu_torch.obs.telemetry import TelemetryHub
+from ddw_tpu_torch.obs.trace import Tracer
+from ddw_tpu_torch.serve.adapters import (AdapterError, AdapterPool,
+                                          UnknownAdapter,
+                                          load_adapter as load_adapter_file)
 from ddw_tpu_torch.serve.admission import (AdmissionController,
                                            DeadlineExceeded, Overloaded,
                                            ReplicaFailed)
@@ -67,6 +95,8 @@ from ddw_tpu_torch.serve.bucketing import (batch_bucket, bucket_len,
                                            pad_to_bucket)
 from ddw_tpu_torch.serve.metrics import EngineMetrics, RequestRecord
 from ddw_tpu_torch.serve.slots import SlotPool
+from ddw_tpu_torch.serve.tenancy import (QuotaExceeded, TenancyController,
+                                         TenantAwareAdmission, TenantSpec)
 
 __all__ = ["EngineCfg", "ServingEngine", "GenerateResult", "PredictResult",
            "Overloaded", "DeadlineExceeded", "ReplicaFailed"]
@@ -78,7 +108,8 @@ FAILED = "failed"        # terminal: loop dead, futures failed, submissions
 #                          refused — restart()/clone_fresh() to recover
 STOPPED = "stopped"      # clean stop()
 
-_UNSET = object()        # set_checkpoint(draft_dir=...) sentinel
+_UNSET = object()        # set_checkpoint(draft_dir=...) sentinel: "leave
+#                          the currently staged/serving draft alone"
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -94,8 +125,8 @@ class ServeCrash(RuntimeError):
 @dataclasses.dataclass
 class EngineCfg:
     """Batching / admission policy knobs (every field of ``ddw_tpu``'s,
-    with its default; the fields of unported features are refused by
-    :class:`ServingEngine` when set)."""
+    with its default; ``tp > 1`` and a ``role`` other than ``"both"`` are
+    refused by :class:`ServingEngine`)."""
 
     n_slots: int = 8            # concurrent LM sequences on device
     steps_per_tick: int = 4     # decode chain length per tick
@@ -128,17 +159,35 @@ class EngineCfg:
     #                             admission; -1 = auto (n_blocks // 4)
     batch_rows_headroom: int = 1   # resident ROWS a fresh batch admission
     #                             must leave free for interactive arrivals
-    spec_k: int = 0             # speculative tick (not ported: refused)
-    trace: bool = False         # request tracing (not ported: refused)
-    trace_capacity: int = 8192
-    telemetry: bool = False     # live telemetry (not ported: refused)
+    # speculative decoding: a draft model proposes spec_k tokens per stream
+    # per tick and the target verifies all k+1 positions in ONE multi-token
+    # pass; outputs equal spec_k=0's. Requires paged=True and draft=.
+    spec_k: int = 0             # draft tokens proposed per tick; 0 = off
+    # request tracing (obs/trace): spans through admission, prefill, every
+    # tick, preemption and pool pressure; False leaves the hot path free
+    # of tracer calls
+    trace: bool = False
+    trace_capacity: int = 8192  # flight-recorder ring bound (drop-oldest)
+    # live telemetry (obs/telemetry): a sampler thread snapshots counters
+    # and gauges every telemetry_interval_s, and each completed
+    # interactive request records its latencies; False leaves the hot
+    # path free of hub calls
+    telemetry: bool = False
     telemetry_interval_s: float = 0.25
-    telemetry_capacity: int = 4096
+    telemetry_capacity: int = 4096  # sample ring bound (drop-oldest)
     tp: int = 1                 # tensor parallelism (not ported: refused)
-    adapter_slots: int = 0      # LoRA adapter pool (not ported: refused)
-    adapter_rank: int = 8
-    adapter_targets: tuple = ()
-    tenants: tuple = ()         # per-tenant QoS (not ported: refused)
+    # heterogeneous LoRA adapters (serve/adapters AdapterPool): slot 0 is
+    # the null adapter, so tenant-less traffic gives adapter_slots=0's
+    # tokens. Requires paged=True.
+    adapter_slots: int = 0      # loadable adapter slots beyond the null
+    #                             slot; 0 = adapters off
+    adapter_rank: int = 8       # pool-wide rank ceiling; smaller-rank
+    #                             adapters zero-pad up
+    adapter_targets: tuple = ()  # projections adapters may touch; () =
+    #                             every LM_LORA_TARGETS projection
+    # per-tenant QoS (serve/tenancy): TenantSpec entries (objects or their
+    # to_dict forms); empty = one implicit tenant, plain admission
+    tenants: tuple = ()
     role: str = "both"          # prefill/decode disaggregation (only
     #                             "both" is ported)
 
@@ -205,11 +254,14 @@ class _Times:
 class _LMRequest:
     __slots__ = ("prompt", "num_steps", "temperature", "keys", "deadline",
                  "future", "times", "tokens", "emitted", "on_token",
-                 "claimed", "lane", "trace_id", "ticks", "tenant")
+                 "claimed", "lane", "trace_id", "parent_span", "last_span",
+                 "ticks", "tenant", "adapter_id", "adapter_slot", "salt",
+                 "quota_blocks", "quota_tokens", "released")
 
     def __init__(self, prompt, num_steps, temperature, keys, deadline, now,
                  on_token=None, lane="interactive", trace_id=None,
-                 tenant=None):
+                 parent_span=None, tenant=None, adapter_id=None,
+                 adapter_slot=0, salt=b""):
         self.prompt = prompt
         self.num_steps = num_steps
         self.temperature = temperature
@@ -224,9 +276,18 @@ class _LMRequest:
         #                             once; a preempted-and-requeued request
         #                             must not re-claim)
         self.lane = lane            # "interactive" | "batch"
-        self.trace_id = trace_id    # joins the request's jsonl row
+        self.trace_id = trace_id    # end-to-end trace id (None = untraced)
+        self.parent_span = parent_span  # a caller's span, when any
+        self.last_span = parent_span    # newest span in this request's
+        #                             chain — the next span's parent
         self.ticks = 0              # decode ticks this request rode
         self.tenant = tenant        # attribution label; None = untagged
+        self.adapter_id = adapter_id    # LoRA adapter, None = base model
+        self.adapter_slot = adapter_slot  # pinned pool slot (0 = null)
+        self.salt = salt            # prefix-cache salt (adapter digest)
+        self.quota_blocks = 0       # tenancy charge held by this request
+        self.quota_tokens = 0       # (released exactly once at resolution)
+        self.released = False       # pin + quota given back (idempotence)
 
     def effective_prompt(self) -> np.ndarray:
         """The prompt a (re-)prefill must run: the original tokens plus
@@ -281,11 +342,14 @@ class ServingEngine:
     ``lm`` / ``image`` accept a packaged model (anything with an
     ``engine_handle()``: :class:`~ddw_tpu_torch.serving.lm_package.
     LMPackagedModel`, :class:`~ddw_tpu_torch.serving.package.PackagedModel`)
-    or the handle itself; at least one is required. The engine runs where
-    the packages live (the card unless they were loaded with
-    ``device="cpu"``). With ``run`` set, per-request rows stream to the
-    run's ``serving/serve_requests.jsonl`` and SLO metrics land in the
-    tracker on :meth:`stop`.
+    or the handle itself; at least one is required. ``draft`` (same
+    duck-type as ``lm``) is the speculative-decoding draft model — required
+    when ``cfg.spec_k > 0``, ignored otherwise. The engine runs where the
+    packages live (the card unless they were loaded with ``device="cpu"``).
+    With ``run`` set, per-request rows stream to the run's
+    ``serving/serve_requests.jsonl``, SLO metrics land in the tracker on
+    :meth:`stop`, and ``monitor_interval_s > 0`` samples utilization into it
+    while the engine is live.
     """
 
     def __init__(self, lm=None, image=None, cfg: EngineCfg | None = None,
@@ -294,16 +358,39 @@ class ServingEngine:
         if lm is None and image is None:
             raise ValueError("engine needs an lm and/or image model")
         self.cfg = cfg or EngineCfg()
-        self._refuse_unported(draft, mesh, monitor_interval_s)
+        self._refuse_unported(mesh)
         self.run = run
         self.metrics = EngineMetrics()
+        # the tracer object always exists (drains and summaries stay cheap
+        # on an empty ring) but the HOT PATH branches on the plain bool
+        self.tracer = Tracer(capacity=self.cfg.trace_capacity,
+                             process=f"replica{replica_id}")
+        self._tracing = bool(self.cfg.trace)
+        # the hub exists only when enabled; the hot path branches on the
+        # plain bool
+        self.telem = (TelemetryHub(capacity=self.cfg.telemetry_capacity,
+                                   interval_s=self.cfg.telemetry_interval_s,
+                                   source=f"replica{replica_id}")
+                      if self.cfg.telemetry else None)
+        self._telemetry = bool(self.cfg.telemetry)
+        if self.telem is not None:
+            self.telem.add_collector(self._telemetry_collector)
         per_kind = {"lm_batch": self.cfg.batch_queue_depth,
                     "image_batch": self.cfg.batch_queue_depth}
-        self._ctrl = AdmissionController(self.cfg.queue_depth,
-                                         per_kind=per_kind)
+        specs = tuple(TenantSpec.from_dict(t) if isinstance(t, dict) else t
+                      for t in (self.cfg.tenants or ()))
+        self.tenancy = TenancyController(specs=specs) if specs else None
+        if self.tenancy is not None:
+            self._ctrl = TenantAwareAdmission(
+                self.cfg.queue_depth, self.tenancy, per_kind=per_kind)
+        else:
+            self._ctrl = AdmissionController(self.cfg.queue_depth,
+                                             per_kind=per_kind)
         self._cv = threading.Condition()
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
+        self._monitor = None
+        self._monitor_interval_s = monitor_interval_s
         self._service_ms = 0.0      # decaying per-request service estimate
         self._per_token_ms = 0.0    # decaying per-generated-token estimate
         #                             (the paged pool's retry_after_ms hint)
@@ -327,39 +414,25 @@ class ServingEngine:
         #                                      loop runs between ticks
 
         self.model_dir: str | None = None    # package dir behind _lm
+        self.draft_dir: str | None = None    # package dir behind _draft
         self._pending_checkpoint: str | None = None   # applied at restart()
-        self._init_lm(lm)
+        self._pending_draft: object = _UNSET          # staged draft swap
+        self._init_lm(lm, draft=draft)
         self._pool_stats_seen: dict[str, int] = {}
 
         self._image = _handle(image)
         if self._image is not None:
             self._image_apply = self._image.apply
 
-    def _refuse_unported(self, draft, mesh, monitor_interval_s) -> None:
-        """Every feature of ``ddw_tpu``'s engine this port lacks raises
-        here, at construction, naming ``ROADMAP.md`` — never ignored."""
+    def _refuse_unported(self, mesh) -> None:
+        """What of ``ddw_tpu``'s engine this port lacks raises here, at
+        construction, naming ``ROADMAP.md`` — never ignored."""
         c = self.cfg
-        if c.spec_k < 0:
-            raise ValueError(f"spec_k must be >= 0, got {c.spec_k}")
-        if c.spec_k > 0 or draft is not None:
-            raise _not_ported("the engine's speculative tick (spec_k > 0, "
-                              "draft=)")
-        if c.adapter_slots > 0:
-            raise _not_ported("the LoRA adapter pool (adapter_slots > 0)")
-        if c.tenants:
-            raise _not_ported("per-tenant QoS (EngineCfg.tenants)")
-        if c.trace:
-            raise _not_ported("request tracing (EngineCfg.trace)")
-        if c.telemetry:
-            raise _not_ported("live telemetry (EngineCfg.telemetry)")
         if c.tp > 1 or mesh is not None:
             raise _not_ported("tensor-parallel serving (tp > 1, mesh=)")
         if c.role != "both":
             raise _not_ported(f"the disaggregated {c.role!r} role "
                               f"(the gateway's prefill/decode split)")
-        if monitor_interval_s > 0:
-            raise _not_ported("the system monitor (utils/sysmon, "
-                              "monitor_interval_s > 0)")
         fault = os.environ.get("DDW_FAULT", "")
         if any(spec.strip().startswith("serve:")
                for spec in fault.split(";")):
@@ -371,30 +444,83 @@ class ServingEngine:
         h = self._lm if self._lm is not None else self._image
         return h.device
 
-    def _init_lm(self, lm) -> None:
-        """Build (or rebuild) the LM handle + KV pool. Called at
+    def _init_lm(self, lm, draft=_UNSET) -> None:
+        """Build (or rebuild) the LM handle + KV pool(s). Called at
         construction and by :meth:`restart` when a staged checkpoint
-        (:meth:`set_checkpoint`) replaces the weights."""
+        (:meth:`set_checkpoint`) replaces the weights. ``draft`` left unset
+        keeps the current draft handle."""
         self._lm = _handle(lm)
+        if draft is _UNSET:
+            draft = getattr(self, "_draft", None)
+        else:
+            draft = _handle(draft)
+        self._draft = draft
+        self._draft_pool: BlockPool | None = None
+        self.adapters: AdapterPool | None = None
         if self._lm is None:
             self.pool = None
             return
+        spec = self.cfg.spec_k > 0
+        if self.cfg.spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {self.cfg.spec_k}")
+        if spec and not self.cfg.paged:
+            raise ValueError("speculative decoding (spec_k > 0) requires "
+                             "the paged pool (EngineCfg(paged=True))")
+        if spec and draft is None:
+            raise ValueError("spec_k > 0 requires a draft model "
+                             "(ServingEngine(draft=...))")
+        if spec and draft.cfg.vocab_size != self._lm.cfg.vocab_size:
+            raise ValueError(
+                f"draft vocab_size {draft.cfg.vocab_size} != target "
+                f"vocab_size {self._lm.cfg.vocab_size} — draft proposals "
+                f"must be target tokens")
+        if spec and draft.device != self._lm.device:
+            raise ValueError(f"draft on {draft.device} but target on "
+                             f"{self._lm.device}: both pools must live on "
+                             f"one device")
         if self.cfg.paged:
-            self.pool = self._build_block_pool(self._lm)
+            # the adapter pool is built BEFORE the block pool, which takes
+            # its stacks into every forward. The DRAFT pool never gets one:
+            # proposals are verified by the adapted target, so the
+            # verify-based commit keeps output identity with an
+            # adapter-free draft.
+            if self.cfg.adapter_slots > 0:
+                self.adapters = AdapterPool(
+                    self._lm.model, self.cfg.adapter_slots,
+                    self.cfg.adapter_rank,
+                    targets=(tuple(self.cfg.adapter_targets)
+                             if self.cfg.adapter_targets else None))
+            self.pool = self._build_block_pool(
+                self._lm, self.cfg.steps_per_tick, adapters=self.adapters)
             n = self.pool.max_resident
+            if spec:
+                # the draft's OWN paged pool: rows mirror the target pool
+                # one for one (identical admit/release order over identical
+                # LIFO free lists), but it never registers prefixes
+                self._draft_pool = self._build_block_pool(
+                    draft, max(self.cfg.spec_k, 1))
         else:
             self.pool = SlotPool(self._lm.model, self.cfg.n_slots,
                                  steps_per_tick=self.cfg.steps_per_tick)
             n = self.cfg.n_slots
         self._n_rows = n
+        # spec_k auto-tuning: the EFFECTIVE draft width, stepped by a
+        # bounded EWMA controller over live acceptance (reset with the
+        # pools on every handle rebuild)
+        self._spec_k_eff = self.cfg.spec_k
+        self._spec_accept_ewma = 1.0
         self._slot_req: dict[int, _LMRequest] = {}
         self._cur = np.zeros((n,), np.int32)
+        self._prev = np.zeros((n,), np.int32)   # H[-2] per row — the
+        #                             draft's lagged entry token (the draft
+        #                             pool has processed H[:-2])
         self._temps = np.zeros((n,), np.float32)
 
-    def _build_block_pool(self, handle) -> BlockPool:
+    def _build_block_pool(self, handle, steps_per_tick: int,
+                          adapters: AdapterPool | None = None) -> BlockPool:
         """One paged pool over ``handle`` with the engine's geometry knobs
         (block size shrinks to the model's own tile divisor; block count
-        defaults to equal-KV-memory with the slot baseline)."""
+        defaults to equal-KV-memory scaled by the model's own capacity)."""
         model = handle.model
         tile = min(256, model.max_len)
         cap = -(-model.max_len // tile) * tile
@@ -416,10 +542,10 @@ class ServingEngine:
             reserve = n_blocks // 4   # auto: a quarter of the pool
         return BlockPool(
             model, n_blocks=n_blocks, block_size=block_size, max_resident=n,
-            steps_per_tick=self.cfg.steps_per_tick,
+            steps_per_tick=steps_per_tick,
             overcommit=self.cfg.block_overcommit,
             interactive_reserve=reserve,
-            decode_buckets=self.cfg.decode_buckets)
+            decode_buckets=self.cfg.decode_buckets, adapters=adapters)
 
     # -- checkpoint hot-swap --------------------------------------------------
     @property
@@ -430,23 +556,39 @@ class ServingEngine:
 
     def set_checkpoint(self, model_dir: str | None,
                        draft_dir: object = _UNSET) -> None:
-        """Stage a weight swap of the target: the NEXT :meth:`restart` (so
-        also :meth:`recycle`) loads the LM package at ``model_dir`` onto
-        the engine's device and rebuilds the pool over it; in-slot work
-        keeps decoding against the current weights until then. ``None``
-        clears a staged swap. A draft swap (``draft_dir``) belongs to the
-        speculative tick, which is not ported."""
-        if draft_dir is not _UNSET:
-            raise _not_ported("a speculative draft swap (draft_dir=)")
+        """Stage a weight swap: the NEXT :meth:`restart` (so also
+        :meth:`recycle`) loads the LM package at ``model_dir`` onto the
+        engine's device and rebuilds the pool over it; in-slot work keeps
+        decoding against the current weights until then. ``None`` clears a
+        staged swap.
+
+        ``draft_dir`` (keyword) stages the speculative DRAFT package
+        alongside: a path swaps the draft at the same restart, ``None``
+        drops it (restart then fails fast if ``spec_k > 0`` still demands
+        one), and leaving it unset keeps the currently serving draft."""
         self._pending_checkpoint = model_dir
+        if model_dir is None:
+            self._pending_draft = _UNSET
+        if draft_dir is not _UNSET:
+            self._pending_draft = draft_dir
 
     def _apply_pending_checkpoint(self) -> None:
+        """Inside restart(): swap the staged package(s) in. Raises on a bad
+        package."""
         model_dir, self._pending_checkpoint = self._pending_checkpoint, None
+        draft_dir, self._pending_draft = self._pending_draft, _UNSET
         if model_dir is None:
             return
         from ddw_tpu_torch.serving.lm_package import LMPackagedModel
 
-        self._init_lm(LMPackagedModel(model_dir, device=self.device))
+        pkg = LMPackagedModel(model_dir, device=self.device)
+        if draft_dir is _UNSET:
+            self._init_lm(pkg)          # keeps the current draft handle
+        else:
+            dpkg = (LMPackagedModel(draft_dir, device=self.device)
+                    if draft_dir is not None else None)
+            self._init_lm(pkg, draft=dpkg)
+            self.draft_dir = draft_dir
         self.model_dir = model_dir
 
     # -- lifecycle ----------------------------------------------------------
@@ -463,6 +605,14 @@ class ServingEngine:
             self._thread = threading.Thread(target=self._loop,
                                             name="ddw-serve", daemon=True)
             self._thread.start()
+            if self.telem is not None:
+                self.telem.start()
+            if self.run is not None and self._monitor_interval_s > 0:
+                from ddw_tpu_torch.utils.sysmon import SystemMonitor
+
+                self._monitor = SystemMonitor(
+                    self.run, interval_s=self._monitor_interval_s,
+                    device=self.device).start()
         return self
 
     def stop(self) -> None:
@@ -474,6 +624,11 @@ class ServingEngine:
             self._thread = None
         self._stopped = True
         self._fail_pending(RuntimeError("engine stopped"))
+        if self.telem is not None:
+            self.telem.stop()
+        if self._monitor is not None:
+            self._monitor.stop()
+            self._monitor = None
         if self.run is not None:
             self.metrics.log_to(self.run)
         self.metrics.close_stream()
@@ -529,10 +684,12 @@ class ServingEngine:
             "prefix_cache": (self.pool.prefix_summary()
                              if isinstance(self.pool, BlockPool)
                              else {"seq": 0, "keys": 0}),
-            "trace": None,
-            "telemetry": None,
-            "adapters": None,
-            "tenancy": None,
+            "trace": (self.tracer.summary() if self._tracing else None),
+            "telemetry": (self.telem.summary() if self._telemetry else None),
+            "adapters": (self.adapters.view()
+                         if self.adapters is not None else None),
+            "tenancy": (self.tenancy.view()
+                        if self.tenancy is not None else None),
         }
 
     def _free_block_frac(self) -> float:
@@ -540,6 +697,47 @@ class ServingEngine:
             return 1.0
         avail = self.pool.free_blocks_effective - self.pool._committed
         return max(0.0, min(1.0, avail / max(self.pool.n_blocks, 1)))
+
+    def trace_events(self, since: int = 0) -> dict:
+        """Drain the trace ring past ``since`` (a ``seq`` watermark)."""
+        return {"replica": self.replica_id, "generation": self.generation,
+                "dropped": self.tracer.spans_dropped,
+                "events": self.tracer.drain(since)}
+
+    def telemetry_events(self, since: int = 0) -> dict:
+        """Drain the telemetry ring past ``since`` (a ``seq`` watermark) —
+        the feed :class:`~ddw_tpu_torch.obs.telemetry.FleetTelemetry`
+        merges into aligned windows. A telemetry-off engine reports an
+        empty, never-advancing feed."""
+        if self.telem is None:
+            return {"source": f"replica{self.replica_id}",
+                    "replica": self.replica_id,
+                    "generation": self.generation,
+                    "dropped": 0, "samples": [], "last_seq": int(since)}
+        d = self.telem.drain(since)
+        d["replica"] = self.replica_id
+        d["generation"] = self.generation
+        return d
+
+    def _telemetry_collector(self) -> dict:
+        """One sampler tick's worth of engine state for the hub: every
+        accumulated counter, the admission-lane depths, and the pool and
+        backlog gauges. Runs on the hub's sampler thread and reads host
+        state only (never a device tensor)."""
+        out = {f"serve.{k}": ("counter", v)
+               for k, v in self.metrics.counters_view().items()}
+        out["serve.queue_depth"] = ("gauge", float(self._ctrl.depth()))
+        out["serve.interactive_depth"] = (
+            "gauge", float(self._ctrl.depth("lm") + self._ctrl.depth("image")))
+        out["serve.batch_depth"] = (
+            "gauge", float(self._ctrl.depth("lm_batch")
+                           + self._ctrl.depth("image_batch")))
+        out["serve.busy_slots"] = (
+            "gauge", float(len(self._slot_req) if self.pool is not None
+                           else 0))
+        for name, v in self.metrics.gauges_view().items():
+            out[f"serve.{name}"] = ("gauge", float(v))
+        return out
 
     # -- KV block migration ---------------------------------------------------
     def kv_export(self, prompt, skip_hashes=()) -> dict | None:
@@ -569,6 +767,50 @@ class ServingEngine:
             self.metrics.count("kv_blocks_migrated", res["imported"])
             self.metrics.count("kv_bytes_migrated", res["bytes"])
         return res
+
+    # -- LoRA adapter admin ---------------------------------------------------
+    def load_adapter(self, adapter_id: str, adapter=None, *,
+                     path: str | None = None, alpha: float = 16.0,
+                     rank: int | None = None,
+                     digest: str | None = None) -> dict:
+        """Land (or re-land — same-digest loads are idempotent) a LoRA
+        adapter in the pool, serialized with the engine loop like every
+        pool mutation. ``adapter`` is an in-memory ``{block: {target:
+        {lora_a, lora_b}}}`` tree; ``path`` loads a ``.npz`` package saved
+        by :func:`ddw_tpu_torch.serve.adapters.save_adapter` (or by
+        ``ddw_tpu``'s) instead, its header supplying alpha/rank/digest.
+        Raises ``AdapterPoolFull`` when every slot is pinned,
+        ``AdapterDigestMismatch`` on an id collision."""
+        if self.adapters is None:
+            raise ValueError("engine was built without an adapter pool "
+                             "(EngineCfg(adapter_slots > 0))")
+        if (adapter is None) == (path is None):
+            raise ValueError("exactly one of adapter= or path= is required")
+        if path is not None:
+            adapter, header = load_adapter_file(path)
+            alpha = float(header.get("alpha", alpha))
+            rank = header.get("rank", rank)
+            digest = header.get("digest", digest)
+        slot = self._run_pool_op(lambda: self.adapters.load(
+            adapter_id, adapter, alpha=alpha, rank=rank, digest=digest))
+        self._sync_adapter_counters()
+        return {"adapter_id": adapter_id, "slot": slot,
+                "digest": self.adapters.digest_of(adapter_id)}
+
+    def unload_adapter(self, adapter_id: str) -> dict:
+        """Explicitly evict a loaded adapter (refuses while pinned — a
+        decoding stream must never lose its weights)."""
+        if self.adapters is None:
+            raise ValueError("engine was built without an adapter pool "
+                             "(EngineCfg(adapter_slots > 0))")
+        self._run_pool_op(lambda: self.adapters.unload(adapter_id))
+        self._sync_adapter_counters()
+        return {"adapter_id": adapter_id, "unloaded": True}
+
+    def adapter_view(self) -> dict:
+        """The pool's registry view (slots, digests, pins, LRU order) —
+        ``{}`` when adapters are off."""
+        return self.adapters.view() if self.adapters is not None else {}
 
     def _run_pool_op(self, fn, timeout_s: float = 30.0):
         """Run ``fn`` serialized with the engine loop: inline when the
@@ -636,11 +878,17 @@ class ServingEngine:
         elif self.pool is not None:
             self._slot_req.clear()
             self._cur[:] = 0
+            self._prev[:] = 0
             self._temps[:] = 0.0
             self.pool.reset()
+            if self._draft_pool is not None:
+                self._draft_pool.reset()
             self._sync_pool_stats()
         self._stopped = False
         self._draining.clear()
+        if self._tracing:
+            self.tracer.instant("restart", "serve", tid="engine",
+                                args={"generation": self.generation})
         return self.start()
 
     def drain_slots(self, timeout_s: float = 30.0) -> bool:
@@ -687,10 +935,11 @@ class ServingEngine:
         """A replacement replica over the same handles and config, carrying
         the replica identity, the next generation and the failover hook."""
         eng = ServingEngine(lm=self._lm, image=self._image, cfg=self.cfg,
-                            replica_id=self.replica_id)
+                            replica_id=self.replica_id, draft=self._draft)
         eng.generation = self.generation + 1
         eng.on_failure = self.on_failure
         eng.model_dir = self.model_dir
+        eng.draft_dir = self.draft_dir
         return eng
 
     def _refusal(self) -> ReplicaFailed:
@@ -705,6 +954,7 @@ class ServingEngine:
                         rng: torch.Generator | None = None,
                         timeout_s: float | None = None,
                         on_token=None, trace_id: str | None = None,
+                        parent_span: str | None = None,
                         tenant: str | None = None,
                         adapter_id: str | None = None
                         ) -> concurrent.futures.Future:
@@ -717,22 +967,33 @@ class ServingEngine:
         ``on_token(index, token)`` runs on the engine thread the moment
         each token's tick fetches (keep it non-blocking). The future
         supports ``cancel()`` while queued; once admitted it runs to
-        completion. ``tenant`` attributes the request in the metrics
-        (quotas are not ported); ``trace_id`` lands in its jsonl row."""
+        completion.
+
+        ``trace_id`` / ``parent_span`` thread end-to-end tracing through
+        (recorded on the engine's spans when tracing is on, and in the
+        request's jsonl row). ``tenant`` attributes the request (quotas and
+        fair share when ``EngineCfg.tenants`` is set — ``QuotaExceeded``
+        here when its budget is spent); ``adapter_id`` names a loaded LoRA
+        adapter (``UnknownAdapter``, a ``ValueError``, when absent), which
+        stays pinned until the request resolves."""
         req = self._make_lm_request(prompt, num_steps, temperature, rng,
                                     timeout_s, on_token, "interactive",
-                                    trace_id=trace_id, tenant=tenant,
-                                    adapter_id=adapter_id)
-        self._offer("lm", req)
+                                    trace_id=trace_id,
+                                    parent_span=parent_span,
+                                    tenant=tenant, adapter_id=adapter_id)
+        try:
+            self._offer("lm", req)
+        except BaseException:
+            self._release_req_resources(req)
+            raise
         return req.future
 
     def _make_lm_request(self, prompt, num_steps, temperature, rng,
                          timeout_s, on_token, lane, trace_id=None,
-                         tenant=None, adapter_id=None) -> "_LMRequest":
+                         parent_span=None, tenant=None,
+                         adapter_id=None) -> "_LMRequest":
         if self._lm is None:
             raise ValueError("engine was built without an LM model")
-        if adapter_id is not None:
-            raise _not_ported("per-request LoRA adapters (adapter_id=)")
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim == 2 and prompt.shape[0] == 1:
             prompt = prompt[0]
@@ -748,6 +1009,7 @@ class ServingEngine:
             raise ValueError(
                 f"prompt {prompt.size} + steps {num_steps} exceeds max_len "
                 f"{self._lm.cfg.max_len}")
+        need = 0
         if isinstance(self.pool, BlockPool):
             need = self.pool.blocks_for(
                 self.pool.total_positions(prompt.size, num_steps))
@@ -760,6 +1022,23 @@ class ServingEngine:
                 raise ValueError(
                     f"request needs {need} KV blocks but the {lane} lane "
                     f"only ever has {ceiling}")
+        if self._draft_pool is not None:
+            if (prompt.size + num_steps + self.cfg.spec_k
+                    > self._draft.cfg.max_len):
+                raise ValueError(
+                    f"prompt {prompt.size} + steps {num_steps} + spec_k "
+                    f"{self.cfg.spec_k} exceeds the draft model's max_len "
+                    f"{self._draft.cfg.max_len}")
+            dpool = self._draft_pool
+            dp, dns = self._draft_admit_shape(prompt.size, num_steps)
+            dneed = dpool.blocks_for(dpool.total_positions(dp, dns))
+            dceil = dpool.n_blocks
+            if lane == "batch":
+                dceil -= dpool.interactive_reserve
+            if dneed > dceil:
+                raise ValueError(
+                    f"request needs {dneed} draft KV blocks but the "
+                    f"{lane} lane only ever has {dceil}")
         if temperature < 0.0:
             raise ValueError(f"temperature must be >= 0, got {temperature}")
         if temperature > 0.0 and rng is None:
@@ -773,10 +1052,41 @@ class ServingEngine:
                                  device=rng.device).cpu().numpy()
         now = time.monotonic()
         timeout = self.cfg.default_timeout_s if timeout_s is None else timeout_s
-        return _LMRequest(prompt, num_steps, float(temperature), keys,
-                          now + timeout if timeout else None, now,
-                          on_token=on_token, lane=lane, trace_id=trace_id,
-                          tenant=tenant)
+        # resources are acquired LAST, after every validation that can
+        # refuse the request: pin the adapter (UnknownAdapter), then charge
+        # the tenant quota (QuotaExceeded; the pin is returned on that
+        # path). Both are held until the request RESOLVES and released
+        # exactly once by _release_req_resources.
+        adapter_slot, salt = 0, b""
+        if adapter_id is not None:
+            if self.adapters is None:
+                raise UnknownAdapter(adapter_id, ())
+            adapter_slot = self.adapters.pin(adapter_id)
+            salt = self.adapters.salt_of(adapter_id)
+        quota_blocks = quota_tokens = 0
+        resolved = tenant
+        if self.tenancy is not None:
+            try:
+                resolved = self.tenancy.charge(
+                    tenant, need, num_steps,
+                    retry_after_ms=self._retry_hint_ms(
+                        "lm_batch" if lane == "batch" else "lm"))
+                quota_blocks, quota_tokens = need, num_steps
+            except QuotaExceeded as e:
+                if adapter_id is not None:
+                    self.adapters.unpin(adapter_id)
+                self.metrics.count_labeled("tenant_sheds", "tenant",
+                                           e.tenant)
+                self.tenancy.note_shed(e.tenant)
+                raise
+        req = _LMRequest(prompt, num_steps, float(temperature), keys,
+                         now + timeout if timeout else None, now,
+                         on_token=on_token, lane=lane, trace_id=trace_id,
+                         parent_span=parent_span, tenant=resolved,
+                         adapter_id=adapter_id, adapter_slot=adapter_slot,
+                         salt=salt)
+        req.quota_blocks, req.quota_tokens = quota_blocks, quota_tokens
+        return req
 
     def generate(self, prompt, num_steps: int, **kw) -> GenerateResult:
         """Synchronous :meth:`submit_generate`."""
@@ -788,18 +1098,23 @@ class ServingEngine:
                           tenant: str | None = None,
                           adapter_id: str | None = None
                           ) -> concurrent.futures.Future:
-        """Queue ONE batch-lane LM continuation: same tokens as
-        :meth:`submit_generate` (the lane changes WHEN a stream runs, never
-        what it computes), but it admits only behind an empty interactive
-        queue and the block reserve, is preempted first, and carries no
-        default deadline. Requires the paged pool."""
+        """Queue ONE batch-lane LM continuation — the per-item primitive a
+        :class:`~ddw_tpu_torch.serve.lanes.BatchJob` pump feeds. Same
+        tokens as :meth:`submit_generate` (the lane changes WHEN a stream
+        runs, never what it computes), but it admits only behind an empty
+        interactive queue and the block reserve, is preempted first, and
+        carries no default deadline. Requires the paged pool."""
         if self._lm is not None and not isinstance(self.pool, BlockPool):
             raise ValueError("the batch lane requires the paged pool "
                              "(EngineCfg(paged=True))")
         req = self._make_lm_request(prompt, num_steps, temperature, rng,
                                     timeout_s, None, "batch",
                                     tenant=tenant, adapter_id=adapter_id)
-        self._offer("lm_batch", req)
+        try:
+            self._offer("lm_batch", req)
+        except BaseException:
+            self._release_req_resources(req)
+            raise
         return req.future
 
     def submit_batch_predict(self, item, timeout_s: float | None = 0.0
@@ -819,10 +1134,14 @@ class ServingEngine:
         return req.future
 
     def submit_batch(self, items, kind: str = "generate", **kw):
-        """Bulk jobs (``serve/lanes.py``'s ``BatchJob``) are not ported;
-        feed :meth:`submit_batch_item` / :meth:`submit_batch_predict`."""
-        raise _not_ported("bulk batch jobs (submit_batch, serve/lanes.py "
-                          "BatchJob)")
+        """Submit a bulk job as one :class:`~ddw_tpu_torch.serve.lanes.
+        BatchJob` (returned immediately): per-item futures are pumped
+        through the batch lane with a bounded in-flight window, per-item
+        progress, and retry on replica failure — see
+        :mod:`ddw_tpu_torch.serve.lanes`."""
+        from ddw_tpu_torch.serve.lanes import start_batch_job
+
+        return start_batch_job(self, items, kind=kind, **kw)
 
     def submit_predict(self, item, timeout_s: float | None = None
                        ) -> concurrent.futures.Future:
@@ -847,15 +1166,18 @@ class ServingEngine:
     @torch.no_grad()
     def warmup(self, prompt_lens=(8,)) -> None:
         """Run every program shape the given traffic needs once (prefill per
-        bucket x group size, the decode chain at every row bucket, the image
-        batch buckets — which builds the depthwise kernel), so no live
-        request pays a build or a first-call cost. Call before submitting:
-        it drives the device from the caller's thread."""
+        bucket x group size, the decode chain at every row bucket, the spec
+        draft and verify passes, the image batch buckets — which builds the
+        depthwise kernel), so no live request pays a build or a first-call
+        cost. Call before submitting: it drives the device from the
+        caller's thread."""
         if self.pool is not None:
             buckets = [bucket_len(n, self._lm.cfg.max_len,
                                   self.cfg.min_bucket) for n in prompt_lens]
             if isinstance(self.pool, BlockPool):
                 self.pool.warmup(buckets, max_group=self.pool.max_resident)
+                if self._draft_pool is not None:
+                    self._warmup_spec(prompt_lens)
             else:
                 self.pool.warmup(buckets)
         if self._image is not None:
@@ -868,6 +1190,28 @@ class ServingEngine:
             for g in sizes:
                 self._image_apply(
                     np.zeros((g, h.height, h.width, 3), np.float32))
+
+    def _warmup_spec(self, prompt_lens) -> None:
+        """The speculative program shapes: the draft pool's prefill
+        buckets (it prefills ``len(eff) - 1`` tokens, so the shifted
+        buckets too), the lagged draft chain, and the target's multi-token
+        verify pass — each across the resident-bucket ladder."""
+        dpool = self._draft_pool
+        dlens = {max(n - 1, 1) for n in prompt_lens} | set(prompt_lens)
+        dbuckets = sorted({bucket_len(n, self._draft.cfg.max_len,
+                                      self.cfg.min_bucket) for n in dlens})
+        for bucket in dbuckets:
+            g = 1
+            while True:
+                dpool.prefill([None] * g, np.zeros((g, bucket), np.int32),
+                              np.ones((g,), np.int32),
+                              np.zeros((g,), np.float32),
+                              np.zeros((g,), np.int64))
+                if g >= dpool.max_resident:
+                    break
+                g = min(g * 2, dpool.max_resident)
+        dpool.warmup_spec(self.cfg.spec_k, "draft")
+        self.pool.warmup_spec(self.cfg.spec_k, "verify")
 
     def snapshot(self) -> dict[str, float]:
         return self.metrics.snapshot()
@@ -897,6 +1241,8 @@ class ServingEngine:
         tenant = getattr(req, "tenant", None)
         if tenant is not None:
             self.metrics.count_labeled("tenant_sheds", "tenant", tenant)
+            if self.tenancy is not None:
+                self.tenancy.note_shed(tenant)
 
     def _retry_hint_ms(self, kind: str) -> float | None:
         """``Overloaded.retry_after_ms``: on the paged pool the projected
@@ -924,13 +1270,35 @@ class ServingEngine:
             drained, expired = self._ctrl.take(
                 kind, self._ctrl.depth(kind) + 1)
             for req in drained + expired:
+                self._release_req_resources(req)
                 self._fail_req(req, exc)
         if self.pool is not None:
             for req in self._slot_req.values():
+                self._release_req_resources(req)
                 self._fail_req(req, exc)
             self._slot_req.clear()
 
+    def _release_req_resources(self, req) -> None:
+        """Give back everything a request holds OUTSIDE the block pool —
+        its adapter pin and its tenant quota charge — exactly once
+        (``released`` flips; every resolution path calls this). Image
+        requests carry neither and pass through untouched."""
+        if getattr(req, "released", True):
+            return
+        req.released = True
+        if req.adapter_id is not None and self.adapters is not None:
+            try:
+                self.adapters.unpin(req.adapter_id)
+            except AdapterError:
+                pass        # pool rebuilt under us (checkpoint swap)
+        if self.tenancy is not None and (req.quota_blocks
+                                         or req.quota_tokens):
+            self.tenancy.release(req.tenant, req.quota_blocks,
+                                 req.quota_tokens)
+            req.quota_blocks = req.quota_tokens = 0
+
     def _shed(self, req, kind: str) -> None:
+        self._release_req_resources(req)
         if req.future.cancelled():      # cancelled first: nothing to tell
             self.metrics.count_cancelled()
             return
@@ -938,6 +1306,8 @@ class ServingEngine:
         tenant = getattr(req, "tenant", None)
         if tenant is not None:
             self.metrics.count_labeled("tenant_sheds", "tenant", tenant)
+            if self.tenancy is not None:
+                self.tenancy.note_shed(tenant)
         waited = (time.monotonic() - req.times.submitted) * 1e3
         timeout = ((req.deadline - req.times.submitted) * 1e3
                    if req.deadline is not None else float("inf"))
@@ -952,6 +1322,7 @@ class ServingEngine:
         if req.future.set_running_or_notify_cancel():
             req.claimed = True
             return True
+        self._release_req_resources(req)
         self.metrics.count_cancelled()
         return False
 
@@ -1009,6 +1380,7 @@ class ServingEngine:
         # dispatch — fail everything the device owns and reset the pool;
         # queued work is untouched and keeps serving
         for req in self._inflight_admit:
+            self._release_req_resources(req)
             self._fail_req(req, ReplicaFailed(
                 "error", replica=self.replica_id,
                 generation=self.generation, phase="admitted",
@@ -1017,14 +1389,18 @@ class ServingEngine:
         self._inflight_admit = []
         if self.pool is not None:
             for slot, req in list(self._slot_req.items()):
+                self._release_req_resources(req)
                 self._fail_req(req, ReplicaFailed(
                     "error", replica=self.replica_id,
                     generation=self.generation, phase="in_slot",
                     emitted=req.emitted, forensics=fail.forensics))
             self._slot_req.clear()
             self._cur[:] = 0
+            self._prev[:] = 0
             self._temps[:] = 0.0
             self.pool.reset()
+            if self._draft_pool is not None:
+                self._draft_pool.reset()
             self._sync_pool_stats()
         if self._consecutive_errors >= self.cfg.max_consecutive_errors:
             crash = ServeCrash(
@@ -1043,7 +1419,7 @@ class ServingEngine:
 
     def _forensics(self, exc: BaseException) -> dict:
         """The GangFailure-style record that rides every ReplicaFailed."""
-        return {
+        out = {
             "error": repr(exc),
             "traceback": traceback.format_exc(limit=12),
             "consecutive_errors": self._consecutive_errors,
@@ -1051,6 +1427,12 @@ class ServingEngine:
             "busy_slots": len(self._slot_req) if self.pool is not None else 0,
             "queue_depth": self._ctrl.depth(),
         }
+        if self._tracing:
+            # the flight recorder: the ring's tail rides the failure, so
+            # "what was the engine doing" survives the engine
+            out["flight"] = self.tracer.tail(64)
+            out["spans_dropped"] = self.tracer.spans_dropped
+        return out
 
     def _enter_failed(self, kind: str, exc: BaseException) -> None:
         """Terminal transition (engine or supervisor thread): records the
@@ -1065,6 +1447,7 @@ class ServingEngine:
                 phase="terminal", forensics=self._forensics(exc))
             self._failure = failure
         for req in self._inflight_admit:
+            self._release_req_resources(req)
             self._fail_req(req, ReplicaFailed(
                 kind, replica=self.replica_id, generation=self.generation,
                 phase="admitted", emitted=getattr(req, "emitted", 0),
@@ -1072,6 +1455,7 @@ class ServingEngine:
         self._inflight_admit = []
         if self.pool is not None:
             for req in self._slot_req.values():
+                self._release_req_resources(req)
                 self._fail_req(req, ReplicaFailed(
                     kind, replica=self.replica_id,
                     generation=self.generation, phase="in_slot",
@@ -1084,10 +1468,18 @@ class ServingEngine:
             for req in expired:
                 self._shed(req, kind_)
             for req in drained:
+                self._release_req_resources(req)
                 if req.future.cancelled():
                     self.metrics.count_cancelled()
                 elif req.future.done():
                     pass
+                elif getattr(req, "adapter_id", None) is not None:
+                    # adapter slot + salt are REPLICA-LOCAL (a sibling may
+                    # not hold this adapter at all): not salvageable
+                    self._fail_req(req, ReplicaFailed(
+                        kind, replica=self.replica_id,
+                        generation=self.generation, phase="queued",
+                        forensics=failure.forensics))
                 else:
                     salvage.append((kind_, req))
         handed_off = False
@@ -1104,6 +1496,24 @@ class ServingEngine:
                     generation=self.generation, phase="queued",
                     forensics=failure.forensics))
 
+    # -- tracing helpers (every call site guards on self._tracing) -----------
+    def _trace_req(self, req, name: str, t0: float, t1: float,
+                   **args) -> None:
+        """One span in a request's causal chain (queue → prefill → decode),
+        parented on the previous one; the request's deadline rides in the
+        args so an SLO miss is readable off the trace alone."""
+        if req.deadline is not None:
+            args["deadline_ms"] = round((req.deadline - t1) * 1e3, 1)
+        req.last_span = self.tracer.record_span(
+            name, "serve", t0, t1, trace=req.trace_id,
+            parent=req.last_span, tid="engine", args=args)
+
+    def _trace_preempt(self, req, row: int, reason: str) -> None:
+        self.tracer.instant(
+            "preempt", "serve", trace=req.trace_id, parent=req.last_span,
+            tid="engine", args={"row": row, "lane": req.lane,
+                                "emitted": req.emitted, "reason": reason})
+
     # LM: continuous batching ------------------------------------------------
     def _sync_pool_stats(self) -> None:
         """Mirror the paged pool's monotonic stats into the engine metrics
@@ -1117,11 +1527,48 @@ class ServingEngine:
             delta = val - seen if val >= seen else val   # reset() rebase
             if delta > 0:
                 self.metrics.count(key, delta)
+                if self._tracing and key in ("cow_copies",
+                                             "prefix_hit_tokens"):
+                    self.tracer.instant(f"pool.{key}", "pool", tid="pool",
+                                        args={"n": delta})
             self._pool_stats_seen[key] = val
+        self._sync_adapter_counters()
         gauges = pool.gauges()
+        if self._tracing:
+            free = gauges.get("blocks_free", 0.0)
+            total = gauges.get("blocks_total", 0.0)
+            if total and free / total < 0.1:
+                self.tracer.instant(
+                    "pool.alloc_pressure", "pool", tid="pool",
+                    args={"free": int(free), "total": int(total)})
         gauges["batch_backlog"] = float(self._ctrl.depth("lm_batch")
                                         + self._ctrl.depth("image_batch"))
+        if self._draft_pool is not None:
+            gauges["spec_k_effective"] = float(self._spec_k_eff)
         self.metrics.set_gauges(gauges)
+
+    def _sync_adapter_counters(self) -> None:
+        """Mirror the adapter pool's monotonic counters into the engine
+        metrics (same delta discipline as the block-pool stats)."""
+        ad = self.adapters
+        if ad is None:
+            return
+        for key, val in (("adapter_loads", ad.loads),
+                         ("adapter_evictions", ad.evictions),
+                         ("adapter_pins", ad.pin_events)):
+            seen = self._pool_stats_seen.get(key, 0)
+            delta = val - seen if val >= seen else val
+            if delta > 0:
+                self.metrics.count(key, delta)
+            self._pool_stats_seen[key] = val
+
+    def _vacate_row(self, row: int) -> _LMRequest:
+        """Forget a preempted row's host state; returns its request."""
+        req = self._slot_req.pop(row)
+        self._cur[row] = 0
+        self._prev[row] = 0
+        self._temps[row] = 0.0
+        return req
 
     def _preempt_batch_for_interactive(self) -> bool:
         """An interactive head under block or row pressure evicts the
@@ -1131,9 +1578,11 @@ class ServingEngine:
         row = self.pool.preempt_youngest(lane="batch")
         if row is None:
             return False
-        req = self._slot_req.pop(row)
-        self._cur[row] = 0
-        self._temps[row] = 0.0
+        if self._draft_pool is not None:
+            self._draft_pool.release(row, preempted=True)
+        req = self._vacate_row(row)
+        if self._tracing:
+            self._trace_preempt(req, row, "interactive_pressure")
         self._ctrl.requeue_front("lm_batch", req)
         return True
 
@@ -1143,7 +1592,9 @@ class ServingEngine:
         Interactive runs first and may preempt batch residents to fit its
         head; a FRESH batch head also needs an empty interactive queue, the
         reserve-aware block budget and ``batch_rows_headroom`` spare rows;
-        a claimed (preempted) batch head re-admits on the plain row bound."""
+        a claimed (preempted) batch head re-admits on the plain row bound.
+        With a draft pool, a head must fit both pools, and the draft row
+        mirrors the target row."""
         pool = self.pool
         worked = False
         batch = lane == "batch"
@@ -1162,7 +1613,8 @@ class ServingEngine:
             # logits, so its remaining picks = num_steps - (emitted - 1)
             ns = head.num_steps - max(head.emitted - 1, 0)
             if (pool.free_slots < min_rows
-                    or not pool.can_admit(len(eff), ns, lane=lane)):
+                    or not pool.can_admit(len(eff), ns, lane=lane)
+                    or not self._draft_can_admit(len(eff), ns, lane)):
                 if not batch and self._preempt_batch_for_interactive():
                     worked = True
                     continue        # re-check the head against freed space
@@ -1182,21 +1634,56 @@ class ServingEngine:
                     break
                 eff = req.effective_prompt()
                 ns = req.num_steps - max(req.emitted - 1, 0)
-                if not pool.can_admit(len(eff), ns, lane=lane):
+                if (not pool.can_admit(len(eff), ns, lane=lane)
+                        or not self._draft_can_admit(len(eff), ns, lane)):
                     self._ctrl.requeue_front(kind, req)
                     break
             if not self._claim(req):
                 worked = True
                 continue
             try:
-                row, hit = pool.admit(eff, ns, lane=lane)
+                row, hit = pool.admit(eff, ns, lane=lane,
+                                      adapter_slot=req.adapter_slot,
+                                      salt=req.salt)
             except OutOfBlocks:
                 # overcommitted budget met a physically empty pool — admit()
                 # unwound cleanly; head-of-line waits for releases
                 self._ctrl.requeue_front(kind, req)
                 break
+            if self._draft_pool is not None:
+                dp, dns = self._draft_admit_shape(len(eff), ns)
+                try:
+                    drow, _ = self._draft_pool.admit(eff[:dp], dns,
+                                                     lane=lane)
+                except OutOfBlocks:
+                    pool.release(row)   # clean unwind: mirror preserved
+                    self._ctrl.requeue_front(kind, req)
+                    break
+                if drow != row:
+                    raise AssertionError(
+                        f"draft row {drow} diverged from target row {row}")
             picked.append((req, eff, row, hit))
         return worked
+
+    def _draft_admit_shape(self, p: int, ns: int) -> tuple[int, int]:
+        """Draft-pool admission geometry for an effective prompt of length
+        ``p``: the draft lags the target one position (it has processed
+        ``H[:-2]``), so it prefills ``eff[:-1]`` and needs positions for
+        ``ns + spec_k + 1`` lag-pair + draft writes per stream. The
+        ``p == 1`` edge prefills nothing — the lone prompt token's K/V is
+        written by the first lagged S=2 draft step itself (the row is
+        admitted over the full prompt and its write pointer rewound to 0
+        via :meth:`BlockPool.set_filled`)."""
+        k = self.cfg.spec_k
+        if p >= 2:
+            return p - 1, ns + k + 1
+        return p, ns + k
+
+    def _draft_can_admit(self, p: int, ns: int, lane: str) -> bool:
+        if self._draft_pool is None:
+            return True
+        dp, dns = self._draft_admit_shape(p, ns)
+        return self._draft_pool.can_admit(dp, dns, lane=lane)
 
     def _admit_lm_paged(self, drain_only: bool = False) -> bool:
         """Admission on free BLOCKS: pop queued requests head-first while
@@ -1216,12 +1703,18 @@ class ServingEngine:
             self._sync_pool_stats()
             return worked
         self._inflight_admit = [req for req, *_ in picked]
+        if self._draft_pool is not None:
+            self._prefill_draft(picked)
         groups: dict[int, list] = {}
         now = time.monotonic()
         for item in picked:
             req, eff, row, hit = item
             if req.emitted == 0:
                 req.times.admitted = now
+                if self._tracing:
+                    self._trace_req(req, "queue", req.times.submitted, now,
+                                    lane=req.lane, row=row,
+                                    prefix_hit_tokens=int(hit))
             bucket = bucket_len(len(eff) - hit, self._lm.cfg.max_len,
                                 self.cfg.min_bucket)
             groups.setdefault(bucket, []).append(item)
@@ -1243,6 +1736,12 @@ class ServingEngine:
             toks = pool.prefill(rows, prompts, true_lens, temps, keys)
             first = time.monotonic()
             self.metrics.count("prefills")
+            if self._tracing:
+                self.tracer.record_span(
+                    "prefill_group", "serve", t_pf, first, tid="engine",
+                    args={"bucket": bucket, "n": len(items),
+                          "suffix_lens": [int(t) for t in
+                                          true_lens[:len(items)]]})
             n_real = int(sum(int(t) for t in true_lens[:len(items)]))
             if n_real:
                 per = (first - t_pf) * 1e3 / n_real
@@ -1253,6 +1752,12 @@ class ServingEngine:
                 pool.register(row, eff)
                 pool.note_prefilled(row)
                 tok0 = int(toks[i])
+                if self._tracing:
+                    self._trace_req(req, "prefill", t_pf, first,
+                                    bucket=bucket,
+                                    suffix_len=int(eff.size - hit),
+                                    prefix_hit_tokens=int(hit),
+                                    resumed=req.emitted > 0)
                 if req.emitted == 0:
                     req.times.first_output = first
                     req.tokens.append(tok0)
@@ -1261,14 +1766,50 @@ class ServingEngine:
                 # else: a resumed stream — tok0 re-derives its newest pick
                 if req.emitted >= req.num_steps:
                     pool.release(row)
+                    if self._draft_pool is not None:
+                        self._draft_pool.release(row)
                     self._finish_lm(req)
                 else:
                     self._slot_req[row] = req
                     self._cur[row] = tok0
+                    if self._draft_pool is not None:
+                        # H = eff + [tok0]: the draft's lagged entry pair
+                        # next tick is [eff[-1], tok0]
+                        self._prev[row] = int(eff[-1])
                     self._temps[row] = req.temperature
         self._inflight_admit = []
         self._sync_pool_stats()
         return True
+
+    def _prefill_draft(self, picked: list) -> None:
+        """Mirror admissions into the draft pool: prefill each stream's
+        ``eff[:-1]`` (grouped by suffix bucket like the target prefill —
+        the draft never prefix-hits, so the whole shifted prompt is the
+        suffix) and pin the lag invariant ``filled = len(eff) - 1``. The
+        picked first tokens are discarded — only the K/V matters."""
+        dpool = self._draft_pool
+        dgroups: dict[int, list] = {}
+        for req, eff, row, hit in picked:
+            if len(eff) < 2:
+                dpool.set_filled(row, 0)    # P == 1: nothing to prefill
+                continue
+            bucket = bucket_len(len(eff) - 1, self._draft.cfg.max_len,
+                                self.cfg.min_bucket)
+            dgroups.setdefault(bucket, []).append((eff, row))
+        for bucket, items in dgroups.items():
+            g = batch_bucket(len(items), dpool.max_resident)
+            rows: list = [None] * g
+            prompts = np.zeros((g, bucket), np.int32)
+            true_lens = np.ones((g,), np.int32)
+            for i, (eff, row) in enumerate(items):
+                prompts[i] = pad_to_bucket(eff[None, :-1], bucket)[0]
+                true_lens[i] = eff.size - 1
+                rows[i] = row
+            dpool.prefill(rows, prompts, true_lens,
+                          np.zeros((g,), np.float32),
+                          np.zeros((g,), np.int64))
+            for _, row in items:
+                dpool.note_prefilled(row)
 
     def _admit_lm(self) -> bool:
         draining = self._draining.is_set()
@@ -1292,6 +1833,9 @@ class ServingEngine:
         now = time.monotonic()
         for req in admitted:
             req.times.admitted = now
+            if self._tracing:
+                self._trace_req(req, "queue", req.times.submitted, now,
+                                lane=req.lane)
             bucket = bucket_len(req.prompt.size, self._lm.cfg.max_len,
                                 self.cfg.min_bucket)
             groups.setdefault(bucket, []).append(req)
@@ -1306,13 +1850,22 @@ class ServingEngine:
                 true_lens[i] = req.prompt.size
                 temps[i] = req.temperature
                 keys[i] = req.pick_key()
+            t_pf = time.monotonic()
             cache_g, toks = self.pool.prefill(prompts, true_lens, temps,
                                               keys)
             first = time.monotonic()              # fetched: the TTFT barrier
             self.metrics.count("prefills")
+            if self._tracing:
+                self.tracer.record_span(
+                    "prefill_group", "serve", t_pf, first, tid="engine",
+                    args={"bucket": bucket, "n": len(reqs)})
             for i, req in enumerate(reqs):
                 slot = self.pool.acquire()
                 self.pool.insert(slot, cache_g, req.prompt.size, row=i)
+                if self._tracing:
+                    self._trace_req(req, "prefill", t_pf, first,
+                                    bucket=bucket,
+                                    suffix_len=int(req.prompt.size))
                 req.times.first_output = first
                 tok0 = int(toks[i])
                 req.tokens.append(tok0)
@@ -1329,8 +1882,11 @@ class ServingEngine:
         return True
 
     def _decode_tick(self) -> bool:
+        if self._draft_pool is not None:
+            return self._spec_tick()
         if not self._slot_req:
             return False
+        t_tick = time.monotonic() if self._tracing else 0.0
         k = self.cfg.steps_per_tick
         if isinstance(self.pool, BlockPool):
             # on-demand block allocation for this tick; exhaustion (only
@@ -1338,9 +1894,9 @@ class ServingEngine:
             # streams first, then the youngest interactive — and requests
             # go back to their lane's queue head with tokens intact
             for row in self.pool.prepare_tick(k):
-                req = self._slot_req.pop(row)
-                self._cur[row] = 0
-                self._temps[row] = 0.0
+                req = self._vacate_row(row)
+                if self._tracing:
+                    self._trace_preempt(req, row, "blocks")
                 self._ctrl.requeue_front(
                     "lm_batch" if req.lane == "batch" else "lm", req)
             if not self._slot_req:
@@ -1354,6 +1910,7 @@ class ServingEngine:
         toks = self.pool.decode(self._cur, self._temps, keys)  # [S, k]
         self.metrics.count("decode_ticks")
         finished = []
+        rows_live = len(self._slot_req)
         for slot, req in self._slot_req.items():
             take = min(k, req.num_steps - req.emitted)
             start = req.emitted
@@ -1370,10 +1927,158 @@ class ServingEngine:
             self._temps[slot] = 0.0
             self._cur[slot] = 0
             self._finish_lm(req)
+        if self._tracing:
+            self.tracer.record_span(
+                "tick", "serve", t_tick, time.monotonic(), tid="engine",
+                args={"rows": rows_live, "steps": k,
+                      "bucket": int(getattr(self.pool,
+                                            "last_decode_bucket", 0))})
+        self._sync_pool_stats()
+        return True
+
+    def _spec_prepare(self, k1: int) -> list[int]:
+        """Joint tick allocation across the TARGET and DRAFT pools: both
+        write up to ``k1 = spec_k + 1`` positions this tick, and a victim
+        must vacate BOTH (the row mirror), so the engine drives
+        :meth:`BlockPool.extend_row` itself instead of each pool's own
+        :meth:`prepare_tick`. Victim policy is identical (batch before
+        interactive, youngest first) via :meth:`BlockPool.stream_order`;
+        exhaustion is only reachable with ``block_overcommit > 1``.
+        Returns the preempted rows for requeue."""
+        pool, dpool = self.pool, self._draft_pool
+        order = {row: pool.stream_order(row) for row in self._slot_req}
+        victims: list[int] = []
+        vset: set[int] = set()
+        for row in sorted(order, key=order.get):
+            if row in vset:
+                continue
+            while True:
+                try:
+                    pool.extend_row(row, k1)
+                    dpool.extend_row(row, k1)
+                    break
+                except OutOfBlocks:
+                    victim = max((r for r in order if r not in vset),
+                                 key=order.get)
+                    pool.release(victim, preempted=True)
+                    dpool.release(victim, preempted=True)
+                    victims.append(victim)
+                    vset.add(victim)
+                    if victim == row:
+                        break
+        return victims
+
+    def _spec_tick(self) -> bool:
+        """One speculative decode tick (``spec_k > 0``): the draft pool
+        proposes k tokens per live stream (one lagged S=2 step + k-1 single
+        steps), the target pool verifies all k+1 positions in ONE
+        multi-token pass, and drafts are accepted while they match the
+        target's own picks under the ORIGINAL per-step seeds — so every
+        emitted token is by induction exactly what spec-off decode would
+        have picked, for greedy and seeded sampling alike. Both pools then
+        advance by only the accepted positions (:meth:`BlockPool.
+        commit_spec` rolls the rejected writes back and frees their
+        blocks). Streaming sees each accepted token exactly once."""
+        if not self._slot_req:
+            return False
+        t_tick = time.monotonic() if self._tracing else 0.0
+        # the auto-tuned EFFECTIVE width: admission always budgets the
+        # configured worst case (_draft_admit_shape), so any k <= spec_k
+        # is admission-safe
+        k = self._spec_k_eff
+        pool, dpool = self.pool, self._draft_pool
+        for row in self._spec_prepare(k + 1):
+            req = self._vacate_row(row)
+            if self._tracing:
+                self._trace_preempt(req, row, "blocks")
+            self._ctrl.requeue_front(
+                "lm_batch" if req.lane == "batch" else "lm", req)
+        if not self._slot_req:
+            self._sync_pool_stats()
+            return True
+        vkeys = np.zeros((self._n_rows, k + 1), np.int64)
+        for row, req in self._slot_req.items():
+            if req.keys is not None:
+                ks = req.keys[req.emitted:req.emitted + k + 1]
+                vkeys[row, :len(ks)] = ks
+        # draft proposal j is the candidate for step emitted+j, so it
+        # samples with THAT step's seed — a self-draft then reproduces the
+        # target's own picks and acceptance is exactly 1
+        drafts = dpool.spec_draft(self._prev, self._cur, self._temps,
+                                  vkeys[:, :k])
+        vtoks = np.concatenate(
+            [self._cur[:, None], drafts.astype(np.int32)], axis=1)
+        picks = pool.spec_verify(vtoks, self._temps, vkeys)
+        self.metrics.count("decode_ticks")
+        finished = []
+        rows_live = len(self._slot_req)
+        t_proposed = t_accepted = t_bonus = 0
+        for row, req in self._slot_req.items():
+            m = match_length(drafts[row], picks[row])
+            # m accepted drafts + the target's own pick for position m
+            # (the "bonus" — a free correction/extension either way)
+            remaining = req.num_steps - req.emitted
+            take = min(m + 1, remaining)
+            start = req.emitted
+            req.tokens.extend(int(t) for t in picks[row, :take])
+            req.emitted += take
+            req.ticks += 1
+            req.emit(start)
+            # proposals past the request's horizon were never candidates —
+            # they are clipped, not rejected (a matching self-draft keeps
+            # acceptance at exactly 1.0 through its final short tick)
+            usable = min(k, remaining)
+            accepted = min(m, take)
+            self.metrics.count("spec_proposed", usable)
+            self.metrics.count("spec_accepted", accepted)
+            self.metrics.count("spec_rejected", usable - accepted)
+            t_proposed += usable
+            t_accepted += accepted
+            if take == m + 1:
+                self.metrics.count("spec_bonus")
+                t_bonus += 1
+            pool.commit_spec(row, take)
+            dpool.commit_spec(row, take)
+            if req.emitted >= req.num_steps:
+                finished.append(row)
+            else:
+                # picked history grew by take: H' = H + picks[:take]
+                self._prev[row] = (int(picks[row, take - 2])
+                                   if take >= 2 else self._cur[row])
+                self._cur[row] = int(picks[row, take - 1])
+        for row in finished:
+            req = self._slot_req.pop(row)
+            pool.release(row)
+            dpool.release(row)
+            self._temps[row] = 0.0
+            self._cur[row] = 0
+            self._prev[row] = 0
+            self._finish_lm(req)
+        if t_proposed:
+            # bounded EWMA controller over live acceptance: sustained
+            # rejections (< 0.5) step the effective width down toward 1,
+            # sustained acceptance (> 0.8) steps it back up toward spec_k —
+            # one step per tick
+            rate = t_accepted / t_proposed
+            self._spec_accept_ewma = (0.8 * self._spec_accept_ewma
+                                      + 0.2 * rate)
+            if self._spec_accept_ewma < 0.5 and self._spec_k_eff > 1:
+                self._spec_k_eff -= 1
+            elif (self._spec_accept_ewma > 0.8
+                  and self._spec_k_eff < self.cfg.spec_k):
+                self._spec_k_eff += 1
+        if self._tracing:
+            self.tracer.record_span(
+                "spec_tick", "serve", t_tick, time.monotonic(),
+                tid="engine",
+                args={"rows": rows_live, "proposed": t_proposed,
+                      "accepted": t_accepted, "bonus": t_bonus,
+                      "spec_k_effective": k})
         self._sync_pool_stats()
         return True
 
     def _finish_lm(self, req: _LMRequest) -> None:
+        self._release_req_resources(req)
         req.times.done = time.monotonic()
         t = req.times
         gen_s = max(t.done - t.first_output, 1e-9)
@@ -1386,6 +2091,20 @@ class ServingEngine:
                                        req.tenant)
             self.metrics.count_labeled("tenant_tokens", "tenant",
                                        req.tenant, req.num_steps)
+            if self.tenancy is not None:
+                self.tenancy.note_completed(req.tenant, req.num_steps)
+        if self._telemetry and req.lane != "batch":
+            self.telem.observe("serve.ttft_ms", rec.ttft_ms)
+            self.telem.observe("serve.queue_ms", rec.queue_ms)
+            self.telem.observe("serve.total_ms", rec.total_ms)
+            if req.tenant is not None:
+                # the tenant-attributed SLO feed tenant_objectives() reads
+                self.telem.observe(
+                    f"serve.tenant.{req.tenant}.ttft_ms", rec.ttft_ms)
+        if self._tracing:
+            self._trace_req(req, "decode", t.first_output, t.done,
+                            tokens=req.num_steps, ticks=req.ticks,
+                            lane=req.lane)
         self._update_service(rec.total_ms)
         per_tok = rec.total_ms / max(req.num_steps, 1)
         self._per_token_ms = (0.8 * self._per_token_ms + 0.2 * per_tok
@@ -1454,6 +2173,10 @@ class ServingEngine:
                                 req.times.admitted, done, done,
                                 lane=req.lane)
             self.metrics.record(rec)
+            if self._telemetry and req.lane != "batch":
+                self.telem.observe("serve.ttft_ms", rec.ttft_ms)
+                self.telem.observe("serve.queue_ms", rec.queue_ms)
+                self.telem.observe("serve.total_ms", rec.total_ms)
             self._update_service(rec.total_ms)
             idx = int(np.argmax(logits[i]))
             req.future.set_result(PredictResult(

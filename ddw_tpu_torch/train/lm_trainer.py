@@ -24,10 +24,17 @@ token array ``[num_seqs, seq_len + 1]`` (seeded validation split, a
 from ``tokens_i32`` tables through :class:`ddw_tpu_torch.data.loader.
 ShardedLoader`.
 
+Observability: ``tracer=`` records ``ddw_tpu``'s ``train_chain`` span per
+chain boundary, and a :func:`~ddw_tpu_torch.obs.telemetry.tee_run` run
+receives ``train.chain_ms`` / ``train.ckpt_write_ms``. ``trace_dir`` and
+``monitor_interval_s`` work as in the vision ``Trainer``
+(:class:`~ddw_tpu_torch.train.trainer.EpochProfile`, the sysmon monitor on
+process 0), where ``ddw_tpu``'s LM trainer leaves them unread.
+
 Not yet ported, refused naming ``ROADMAP.md``: sequence parallelism
-(``seq_devices != 1``), pipelines and ZeRO/FSDP (by ``require_ported``),
-MoE (by ``build_lm``), and chain-boundary tracing (``tracer``). The fault,
-elastic and preemption hooks are absent, as in the vision ``Trainer``.
+(``seq_devices != 1``), pipelines and ZeRO/FSDP (by ``require_ported``) and
+MoE (by ``build_lm``). The fault, elastic and preemption hooks are absent,
+as in the vision ``Trainer``.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from ddw_tpu_torch.train.lm_step import (init_lm_state, make_lm_eval_step,
                                          make_lm_train_chain,
                                          make_lm_train_step)
 from ddw_tpu_torch.train.schedule import ScheduleSuite
+from ddw_tpu_torch.train.trainer import EpochProfile
 from ddw_tpu_torch.train.step import (TrainState, chain_plan, ema_params,
                                       fetch_metrics_mean, get_lr,
                                       make_optimizer, set_lr, with_param_ema)
@@ -74,8 +82,6 @@ class LMTrainer:
         if seq_devices != 1:
             raise _not_ported(f"sequence-parallel LM training (seq_devices="
                               f"{seq_devices})")
-        if tracer is not None:
-            raise _not_ported("chain-boundary tracing (the obs Tracer)")
         if train_cfg.ema_decay and lm_cfg.lora_rank:
             raise ValueError("train.ema_decay with lm.lora_rank is not "
                              "supported: the LoRA mask would wrap outside "
@@ -84,6 +90,7 @@ class LMTrainer:
             raise ValueError(f"train.steps_per_dispatch must be >= 1, got "
                              f"{train_cfg.steps_per_dispatch}")
         self.lm_cfg, self.train_cfg, self.run = lm_cfg, train_cfg, run
+        self.tracer = tracer   # optional obs Tracer: chain-boundary spans
         self.device = resolve_device(device)
         self.model = build_lm(lm_cfg)
 
@@ -295,14 +302,34 @@ class LMTrainer:
         resumed = ckpt is not None and resume and start_epoch > 0
         state = sched.initial_state(state, start_epoch, resumed)
         dropout_seed = cfg.seed + 1
+        # a Run wrapped by obs.telemetry.tee_run exposes its hub
+        hub = (getattr(self.run, "telemetry_hub", None)
+               if self.run is not None else None)
+        host_step = int(state.step)
+        monitor = profile = None
+        if (cfg.monitor_interval_s > 0 and self.run is not None
+                and process_topology()[0] == 0):
+            from ddw_tpu_torch.utils.sysmon import SystemMonitor
+
+            monitor = SystemMonitor(self.run, cfg.monitor_interval_s,
+                                    device=self.device).start()
         try:
             for epoch in range(start_epoch, cfg.epochs):
+                if (cfg.trace_dir and epoch == start_epoch
+                        and process_topology()[0] == 0):
+                    profile = EpochProfile(cfg.trace_dir, self.device, epoch)
+                    if self.run is not None:
+                        self.run.log_params(
+                            {"trace_dir": profile.trace_dir})
                 t0 = time.time()
                 tlosses, taccs = [], []
                 batch_it = train_batches(epoch)
                 step_i = 0
                 seq_len = 0
                 for k_chain in plan:
+                    t_chain = (time.monotonic()
+                               if self.tracer is not None or hub is not None
+                               else 0.0)
                     inputs, targets = next(batch_it)
                     seq_len = inputs.shape[-1]
                     lr = sched.lr_for_batch(epoch, step_i, steps_per_epoch)
@@ -312,12 +339,26 @@ class LMTrainer:
                         m = chain(state, inputs, targets, dropout_seed)
                     else:
                         m = step(state, inputs, targets, dropout_seed)
+                    if self.tracer is not None:
+                        # chain-boundary span: the host-side dispatch window
+                        self.tracer.record_span(
+                            "train_chain", "train", t_chain,
+                            time.monotonic(), tid="train",
+                            args={"epoch": epoch, "step": host_step,
+                                  "k": k_chain, "chained": bool(chained)})
+                    if hub is not None:
+                        hub.observe("train.chain_ms",
+                                    (time.monotonic() - t_chain) * 1e3)
+                    host_step += k_chain
                     step_i += k_chain
                     tlosses.append(m["loss"])
                     taccs.append(m["accuracy"])
                 train_loss = fetch_metrics_mean(tlosses)  # one fetch
                 train_acc = fetch_metrics_mean(taccs)
                 epoch_s = time.time() - t0
+                if profile is not None:
+                    done, profile = profile, None   # stop() ends it either way
+                    done.stop()
 
                 eval_params = ema_params(state) if cfg.ema_decay else None
                 vlosses, vaccs = [], []
@@ -345,15 +386,25 @@ class LMTrainer:
                 # counters and LR: resume = continuation
                 state, stop = sched.epoch_end(state, row["val_loss"], epoch)
                 if ckpt and (epoch + 1) % cfg.checkpoint_every_epochs == 0:
+                    t_ck = time.monotonic()
                     ckpt.save(state, state.step,
                               metadata={"epoch": epoch,
                                         "callbacks": sched.state_dicts(),
                                         "metrics": row})
+                    if hub is not None:
+                        hub.observe("train.ckpt_write_ms",
+                                    (time.monotonic() - t_ck) * 1e3)
                 if best is not None:
                     best.maybe_save(state, state.step, row, {"epoch": epoch})
                 if stop:
                     break
         finally:
+            try:
+                if profile is not None:
+                    profile.close()
+            finally:
+                if monitor is not None:
+                    monitor.stop()
             if close is not None:
                 close()
             if ckpt is not None:

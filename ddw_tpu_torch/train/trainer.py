@@ -20,15 +20,30 @@ The distributed data-parallel contract, one process per card:
    and LoRA's leaf-level freezing for ``model.lora_rank`` (ViT).
 
 "Worker" = one process = one card; the global batch is ``batch_size *
-world``. Not yet ported, refused by :func:`ddw_tpu_torch.utils.config.
-require_ported` (naming ``ROADMAP.md``): ZeRO/FSDP, pipelines, profiler
-tracing, the sysmon monitor; elastic restarts, fault injection and
-preemption hooks have no counterpart yet either.
+world``.
+
+Observability, as in ``ddw_tpu``: ``TrainCfg.trace_dir`` profiles the
+first epoch's training steps (``torch.profiler`` with CPU and, on the card,
+CUDA activity — where ``ddw_tpu`` runs ``jax.profiler``) and writes a Chrome
+trace JSON into that directory, logging the ``trace_dir`` param into the
+run; a profile that recorded no CUDA kernel on the card is an error.
+``TrainCfg.monitor_interval_s`` runs a
+:class:`~ddw_tpu_torch.utils.sysmon.SystemMonitor` (process 0 only).
+``tracer=`` (an :class:`~ddw_tpu_torch.obs.trace.Tracer`) records one
+``train_chain`` span per chain boundary, and a run wrapped by
+:func:`~ddw_tpu_torch.obs.telemetry.tee_run` receives ``train.chain_ms`` and
+``train.ckpt_write_ms`` observations in its hub.
+
+Not yet ported, refused by :func:`ddw_tpu_torch.utils.config.
+require_ported` (naming ``ROADMAP.md``): ZeRO/FSDP and pipelines; elastic
+restarts, fault injection and preemption hooks have no counterpart yet
+either.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 
 import torch
@@ -55,6 +70,45 @@ from ddw_tpu_torch.utils.config import (DataCfg, ModelCfg, TrainCfg,
 from ddw_tpu_torch.utils.device import resolve_device
 
 
+class EpochProfile:
+    """``torch.profiler`` over one epoch's training steps — the port's
+    ``jax.profiler.start_trace`` / ``stop_trace`` pair. CPU activity always,
+    CUDA activity on the card. :meth:`stop` writes the Chrome trace JSON
+    ``trace_<pid>_<epoch>.json`` into ``trace_dir`` and returns its path;
+    on the card it raises when the profile holds no CUDA kernel (CUPTI
+    missing would otherwise give a silently empty trace)."""
+
+    def __init__(self, trace_dir: str, device: torch.device, epoch: int):
+        self.trace_dir = os.path.abspath(trace_dir)
+        self.device = device
+        self.epoch = epoch
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self._prof = torch.profiler.profile(activities=acts)
+        self._prof.start()
+
+    def stop(self) -> str:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._prof.stop()
+        os.makedirs(self.trace_dir, exist_ok=True)
+        path = os.path.join(self.trace_dir,
+                            f"trace_{os.getpid()}_{self.epoch}.json")
+        self._prof.export_chrome_trace(path)
+        if self.device.type == "cuda" and not any(
+                e.device_type == torch.autograd.DeviceType.CUDA
+                for e in self._prof.events()):
+            raise RuntimeError(
+                f"torch.profiler recorded no CUDA kernel over epoch "
+                f"{self.epoch} (is CUPTI available?); trace at {path}")
+        return path
+
+    def close(self) -> None:
+        """Close a dangling profile on the error path (no export)."""
+        self._prof.stop()
+
+
 @dataclasses.dataclass
 class TrainResult:
     val_loss: float
@@ -68,13 +122,16 @@ class Trainer:
     def __init__(self, data_cfg: DataCfg, model_cfg: ModelCfg,
                  train_cfg: TrainCfg, run: Run | None = None,
                  model: nn.Module | None = None, initial=None, on_epoch=None,
-                 device=None):
+                 device=None, tracer=None):
         """``model`` overrides the registry module; ``initial=(state, tx)``
         supplies a built :class:`TrainState` and optimizer instead of a
         fresh seeded init. ``on_epoch(row)`` runs after each epoch's metrics
         and callbacks; returning True stops training. ``device`` is the card
-        unless the caller asks for ``"cpu"``."""
+        unless the caller asks for ``"cpu"``. ``tracer`` (an obs
+        :class:`~ddw_tpu_torch.obs.trace.Tracer`) records chain-boundary
+        spans."""
         require_ported(train_cfg)
+        self.tracer = tracer
         self.data_cfg = data_cfg
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
@@ -200,6 +257,14 @@ class Trainer:
                                  "steps_per_epoch": steps_per_epoch,
                                  "global_batch": cfg.batch_size * world})
 
+        monitor = None
+        if (cfg.monitor_interval_s > 0 and self.run is not None
+                and process_topology()[0] == 0):
+            # sys.* utilization series next to the training curves
+            from ddw_tpu_torch.utils.sysmon import SystemMonitor
+
+            monitor = SystemMonitor(self.run, cfg.monitor_interval_s,
+                                    device=self.device)
         plan = chain_plan(steps_per_epoch, cfg.steps_per_dispatch)
         chained = train_chain is not None and any(k > 1 for k in plan)
         train_loader, val_loader = self._loaders(
@@ -212,14 +277,32 @@ class Trainer:
         history: list[dict[str, float]] = []
         val_loss = val_acc = float("nan")
         epochs_run = 0
+        profile = None
+        # a Run wrapped by obs.telemetry.tee_run exposes its hub: chain
+        # dispatch and checkpoint-write latencies become dist series
+        hub = (getattr(self.run, "telemetry_hub", None)
+               if self.run is not None else None)
         resumed = ckpt is not None and resume and start_epoch > 0
         state = sched.initial_state(state, start_epoch, resumed)
+        if monitor is not None:
+            monitor.start()
         try:
             for epoch in range(start_epoch, cfg.epochs):
+                if (cfg.trace_dir and epoch == start_epoch
+                        and process_topology()[0] == 0):
+                    profile = EpochProfile(cfg.trace_dir, self.device, epoch)
+                    if self.run is not None:
+                        # the report links this param as the run's
+                        # profiler-trace artifact
+                        self.run.log_params(
+                            {"trace_dir": profile.trace_dir})
                 t0 = time.time()
                 losses, accs = [], []
                 step_i = 0
                 for k_chain in plan:
+                    t_chain = (time.monotonic()
+                               if self.tracer is not None or hub is not None
+                               else 0.0)
                     # per-batch LR: cosine, or the warmup ramp; None past
                     # warmup in the plateau regime (chain boundaries when
                     # chained)
@@ -235,11 +318,26 @@ class Trainer:
                                              dropout_seed)
                     losses.append(metrics["loss"])
                     accs.append(metrics["accuracy"])
+                    if self.tracer is not None:
+                        # one span per chain BOUNDARY (the host-side
+                        # dispatch window; device time for the chain lives
+                        # in the profiler trace)
+                        self.tracer.record_span(
+                            "train_chain", "train", t_chain,
+                            time.monotonic(), tid="train",
+                            args={"epoch": epoch, "step": step_i,
+                                  "k": k_chain, "chained": bool(chained)})
+                    if hub is not None:
+                        hub.observe("train.chain_ms",
+                                    (time.monotonic() - t_chain) * 1e3)
                     step_i += k_chain
                 # one fetch for the whole epoch
                 train_loss = fetch_metrics_mean(losses)
                 train_acc = fetch_metrics_mean(accs)
                 epoch_s = time.time() - t0
+                if profile is not None:
+                    done, profile = profile, None   # stop() ends it either way
+                    done.stop()
 
                 vlosses, vaccs = [], []
                 viter = iter(val_loader())
@@ -280,16 +378,28 @@ class Trainer:
                     stop = True
                 # checkpoint AFTER the callbacks: resume = continuation
                 if ckpt and (epoch + 1) % cfg.checkpoint_every_epochs == 0:
+                    t_ck = time.monotonic()
                     ckpt.save(state, state.step,
                               metadata={"epoch": epoch, "val_loss": val_loss,
                                         "val_accuracy": val_acc,
                                         "callbacks": sched.state_dicts()})
+                    if hub is not None:
+                        hub.observe("train.ckpt_write_ms",
+                                    (time.monotonic() - t_ck) * 1e3)
                 if best is not None:
                     best.maybe_save(state, state.step, row, {"epoch": epoch})
                 if stop:
                     break
         finally:
-            train_iter.close()
+            # always runs, the abort path too: a dangling profile is
+            # closed, the loader and the async checkpoint writer joined
+            try:
+                if profile is not None:
+                    profile.close()
+            finally:
+                train_iter.close()
+                if monitor is not None:
+                    monitor.stop()
             if ckpt is not None:
                 ckpt.close()
             if best is not None:

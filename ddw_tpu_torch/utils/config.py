@@ -107,9 +107,12 @@ class TrainCfg:
     checkpoint_every_epochs: int = 1
     checkpoint_keep_best: bool = False  # also keep the best-val_loss state
     log_every_steps: int = 10
-    trace_dir: str = ""                 # not yet ported (ROADMAP.md)
+    trace_dir: str = ""                 # "" = off; else torch.profiler over
+                                        # the first epoch's steps, a Chrome
+                                        # trace written into this directory
     debug_cross_host_checks: bool = False  # params checksum into the tracker
-    monitor_interval_s: float = 0.0     # not yet ported (ROADMAP.md)
+    monitor_interval_s: float = 0.0     # >0: sys.* utilization series into
+                                        # the run (utils/sysmon, process 0)
 
     def __post_init__(self):
         require_ported(self)
@@ -174,8 +177,7 @@ def require_ported(cfg: TrainCfg) -> None:
     ``ROADMAP.md``. Set fields differ from their defaults."""
     defaults = TrainCfg.__dataclass_fields__
     unported = ("zero", "fsdp", "pipeline_stages", "pipeline_schedule",
-                "pipeline_microbatches", "pipeline_virtual_stages",
-                "trace_dir", "monitor_interval_s")
+                "pipeline_microbatches", "pipeline_virtual_stages")
     for name in unported:
         if getattr(cfg, name) != defaults[name].default:
             raise NotImplementedError(

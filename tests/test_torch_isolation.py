@@ -84,7 +84,9 @@ def test_every_port_module_imports_with_jax_blocked():
                  "models.vit", "models.export", "ops.s2d_conv",
                  "models.layers", "models.spec_decode", "obs.telemetry",
                  "serve.admission", "serve.metrics", "serve.slots",
-                 "serve.blocks", "serve.engine"):
+                 "serve.blocks", "serve.engine", "serve.adapters",
+                 "serve.tenancy", "serve.lanes", "obs.trace", "obs.slo",
+                 "utils.sysmon"):
         assert f"ddw_tpu_torch.{name}" in modules
     modules += ["examples_torch." + os.path.basename(p)[:-3]
                 for p in _example_sources()]

@@ -3,7 +3,8 @@
 GQA and LoRA in f32 (through both attention tiers) and bf16, greedy
 generation; and inside the port, decode against the full forward, the cache
 overflow poison, the tile skipping, sampling, training-mode dropout and the
-refusals."""
+refusals; per-row serving adapters (``forward(adapters=(stacks, idx))``)
+against ``ddw_tpu``'s, full and paged."""
 
 import functools
 import importlib
@@ -226,9 +227,6 @@ def test_unported_options_are_refused_naming_the_roadmap():
         build_lm(LMCfg(**dict(BASE, num_experts=2)))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_lm(cfg, seq_axis="seq")
-    _, _, tm = _pair()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tm(torch.zeros((1, 4), dtype=torch.long), adapters=({}, [0]))
     with pytest.raises(ValueError, match="unknown lora_targets"):
         build_lm(LMCfg(**dict(BASE, lora_rank=2, lora_targets=("qkv",))))
     with pytest.raises(ValueError, match="unknown pos_encoding"):
@@ -341,3 +339,72 @@ def test_flax_conventions(convention):
         assert got.dtype == torch.bfloat16
         np.testing.assert_array_equal(got.float().numpy(),
                                       np.asarray(want, np.float32))
+
+
+def _adapter_stacks(slots=2, rank=3, seed=5):
+    """Seeded per-target stacks in the pool layout ({block: {target:
+    (a [slots+1, *in, r], b [slots+1, r, *feats])}}), slot 0 all zeros."""
+    rng = np.random.RandomState(seed)
+    hd, heads, hid, mlp = 8, 4, 32, 64
+    shapes = {"query": ((hid,), (heads, hd)), "key": ((hid,), (heads, hd)),
+              "value": ((hid,), (heads, hd)), "out": ((heads, hd), (hid,)),
+              "fc1": ((hid,), (mlp,)), "fc2": ((mlp,), (hid,))}
+    out = {}
+    for i in range(BASE["depth"]):
+        blk = {}
+        for name, (ins, feats) in shapes.items():
+            a = 0.3 * rng.randn(slots + 1, *ins, rank).astype(np.float32)
+            b = 0.3 * rng.randn(slots + 1, rank, *feats).astype(np.float32)
+            a[0] = 0.0
+            b[0] = 0.0
+            blk[name] = (a, b)
+        out[f"backbone_block{i}"] = blk
+    return out
+
+
+@pytest.mark.parametrize("mode", ["full", "paged"])
+def test_per_row_adapters_match_jax(mode):
+    """``adapters=(stacks, idx)``: each row's delta from its own slot, f32
+    logits within 1e-4 of ddw_tpu's; the slot-0 row is bit-equal to the
+    adapter-free forward (the delta is added, never folded in)."""
+    from ddw_tpu_torch.models.lm import init_paged_cache
+
+    jm, params, tm = _pair()
+    stacks = _adapter_stacks()
+    idx = np.array([2, 0, 1], np.int32)
+    toks = _tokens(b=3, s=12, seed=4)
+    tstacks = {b: {t: (torch.from_numpy(a), torch.from_numpy(bb))
+                   for t, (a, bb) in blk.items()}
+               for b, blk in stacks.items()}
+    if mode == "full":
+        want = np.asarray(jm.apply({"params": params}, jnp.asarray(toks),
+                                   adapters=(stacks, idx)), np.float32)
+        with torch.inference_mode():
+            got = tm(torch.from_numpy(toks).long(),
+                     adapters=(tstacks, idx)).numpy()
+            base = tm(torch.from_numpy(toks).long()).numpy()
+    else:
+        jp = jax_build_lm(JaxLMCfg(**BASE)).clone(
+            decode=True, paged_decode=True, kv_cache_blocks=16,
+            kv_block_size=8)
+        tables = np.array([[1, 2, 0, 0, 0, 0, 0, 0], [3, 4, 0, 0, 0, 0, 0, 0],
+                           [5, 6, 0, 0, 0, 0, 0, 0]], np.int32)
+        starts = np.zeros((3,), np.int32)
+        cache = jp.init({"params": jax.random.PRNGKey(0)},
+                        jnp.zeros((3, 12), jnp.int32), block_tables=tables,
+                        start_pos=starts)["cache"]
+        want = np.asarray(jp.apply(
+            {"params": params, "cache": cache}, jnp.asarray(toks),
+            block_tables=tables, start_pos=starts, adapters=(stacks, idx),
+            mutable=["cache"])[0], np.float32)
+        with torch.inference_mode():
+            def run(ad):
+                c = init_paged_cache(tm, 16, 8)
+                return tm(torch.from_numpy(toks).long(), cache=c,
+                          adapters=ad,
+                          block_tables=torch.from_numpy(tables).long(),
+                          start_pos=starts).numpy()
+            got, base = run((tstacks, idx)), run(None)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    assert np.array_equal(got[1], base[1])
+    assert np.abs(got[0] - base[0]).max() > 1e-2   # the adapters matter

@@ -8,8 +8,9 @@ stop with pending futures); failure containment through an injected
 raising pool op (degraded, then failed with every future resolved, then
 restart); seeded sampling repeatable inside the port; int8 LM and image
 packages through the engine; the image lane on the depthwise kernel's path
-(``dw_impl="pallas"``, its plain version here); every unported feature
-refused naming ``ROADMAP.md``. Every future is waited on with a timeout and
+(``dw_impl="pallas"``, its plain version here); what stays unported
+(tensor parallelism, the disaggregation roles, serve faults) refused naming
+``ROADMAP.md``. Every future is waited on with a timeout and
 every engine stopped."""
 
 import concurrent.futures
@@ -383,14 +384,15 @@ def test_image_lane_matches_predict_logits(tmp_path, name, quantize):
 
 
 def test_unported_features_are_refused_naming_the_roadmap(pm, monkeypatch):
-    for kw in (dict(cfg=EngineCfg(spec_k=2)), dict(draft=pm),
-               dict(cfg=EngineCfg(adapter_slots=2)),
-               dict(cfg=EngineCfg(tenants=({"name": "acme"},))),
-               dict(cfg=EngineCfg(trace=True)),
-               dict(cfg=EngineCfg(telemetry=True)),
-               dict(cfg=EngineCfg(tp=2)), dict(mesh=object()),
+    """What stays refused after the speculative tick, adapters, tenants,
+    tracing, telemetry, the monitor and bulk jobs landed (their cases moved
+    to test_torch_serve_spec.py, test_torch_serve_adapters.py,
+    test_torch_serve_tenancy_lanes.py and test_torch_obs.py): tensor
+    parallelism, a mesh, the disaggregation roles and DDW_FAULT serve
+    faults."""
+    for kw in (dict(cfg=EngineCfg(tp=2)), dict(mesh=object()),
                dict(cfg=EngineCfg(role="prefill")),
-               dict(monitor_interval_s=1.0)):
+               dict(cfg=EngineCfg(role="decode"))):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             ServingEngine(lm=pm, **kw)
     monkeypatch.setenv("DDW_FAULT", "serve:crash")
@@ -398,18 +400,10 @@ def test_unported_features_are_refused_naming_the_roadmap(pm, monkeypatch):
         ServingEngine(lm=pm)
     monkeypatch.delenv("DDW_FAULT")
     with ServingEngine(lm=pm) as eng:
-        for call in (lambda: eng.submit_batch([np.ones(3, np.int32)]),
-                     lambda: eng.submit_generate(np.ones(3, np.int32), 2,
-                                                 adapter_id="fin"),
-                     lambda: eng.set_checkpoint(None, draft_dir="d")):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-                call()
         with pytest.raises(ValueError, match="exceeds max_len"):
             eng.submit_generate(np.ones(90, np.int32), 10)
         with pytest.raises(ValueError, match="token ids outside"):
             eng.submit_generate(np.full(3, VOCAB, np.int32), 2)
-    with pytest.raises(ValueError, match="spec_k"):
-        ServingEngine(lm=pm, cfg=EngineCfg(spec_k=-1))
     with pytest.raises(ValueError, match="role"):
         EngineCfg(role="x")
     with pytest.raises(ValueError, match="paged pool"):

@@ -293,9 +293,18 @@ def test_block_pool_refusals():
     with pytest.raises(ValueError, match="overcommit"):
         BlockPool(tm, n_blocks=4, block_size=4, max_resident=2,
                   overcommit=0.5)
-    for kw in ({"mesh": object()}, {"adapters": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            BlockPool(tm, n_blocks=4, block_size=4, max_resident=2, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        BlockPool(tm, n_blocks=4, block_size=4, max_resident=2,
+                  mesh=object())
+    # adapter stacks are ported (test_torch_serve_adapters.py): a pool
+    # takes an AdapterPool and hands its slot 0 to a row without one
+    from ddw_tpu_torch.serve.adapters import AdapterPool
+
+    pool = BlockPool(tm, n_blocks=4, block_size=4, max_resident=2,
+                     adapters=AdapterPool(tm, slots=1, rank=2))
+    stacks, idx = pool._adapter_extras([None, None])
+    assert idx.tolist() == [0, 0] and set(stacks) == {
+        f"backbone_block{i}" for i in range(tm.depth)}
 
 
 def test_slot_pool_bookkeeping_matches_jax():

@@ -2,11 +2,14 @@
 schedule against ``ddw_tpu``'s for one metric stream, learning on a
 synthetic ``raw_u8`` table, resume bit-identical to an uninterrupted run, the
 loss trajectory against the JAX ``Trainer`` from the same weights and
-batches, the refusals of unported features, tracker logging, and one
+batches, the refusals of unported features, tracker logging, the
+``trace_dir`` / ``monitor_interval_s`` / ``tracer=`` hooks, and one
 2-process gloo data-parallel step against JAX's 2-device mesh step.
 MobileNetV2 width 0.35, 32x32 images (64x64 for the DP step), f32."""
 
 import dataclasses
+import glob
+import json
 import warnings
 
 import jax
@@ -139,6 +142,42 @@ def test_fit_learns_and_logs(tables, tmp_path):
     assert len(run.metric_history("params_checksum")) == 5
 
 
+def test_trace_dir_monitor_and_tracer_hooks(tables, tmp_path):
+    """``trace_dir`` profiles the first epoch's steps into a Chrome trace
+    and logs the param; ``monitor_interval_s`` logs sys.* series (when
+    psutil imports); ``tracer=`` records one ``train_chain`` span per chain
+    boundary, ddw_tpu's names; a tee'd run's hub gets ``train.chain_ms``.
+    The hooks leave the losses as an unhooked run's."""
+    from ddw_tpu_torch.obs.telemetry import TelemetryHub, tee_run
+    from ddw_tpu_torch.obs.trace import Tracer
+    from ddw_tpu_torch.utils.sysmon import host_keys_available
+
+    _, train, val = tables
+    data, model, cfg = _cfgs(tmp_path, epochs=1, steps_per_dispatch=3)
+    plain = Trainer(data, model, cfg, device="cpu").fit(train, val)
+    hooked = dataclasses.replace(cfg, trace_dir=str(tmp_path / "trace"),
+                                 monitor_interval_s=0.02)
+    run = Tracker(str(tmp_path / "mlruns")).start_run("hooks")
+    hub = TelemetryHub()
+    tracer = Tracer(process="train")
+    res = Trainer(data, model, hooked, run=tee_run(run, hub), device="cpu",
+                  tracer=tracer).fit(train, val)
+    assert [r["loss"] for r in res.history] == \
+        [r["loss"] for r in plain.history]
+    traces = glob.glob(str(tmp_path / "trace" / "*.json"))
+    assert len(traces) == 1
+    with open(traces[0]) as f:
+        assert any(e.get("cat") == "cpu_op"
+                   for e in json.load(f)["traceEvents"])
+    assert run.params()["trace_dir"] == str(tmp_path / "trace")
+    spans = tracer.drain()
+    assert [(e["name"], e["args"]["k"]) for e in spans] == \
+        [("train_chain", 3)] * 2
+    assert hub.signals()["train.chain_ms"] == "dist"
+    if host_keys_available():
+        assert len(run.metric_history("sys.host_mem_percent")) >= 1
+
+
 def test_resume_equals_uninterrupted_bit_for_bit(tables, tmp_path):
     # dropout on, plateau counters and the loader stream must round-trip
     _, train, val = tables
@@ -210,8 +249,7 @@ def test_loss_trajectory_tracks_jax_trainer(tables, tmp_path):
 
 
 def test_unported_features_are_refused(tables, tmp_path):
-    for kw in (dict(zero=True), dict(fsdp=True), dict(pipeline_stages=2),
-               dict(trace_dir="t"), dict(monitor_interval_s=1.0)):
+    for kw in (dict(zero=True), dict(fsdp=True), dict(pipeline_stages=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             TrainCfg(**kw)
     cfgs = {"data": DataCfg(), "model": ModelCfg(), "train": TrainCfg()}
