@@ -2,7 +2,8 @@
 """Smoke run of ddw_tpu_torch on one NVIDIA card: build, check and time the
 port's CUDA kernels, then drive the serving, training, workshop (the
 example chain), vision-family, pretrained-transfer, LM-scoring,
-LM-training, online-serving and collective main paths end to end.
+LM-training, online-serving, serving-fleet and collective main paths end
+to end.
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -250,6 +251,41 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``SLOMonitor`` over the feed not paging; ``sys.device_hbm_*`` series in
    the run (whether ``psutil`` gave the host keys is printed). No K3 launch
    on the LM lane. The phase's wall seconds.
+9d. fleet — the host fleet (``ddw_tpu_torch.gateway``, ``.deploy``,
+   ``.autoscale``) on serve's package, mix and images. (a) A ``Gateway``
+   over two in-thread replicas that carry both lanes (the LM and the
+   MobileNetV2 package, ``pallas``) takes the 32-request mix as serve
+   offers it (4 submitting threads, staggered arrivals, every request in
+   flight at once through a ``GatewayClient``), even requests streamed
+   (NDJSON): every token within
+   serve's 0.05 rule; tokens/s, TTFT p50/p99 (the engine's, and the
+   client's first NDJSON line) beside serve's in-process numbers and the
+   same mix into the same two replicas' ``ReplicaSet`` without HTTP. 64
+   images over ``/v1/predict``: exactly 13 K1 launches per image batch,
+   all ``tma``, logits within serve's tolerance of ``predict_logits``. A
+   seeded request alone gives the same tokens in-thread and over HTTP. (b)
+   Two ``ProcessReplica`` children (``--device cuda``, each its own CUDA
+   context) behind a gateway: the mix within the rule, the seeded request
+   the in-thread tokens again, directly and over HTTP; the cold start,
+   spawn to ``/readyz``. (c) ``DDW_FAULT=serve:crash:site=decode:replica=1``
+   armed on child 1 through a supervised respawn: 8 unary requests sent to
+   it (the router's canary weight at 1.0), child 1 dies at its first
+   decode tick, the supervisor restarts it, the clients' retries after 503
+   fail over to child 0, every request answered within the rule; the
+   restart seconds. (d) A canary roll (fraction 0.5, a 2 s
+   judgment) to a second seeded package under steady load from 2 threads:
+   zero failed requests, both children on the new digest, tokens after the
+   roll within the rule of the new package's sequential ``generate``, the
+   rollout journal terminal; the roll's seconds. (e) A ``role="prefill"``
+   and a ``role="decode"`` replica: 8 requests each handed off (the KV
+   wire), the prefill replica never decoding, every token within the rule;
+   handoffs and mean handoff ms. (f) Autoscale (queue per replica out at
+   8, in at 1, read live from the replicas): the mix as a burst scales one
+   replica out by one, a second wave of fresh seeded prompts lands on both
+   (the new replica serves part of it), idle scales back in; zero failed
+   requests, every token within the rule (the fresh wave against the
+   logits its tokens were picked from). Every child killed
+   and every gateway stopped before the next phase; no K3 launch.
 10. ring — the collective layer (K6, the ring all-reduce) at N = 2, then
    N = 4 ranks: processes from ``spawn_cpu`` joined by gloo, all on this
    one card (NCCL refuses two ranks on one device; K6 maps its neighbours'
@@ -3626,7 +3662,8 @@ def phase_serve(tmp: str) -> tuple[dict, dict]:
                                    for n, st in spec_stats.items()},
         "wall_seconds": wall}
     emit(phase="serve", sequential_seconds=seq_s, **summary)
-    return summary, {"pm": pm, "prompts": prompts, "steps": steps,
+    return summary, {"pm": pm, "pkg_dir": pkg, "prompts": prompts,
+                     "steps": steps,
                      "refs": refs, "ref_readings": ref_readings,
                      "drafts": drafts, "img": img, "images": x,
                      "image_ref": ref, "image_tol": tol,
@@ -4005,6 +4042,551 @@ def phase_serve_plus(tmp: str, ctx: dict) -> dict:
     return out
 
 
+FLEET_JUDGE_S = 2.0           # the canary judge's window
+FLEET_LOAD_PROMPT = 64        # steady-load requests during the canary roll:
+FLEET_LOAD_STEPS = 8          # the mix's prompts cut to 64 tokens, 8 steps
+FLEET_CHECK = 4               # requests held to the new package after it
+FLEET_DISAGG = 8              # requests handed off prefill -> decode
+FLEET_SAMPLED_STEPS = 32      # the seeded request's new tokens
+FLEET_TEMPERATURE = 0.8
+
+
+def fleet_mix(port: int, prompts, steps, clients: int = SERVE_CLIENTS,
+              stream: bool = True, **kw) -> dict:
+    """The mix through the gateway at ``port``, offered as serve offers it
+    to the engine: ``clients`` submitting threads with seeded staggered
+    arrivals, every request in flight at once (one ``GatewayClient``
+    call on a thread of its own), even requests streamed (NDJSON) and odd
+    ones unary (all unary with ``stream=False``: a stream cut after its
+    first line cannot be retried); every call waited on. Returns the
+    replies, the client's first-token ms of the streamed ones, the
+    clients' retries after 429 / 503, and the wall seconds."""
+    import threading
+
+    import numpy as np
+
+    from ddw_tpu_torch.gateway import GatewayClient
+
+    replies, first_ms, errors, retries = [None] * len(prompts), {}, [], []
+    calls: list = []
+
+    def call(i):
+        cli = GatewayClient("127.0.0.1", port, timeout_s=600.0,
+                            max_retries=8)
+        t_send = time.perf_counter()
+        seen = []
+
+        def on_token(idx, tok):
+            if not seen:
+                first_ms[i] = (time.perf_counter() - t_send) * 1e3
+            seen.append(tok)
+
+        streamed = stream and i % 2 == 0
+        try:
+            replies[i] = cli.generate(
+                [int(t) for t in prompts[i]], int(steps[i]),
+                stream=streamed, on_token=on_token if streamed else None,
+                **kw)
+        except Exception as e:          # noqa: BLE001 — counted, and the
+            errors.append(f"{i}: {e!r}")  # caller fails on any
+        retries.append(cli.retries)
+        cli.close()
+
+    def client(c):
+        rng = np.random.RandomState(SEED + 20 + c)
+        for i in range(c, len(prompts), clients):
+            t = threading.Thread(target=call, args=(i,))
+            calls.append(t)
+            t.start()
+            time.sleep(float(rng.uniform(0.0, 0.02)))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    for t in list(calls):
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    return {"replies": replies, "first_ms": first_ms, "errors": errors,
+            "retries": sum(retries), "wall": wall,
+            "tokens": [None if r is None else np.asarray(r["tokens"],
+                                                         np.int32)
+                       for r in replies]}
+
+
+def replica_set_mix(rs, prompts, steps) -> dict:
+    """The mix into a ``ReplicaSet`` in this process, submitted as serve
+    submits to one engine (SERVE_CLIENTS threads, seeded staggered
+    arrivals, futures waited on): the fleet without its HTTP transport."""
+    import threading
+
+    import numpy as np
+
+    futs = [None] * len(prompts)
+
+    def client(c):
+        rng = np.random.RandomState(SEED + 20 + c)
+        for i in range(c, len(prompts), SERVE_CLIENTS):
+            futs[i] = rs.submit_generate(prompts[i], steps[i])
+            time.sleep(float(rng.uniform(0.0, 0.02)))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    results = [f.result(timeout=600) for f in futs]
+    wall = time.perf_counter() - t0
+    return {"tokens": [r.tokens for r in results],
+            "tokens_per_s": sum(steps) / wall}
+
+
+def child_logs(reps, tail: int = 3000) -> str:
+    """The end of each process replica's child log (printed on a failure:
+    the children's stderr goes nowhere else)."""
+    out = []
+    for r in reps:
+        path = getattr(r, "log_path", None)
+        if path and os.path.exists(path):
+            with open(path, errors="replace") as f:
+                out.append(f"--- replica {r.replica_id} ({path}) ---\n"
+                           + f.read()[-tail:])
+    return "\n".join(out)
+
+
+def await_cond(cond, timeout_s: float, what: str) -> float:
+    """Seconds until ``cond()`` holds; a check failure past the timeout."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout_s:
+        if cond():
+            return time.perf_counter() - t0
+        time.sleep(0.05)
+    check(False, f"{what} within {timeout_s} s")
+
+
+def phase_fleet(tmp: str, ctx: dict, serve: dict) -> dict:
+    """The host fleet on the card (the module docstring's 9d): the HTTP
+    gateway over in-thread replicas on both lanes, process replicas, a
+    canary roll, a supervised restart, a prefill -> decode handoff and an
+    autoscale cycle, on serve's package, mix and image inputs."""
+    import numpy as np
+    import torch
+
+    from ddw_tpu_torch.autoscale import ScalePolicy
+    from ddw_tpu_torch.deploy import ProcessReplica, RolloutJournal
+    from ddw_tpu_torch.gateway import Gateway, GatewayClient, ReplicaSet
+    from ddw_tpu_torch.models.convert import (init_lm_weights,
+                                              to_flax_variables)
+    from ddw_tpu_torch.models.lm import build_lm
+    from ddw_tpu_torch.ops.depthwise_conv import (depthwise_conv3x3_cuda,
+                                                  reset_depthwise_counts)
+    from ddw_tpu_torch.serve import EngineCfg, ServingEngine
+    from ddw_tpu_torch.serving.lm_package import (LMPackagedModel,
+                                                  save_lm_package)
+    from ddw_tpu_torch.utils.config import LMCfg
+
+    t_phase = time.perf_counter()
+    pm, prompts, steps = ctx["pm"], ctx["prompts"], ctx["steps"]
+    refs, ref_readings, img = ctx["refs"], ctx["ref_readings"], ctx["img"]
+    lens = tuple(sorted({len(p) for p in prompts}))
+    k3_before = flash_counts()
+    out: dict = {}
+    sp = prompts[3]                      # the seeded request's prompt
+    sgen = lambda: torch.Generator().manual_seed(SEED + 41)  # noqa: E731
+
+    # --- (a) HTTP over two in-thread replicas, both lanes -----------------
+    engines = [ServingEngine(lm=pm, image=img, cfg=EngineCfg(),
+                             replica_id=i) for i in range(2)]
+    gw = Gateway(engines, grace_s=60.0)
+    try:
+        t0 = time.perf_counter()
+        gw.start(warmup_prompt_lens=lens)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        mix = fleet_mix(gw.port, prompts, steps)
+        check(not mix["errors"], f"http: every request answered "
+              f"({mix['errors'][:3]})")
+        http_tok = mix["tokens"]
+        # the same mix into the same two replicas without HTTP: what the
+        # transport costs, apart from two engines sharing one process
+        direct = replica_set_mix(gw.replica_set, prompts, steps)
+        dtie = stream_check(pm, prompts, refs, direct["tokens"],
+                            ref_readings)
+        tie = stream_check(pm, prompts, refs, http_tok, ref_readings)
+        ttft = np.array([r["ttft_ms"] for r in mix["replies"]])
+        first = np.array(sorted(mix["first_ms"].values()))
+        # the seeded request alone: in-thread engine, then over HTTP
+        seeded = {"in_thread": engines[0].submit_generate(
+            sp, FLEET_SAMPLED_STEPS, temperature=FLEET_TEMPERATURE,
+            rng=sgen()).result(timeout=600).tokens}
+        cli = GatewayClient("127.0.0.1", gw.port, timeout_s=600.0)
+        seeded["http"] = np.asarray(cli.generate(
+            sp.tolist(), FLEET_SAMPLED_STEPS, temperature=FLEET_TEMPERATURE,
+            seed=SEED + 41)["tokens"], np.int32)
+        # 64 images over /v1/predict from 4 threads
+        import concurrent.futures
+
+        before = sum(e.snapshot()["serve.image_batches"] for e in engines)
+        reset_depthwise_counts()
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(SERVE_CLIENTS) as ex:
+            preds = list(ex.map(lambda x: GatewayClient(
+                "127.0.0.1", gw.port, timeout_s=600.0).predict(
+                    x, return_logits=True), list(ctx["images"])))
+        img_wall = time.perf_counter() - t0
+        batches = int(sum(e.snapshot()["serve.image_batches"]
+                          for e in engines) - before)
+        launches = depthwise_conv3x3_cuda.launches
+        by_variant = dict(depthwise_conv3x3_cuda.launches_by_variant)
+        snap = gw.replica_set.snapshot()
+    finally:
+        gw.stop()
+    got = np.asarray([p["logits"] for p in preds], np.float32)
+    ref, tol = ctx["image_ref"], ctx["image_tol"]
+    top2 = np.sort(ref, axis=-1)[:, -2:]
+    decisive = (top2[:, 1] - top2[:, 0]) > tol
+    agree = np.argmax(got, -1) == np.argmax(ref, -1)
+    err = float(np.abs(got - ref).max())
+    out.update(
+        http_tokens_per_s=sum(steps) / mix["wall"],
+        http_ttft_ms_p50=float(np.percentile(ttft, 50)),
+        http_ttft_ms_p99=float(np.percentile(ttft, 99)),
+        http_client_first_token_ms_p50=float(np.percentile(first, 50)),
+        http_client_first_token_ms_p99=float(np.percentile(first, 99)),
+        http_image_requests_per_s=SERVE_IMAGES / img_wall,
+        replica_set_tokens_per_s=direct["tokens_per_s"],
+        in_process_tokens_per_s=serve["engine_tokens_per_s"],
+        in_process_ttft_ms_p50=serve["ttft_ms_p50"],
+        in_process_ttft_ms_p99=serve["ttft_ms_p99"],
+        in_process_image_requests_per_s=serve["image_requests_per_s"],
+        k1_launches=launches, k1_launches_by_variant=by_variant)
+    emit(phase="fleet", arm="http", warmup_s=warm, **{
+        k: out[k] for k in out}, image_batches=batches,
+        max_abs_diff_vs_predict_logits=err, tolerance=tol,
+        streams_equal=len(prompts) - tie["diverged"], **tie,
+        completed=snap.get("serve.completed"))
+    check(tie["all_near_ties"], f"http: every token of every stream within "
+          f"{SERVE_TOKEN_TIE} of the sequential path's argmax ({tie})")
+    check(dtie["all_near_ties"], f"the replica set without HTTP: every "
+          f"token within {SERVE_TOKEN_TIE} ({dtie})")
+    check(launches == LAYERS_PER_FORWARD * batches and batches > 0,
+          f"/v1/predict: K1 launched {launches} times, expected "
+          f"{LAYERS_PER_FORWARD} x {batches} image batches")
+    check(by_variant["tma"] == launches, f"every /v1/predict K1 launch on "
+          f"tma: {by_variant}")
+    check(err <= tol and bool(agree[decisive].all()),
+          f"/v1/predict logits within {tol:.3g} of predict_logits "
+          f"({err:.3g}), argmax equal wherever decisive")
+    check(np.array_equal(seeded["http"], seeded["in_thread"]),
+          "a seed samples the in-thread engine's tokens over HTTP")
+
+    # --- (b) two process replicas on the card -------------------------------
+    work = os.path.join(tmp, "fleet")
+    reps = [ProcessReplica(ctx["pkg_dir"], replica_id=i,
+                           device=pm.device.type,
+                           warmup_lens=lens, spawn_timeout_s=300.0,
+                           request_timeout_s=600.0,
+                           workdir=os.path.join(work, f"replica{i}"))
+            for i in range(2)]
+    for r in reps:
+        os.makedirs(r._workdir, exist_ok=True)
+    jdir = os.path.join(work, "deploy_journal")
+    pgw = Gateway(reps, grace_s=60.0, deploy_journal_dir=jdir,
+                  supervisor_kw={"poll_interval_s": 0.1,
+                                 "backoff_base_s": 0.1, "backoff_max_s": 0.5,
+                                 "jitter": 0.0, "probe_timeout_s": 120.0})
+    try:
+        t0 = time.perf_counter()
+        pgw.start(warmup_prompt_lens=lens)
+        cold = time.perf_counter() - t0
+        pmix = fleet_mix(pgw.port, prompts, steps)
+        check(not pmix["errors"], f"process replicas: every request "
+              f"answered ({pmix['errors'][:3]})")
+        ptie = stream_check(pm, prompts, refs, pmix["tokens"], ref_readings)
+        same = sum(np.array_equal(a, b)
+                   for a, b in zip(pmix["tokens"], http_tok))
+        pids = {r._proc.pid for r in reps}
+        seeded["process_replica"] = reps[1].submit_generate(
+            sp, FLEET_SAMPLED_STEPS, temperature=FLEET_TEMPERATURE,
+            rng=sgen()).result(timeout=600).tokens
+        pcli = GatewayClient("127.0.0.1", pgw.port, timeout_s=600.0,
+                             max_retries=8)
+        seeded["process_http"] = np.asarray(pcli.generate(
+            sp.tolist(), FLEET_SAMPLED_STEPS, temperature=FLEET_TEMPERATURE,
+            seed=SEED + 41)["tokens"], np.int32)
+        out.update(process_cold_start_s=cold,
+                   process_tokens_per_s=sum(steps) / pmix["wall"])
+        emit(phase="fleet", arm="process", cold_start_s=cold,
+             tokens_per_s=out["process_tokens_per_s"],
+             streams_equal_in_thread_fleet=int(same), **ptie,
+             children=len(pids))
+        check(len(pids) == 2 and os.getpid() not in pids,
+              "two child processes serve")
+        check(ptie["all_near_ties"], f"process replicas: every token within "
+              f"{SERVE_TOKEN_TIE} of the sequential path's argmax ({ptie})")
+        check(all(np.array_equal(v, seeded["in_thread"])
+                  for v in seeded.values()), f"a seed samples the same "
+              f"tokens in-thread, over HTTP and through a ProcessReplica "
+              f"({ {k: v[:6].tolist() for k, v in seeded.items()} })")
+
+        # --- (c) supervision: serve:crash on child 1 ------------------------
+        os.environ["DDW_FAULT"] = "serve:crash:site=decode:replica=1"
+        try:
+            check(pgw.supervisor.recycle(1, kind="drill"),
+                  "child 1 respawned with the fault armed")
+        finally:
+            os.environ.pop("DDW_FAULT", None)
+        base = pgw.replica_set.restarts[1]
+        gen = reps[1].generation
+        crash_prompts = prompts[:8]
+        # the router's canary weighting at 1.0 sends the drill to child 1
+        # while it stands; once its circuit opens the retries go to child 0
+        pgw.replica_set.set_canary(1, 1.0)
+        t0 = time.perf_counter()
+        try:
+            cmix = fleet_mix(pgw.port, crash_prompts, steps[:8],
+                             stream=False)
+        finally:
+            pgw.replica_set.clear_canary()
+        restart_s = time.perf_counter() - t0 + await_cond(
+            lambda: (pgw.replica_set.restarts[1] > base
+                     and pgw.replica_set.fleet_health()[1]["state"] == "alive"
+                     and pgw.replica_set.breakers[1].state == "closed"),
+            300.0, "the supervisor restarted child 1")
+        if cmix["errors"]:
+            check(False, f"every request of the crash drill answered, "
+                  f"failed over ({cmix['errors'][:3]})")
+        ctie = stream_check(pm, crash_prompts, refs[:8], cmix["tokens"],
+                            ref_readings)
+        kinds = [(a.replica, a.kind, a.action)
+                 for a in pgw.supervisor.attempts]
+        out.update(restart_s=restart_s)
+        emit(phase="fleet", arm="supervision", restart_s=restart_s,
+             attempts=kinds[-4:], exit_code=reps[1].last_exit_code,
+             generation=reps[1].generation, client_retries=cmix["retries"],
+             **ctie)
+        check(kinds[-1][0] == 1 and kinds[-1][2] == "restarted",
+              f"child 1 failed and the supervisor restarted it ({kinds})")
+        check(cmix["retries"] >= 1, "requests on the dead child were "
+              "answered 503 and retried on the fleet")
+        check(reps[1].generation > gen, "child 1's generation moved on")
+        check(ctie["all_near_ties"], f"the failed-over requests keep their "
+              f"tokens within {SERVE_TOKEN_TIE} ({ctie})")
+
+        # --- (d) a canary roll to a second seeded package under load --------
+        lm_cfg = LMCfg(**LM_CFG)
+        new_dir = save_lm_package(
+            os.path.join(tmp, "fleet_lm_new"), lm_cfg, to_flax_variables(
+                init_lm_weights(build_lm(lm_cfg), torch.Generator(
+                ).manual_seed(SEED + 43)))["params"])
+        new_pm = LMPackagedModel(new_dir, device=pm.device)
+        chk = [p[:FLEET_LOAD_PROMPT * 4] for p in prompts[:FLEET_CHECK]]
+        new_refs = [new_pm.generate(p[None], FLEET_LOAD_STEPS * 4)[0]
+                    for p in chk]
+        import threading
+
+        stop, done, failures = threading.Event(), [0], []
+
+        def pound(c):
+            lc = GatewayClient("127.0.0.1", pgw.port, timeout_s=600.0,
+                               max_retries=8)
+            i = c
+            while not stop.is_set():
+                try:
+                    lc.generate(prompts[i % len(prompts)][
+                        :FLEET_LOAD_PROMPT].tolist(), FLEET_LOAD_STEPS)
+                    done[0] += 1
+                except Exception as e:        # noqa: BLE001
+                    failures.append(repr(e))
+                i += 2
+            lc.close()
+
+        load = [threading.Thread(target=pound, args=(c,)) for c in range(2)]
+        for t in load:
+            t.start()
+        try:
+            await_cond(lambda: done[0] >= 4, 300.0, "steady load running")
+            before = done[0]
+            t0 = time.perf_counter()
+            check(pgw.start_deploy(new_dir, strategy="canary",
+                                   canary_fraction=0.5,
+                                   judge_window_s=FLEET_JUDGE_S),
+                  "the canary roll started")
+            await_cond(lambda: not pgw.deploy_view()["deploying"], 600.0,
+                       "the roll ended")
+            roll_s = time.perf_counter() - t0
+            during = done[0] - before
+        finally:
+            stop.set()
+            for t in load:
+                t.join(timeout=600)
+        dv = pgw.deploy_view()
+        after = [np.asarray(pcli.generate(p.tolist(), FLEET_LOAD_STEPS * 4)[
+            "tokens"], np.int32) for p in chk]
+        ntie = stream_check(new_pm, chk, new_refs, after, {})
+        journal_left = RolloutJournal.load(jdir)
+        out.update(roll_s=roll_s)
+        emit(phase="fleet", arm="canary_roll", roll_s=roll_s,
+             status=dv["status"], verdict=(dv.get("canary") or {}).get(
+                 "verdict"), steps=[(s["replica"], s["action"])
+                                    for s in dv["steps"]],
+             requests_during_roll=during, failed_requests=len(failures),
+             journal_terminal=journal_left is None, **ntie)
+        check(dv["status"] == "done" and dv["fleet_generation"] >= 1,
+              f"the canary roll finished ({dv['status']})")
+        check(dv["checkpoints"] == [new_pm.content_digest] * 2,
+              "both children on the new package")
+        check(not failures and during > 0, f"zero failed requests under the "
+              f"roll, {during} served ({failures[:3]})")
+        check(ntie["all_near_ties"], f"after the roll, tokens within "
+              f"{SERVE_TOKEN_TIE} of the new package's sequential generate "
+              f"({ntie})")
+        check(journal_left is None, "the rollout journal ended terminal")
+        del new_pm
+    except BaseException:
+        print(child_logs(reps), file=sys.stderr, flush=True)
+        raise
+    finally:
+        pgw.stop()
+        for r in reps:
+            r.stop()
+    check(all(r._proc is None or r._proc.poll() is not None for r in reps),
+          "every child process exited")
+    torch.cuda.empty_cache()
+
+    # --- (e) disaggregation: a prefill replica and a decode replica --------
+    P = ServingEngine(lm=pm, cfg=EngineCfg(role="prefill"))
+    D = ServingEngine(lm=pm, cfg=EngineCfg(role="decode"), replica_id=1)
+    rs = ReplicaSet([P, D])
+    rs.prefix_index.poll_interval_s = 0.0
+    dgw = Gateway(rs, grace_s=60.0)
+    try:
+        dgw.start(warmup_prompt_lens=lens)
+        picks = [i for i in range(len(prompts))
+                 if len(prompts[i]) >= 32][:FLEET_DISAGG]
+        dmix = fleet_mix(dgw.port, [prompts[i] for i in picks],
+                         [steps[i] for i in picks])
+        dsnap = rs.snapshot()
+        p_ticks = P.snapshot()["serve.decode_ticks"]
+    finally:
+        dgw.stop()
+    check(not dmix["errors"], f"disaggregation: every request answered "
+          f"({dmix['errors'][:3]})")
+    dtie = stream_check(pm, [prompts[i] for i in picks],
+                        [refs[i] for i in picks], dmix["tokens"],
+                        ref_readings)
+    dsame = sum(np.array_equal(dmix["tokens"][k], http_tok[i])
+                for k, i in enumerate(picks))
+    handoffs = int(dsnap.get("serve.handoffs", 0))
+    out.update(handoffs=handoffs, handoff_ms=(
+        dsnap.get("serve.handoff_ms", 0.0) / max(handoffs, 1)))
+    emit(phase="fleet", arm="disaggregation", handoffs=handoffs,
+         handoff_ms_mean=out["handoff_ms"],
+         kv_blocks_migrated=dsnap.get("serve.kv_blocks_migrated"),
+         kv_bytes_migrated=dsnap.get("serve.kv_bytes_migrated"),
+         prefill_replica_decode_ticks=p_ticks,
+         streams_equal_colocated=int(dsame), **dtie)
+    check(handoffs == len(picks), f"every request handed off prefill -> "
+          f"decode ({handoffs} of {len(picks)})")
+    check(p_ticks == 0.0, "the prefill replica never decoded")
+    check(dtie["all_near_ties"], f"handed-off requests within "
+          f"{SERVE_TOKEN_TIE} of the colocated sequential tokens ({dtie})")
+
+    # --- (f) autoscale: a burst scales out by one, idle scales back in -----
+    first = ServingEngine(lm=pm, cfg=EngineCfg())
+    ars = ReplicaSet([first])
+
+    def live_windows():
+        # the fleet's queue right now, as both windows: the autoscaler's
+        # own inputs, read from the replicas instead of the 10 s / 60 s
+        # telemetry windows, so one cycle fits the phase
+        q = float(sum(h.get("queue_depth", 0) + h.get("busy_slots", 0)
+                      for h in ars.fleet_health()))
+        win = {"signals": {"serve.queue_depth": {"kind": "gauge",
+                                                 "last_sum": q}}}
+        return {"windows": {"10s": win, "60s": win}}
+
+    agw = Gateway(ars, grace_s=60.0, autoscale=True,
+                  autoscale_journal_dir=os.path.join(work, "scale_journal"),
+                  autoscale_kw=dict(
+                      policy=ScalePolicy(min_replicas=1, max_replicas=2,
+                                         queue_out=8.0, queue_in=1.0,
+                                         burn_out=None, burn_in=None,
+                                         occupancy_out_pct=None,
+                                         occupancy_in_pct=None,
+                                         out_cooldown_s=0.0,
+                                         in_cooldown_s=0.0),
+                      merged_fn=live_windows, slo_status_fn=None,
+                      tick_interval_s=3600.0, warmup_prompt_lens=lens))
+    try:
+        agw.start(warmup_prompt_lens=lens)
+        import threading
+
+        box = {}
+        rng = np.random.RandomState(SEED + 45)
+        fresh = [rng.randint(0, LM_CFG["vocab_size"], len(p)).astype(
+            np.int32) for p in prompts]
+        burst = threading.Thread(target=lambda: box.update(
+            first=fleet_mix(agw.port, prompts, steps)))
+        burst.start()
+        await_cond(lambda: live_windows()["windows"]["10s"]["signals"][
+            "serve.queue_depth"]["last_sum"] >= len(prompts) // 2, 300.0,
+            "the burst queued")
+        t0 = time.perf_counter()
+        d_out = agw.autoscaler.tick()
+        out_s = time.perf_counter() - t0
+        size_out = len(ars.replicas)
+        grown = ars.replicas[-1] if size_out == 2 else None
+        base = grown.snapshot()["serve.completed"] if grown else 0.0
+        # a second wave of fresh prompts (no cached prefix on the first
+        # replica to pull them back) lands on the grown fleet
+        box["second"] = fleet_mix(agw.port, fresh, steps)
+        burst.join(timeout=900)
+        new_served = (grown.snapshot()["serve.completed"] - base
+                      if grown else 0.0)
+        await_cond(lambda: live_windows()["windows"]["10s"]["signals"][
+            "serve.queue_depth"]["last_sum"] == 0, 300.0, "the fleet idle")
+        t0 = time.perf_counter()
+        d_in = agw.autoscaler.tick()
+        in_s = time.perf_counter() - t0
+        size_in = len(ars.replicas)
+        asnap = ars.snapshot()
+    finally:
+        agw.stop()
+    errors = box["first"]["errors"] + box["second"]["errors"]
+    atie = stream_check(pm, prompts, refs, box["first"]["tokens"],
+                        ref_readings)
+    ftie = forced_check(pm, fresh, box["second"]["tokens"])
+    out.update(autoscale_sizes=[1, size_out, size_in],
+               scale_out_s=out_s, scale_in_s=in_s)
+    emit(phase="fleet", arm="autoscale", out_decision=d_out.action,
+         in_decision=d_in.action, sizes=[1, size_out, size_in],
+         scale_out_s=out_s, scale_in_s=in_s,
+         served_by_the_new_replica=new_served, second_wave=ftie,
+         scale_outs=asnap.get("serve.scale_outs"),
+         scale_ins=asnap.get("serve.scale_ins"),
+         failed_requests=len(errors), **atie)
+    check(size_out == 2 and size_in == 1, f"the burst scaled out by one and "
+          f"idle scaled back in ({[1, size_out, size_in]})")
+    check(not errors, f"zero failed requests across the scale events "
+          f"({errors[:3]})")
+    check(new_served > 0, f"the scaled-out replica served requests of the "
+          f"second wave ({new_served})")
+    check(atie["all_near_ties"] and ftie["all_near_ties"],
+          f"autoscaled fleet within {SERVE_TOKEN_TIE} of the argmax "
+          f"({atie}, {ftie})")
+    check(flash_counts() == k3_before,
+          "the LM lanes launched no flash-attention kernel")
+    out["wall_seconds"] = time.perf_counter() - t_phase
+    emit(phase="fleet", **out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4049,6 +4631,8 @@ def main() -> int:
         serve, serve_ctx = phase_serve(tmp)
         torch.cuda.empty_cache()
         serve_plus = phase_serve_plus(tmp, serve_ctx)
+        torch.cuda.empty_cache()
+        fleet = phase_fleet(tmp, serve_ctx, serve)
         del serve_ctx
     torch.cuda.empty_cache()
     ring = phase_ring()
@@ -4068,6 +4652,7 @@ def main() -> int:
                              "pretrained": pretrained["k1"]["total"],
                              "online_serving": serve["k1_launches"],
                              "online_bulk_predict": serve_plus["k1_launches"],
+                             "fleet_http_predict": fleet["k1_launches"],
                              "train_traced_epoch": train_launches[
                                  "k1_traced"]},
         "launches_by_variant": {"train": train_launches["k1_by_variant"],
@@ -4077,6 +4662,8 @@ def main() -> int:
                                 "online_serving": serve[
                                     "k1_launches_by_variant"],
                                 "online_bulk_predict": serve_plus[
+                                    "k1_launches_by_variant"],
+                                "fleet_http_predict": fleet[
                                     "k1_launches_by_variant"],
                                 "train_traced_epoch": train_launches[
                                     "k1_traced_by_variant"]},
@@ -4233,7 +4820,9 @@ def main() -> int:
             "spec_k_effective", "adapter_tokens_per_s",
             "bulk_items_per_s", "bulk_predict_images_per_s",
             "traced_tokens_per_s", "untraced_tokens_per_s",
-            "trace_telemetry_overhead", "wall_seconds")}}),
+            "trace_telemetry_overhead", "wall_seconds")},
+        "fleet": {k: v for k, v in fleet.items()
+                  if not k.startswith("k1_")}}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

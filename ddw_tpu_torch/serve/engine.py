@@ -61,11 +61,18 @@ with ``ReplicaFailed`` (never a hang) and later submissions refused.
 :meth:`~ServingEngine.restart`, :meth:`~ServingEngine.recycle` and
 :meth:`~ServingEngine.clone_fresh` bring it back.
 
+Disaggregation (``EngineCfg.role``): a ``prefill`` replica never decodes —
+each request finishes at its first token, its blocks left registered for
+:meth:`~ServingEngine.kv_export`; a ``decode`` replica admits like the
+colocated ``both`` (imported blocks prefix-hit). ``DDW_FAULT=serve:*``
+(:mod:`ddw_tpu_torch.runtime.faults`) fires at the ``admit``, ``batch``,
+``prefill`` and ``decode`` hook sites ``ddw_tpu`` has, with per-site
+counts that restart every generation.
+
 The loop is a background thread: it enters ``torch.no_grad()`` itself
 (grad mode is thread-local), and its device work runs on that thread's
-current stream. Not yet ported, each refused at construction with an error
-naming ``ROADMAP.md``: tensor parallelism (``tp > 1``, ``mesh=``), the
-disaggregation roles and ``DDW_FAULT`` serve faults.
+current stream. Not yet ported, refused at construction with an error
+naming ``ROADMAP.md``: tensor parallelism (``tp > 1``, ``mesh=``).
 """
 
 from __future__ import annotations
@@ -84,6 +91,7 @@ import torch
 from ddw_tpu_torch.models.spec_decode import match_length
 from ddw_tpu_torch.obs.telemetry import TelemetryHub
 from ddw_tpu_torch.obs.trace import Tracer
+from ddw_tpu_torch.runtime.faults import ServeCrash, maybe_serve_fault
 from ddw_tpu_torch.serve.adapters import (AdapterError, AdapterPool,
                                           UnknownAdapter,
                                           load_adapter as load_adapter_file)
@@ -99,7 +107,8 @@ from ddw_tpu_torch.serve.tenancy import (QuotaExceeded, TenancyController,
                                          TenantAwareAdmission, TenantSpec)
 
 __all__ = ["EngineCfg", "ServingEngine", "GenerateResult", "PredictResult",
-           "Overloaded", "DeadlineExceeded", "ReplicaFailed"]
+           "Overloaded", "DeadlineExceeded", "ReplicaFailed", "ServeCrash",
+           "draw_step_seeds"]
 
 # Replica health states (ServingEngine.state / health()["state"])
 ALIVE = "alive"          # loop running, last operation clean
@@ -117,16 +126,20 @@ def _not_ported(what: str) -> NotImplementedError:
                                f"see ROADMAP.md for the slice that brings it")
 
 
-class ServeCrash(RuntimeError):
-    """A terminal engine-loop failure (the error budget spent, or a
-    forced failure): the loop dies and the replica turns ``failed``."""
+def draw_step_seeds(rng: torch.Generator, num_steps: int) -> np.ndarray:
+    """The per-step key schedule of a sampled request (``jax.random.
+    split``'s role): ``num_steps`` int64 seeds drawn from ``rng``; token
+    ``i`` is sampled with a generator seeded by seed ``i``. A process
+    replica draws them in the parent and relays them, so a seed samples
+    the same tokens on either side of the hop."""
+    return torch.randint(0, 1 << 62, (num_steps,), generator=rng,
+                         device=rng.device).cpu().numpy()
 
 
 @dataclasses.dataclass
 class EngineCfg:
     """Batching / admission policy knobs (every field of ``ddw_tpu``'s,
-    with its default; ``tp > 1`` and a ``role`` other than ``"both"`` are
-    refused by :class:`ServingEngine`)."""
+    with its default; ``tp > 1`` is refused by :class:`ServingEngine`)."""
 
     n_slots: int = 8            # concurrent LM sequences on device
     steps_per_tick: int = 4     # decode chain length per tick
@@ -188,8 +201,13 @@ class EngineCfg:
     # per-tenant QoS (serve/tenancy): TenantSpec entries (objects or their
     # to_dict forms); empty = one implicit tenant, plain admission
     tenants: tuple = ()
-    role: str = "both"          # prefill/decode disaggregation (only
-    #                             "both" is ported)
+    # prefill/decode disaggregation: a "prefill" replica never decodes —
+    # every request finishes at its first token, its blocks left
+    # registered for kv_export (the gateway's handoff submits
+    # num_steps=1, then migrates them); a "decode" replica admits as
+    # "both" does (imported blocks prefix-hit, so it prefills at most the
+    # uncovered tail). "both" is the colocated default.
+    role: str = "both"
 
     def __post_init__(self):
         if self.role not in ("prefill", "decode", "both"):
@@ -409,6 +427,7 @@ class ServingEngine:
         #                                      in-slot work runs to completion
         self._stopped = False
         self._last_tick = time.monotonic()
+        self._fault_n: dict[str, int] = {}   # per-site hook counts (per gen)
         self._inflight_admit: list = []      # claimed reqs mid-device-work
         self._pool_ops: list = []            # (fn, future) control ops the
         #                                      loop runs between ticks
@@ -427,22 +446,26 @@ class ServingEngine:
     def _refuse_unported(self, mesh) -> None:
         """What of ``ddw_tpu``'s engine this port lacks raises here, at
         construction, naming ``ROADMAP.md`` — never ignored."""
-        c = self.cfg
-        if c.tp > 1 or mesh is not None:
+        if self.cfg.tp > 1 or mesh is not None:
             raise _not_ported("tensor-parallel serving (tp > 1, mesh=)")
-        if c.role != "both":
-            raise _not_ported(f"the disaggregated {c.role!r} role "
-                              f"(the gateway's prefill/decode split)")
-        fault = os.environ.get("DDW_FAULT", "")
-        if any(spec.strip().startswith("serve:")
-               for spec in fault.split(";")):
-            raise _not_ported(f"serving fault injection (DDW_FAULT="
-                              f"{fault!r}, runtime/faults)")
 
     @property
     def device(self) -> torch.device:
         h = self._lm if self._lm is not None else self._image
         return h.device
+
+    @property
+    def tp_degree(self) -> int:
+        """Model-axis width this replica's programs shard over — always 1
+        here (tensor parallelism is refused at construction)."""
+        return 1
+
+    @property
+    def role(self) -> str:
+        """``prefill`` | ``decode`` | ``both`` — the disaggregation role
+        the gateway routes by (duck-typed: :class:`~ddw_tpu_torch.deploy.
+        ProcessReplica` relays the same property)."""
+        return self.cfg.role
 
     def _init_lm(self, lm, draft=_UNSET) -> None:
         """Build (or rebuild) the LM handle + KV pool(s). Called at
@@ -692,6 +715,21 @@ class ServingEngine:
                         if self.tenancy is not None else None),
         }
 
+    def load(self) -> dict:
+        """What admission-aware routing needs: queued + on-device work and
+        the decaying per-request service estimate (ms). ``depth`` counts
+        the INTERACTIVE lanes only (batch backlog yields to interactive
+        arrivals, so it does not project interactive wait); it rides
+        separately as ``batch_depth``. ``free_block_frac`` is the
+        disaggregation splitter's decode-placement signal."""
+        return {"depth": self._ctrl.depth("lm") + self._ctrl.depth("image"),
+                "busy": len(self._slot_req) if self.pool is not None else 0,
+                "batch_depth": (self._ctrl.depth("lm_batch")
+                                + self._ctrl.depth("image_batch")),
+                "service_ms": self._service_ms,
+                "prefill_token_ms": self._prefill_token_ms,
+                "free_block_frac": self._free_block_frac()}
+
     def _free_block_frac(self) -> float:
         if not isinstance(self.pool, BlockPool):
             return 1.0
@@ -738,6 +776,16 @@ class ServingEngine:
         for name, v in self.metrics.gauges_view().items():
             out[f"serve.{name}"] = ("gauge", float(v))
         return out
+
+    def prefix_events(self, since: int = 0) -> dict:
+        """Fleet prefix-index feed: the paged pool's register/evict event
+        log past ``since`` (:meth:`BlockPool.prefix_events` — a snapshot
+        with ``reset`` when ``since`` fell out of the retained window).
+        Engines without a paged pool report an empty, never-advancing
+        log."""
+        if isinstance(self.pool, BlockPool):
+            return self.pool.prefix_events(since)
+        return {"seq": 0, "reset": False, "events": []}
 
     # -- KV block migration ---------------------------------------------------
     def kv_export(self, prompt, skip_hashes=()) -> dict | None:
@@ -871,6 +919,7 @@ class ServingEngine:
             self._failure = None
         self._consecutive_errors = 0
         self.generation += 1
+        self._fault_n = {}
         self._inflight_admit = []
         if self._pending_checkpoint is not None:
             self._apply_pending_checkpoint()
@@ -942,6 +991,25 @@ class ServingEngine:
         eng.draft_dir = self.draft_dir
         return eng
 
+    def adopt(self, kind: str, req) -> None:
+        """Take over a salvaged request from a failed sibling — the
+        original future rides along untouched, so the caller holding it
+        never learns its first replica died. Only requests that emitted
+        nothing are adoptable (re-running a partially streamed request
+        would duplicate tokens). Raises ``Overloaded``/``ReplicaFailed``
+        like any submission."""
+        if getattr(req, "emitted", 0):
+            raise ValueError("cannot adopt a request that already emitted "
+                             "tokens")
+        if kind in ("lm", "lm_batch") and self._lm is None:
+            raise ValueError("engine was built without an LM model")
+        if kind in ("image", "image_batch") and self._image is None:
+            raise ValueError("engine was built without an image model")
+        if kind == "lm_batch" and not isinstance(self.pool, BlockPool):
+            raise ValueError("the batch lane requires the paged pool")
+        self._offer(kind, req)
+        self.metrics.count("failovers")
+
     def _refusal(self) -> ReplicaFailed:
         f = self._failure
         return ReplicaFailed(f.kind, replica=self.replica_id,
@@ -951,7 +1019,7 @@ class ServingEngine:
     # -- submission (any thread) -------------------------------------------
     def submit_generate(self, prompt, num_steps: int,
                         temperature: float = 0.0,
-                        rng: torch.Generator | None = None,
+                        rng=None,
                         timeout_s: float | None = None,
                         on_token=None, trace_id: str | None = None,
                         parent_span: str | None = None,
@@ -962,7 +1030,9 @@ class ServingEngine:
         :class:`GenerateResult` (or raising ``Overloaded`` here /
         ``DeadlineExceeded`` on the future). ``prompt`` is 1-D ``[P]`` or
         ``[1, P]`` int tokens; greedy at ``temperature == 0``, else sampled
-        with per-step keys drawn from ``rng`` (a ``torch.Generator``).
+        with per-step keys drawn from ``rng`` (a ``torch.Generator``), or
+        with ``rng`` given as the ``num_steps`` already-drawn int seeds
+        (:func:`draw_step_seeds`; what a process replica relays).
 
         ``on_token(index, token)`` runs on the engine thread the moment
         each token's tick fetches (keep it non-blocking). The future
@@ -1045,11 +1115,14 @@ class ServingEngine:
             raise ValueError("sampling (temperature > 0) requires rng")
         keys = None
         if temperature > 0.0:
-            # the per-step key schedule (jax.random.split's role): token i
-            # is sampled with a generator seeded by keys[i]
-            keys = torch.randint(0, 1 << 62, (num_steps,),
-                                 generator=rng,
-                                 device=rng.device).cpu().numpy()
+            if isinstance(rng, torch.Generator):
+                keys = draw_step_seeds(rng, num_steps)
+            else:
+                keys = np.asarray(rng, np.int64).reshape(-1)
+                if keys.size != num_steps:
+                    raise ValueError(
+                        f"rng as step seeds needs {num_steps} of them, got "
+                        f"{keys.size}")
         now = time.monotonic()
         timeout = self.cfg.default_timeout_s if timeout_s is None else timeout_s
         # resources are acquired LAST, after every validation that can
@@ -1496,6 +1569,15 @@ class ServingEngine:
                     generation=self.generation, phase="queued",
                     forensics=failure.forensics))
 
+    def _fault(self, site: str) -> None:
+        """Deterministic ``DDW_FAULT=serve:*`` hook (near-free when unset);
+        the per-site invocation count resets each restart generation."""
+        n = self._fault_n.get(site, 0)
+        self._fault_n[site] = n + 1
+        maybe_serve_fault(site, replica=self.replica_id, n=n,
+                          gen=self.generation,
+                          should_abort=self._stop.is_set)
+
     # -- tracing helpers (every call site guards on self._tracing) -----------
     def _trace_req(self, req, name: str, t0: float, t1: float,
                    **args) -> None:
@@ -1694,6 +1776,12 @@ class ServingEngine:
         requests."""
         pool = self.pool
         worked = False
+        if self._ctrl.depth("lm") > 0 and pool.free_slots > 0:
+            self._fault("admit")     # admission boundary: nothing claimed
+            #                          yet, queued work stays salvageable
+        if self._ctrl.depth("lm_batch") > 0 and pool.free_slots > 0:
+            self._fault("batch")     # batch admission boundary — the
+            #                          mid-job chaos drill's kill site
         picked: list = []            # (req, eff_prompt, row, hit)
         worked |= self._pop_lane_paged("lm", "interactive", picked,
                                        drain_only)
@@ -1719,6 +1807,8 @@ class ServingEngine:
                                 self.cfg.min_bucket)
             groups.setdefault(bucket, []).append(item)
         for bucket, items in groups.items():
+            self._fault("prefill")   # device-work boundary: this group is
+            #                          claimed — a fault here fails it
             g = batch_bucket(len(items), pool.max_resident)
             rows: list = [None] * g
             prompts = np.zeros((g, bucket), np.int32)
@@ -1764,7 +1854,12 @@ class ServingEngine:
                     req.emitted = 1
                     req.emit(0)
                 # else: a resumed stream — tok0 re-derives its newest pick
-                if req.emitted >= req.num_steps:
+                if req.emitted >= req.num_steps or \
+                        self.cfg.role == "prefill":
+                    # a prefill-role replica NEVER decodes: the request
+                    # finishes at its first token (blocks stay registered
+                    # for kv_export; the handoff path submits num_steps=1,
+                    # so nothing is truncated on the gateway path)
                     pool.release(row)
                     if self._draft_pool is not None:
                         self._draft_pool.release(row)
@@ -1820,6 +1915,9 @@ class ServingEngine:
         free = self.pool.free_slots
         if free == 0:
             return False
+        if self._ctrl.depth("lm") > 0:
+            self._fault("admit")     # admission boundary: nothing claimed
+            #                          yet, queued work stays salvageable
         admitted, expired = self._ctrl.take("lm", free)
         for req in expired:
             self._shed(req, "lm")
@@ -1840,6 +1938,8 @@ class ServingEngine:
                                 self.cfg.min_bucket)
             groups.setdefault(bucket, []).append(req)
         for bucket, reqs in groups.items():
+            self._fault("prefill")   # device-work boundary: this group is
+            #                          claimed — a fault here fails it
             g = batch_bucket(len(reqs), self.cfg.n_slots)
             prompts = np.zeros((g, bucket), np.int32)
             true_lens = np.ones((g,), np.int32)   # dummy rows: length 1
@@ -1886,6 +1986,7 @@ class ServingEngine:
             return self._spec_tick()
         if not self._slot_req:
             return False
+        self._fault("decode")
         t_tick = time.monotonic() if self._tracing else 0.0
         k = self.cfg.steps_per_tick
         if isinstance(self.pool, BlockPool):
@@ -1981,6 +2082,7 @@ class ServingEngine:
         blocks). Streaming sees each accepted token exactly once."""
         if not self._slot_req:
             return False
+        self._fault("decode")
         t_tick = time.monotonic() if self._tracing else 0.0
         # the auto-tuned EFFECTIVE width: admission always budgets the
         # configured worst case (_draft_admit_shape), so any k <= spec_k
@@ -2128,6 +2230,7 @@ class ServingEngine:
             waited = self._ctrl.oldest_wait_s("image")
             if waited is None or waited * 1e3 < self.cfg.max_wait_ms:
                 return False
+        self._fault("admit")
         return self._serve_image_batch("image")
 
     def _image_batch_tick(self) -> bool:
@@ -2139,6 +2242,7 @@ class ServingEngine:
             return False
         if self._ctrl.depth("image") > 0:
             return False        # interactive always wins the dispatch
+        self._fault("batch")    # batch admission boundary (chaos drills)
         worked = self._serve_image_batch("image_batch")
         if not isinstance(self.pool, BlockPool):
             self.metrics.set_gauges({"batch_backlog": float(

@@ -5,7 +5,8 @@ ranks -> 06 package and 2-process merged scoring -> 08 pretrain, export,
 convert and frozen transfer at one epoch each, and one short 04 run with
 2 parallel trials, the only tier-1 representative of the HPO arms; then
 the LM examples: 09 LoRA fine-tuning, 11 the LM lifecycle (train, package,
-score, generate, speculative) and 14 the online serving engine. The other
+score, generate, speculative), 14 the online serving engine and 15 the
+HTTP gateway (two replicas, 429 backpressure, a SIGTERM drain). The other
 arms (cached features, the nested space, 05's distributed trials with and
 without pruning, int8, the multi-worker prep, 08 at its full length, where
 the pretrained backbone must beat the random one) are ``slow``."""
@@ -34,6 +35,7 @@ _EXAMPLES = [
     ("09_lora_finetune.py", [], "base_frozen=True"),
     ("11_lm_lifecycle.py", [], "[speculative] identical tokens"),
     ("14_online_serving.py", [], "engine_matches_sequential=12/12"),
+    ("15_http_gateway.py", [], "http_matches_sequential=10/10"),
     pytest.param("08_pretrained_transfer.py", [], "random-frozen 0.",
                  marks=_slow),
     pytest.param("02_train_single_node.py",

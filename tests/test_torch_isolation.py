@@ -63,7 +63,8 @@ def test_no_port_module_imports_jax_or_the_jax_package():
             "05_hyperopt_distributed.py",
             "06_packaged_inference.py",
             "08_pretrained_transfer.py", "09_lora_finetune.py",
-            "11_lm_lifecycle.py", "14_online_serving.py"} <= examples
+            "11_lm_lifecycle.py", "14_online_serving.py",
+            "15_http_gateway.py"} <= examples
 
 
 def test_every_port_module_imports_with_jax_blocked():
@@ -86,7 +87,13 @@ def test_every_port_module_imports_with_jax_blocked():
                  "serve.admission", "serve.metrics", "serve.slots",
                  "serve.blocks", "serve.engine", "serve.adapters",
                  "serve.tenancy", "serve.lanes", "obs.trace", "obs.slo",
-                 "utils.sysmon"):
+                 "utils.sysmon", "runtime.faults", "gateway.lifecycle",
+                 "gateway.prefix_index", "gateway.replica",
+                 "gateway.supervisor", "gateway.client", "gateway.http",
+                 "deploy.journal", "deploy.canary", "deploy.controller",
+                 "deploy.transport", "deploy._serve_worker",
+                 "deploy.process_replica", "autoscale.policy",
+                 "autoscale.controller"):
         assert f"ddw_tpu_torch.{name}" in modules
     modules += ["examples_torch." + os.path.basename(p)[:-3]
                 for p in _example_sources()]

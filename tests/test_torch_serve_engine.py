@@ -9,9 +9,8 @@ raising pool op (degraded, then failed with every future resolved, then
 restart); seeded sampling repeatable inside the port; int8 LM and image
 packages through the engine; the image lane on the depthwise kernel's path
 (``dw_impl="pallas"``, its plain version here); what stays unported
-(tensor parallelism, the disaggregation roles, serve faults) refused naming
-``ROADMAP.md``. Every future is waited on with a timeout and
-every engine stopped."""
+(tensor parallelism) refused naming ``ROADMAP.md``. Every future is
+waited on with a timeout and every engine stopped."""
 
 import concurrent.futures
 import functools
@@ -385,20 +384,15 @@ def test_image_lane_matches_predict_logits(tmp_path, name, quantize):
 
 def test_unported_features_are_refused_naming_the_roadmap(pm, monkeypatch):
     """What stays refused after the speculative tick, adapters, tenants,
-    tracing, telemetry, the monitor and bulk jobs landed (their cases moved
-    to test_torch_serve_spec.py, test_torch_serve_adapters.py,
-    test_torch_serve_tenancy_lanes.py and test_torch_obs.py): tensor
-    parallelism, a mesh, the disaggregation roles and DDW_FAULT serve
-    faults."""
-    for kw in (dict(cfg=EngineCfg(tp=2)), dict(mesh=object()),
-               dict(cfg=EngineCfg(role="prefill")),
-               dict(cfg=EngineCfg(role="decode"))):
+    tracing, telemetry, the monitor, bulk jobs, the disaggregation roles
+    and serve faults landed (their cases moved to test_torch_serve_spec.py,
+    test_torch_serve_adapters.py, test_torch_serve_tenancy_lanes.py,
+    test_torch_obs.py, test_torch_kv_disagg.py and test_torch_faults.py):
+    tensor parallelism and a mesh."""
+    for kw in (dict(cfg=EngineCfg(tp=2)), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             ServingEngine(lm=pm, **kw)
-    monkeypatch.setenv("DDW_FAULT", "serve:crash")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ServingEngine(lm=pm)
-    monkeypatch.delenv("DDW_FAULT")
+    monkeypatch.delenv("DDW_FAULT", raising=False)
     with ServingEngine(lm=pm) as eng:
         with pytest.raises(ValueError, match="exceeds max_len"):
             eng.submit_generate(np.ones(90, np.int32), 10)
