@@ -2,8 +2,8 @@
 """Smoke run of ddw_tpu_torch on one NVIDIA card: build, check and time the
 port's CUDA kernels, then drive the serving, training, workshop (the
 example chain), vision-family, pretrained-transfer, LM-scoring,
-LM-training, online-serving, serving-fleet and collective main paths end
-to end.
+LM-training, online-serving, serving-fleet, collective and multi-rank
+parallel main paths end to end.
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -260,8 +260,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    (NDJSON): every token within
    serve's 0.05 rule; tokens/s, TTFT p50/p99 (the engine's, and the
    client's first NDJSON line) beside serve's in-process numbers and the
-   same mix into the same two replicas' ``ReplicaSet`` without HTTP. 64
-   images over ``/v1/predict``: exactly 13 K1 launches per image batch,
+   same mix into the same two replicas' ``ReplicaSet`` without HTTP. 16
+   of serve's images over ``/v1/predict`` (cut from 64 to save the time
+   of their JSON; 16 still fill two batches of 8): exactly 13 K1 launches
+   per image batch,
    all ``tma``, logits within serve's tolerance of ``predict_logits``. A
    seeded request alone gives the same tokens in-thread and over HTTP. (b)
    Two ``ProcessReplica`` children (``--device cuda``, each its own CUDA
@@ -315,6 +317,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
    on each CUDA leaf by the same protocol (median of 3 calls, held to K6's
    sum), or its error if gloo refuses. The ranks are time-sliced on the
    card, so the times include the scheduling. The phase's wall seconds.
+10b. parallel — LM training across ranks that share the card (gloo,
+   ``spawn_cpu``). (a) Two ranks with both attention thresholds at 0 (the
+   kernel tier), at the full width of lm_flash: SP over ``seq=2`` — a bare
+   ``ring_attention`` call against full attention (bf16 at [8, 8, 2048,
+   64] on sm90 within 1e-2 x max|ref|, f32 at [1, 2, 512, 64] on the CUDA
+   cores within 1e-4), one step's loss and gradients on 1,024-token shards
+   against the whole sequence in one process (lm_train's bf16 bounds),
+   then ``LMTrainer(seq_devices=2).fit_tables`` for one epoch of 2 steps
+   at 8 rows, rank r launching exactly 6 x (r + 1) K3 per forward and
+   6 x (r + 1) K4 and K5 per backward (it attends r + 1 hops), all sm90;
+   EP, 4 experts over ``data=2``, top-1, f32 (TF32 off): one step against
+   the single-rank step with every expert local (loss within 1e-5
+   relative, gradients within 1e-4 of each leaf's max), then a fit; PP
+   over ``pipe=2``, f32: GPipe with 4 microbatches and interleaved with
+   v=3 and 2 microbatches, each one SGD step against the unpipelined step
+   on the same microbatches (loss 1e-5, the weights within two ulp plus
+   1e-4 of each leaf's update), then a GPipe fit.
+   Tokens/s of each arm's step beside rank 0's single-process step on the
+   same rows (the ranks are time-sliced: no multi-card speed). (b)
+   ``dryrun_multichip(4, "cuda")``: every arm's OK line, and the ZeRO
+   arm's sharded checkpoint restored in this process to the state the
+   four ranks wrote. The phase's wall seconds.
 11. The ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
    line ``{"ok": true, "device": {...}}``.
 """
@@ -2757,6 +2781,526 @@ def phase_ring():
     return rows
 
 
+# -- the parallel phase: LM training across ranks that share the card ----------
+
+PAR_SP_ROWS = 8           # rows of 2,048 tokens of the SP arm's batch
+PAR_EP_ROWS = 2           # rows per rank of the EP arm
+PAR_PP_ROWS = 4           # rows of the PP arm's batch
+PAR_EXPERTS = 4
+PAR_RING_F32 = (1, 2, 512, 64)   # the bare ring's f32 case (CUDA cores)
+PAR_RING_F32_TOL = 1e-4          # max |diff| against full attention
+PAR_RING_BF16_TOL = 1e-2         # of max |full attention| on the rank's shard
+PAR_F32_LOSS_TOL, PAR_F32_GRAD_TOL = 1e-5, 1e-4
+PAR_TIMED_STEPS = 3
+
+
+def par_expect(counts: dict, k3: int, k45: int, variant: str, what: str):
+    """Exact K3, K4 and K5 launch counts, every one on ``variant``."""
+    got = (counts["k3"]["total"], counts["k4"]["total"],
+           counts["k5"]["total"])
+    check(got == (k3, k45, k45), f"{what}: K3/K4/K5 launched {got}, "
+          f"expected ({k3}, {k45}, {k45})")
+    for kern in ("k3", "k4", "k5"):
+        check(counts[kern].get(variant, 0) == counts[kern]["total"],
+              f"{what}: every {kern} launch on {variant}: {counts[kern]}")
+
+
+def par_timed(step, *args) -> float:
+    """Median seconds of a step over PAR_TIMED_STEPS calls after one warm
+    call, a group barrier (when there is a group) before each."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    times = []
+    for i in range(PAR_TIMED_STEPS + 1):
+        torch.cuda.synchronize()
+        if dist.is_initialized():
+            dist.barrier()
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def par_grads_mean(grads: dict) -> dict:
+    """The world mean of each gradient (a copy)."""
+    from ddw_tpu_torch.runtime.dist import all_reduce_mean_
+
+    out = {n: g.clone() for n, g in grads.items() if g is not None}
+    all_reduce_mean_(list(out.values()))
+    return out
+
+
+def parallel_rank(work: str, tables: dict) -> dict:
+    """One rank of the parallel phase's two-rank spawn (attention thresholds
+    at 0: the kernel tier everywhere). SP, EP and PP at the full width."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    
+    from ddw_tpu_torch.data.store import TableStore
+    from ddw_tpu_torch.models.convert import (init_lm_weights,
+                                              load_flax_variables,
+                                              to_flax_variables)
+    from ddw_tpu_torch.models.lm import build_lm
+    from ddw_tpu_torch.ops import flash_attention as fa
+    from ddw_tpu_torch.ops.ring_reduce import HOST_STAGED
+    from ddw_tpu_torch.parallel.pipeline import (init_pp_state,
+                                                 make_pp_lm_train_step)
+    from ddw_tpu_torch.parallel.ring_attention import ring_attention
+    from ddw_tpu_torch.runtime.mesh import (MeshSpec, bind_mesh, make_mesh,
+                                            process_index)
+    from ddw_tpu_torch.train.lm_step import (_forward_and_grads,
+                                             lm_forward_and_grads,
+                                             make_lm_train_step)
+    from ddw_tpu_torch.train.lm_trainer import LMTrainer
+    from ddw_tpu_torch.train.step import (Optimizer, TrainState,
+                                          make_optimizer)
+    from ddw_tpu_torch.utils.config import LMCfg, TrainCfg
+
+    torch.cuda.set_device(0)
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    check(fa._XLA_PLAIN_MAX == 0 and fa._XLA_CKPT_MAX == 0,
+          "the ranks read both attention thresholds as 0")
+    r = process_index()
+    depth = LM_CFG["depth"]
+    store = TableStore(os.path.join(work, "tables"))
+    out = {"rank": r}
+    toks = {k: np.load(os.path.join(work, f"{k}.npy")) for k in tables}
+
+    def weights(cfg, seed):
+        return to_flax_variables(init_lm_weights(
+            build_lm(cfg), torch.Generator().manual_seed(seed)))["params"]
+
+    def model_of(cfg, params, **kw):
+        return load_flax_variables(build_lm(cfg, **kw),
+                                   {"params": params}).cuda()
+
+    def cuda(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+    # --- SP: the bare ring, bf16 at the full width and f32 reduced ---------
+    sp_mesh = make_mesh(MeshSpec((("data", 1), ("seq", 2))))
+    gen = torch.Generator().manual_seed(SEED + 51)
+    for dtype, shape in (("bfloat16", (PAR_SP_ROWS, LM_HEADS, LM_SEQ,
+                                       LM_HEAD_DIM)),
+                         ("float32", PAR_RING_F32)):
+        q, k, v = (torch.randn(shape, generator=gen).to(
+            getattr(torch, dtype)).cuda() for _ in range(3))
+        half = shape[2] // 2
+        sl = slice(r * half, (r + 1) * half)
+        reset_flash_counts()
+        with bind_mesh(sp_mesh):
+            o = ring_attention(q[:, :, sl], k[:, :, sl], v[:, :, sl], "seq",
+                               causal=True, impl="pallas")
+        torch.cuda.synchronize()
+        counts = flash_counts()
+        variant = "sm90" if dtype == "bfloat16" else "cuda_cores"
+        check(counts["k3"]["total"] == r + 1
+              and counts["k3"].get(variant) == r + 1,
+              f"the bare {dtype} ring: rank {r} attends {r + 1} hops, one "
+              f"K3 each on {variant}: {counts['k3']}")
+        ref, _ = fa.xla_attention_lse(q.float(), k.float(), v.float(), True,
+                                      0, 0, LM_HEAD_DIM ** -0.5, None)
+        ref = ref[:, :, sl]
+        err = (o.float() - ref).abs().max().item()
+        tol = (PAR_RING_F32_TOL if dtype == "float32"
+               else PAR_RING_BF16_TOL * ref.abs().max().item())
+        out[f"ring_{dtype}"] = {"shape": list(shape), "max_abs_err": err,
+                                "tolerance": tol, "k3": counts["k3"]}
+        check(err <= tol, f"the bare {dtype} ring within {tol:.3g} of full "
+              f"attention ({err:.3g})")
+        if r > 0:
+            # what the bound must catch: this rank's output with its past
+            # hop dropped (its own shard's keys only) against full attention
+            own, _ = fa.xla_attention_lse(
+                q[:, :, sl].float(), k[:, :, sl].float(),
+                v[:, :, sl].float(), True, 0, 0, LM_HEAD_DIM ** -0.5, None)
+            dropped = (own - ref).abs().max().item()
+            out[f"ring_{dtype}"]["past_hop_dropped_err"] = dropped
+            check(tol < dropped, f"the {dtype} bound {tol:.3g} is below a "
+                  f"dropped past hop's error ({dropped:.3g})")
+            del own
+        del q, k, v, o, ref
+    torch.cuda.empty_cache()
+
+    # --- SP: one step's loss and gradients against the whole sequence -----
+    lm_cfg = LMCfg(**LM_CFG)
+    params = weights(lm_cfg, SEED + 52)
+    sp_toks = toks["sp_train"][:PAR_SP_ROWS]
+    half = LM_SEQ // 2
+    cols = slice(r * half, (r + 1) * half)
+    x_all, y_all = cuda(sp_toks[:, :-1]), cuda(sp_toks[:, 1:])
+    sp_model = model_of(lm_cfg, params, seq_axis="seq")
+    reset_flash_counts()
+    with bind_mesh(sp_mesh):
+        loss_sp, _, g_sp = lm_forward_and_grads(
+            TrainState(sp_model, {}, 0), x_all[:, cols], y_all[:, cols],
+            None)
+    torch.cuda.synchronize()
+    par_expect(flash_counts(), depth * (r + 1), depth * (r + 1), "sm90",
+               f"the SP step on rank {r}")
+    g_sp = par_grads_mean(g_sp)
+    loss_sp = par_grads_mean({"l": loss_sp.float().reshape(1)})["l"].item()
+    del sp_model
+    full = model_of(lm_cfg, params)
+    loss_full, _, g_full = lm_forward_and_grads(TrainState(full, {}, 0),
+                                                x_all, y_all, None)
+    loss_full = loss_full.float().item()
+    loss_rel = abs(loss_sp - loss_full) / abs(loss_full)
+    (rms, rms_leaf), (mx, _) = grad_gaps(g_sp, g_full)
+    out["sp_step"] = {"loss": [loss_sp, loss_full], "loss_rel_diff":
+                      loss_rel, "loss_tolerance": BF16_LOSS_TOL,
+                      "grad_rms_gap_over_rms_max": rms,
+                      "worst_rms_leaf": rms_leaf,
+                      "grad_rms_tolerance": BF16_GRAD_RMS_TOL,
+                      "grad_max_gap_over_max": mx}
+    check(loss_rel <= BF16_LOSS_TOL, f"SP loss within {BF16_LOSS_TOL} of "
+          f"the whole sequence's ({loss_rel:.3g})")
+    check(rms <= BF16_GRAD_RMS_TOL, f"SP gradients within "
+          f"{BF16_GRAD_RMS_TOL} RMS gap over RMS ({rms:.3g}, {rms_leaf})")
+    del g_sp, g_full
+
+    # --- SP: LMTrainer(seq_devices=2).fit_tables ---------------------------
+    tcfg = TrainCfg(batch_size=PAR_SP_ROWS, epochs=1, warmup_epochs=0,
+                    optimizer="adam", learning_rate=3e-4, seed=SEED)
+    train_t = store.table("sp_train")
+    val_t = store.table("sp_val")
+    steps = train_t.num_records // PAR_SP_ROWS
+    evals = val_t.num_records // PAR_SP_ROWS
+    trainer = LMTrainer(lm_cfg, tcfg, seq_devices=2)
+    reset_flash_counts()
+    res = trainer.fit_tables(train_t, val_t)
+    torch.cuda.synchronize()
+    fit_counts = flash_counts()
+    # rank r attends r + 1 hops a layer: one K3 each in every forward (the
+    # val batches' too), one K4 and one K5 each in every backward
+    par_expect(fit_counts, depth * (r + 1) * (steps + evals),
+               depth * (r + 1) * steps, "sm90", f"the SP fit on rank {r}")
+    check(all(np.isfinite([h["loss"], h["val_loss"]]).all()
+              for h in res.history), "SP fit: finite losses")
+    state = res.state
+    step = make_lm_train_step(state.model, make_optimizer(tcfg),
+                              seq_axis="seq", mesh=trainer.mesh)
+    x, y = x_all[:, cols], y_all[:, cols]
+    sp_s = par_timed(step, state, x, y, SEED)
+    out["sp"] = {"fit_counts": fit_counts, "history": res.history,
+                 "steps": steps, "val_batches": evals, "step_s": sp_s,
+                 "tokens_per_s": PAR_SP_ROWS * LM_SEQ / sp_s}
+    del state, step, trainer, res, full
+    torch.cuda.empty_cache()
+
+    # --- EP: experts over data=2, f32, against every expert local ---------
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ep_cfg = dataclasses.replace(lm_cfg, dtype="float32",
+                                 num_experts=PAR_EXPERTS)
+    ep_params = weights(ep_cfg, SEED + 53)
+    ep_toks = toks["ep_train"][:2 * PAR_EP_ROWS]
+    mine = slice(r * PAR_EP_ROWS, (r + 1) * PAR_EP_ROWS)
+    ep_mesh = make_mesh(MeshSpec((("data", 2),)))
+    ep_model = model_of(ep_cfg, ep_params, expert_axis="data")
+    HOST_STAGED.clear()
+    with bind_mesh(ep_mesh):
+        loss_ep, _, g_ep, aux_ep = _forward_and_grads(
+            TrainState(ep_model, {}, 0), cuda(ep_toks[mine, :-1]),
+            cuda(ep_toks[mine, 1:]), None)
+    torch.cuda.synchronize()
+    staged = dict(HOST_STAGED)
+    g_ep = par_grads_mean(g_ep)
+    loss_ep = par_grads_mean({"l": loss_ep.reshape(1)})["l"].item()
+    del ep_model
+    dense = model_of(ep_cfg, ep_params)
+    g_ref, losses = None, []
+    for s in range(2):
+        rows = slice(s * PAR_EP_ROWS, (s + 1) * PAR_EP_ROWS)
+        loss_d, _, g_d, _ = _forward_and_grads(
+            TrainState(dense, {}, 0), cuda(ep_toks[rows, :-1]),
+            cuda(ep_toks[rows, 1:]), None)
+        losses.append(loss_d.item())
+        g_d = {n: g for n, g in g_d.items() if g is not None}
+        g_ref = g_d if g_ref is None else {n: g_ref[n] + g_d[n]
+                                            for n in g_d}
+    g_ref = {n: g / 2 for n, g in g_ref.items()}
+    loss_ref = sum(losses) / 2
+    ep_rel = abs(loss_ep - loss_ref) / abs(loss_ref)
+    _, (ep_mx, ep_leaf) = grad_gaps(g_ep, g_ref)
+    out["ep_step"] = {"loss": [loss_ep, loss_ref], "loss_rel_diff": ep_rel,
+                      "grad_max_gap_over_max": ep_mx, "worst_leaf": ep_leaf,
+                      "aux_loss": aux_ep.item(), "host_staged": staged,
+                      "tolerances": [PAR_F32_LOSS_TOL, PAR_F32_GRAD_TOL]}
+    check(ep_rel <= PAR_F32_LOSS_TOL, f"EP loss within {PAR_F32_LOSS_TOL} "
+          f"of the single-rank step ({ep_rel:.3g})")
+    check(ep_mx <= PAR_F32_GRAD_TOL, f"EP gradients within "
+          f"{PAR_F32_GRAD_TOL} of each leaf's max ({ep_mx:.3g}, {ep_leaf})")
+    del g_ep, g_ref
+    ep_tcfg = dataclasses.replace(tcfg, batch_size=PAR_EP_ROWS)
+    ep_trainer = LMTrainer(ep_cfg, ep_tcfg)
+    check(ep_trainer.model.expert_axis == "data", "EP over the data axis")
+    res = ep_trainer.fit_tables(store.table("ep_train"),
+                                store.table("ep_val"))
+    check(all(np.isfinite([h["loss"], h["val_loss"]]).all()
+              for h in res.history), "EP fit: finite losses")
+    state = res.state
+    step = make_lm_train_step(state.model, make_optimizer(ep_tcfg),
+                              mesh=ep_trainer.mesh)
+    ep_s = par_timed(step, state, cuda(ep_toks[mine, :-1]),
+                     cuda(ep_toks[mine, 1:]), SEED)
+    out["ep"] = {"history": res.history, "step_s": ep_s,
+                 "tokens_per_s": 2 * PAR_EP_ROWS * LM_SEQ / ep_s}
+    del state, step, ep_trainer, res, dense
+    torch.cuda.empty_cache()
+
+    # --- PP: GPipe m=4, interleaved v=3 m=2, f32, against no pipeline -----
+    # The unpipelined step takes the same microbatches and sums their
+    # gradients: f32 GEMMs over other row counts round differently (a
+    # whole-batch step differs from a microbatched one by up to 8e-4 of a
+    # LayerNorm scale's update on an H100), which is not the pipeline's.
+    pp_cfg = dataclasses.replace(lm_cfg, dtype="float32")
+    pp_params = weights(pp_cfg, SEED + 54)
+    pp_toks = toks["pp_train"][:PAR_PP_ROWS]
+    px, py = cuda(pp_toks[:, :-1]), cuda(pp_toks[:, 1:])
+    pp_mesh = make_mesh(MeshSpec((("data", 1), ("pipe", 2))))
+    out["pp_step"] = {}
+    for schedule, m, v in (("gpipe", 4, 1), ("interleaved", 2, 3)):
+        ref_model = model_of(pp_cfg, pp_params)
+        init = {n: p.detach().clone()
+                for n, p in ref_model.named_parameters()}
+        ref_tx = Optimizer("sgd", 0.1)
+        ref_state = TrainState(ref_model, ref_tx.init(
+            dict(ref_model.named_parameters())), 0)
+        mb = PAR_PP_ROWS // m
+        ref_g, ref_loss = None, 0.0
+        for j in range(m):
+            rows = slice(j * mb, (j + 1) * mb)
+            loss_j, _, g_j = lm_forward_and_grads(ref_state, px[rows],
+                                                  py[rows], None)
+            ref_loss += loss_j.item() / m
+            ref_g = g_j if ref_g is None else {n: ref_g[n] + g_j[n]
+                                               for n in g_j}
+        ref_tx.update(ref_state.params, {n: g / m for n, g in ref_g.items()},
+                      ref_state.opt_state)
+        want = {n: p.detach() for n, p in ref_model.named_parameters()}
+        model = model_of(pp_cfg, pp_params)
+        tx = Optimizer("sgd", 0.1)
+        state = init_pp_state(model, tx, pp_mesh, virtual_stages=v)
+        pstep = make_pp_lm_train_step(model, tx, pp_mesh, data_axis="data",
+                                      num_microbatches=m, schedule=schedule,
+                                      virtual_stages=v)
+        met = pstep(state, px, py)
+        torch.cuda.synchronize()
+        # each rank's weights after the step against the unpipelined
+        # step's: past two ulp of the weight (the update rounds into it;
+        # a LayerNorm scale near 1 moves by a few ulp), per leaf over the
+        # size of that leaf's update
+        eps = torch.finfo(torch.float32).eps
+        gaps = [(((p.detach() - want[n]).abs() - 2 * eps * want[n].abs())
+                 .clamp_min(0).max()
+                 / (want[n] - init[n]).abs().max().clamp_min(1e-30)).item()
+                for n, p in model.named_parameters()
+                if not n.endswith(ZERO_GRAD_LEAVES)]
+        gap = max(gaps)
+        rel = abs(met["loss"].item() - ref_loss) / ref_loss
+        blocks = sorted({int(n.split(".")[0][len("backbone_block"):])
+                         for n, _ in model.named_parameters()
+                         if n.startswith("backbone_block")})
+        out["pp_step"][schedule] = {
+            "loss": [met["loss"].item(), ref_loss],
+            "loss_rel_diff": rel, "update_max_gap_over_max_update": gap,
+            "bubble": met["pp_bubble_fraction"].item(), "blocks": blocks}
+        check(rel <= PAR_F32_LOSS_TOL, f"PP {schedule}: loss within "
+              f"{PAR_F32_LOSS_TOL} of the unpipelined step ({rel:.3g})")
+        check(gap <= PAR_F32_GRAD_TOL, f"PP {schedule}: the update within "
+              f"{PAR_F32_GRAD_TOL} of the unpipelined one ({gap:.3g})")
+        del model, state, pstep, ref_model, ref_state, ref_g, want, init
+    pp_tcfg = dataclasses.replace(tcfg, batch_size=PAR_PP_ROWS,
+                                  pipeline_stages=2, pipeline_microbatches=4)
+    pp_trainer = LMTrainer(pp_cfg, pp_tcfg)
+    res = pp_trainer.fit_tables(store.table("pp_train"),
+                                store.table("pp_val"))
+    check(all(np.isfinite([h["loss"], h["val_loss"]]).all()
+              for h in res.history), "PP fit: finite losses")
+    pp_mesh2 = pp_trainer.mesh
+    pstep = make_pp_lm_train_step(res.state.model, make_optimizer(pp_tcfg),
+                                  pp_mesh2, data_axis="data",
+                                  num_microbatches=4)
+    pp_s = par_timed(pstep, res.state, px, py)
+    out["pp"] = {"history": res.history, "step_s": pp_s,
+                 "tokens_per_s": PAR_PP_ROWS * LM_SEQ / pp_s}
+    del res, pstep, pp_trainer
+    out["host_staged"] = dict(HOST_STAGED)
+    return out
+
+
+def phase_parallel(tmp: str) -> dict:
+    """LM training across ranks that share the card: (a) two ranks at the
+    full width, SP / EP / PP through ``LMTrainer.fit_tables`` and against
+    single-process steps; (b) the four-rank dry run of every strategy, and
+    its ZeRO checkpoint restored in this process."""
+    import numpy as np
+    import torch
+
+    from ddw_tpu_torch.checkpoint.sharded import restore_sharded
+    from ddw_tpu_torch.data.prep import write_token_table
+    from ddw_tpu_torch.data.store import TableStore
+    from ddw_tpu_torch.dryrun import dryrun_multichip
+    from ddw_tpu_torch.runtime.dist import spawn_cpu
+
+    t_phase = time.perf_counter()
+    work = os.path.join(tmp, "parallel")
+    store = TableStore(os.path.join(work, "tables"))
+    vocab = LM_CFG["vocab_size"]
+    tables = {"sp_train": 2 * PAR_SP_ROWS, "sp_val": PAR_SP_ROWS,
+              "ep_train": 4 * PAR_EP_ROWS, "ep_val": 2 * PAR_EP_ROWS,
+              "pp_train": 2 * PAR_PP_ROWS, "pp_val": PAR_PP_ROWS}
+    for i, (name, rows) in enumerate(tables.items()):
+        toks = arithmetic_tokens(rows, SEED + 60 + i, vocab, LM_SEQ)
+        write_token_table(store, name, toks, shard_size=rows)
+        np.save(os.path.join(work, f"{name}.npy"), toks)
+    torch.cuda.empty_cache()
+    env = {k: os.environ.get(k) for k in ("DDW_ATTN_XLA_PLAIN_MAX",
+                                          "DDW_ATTN_XLA_CKPT_MAX")}
+    os.environ.update(DDW_ATTN_XLA_PLAIN_MAX="0", DDW_ATTN_XLA_CKPT_MAX="0")
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn_cpu(parallel_rank, 2, work, tables, timeout_s=600)
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    two_s = time.perf_counter() - t0
+    for rk in ranks:
+        emit(phase="parallel", arm="two_ranks", **rk)
+    single = par_single_process_rates(work)
+    fit = {kern: {"total": sum(rk["sp"]["fit_counts"][kern]["total"]
+                               for rk in ranks),
+                  "sm90": sum(rk["sp"]["fit_counts"][kern].get("sm90", 0)
+                              for rk in ranks)}
+           for kern in ("k3", "k4", "k5")}
+    rates = {arm: {"tokens_per_s": ranks[0][arm]["tokens_per_s"],
+                   "single_process_tokens_per_s": single[arm]}
+             for arm in ("sp", "ep", "pp")}
+    emit(phase="parallel", arm="two_ranks", seconds=two_s, rates=rates,
+         sp_fit_launches_both_ranks=fit,
+         host_staged=[rk["host_staged"] for rk in ranks],
+         note="two ranks time-sliced on one card: no multi-card speed")
+
+    # --- (b) the four-rank dry run, and its ZeRO checkpoint here ----------
+    t0 = time.perf_counter()
+    zdir = os.path.join(work, "dryrun_zero")
+    runs = dryrun_multichip(4, "cuda", ckpt_dir=zdir)
+    dry_s = time.perf_counter() - t0
+    lines = runs[0]["lines"]
+    arms = [ln.split()[1] for ln in lines]
+    check(arms == list(DRYRUN_ARMS) and all(" OK:" in ln for ln in lines),
+          f"every dry-run arm printed its OK line: {arms}")
+    checks = [rk["zero_checks"] for rk in runs]
+    check(len({(c["params"], tuple(sorted(c["mu"].items())))
+               for c in checks}) == 1, "the four ranks wrote one ZeRO state")
+    state = dryrun_mobilenet_state()
+    state, at = restore_sharded(zdir, state)
+    got = float(sum(p.detach().double().sum()
+                    for p in state.model.parameters()))
+    mu = {n: float(t.double().sum()) for n, t in state.opt_state["mu"].items()}
+    mu_gap = max(abs(mu[n] - checks[0]["mu"][n])
+                 / max(abs(checks[0]["mu"][n]), 1e-30) for n in mu)
+    emit(phase="parallel", arm="dryrun", ranks=4, seconds=dry_s,
+         lines=lines, zero_restored_step=at, params_sum=[got,
+                                                        checks[0]["params"]],
+         mu_sum_rel_gap=mu_gap)
+    check(at == 1 and got == checks[0]["params"] and mu_gap <= 1e-12,
+          "the dry run's sharded ZeRO checkpoint, written by four ranks, "
+          "restores in this process to the state they wrote")
+    seconds = time.perf_counter() - t_phase
+    emit(phase="parallel", seconds=seconds)
+    return {"fit": fit, "rates": rates, "seconds": seconds,
+            "dryrun_seconds": dry_s, "two_rank_seconds": two_s}
+
+
+def par_single_process_rates(work: str) -> dict:
+    """Tokens/s of each arm's step in this process alone on the same rows
+    (the same seeded weights, the kernel tier): the SP arm's whole
+    sequence in bf16, the EP arm's rows with every expert local and the PP
+    arm's rows unpipelined, both in f32 (TF32 off)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ddw_tpu_torch.models.lm import build_lm
+    from ddw_tpu_torch.ops import flash_attention as fa
+    from ddw_tpu_torch.train.lm_step import init_lm_state, make_lm_train_step
+    from ddw_tpu_torch.train.step import make_optimizer
+    from ddw_tpu_torch.utils.config import LMCfg, TrainCfg
+
+    lm_cfg = LMCfg(**LM_CFG)
+    f32 = dataclasses.replace(lm_cfg, dtype="float32")
+    arms = {"sp": (lm_cfg, SEED + 52, "sp_train", PAR_SP_ROWS),
+            "ep": (dataclasses.replace(f32, num_experts=PAR_EXPERTS),
+                   SEED + 53, "ep_train", 2 * PAR_EP_ROWS),
+            "pp": (f32, SEED + 54, "pp_train", PAR_PP_ROWS)}
+    saved = fa._XLA_PLAIN_MAX, fa._XLA_CKPT_MAX
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    out = {}
+    try:
+        fa._XLA_PLAIN_MAX = fa._XLA_CKPT_MAX = 0
+        for arm, (cfg, seed, table, rows) in arms.items():
+            torch.backends.cuda.matmul.allow_tf32 = False
+            model = build_lm(cfg)
+            tx = make_optimizer(TrainCfg(optimizer="adam",
+                                         learning_rate=3e-4))
+            state = init_lm_state(model, tx,
+                                  torch.Generator().manual_seed(seed), "cuda")
+            toks = torch.from_numpy(np.load(os.path.join(
+                work, f"{table}.npy"))[:rows]).cuda()
+            out[arm] = rows * LM_SEQ / par_timed(
+                make_lm_train_step(model, tx), state, toks[:, :-1],
+                toks[:, 1:], SEED)
+            del model, state, toks
+            torch.cuda.empty_cache()
+    finally:
+        fa._XLA_PLAIN_MAX, fa._XLA_CKPT_MAX = saved
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
+
+
+DRYRUN_ARMS = ("DP", "DP+accum", "DPxTP", "FSDPxTP", "SP", "DPxSP(LM)",
+               "DPxSP(rope+GQA)", "LoRA", "ZeRO-1", "ZeRO-ckpt", "FSDP",
+               "DPxPP", "DPxPP-interleaved", "EP", "hybrid")
+
+
+def dryrun_mobilenet_state():
+    """The dry run's MobileNetV2 state (width 0.35, 32 px, frozen base,
+    adam) on the card, unplaced: the target of its ZeRO checkpoint."""
+    import warnings
+
+    import torch
+
+    from ddw_tpu_torch.models.layers import init_params
+    from ddw_tpu_torch.models.registry import build_model
+    from ddw_tpu_torch.train.step import init_state, make_optimizer
+    from ddw_tpu_torch.utils.config import ModelCfg, TrainCfg
+
+    cfg = ModelCfg(name="mobilenet_v2", num_classes=5, dropout=0.5,
+                   freeze_base=True, allow_frozen_random=True,
+                   dtype="float32", width_mult=0.35)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = build_model(cfg, image_size=(32, 32))
+    init_params(model, torch.Generator().manual_seed(0))
+    model.cuda()
+    tx = make_optimizer(TrainCfg(optimizer="adam", learning_rate=1e-3),
+                        type(model).frozen_prefixes(True))
+    return init_state(model, tx)
+
+
 DECODE_IMAGES, DECODE_SRC_PX, DECODE_PX = 128, 256, 224
 DECODE_PIL_MEAN_TOL = 0.08   # tests/test_native_decode.py's closeness
 
@@ -3296,6 +3840,7 @@ SERVE_REQUESTS = 32          # concurrent greedy LM requests per engine run
 SERVE_SHARED = 256           # the prefix 8 of them share
 SERVE_CLIENTS = 4            # submitting threads
 SERVE_IMAGES = 64
+FLEET_IMAGES = 16            # of them over the fleet's HTTP /v1/predict
 SERVE_TOKEN_TIE = 0.05       # logits: how far under the argmax a bf16
 #                              near-tie may pick (stream_check)
 SERVE_IMAGE_TOL = 1e-2       # of max |logit|: batch 8 against 128, same K1
@@ -4228,7 +4773,7 @@ def phase_fleet(tmp: str, ctx: dict, serve: dict) -> dict:
         seeded["http"] = np.asarray(cli.generate(
             sp.tolist(), FLEET_SAMPLED_STEPS, temperature=FLEET_TEMPERATURE,
             seed=SEED + 41)["tokens"], np.int32)
-        # 64 images over /v1/predict from 4 threads
+        # FLEET_IMAGES of serve's images over /v1/predict from 4 threads
         import concurrent.futures
 
         before = sum(e.snapshot()["serve.image_batches"] for e in engines)
@@ -4237,7 +4782,8 @@ def phase_fleet(tmp: str, ctx: dict, serve: dict) -> dict:
         with concurrent.futures.ThreadPoolExecutor(SERVE_CLIENTS) as ex:
             preds = list(ex.map(lambda x: GatewayClient(
                 "127.0.0.1", gw.port, timeout_s=600.0).predict(
-                    x, return_logits=True), list(ctx["images"])))
+                    x, return_logits=True),
+                list(ctx["images"][:FLEET_IMAGES])))
         img_wall = time.perf_counter() - t0
         batches = int(sum(e.snapshot()["serve.image_batches"]
                           for e in engines) - before)
@@ -4247,7 +4793,7 @@ def phase_fleet(tmp: str, ctx: dict, serve: dict) -> dict:
     finally:
         gw.stop()
     got = np.asarray([p["logits"] for p in preds], np.float32)
-    ref, tol = ctx["image_ref"], ctx["image_tol"]
+    ref, tol = ctx["image_ref"][:FLEET_IMAGES], ctx["image_tol"]
     top2 = np.sort(ref, axis=-1)[:, -2:]
     decisive = (top2[:, 1] - top2[:, 0]) > tol
     agree = np.argmax(got, -1) == np.argmax(ref, -1)
@@ -4258,7 +4804,7 @@ def phase_fleet(tmp: str, ctx: dict, serve: dict) -> dict:
         http_ttft_ms_p99=float(np.percentile(ttft, 99)),
         http_client_first_token_ms_p50=float(np.percentile(first, 50)),
         http_client_first_token_ms_p99=float(np.percentile(first, 99)),
-        http_image_requests_per_s=SERVE_IMAGES / img_wall,
+        http_image_requests_per_s=FLEET_IMAGES / img_wall,
         replica_set_tokens_per_s=direct["tokens_per_s"],
         in_process_tokens_per_s=serve["engine_tokens_per_s"],
         in_process_ttft_ms_p50=serve["ttft_ms_p50"],
@@ -4636,6 +5182,9 @@ def main() -> int:
         del serve_ctx
     torch.cuda.empty_cache()
     ring = phase_ring()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="ddw_chip_parallel_") as tmp:
+        parallel = phase_parallel(tmp)
     src = "ddw_tpu_torch/ops/csrc/depthwise_sm90.cu"
     simt = {"simt": "ddw_tpu_torch/ops/csrc/depthwise_conv.cu (C * bytes "
                     "not a multiple of 16, or unaligned pointers)"}
@@ -4713,12 +5262,15 @@ def main() -> int:
                              "lm_batch_scoring": sum(k3_launches.values()),
                              "lm_training_traced": lm_train_launches[
                                  "traced"][0],
-                             **vit_paths(vision, "k3")},
+                             **vit_paths(vision, "k3"),
+                             "ring_attention_sp_fit": parallel["fit"]["k3"][
+                                 "total"]},
         "launches_by_variant": {
             "lm_training": lm_train_launches["k3_by_variant"],
             "lm_batch_scoring": k3_launches,
             "lm_training_traced": lm_train_launches["traced_by_variant"][0],
-            **vit_variants(vision, "k3")},
+            **vit_variants(vision, "k3"),
+            "ring_attention_sp_fit": parallel["fit"]["k3"]},
         "max_abs_err": k3_err,
         **{k: k3_times["scoring"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -4746,12 +5298,15 @@ def main() -> int:
         "launches_by_path": {"lm_training": lm_train_launches[kern],
                              "lm_training_traced": lm_train_launches[
                                  "traced"][idx],
-                             **vit_paths(vision, kern)},
+                             **vit_paths(vision, kern),
+                             "ring_attention_sp_fit": parallel["fit"][kern][
+                                 "total"]},
         "launches_by_variant": {
             "lm_training": lm_train_launches[f"{kern}_by_variant"],
             "lm_training_traced": lm_train_launches["traced_by_variant"][
                 idx],
-            **vit_variants(vision, kern)},
+            **vit_variants(vision, kern),
+            "ring_attention_sp_fit": parallel["fit"][kern]},
         "max_abs_err": bwd_err[key],
         **{k: bwd_times[key][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_mma",
@@ -4822,7 +5377,9 @@ def main() -> int:
             "traced_tokens_per_s", "untraced_tokens_per_s",
             "trace_telemetry_overhead", "wall_seconds")},
         "fleet": {k: v for k, v in fleet.items()
-                  if not k.startswith("k1_")}}),
+                  if not k.startswith("k1_")},
+        "parallel": {k: parallel[k] for k in (
+            "rates", "seconds", "two_rank_seconds", "dryrun_seconds")}}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,7 @@ asked for the card — ``--device`` unset or ``cuda`` — that finds none
 exits here and never carries on on the CPU). The parent keeps the raw code
 as restart forensics. ``--device cpu`` serves on the CPU (the tests);
 ``--threads N`` caps the child's intra-op threads; ``--tp > 1`` is refused
-(tensor-parallel serving is ``ROADMAP.md`` item 12).
+(tensor-parallel serving is ``ROADMAP.md`` item 12b).
 
 The port of ``ddw_tpu.deploy._serve_worker``: the same host logic,
 importing nothing of ``ddw_tpu``.
@@ -83,7 +83,7 @@ def main(argv=None) -> int:
     p.add_argument("--grace-s", type=float, default=None)
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel degree (only 1: tensor-parallel "
-                        "serving is ROADMAP.md item 12)")
+                        "serving is ROADMAP.md item 12b)")
     p.add_argument("--device", default=None,
                    help="torch device the engine serves on; unset = the "
                         "CUDA card (an error without one), 'cpu' only "
@@ -94,7 +94,7 @@ def main(argv=None) -> int:
     if args.tp > 1:
         raise NotImplementedError(
             f"--tp {args.tp}: tensor-parallel serving is not yet ported to "
-            f"ddw_tpu_torch; see ROADMAP.md item 12")
+            f"ddw_tpu_torch; see ROADMAP.md item 12b")
 
     # imports AFTER argparse: a bad flag should not pay the torch import
     import torch

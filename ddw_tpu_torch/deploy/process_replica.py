@@ -147,7 +147,7 @@ class ProcessReplica:
         if self.tp > 1:
             raise NotImplementedError(
                 f"tp {self.tp}: tensor-parallel serving is not yet ported "
-                f"to ddw_tpu_torch; see ROADMAP.md item 12")
+                f"to ddw_tpu_torch; see ROADMAP.md item 12b")
         # the child's torch device: None = the CUDA card (the child exits
         # with its startup error without one), "cpu" only when asked for
         self.device = device

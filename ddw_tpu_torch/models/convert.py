@@ -89,6 +89,49 @@ def _leaf_map(mod: nn.Module):
     return []
 
 
+def _leaf_dims(mod: nn.Module, leaf: str, ndim: int) -> tuple:
+    """``dims[port_dim] = flax_dim`` of a leaf's two layouts (the
+    permutation its ``to_torch`` applies; depthwise drops flax's dim 2)."""
+    if isinstance(mod, Conv) and leaf == "kernel":
+        return (3, 2, 0, 1)
+    if isinstance(mod, DepthwiseConv3x3):
+        return (0, 1, 3)
+    if isinstance(mod, nn.Linear) and leaf == "kernel":
+        return (1, 0)
+    return tuple(range(ndim))
+
+
+def flax_leaf_index(module: nn.Module) -> dict:
+    """Every leaf of ``module`` by its torch name (parameters and
+    BatchNorm buffers): ``(collection, flax path, dims, to_torch,
+    to_flax)``, where ``dims[port_dim]`` is the matching dim of the flax
+    layout and ``to_torch`` / ``to_flax`` map a whole leaf or a block of it
+    between the layouts (``None``: the same). Sharded training and the sharded
+    checkpoint split leaves by ``ddw_tpu``'s rule on the flax shape."""
+    out = {}
+    for name, mod in module.named_modules():
+        path = tuple(name.split(".")) if name else ()
+        by_tensor = {id(t): n for n, t in
+                     list(mod.named_parameters(recurse=False))
+                     + list(mod.named_buffers(recurse=False))}
+        for coll, leaf, tensor, to_torch, to_flax in _leaf_map(mod):
+            tname = (name + "." if name else "") + by_tensor[id(tensor)]
+            out[tname] = (coll, path + (leaf,),
+                          _leaf_dims(mod, leaf, tensor.dim()), to_torch,
+                          to_flax)
+    return out
+
+
+def flax_shape(shape: tuple, to_flax) -> tuple:
+    """The flax-layout shape of a port-layout leaf (or block) of ``shape``
+    (``to_flax`` from :func:`flax_leaf_index`)."""
+    shape = tuple(shape)
+    if to_flax is None:
+        return shape
+    return tuple(to_flax(np.lib.stride_tricks.as_strided(
+        np.zeros(1, np.float32), shape, (0,) * len(shape))).shape)
+
+
 def _flat(tree, prefix=()):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -151,6 +194,7 @@ def init_lm_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     0.8796``, cut at two of those stds, fan_in the product of the contracted
     dims), biases and ``lora_b`` zeros, LayerNorm scales ones."""
     from ddw_tpu_torch.models.lm import DenseGeneral, Embed, LayerNorm
+    from ddw_tpu_torch.models.moe import MoEMlp
 
     def lecun(p: torch.Tensor, fan_in: int) -> None:
         std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
@@ -175,6 +219,14 @@ def init_lm_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(mod, LayerNorm):
             mod.scale.fill_(1.0)
             mod.bias.zero_()
+        elif isinstance(mod, MoEMlp):
+            # flax's lecun_normal over [E, in, out]: fan_in = in * E (the
+            # expert dim counts as receptive field)
+            e = mod.num_experts
+            lecun(mod.w1, mod.w1.shape[1] * e)
+            lecun(mod.w2, mod.w2.shape[1] * e)
+            mod.b1.zero_()
+            mod.b2.zero_()
         if isinstance(getattr(mod, "pos_embed", None), nn.Parameter):
             normal(mod.pos_embed, 0.02)
     return model

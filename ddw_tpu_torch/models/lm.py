@@ -50,8 +50,15 @@ and adds its delta (:func:`~ddw_tpu_torch.models.lora.row_lora_delta`) after
 the base projection, never folded into its weight, so a slot-0 row (the
 null adapter, all zeros) gives the adapter-free model's bits.
 
-Not yet ported (each refused, naming ``ROADMAP.md``): MoE and sequence
-parallelism (``seq_axis``).
+Sequence parallelism: built with ``seq_axis`` (an axis name of the mesh
+bound by :func:`ddw_tpu_torch.runtime.mesh.bind_mesh`), full mode takes
+this rank's sequence shard, runs attention as
+:func:`ddw_tpu_torch.parallel.ring_attention.ring_attention` (GQA's K/V
+heads repeated before the ring) and reads the position table, or RoPE's
+positions, at the global offset ``rank * s_local``. ``num_experts > 0``
+replaces each block's MLP with :class:`ddw_tpu_torch.models.moe.MoEMlp`
+(``moe``), its experts over ``expert_axis`` when one is named; the decode
+modes run every expert locally and never drop a token.
 """
 
 from __future__ import annotations
@@ -72,11 +79,6 @@ from ddw_tpu_torch.utils.device import torch_dtype
 
 _NEG = -1e30
 _TILE = 256
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to ddw_tpu_torch; "
-                               f"see ROADMAP.md for the slice that brings it")
 
 
 class DenseGeneral(nn.Module):
@@ -157,11 +159,13 @@ class CausalSelfAttention(nn.Module):
     def __init__(self, hidden: int, num_heads: int, dtype: torch.dtype,
                  max_len: int = 2048, num_kv_heads: int = 0,
                  lora_rank: int = 0, lora_alpha: float = 16.0,
-                 lora_targets: tuple[str, ...] = ("query", "value")):
+                 lora_targets: tuple[str, ...] = ("query", "value"),
+                 seq_axis=None):
         from ddw_tpu_torch.models.lora import maybe_lora_dense
 
         super().__init__()
         self.num_heads, self.max_len = num_heads, max_len
+        self.seq_axis = seq_axis
         self.head_dim = hidden // num_heads
         self.kv_heads = num_kv_heads or num_heads
         if num_heads % self.kv_heads:
@@ -195,8 +199,17 @@ class CausalSelfAttention(nn.Module):
             if self.groups > 1:  # K/V heads broadcast over their query group
                 k = k.repeat_interleave(self.groups, dim=2)
                 v = v.repeat_interleave(self.groups, dim=2)
-            out = flash_mha(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=True).transpose(1, 2)
+            if self.seq_axis is not None:
+                from ddw_tpu_torch.parallel.ring_attention import \
+                    ring_attention
+
+                out = ring_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                     v.transpose(1, 2), self.seq_axis,
+                                     causal=True).transpose(1, 2)
+            else:
+                out = flash_mha(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=True
+                                ).transpose(1, 2)
         return _add_delta(self.out(out), adapters, "out", out, 2)
 
     def _decode(self, q, k, v, cache: dict, step: "_DecodeStep"
@@ -325,7 +338,9 @@ class DecoderBlock(nn.Module):
                  dtype: torch.dtype, max_len: int, num_kv_heads: int = 0,
                  lora_rank: int = 0, lora_alpha: float = 16.0,
                  lora_targets: tuple[str, ...] = ("query", "value"),
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, seq_axis=None,
+                 num_experts: int = 0, expert_axis=None,
+                 capacity_factor: float = 1.25, moe_router: str = "top1"):
         from ddw_tpu_torch.models.lora import maybe_lora_dense
 
         super().__init__()
@@ -335,10 +350,16 @@ class DecoderBlock(nn.Module):
         self.LayerNorm_0 = LayerNorm(hidden)
         self.attn = CausalSelfAttention(hidden, num_heads, dtype, max_len,
                                         num_kv_heads, lora_rank, lora_alpha,
-                                        lora_targets)
+                                        lora_targets, seq_axis)
         self.LayerNorm_1 = LayerNorm(hidden)
-        self.fc1 = maybe_lora_dense((hidden,), (mlp_dim,), "fc1", **lora)
-        self.fc2 = maybe_lora_dense((mlp_dim,), (hidden,), "fc2", **lora)
+        if num_experts:
+            from ddw_tpu_torch.models.moe import MoEMlp
+
+            self.moe = MoEMlp(hidden, num_experts, mlp_dim, capacity_factor,
+                              dtype, expert_axis, moe_router)
+        else:
+            self.fc1 = maybe_lora_dense((hidden,), (mlp_dim,), "fc1", **lora)
+            self.fc2 = maybe_lora_dense((mlp_dim,), (hidden,), "fc2", **lora)
 
     def forward(self, x, positions=None, cache=None,
                 dropout_seed: int | None = None, step=None, adapters=None):
@@ -354,9 +375,12 @@ class DecoderBlock(nn.Module):
             h = dropout(h, self.dropout_rate, gen)
         x = x + h
         h = self.LayerNorm_1(x)
-        h = F.gelu(_add_delta(self.fc1(h), adapters, "fc1", h),
-                   approximate="tanh")
-        h = _add_delta(self.fc2(h), adapters, "fc2", h)
+        if hasattr(self, "moe"):
+            h = self.moe(h, no_drop=cache is not None)
+        else:
+            h = F.gelu(_add_delta(self.fc1(h), adapters, "fc1", h),
+                       approximate="tanh")
+            h = _add_delta(self.fc2(h), adapters, "fc2", h)
         if gen is not None:
             h = dropout(h, self.dropout_rate, gen)
         return x + h
@@ -387,12 +411,10 @@ class TransformerLM(nn.Module):
                  num_experts: int = 0, num_kv_heads: int = 0,
                  lora_rank: int = 0, lora_alpha: float = 16.0,
                  lora_targets: tuple[str, ...] = ("query", "value"),
-                 pos_encoding: str = "learned", remat: str = "none"):
+                 pos_encoding: str = "learned", remat: str = "none",
+                 expert_axis=None, capacity_factor: float = 1.25,
+                 moe_router: str = "top1"):
         super().__init__()
-        if num_experts:
-            raise _not_ported("the MoE MLP (num_experts > 0)")
-        if seq_axis is not None:
-            raise _not_ported("sequence-parallel attention (seq_axis)")
         if lora_rank:
             from ddw_tpu_torch.models.lora import validate_lora_targets
 
@@ -410,13 +432,16 @@ class TransformerLM(nn.Module):
         self.dtype, self.pos_encoding = dtype, pos_encoding
         self.remat, self.lora_rank = remat, lora_rank
         self.kv_heads = num_kv_heads or num_heads
+        self.seq_axis, self.expert_axis = seq_axis, expert_axis
+        self.num_experts = num_experts
         self.tok_embed = Embed(vocab_size, hidden, dtype)
         if pos_encoding == "learned":
             self.pos_embed = nn.Parameter(torch.empty(max_len, hidden))
         for i in range(depth):
             setattr(self, f"backbone_block{i}", DecoderBlock(
                 hidden, num_heads, mlp_dim, dtype, max_len, num_kv_heads,
-                lora_rank, lora_alpha, lora_targets, dropout))
+                lora_rank, lora_alpha, lora_targets, dropout, seq_axis,
+                num_experts, expert_axis, capacity_factor, moe_router))
         self.LayerNorm_0 = LayerNorm(hidden)
         self.head = DenseGeneral((hidden,), (vocab_size,), torch.float32)
 
@@ -462,7 +487,20 @@ class TransformerLM(nn.Module):
         if cache is not None:
             step = self._decode_step(tokens, cache, block_tables, start_pos)
         positions = None
-        if self.pos_encoding == "learned":
+        offset = 0
+        if self.seq_axis is not None and cache is None:
+            from ddw_tpu_torch.runtime.mesh import axis_group
+
+            _, n_shards, shard = axis_group(self.seq_axis)
+            # the global length must fit the table (a clamped slice would
+            # reuse the last positions on trailing shards); RoPE has none
+            if self.pos_encoding == "learned" and s * n_shards > self.max_len:
+                raise ValueError(f"global sequence {s}*{n_shards} exceeds "
+                                 f"max_len {self.max_len}")
+            offset = shard * s
+        if self.pos_encoding == "learned" and offset:
+            x = x + self.pos_embed[offset:offset + s].to(self.dtype)[None]
+        elif self.pos_encoding == "learned":
             if s > self.max_len:
                 raise ValueError(f"sequence {s} exceeds max_len "
                                  f"{self.max_len}")
@@ -476,8 +514,8 @@ class TransformerLM(nn.Module):
                 start = max(0, min(offset, self.max_len - s))  # slice clamps
                 x = x + self.pos_embed[start:start + s].to(self.dtype)[None]
         else:
-            positions = (torch.arange(s, device=tokens.device) if step is None
-                         else step.qpos)
+            positions = (offset + torch.arange(s, device=tokens.device)
+                         if step is None else step.qpos)
         remat = (self.remat != "none" and cache is None
                  and torch.is_grad_enabled())
         kw = {}
@@ -548,8 +586,6 @@ class TransformerLM(nn.Module):
 
 def build_lm(cfg, seq_axis=None, expert_axis=None) -> TransformerLM:
     """Construct from an :class:`ddw_tpu_torch.utils.config.LMCfg`."""
-    if expert_axis is not None:
-        raise _not_ported("expert parallelism (expert_axis)")
     return TransformerLM(
         vocab_size=cfg.vocab_size, max_len=cfg.max_len, hidden=cfg.hidden,
         depth=cfg.depth, num_heads=cfg.num_heads, mlp_dim=cfg.mlp_dim,
@@ -557,7 +593,8 @@ def build_lm(cfg, seq_axis=None, expert_axis=None) -> TransformerLM:
         num_experts=cfg.num_experts, num_kv_heads=cfg.num_kv_heads,
         lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha,
         lora_targets=tuple(cfg.lora_targets), pos_encoding=cfg.pos_encoding,
-        remat=cfg.remat)
+        remat=cfg.remat, expert_axis=expert_axis,
+        capacity_factor=cfg.capacity_factor, moe_router=cfg.moe_router)
 
 
 def _kv_shape(model: TransformerLM) -> tuple[int, int, int]:

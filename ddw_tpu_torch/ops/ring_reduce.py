@@ -32,10 +32,19 @@ segments under its VMEM budget; ranges change the order of no sum.
 bf16 and f16 ring in f32, each ring dtype is one group, a CUDA tree launches
 K6, a CPU tree runs the plain version. :func:`ring_all_reduce_pallas` and
 :func:`ring_all_reduce_plain` are its one-array forms.
+
+Point-to-point (:func:`send`, :func:`recv` and the hop :func:`ring_shift`
+built on them) runs on the tensor's device, except that gloo's
+point-to-point reads and writes host memory only (a CUDA pointer fails in
+its TCP write with ``Bad address``). Ranks that share one card join over
+gloo (NCCL refuses two ranks on a device), so over gloo a CUDA tensor is
+sent from, and received into, a host copy; :data:`HOST_STAGED` counts
+those copies, so a caller can report them.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -51,6 +60,8 @@ _MAX_LEAVES = 256  # arrays in one K6 launch (kMaxLeaves)
 _LEAF_BLOCKS = 32  # per-leaf K6 grid at most (kLeafMaxBlocks)
 _WIDE = (torch.bfloat16, torch.float16)  # cast to f32 around the ring
 _VARIANTS = ("packed", "per_leaf")
+# "send" / "recv" -> CUDA tensors that went through a host copy (gloo)
+HOST_STAGED: collections.Counter = collections.Counter()
 
 
 def ring_chunk_len(size: int, n: int, lane: int = 1) -> int:
@@ -158,20 +169,49 @@ def group_size_rank(group=None) -> tuple[int, int]:
     return dist.get_world_size(g), dist.get_rank(g)
 
 
-def ring_shift(t: torch.Tensor, group=None) -> torch.Tensor:
-    """One ring hop over ``torch.distributed`` point-to-point: send ``t`` to
-    the right-hand neighbour (group rank ``+1``) and return what arrives
-    from the left (``-1``) — ``lax.ppermute`` with ``i -> i+1``."""
+def _host_p2p(device, group) -> bool:
+    return (torch.device(device).type == "cuda"
+            and dist.get_backend(group) == "gloo")
+
+
+def send(t: torch.Tensor, dst: int, group=None):
+    """Start sending ``t`` to global rank ``dst``; returns ``(request,
+    buffer)``: keep the buffer alive until the request is waited on."""
+    g = _group(group)
+    if _host_p2p(t.device, g):
+        HOST_STAGED["send"] += 1
+        buf = t.detach().cpu()
+    else:
+        buf = t.detach().contiguous()
+    return dist.isend(buf, dst, group=g), buf
+
+
+def recv(shape, dtype: torch.dtype, device, src: int,
+         group=None) -> torch.Tensor:
+    """Receive a tensor of ``shape`` from global rank ``src`` onto
+    ``device`` (blocking)."""
+    g = _group(group)
+    host = _host_p2p(device, g)
+    buf = torch.empty(shape, dtype=dtype, device="cpu" if host else device)
+    dist.recv(buf, src, group=g)
+    if host:
+        HOST_STAGED["recv"] += 1
+        return buf.to(device)
+    return buf
+
+
+def ring_shift(t: torch.Tensor, group=None, step: int = 1) -> torch.Tensor:
+    """One ring hop over point-to-point: send ``t`` to group rank
+    ``me + step`` and return what arrives from ``me - step`` (``step=1`` is
+    ``lax.ppermute`` with ``i -> i+1``, ``step=-1`` its transpose)."""
     g = _group(group)
     n, me = group_size_rank(g)
-    right = dist.get_global_rank(g, (me + 1) % n)
-    left = dist.get_global_rank(g, (me - 1) % n)
-    recv = torch.empty_like(t)
-    reqs = [dist.isend(t.contiguous(), right, group=g),
-            dist.irecv(recv, left, group=g)]
-    for r in reqs:
-        r.wait()
-    return recv
+    dst = dist.get_global_rank(g, (me + step) % n)
+    src = dist.get_global_rank(g, (me - step) % n)
+    req, _buf = send(t, dst, g)
+    out = recv(t.shape, t.dtype, t.device, src, g)
+    req.wait()
+    return out
 
 
 def _check_ring_dtype(dtype: torch.dtype) -> None:

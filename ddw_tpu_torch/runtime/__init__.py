@@ -1,6 +1,8 @@
 from ddw_tpu_torch.runtime.mesh import (  # noqa: F401
     HybridMeshSpec,
     Mesh,
+    bind_mesh,
+    device_slice_index,
     MeshSpec,
     make_data_mesh,
     make_hybrid_mesh,

@@ -124,10 +124,11 @@ def broadcast_from(tree: T, group=None, root: int = 0) -> T:
     return tree_map(bcast, tree)
 
 
-def all_gather_axis(x: torch.Tensor, group=None,
-                    tiled: bool = False) -> torch.Tensor:
+def all_gather_axis(x: torch.Tensor, group=None, tiled: bool = False,
+                    axis: int = 0) -> torch.Tensor:
     """Gather ``x`` from every participant, in group-rank order: stacked on
-    a new leading axis, or concatenated along axis 0 with ``tiled``."""
+    a new axis ``axis``, or concatenated along ``axis`` with ``tiled``
+    (``lax.all_gather``'s ``axis``)."""
     g = _resolve_group(group)
     n, _ = _rr.group_size_rank(g)
     if n == 1:
@@ -135,7 +136,7 @@ def all_gather_axis(x: torch.Tensor, group=None,
     else:
         parts = [torch.empty_like(x) for _ in range(n)]
         dist.all_gather(parts, x.contiguous(), group=g)
-    return torch.cat(parts) if tiled else torch.stack(parts)
+    return torch.cat(parts, axis) if tiled else torch.stack(parts, axis)
 
 
 def ring_all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:

@@ -16,7 +16,9 @@ from __future__ import annotations
 
 import multiprocessing
 import os
+import pickle
 import socket
+import tempfile
 import traceback
 
 import torch
@@ -59,22 +61,25 @@ def process_topology() -> tuple[int, int]:
     return 0, 1
 
 
-def all_reduce_mean_(tensors: list[torch.Tensor]) -> None:
-    """In place: each tensor becomes its mean over the process group
-    (``lax.pmean``). One collective per dtype: the tensors are packed into
-    one flat buffer, summed, divided by the world size and unpacked."""
+def all_reduce_mean_(tensors: list[torch.Tensor], group=None) -> None:
+    """In place: each tensor becomes its mean over ``group`` (the world by
+    default; ``lax.pmean``). One collective per dtype: the tensors are
+    packed into one flat buffer, summed, divided by the group size and
+    unpacked."""
     _, world = process_topology()
+    if world > 1 and group is not None:
+        world = dist.get_world_size(group)
     if world == 1 or not tensors:
         return
     by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
-    for group in by_dtype.values():
-        flat = torch.cat([t.reshape(-1) for t in group])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+    for same in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in same])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
         flat /= world
         offset = 0
-        for t in group:
+        for t in same:
             n = t.numel()
             t.copy_(flat[offset:offset + n].view_as(t))
             offset += n
@@ -92,11 +97,18 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+class _ArgsFile(str):
+    """The path of a file holding a spawn's pickled arguments."""
+
+
 def _worker(fn, rank: int, world: int, port: int, args, results) -> None:
     os.environ.update(DDW_COORDINATOR=f"tcp://127.0.0.1:{port}",
                       DDW_NUM_PROCESSES=str(world),
                       DDW_PROCESS_ID=str(rank))
     try:
+        if isinstance(args, _ArgsFile):
+            with open(args, "rb") as f:
+                args = pickle.load(f)
         init_distributed()
         out = fn(*args)
         results.put((rank, "ok", out))
@@ -115,14 +127,28 @@ def spawn_cpu(fn, nprocs: int, *args, timeout_s: float = 300.0) -> list:
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     port = free_port()
+    # large arguments travel in a file: a start whose pickle outgrows the
+    # pipe's buffer blocks until that child has booted, which would start
+    # the ranks one after another (queues and the like, which only a
+    # spawn's own pickler carries, stay inline)
+    args_path = None
+    try:
+        blob = pickle.dumps(args)
+    except Exception:
+        blob = b""
+    if len(blob) > 32 * 1024:
+        fd, args_path = tempfile.mkstemp(prefix="ddw_spawn_", suffix=".pkl")
+        with os.fdopen(fd, "wb") as f:
+            f.write(blob)
+        args = _ArgsFile(args_path)
     procs = [ctx.Process(target=_worker,
                          args=(fn, r, nprocs, port, args, results))
              for r in range(nprocs)]
-    for p in procs:
-        p.start()
     out: dict[int, object] = {}
     errors = []
     try:
+        for p in procs:
+            p.start()
         for _ in range(nprocs):
             rank, status, value = results.get(timeout=timeout_s)
             if status == "ok":
@@ -136,6 +162,8 @@ def spawn_cpu(fn, nprocs: int, *args, timeout_s: float = 300.0) -> list:
             if p.is_alive():
                 p.kill()
                 p.join()
+        if args_path is not None:
+            os.unlink(args_path)
     if errors:
         raise RuntimeError("spawned rank failed: " + "\n".join(errors))
     return [out[r] for r in range(nprocs)]

@@ -16,13 +16,24 @@ NCCL for a world of one rank per card.
 
 Axis conventions are ``ddw_tpu``'s: ``data`` (data parallelism), ``model``
 (tensor), ``seq`` (sequence / ring attention), ``pipe`` (pipeline).
-Multi-slice meshes (``HybridMeshSpec``, ``make_hybrid_mesh``) are not ported
-(``ROADMAP.md``).
+
+Multi-slice meshes (:class:`HybridMeshSpec`, :func:`make_hybrid_mesh`): a
+"slice" is a group of ranks (``ddw_tpu``'s CPU stand-in, where each process
+plays one slice). Each axis is ``(name, dcn_size, ici_size)``, laid out
+slice-major as ``ddw_tpu`` lays devices out; ``model`` and ``seq`` refuse to
+cross slices.
+
+``ddw_tpu``'s models name an axis inside ``shard_map`` (``lax.axis_index``,
+``axis_size``). The port's models name it the same way and resolve it
+against the mesh bound by :func:`bind_mesh` (the steps bind theirs around
+the forward and backward): :func:`axis_group`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 from typing import Sequence
 
 import numpy as np
@@ -135,24 +146,10 @@ class Mesh:
         return int(where[0][self.axis_names.index(axis)])
 
 
-def make_mesh(spec: MeshSpec | Sequence[tuple[str, int]] | None = None,
-              ranks: Sequence[int] | None = None) -> Mesh:
-    """Lay the world's ranks (or ``ranks``) out on named axes; default a 1-D
-    ``data`` mesh over the world.
-
-    A collective over the world: every rank calls it with the same
-    arguments, since ``dist.new_group`` must be entered by all ranks for
-    every group, members or not. An axis whose lines span the whole world
-    reuses the world group."""
-    if spec is None:
-        spec = MeshSpec()
-    if not isinstance(spec, MeshSpec):
-        spec = MeshSpec(tuple(spec))
+def _mesh_from_grid(names: tuple[str, ...], grid: np.ndarray) -> Mesh:
+    """The axis groups of a rank grid: a collective over the world, every
+    rank enters ``dist.new_group`` for every line of every axis."""
     world = process_count()
-    ranks = list(range(world)) if ranks is None else list(ranks)
-    shape = spec.resolve(len(ranks))
-    names = tuple(a for a, _ in shape)
-    grid = np.asarray(ranks, dtype=np.int64).reshape([s for _, s in shape])
     me = process_index()
     groups: dict = {}
     for ax, name in enumerate(names):
@@ -170,24 +167,156 @@ def make_mesh(spec: MeshSpec | Sequence[tuple[str, int]] | None = None,
     return Mesh(names, grid, groups)
 
 
-def make_data_mesh(ranks: Sequence[int] | None = None) -> Mesh:
-    """The trainers' default 1-D ``data`` mesh over the world."""
+def make_mesh(spec: MeshSpec | Sequence[tuple[str, int]] | None = None,
+              ranks: Sequence[int] | None = None) -> Mesh:
+    """Lay the world's ranks (or ``ranks``) out on named axes; default a 1-D
+    ``data`` mesh over the world.
+
+    A collective over the world: every rank calls it with the same
+    arguments, since ``dist.new_group`` must be entered by all ranks for
+    every group, members or not. An axis whose lines span the whole world
+    reuses the world group."""
+    if spec is None:
+        spec = MeshSpec()
+    if not isinstance(spec, MeshSpec):
+        spec = MeshSpec(tuple(spec))
+    ranks = list(range(process_count())) if ranks is None else list(ranks)
+    shape = spec.resolve(len(ranks))
+    names = tuple(a for a, _ in shape)
+    grid = np.asarray(ranks, dtype=np.int64).reshape([s for _, s in shape])
+    return _mesh_from_grid(names, grid)
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridMeshSpec:
+    """Slice-aware mesh shape: each axis is ``(name, dcn_size, ici_size)``,
+    its extent across slices times its extent within a slice, realized as
+    one axis of ``dcn_size * ici_size`` ranks laid out slice-major (along
+    the axis, same-slice ranks are consecutive and the slice boundary is
+    the largest stride). ``model`` and ``seq`` refuse ``dcn_size != 1``:
+    their collectives run inside every layer. ``-1`` is allowed once among
+    the dcn sizes and once among the ici sizes."""
+
+    axes: tuple[tuple[str, int, int], ...] = ((DATA_AXIS, -1, -1),)
+
+    _DCN_REFUSED = (MODEL_AXIS, SEQ_AXIS)
+
+    def resolve(self, n_slices: int,
+                per_slice: int) -> tuple[tuple[str, int, int], ...]:
+        dcn_sizes = _resolve_sizes([d for _, d, _ in self.axes], n_slices,
+                                   "dcn", f"{n_slices} slices")
+        ici_sizes = _resolve_sizes([i for _, _, i in self.axes], per_slice,
+                                   "ici", f"{per_slice} devices per slice")
+        # refuse after the wildcards resolve: a -1 that comes out 1 is legal
+        for (name, _, _), dcn in zip(self.axes, dcn_sizes):
+            if name in self._DCN_REFUSED and dcn != 1:
+                raise ValueError(
+                    f"axis {name!r} with dcn_size={dcn} would put per-layer "
+                    f"collectives on the inter-slice network — cross-slice "
+                    f"tensor/sequence parallelism is refused; keep "
+                    f"{name!r} inside one slice (dcn_size=1) and span "
+                    f"slices with 'data' or 'pipe'")
+        return tuple((name, d, i) for (name, _, _), d, i
+                     in zip(self.axes, dcn_sizes, ici_sizes))
+
+
+def device_slice_index(rank: int) -> int:
+    """The slice a rank belongs to: ``rank // DDW_RANKS_PER_SLICE`` when the
+    environment names a slice size, else 0. A rank with no slice
+    information is one slice, as ``ddw_tpu`` treats an accelerator without
+    ``slice_index``: guessing slices would trade a flat layout for a
+    slice-major one with no slower network to justify it."""
+    per = int(os.environ.get("DDW_RANKS_PER_SLICE", "0") or 0)
+    return rank // per if per > 0 else 0
+
+
+def make_hybrid_mesh(
+    spec: HybridMeshSpec | Sequence[tuple[str, int, int]] | None = None,
+    ranks: Sequence[int] | None = None,
+    slice_index_fn=None,
+) -> Mesh:
+    """A slice-aware :class:`Mesh` over the world's ranks (or ``ranks``).
+    Ranks group into slices by ``slice_index_fn`` (default
+    :func:`device_slice_index`); slices must be equal-sized. Each axis
+    realizes as ``dcn_size * ici_size`` laid out slice-major, the layout of
+    ``ddw_tpu.runtime.mesh.make_hybrid_mesh``. A collective over the world,
+    as :func:`make_mesh`."""
+    ranks = list(range(process_count())) if ranks is None else list(ranks)
+    if spec is None:
+        spec = HybridMeshSpec()
+    if not isinstance(spec, HybridMeshSpec):
+        spec = HybridMeshSpec(tuple(spec))
+    fn = slice_index_fn or device_slice_index
+    groups: dict[int, list[int]] = {}
+    for r in ranks:
+        groups.setdefault(fn(r), []).append(r)
+    sizes = {len(g) for g in groups.values()}
+    if len(sizes) > 1:
+        raise ValueError(f"unequal slices: "
+                         f"{sorted((k, len(g)) for k, g in groups.items())}")
+    n_slices, per_slice = len(groups), sizes.pop()
+    shape = spec.resolve(n_slices, per_slice)
+    dcn_dims = tuple(d for _, d, _ in shape)
+    ici_dims = tuple(i for _, _, i in shape)
+    ordered = [np.asarray(groups[k], np.int64).reshape(ici_dims)
+               for k in sorted(groups)]
+    # [*dcn, *ici] -> interleave (d_j, i_j) -> fuse each pair: same-slice
+    # ranks consecutive along every axis, the slice boundary outermost
+    arr = np.stack(ordered).reshape((*dcn_dims, *ici_dims))
+    k = len(shape)
+    arr = np.transpose(arr, [a for j in range(k) for a in (j, k + j)])
+    arr = arr.reshape([d * i for d, i in zip(dcn_dims, ici_dims)])
+    return _mesh_from_grid(tuple(name for name, _, _ in shape), arr)
+
+
+def make_data_mesh(ranks: Sequence[int] | None = None,
+                   slice_index_fn=None) -> Mesh:
+    """The trainers' default 1-D ``data`` mesh, slice-aware: slice-major
+    (:func:`make_hybrid_mesh`) when the ranks span several equal slices,
+    the flat mesh otherwise (one slice, or unequal slices)."""
+    ranks = list(range(process_count())) if ranks is None else list(ranks)
+    fn = slice_index_fn or device_slice_index
+    if len({fn(r) for r in ranks}) > 1:
+        try:
+            return make_hybrid_mesh(((DATA_AXIS, -1, -1),), ranks=ranks,
+                                    slice_index_fn=fn)
+        except ValueError:
+            pass  # unequal slices: the flat mesh is the honest layout
     return make_mesh(MeshSpec(((DATA_AXIS, -1),)), ranks=ranks)
 
 
-def _multislice_not_ported():
-    return NotImplementedError(
-        "multi-slice meshes (HybridMeshSpec, make_hybrid_mesh) are not "
-        "ported to ddw_tpu_torch yet (ROADMAP.md, slice 5); use make_mesh")
+# -- axis names inside a bound mesh (the shard_map role) ----------------------
+
+_BOUND: list = []
 
 
-class HybridMeshSpec:
-    """Not ported: raises, naming ``ROADMAP.md``."""
+@contextlib.contextmanager
+def bind_mesh(mesh: Mesh):
+    """Bind ``mesh`` for the axis names models use (``seq_axis``,
+    ``expert_axis``), as ``shard_map`` binds them in ``ddw_tpu``."""
+    _BOUND.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _BOUND.pop()
 
-    def __init__(self, *args, **kwargs):
-        raise _multislice_not_ported()
+
+def bound_mesh() -> Mesh | None:
+    return _BOUND[-1] if _BOUND else None
 
 
-def make_hybrid_mesh(*args, **kwargs):
-    """Not ported: raises, naming ``ROADMAP.md``."""
-    raise _multislice_not_ported()
+def axis_group(axis):
+    """``(group, size, index)`` of an axis: a name resolved against the
+    bound mesh, a ``(mesh, axis)`` pair, or a process group."""
+    if isinstance(axis, tuple):
+        mesh, name = axis
+    elif isinstance(axis, str):
+        mesh, name = bound_mesh(), axis
+        if mesh is None:
+            raise ValueError(f"axis {axis!r} is not bound: run the model "
+                             f"inside runtime.mesh.bind_mesh(mesh)")
+    else:
+        if axis is None or not dist.is_initialized():
+            return axis, 1, 0
+        return axis, dist.get_world_size(axis), dist.get_rank(axis)
+    return mesh.group(name), mesh.shape[name], mesh.axis_index(name)

@@ -3,9 +3,9 @@ amenities for the TransformerLM family.
 
 What it keeps from ``ddw_tpu``:
 
-- data parallel over the ``torch.distributed`` group, one process per card
-  (:func:`ddw_tpu_torch.runtime.dist.process_topology`); the global batch
-  is ``batch_size * world``;
+- data parallel over the ``data`` axis of a mesh of the
+  ``torch.distributed`` world's ranks, one process per card; the global
+  batch is ``batch_size * data``;
 - the shared callback suite (:mod:`ddw_tpu_torch.train.schedule`):
   per-batch warmup, plateau or cosine LR, early stopping, through the
   optimizer state's dynamic learning rate;
@@ -31,10 +31,23 @@ receives ``train.chain_ms`` / ``train.ckpt_write_ms``. ``trace_dir`` and
 (:class:`~ddw_tpu_torch.train.trainer.EpochProfile`, the sysmon monitor on
 process 0), where ``ddw_tpu``'s LM trainer leaves them unread.
 
-Not yet ported, refused naming ``ROADMAP.md``: sequence parallelism
-(``seq_devices != 1``), pipelines and ZeRO/FSDP (by ``require_ported``) and
-MoE (by ``build_lm``). The fault, elastic and preemption hooks are absent,
-as in the vision ``Trainer``.
+Parallelism, as ``ddw_tpu``'s LM trainer lays it out over the world's
+ranks (one process per device):
+
+- ``seq_devices > 1``: a ``(data, seq)`` mesh; the model runs ring
+  attention over ``seq`` and each rank trains on its sequence shard of its
+  data shard's rows;
+- ``lm.num_experts > 0``: experts over the ``data`` axis (EP);
+- ``train.pipeline_stages > 0``: a ``(data, pipe)`` mesh and the
+  pipelined step (:mod:`ddw_tpu_torch.parallel.pipeline`, GPipe or
+  interleaved), each rank holding its chunks' blocks;
+- ``train.zero`` / ``train.fsdp``: the sharded-state steps of
+  :mod:`ddw_tpu_torch.parallel.zero`.
+
+Pipelines and sharded states checkpoint in the sharded format
+(:class:`~ddw_tpu_torch.checkpoint.sharded.ShardedCheckpointManager`):
+every rank writes what it holds. The fault, elastic and preemption hooks
+are absent, as in the vision ``Trainer``.
 """
 
 from __future__ import annotations
@@ -48,9 +61,12 @@ import torch
 
 from ddw_tpu_torch.checkpoint.ckpt import (BestCheckpointKeeper,
                                            CheckpointManager)
-from ddw_tpu_torch.models.lm import _not_ported, build_lm
+from ddw_tpu_torch.models.lm import build_lm
 from ddw_tpu_torch.runtime.dist import process_topology
-from ddw_tpu_torch.train.lm_step import (init_lm_state, make_lm_eval_step,
+from ddw_tpu_torch.runtime.mesh import (DATA_AXIS, PIPE_AXIS, SEQ_AXIS,
+                                        MeshSpec, make_data_mesh, make_mesh)
+from ddw_tpu_torch.train.lm_step import (_maybe_lora_tx, init_lm_state,
+                                         make_lm_eval_step,
                                          make_lm_train_chain,
                                          make_lm_train_step)
 from ddw_tpu_torch.train.schedule import ScheduleSuite
@@ -58,7 +74,7 @@ from ddw_tpu_torch.train.trainer import EpochProfile
 from ddw_tpu_torch.train.step import (TrainState, chain_plan, ema_params,
                                       fetch_metrics_mean, get_lr,
                                       make_optimizer, set_lr, with_param_ema)
-from ddw_tpu_torch.utils.config import LMCfg, TrainCfg, require_ported, to_dict
+from ddw_tpu_torch.utils.config import LMCfg, TrainCfg, to_dict
 from ddw_tpu_torch.utils.device import resolve_device
 
 
@@ -77,34 +93,133 @@ class LMTrainer:
     unless the caller asks for ``"cpu"``."""
 
     def __init__(self, lm_cfg: LMCfg, train_cfg: TrainCfg, device=None,
-                 seq_devices: int = 1, run=None, tracer=None):
-        require_ported(train_cfg)
-        if seq_devices != 1:
-            raise _not_ported(f"sequence-parallel LM training (seq_devices="
-                              f"{seq_devices})")
+                 seq_devices: int = 1, run=None, tracer=None, mesh=None):
+        self.pp = train_cfg.pipeline_stages > 0
+        self.sharded = train_cfg.zero or train_cfg.fsdp
         if train_cfg.ema_decay and lm_cfg.lora_rank:
             raise ValueError("train.ema_decay with lm.lora_rank is not "
                              "supported: the LoRA mask would wrap outside "
                              "the EMA shadow — drop one")
+        if self.sharded:
+            flag = "train.fsdp" if train_cfg.fsdp else "train.zero"
+            if train_cfg.zero and train_cfg.fsdp:
+                raise ValueError("train.zero and train.fsdp are mutually "
+                                 "exclusive (fsdp already shards the "
+                                 "optimizer state) — pick one")
+            if self.pp:
+                raise ValueError(f"{flag} does not compose with "
+                                 f"pipeline_stages — the pipeline step "
+                                 f"already shards stage params over 'pipe'")
+            if seq_devices != 1:
+                raise ValueError(f"{flag} uses the sharded DP step (no "
+                                 f"sequence axis) — seq_devices must be 1")
+            if lm_cfg.num_experts:
+                raise ValueError(
+                    f"{flag} does not support MoE models: the sharded step "
+                    f"leaves the sown Switch aux loss out, which would "
+                    f"silently train an unbalanced router — use the plain "
+                    f"DP/EP step (no zero/fsdp) for MoE")
         if train_cfg.steps_per_dispatch < 1:
             raise ValueError(f"train.steps_per_dispatch must be >= 1, got "
                              f"{train_cfg.steps_per_dispatch}")
+        if self.pp:
+            if train_cfg.steps_per_dispatch > 1:
+                raise ValueError("steps_per_dispatch does not compose with "
+                                 "pipeline_stages — the pipeline step already "
+                                 "fuses its microbatch schedule into one "
+                                 "dispatch; raise pipeline_microbatches "
+                                 "instead")
+            if seq_devices != 1:
+                raise ValueError("pipeline_stages does not compose with "
+                                 "seq_devices — the pipeline step shards "
+                                 "depth, not sequence (use one or the other)")
+            if lm_cfg.dropout:
+                raise ValueError("pipeline training requires lm.dropout == 0 "
+                                 "(the pipeline step is deterministic)")
+            if train_cfg.grad_accum_steps > 1:
+                raise ValueError("pipeline_stages does not compose with "
+                                 "grad_accum_steps — microbatching IS the "
+                                 "pipeline's accumulation; raise "
+                                 "pipeline_microbatches instead")
         self.lm_cfg, self.train_cfg, self.run = lm_cfg, train_cfg, run
         self.tracer = tracer   # optional obs Tracer: chain-boundary spans
         self.device = resolve_device(device)
-        self.model = build_lm(lm_cfg)
+        if mesh is None:
+            mesh = self._default_mesh(seq_devices)
+        if self.pp:
+            if mesh.shape.get(PIPE_AXIS) != train_cfg.pipeline_stages:
+                raise ValueError(
+                    f"pipeline_stages={train_cfg.pipeline_stages} but the "
+                    f"mesh is {mesh.shape} — its '{PIPE_AXIS}' axis must "
+                    f"exist with exactly that size")
+            if DATA_AXIS not in mesh.shape:
+                raise ValueError(
+                    f"the pipeline trainer batches over '{DATA_AXIS}'; give "
+                    f"the mesh a (possibly size-1) '{DATA_AXIS}' axis: "
+                    f"{mesh.shape}")
+        self.mesh = mesh
+        self.seq_axis = SEQ_AXIS if SEQ_AXIS in mesh.shape else None
+        # under PP and ZeRO/FSDP the experts stay local; otherwise EP
+        # routes over the data axis
+        self.model = build_lm(lm_cfg, seq_axis=self.seq_axis,
+                              expert_axis=(DATA_AXIS if lm_cfg.num_experts
+                                           and not (self.pp or self.sharded)
+                                           else None))
+
+    def _default_mesh(self, seq_devices: int):
+        world = process_topology()[1]
+        cfg = self.train_cfg
+        if cfg.num_devices not in (0, world):
+            raise ValueError(f"train.num_devices={cfg.num_devices} but the "
+                             f"process group has {world} workers (one card "
+                             f"each); launch that many processes")
+        if seq_devices < 1:
+            raise ValueError(f"seq_devices must be >= 1, got {seq_devices}")
+        if world % seq_devices:
+            raise ValueError(f"seq_devices {seq_devices} must divide device "
+                             f"count {world}")
+        if self.pp:
+            stages = cfg.pipeline_stages
+            if world % stages:
+                raise ValueError(f"pipeline_stages {stages} must divide "
+                                 f"device count {world}")
+            return make_mesh(MeshSpec(((DATA_AXIS, world // stages),
+                                       (PIPE_AXIS, stages))))
+        if seq_devices > 1:
+            return make_mesh(MeshSpec(((DATA_AXIS, world // seq_devices),
+                                       (SEQ_AXIS, seq_devices))))
+        if self.lm_cfg.num_experts and not self.sharded:
+            # the all-to-alls run per layer: keep the flat layout
+            return make_mesh(MeshSpec(((DATA_AXIS, -1),)))
+        return make_data_mesh()
 
     @property
     def world_size(self) -> int:
         return process_topology()[1]
 
     def _global_batch(self) -> int:
-        world = self.world_size
-        if self.train_cfg.num_devices not in (0, world):
-            raise ValueError(f"train.num_devices={self.train_cfg.num_devices}"
-                             f" but the process group has {world} workers "
-                             f"(one card each); launch that many processes")
-        return self.train_cfg.batch_size * world
+        return self.train_cfg.batch_size * self.mesh.shape[DATA_AXIS]
+
+    def _rows(self) -> slice:
+        """This rank's rows of a global batch: its data shard's."""
+        bs = self.train_cfg.batch_size
+        d = self.mesh.axis_index(DATA_AXIS)
+        return slice(d * bs, (d + 1) * bs)
+
+    def _seq_slice(self, x):
+        """Under SP, this rank's shard of the sequence (the last dim)."""
+        if self.seq_axis is None:
+            return x
+        n = self.mesh.shape[SEQ_AXIS]
+        r = self.mesh.axis_index(SEQ_AXIS)
+        s = x.shape[-1] // n
+        return x[..., r * s:(r + 1) * s]
+
+    def _check_seq(self, seq_len: int) -> None:
+        sp = self.mesh.shape.get(SEQ_AXIS, 1)
+        if seq_len % sp:
+            raise ValueError(f"seq_len {seq_len} not divisible by "
+                             f"seq_devices {sp}")
 
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
@@ -121,6 +236,7 @@ class LMTrainer:
         if tokens.ndim != 2 or tokens.shape[1] < 2:
             raise ValueError(f"tokens must be [num_seqs, seq_len+1], got "
                              f"{tokens.shape}")
+        self._check_seq(tokens.shape[1] - 1)
         perm = np.random.RandomState(cfg.seed).permutation(len(tokens))
         n_val = max(1, int(len(tokens) * val_fraction))
         val, train = tokens[perm[:n_val]], tokens[perm[n_val:]]
@@ -130,8 +246,8 @@ class LMTrainer:
                              f"{global_batch}")
         steps_per_epoch = max(1, len(train) // global_batch)
         val_steps = max(1, len(val) // global_batch)
-        rank, _ = process_topology()
-        local = slice(rank * cfg.batch_size, (rank + 1) * cfg.batch_size)
+        local = self._rows()
+        sh = self._seq_slice
 
         def make_providers(start_epoch, plan, chained):
             def train_batches(epoch):
@@ -144,12 +260,12 @@ class LMTrainer:
                     if chained:
                         # the same k batches the per-step path would draw
                         b = b.reshape(k, global_batch, -1)[:, local]
-                        yield (self._to_device(b[..., :-1]),
-                               self._to_device(b[..., 1:]))
+                        yield (self._to_device(sh(b[..., :-1])),
+                               self._to_device(sh(b[..., 1:])))
                     else:
                         b = b[local]
-                        yield (self._to_device(b[:, :-1]),
-                               self._to_device(b[:, 1:]))
+                        yield (self._to_device(sh(b[:, :-1])),
+                               self._to_device(sh(b[:, 1:])))
 
             def val_batches():
                 for i in range(val_steps):
@@ -157,13 +273,13 @@ class LMTrainer:
                     idx = np.arange(i * global_batch,
                                     (i + 1) * global_batch) % len(val)
                     vb = val[idx][local]
-                    yield self._to_device(vb[:, :-1]), \
-                        self._to_device(vb[:, 1:])
+                    yield self._to_device(sh(vb[:, :-1])), \
+                        self._to_device(sh(vb[:, 1:]))
 
             return train_batches, val_batches, None
 
         return self._run(steps_per_epoch, val_steps, global_batch,
-                         make_providers, resume)
+                         tokens.shape[1] - 1, make_providers, resume)
 
     def fit_tables(self, train_table, val_table,
                    resume: bool = False) -> LMTrainResult:
@@ -182,6 +298,8 @@ class LMTrainer:
         if val_table.meta["seq_plus_one"] != train_table.meta["seq_plus_one"]:
             raise ValueError("train/val token tables disagree on sequence "
                              "length")
+        seq_len = train_table.meta["seq_plus_one"] - 1
+        self._check_seq(seq_len)
         global_batch = self._global_batch()
         steps_per_epoch = train_table.num_records // global_batch
         if steps_per_epoch < 1:
@@ -193,10 +311,13 @@ class LMTrainer:
                 f"{val_table.num_records} val sequences < global batch "
                 f"{global_batch} — the eval pass needs at least one full "
                 f"batch")
-        rank, world = process_topology()
+        # the ranks of one data replica (its seq or pipe ranks) read the
+        # same records
         host_batch = cfg.batch_size
-        shard_kw = dict(cur_shard=rank, shard_count=world,
+        shard_kw = dict(cur_shard=self.mesh.axis_index(DATA_AXIS),
+                        shard_count=self.mesh.shape[DATA_AXIS],
                         prefetch_to=self.device)
+        sh = self._seq_slice
 
         def make_providers(start_epoch, plan, chained):
             train_iter = iter(ShardedLoader(
@@ -207,7 +328,8 @@ class LMTrainer:
 
             def train_batches(epoch):
                 for _ in range(len(plan)):  # one item per chain
-                    yield next(train_iter)
+                    inputs, targets = next(train_iter)
+                    yield sh(inputs), sh(targets)
 
             def val_batches():
                 # a fresh unshuffled pass: every eval sees the same batches
@@ -216,36 +338,91 @@ class LMTrainer:
                                         **shard_kw))
                 try:
                     for _ in range(val_steps):
-                        yield next(it)
+                        inputs, targets = next(it)
+                        yield sh(inputs), sh(targets)
                 finally:
                     it.close()
 
             return train_batches, val_batches, train_iter.close
 
-        return self._run(steps_per_epoch, val_steps, global_batch,
+        return self._run(steps_per_epoch, val_steps, global_batch, seq_len,
                          make_providers, resume)
 
     # ------------------------------------------------------------------
-    def _run(self, steps_per_epoch, val_steps, global_batch, make_providers,
-             resume) -> LMTrainResult:
+    def _steps(self, tx, chained: bool):
+        """``(state, step, chain, eval_step)`` of the configured
+        parallelism; every step takes ``(state, inputs, targets, seed)``
+        and every eval step ``(state, inputs, targets, params)``."""
+        cfg, mesh, model = self.train_cfg, self.mesh, self.model
+        gen = torch.Generator().manual_seed(cfg.seed)
+        if self.pp:
+            from ddw_tpu_torch.parallel.pipeline import (init_pp_state,
+                                                         make_pp_lm_train_step)
+
+            vstages = (cfg.pipeline_virtual_stages
+                       if cfg.pipeline_schedule == "interleaved" else 1)
+            state = init_pp_state(model, tx, mesh, gen,
+                                  virtual_stages=vstages, device=self.device)
+            pp = make_pp_lm_train_step(
+                model, tx, mesh, data_axis=DATA_AXIS,
+                num_microbatches=cfg.pipeline_microbatches,
+                schedule=cfg.pipeline_schedule, virtual_stages=vstages)
+            return (state, lambda st, i, t, seed: pp(st, i, t), None,
+                    lambda st, i, t, params: pp.eval_step(st, i, t))
+        if self.sharded:
+            from ddw_tpu_torch.parallel import zero
+
+            tx = _maybe_lora_tx(model, tx)
+            state = init_lm_state(model, tx, gen, self.device)
+            kind = "fsdp" if cfg.fsdp else "zero"
+            step = getattr(zero, f"make_{kind}_train_step")(
+                model, tx, mesh, DATA_AXIS, cfg.grad_accum_steps)
+            chain = (getattr(zero, f"make_{kind}_train_chain")(
+                model, tx, mesh, DATA_AXIS, cfg.grad_accum_steps)
+                if chained else None)
+            step.place_state(state)
+            plain_eval = make_lm_eval_step(model)
+
+            def eval_step(st, i, t, params):
+                with zero.gathered(st):
+                    if params is not None:
+                        params = st.layout.compute_tree(params)
+                    return plain_eval(st, i, t, params)
+
+            return state, step, chain, eval_step
+        state = init_lm_state(model, tx, gen, self.device)
+        kw = dict(seq_axis=self.seq_axis, mesh=mesh)
+        step = make_lm_train_step(model, tx, cfg.grad_accum_steps, **kw)
+        chain = (make_lm_train_chain(model, tx, cfg.grad_accum_steps, **kw)
+                 if chained else None)
+        return state, step, chain, make_lm_eval_step(model, **kw)
+
+    def _checkpointer(self, ckpt_dir: str, keep: int = 3):
         cfg = self.train_cfg
-        world = self.world_size
+        if self.pp or self.sharded:
+            from ddw_tpu_torch.checkpoint.sharded import \
+                ShardedCheckpointManager
+
+            return ShardedCheckpointManager(
+                ckpt_dir, keep, async_write=cfg.async_checkpoint,
+                max_inflight=cfg.async_checkpoint_inflight,
+                clip=bool(cfg.grad_clip_norm))
+        return CheckpointManager(ckpt_dir, keep,
+                                 async_write=cfg.async_checkpoint,
+                                 max_inflight=cfg.async_checkpoint_inflight)
+
+    def _run(self, steps_per_epoch, val_steps, global_batch, seq_len,
+             make_providers, resume) -> LMTrainResult:
+        cfg = self.train_cfg
+        dp = self.mesh.shape[DATA_AXIS]
         tx = make_optimizer(cfg)
         if cfg.ema_decay:
             tx = with_param_ema(tx, cfg.ema_decay)
         plan = chain_plan(steps_per_epoch, cfg.steps_per_dispatch)
         chained = cfg.steps_per_dispatch > 1 and any(k > 1 for k in plan)
-        state = init_lm_state(self.model, tx,
-                              torch.Generator().manual_seed(cfg.seed),
-                              self.device)
-        step = make_lm_train_step(self.model, tx, cfg.grad_accum_steps)
-        chain = (make_lm_train_chain(self.model, tx, cfg.grad_accum_steps)
-                 if chained else None)
-        eval_step = make_lm_eval_step(self.model)
+        state, step, chain, eval_step = self._steps(tx, chained)
 
-        ckpt = (CheckpointManager(cfg.checkpoint_dir,
-                                  async_write=cfg.async_checkpoint,
-                                  max_inflight=cfg.async_checkpoint_inflight)
+        ckpt = (self._checkpointer(cfg.checkpoint_dir)
                 if cfg.checkpoint_dir else None)
         start_epoch = 0
         restored_meta = None
@@ -281,17 +458,15 @@ class LMTrainer:
                 raise ValueError("checkpoint_keep_best needs a "
                                  "checkpoint_dir")
             best = BestCheckpointKeeper(
-                cfg.checkpoint_dir,
-                lambda d: CheckpointManager(d, keep=1,
-                                            async_write=cfg.async_checkpoint))
+                cfg.checkpoint_dir, lambda d: self._checkpointer(d, keep=1))
 
-        sched = ScheduleSuite.build(cfg, world, restored_meta)
+        sched = ScheduleSuite.build(cfg, dp, restored_meta)
         if self.run is not None:
             self.run.log_params({f"train.{k}": v
                                  for k, v in to_dict(cfg).items()})
             self.run.log_params({f"lm.{k}": v
                                  for k, v in to_dict(self.lm_cfg).items()})
-            self.run.log_params({"world_size": world,
+            self.run.log_params({"mesh": self.mesh.shape,
                                  "steps_per_epoch": steps_per_epoch,
                                  "global_batch": global_batch})
 
@@ -325,13 +500,11 @@ class LMTrainer:
                 tlosses, taccs = [], []
                 batch_it = train_batches(epoch)
                 step_i = 0
-                seq_len = 0
                 for k_chain in plan:
                     t_chain = (time.monotonic()
                                if self.tracer is not None or hub is not None
                                else 0.0)
                     inputs, targets = next(batch_it)
-                    seq_len = inputs.shape[-1]
                     lr = sched.lr_for_batch(epoch, step_i, steps_per_epoch)
                     if lr is not None:
                         state = set_lr(state, lr)

@@ -45,6 +45,9 @@ class TrainState:
     model: nn.Module
     opt_state: dict
     step: int = 0
+    # how the state is sharded over ranks (ZeRO/FSDP, pipeline stages);
+    # None for a replicated state
+    layout: object = None
 
     @property
     def params(self) -> dict[str, torch.Tensor]:
@@ -57,8 +60,11 @@ class TrainState:
 
 def cross_entropy_loss(logits: torch.Tensor,
                        labels: torch.Tensor) -> torch.Tensor:
-    """Sparse categorical cross-entropy from logits, mean over the batch."""
-    return F.cross_entropy(logits.float(), labels.long())
+    """Sparse categorical cross-entropy from logits ``[..., C]`` against
+    labels ``[...]``, the mean over every label (optax's broadcast: an LM's
+    ``[B, S, V]`` against ``[B, S]`` too)."""
+    return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                           labels.reshape(-1).long())
 
 
 def _decayed(decay: float, t: torch.Tensor) -> torch.Tensor:
@@ -139,13 +145,17 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, params: dict[str, torch.Tensor],
-               grads: dict[str, torch.Tensor | None], state: dict) -> None:
-        """One update, in place on ``params`` and ``state``."""
+               grads: dict[str, torch.Tensor | None], state: dict,
+               sq_norm: Callable | None = None) -> None:
+        """One update, in place on ``params`` and ``state``. ``sq_norm(g)``
+        gives the clipping norm's square over the whole tree where ``params``
+        are this rank's shards (ZeRO/FSDP, tensor parallelism)."""
         names = [n for n in params if self.trainable(n)]
         g = {n: grads[n] if grads.get(n) is not None
              else torch.zeros_like(params[n]) for n in names}
         if self.clip:
-            norm = torch.sqrt(sum(torch.sum(t * t) for t in g.values()))
+            norm = torch.sqrt(sq_norm(g) if sq_norm is not None else
+                              sum(torch.sum(t * t) for t in g.values()))
             keep = norm < self.clip
             g = {n: torch.where(keep, t, (t / norm) * self.clip)
                  for n, t in g.items()}
@@ -196,8 +206,8 @@ class EmaOptimizer:
                            for n, p in params.items()}}
 
     @torch.no_grad()
-    def update(self, params, grads, state) -> None:
-        self.inner.update(params, grads, state["inner"])
+    def update(self, params, grads, state, sq_norm=None) -> None:
+        self.inner.update(params, grads, state["inner"], sq_norm)
         d = self.decay
         for n, s in state["shadow"].items():
             s.copy_(d * s + (1.0 - d) * params[n].float())

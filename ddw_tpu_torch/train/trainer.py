@@ -34,10 +34,11 @@ run; a profile that recorded no CUDA kernel on the card is an error.
 :func:`~ddw_tpu_torch.obs.telemetry.tee_run` receives ``train.chain_ms`` and
 ``train.ckpt_write_ms`` observations in its hub.
 
-Not yet ported, refused by :func:`ddw_tpu_torch.utils.config.
-require_ported` (naming ``ROADMAP.md``): ZeRO/FSDP and pipelines; elastic
-restarts, fault injection and preemption hooks have no counterpart yet
-either.
+``TrainCfg.zero`` / ``TrainCfg.fsdp`` train through the sharded-state
+steps of :mod:`ddw_tpu_torch.parallel.zero` over a ``data`` mesh of the
+world, and checkpoint in the sharded format (every rank writes its own
+blocks, :mod:`ddw_tpu_torch.checkpoint.sharded`). Elastic restarts, fault
+injection and preemption hooks have no counterpart yet.
 """
 
 from __future__ import annotations
@@ -65,8 +66,7 @@ from ddw_tpu_torch.train.step import (TrainState, chain_plan, ema_params,
                                       make_eval_step, make_optimizer,
                                       make_train_chain, make_train_step,
                                       params_checksum, set_lr, with_param_ema)
-from ddw_tpu_torch.utils.config import (DataCfg, ModelCfg, TrainCfg,
-                                        require_ported, to_dict)
+from ddw_tpu_torch.utils.config import DataCfg, ModelCfg, TrainCfg, to_dict
 from ddw_tpu_torch.utils.device import resolve_device
 
 
@@ -130,7 +130,6 @@ class Trainer:
         unless the caller asks for ``"cpu"``. ``tracer`` (an obs
         :class:`~ddw_tpu_torch.obs.trace.Tracer`) records chain-boundary
         spans."""
-        require_ported(train_cfg)
         self.tracer = tracer
         self.data_cfg = data_cfg
         self.model_cfg = model_cfg
@@ -205,10 +204,35 @@ class Trainer:
 
         return train_loader, val_loader
 
+    def _sharded_steps(self, state, tx):
+        """The ZeRO-1 or FSDP step and chain over a ``data`` mesh of the
+        world, the state placed on its shards; the eval step reads the
+        gathered parameters (and the gathered EMA shadow)."""
+        from ddw_tpu_torch.parallel import zero
+        from ddw_tpu_torch.runtime.mesh import make_data_mesh
+
+        cfg = self.train_cfg
+        mesh = make_data_mesh()
+        kind = "fsdp" if cfg.fsdp else "zero"
+        step = getattr(zero, f"make_{kind}_train_step")(
+            self.model, tx, mesh, mesh.axis_names[0], cfg.grad_accum_steps)
+        chain = (getattr(zero, f"make_{kind}_train_chain")(
+            self.model, tx, mesh, mesh.axis_names[0], cfg.grad_accum_steps)
+            if cfg.steps_per_dispatch > 1 else None)
+        step.place_state(state)
+        plain_eval = make_eval_step()
+
+        def eval_step(st, images, labels, params=None):
+            with zero.gathered(st):
+                if params is not None:
+                    params = st.layout.compute_tree(params)
+                return plain_eval(st, images, labels, params)
+
+        return step, chain, eval_step
+
     def fit(self, train_table: Table, val_table: Table,
             resume: bool = False) -> TrainResult:
         cfg = self.train_cfg
-        require_ported(cfg)
         world = self.world_size
         if cfg.num_devices not in (0, world):
             raise ValueError(f"train.num_devices={cfg.num_devices} but the "
@@ -217,16 +241,35 @@ class Trainer:
         if cfg.steps_per_dispatch < 1:
             raise ValueError(f"train.steps_per_dispatch must be >= 1, got "
                              f"{cfg.steps_per_dispatch}")
+        sharded = cfg.zero or cfg.fsdp
+        if cfg.zero and cfg.fsdp:
+            raise ValueError("train.zero and train.fsdp are mutually "
+                             "exclusive (fsdp already shards the "
+                             "optimizer state) — pick one")
         state, tx = self._init_state()
-        train_step = make_train_step(tx, cfg.grad_accum_steps)
-        train_chain = (make_train_chain(tx, cfg.grad_accum_steps)
-                       if cfg.steps_per_dispatch > 1 else None)
-        eval_step = make_eval_step()
+        if sharded:
+            train_step, train_chain, eval_step = self._sharded_steps(state,
+                                                                     tx)
+        else:
+            train_step = make_train_step(tx, cfg.grad_accum_steps)
+            train_chain = (make_train_chain(tx, cfg.grad_accum_steps)
+                           if cfg.steps_per_dispatch > 1 else None)
+            eval_step = make_eval_step()
 
-        ckpt = (CheckpointManager(cfg.checkpoint_dir,
-                                  async_write=cfg.async_checkpoint,
-                                  max_inflight=cfg.async_checkpoint_inflight)
-                if cfg.checkpoint_dir else None)
+        def checkpointer(d: str, keep: int = 3):
+            if sharded:
+                from ddw_tpu_torch.checkpoint.sharded import \
+                    ShardedCheckpointManager
+
+                return ShardedCheckpointManager(
+                    d, keep, async_write=cfg.async_checkpoint,
+                    max_inflight=cfg.async_checkpoint_inflight,
+                    clip=bool(cfg.grad_clip_norm))
+            return CheckpointManager(
+                d, keep, async_write=cfg.async_checkpoint,
+                max_inflight=cfg.async_checkpoint_inflight)
+
+        ckpt = checkpointer(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
         start_epoch = 0
         steps_per_epoch = max(1, train_table.num_records
                               // (cfg.batch_size * world))
@@ -243,9 +286,7 @@ class Trainer:
             if not ckpt:
                 raise ValueError("checkpoint_keep_best needs a checkpoint_dir")
             best = BestCheckpointKeeper(
-                cfg.checkpoint_dir,
-                lambda d: CheckpointManager(d, keep=1,
-                                            async_write=cfg.async_checkpoint))
+                cfg.checkpoint_dir, lambda d: checkpointer(d, keep=1))
 
         sched = ScheduleSuite.build(cfg, world, restored_meta)
         if self.run is not None:

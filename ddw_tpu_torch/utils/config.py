@@ -5,9 +5,7 @@ Every field keeps the original's name and default, so configs (and a
 packaged model's ``package.json``, which stores ``dataclasses.asdict(
 model_cfg)``) mean the same in both packages. Fields of model features not
 yet ported are refused by :func:`ddw_tpu_torch.models.registry.build_model`
-when set; fields of training features not yet ported are refused by
-:func:`require_ported` (run by ``TrainCfg`` and by the trainer), naming
-``ROADMAP.md`` — never silently ignored.
+when set, naming ``ROADMAP.md`` — never silently ignored.
 """
 
 from __future__ import annotations
@@ -95,12 +93,15 @@ class TrainCfg:
     moment_dtype: str = "float32"       # "bfloat16": Adam/SGD first moments
     data_axis: str = "data"             # name of the data-parallel axis
     num_devices: int = 0                # 0 = the whole process group
-    zero: bool = False                  # not yet ported (ROADMAP.md)
-    fsdp: bool = False                  # not yet ported (ROADMAP.md)
-    pipeline_stages: int = 0            # not yet ported (ROADMAP.md)
-    pipeline_schedule: str = "gpipe"    # not yet ported (ROADMAP.md)
-    pipeline_microbatches: int = 4      # not yet ported (ROADMAP.md)
-    pipeline_virtual_stages: int = 2    # not yet ported (ROADMAP.md)
+    zero: bool = False                  # ZeRO-1: optimizer moments sharded
+                                        # over the data axis (parallel/zero)
+    fsdp: bool = False                  # ZeRO-3/FSDP: params and moments
+                                        # sharded; exclusive with zero
+    pipeline_stages: int = 0            # >0: LMTrainer trains through the
+                                        # pipeline step over (data, pipe)
+    pipeline_schedule: str = "gpipe"    # "gpipe" | "interleaved"
+    pipeline_microbatches: int = 4      # must divide the per-replica batch
+    pipeline_virtual_stages: int = 2    # interleaved only: chunks per rank
     checkpoint_dir: str = ""            # "" = no per-epoch checkpoints
     async_checkpoint: bool = False      # write checkpoints on a background thread
     async_checkpoint_inflight: int = 2  # bounded async write queue depth
@@ -114,16 +115,14 @@ class TrainCfg:
     monitor_interval_s: float = 0.0     # >0: sys.* utilization series into
                                         # the run (utils/sysmon, process 0)
 
-    def __post_init__(self):
-        require_ported(self)
-
 
 @dataclass
 class LMCfg:
     """Decoder-only LM config (:class:`ddw_tpu_torch.models.lm.TransformerLM`),
     field for field ``ddw_tpu``'s, so a packaged LM's ``package.json``
     (``dataclasses.asdict(lm_cfg)``) means the same in both packages. MoE
-    (``num_experts > 0``) is refused by ``build_lm``, naming ``ROADMAP.md``.
+    (``num_experts > 0``) puts :class:`ddw_tpu_torch.models.moe.MoEMlp`
+    in every block.
     """
 
     vocab_size: int = 256
@@ -134,7 +133,7 @@ class LMCfg:
     mlp_dim: int = 1024
     dropout: float = 0.0
     dtype: str = "bfloat16"
-    num_experts: int = 0                # >0: MoE MLP blocks (not yet ported)
+    num_experts: int = 0                # >0: MoE MLP blocks
     capacity_factor: float = 1.25       # static expert capacity = cf*k*T/E
     moe_router: str = "top1"            # "top1" (Switch) or "top2" (GShard)
     num_kv_heads: int = 0               # GQA: KV heads (0 = num_heads / MHA)
@@ -172,19 +171,6 @@ _TYPES = {"data": DataCfg, "model": ModelCfg, "train": TrainCfg,
           "tune": TuneCfg, "lm": LMCfg}
 
 
-def require_ported(cfg: TrainCfg) -> None:
-    """Refuse training features the port does not have yet; each names
-    ``ROADMAP.md``. Set fields differ from their defaults."""
-    defaults = TrainCfg.__dataclass_fields__
-    unported = ("zero", "fsdp", "pipeline_stages", "pipeline_schedule",
-                "pipeline_microbatches", "pipeline_virtual_stages")
-    for name in unported:
-        if getattr(cfg, name) != defaults[name].default:
-            raise NotImplementedError(
-                f"train.{name}={getattr(cfg, name)!r} is not yet ported to "
-                f"ddw_tpu_torch; see ROADMAP.md for the slice that brings it")
-
-
 def apply_overrides(cfgs: dict[str, Any],
                     overrides: list[str]) -> dict[str, Any]:
     """Apply ``section.key=value`` CLI overrides to a dict of config
@@ -205,14 +191,7 @@ def apply_overrides(cfgs: dict[str, Any],
             val = json.loads(raw)
         except json.JSONDecodeError:
             val = raw
-        old = getattr(cfg, key)
         setattr(cfg, key, val)
-        if isinstance(cfg, TrainCfg):
-            try:
-                require_ported(cfg)
-            except NotImplementedError:
-                setattr(cfg, key, old)
-                raise
     return cfgs
 
 

@@ -63,6 +63,7 @@ def test_no_port_module_imports_jax_or_the_jax_package():
             "05_hyperopt_distributed.py",
             "06_packaged_inference.py",
             "08_pretrained_transfer.py", "09_lora_finetune.py",
+            "07_lm_long_context.py",
             "11_lm_lifecycle.py", "14_online_serving.py",
             "15_http_gateway.py"} <= examples
 
@@ -93,7 +94,10 @@ def test_every_port_module_imports_with_jax_blocked():
                  "deploy.journal", "deploy.canary", "deploy.controller",
                  "deploy.transport", "deploy._serve_worker",
                  "deploy.process_replica", "autoscale.policy",
-                 "autoscale.controller"):
+                 "autoscale.controller", "parallel.ring_attention",
+                 "parallel.pipeline", "parallel.zero", "parallel.sharding",
+                 "parallel.comm", "models.moe", "checkpoint.sharded",
+                 "dryrun"):
         assert f"ddw_tpu_torch.{name}" in modules
     modules += ["examples_torch." + os.path.basename(p)[:-3]
                 for p in _example_sources()]
@@ -217,15 +221,16 @@ def test_pallas_all_reduce_on_cpu_launches_nothing(monkeypatch):
 
 
 def test_unported_collectives_raise_naming_roadmap():
+    """host_all_reduce waits for the elastic runtime (ROADMAP.md item 16);
+    the hybrid mesh is ported (a world of one is one slice)."""
     from ddw_tpu_torch.runtime import (HybridMeshSpec, host_all_reduce,
                                        make_hybrid_mesh)
 
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         host_all_reduce("tag", 1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_hybrid_mesh()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        HybridMeshSpec((("data", -1, -1),))
+    assert make_hybrid_mesh().shape == {"data": 1}
+    assert HybridMeshSpec((("data", -1, -1),)).resolve(2, 4) == (
+        ("data", 2, 4),)
 
 
 def test_device_and_dtype_helpers():

@@ -222,11 +222,12 @@ def test_seeded_sampling_is_reproducible_inside_the_port():
 
 
 def test_unported_options_are_refused_naming_the_roadmap():
+    """MoE and sequence parallelism build now (slice 5); the options that
+    are wrong in ddw_tpu too stay refused."""
     cfg = LMCfg(**BASE)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_lm(LMCfg(**dict(BASE, num_experts=2)))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_lm(cfg, seq_axis="seq")
+    moe = build_lm(LMCfg(**dict(BASE, num_experts=2)), expert_axis="data")
+    assert moe.expert_axis == "data" and hasattr(moe.blocks()[0], "moe")
+    assert build_lm(cfg, seq_axis="seq").blocks()[0].attn.seq_axis == "seq"
     with pytest.raises(ValueError, match="unknown lora_targets"):
         build_lm(LMCfg(**dict(BASE, lora_rank=2, lora_targets=("qkv",))))
     with pytest.raises(ValueError, match="unknown pos_encoding"):

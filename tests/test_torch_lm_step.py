@@ -302,10 +302,11 @@ def test_init_lm_state_and_refusals():
     for (n, a), (_, b) in zip(state.model.named_parameters(),
                               again.model.named_parameters()):
         assert torch.equal(a, b), n
+    # a step's seq_axis must be the model's (ddw_tpu's _lm_axes contract)
     for fn in (tlm.make_lm_train_step, tlm.make_lm_train_chain):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(ValueError, match="seq_axis"):
             fn(tm, tx, seq_axis="seq")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="seq_axis"):
         tlm.make_lm_eval_step(tm, seq_axis="seq")
 
 

@@ -194,15 +194,24 @@ def test_ema_evaluates_shadow():
 
 
 def test_refusals():
+    """The layouts a world of one cannot hold and the combinations
+    ddw_tpu's trainer refuses; MoE trains with its experts over data."""
     lm, tr = _cfgs()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="seq_devices 2 must divide"):
         tlt.LMTrainer(lm, tr, device="cpu", seq_devices=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tlt.LMTrainer(dataclasses.replace(lm, num_experts=2), tr,
+    moe = tlt.LMTrainer(dataclasses.replace(lm, num_experts=2), tr,
+                        device="cpu")
+    assert moe.model.expert_axis == "data"
+    with pytest.raises(ValueError, match="pipeline_stages 2 must divide"):
+        tlt.LMTrainer(lm, dataclasses.replace(tr, pipeline_stages=2),
                       device="cpu")
-    for kw in (dict(zero=True), dict(fsdp=True), dict(pipeline_stages=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            _cfgs(**kw)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        tlt.LMTrainer(lm, dataclasses.replace(tr, zero=True, fsdp=True),
+                      device="cpu")
+    with pytest.raises(ValueError, match="lm.dropout"):
+        tlt.LMTrainer(dataclasses.replace(lm, dropout=0.1),
+                      dataclasses.replace(tr, pipeline_stages=1),
+                      device="cpu")
     with pytest.raises(ValueError, match="ema_decay"):
         tlt.LMTrainer(dataclasses.replace(lm, lora_rank=2),
                       dataclasses.replace(tr, ema_decay=0.9), device="cpu")

@@ -249,14 +249,18 @@ def test_loss_trajectory_tracks_jax_trainer(tables, tmp_path):
 
 
 def test_unported_features_are_refused(tables, tmp_path):
-    for kw in (dict(zero=True), dict(fsdp=True), dict(pipeline_stages=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            TrainCfg(**kw)
+    """ZeRO/FSDP and the pipeline fields are configs now (slice 5); zero
+    with fsdp is refused as ddw_tpu refuses it."""
     cfgs = {"data": DataCfg(), "model": ModelCfg(), "train": TrainCfg()}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        apply_overrides(cfgs, ["train.zero=true"])
-    apply_overrides(cfgs, ["train.batch_size=64", "model.dropout=0.1"])
-    assert cfgs["train"].batch_size == 64 and cfgs["model"].dropout == 0.1
+    apply_overrides(cfgs, ["train.zero=true", "train.batch_size=64",
+                           "model.dropout=0.1"])
+    assert cfgs["train"].zero and cfgs["train"].batch_size == 64
+    assert cfgs["model"].dropout == 0.1
+    root, train, val = tables
+    data, model, _ = _cfgs(tmp_path)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        Trainer(data, model, TrainCfg(zero=True, fsdp=True),
+                device="cpu").fit(train, val)
     with pytest.raises(KeyError):
         apply_overrides(cfgs, ["train.nope=1"])
     data, model, cfg = _cfgs(tmp_path)
