@@ -2,8 +2,8 @@
 """Smoke run of ddw_tpu_torch on one NVIDIA card: build, check and time the
 port's CUDA kernels, then drive the serving, training, workshop (the
 example chain), vision-family, pretrained-transfer, LM-scoring,
-LM-training, online-serving, serving-fleet, collective and multi-rank
-parallel main paths end to end.
+LM-training, online-serving, serving-fleet, collective, multi-rank
+parallel and fault-tolerant gang main paths end to end.
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -339,6 +339,38 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``dryrun_multichip(4, "cuda")``: every arm's OK line, and the ZeRO
    arm's sharded checkpoint restored in this process to the state the
    four ranks wrote. The phase's wall seconds.
+10c. gang — the fault-tolerant runtime (``ddw_tpu_torch.runtime``'s
+   ``Launcher``, ``GangSupervisor`` and elastic rendezvous) with 2 ranks
+   that share the card (gloo), every rank started as a process of the
+   launcher (``-m ddw_tpu_torch.runtime._launch_worker``). (a)
+   ``GangSupervisor(Launcher(np=2), max_restarts=1)`` over a vision
+   ``Trainer.fit`` (MobileNetV2 1.0 at 224, bf16, ``dw_impl="pallas"``,
+   batch 32 a rank on a seeded 128-image class table: 2 steps an epoch, 3
+   epochs, a checkpoint every epoch) under
+   ``DDW_FAULT=crash:rank=1:step=3``: one crash attempt (rank 1, exit 77),
+   generation 1 resumes at step 2 and completes, its last epoch's train
+   and val loss within 5e-2 relative of an uninterrupted 2-rank fit's (bf16
+   with cuDNN's non-deterministic backward), and every rank's K1 and K2
+   counts (noted at each epoch end) all ``tma`` and non-zero in both
+   generations. (b) ``Launcher(np=2, elastic_restarts=1)`` on the same fit
+   (2 epochs; the ranks stay outside a process group, each training its
+   replica on its half of the table at 16 a step, meeting at a rendezvous
+   barrier each epoch) under ``crash:rank=1:step=5``: one ``respawn``
+   event for rank 1, the survivor re-running its fit in its own process
+   (its pid in the member ledger of both generations), the CUDA memory
+   allocated at the re-run's entry above the first run's entry by less than
+   a quarter of the run's weights and optimizer state (the worker collects
+   the first run, clears the cuBLAS workspaces and empties the cache),
+   the gang finishing at world 2. (c) ``GangSupervisor(Launcher(np=2),
+   max_restarts=0)`` over an ``LMTrainer.fit`` of lm_train's LM (both
+   attention thresholds at 0: K3-K5 on every layer) on 40 seeded
+   arithmetic sequences, 4 rows a rank, under ``preempt:rank=0:step=2``:
+   rank 0 checkpoints step 2 with ``preempted: True`` and exits 83, the
+   launcher forwards SIGTERM, the supervisor restarts outside the crash
+   budget, generation 1 resumes at step 2 and completes; rank 0 launched
+   exactly 12 K3, K4 and K5 (2 steps) in generation 0 and 30 K3, 24 K4 and
+   24 K5 (4 steps, 1 val batch) in generation 1, all sm90. Each arm's wall
+   seconds.
 11. The ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
    line ``{"ok": true, "device": {...}}``.
 """
@@ -5133,6 +5165,333 @@ def phase_fleet(tmp: str, ctx: dict, serve: dict) -> dict:
     return out
 
 
+# the gang phase: ranks of the port's Launcher that share the card (gloo)
+GANG_BATCH = 32             # per rank: the vision fit's batch
+GANG_TRAIN, GANG_VAL = 128, 64   # 2 steps an epoch at 2 DP ranks (global 64)
+GANG_EPOCHS = 3
+GANG_STEPS = GANG_TRAIN // (2 * GANG_BATCH)   # an epoch's steps at 2 ranks
+GANG_CRASH = "crash:rank=1:step=3"      # epoch 1's second step at 2 ranks
+GANG_LOSS_TOL = 5e-2        # relative: the restarted fit's last epoch (train
+#                             and val loss) against an uninterrupted fit;
+#                             bf16, adam, cuDNN's non-deterministic backward
+GANG_ELASTIC_EPOCHS = 2     # elastic arm: 4 steps an epoch per replica
+GANG_ELASTIC_CRASH = "crash:rank=1:step=5"   # after the epoch-0 checkpoint
+GANG_LM_ROWS = 4            # per rank; 40 sequences, val_fraction 0.2: 4 steps
+GANG_LM_SEQS = 40           # an epoch at 2 ranks, one val batch
+GANG_PREEMPT = "preempt:rank=0:step=2"
+GANG_TIMEOUT_S = 600.0
+
+_GANG_ENTRIES: list = []    # memory_allocated at each entry of a gang fn here
+
+
+def gang_ids() -> tuple[int, int, int]:
+    """(rank, restart generation, elastic generation) of this gang rank."""
+    return tuple(int(os.environ.get(k, "0") or 0) for k in (
+        "DDW_PROCESS_ID", "DDW_RESTART_GEN", "DDW_ELASTIC_GEN"))
+
+
+def gang_note(work: str, arm: str, reading: dict) -> None:
+    """This rank's reading for this generation, written atomically: what a
+    rank that the launcher kills leaves behind."""
+    rank, gen, egen = gang_ids()
+    path = os.path.join(work, f"{arm}_g{gen}_e{egen}_r{rank}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(reading, f)
+    os.replace(path + ".tmp", path)
+
+
+def gang_notes(work: str, arm: str) -> dict:
+    """{(gen, egen, rank): reading} of every note the arm's ranks left."""
+    out = {}
+    for name in os.listdir(work):
+        if name.startswith(arm + "_g") and name.endswith(".json"):
+            g, e, r = name[len(arm) + 2:-5].split("_")
+            with open(os.path.join(work, name)) as f:
+                out[(int(g), int(e[1:]), int(r[1:]))] = json.load(f)
+    return out
+
+
+def gang_dw_counts() -> dict:
+    from ddw_tpu_torch.ops.depthwise_conv import (depthwise_conv3x3_cuda,
+                                                  depthwise_conv3x3_wgrad_cuda)
+
+    return {k: {"total": fn.launches, **fn.launches_by_variant}
+            for k, fn in (("k1", depthwise_conv3x3_cuda),
+                          ("k2", depthwise_conv3x3_wgrad_cuda))}
+
+
+def gang_vision_rank(work: str, arm: str, epochs: int,
+                     elastic: bool) -> dict:
+    """One rank of the gang's vision fit: MobileNetV2 1.0 at 224, bf16,
+    ``dw_impl="pallas"``, a checkpoint every epoch and ``resume=True``.
+    Each epoch end notes the K1/K2 counts; in an elastic gang (ranks outside
+    a process group, each training its replica on its partition) the ranks
+    meet at a barrier every epoch and at the end, so a survivor is inside
+    the fit when a peer dies."""
+    import warnings
+
+    import torch
+
+    from ddw_tpu_torch.checkpoint.ckpt import latest_step
+    from ddw_tpu_torch.data.store import TableStore
+    from ddw_tpu_torch.runtime.collectives import tree_leaves
+    from ddw_tpu_torch.runtime.dist import process_topology
+    from ddw_tpu_torch.runtime.elastic import elastic_barrier
+    from ddw_tpu_torch.train.trainer import Trainer
+    from ddw_tpu_torch.utils.config import DataCfg, ModelCfg, TrainCfg
+
+    _GANG_ENTRIES.append(torch.cuda.memory_allocated())
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    store = TableStore(os.path.join(work, "tables"))
+    ckdir = os.path.join(work, f"{arm}_ckpt")
+    resume_step = latest_step(ckdir) if os.path.isdir(ckdir) else None
+
+    def on_epoch(row):
+        gang_note(work, arm, {"epoch": row["epoch"], **gang_dw_counts()})
+        if elastic:
+            elastic_barrier(f"epoch{row['epoch']}")
+        return False
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # the registry's auto-unfreeze
+        trainer = Trainer(
+            DataCfg(img_height=224, img_width=224),
+            ModelCfg(name="mobilenet_v2", num_classes=5, dtype="bfloat16",
+                     dw_impl="pallas"),
+            TrainCfg(batch_size=GANG_BATCH, epochs=epochs, warmup_epochs=0,
+                     optimizer="adam", checkpoint_dir=ckdir, seed=SEED),
+            on_epoch=on_epoch)
+    res = trainer.fit(store.table("gang_train"), store.table("gang_val"),
+                      resume=True)
+    if elastic:
+        elastic_barrier("done")
+    rank, gen, egen = gang_ids()
+    state_bytes = sum(t.numel() * t.element_size() for t in (
+        *res.state.model.parameters(), *tree_leaves(res.state.opt_state))
+        if isinstance(t, torch.Tensor))
+    out = {"history": res.history, "step": int(res.state.step),
+           "state_bytes": state_bytes,
+           "resume_step": resume_step, "counts": gang_dw_counts(),
+           "device": str(trainer.device), "world": process_topology()[1],
+           "calls": len(_GANG_ENTRIES), "entries": list(_GANG_ENTRIES),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "pid": os.getpid(), "rank": rank, "generation": gen,
+           "egen": egen}
+    gang_note(work, arm, {"final": True, **gang_dw_counts()})
+    return out
+
+
+def gang_lm_rank(work: str, arm: str) -> dict:
+    """One rank of the gang's LM fit: the full-width bf16 LM of lm_train on
+    an in-memory arithmetic corpus, K3-K5 on every layer, a checkpoint
+    every epoch and ``resume=True``; a preempted run notes its K3-K5 counts
+    before it leaves."""
+    import torch
+
+    from ddw_tpu_torch.checkpoint.ckpt import latest_step
+    from ddw_tpu_torch.runtime.faults import Preempted
+    from ddw_tpu_torch.train.lm_trainer import LMTrainer
+    from ddw_tpu_torch.utils.config import LMCfg, TrainCfg
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    ckdir = os.path.join(work, f"{arm}_ckpt")
+    resume_step = latest_step(ckdir) if os.path.isdir(ckdir) else None
+    tokens = arithmetic_tokens(GANG_LM_SEQS, SEED + 80,
+                               LM_CFG["vocab_size"], LM_SEQ)
+    trainer = LMTrainer(LMCfg(**LM_CFG), TrainCfg(
+        batch_size=GANG_LM_ROWS, epochs=1, warmup_epochs=0,
+        optimizer="adam", learning_rate=3e-4, checkpoint_dir=ckdir,
+        seed=SEED))
+    try:
+        res = trainer.fit(tokens, val_fraction=0.2, resume=True)
+    except Preempted as e:
+        gang_note(work, arm, {"preempted_at": e.step, **flash_counts()})
+        raise
+    rank, gen, egen = gang_ids()
+    gang_note(work, arm, {"final": True, **flash_counts()})
+    return {"history": res.history, "step": int(res.state.step),
+            "resume_step": resume_step, "counts": flash_counts(),
+            "device": str(trainer.device), "rank": rank, "generation": gen}
+
+
+def gang_all_on(counts: dict, kerns, variant: str) -> bool:
+    return all(counts[k]["total"] > 0
+               and counts[k].get(variant, 0) == counts[k]["total"]
+               for k in kerns)
+
+
+def phase_gang(tmp: str) -> dict:
+    """The fault-tolerant runtime on the card: 2 ranks of the port's
+    Launcher that share it (gloo). (a) a supervised vision fit with a crash,
+    restarted from its checkpoint; (b) an elastic single-rank respawn, the
+    survivor re-running in its process; (c) a preempted LM fit restarted
+    outside the crash budget."""
+    import numpy as np
+
+    from ddw_tpu_torch.checkpoint.ckpt import CheckpointManager
+    from ddw_tpu_torch.data.store import TableStore
+    from ddw_tpu_torch.runtime import (GangRendezvous, GangSupervisor,
+                                       Launcher)
+    from ddw_tpu_torch.runtime.faults import EXIT_FAULT_CRASH
+
+    t_phase = time.perf_counter()
+    work = os.path.join(tmp, "gang")
+    os.makedirs(work)
+    store = TableStore(os.path.join(work, "tables"))
+    class_table(store, "gang_train", GANG_TRAIN, SEED + 70)
+    class_table(store, "gang_val", GANG_VAL, SEED + 71)
+
+    def supervised(fn, *args, fault: str, **sup_kw):
+        os.environ["DDW_FAULT"] = fault
+        try:
+            sup = GangSupervisor(Launcher(np=2, timeout_s=GANG_TIMEOUT_S),
+                                 backoff_base_s=0.5, jitter=0.0, **sup_kw)
+            t0 = time.perf_counter()
+            return sup.run(fn, *args), sup, time.perf_counter() - t0
+        finally:
+            os.environ.pop("DDW_FAULT", None)
+
+    # --- (a) a crash, the supervisor's restart from the checkpoint --------
+    res, sup, a_s = supervised(gang_vision_rank, work, "a", GANG_EPOCHS,
+                               False, fault=GANG_CRASH, max_restarts=1)
+    t0 = time.perf_counter()
+    ref = Launcher(np=2, timeout_s=GANG_TIMEOUT_S).run(
+        gang_vision_rank, work, "a_ref", GANG_EPOCHS, False)
+    ref_s = time.perf_counter() - t0
+    notes = gang_notes(work, "a")
+    counts = {f"gen{g}_rank{r}": n for (g, _, r), n in sorted(notes.items())}
+    last, want = res["history"][-1], ref["history"][-1]
+    gaps = {k: abs(last[k] - want[k]) / abs(want[k])
+            for k in ("loss", "val_loss")}
+    emit(phase="gang", arm="supervised_crash", fault=GANG_CRASH,
+         attempts=[str(a) for a in sup.attempts], generation=
+         res["generation"], resume_step=res["resume_step"], step=res["step"],
+         history=res["history"], uninterrupted_history=ref["history"],
+         last_epoch_rel_gaps=gaps, tolerance=GANG_LOSS_TOL,
+         k1_k2_by_generation_and_rank=counts, device=res["device"],
+         seconds=a_s, uninterrupted_seconds=ref_s)
+    check(res["device"].startswith("cuda"), "the gang's ranks trained on "
+          "the card")
+    check(len(sup.attempts) == 1 and sup.attempts[0].kind == "crash"
+          and sup.attempts[0].exit_codes[1] == EXIT_FAULT_CRASH,
+          f"one crash attempt, rank 1 exited {EXIT_FAULT_CRASH} (the gang "
+          f"kill took rank 0): {[str(a) for a in sup.attempts]}")
+    check(res["generation"] == 1 and (res["resume_step"] or 0) > 0
+          and [r["epoch"] for r in res["history"]] == list(
+              range(res["resume_step"] // GANG_STEPS, GANG_EPOCHS)),
+          f"generation 1 resumed at step {res['resume_step']} > 0 and "
+          f"completed")
+    check(all(np.isfinite([r["loss"], r["val_loss"]]).all()
+              for r in res["history"] + ref["history"]), "finite losses")
+    check(max(gaps.values()) <= GANG_LOSS_TOL,
+          f"the restarted fit's last epoch within {GANG_LOSS_TOL} of an "
+          f"uninterrupted fit's: {gaps}")
+    check(sorted(counts) == ["gen0_rank0", "gen0_rank1", "gen1_rank0",
+                             "gen1_rank1"]
+          and all(gang_all_on(n, ("k1", "k2"), "tma")
+                  for n in counts.values()),
+          f"every rank launched K1 and K2, all tma, in both generations: "
+          f"{counts}")
+
+    # --- (b) an elastic single-rank respawn --------------------------------
+    os.environ["DDW_FAULT"] = GANG_ELASTIC_CRASH
+    launcher = Launcher(np=2, timeout_s=GANG_TIMEOUT_S, elastic_restarts=1,
+                        rendezvous_dir=os.path.join(work, "rdzv"))
+    t0 = time.perf_counter()
+    try:
+        res_b = launcher.run(gang_vision_rank, work, "b", GANG_ELASTIC_EPOCHS,
+                             True)
+    finally:
+        os.environ.pop("DDW_FAULT", None)
+    b_s = time.perf_counter() - t0
+    events = [{"kind": e.kind, "generation": e.generation,
+               "dead_rank": e.dead_rank, "exit_code": e.exit_code}
+              for e in launcher.elastic_events]
+    rdzv = GangRendezvous(launcher.last_rendezvous_dir, 2, -1)
+    pids = {(g, r): (rdzv.member(g, r) or {}).get("pid")
+            for g in (0, 1) for r in (0, 1)}
+    entries = res_b["entries"]
+    emit(phase="gang", arm="elastic_respawn", fault=GANG_ELASTIC_CRASH,
+         events=events, survivor_calls=res_b["calls"],
+         memory_allocated_at_entries=entries,
+         first_run_peak_bytes=res_b["peak_bytes"],
+         state_bytes=res_b["state_bytes"],
+         world=res_b["world"], egen=res_b["egen"],
+         rerun_history=res_b["history"],
+         pids={f"egen{g}_rank{r}": p for (g, r), p in pids.items()},
+         seconds=b_s)
+    check(events == [{"kind": "respawn", "generation": 1, "dead_rank": 1,
+                      "exit_code": EXIT_FAULT_CRASH}],
+          f"elastic_events records one respawn of rank 1: {events}")
+    check(res_b["calls"] == 2 and res_b["egen"] == 1
+          and pids[(0, 0)] == pids[(1, 0)] == res_b["pid"]
+          and pids[(0, 1)] != pids[(1, 1)],
+          "the survivor re-ran its fit in the same process; only rank 1 "
+          "was respawned")
+    check(entries[1] - entries[0] < res_b["state_bytes"] / 4,
+          f"the first run's memory was released before the re-run: "
+          f"{entries} bytes allocated at the entries, under a quarter of "
+          f"the run's weights and optimizer state "
+          f"({res_b['state_bytes']} bytes; peak {res_b['peak_bytes']})")
+    check(res_b["world"] == 2 and res_b["history"]
+          and all(np.isfinite(r["loss"]) for r in res_b["history"]),
+          "the gang finished at world 2, the re-run trained")
+
+    # --- (c) a preempted LM fit --------------------------------------------
+    env = {k: os.environ.get(k) for k in ("DDW_ATTN_XLA_PLAIN_MAX",
+                                          "DDW_ATTN_XLA_CKPT_MAX")}
+    os.environ.update(DDW_ATTN_XLA_PLAIN_MAX="0", DDW_ATTN_XLA_CKPT_MAX="0")
+    try:
+        res_c, sup_c, c_s = supervised(gang_lm_rank, work, "c",
+                                       fault=GANG_PREEMPT, max_restarts=0)
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    lm_notes = gang_notes(work, "c")
+    lm_counts = {f"gen{g}_rank{r}": n for (g, _, r), n in
+                 sorted(lm_notes.items())}
+    meta = CheckpointManager(os.path.join(work, "c_ckpt")).read_metadata(2)
+    depth = LM_CFG["depth"]
+    emit(phase="gang", arm="preemption", fault=GANG_PREEMPT,
+         attempts=[str(a) for a in sup_c.attempts],
+         generation=res_c["generation"], resume_step=res_c["resume_step"],
+         history=res_c["history"], step2_metadata_preempted=meta.get(
+             "preempted"), k3_k5_by_generation_and_rank=lm_counts,
+         seconds=c_s)
+    check(len(sup_c.attempts) == 1 and sup_c.attempts[0].kind == "preempted"
+          and res_c["generation"] == 1 and res_c["resume_step"] == 2,
+          "the preempted gang restarted outside the crash budget "
+          "(max_restarts=0) and resumed at step 2")
+    check(meta.get("preempted") is True, "rank 0 checkpointed step 2 with "
+          "preempted: True")
+    check(all(np.isfinite([r["loss"], r["val_loss"]]).all()
+              for r in res_c["history"]), "the resumed LM fit completed")
+    g0 = lm_counts.get("gen0_rank0", {})
+    check(g0.get("preempted_at") == 2
+          and all(g0[k]["total"] == 2 * depth for k in ("k3", "k4", "k5"))
+          and gang_all_on(g0, ("k3", "k4", "k5"), "sm90"),
+          f"generation 0's rank 0 launched 6 K3, K4 and K5 per step on "
+          f"sm90 over its 2 steps: {g0}")
+    g1 = res_c["counts"]
+    check(g1["k3"]["total"] == depth * 5 and g1["k4"]["total"] == depth * 4
+          and g1["k5"]["total"] == depth * 4
+          and gang_all_on(g1, ("k3", "k4", "k5"), "sm90"),
+          f"generation 1 launched K3-K5 on sm90 over its 4 steps and 1 "
+          f"val batch: {g1}")
+    seconds = time.perf_counter() - t_phase
+    emit(phase="gang", seconds=seconds)
+    return {"k1": sum(n["k1"]["total"] for n in counts.values()),
+            "k2": sum(n["k2"]["total"] for n in counts.values()),
+            **{k: sum(n[k]["total"] for n in lm_counts.values())
+               for k in ("k3", "k4", "k5")},
+            "seconds": seconds, "supervised_s": a_s, "elastic_s": b_s,
+            "preemption_s": c_s, "last_epoch_rel_gaps": gaps,
+            "memory_allocated_at_entries": entries}
+
+
 def main() -> int:
     import torch
 
@@ -5185,6 +5544,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="ddw_chip_parallel_") as tmp:
         parallel = phase_parallel(tmp)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="ddw_chip_gang_") as tmp:
+        gang = phase_gang(tmp)
     src = "ddw_tpu_torch/ops/csrc/depthwise_sm90.cu"
     simt = {"simt": "ddw_tpu_torch/ops/csrc/depthwise_conv.cu (C * bytes "
                     "not a multiple of 16, or unaligned pointers)"}
@@ -5196,6 +5558,7 @@ def main() -> int:
         "variant": "tma",
         "launches": train_launches["k1"],
         "launches_by_path": {"train": train_launches["k1"],
+                             "gang": gang["k1"],
                              "serving": serving_k1,
                              "workshop": sum(workshop["k1"].values()),
                              "pretrained": pretrained["k1"]["total"],
@@ -5234,6 +5597,7 @@ def main() -> int:
         "variant": "tma",
         "launches": train_launches["k2"],
         "launches_by_path": {"train": train_launches["k2"],
+                             "gang": gang["k2"],
                              "workshop": sum(workshop["k2"].values()),
                              "pretrained": pretrained["k2"]["total"],
                              "train_traced_epoch": train_launches[
@@ -5264,7 +5628,8 @@ def main() -> int:
                                  "traced"][0],
                              **vit_paths(vision, "k3"),
                              "ring_attention_sp_fit": parallel["fit"]["k3"][
-                                 "total"]},
+                                 "total"],
+                             "gang": gang["k3"]},
         "launches_by_variant": {
             "lm_training": lm_train_launches["k3_by_variant"],
             "lm_batch_scoring": k3_launches,
@@ -5300,7 +5665,8 @@ def main() -> int:
                                  "traced"][idx],
                              **vit_paths(vision, kern),
                              "ring_attention_sp_fit": parallel["fit"][kern][
-                                 "total"]},
+                                 "total"],
+                             "gang": gang[kern]},
         "launches_by_variant": {
             "lm_training": lm_train_launches[f"{kern}_by_variant"],
             "lm_training_traced": lm_train_launches["traced_by_variant"][
@@ -5379,7 +5745,9 @@ def main() -> int:
         "fleet": {k: v for k, v in fleet.items()
                   if not k.startswith("k1_")},
         "parallel": {k: parallel[k] for k in (
-            "rates", "seconds", "two_rank_seconds", "dryrun_seconds")}}),
+            "rates", "seconds", "two_rank_seconds", "dryrun_seconds")},
+        "gang": {k: v for k, v in gang.items()
+                 if k not in ("k1", "k2", "k3", "k4", "k5")}}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

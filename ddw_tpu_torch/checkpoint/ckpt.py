@@ -35,10 +35,16 @@ import torch
 
 from ddw_tpu_torch.models.convert import load_flax_variables, to_flax_variables
 from ddw_tpu_torch.runtime.dist import process_topology
+from ddw_tpu_torch.runtime.faults import maybe_fault
 from ddw_tpu_torch.serving import _msgpack
 
 
 def _is_writer() -> bool:
+    # An elastic gang's ranks may stay outside a process group: there the
+    # env rank (remapped by every shrink or grow the rank adopted) keeps
+    # the rank-0-writer discipline, as in ddw_tpu.
+    if os.environ.get("DDW_RENDEZVOUS_DIR"):
+        return os.environ.get("DDW_PROCESS_ID", "0") == "0"
     return process_topology()[0] == 0
 
 
@@ -101,6 +107,9 @@ def _write_host_state(ckpt_dir: str, host_state, step: int,
     exact serialized byte count so readers can *detect* a torn dir (however
     produced — non-atomic writers, partial copies, filesystem loss) and
     quarantine it rather than poisoning resume."""
+    # Deterministic torn-async drill (DDW_FAULT=ckpt_async_torn): fires on
+    # whichever thread runs this write — the background writer in async mode.
+    maybe_fault("ckpt_async", step=step, ckpt_dir=ckpt_dir)
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:010d}")
     tmp = final + ".tmp"

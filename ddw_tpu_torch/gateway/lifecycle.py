@@ -24,10 +24,9 @@ them. This module owns them:
   docs/fault_tolerance.md) applies to serving: stop admission immediately
   (new requests see 503 + ``Retry-After`` so the balancer respills them),
   let in-flight slots run to completion within the grace window, then stop
-  the engines. :func:`runtime_grace_s` gives :data:`PREEMPT_GRACE_S`, the
-  launcher's default grace window (``ddw_tpu``'s ``Launcher.preempt_grace_s``
-  default; this package's launcher is ``ROADMAP.md`` item 16, and a parity
-  test holds the two numbers equal).
+  the engines. :func:`runtime_grace_s` reads the grace window from
+  :class:`~ddw_tpu_torch.runtime.launcher.Launcher`'s ``preempt_grace_s``
+  default, so the two drains share one number by construction.
 
 The in-flight ledger is a plain counted critical section
 (:meth:`ServerLifecycle.try_begin_request` / :meth:`end_request`) held for
@@ -38,13 +37,12 @@ response has been written, not merely that the engines went idle.
 
 from __future__ import annotations
 
+import inspect
 import signal
 import threading
 
-__all__ = ["ServerLifecycle", "runtime_grace_s", "PREEMPT_GRACE_S",
-           "STARTING", "READY", "DRAINING", "STOPPED"]
-
-PREEMPT_GRACE_S = 10.0      # the training launcher's SIGTERM grace window
+__all__ = ["ServerLifecycle", "runtime_grace_s", "STARTING", "READY",
+           "DRAINING", "STOPPED"]
 
 STARTING = "starting"
 READY = "ready"
@@ -53,10 +51,14 @@ STOPPED = "stopped"
 
 
 def runtime_grace_s() -> float:
-    """The runtime layer's preemption grace window (the launcher's
-    ``preempt_grace_s`` default), so the serving drain and the
-    training-gang drain share one number."""
-    return PREEMPT_GRACE_S
+    """The runtime layer's preemption grace window
+    (``Launcher.preempt_grace_s`` default) — read from the signature so the
+    serving drain and the training-gang drain share one number by
+    construction."""
+    from ddw_tpu_torch.runtime.launcher import Launcher
+
+    return float(inspect.signature(Launcher.__init__)
+                 .parameters["preempt_grace_s"].default)
 
 
 class ServerLifecycle:

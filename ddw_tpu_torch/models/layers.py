@@ -6,7 +6,9 @@ leaf type of the zoo.
   stride-2 parameter through :func:`ddw_tpu_torch.ops.s2d_conv.
   space_to_depth_conv`, and :func:`conv_or_s2d` picks between them;
 - :class:`BatchNorm` is flax's BatchNorm in f32 (the fast variance, the
-  running statistics updated as ``m*ra + (1-m)*batch``);
+  running statistics updated as ``m*ra + (1-m)*batch``); inside
+  :func:`batch_moments_reduced` it normalises over the batch of every rank
+  (the sharded-state steps' global batch);
 - :class:`GRN` is ConvNeXt V2's global response normalisation;
 - :func:`dropout` is ``flax.linen.Dropout`` with an explicit generator;
 - :func:`init_params` is the training init with flax's rules, and
@@ -16,7 +18,9 @@ leaf type of the zoo.
 
 from __future__ import annotations
 
+import contextlib
 import math
+from typing import Callable
 
 import torch
 from torch import nn
@@ -26,6 +30,27 @@ from ddw_tpu_torch.ops.depthwise_conv import DepthwiseConv3x3, conv2d_same
 from ddw_tpu_torch.ops.s2d_conv import space_to_depth_conv
 
 _BN_EPS = 1e-3  # Keras's value, so converted pretrained weights reproduce
+
+# set by batch_moments_reduced: sums a [2C+1] moment vector over the ranks
+_moment_reducer: Callable[[torch.Tensor], torch.Tensor] | None = None
+
+
+@contextlib.contextmanager
+def batch_moments_reduced(reduce: Callable[[torch.Tensor], torch.Tensor]):
+    """Within the block, :class:`BatchNorm` in training mode takes its
+    batch moments over every rank's batch: ``reduce`` (a differentiable sum
+    over the ranks, e.g. :func:`ddw_tpu_torch.parallel.comm.
+    all_reduce_sum_grad`) sums each layer's per-channel sum, sum of squares
+    and row count before the mean and the fast variance are formed, so
+    every rank normalises with, and updates its running statistics from,
+    the global batch's moments (GSPMD's view of a batch-sharded BatchNorm).
+    """
+    global _moment_reducer
+    prev, _moment_reducer = _moment_reducer, reduce
+    try:
+        yield
+    finally:
+        _moment_reducer = prev
 
 
 class Conv(nn.Module):
@@ -85,7 +110,8 @@ class BatchNorm(nn.Module):
     ``E[x^2] - E[x]^2`` clipped at 0 (biased); training mode also updates
     the running statistics in place as ``m*ra + (1-m)*batch`` with ``m =
     momentum`` (flax's convention; torch's BatchNorm would use the unbiased
-    variance and ``1-m``)."""
+    variance and ``1-m``). Under :func:`batch_moments_reduced` the batch
+    moments are the global batch's."""
 
     def __init__(self, features: int, momentum: float = 0.9,
                  eps: float = _BN_EPS):
@@ -100,8 +126,18 @@ class BatchNorm(nn.Module):
         x = x.float()
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            mean = x.mean(dim=axes)
-            var = ((x * x).mean(dim=axes) - mean * mean).clamp_min(0.0)
+            if _moment_reducer is None:
+                mean = x.mean(dim=axes)
+                var = ((x * x).mean(dim=axes) - mean * mean).clamp_min(0.0)
+            else:
+                c = x.shape[-1]
+                rows = x.numel() // c
+                moments = _moment_reducer(torch.cat([
+                    x.sum(dim=axes), (x * x).sum(dim=axes),
+                    x.new_full((1,), float(rows))]))
+                count = moments[2 * c]
+                mean = moments[:c] / count
+                var = (moments[c:2 * c] / count - mean * mean).clamp_min(0.0)
             m = self.momentum
             with torch.no_grad():
                 self.mean.copy_(m * self.mean + (1 - m) * mean)

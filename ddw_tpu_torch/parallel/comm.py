@@ -14,7 +14,10 @@ rank, so each collective that sits on a gradient path is an autograd
   (identity forward with an all-reduced gradient; all-reduce forward with
   an identity gradient) over the tensor-parallel group;
 - :func:`gather_from_group`: an all-gather along a dim whose backward takes
-  this rank's slice (a vocab-parallel head).
+  this rank's slice (a vocab-parallel head);
+- :func:`all_reduce_sum_grad`: a sum over the group whose backward sums the
+  cotangents too — every rank's loss reads the sum (the global batch
+  moments of a sharded step's BatchNorm).
 
 Each runs the operation of :mod:`ddw_tpu_torch.runtime.collectives` or
 :mod:`ddw_tpu_torch.ops.ring_reduce` (the hop, host-staged over gloo) on
@@ -112,6 +115,21 @@ class _GatherFromGroup(torch.autograd.Function):
     def backward(ctx, g):
         me = dist.get_rank(ctx.group)
         return g.narrow(ctx.dim, me * ctx.size, ctx.size), None, None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_reduce_sum(t.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g.contiguous(), ctx.group), None
+
+
+def all_reduce_sum_grad(t: torch.Tensor, group) -> torch.Tensor:
+    return t if _size(group) == 1 else _AllReduceSum.apply(t, group)
 
 
 def copy_to_group(t: torch.Tensor, group) -> torch.Tensor:

@@ -26,12 +26,20 @@ port runs them in each rank (:func:`make_sharded_state_step`):
   FSDP split over ``data`` on the largest still-unsplit dim.
 
 The update is elementwise, so every variant gives the plain DP step's
-numbers. Two semantic differences from ``ddw_tpu``'s GSPMD steps, both
-those of the port's DP step: BatchNorm normalises over each rank's batch
-and the updated statistics are averaged (``ddw_tpu``'s sharded steps
-normalise over the global batch), and dropout masks are drawn per data
-shard. The equivalence with ``ddw_tpu`` holds for stateless-norm models at
-dropout 0, as ``ddw_tpu``'s own equivalence tests pin.
+numbers on a model without BatchNorm at dropout 0. BatchNorm follows
+``ddw_tpu``'s GSPMD steps, which normalise over the global batch: around the
+forward the step installs :func:`ddw_tpu_torch.models.layers.
+batch_moments_reduced`, so each layer sums its per-channel sum, sum of
+squares and row count over ``data`` (a differentiable all-reduce,
+:func:`ddw_tpu_torch.parallel.comm.all_reduce_sum_grad`) and every rank
+updates its running statistics from the same global moments. Gradient
+accumulation splits the batch as ``ddw_tpu``'s global microbatches do:
+row ``i`` of a rank's batch goes to microbatch ``i % accum``, so each
+microbatch is a slice of every rank's rows and its BatchNorm moments are
+that global microbatch's. (The DP step of :mod:`ddw_tpu_torch.train.step`
+keeps ``ddw_tpu``'s shard_map semantics: per-rank moments, the statistics
+averaged after the step, contiguous microbatches.) Dropout masks are drawn
+per data shard, where ``ddw_tpu`` draws one stream over the global batch.
 """
 
 from __future__ import annotations
@@ -41,6 +49,9 @@ from typing import Callable
 
 import torch
 import torch.distributed as dist
+
+from ddw_tpu_torch.models.layers import batch_moments_reduced
+from ddw_tpu_torch.parallel.comm import all_reduce_sum_grad
 
 from ddw_tpu_torch.parallel.sharding import (P, check_spec_divisibility,
                                              local_block, tp_shard_module)
@@ -282,26 +293,38 @@ def gathered(state):
 
 def _sharded_body(tx, grad_accum_steps: int, state, images, labels,
                   seed: int):
-    from ddw_tpu_torch.train.step import (accumulate_grads,
-                                          dropout_generator,
-                                          forward_and_grads)
+    from ddw_tpu_torch.train.step import (dropout_generator,
+                                          forward_and_grads,
+                                          scan_microbatches)
 
     lay = state.layout
     mesh, axis = lay.mesh, lay.axis
     data_g = mesh.group(axis) if axis in mesh.axis_names else None
     shard = mesh.axis_index(axis) if axis in mesh.axis_names else 0
     model = state.model
-    with gathered(state):
+    global_bn = (contextlib.nullcontext() if data_g is None else
+                 batch_moments_reduced(
+                     lambda t: all_reduce_sum_grad(t, data_g)))
+    with gathered(state), global_bn:
         if grad_accum_steps > 1:
-            loss, acc, bstats, grads = accumulate_grads(
-                state, images, labels, seed, shard, grad_accum_steps)
+            b = images.shape[0]
+            if b % grad_accum_steps:
+                raise ValueError(f"per-device batch {b} not divisible by "
+                                 f"grad_accum_steps {grad_accum_steps}")
+            # ddw_tpu's interleaved global microbatches: row i to i % accum
+
+            def split(t):
+                return t.reshape(b // grad_accum_steps, grad_accum_steps,
+                                 *t.shape[1:]).transpose(0, 1)
+
+            loss, acc, _, grads = scan_microbatches(
+                state, split(images), split(labels), seed, shard)
         else:
-            loss, acc, bstats, grads = forward_and_grads(
+            loss, acc, _, grads = forward_and_grads(
                 state, images, labels,
                 dropout_generator(seed, shard, state.step))
         all_reduce_mean_([g for g in grads.values() if g is not None],
                          data_g)
-        all_reduce_mean_(list(bstats.values()), data_g)
         metrics = torch.stack([loss.float(), acc.float()])
         all_reduce_mean_([metrics], data_g)
         params = {n: p.data for n, p in model.named_parameters()}

@@ -172,9 +172,20 @@ def ring_all_reduce_pallas(x: torch.Tensor, group=None,
 
 
 def host_all_reduce(tag, value, op: str = "sum", timeout_s: float = 120.0):
-    """Not ported: ``ddw_tpu``'s reduction over the elastic gang's
-    rendezvous comes with the elastic runtime (``ROADMAP.md``, slice 6)."""
-    raise NotImplementedError(
-        "host_all_reduce runs over the elastic gang's rendezvous, which is "
-        "not ported to ddw_tpu_torch yet (ROADMAP.md, slice 6: the elastic "
-        "fault-tolerant runtime)")
+    """Host-level cross-rank reduction over the elastic gang's explicit
+    rendezvous (:func:`ddw_tpu_torch.runtime.elastic.host_all_reduce`): a
+    deterministic float64 fold in rank order over the shared-filesystem
+    control plane, outside any process group on purpose.
+
+    The collectives above ride the ``torch.distributed`` group: fast, but a
+    dead rank wedges every peer inside the collective and the group can
+    only be rebuilt whole. This one parks instead: a dead peer aborts it
+    with :class:`~ddw_tpu_torch.runtime.elastic.ElasticRestart`, the
+    survivor re-joins the re-formed gang, and a respawned rank takes part
+    with no group surgery. Use it for the elastic gang's cross-rank sync
+    (per-chain metrics, small host gradients, agreement values). Outside
+    elastic mode it is the identity, so the same fn body runs under the
+    launcher's ``np=-1`` mode unchanged."""
+    from ddw_tpu_torch.runtime.elastic import host_all_reduce as _impl
+
+    return _impl(tag, value, op=op, timeout_s=timeout_s)

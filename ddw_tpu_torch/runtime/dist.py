@@ -8,12 +8,25 @@ NCCL on CUDA, gloo on the CPU. The environment contract is ``ddw_tpu``'s:
 ``DDW_NUM_PROCESSES`` and ``DDW_PROCESS_ID``; without them a process is a
 world of one and every collective is the identity.
 
-:func:`spawn_cpu` is the test launcher: N gloo processes on this host. Gang
-supervision and elastic restarts are not yet ported (``ROADMAP.md``).
+:func:`spawn_cpu` is the test launcher: N gloo processes on this host; the
+gang launcher with its exit codes, respawns and supervision is
+:mod:`ddw_tpu_torch.runtime.launcher`, which starts its ranks through
+:func:`init_distributed` and :func:`free_port` too.
+
+Two topology queries: :func:`group_topology` is the process group's (what a
+collective spans, the data-parallel world of a step), and
+:func:`process_topology` the gang's, generation-aware — the group when one
+is initialized, else an elastic gang's rendezvous
+(:func:`ddw_tpu_torch.runtime.elastic.context`: its ranks train outside a
+process group unless ``DDW_ELASTIC_JAX_DIST`` is set), else a world of one.
+Data partitioning, checkpoint writer election and the sharded checkpoint's
+commit count read :func:`process_topology`, so after an elastic shrink they
+follow the N-1 world.
 """
 
 from __future__ import annotations
 
+import datetime
 import multiprocessing
 import os
 import pickle
@@ -32,7 +45,10 @@ def init_distributed(device: torch.device | None = None,
     given, the environment, and return ``(rank, world)``; a no-op returning
     ``(0, 1)`` without a coordinator address. The backend is NCCL for a
     CUDA ``device`` (which also selects the process's card,
-    ``rank % device_count``) and gloo otherwise."""
+    ``rank % device_count``) and gloo otherwise. ``DDW_GANG_TIMEOUT_S``
+    (the gang launcher exports its ``timeout_s`` there) bounds the
+    rendezvous and every collective of the group; torch's default
+    otherwise."""
     addr = addr or os.environ.get("DDW_COORDINATOR")
     if not addr:
         return 0, 1
@@ -48,17 +64,34 @@ def init_distributed(device: torch.device | None = None,
     if cuda:
         torch.cuda.set_device(rank % torch.cuda.device_count())
     init = addr if addr.startswith("tcp://") else f"tcp://{addr}"
+    timeout_s = os.environ.get("DDW_GANG_TIMEOUT_S")
+    kw = ({} if not timeout_s
+          else {"timeout": datetime.timedelta(seconds=float(timeout_s))})
     dist.init_process_group("nccl" if cuda else "gloo", init_method=init,
-                            world_size=world, rank=rank)
+                            world_size=world, rank=rank, **kw)
     return rank, world
 
 
-def process_topology() -> tuple[int, int]:
-    """``(rank, world_size)`` of this process: the process group's when one
-    is initialized, else ``(0, 1)``."""
+def group_topology() -> tuple[int, int]:
+    """``(rank, world_size)`` in the process group, ``(0, 1)`` without
+    one: the ranks a collective spans."""
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
+
+
+def process_topology() -> tuple[int, int]:
+    """``(rank, world_size)`` of this process in the current generation:
+    the process group's when one is initialized, else the elastic gang's
+    (its rendezvous context, remapped by every shrink or grow it adopted),
+    else ``(0, 1)``."""
+    if not (dist.is_available() and dist.is_initialized()):
+        from ddw_tpu_torch.runtime.elastic import context
+
+        ctx = context()
+        if ctx is not None and ctx.world_size > 0:
+            return ctx.rank, ctx.world_size
+    return group_topology()
 
 
 def all_reduce_mean_(tensors: list[torch.Tensor], group=None) -> None:
@@ -66,7 +99,7 @@ def all_reduce_mean_(tensors: list[torch.Tensor], group=None) -> None:
     default; ``lax.pmean``). One collective per dtype: the tensors are
     packed into one flat buffer, summed, divided by the group size and
     unpacked."""
-    _, world = process_topology()
+    _, world = group_topology()
     if world > 1 and group is not None:
         world = dist.get_world_size(group)
     if world == 1 or not tensors:
@@ -87,7 +120,7 @@ def all_reduce_mean_(tensors: list[torch.Tensor], group=None) -> None:
 
 def barrier() -> None:
     """Wait for every process of the group (no-op in a world of one)."""
-    if process_topology()[1] > 1:
+    if group_topology()[1] > 1:
         dist.barrier()
 
 

@@ -3,12 +3,13 @@ port of ``ddw_tpu.runtime.faults``, whole (host logic, no device code).
 
 Every spec string parses to the same fields as in ``ddw_tpu``, and the
 exit codes are the same numbers, so a drill written for one package drives
-the other. In this package the serve, deploy and autoscale scopes are wired
-(:mod:`ddw_tpu_torch.serve.engine`, :mod:`ddw_tpu_torch.deploy`,
-:mod:`ddw_tpu_torch.autoscale`); the gang scope's hooks (``maybe_fault`` in
-the fit loops, the launcher's exit-code handling, the elastic shrink vote)
-are not — they arrive with the elastic runtime (``ROADMAP.md`` item 16), and
-the train-scope primitives here are what that work calls.
+the other. Every scope is wired in this package: the gang scope in the fit
+loops of both trainers (the ``step`` site), the checkpoint writers
+(``ckpt_async``), the launch worker (``coord_bind``, the exit codes the
+:class:`~ddw_tpu_torch.runtime.launcher.Launcher` classifies) and the
+elastic shrink vote (``shrink_vote``); the serve, deploy and autoscale
+scopes in :mod:`ddw_tpu_torch.serve.engine`, :mod:`ddw_tpu_torch.deploy`
+and :mod:`ddw_tpu_torch.autoscale`.
 
 The gang's failure modes (worker crash, stall, silent exit, torn checkpoint,
 preemption, coordinator-port collision) are rare and timing-dependent in
@@ -744,10 +745,11 @@ _preempt_flag = threading.Event()
 class Preempted(Exception):
     """Raised by a step loop after it checkpointed in response to SIGTERM.
 
-    In-process (np=-1) runs see it directly; gang workers convert it to
-    ``EXIT_PREEMPTED`` (``ddw_tpu``'s launch worker), which its
-    ``GangSupervisor`` treats as restartable
-    without consuming the crash-restart budget.
+    In-process (np=-1) runs see it directly; gang workers
+    (:mod:`ddw_tpu_torch.runtime._launch_worker`) convert it to
+    ``EXIT_PREEMPTED``, which the
+    :class:`~ddw_tpu_torch.runtime.supervisor.GangSupervisor` treats as
+    restartable without consuming the crash-restart budget.
     """
 
     def __init__(self, step: int | None = None):

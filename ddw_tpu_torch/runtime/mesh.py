@@ -95,13 +95,13 @@ def initialize_distributed(coordinator_address: str | None = None,
 
 
 def process_index() -> int:
-    """This process's rank (``hvd.rank()``)."""
-    return _dist.process_topology()[0]
+    """This process's rank in the process group (``hvd.rank()``)."""
+    return _dist.group_topology()[0]
 
 
 def process_count() -> int:
-    """World size in processes (``hvd.size()``)."""
-    return _dist.process_topology()[1]
+    """World size in processes of the process group (``hvd.size()``)."""
+    return _dist.group_topology()[1]
 
 
 def is_coordinator() -> bool:

@@ -36,7 +36,7 @@ import torch.nn.functional as F
 
 import contextlib
 
-from ddw_tpu_torch.runtime.dist import all_reduce_mean_, process_topology
+from ddw_tpu_torch.runtime.dist import all_reduce_mean_, group_topology
 from ddw_tpu_torch.runtime.mesh import bind_mesh
 from ddw_tpu_torch.train.step import (TrainState, _swap_params,
                                       dropout_generator)
@@ -186,7 +186,7 @@ def _lm_step_body(tx, grad_accum_steps: int, state: TrainState, inputs,
                   targets, seed: int, aux_w: float = 0.01):
     """One optimizer update; returns ``(loss, accuracy, aux)`` as
     world-mean device scalars."""
-    rank, _ = process_topology()
+    rank, _ = group_topology()
     if grad_accum_steps > 1:
         loss, acc, grads, aux = _accumulate(tx, state, inputs, targets, seed,
                                             rank, grad_accum_steps, aux_w)

@@ -46,8 +46,12 @@ ranks (one process per device):
 
 Pipelines and sharded states checkpoint in the sharded format
 (:class:`~ddw_tpu_torch.checkpoint.sharded.ShardedCheckpointManager`):
-every rank writes what it holds. The fault, elastic and preemption hooks
-are absent, as in the vision ``Trainer``.
+every rank writes what it holds. The gang runtime's hooks — the fault
+hook, the elastic park point and the preemption checkpoint — sit at every
+chain boundary as in the vision ``Trainer``. Ranks of an elastic gang that
+stay outside a process group train one replica each: ``fit_tables`` then
+partitions the tables by the gang's ``(rank, world)``, as ``ddw_tpu``'s
+per-process loaders do.
 """
 
 from __future__ import annotations
@@ -62,7 +66,10 @@ import torch
 from ddw_tpu_torch.checkpoint.ckpt import (BestCheckpointKeeper,
                                            CheckpointManager)
 from ddw_tpu_torch.models.lm import build_lm
-from ddw_tpu_torch.runtime.dist import process_topology
+from ddw_tpu_torch.runtime.dist import group_topology, process_topology
+from ddw_tpu_torch.runtime.elastic import maybe_elastic_restart
+from ddw_tpu_torch.runtime.faults import (Preempted, maybe_fault,
+                                          preemption_requested)
 from ddw_tpu_torch.runtime.mesh import (DATA_AXIS, PIPE_AXIS, SEQ_AXIS,
                                         MeshSpec, make_data_mesh, make_mesh)
 from ddw_tpu_torch.train.lm_step import (_maybe_lora_tx, init_lm_state,
@@ -167,7 +174,7 @@ class LMTrainer:
                                            else None))
 
     def _default_mesh(self, seq_devices: int):
-        world = process_topology()[1]
+        world = group_topology()[1]
         cfg = self.train_cfg
         if cfg.num_devices not in (0, world):
             raise ValueError(f"train.num_devices={cfg.num_devices} but the "
@@ -195,7 +202,7 @@ class LMTrainer:
 
     @property
     def world_size(self) -> int:
-        return process_topology()[1]
+        return group_topology()[1]
 
     def _global_batch(self) -> int:
         return self.train_cfg.batch_size * self.mesh.shape[DATA_AXIS]
@@ -317,6 +324,15 @@ class LMTrainer:
         shard_kw = dict(cur_shard=self.mesh.axis_index(DATA_AXIS),
                         shard_count=self.mesh.shape[DATA_AXIS],
                         prefetch_to=self.device)
+        proc, n_proc = process_topology()
+        if group_topology()[1] == 1 and n_proc > 1:
+            # an elastic gang's ranks outside a process group: ddw_tpu's
+            # per-process partition of the global batch
+            if global_batch % n_proc:
+                raise ValueError(f"global batch {global_batch} not "
+                                 f"divisible by {n_proc} processes")
+            host_batch = global_batch // n_proc
+            shard_kw.update(cur_shard=proc, shard_count=n_proc)
         sh = self._seq_slice
 
         def make_providers(start_epoch, plan, chained):
@@ -505,6 +521,25 @@ class LMTrainer:
                                if self.tracer is not None or hub is not None
                                else 0.0)
                     inputs, targets = next(batch_it)
+                    # fault injection: a no-op unless DDW_FAULT targets this
+                    # rank, step and generation (chain boundaries when
+                    # chained, as every hook here)
+                    maybe_fault("step", step=host_step,
+                                ckpt_dir=cfg.checkpoint_dir or None)
+                    # elastic park point (a no-op outside an elastic gang):
+                    # leave here; the worker re-runs the fit in-process
+                    maybe_elastic_restart(step=host_step)
+                    if preemption_requested():
+                        # SIGTERM: checkpoint mid-epoch and leave; the
+                        # worker exits EXIT_PREEMPTED (a restart outside the
+                        # crash budget); the finally joins the async writer
+                        if ckpt:
+                            ckpt.save(state, host_step,
+                                      metadata={"epoch": epoch,
+                                                "preempted": True,
+                                                "callbacks":
+                                                    sched.state_dicts()})
+                        raise Preempted(host_step)
                     lr = sched.lr_for_batch(epoch, step_i, steps_per_epoch)
                     if lr is not None:
                         state = set_lr(state, lr)

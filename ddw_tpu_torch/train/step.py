@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ddw_tpu_torch.runtime.dist import all_reduce_mean_, process_topology
+from ddw_tpu_torch.runtime.dist import all_reduce_mean_, group_topology
 from ddw_tpu_torch.utils.config import TrainCfg
 
 
@@ -325,7 +325,7 @@ def _dp_step_body(tx, grad_accum_steps: int, state: TrainState,
                   images: torch.Tensor, labels: torch.Tensor, seed: int):
     """One optimizer update on this rank's batch, in ``_dp_step_body``'s
     order. Returns ``(loss, accuracy)`` as world-mean device scalars."""
-    rank, _ = process_topology()
+    rank, _ = group_topology()
     if grad_accum_steps > 1:
         loss, acc, bstats, grads = accumulate_grads(
             state, images, labels, seed, rank, grad_accum_steps)

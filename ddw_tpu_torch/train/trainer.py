@@ -37,8 +37,19 @@ run; a profile that recorded no CUDA kernel on the card is an error.
 ``TrainCfg.zero`` / ``TrainCfg.fsdp`` train through the sharded-state
 steps of :mod:`ddw_tpu_torch.parallel.zero` over a ``data`` mesh of the
 world, and checkpoint in the sharded format (every rank writes its own
-blocks, :mod:`ddw_tpu_torch.checkpoint.sharded`). Elastic restarts, fault
-injection and preemption hooks have no counterpart yet.
+blocks, :mod:`ddw_tpu_torch.checkpoint.sharded`).
+
+The gang runtime's hooks sit at every chain boundary, in ``ddw_tpu``'s
+order: ``maybe_fault("step", ...)`` (:mod:`ddw_tpu_torch.runtime.faults`),
+``maybe_elastic_restart`` (a survivor of an elastic gang leaves through
+:class:`~ddw_tpu_torch.runtime.elastic.ElasticRestart` and its worker re-runs
+the fit from the latest durable checkpoint), and on SIGTERM a mid-epoch
+checkpoint with ``"preempted": True`` in its metadata, then
+:class:`~ddw_tpu_torch.runtime.faults.Preempted`. The loaders partition the
+table at the gang's current ``(rank, world)``
+(:func:`~ddw_tpu_torch.runtime.dist.process_topology`), so after an elastic
+shrink every record is still read once an epoch; the data-parallel world of
+the step is the process group's.
 """
 
 from __future__ import annotations
@@ -58,7 +69,10 @@ from ddw_tpu_torch.models.convert import load_pretrained_module
 from ddw_tpu_torch.models.lora import lora_optimizer
 from ddw_tpu_torch.models.layers import init_params
 from ddw_tpu_torch.models.registry import build_model
-from ddw_tpu_torch.runtime.dist import process_topology
+from ddw_tpu_torch.runtime.dist import group_topology, process_topology
+from ddw_tpu_torch.runtime.elastic import maybe_elastic_restart
+from ddw_tpu_torch.runtime.faults import (Preempted, maybe_fault,
+                                          preemption_requested)
 from ddw_tpu_torch.tracking.tracker import Run
 from ddw_tpu_torch.train.schedule import ScheduleSuite
 from ddw_tpu_torch.train.step import (TrainState, chain_plan, ema_params,
@@ -144,7 +158,7 @@ class Trainer:
     @property
     def world_size(self) -> int:
         """Data-parallel workers: the processes of the group."""
-        return process_topology()[1]
+        return group_topology()[1]
 
     def _init_state(self):
         cfg = self.train_cfg
@@ -183,9 +197,12 @@ class Trainer:
 
     def _loaders(self, train_table: Table, val_table: Table,
                  consumed_batches: int = 0, super_plan=None):
+        # the gang's topology: under an elastic gang outside a process group
+        # each rank reads its partition at its share of the batch, and
+        # after a shrink the N-1 ranks re-partition the same shards
         rank, world = process_topology()
         size = (self.data_cfg.img_height, self.data_cfg.img_width)
-        batch = self.train_cfg.batch_size
+        batch = self.train_cfg.batch_size * self.world_size // world
         train_loader = ShardedLoader(
             train_table, batch_size=batch, image_size=size, cur_shard=rank,
             shard_count=world, num_epochs=None, shuffle=True,
@@ -344,6 +361,28 @@ class Trainer:
                     t_chain = (time.monotonic()
                                if self.tracer is not None or hub is not None
                                else 0.0)
+                    # fault injection: a no-op unless DDW_FAULT targets this
+                    # rank, step and generation (chain boundaries when
+                    # chained, as every hook here)
+                    at = epoch * steps_per_epoch + step_i
+                    maybe_fault("step", step=at,
+                                ckpt_dir=cfg.checkpoint_dir or None)
+                    # elastic park point (a no-op outside an elastic gang):
+                    # a peer died and the gang re-formed — leave here; the
+                    # worker re-runs fit(resume=True) in this process
+                    maybe_elastic_restart(step=at)
+                    if preemption_requested():
+                        # SIGTERM: checkpoint the live state mid-epoch and
+                        # leave; the worker exits EXIT_PREEMPTED and the
+                        # supervisor restarts outside the crash budget (the
+                        # finally below joins the async writer)
+                        if ckpt:
+                            ckpt.save(state, state.step,
+                                      metadata={"epoch": epoch,
+                                                "preempted": True,
+                                                "callbacks":
+                                                    sched.state_dicts()})
+                        raise Preempted(int(state.step))
                     # per-batch LR: cosine, or the warmup ramp; None past
                     # warmup in the plateau regime (chain boundaries when
                     # chained)

@@ -266,9 +266,9 @@ class RankReporter:
         import torch
         import torch.distributed as dist
 
-        from ddw_tpu_torch.runtime.dist import process_topology
+        from ddw_tpu_torch.runtime.dist import group_topology
 
-        rank, world = process_topology()
+        rank, world = group_topology()
         stop = torch.zeros(1, dtype=torch.int32)
         if rank == 0:
             self._reports.put((int(row["epoch"]), float(row["val_loss"])))

@@ -1,7 +1,9 @@
 """The port's example chain (``examples_torch/``) on the CPU: each script
 runs ``--quick --device cpu`` against one shared workdir, in dependency
 order, as a user would start it: 01 prep -> 02 single node -> 03 on 2 gloo
-ranks -> 06 package and 2-process merged scoring -> 08 pretrain, export,
+ranks -> 10 an FSDP fit on 2 launcher ranks resumed on 1 -> 13 a supervised
+2-rank gang restarted after a crash, then failing with forensics -> 06
+package and 2-process merged scoring -> 08 pretrain, export,
 convert and frozen transfer at one epoch each, and one short 04 run with
 2 parallel trials, the only tier-1 representative of the HPO arms; then
 the LM examples: 09 LoRA fine-tuning, 11 the LM lifecycle (train, package,
@@ -25,6 +27,8 @@ _EXAMPLES = [
     ("01_data_prep.py", [], "silver_train: 180 records"),
     ("02_train_single_node.py", ["train.epochs=1"], "val_accuracy="),
     ("03_train_distributed.py", ["train.epochs=1"], "world=2 global_batch=16"),
+    ("10_fsdp_elastic.py", ["train.epochs=2"], "base_step_continued=True"),
+    ("13_supervised_gang.py", [], "rank0_traceback_captured=True"),
     ("04_hyperopt_parallel.py",
      ["tune.max_evals=2", "tune.parallelism=2", "train.epochs=1"],
      "registered flowers_classifier v1 -> Production"),

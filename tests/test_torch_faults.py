@@ -183,8 +183,8 @@ def test_deploy_and_autoscale_hooks_equal(monkeypatch):
 
 
 def test_gang_hook_raise_and_preemption_flag(monkeypatch, tmp_path):
-    """The train scope's primitives (their fit-loop hooks are the elastic
-    runtime's work): ``raise`` fires on its step only, ``preempt`` sets the
+    """The train scope's primitives (the trainers' fit-loop hooks are
+    driven below): ``raise`` fires on its step only, ``preempt`` sets the
     flag through SIGTERM, and the torn step dir is the layout the port's
     checkpoint quarantine reads."""
     monkeypatch.delenv("DDW_FAULT", raising=False)
@@ -211,6 +211,186 @@ def test_gang_hook_raise_and_preemption_flag(monkeypatch, tmp_path):
 
     assert d.endswith("step_0000000007")
     assert latest_step(str(tmp_path)) is None   # torn: quarantined
+
+
+# -- the gang scope in the trainers (tests/test_faults.py's trainer cases) ----
+
+@pytest.fixture()
+def preemption_cleanup():
+    """Restore the SIGTERM disposition and the flag after a test that
+    exercises SIGTERM."""
+    prev = signal.getsignal(signal.SIGTERM)
+    yield
+    faults.reset_preemption()
+    signal.signal(signal.SIGTERM, prev)
+
+
+def _lm_trainer(tmp_path, epochs=3):
+    from ddw_tpu_torch.train.lm_trainer import LMTrainer
+    from ddw_tpu_torch.utils.config import LMCfg, TrainCfg
+
+    lm = LMCfg(vocab_size=32, max_len=16, hidden=16, depth=1, num_heads=2,
+               mlp_dim=32, dropout=0.0, dtype="float32")
+    tr = TrainCfg(batch_size=2, epochs=epochs, warmup_epochs=0, seed=0,
+                  learning_rate=1e-2, checkpoint_dir=str(tmp_path / "ck"),
+                  checkpoint_every_epochs=1)
+    return LMTrainer(lm, tr, device="cpu")
+
+
+def _toy_tokens():
+    rng = np.random.RandomState(0)
+    starts = rng.randint(0, 32, size=(44, 1))
+    return ((starts + np.arange(17)[None]) % 32).astype(np.int32)
+
+
+@pytest.mark.faults
+def test_lm_trainer_graceful_preemption_checkpoints_then_resumes(
+        tmp_path, monkeypatch, preemption_cleanup):
+    """SIGTERM mid-epoch -> the step loop checkpoints the live state with
+    ``preempted: True`` and raises Preempted; a resume run completes all
+    epochs from that point."""
+    import json
+    import os
+
+    from ddw_tpu_torch.checkpoint.ckpt import latest_step
+
+    toks = _toy_tokens()
+    monkeypatch.setenv("DDW_FAULT", "preempt:step=4")
+    with pytest.raises(faults.Preempted) as exc:
+        _lm_trainer(tmp_path).fit(toks, val_fraction=0.1)
+    assert exc.value.step == 4
+
+    ck = str(tmp_path / "ck")
+    assert latest_step(ck) == 4
+    with open(os.path.join(ck, "step_0000000004", "metadata.json")) as f:
+        assert json.load(f)["preempted"] is True
+
+    monkeypatch.delenv("DDW_FAULT")
+    faults.reset_preemption()
+    res = _lm_trainer(tmp_path).fit(toks, val_fraction=0.1, resume=True)
+    assert res.epochs_run == 3
+    assert np.isfinite(res.val_loss)
+
+
+@pytest.fixture()
+def tables(tmp_path):
+    from ddw_tpu_torch.data.store import Record, TableStore
+
+    def records(n, seed):
+        rng = np.random.RandomState(seed)
+        for i in range(n):
+            img = rng.randint(0, 60, (24, 24, 3)) + 150 * (i % 5 == 0)
+            yield Record(f"img/{i:04d}", img.clip(0, 255).astype(np.uint8)
+                         .tobytes(), f"c{i % 5}", i % 5)
+
+    store = TableStore(str(tmp_path / "tables"))
+    meta = {"encoding": "raw_u8", "height": 24, "width": 24}
+    return (store.write("train", records(32, 0), 16, meta),
+            store.write("val", records(16, 1), 16, meta))
+
+
+def _vision(tmp_path, epochs=1, ckpt=False):
+    from ddw_tpu_torch.train.trainer import Trainer
+    from ddw_tpu_torch.utils.config import DataCfg, ModelCfg, TrainCfg
+
+    data = DataCfg(img_height=24, img_width=24, loader_workers=2,
+                   shuffle_buffer=32)
+    model = ModelCfg(name="small_cnn", num_classes=5, dropout=0.0,
+                     dtype="float32")
+    tr = TrainCfg(batch_size=4, epochs=epochs, warmup_epochs=0, seed=0,
+                  learning_rate=1e-2,
+                  checkpoint_dir=str(tmp_path / "ck") if ckpt else "",
+                  checkpoint_every_epochs=1)
+    return Trainer(data, model, tr, device="cpu")
+
+
+@pytest.mark.faults
+def test_vision_trainer_step_hook_fires(tables, tmp_path, monkeypatch):
+    """The vision Trainer's per-step hook is live: an injected 'raise' at
+    global step 0 propagates out of fit before any step executes."""
+    monkeypatch.setenv("DDW_FAULT", "raise:step=0")
+    with pytest.raises(faults.FaultInjected):
+        _vision(tmp_path).fit(*tables)
+
+
+@pytest.mark.slow
+@pytest.mark.faults
+def test_vision_trainer_graceful_preemption(tables, tmp_path, monkeypatch,
+                                            preemption_cleanup):
+    """Checkpoint-on-SIGTERM mid-run, then a resumed fit completes the
+    remaining epochs."""
+    from ddw_tpu_torch.checkpoint.ckpt import latest_step
+
+    monkeypatch.setenv("DDW_FAULT", "preempt:step=3")
+    with pytest.raises(faults.Preempted):
+        _vision(tmp_path, epochs=4, ckpt=True).fit(*tables)
+    assert (latest_step(str(tmp_path / "ck")) or 0) > 0
+
+    monkeypatch.delenv("DDW_FAULT")
+    faults.reset_preemption()
+    res = _vision(tmp_path, epochs=4, ckpt=True).fit(*tables, resume=True)
+    assert res.epochs_run == 4
+    assert np.isfinite(res.val_loss)
+
+
+def test_vision_trainer_elastic_park_point(tables, tmp_path, monkeypatch):
+    """Under an elastic gang (a rendezvous directory, no process group) the
+    fit loop's park point leaves through ElasticRestart once a newer
+    recovery record exists, and the loaders read the rank's half of the
+    batch from its partition."""
+    from ddw_tpu_torch.runtime import elastic
+
+    monkeypatch.setenv("DDW_RENDEZVOUS_DIR", str(tmp_path / "rdzv"))
+    monkeypatch.setenv("DDW_NUM_PROCESSES", "2")
+    monkeypatch.setenv("DDW_PROCESS_ID", "1")
+    elastic.reset_context()
+    try:
+        trainer = _vision(tmp_path)
+        loader, _ = trainer._loaders(*tables)
+        assert (loader.batch_size, loader.cur_shard, loader.shard_count) \
+            == (2, 1, 2)
+        elastic.GangRendezvous(str(tmp_path / "rdzv"), 2, -1).post_recovery(
+            1, dead_rank=0)
+        with pytest.raises(elastic.ElasticRestart) as exc:
+            trainer.fit(*tables)
+        assert exc.value.step == 0
+    finally:
+        elastic.reset_context()
+
+
+def test_lm_fit_tables_partitions_by_the_gang(tmp_path, monkeypatch):
+    """An elastic gang's LM ranks, outside a process group, read ddw_tpu's
+    per-process partition of the global batch: half the rows of each
+    batch, from their half of the table's shards."""
+    from ddw_tpu_torch.data import loader
+    from ddw_tpu_torch.data.prep import write_token_table
+    from ddw_tpu_torch.data.store import TableStore
+    from ddw_tpu_torch.runtime import elastic
+
+    store = TableStore(str(tmp_path / "tables"))
+    toks = _toy_tokens()
+    train = write_token_table(store, "train", toks[:32], shard_size=8)
+    val = write_token_table(store, "val", toks[32:40], shard_size=8)
+    seen = []
+    init = loader.ShardedLoader.__init__
+
+    def spy(self, *args, **kw):
+        seen.append({k: kw.get(k) for k in ("batch_size", "cur_shard",
+                                             "shard_count")})
+        init(self, *args, **kw)
+
+    monkeypatch.setattr(loader.ShardedLoader, "__init__", spy)
+    monkeypatch.setenv("DDW_RENDEZVOUS_DIR", str(tmp_path / "rdzv"))
+    monkeypatch.setenv("DDW_NUM_PROCESSES", "2")
+    monkeypatch.setenv("DDW_PROCESS_ID", "1")
+    elastic.reset_context()
+    try:
+        res = _lm_trainer(tmp_path, epochs=1).fit_tables(train, val)
+    finally:
+        elastic.reset_context()
+    assert seen and all(s == {"batch_size": 1, "cur_shard": 1,
+                              "shard_count": 2} for s in seen)
+    assert np.isfinite(res.val_loss)
 
 
 # -- the serve scope in the port's engine -------------------------------------

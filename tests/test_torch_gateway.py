@@ -42,7 +42,6 @@ from ddw_tpu_torch.gateway import (Gateway, GatewayClient, GatewayDeadline,
                                    GatewayError, GatewayOverloaded,
                                    GatewayUnavailable, ReplicaSet,
                                    runtime_grace_s)
-from ddw_tpu_torch.gateway.lifecycle import PREEMPT_GRACE_S
 from ddw_tpu_torch.models.convert import to_flax_variables
 from ddw_tpu_torch.models.layers import init_weights
 from ddw_tpu_torch.models.registry import build_model
@@ -374,9 +373,13 @@ def test_predict_route_on_the_depthwise_path_equals_predict_logits(
 
 
 def test_grace_window_equals_the_jax_launchers_default():
+    from ddw_tpu_torch.runtime.launcher import Launcher
+
     want = inspect.signature(JaxLauncher.__init__).parameters[
         "preempt_grace_s"].default
-    assert PREEMPT_GRACE_S == runtime_grace_s() == want
+    port = inspect.signature(Launcher.__init__).parameters[
+        "preempt_grace_s"].default
+    assert port == runtime_grace_s() == want
     assert runtime_grace_s() == jax_gateway.runtime_grace_s()
     assert set(gateway.__all__ if hasattr(gateway, "__all__") else ()) \
         <= set(dir(gateway))

@@ -111,12 +111,19 @@ def test_device_slice_index_without_slice_information(monkeypatch):
     assert list(mesh.ranks) == RANKS
 
 
-def test_unported_collectives_stay_refused():
-    """host_all_reduce waits for the elastic runtime (ROADMAP.md item 16)."""
+def test_unported_collectives_stay_refused(monkeypatch):
+    """No collective is refused any more: host_all_reduce, the elastic
+    gang's reduction, gives ddw_tpu's answer outside a gang (the
+    identity in float64)."""
+    import numpy as np
+
+    from ddw_tpu.runtime.collectives import host_all_reduce as jax_har
     from ddw_tpu_torch.runtime import host_all_reduce
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        host_all_reduce("tag", 1.0)
+    monkeypatch.delenv("DDW_RENDEZVOUS_DIR", raising=False)
+    x = np.arange(4, dtype=np.float32) / 3
+    got, want = host_all_reduce("tag", x), jax_har("tag", x)
+    assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
 
 
 # ---- a DP step over a hybrid mesh, four ranks ---------------------------------

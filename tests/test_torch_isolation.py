@@ -56,16 +56,17 @@ def test_no_port_module_imports_jax_or_the_jax_package():
            for root in _imported_roots(p) if root in BANNED]
     assert bad == []
     tools = {os.path.basename(p) for p in sources if "tools" in p}
-    assert {"torch_lm_profile.py", "torch_lm_train_profile.py"} <= tools
+    assert {"torch_lm_profile.py", "torch_lm_train_profile.py",
+            "torch_gang_drill.py"} <= tools
     examples = {os.path.basename(p) for p in _example_sources()}
     assert {"common.py", "01_data_prep.py", "02_train_single_node.py",
             "03_train_distributed.py", "04_hyperopt_parallel.py",
             "05_hyperopt_distributed.py",
             "06_packaged_inference.py",
             "08_pretrained_transfer.py", "09_lora_finetune.py",
-            "07_lm_long_context.py",
-            "11_lm_lifecycle.py", "14_online_serving.py",
-            "15_http_gateway.py"} <= examples
+            "07_lm_long_context.py", "10_fsdp_elastic.py",
+            "11_lm_lifecycle.py", "13_supervised_gang.py",
+            "14_online_serving.py", "15_http_gateway.py"} <= examples
 
 
 def test_every_port_module_imports_with_jax_blocked():
@@ -97,7 +98,8 @@ def test_every_port_module_imports_with_jax_blocked():
                  "autoscale.controller", "parallel.ring_attention",
                  "parallel.pipeline", "parallel.zero", "parallel.sharding",
                  "parallel.comm", "models.moe", "checkpoint.sharded",
-                 "dryrun"):
+                 "dryrun", "runtime.elastic", "runtime.launcher",
+                 "runtime._launch_worker", "runtime.supervisor"):
         assert f"ddw_tpu_torch.{name}" in modules
     modules += ["examples_torch." + os.path.basename(p)[:-3]
                 for p in _example_sources()]
@@ -109,6 +111,7 @@ def test_every_port_module_imports_with_jax_blocked():
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
         "importlib.import_module('chip_smoke')\n"
+        "importlib.import_module('tools.torch_gang_drill')\n"
         "print('imported', len(sys.modules))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -221,13 +224,18 @@ def test_pallas_all_reduce_on_cpu_launches_nothing(monkeypatch):
 
 
 def test_unported_collectives_raise_naming_roadmap():
-    """host_all_reduce waits for the elastic runtime (ROADMAP.md item 16);
-    the hybrid mesh is ported (a world of one is one slice)."""
+    """Every collective is ported now: host_all_reduce runs over the
+    elastic gang's rendezvous and, outside one, is the identity in float64
+    (as ddw_tpu's); the hybrid mesh is ported (a world of one is one
+    slice)."""
+    import numpy as np
+
     from ddw_tpu_torch.runtime import (HybridMeshSpec, host_all_reduce,
                                        make_hybrid_mesh)
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        host_all_reduce("tag", 1.0)
+    os.environ.pop("DDW_RENDEZVOUS_DIR", None)
+    out = host_all_reduce("tag", np.float32(1.5))
+    assert out == 1.5 and out.dtype == np.float64
     assert make_hybrid_mesh().shape == {"data": 1}
     assert HybridMeshSpec((("data", -1, -1),)).resolve(2, 4) == (
         ("data", 2, 4),)

@@ -145,6 +145,23 @@ def _rank(lm_params):
     out["trainer"] = (tr.mesh.shape, res.history,
                       float(sum(p.double().sum() for p in
                                 res.state.model.parameters())))
+    # fit_tables over a seq-only mesh (data=1, seq=4): every rank of the
+    # one data replica reads the same rows
+    import tempfile
+
+    from ddw_tpu_torch.data.prep import write_token_table
+    from ddw_tpu_torch.data.store import TableStore
+
+    store = TableStore(tempfile.mkdtemp(prefix="ring_tables_"))
+    toks = np.random.RandomState(11).randint(0, 32, (12, SEQ + 1)).astype(
+        np.int32)
+    tr4 = LMTrainer(LMCfg(**LM["learned"]),
+                    TrainCfg(batch_size=2, epochs=1, warmup_epochs=0,
+                             learning_rate=1e-2), device="cpu",
+                    seq_devices=4)
+    res4 = tr4.fit_tables(write_token_table(store, "train", toks[:8], 4),
+                          write_token_table(store, "val", toks[8:], 4))
+    out["seq_only_tables"] = (tr4.mesh.shape, res4.history)
     return out
 
 
@@ -258,6 +275,18 @@ def test_lm_trainer_seq_devices_trains_one_epoch(ranks):
         vals = {row[key] for row in rows}
         assert len(vals) == 1 and np.isfinite(vals.pop())
     assert len({rk["trainer"][2] for rk in ranks}) == 1
+
+
+def test_lm_trainer_fit_tables_over_a_seq_only_mesh(ranks):
+    """LMTrainer(seq_devices=4).fit_tables on four ranks: one data replica
+    whose seq ranks read the same rows of the token tables; one finite
+    epoch with the same metrics on every rank."""
+    assert {str(rk["seq_only_tables"][0]) for rk in ranks} == {
+        str({"data": 1, "seq": 4})}
+    rows = [rk["seq_only_tables"][1][0] for rk in ranks]
+    for key in ("loss", "val_loss", "accuracy", "val_accuracy"):
+        vals = {row[key] for row in rows}
+        assert len(vals) == 1 and np.isfinite(vals.pop())
 
 
 def test_example_07_quick():

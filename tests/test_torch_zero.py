@@ -11,7 +11,12 @@ plain DP step and against ``ddw_tpu``'s GSPMD steps on a 2-device CPU mesh
 gradient accumulation against one shot, and ``LMTrainer`` / ``Trainer``
 fits with ``zero`` / ``fsdp`` (EMA on, a sharded checkpoint, resume).
 f32 tolerances: loss 1e-5; parameters 1e-6 against the port's DP step and
-1e-5 against ``ddw_tpu``'s."""
+1e-5 against ``ddw_tpu``'s. A BatchNorm model (MobileNetV2 0.35 at 16x16,
+dropout 0, 16 rows a rank) holds one step of the sharded steps' global-batch BatchNorm to
+``ddw_tpu``'s GSPMD steps, with and without gradient accumulation, at the
+bounds of ``test_torch_train_step``'s BatchNorm step (this network
+amplifies rounding: several steps of it are chaotic in either package): loss 1e-4, ``batch_stats`` 1e-4 of each leaf's largest value,
+the weight update 5e-2 in global L2 and the head's 1e-3 per leaf."""
 
 import dataclasses
 import functools
@@ -63,7 +68,79 @@ def _tables(root):
 
 # ---- the ranks ---------------------------------------------------------------
 
-def _rank(weights, ckpt_root, table_root):
+BN_CFG = dict(name="mobilenet_v2", num_classes=5, width_mult=0.35,
+              dropout=0.0, dtype="float32", freeze_base=False)
+BN_ACCUM = (1, 2)
+BN_LR = 0.05
+BN_ROWS = 16            # per rank: each global microbatch has 16+ rows
+
+
+def _bn_weights():
+    """Seeded flax-layout variables (params and batch_stats) of the
+    BatchNorm model, drawn through the port; running statistics off their
+    init so the momentum update shows."""
+    from ddw_tpu_torch.models.convert import to_flax_variables
+    from ddw_tpu_torch.models.layers import init_params
+    from ddw_tpu_torch.models.registry import build_model
+    from ddw_tpu_torch.utils.config import ModelCfg
+
+    model = build_model(ModelCfg(**BN_CFG), (IMG, IMG))
+    init_params(model, torch.Generator().manual_seed(0))
+    v = to_flax_variables(model)
+    rng = np.random.RandomState(7)
+
+    def stir(tree, name=""):
+        if isinstance(tree, dict):
+            return {k: stir(t, k) for k, t in tree.items()}
+        t = np.asarray(tree, np.float32)
+        return (t + rng.uniform(-0.2, 0.2, t.shape).astype(np.float32)
+                if name == "mean" else
+                t * rng.uniform(0.5, 1.5, t.shape).astype(np.float32))
+
+    return {"params": v["params"], "batch_stats": stir(v["batch_stats"])}
+
+
+def _bn_batch():
+    rng = np.random.RandomState(5)
+    return (rng.standard_normal((BN_ROWS * W, IMG, IMG, 3)).astype(
+        np.float32), (np.arange(BN_ROWS * W) % 5).astype(np.int32))
+
+
+def _bn_rank(variables):
+    """One SGD step of the BatchNorm model through the port's DP, ZeRO-1
+    and FSDP steps on this rank's rows: ``{(kind, accum): (loss,
+    variables)}``."""
+    from ddw_tpu_torch.models.convert import (load_flax_variables,
+                                              to_flax_variables)
+    from ddw_tpu_torch.models.registry import build_model
+    from ddw_tpu_torch.parallel import zero
+    from ddw_tpu_torch.runtime.mesh import make_data_mesh, process_index
+    from ddw_tpu_torch.train.step import (Optimizer, TrainState,
+                                          make_train_step)
+    from ddw_tpu_torch.utils.config import ModelCfg
+
+    mesh = make_data_mesh()
+    x, y = _bn_batch()
+    mine = slice(BN_ROWS * process_index(), BN_ROWS * (process_index() + 1))
+    x, y = torch.tensor(x[mine]), torch.tensor(y[mine])
+    out = {}
+    for kind in ("dp", "zero", "fsdp"):
+        for accum in BN_ACCUM:
+            model = load_flax_variables(
+                build_model(ModelCfg(**BN_CFG), (IMG, IMG)), variables)
+            tx = Optimizer("sgd", BN_LR)
+            state = TrainState(model, tx.init(dict(model.named_parameters())),
+                               0)
+            step = (make_train_step(tx, accum) if kind == "dp" else
+                    getattr(zero, f"make_{kind}_train_step")(
+                        model, tx, mesh, "data", accum))
+            loss = float(step(state, x, y, 0)["loss"])
+            with zero.gathered(state):
+                out[(kind, accum)] = (loss, to_flax_variables(model))
+    return out
+
+
+def _rank(weights, ckpt_root, table_root, bn_variables):
     from ddw_tpu_torch.data.store import TableStore
     from ddw_tpu_torch.models.convert import (load_flax_variables,
                                               to_flax_variables)
@@ -78,7 +155,7 @@ def _rank(weights, ckpt_root, table_root):
                                             TrainCfg)
 
     torch.set_num_threads(1)
-    out = {}
+    out = {"bn": _bn_rank(bn_variables)}
     r = process_index()
     mesh = make_data_mesh()
     toks = _tokens()
@@ -157,7 +234,8 @@ def weights():
 def ranks(weights, tmp_path_factory):
     ckpt = str(tmp_path_factory.mktemp("zero_ckpt"))
     tables = _tables(str(tmp_path_factory.mktemp("zero_tables")))
-    return spawn_cpu(_rank, W, weights, ckpt, tables, timeout_s=240)
+    return spawn_cpu(_rank, W, weights, ckpt, tables, _bn_weights(),
+                     timeout_s=240)
 
 
 @pytest.fixture(autouse=True)
@@ -391,3 +469,79 @@ def test_zero_and_fsdp_are_mutually_exclusive(tmp_path):
     with pytest.raises(ValueError, match="MoE"):
         LMTrainer(dataclasses.replace(LMCfg(**LM), num_experts=2),
                   TrainCfg(fsdp=True), device="cpu")
+
+
+def _leaves(tree):
+    J = _jax()
+    return {J.jax.tree_util.keystr(p): np.asarray(v) for p, v in
+            J.jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+@functools.cache
+def _jax_bn_step(kind: str, accum: int):
+    """One step of ddw_tpu's GSPMD ZeRO-1 / FSDP step on a 2-device mesh
+    for the BatchNorm model over the global batch of the port's ranks."""
+    J = _jax()
+    mesh = J.make_mesh(J.MeshSpec((("data", W),)),
+                       devices=J.jax.devices()[:W])
+    model = J.build_model(J.ModelCfg(**BN_CFG))
+    tx = J.step.make_optimizer(J.TrainCfg(optimizer="sgd",
+                                          learning_rate=BN_LR))
+    v = _bn_weights()
+    state = J.step.TrainState(v["params"], v["batch_stats"],
+                              tx.init(v["params"]), np.int32(0))
+    step = getattr(J.zero, f"make_{kind}_train_step")(
+        model, tx, mesh, donate=False, grad_accum_steps=accum)
+    state = step.place_state(state)
+    x, y = _bn_batch()
+    state, m = step(state, x, y, J.jax.random.PRNGKey(0))
+    return float(m["loss"]), {
+        "params": J.jax.device_get(state.params),
+        "batch_stats": J.jax.device_get(state.batch_stats)}
+
+
+def _stats_gap(got: dict, want: dict) -> float:
+    """Largest |got - want| over a leaf's largest |want|, over the
+    batch_stats leaves."""
+    return max(np.abs(got[p] - w).max() / max(np.abs(w).max(), 1e-30)
+               for p, w in want.items())
+
+
+def _update_gaps(got: dict, want: dict, start: dict):
+    """(global relative L2 gap of the weight updates, largest per-leaf
+    gap of the head's update over its largest |update|)."""
+    num = den = 0.0
+    head = 0.0
+    for p, w in want.items():
+        du, dw = got[p] - start[p], w - start[p]
+        num += float(((du - dw) ** 2).sum())
+        den += float((dw ** 2).sum())
+        if "head" in p:
+            head = max(head, np.abs(du - dw).max()
+                       / max(np.abs(dw).max(), 1e-30))
+    return (num / den) ** 0.5, head
+
+
+@pytest.mark.parametrize("accum", BN_ACCUM)
+@pytest.mark.parametrize("kind", ["zero", "fsdp"])
+def test_batchnorm_sharded_steps_equal_jax(ranks, kind, accum):
+    """The sharded steps normalise BatchNorm over the global batch, as
+    ddw_tpu's GSPMD steps do (accumulation over ddw_tpu's interleaved
+    global microbatches): on both ranks the step's loss, batch_stats and
+    weight update equal ddw_tpu's within the bounds above. The port's DP
+    step keeps per-rank BatchNorm (the statistics averaged after the
+    step): its batch_stats miss ddw_tpu's sharded step by more than ten
+    times the bound, so the check tells the two semantics apart."""
+    want_loss, want = _jax_bn_step(kind, accum)
+    want_p, want_s = _leaves(want["params"]), _leaves(want["batch_stats"])
+    start = _leaves(_bn_weights()["params"])
+    for rk in ranks:
+        loss, got = rk["bn"][(kind, accum)]
+        np.testing.assert_allclose(loss, want_loss, rtol=1e-4)
+        got_p, got_s = _leaves(got["params"]), _leaves(got["batch_stats"])
+        assert set(got_p) == set(want_p) and set(got_s) == set(want_s)
+        assert _stats_gap(got_s, want_s) <= 1e-4
+        l2, head = _update_gaps(got_p, want_p, start)
+        assert l2 <= 5e-2 and head <= 1e-3, (l2, head)
+    _, dp = ranks[0]["bn"][("dp", accum)]
+    assert _stats_gap(_leaves(dp["batch_stats"]), want_s) > 1e-3
