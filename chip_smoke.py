@@ -2,8 +2,9 @@
 """Smoke run of ddw_tpu_torch on one NVIDIA card: build, check and time the
 port's CUDA kernels, then drive the serving, training, workshop (the
 example chain), vision-family, pretrained-transfer, LM-scoring,
-LM-training, online-serving, serving-fleet, collective, multi-rank
-parallel and fault-tolerant gang main paths end to end.
+LM-training, online-serving, serving-fleet, tensor-parallel serving,
+collective, multi-rank parallel and fault-tolerant gang main paths end to
+end.
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -288,6 +289,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
    requests, every token within the rule (the fresh wave against the
    logits its tokens were picked from). Every child killed
    and every gateway stopped before the next phase; no K3 launch.
+9e. tp_serve — tensor-parallel serving (``EngineCfg(tp=2)``) of serve's
+   package at full width (bf16, 4 heads of 64 and half the vocab a rank):
+   this process is rank 0 and schedules, one follower process on the same
+   card runs every paged program on its shard (``ddw_tpu_torch/serve/
+   tp.py``; gloo between the two). (a) The first 16 requests of serve's mix
+   (prompts of 16-1,024 tokens, some on the shared 256-token prefix), new
+   tokens cut to 32-64, plus the repeat: every token within serve's 0.05
+   rule of the sequential path's argmax; the streams that differ from
+   serve's tp=1 engine printed; the pool drained (``blocks_used`` 0,
+   refcounts and commitments 0); ``serve.tp_degree`` 2 and
+   ``tp_dispatches`` > 0; the K/V pool at 4 heads a rank; ``close()`` ends
+   the follower. Tokens/s beside a tp=1 engine on the same cut (run just
+   before it) and beside serve's tp=1 engine on the whole mix, the cost of
+   a serving dispatch (``tp_dispatch_cost_us``, warmup's not counted),
+   rank 0's build and the follower's start seconds, TTFT. (b) One
+   ``ProcessReplica(tp=2)`` child behind a ``Gateway`` (its follower its
+   own child): 4 requests (prompts cut to
+   128, 16 new tokens) within the rule; SIGKILL the child: its follower
+   dies with it, the supervisor restarts the child at tp=2 with a new
+   follower, the same requests within the rule again; after the gateway
+   stops no follower process is left. Cold start and restart seconds.
 10. ring — the collective layer (K6, the ring all-reduce) at N = 2, then
    N = 4 ranks: processes from ``spawn_cpu`` joined by gloo, all on this
    one card (NCCL refuses two ranks on one device; K6 maps its neighbours'
@@ -309,7 +331,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    axis launches nothing; at N = 2, last, a peer that never arrives makes
    K6 trap and the rank fail within 5 s of a 2 s wait bound. Times: CUDA
    events, a group barrier before each call, max over ranks, median of 5
-   calls of the whole tree, in turns with 2 calls of the earlier per-leaf
+   calls of the whole tree, in turns with 1 call of the earlier per-leaf
    K6 (one launch per leaf), beside the bound (every rank's input read and
    output written once, 2 * N * bytes / 3.35 TB/s, and over NVLink on four
    cards; it assumes ranks that run at once) and the plain version's time;
@@ -2424,9 +2446,9 @@ def phase_lm(tmp: str):
 RING_RANKS = (2, 4)
 RING_BATCH = 4             # rows of 2,049 tokens per rank's backward
 # The timed tree calls, in turns: the packed K6 all_reduce_sum runs (5
-# calls) and the earlier per-leaf K6 (2 calls, one launch per leaf).
-RING_TURNS = ("packed", "per_leaf", "packed", "packed", "per_leaf", "packed",
-              "packed")
+# calls) and the earlier per-leaf K6 (1 call, one launch per leaf: 3-5 s
+# at 4 ranks, cut from 2 calls to make room for tp_serve).
+RING_TURNS = ("packed", "per_leaf", "packed", "packed", "packed", "packed")
 RING_SMALL_SLOT_BYTES = 4096   # 1,024-value slots: a pack of several launches
 RING_MANY_LEAVES = 300         # past the 256 arrays one launch takes
 NVLINK_BYTES_PER_S = 450e9     # H100 SXM, each way
@@ -3901,13 +3923,14 @@ def serve_mix():
     return prompts, steps
 
 
-def serve_engine_run(pm, prompts, steps, cfg, draft=None, **engine_kw
-                     ) -> dict:
+def serve_engine_run(pm, prompts, steps, cfg, draft=None, eng=None,
+                     **engine_kw) -> dict:
     """One engine over the mix: warm up every bucket, then submit from
     SERVE_CLIENTS threads with seeded staggered arrivals (request i with
     trace id ``req-i``); every future is waited on with a timeout and the
     engine stopped. With tracing or telemetry on, the drained ring and feed
-    come back too."""
+    come back too. ``eng``: an engine built by the caller (over ``cfg``),
+    which the caller closes."""
     import threading
 
     import numpy as np
@@ -3915,7 +3938,8 @@ def serve_engine_run(pm, prompts, steps, cfg, draft=None, **engine_kw
 
     from ddw_tpu_torch.serve import ServingEngine
 
-    eng = ServingEngine(lm=pm, cfg=cfg, draft=draft, **engine_kw)
+    if eng is None:
+        eng = ServingEngine(lm=pm, cfg=cfg, draft=draft, **engine_kw)
     try:
         t0 = time.perf_counter()
         eng.warmup(sorted({len(p) for p in prompts}))
@@ -4083,13 +4107,15 @@ def phase_serve(tmp: str) -> tuple[dict, dict]:
     seq_tps = sum(steps) / seq_s
 
     # --- the engine: paged (default), preemption, slot lane ---------------
-    runs, ref_readings = {}, {}
+    runs, ref_readings, paged_tokens = {}, {}, None
     for name, cfg in (
             ("paged", EngineCfg()),
             ("preemption", EngineCfg(block_overcommit=3.0,
                                      kv_cache_blocks=SERVE_SMALL_POOL)),
             ("slot", EngineCfg(paged=False))):
         run = serve_engine_run(pm, prompts, steps, cfg)
+        if name == "paged":
+            paged_tokens = run["tokens"]
         again = run["repeat"]
         tie = stream_check(pm, prompts + [prompts[again]],
                            refs + [refs[again]],
@@ -4244,7 +4270,8 @@ def phase_serve(tmp: str) -> tuple[dict, dict]:
                      "refs": refs, "ref_readings": ref_readings,
                      "drafts": drafts, "img": img, "images": x,
                      "image_ref": ref, "image_tol": tol,
-                     "paged_tokens_per_s": runs["paged"]["tokens_per_s"]}
+                     "paged_tokens_per_s": runs["paged"]["tokens_per_s"],
+                     "paged_tokens": paged_tokens}
 
 
 SERVE_PLUS_SPEC_K = 4
@@ -5165,6 +5192,197 @@ def phase_fleet(tmp: str, ctx: dict, serve: dict) -> dict:
     return out
 
 
+# the tp_serve phase: a tensor-parallel replica over two rank processes
+TP_SERVE_DEGREE = 2
+TP_SERVE_REQUESTS = 16      # serve's mix cut: its first 16 requests
+TP_SERVE_MAX_STEPS = 64     # their new tokens cut to 32-64
+TP_FLEET_PROMPT = 128       # the process drill: the mix's prompts cut to
+TP_FLEET_STEPS = 16         # 128 tokens, 16 new tokens each, 4 requests a
+TP_FLEET_REQUESTS = 4       # round (one warmup bucket, two cold starts)
+
+
+def tp_followers_of(pid: int) -> list[int]:
+    """The tensor-parallel follower processes whose parent is ``pid``."""
+    out = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read()
+        except (OSError, ValueError, IndexError):
+            continue
+        if ppid == pid and b"ddw_tpu_torch.serve.tp" in cmd:
+            out.append(int(d))
+    return out
+
+
+def pid_alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def phase_tp_serve(tmp: str, ctx: dict, serve: dict, smi: str) -> dict:
+    """Tensor-parallel serving on the card (the module docstring's 9e):
+    ``EngineCfg(tp=2)`` over serve's package, this process rank 0 and one
+    follower process on the same card, on a 16-request cut of serve's mix;
+    then a ``ProcessReplica(tp=2)`` child behind a ``Gateway``, SIGKILLed
+    and restarted by the supervisor."""
+    import numpy as np
+    import torch
+
+    from ddw_tpu_torch.deploy import ProcessReplica
+    from ddw_tpu_torch.gateway import Gateway, GatewayClient
+    from ddw_tpu_torch.serve import EngineCfg, ServingEngine
+
+    t_phase = time.perf_counter()
+    pm, ref_readings = ctx["pm"], ctx["ref_readings"]
+    n = TP_SERVE_REQUESTS
+    prompts = ctx["prompts"][:n]
+    steps = [min(s, TP_SERVE_MAX_STEPS) for s in ctx["steps"][:n]]
+    refs = [r[:k] for r, k in zip(ctx["refs"][:n], steps)]
+    tp1 = [t[:k] for t, k in zip(ctx["paged_tokens"][:n], steps)]
+
+    # --- (a) EngineCfg(tp=2) in this process, after tp=1 on the same cut ---
+    cut1 = serve_engine_run(pm, prompts, steps, EngineCfg())
+    cfg = EngineCfg(tp=TP_SERVE_DEGREE)
+    t0 = time.perf_counter()
+    eng = ServingEngine(lm=pm, cfg=cfg)
+    build_s = time.perf_counter() - t0
+    followers = eng.follower_pids
+    try:
+        follower_start_s = dict(eng._tp_group.start_s)
+        kv_heads = eng.pool._leaves()[0].shape[2]
+        check(eng.tp_degree == TP_SERVE_DEGREE and eng.pool.tp_degree
+              == TP_SERVE_DEGREE and len(followers) == TP_SERVE_DEGREE - 1,
+              f"a tp={TP_SERVE_DEGREE} replica: {followers} followers")
+        check(kv_heads == LM_CFG["num_heads"] // TP_SERVE_DEGREE,
+              f"the K/V pool holds {kv_heads} heads a rank")
+        run = serve_engine_run(pm, prompts, steps, cfg, eng=eng)
+        pool = eng.pool
+        leak = (int(pool._ref.sum()), pool._committed, pool.free_slots,
+                pool.max_resident)
+    finally:
+        eng.close()
+    gone_s = await_cond(lambda: not any(pid_alive(p) for p in followers),
+                        30.0, "the follower exited on close()")
+    snap, again = run["snap"], run["repeat"]
+    tie = stream_check(pm, prompts + [prompts[again]], refs + [refs[again]],
+                       run["tokens"] + [run["repeat_tokens"]], ref_readings)
+    differ = sum(not np.array_equal(a, b)
+                 for a, b in zip(run["tokens"], tp1))
+    differ_cut = sum(not np.array_equal(a, b)
+                     for a, b in zip(run["tokens"], cut1["tokens"]))
+    out = {"engine_tokens_per_s": run["tokens_per_s"],
+           "tp1_same_cut_tokens_per_s": cut1["tokens_per_s"],
+           "tp2_over_tp1_same_cut": (run["tokens_per_s"]
+                                     / cut1["tokens_per_s"]),
+           "serve_tp1_engine_tokens_per_s": serve["engine_tokens_per_s"],
+           "tp_dispatch_cost_us": snap.get("serve.tp_dispatch_cost_us"),
+           "tp_dispatches": snap.get("serve.tp_dispatches"),
+           "rank0_build_s": build_s, "follower_start_s": follower_start_s,
+           "warmup_s": run["warmup_s"],
+           "streams_differing_from_serve_tp1": differ,
+           "streams_differing_from_tp1_same_cut": differ_cut,
+           "ttft_ms_p50": snap.get("serve.ttft_ms_p50"),
+           "ttft_ms_p99": snap.get("serve.ttft_ms_p99")}
+    emit(phase="tp_serve", arm="engine", card=smi, **out,
+         follower_exit_s=gone_s, requests=n + 1,
+         completed=snap.get("serve.completed"),
+         tp_degree=snap.get("serve.tp_degree"),
+         prefix_hit_tokens=snap.get("serve.prefix_hit_tokens"),
+         cow_copies=snap.get("serve.cow_copies"),
+         blocks_used=snap.get("serve.blocks_used"), **tie)
+    check(snap["serve.completed"] == n + 1, "tp_serve: every request "
+          "completed")
+    check(snap["serve.tp_degree"] == float(TP_SERVE_DEGREE)
+          and snap["serve.tp_dispatches"] > 0,
+          f"serve.tp_degree {snap['serve.tp_degree']}, tp_dispatches "
+          f"{snap['serve.tp_dispatches']}")
+    check(snap["serve.blocks_used"] == 0.0 and leak[:2] == (0, 0)
+          and leak[2] == leak[3], f"tp_serve: the pool drained ({leak})")
+    check(snap["serve.prefix_hit_tokens"] > 0, "tp_serve: the shared "
+          "prefix hit the cache")
+    check(tie["all_near_ties"], f"tp_serve: every token within "
+          f"{SERVE_TOKEN_TIE} of the sequential path's argmax ({tie})")
+
+    # --- (b) a ProcessReplica(tp=2) child behind a Gateway ------------------
+    fprompts = [p[:TP_FLEET_PROMPT] for p in prompts[:TP_FLEET_REQUESTS]]
+    frefs = [pm.generate(p[None], TP_FLEET_STEPS)[0] for p in fprompts]
+    rep = ProcessReplica(ctx["pkg_dir"], replica_id=0,
+                         device=pm.device.type, tp=TP_SERVE_DEGREE,
+                         warmup_lens=(TP_FLEET_PROMPT,),
+                         spawn_timeout_s=300.0, request_timeout_s=600.0,
+                         workdir=os.path.join(tmp, "tp_fleet"))
+    os.makedirs(rep._workdir, exist_ok=True)
+    gw = Gateway([rep], grace_s=60.0,
+                 supervisor_kw={"poll_interval_s": 0.1,
+                                "backoff_base_s": 0.1, "backoff_max_s": 0.5,
+                                "jitter": 0.0, "probe_timeout_s": 120.0})
+    seen: set = set()
+    try:
+        t0 = time.perf_counter()
+        gw.start(warmup_prompt_lens=(TP_FLEET_PROMPT,))
+        cold = time.perf_counter() - t0
+        first = fleet_mix(gw.port, fprompts, [TP_FLEET_STEPS] * len(fprompts))
+        child = rep._proc.pid
+        before = tp_followers_of(child)
+        seen.update(before)
+        base = gw.replica_set.restarts[0]
+        t0 = time.perf_counter()
+        rep._proc.kill()
+        restart_s = await_cond(
+            lambda: (gw.replica_set.restarts[0] > base
+                     and gw.replica_set.fleet_health()[0]["state"] == "alive"
+                     and gw.replica_set.breakers[0].state == "closed"),
+            300.0, "the supervisor restarted the tp=2 child")
+        orphans_s = await_cond(lambda: not any(pid_alive(p) for p in before),
+                               30.0, "the killed child's follower died")
+        after = tp_followers_of(rep._proc.pid)
+        seen.update(after)
+        second = fleet_mix(gw.port, fprompts,
+                           [TP_FLEET_STEPS] * len(fprompts))
+        tp_child = rep.tp
+        kinds = [(a.replica, a.kind, a.action)
+                 for a in gw.supervisor.attempts]
+    except BaseException:
+        print(child_logs([rep]), file=sys.stderr, flush=True)
+        raise
+    finally:
+        gw.stop()
+        rep.stop()
+    left_s = await_cond(lambda: not any(pid_alive(p) for p in seen), 60.0,
+                        "no follower left after the fleet stopped")
+    errors = first["errors"] + second["errors"]
+    ftie = stream_check(pm, fprompts * 2, frefs * 2,
+                        first["tokens"] + second["tokens"], {})
+    out.update(process_cold_start_s=cold, process_restart_s=restart_s)
+    emit(phase="tp_serve", arm="process", cold_start_s=cold,
+         restart_s=restart_s, killed_follower_gone_s=orphans_s,
+         followers_before=before, followers_after=after,
+         all_followers_gone_s=left_s, attempts=kinds[-2:], tp=tp_child,
+         errors=errors[:3], **ftie)
+    check(not errors, f"tp=2 process replica: every request answered "
+          f"({errors[:3]})")
+    check(len(before) == len(after) == TP_SERVE_DEGREE - 1
+          and not set(before) & set(after),
+          f"one follower per child generation ({before} -> {after})")
+    check((0, "killed", "restarted") in kinds, f"the supervisor restarted "
+          f"the SIGKILLed child ({kinds})")
+    check(tp_child == TP_SERVE_DEGREE, "the respawn kept tp")
+    check(ftie["all_near_ties"], f"tp=2 process replica: every token within "
+          f"{SERVE_TOKEN_TIE} of the sequential path's argmax ({ftie})")
+    out["wall_seconds"] = time.perf_counter() - t_phase
+    emit(phase="tp_serve", wall_seconds=out["wall_seconds"])
+    torch.cuda.empty_cache()
+    return out
+
+
 # the gang phase: ranks of the port's Launcher that share the card (gloo)
 GANG_BATCH = 32             # per rank: the vision fit's batch
 GANG_TRAIN, GANG_VAL = 128, 64   # 2 steps an epoch at 2 DP ranks (global 64)
@@ -5538,6 +5756,8 @@ def main() -> int:
         serve_plus = phase_serve_plus(tmp, serve_ctx)
         torch.cuda.empty_cache()
         fleet = phase_fleet(tmp, serve_ctx, serve)
+        torch.cuda.empty_cache()
+        tp_serve = phase_tp_serve(tmp, serve_ctx, serve, smi)
         del serve_ctx
     torch.cuda.empty_cache()
     ring = phase_ring()
@@ -5744,6 +5964,7 @@ def main() -> int:
             "trace_telemetry_overhead", "wall_seconds")},
         "fleet": {k: v for k, v in fleet.items()
                   if not k.startswith("k1_")},
+        "tp_serve": tp_serve,
         "parallel": {k: parallel[k] for k in (
             "rates", "seconds", "two_rank_seconds", "dryrun_seconds")},
         "gang": {k: v for k, v in gang.items()

@@ -23,8 +23,14 @@ process's ``--replica-id``), anything else = startup error (a child
 asked for the card — ``--device`` unset or ``cuda`` — that finds none
 exits here and never carries on on the CPU). The parent keeps the raw code
 as restart forensics. ``--device cpu`` serves on the CPU (the tests);
-``--threads N`` caps the child's intra-op threads; ``--tp > 1`` is refused
-(tensor-parallel serving is ``ROADMAP.md`` item 12b).
+``--threads N`` caps the child's intra-op threads (its followers' too).
+
+``--tp N`` (folded into ``EngineCfg.tp``): the child is rank 0 of a
+``N``-wide tensor-parallel replica and starts its ``N - 1`` follower
+processes itself (:mod:`ddw_tpu_torch.serve.tp`), which die with it.
+``ddw_tpu``'s worker also forces ``N`` fake host devices into
+``XLA_FLAGS`` before JAX loads; the port has no counterpart, since its
+shards are processes, not devices.
 
 The port of ``ddw_tpu.deploy._serve_worker``: the same host logic,
 importing nothing of ``ddw_tpu``.
@@ -82,8 +88,9 @@ def main(argv=None) -> int:
                    help="JSON list of warmup prompt lengths")
     p.add_argument("--grace-s", type=float, default=None)
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel degree (only 1: tensor-parallel "
-                        "serving is ROADMAP.md item 12b)")
+                   help="tensor-parallel degree: this child is rank 0 of a "
+                        "tp-wide replica and starts its tp - 1 followers "
+                        "(folded into EngineCfg.tp)")
     p.add_argument("--device", default=None,
                    help="torch device the engine serves on; unset = the "
                         "CUDA card (an error without one), 'cpu' only "
@@ -91,10 +98,6 @@ def main(argv=None) -> int:
     p.add_argument("--threads", type=int, default=0,
                    help="torch intra-op threads (0 = torch's default)")
     args = p.parse_args(argv)
-    if args.tp > 1:
-        raise NotImplementedError(
-            f"--tp {args.tp}: tensor-parallel serving is not yet ported to "
-            f"ddw_tpu_torch; see ROADMAP.md item 12b")
 
     # imports AFTER argparse: a bad flag should not pay the torch import
     import torch
@@ -111,6 +114,8 @@ def main(argv=None) -> int:
     draft = (load_lm_package(args.draft_dir, device=device)
              if args.draft_dir else None)
     overrides = json.loads(args.engine_cfg or "{}")
+    if args.tp > 1:
+        overrides["tp"] = args.tp
     cfg = EngineCfg(**overrides)
     eng = ServingEngine(lm=pkg, cfg=cfg, replica_id=args.replica_id,
                         draft=draft)

@@ -124,7 +124,14 @@ class ProcessReplica:
     """One ServingEngine in a child process, behind the EngineReplica
     duck type. ``engine_cfg`` is a plain dict of
     :class:`~ddw_tpu_torch.serve.EngineCfg` overrides (it crosses the process
-    boundary as JSON)."""
+    boundary as JSON).
+
+    ``tp`` (or ``engine_cfg["tp"]``; the kwarg wins) makes the child rank 0
+    of a tensor-parallel replica: it starts its ``tp - 1`` follower
+    processes itself, and they die with it, so a respawn or a clone keeps
+    the degree and a killed child leaves none behind. ``ddw_tpu`` forces
+    the child's fake host device count to ``tp`` through ``XLA_FLAGS``;
+    the port has no counterpart, since its shards are processes."""
 
     def __init__(self, model_dir: str, replica_id: int = 0,
                  engine_cfg: dict | None = None, host: str = "127.0.0.1",
@@ -140,14 +147,13 @@ class ProcessReplica:
         self.replica_id = replica_id
         self.generation = 0
         self.engine_cfg = dict(engine_cfg or {})
-        # tensor parallelism: the child spans a tp-wide mesh slice. The
-        # degree may arrive as the explicit kwarg or ride the engine_cfg
-        # dict (it's an EngineCfg field); the kwarg wins when both are set.
+        # tensor parallelism: the child is rank 0 of a tp-wide replica and
+        # starts its own followers. The degree may arrive as the explicit
+        # kwarg or ride the engine_cfg dict (it's an EngineCfg field); the
+        # kwarg wins when both are set. ddw_tpu also forces the child's
+        # fake host device count; the port's shards are processes, so
+        # there is nothing to force.
         self.tp = int(tp if tp != 1 else self.engine_cfg.get("tp", 1))
-        if self.tp > 1:
-            raise NotImplementedError(
-                f"tp {self.tp}: tensor-parallel serving is not yet ported "
-                f"to ddw_tpu_torch; see ROADMAP.md item 12b")
         # the child's torch device: None = the CUDA card (the child exits
         # with its startup error without one), "cpu" only when asked for
         self.device = device
@@ -252,6 +258,8 @@ class ProcessReplica:
             cmd += ["--engine-cfg", json.dumps(self.engine_cfg)]
         if self.device is not None:
             cmd += ["--device", str(self.device)]
+        if self.tp > 1:
+            cmd += ["--tp", str(self.tp)]
         # the child's intra-op threads: this process's (tests pin 1)
         cmd += ["--threads", str(torch.get_num_threads())]
         self._ready = False

@@ -183,6 +183,25 @@ class CausalSelfAttention(nn.Module):
                                       **lora)
         self.out = maybe_lora_dense((num_heads, hd), (hidden,), "out", **lora)
 
+    # Global index of this rank's first query head. 0 unless tensor
+    # parallelism shards the query heads while K/V stay replicated (the GQA
+    # fallback, parallel.sharding.tp_shard_module sets it).
+    q_head_offset = 0
+
+    def _kv_for_queries(self, t: torch.Tensor, n_q: int) -> torch.Tensor:
+        """K/V ``t [B, S, KV, hd]`` broadcast over the ``n_q`` query heads
+        this module computes: global query head ``h`` reads K/V head
+        ``h // groups``. Unsharded, or with q and k/v sharded alike, that
+        is ``repeat_interleave``; under the GQA fallback the local query
+        heads start at :attr:`q_head_offset` and pick their K/V heads from
+        the replicated set."""
+        if t.shape[2] * self.groups == n_q:
+            return (t.repeat_interleave(self.groups, dim=2)
+                    if self.groups > 1 else t)
+        idx = torch.arange(self.q_head_offset, self.q_head_offset + n_q,
+                           device=t.device) // self.groups
+        return t.index_select(2, idx)
+
     def forward(self, x: torch.Tensor, positions=None,
                 cache: dict | None = None,
                 step: "_DecodeStep | None" = None,
@@ -196,9 +215,9 @@ class CausalSelfAttention(nn.Module):
         if cache is not None:
             out = self._decode(q, k, v, cache, step).to(x.dtype)
         else:
-            if self.groups > 1:  # K/V heads broadcast over their query group
-                k = k.repeat_interleave(self.groups, dim=2)
-                v = v.repeat_interleave(self.groups, dim=2)
+            # K/V heads broadcast over their query group
+            k = self._kv_for_queries(k, q.shape[2])
+            v = self._kv_for_queries(v, q.shape[2])
             if self.seq_axis is not None:
                 from ddw_tpu_torch.parallel.ring_attention import \
                     ring_attention
@@ -219,9 +238,10 @@ class CausalSelfAttention(nn.Module):
         its own depth; paged: through the block table, out-of-capacity
         positions to the null block 0), then online softmax over 256-key
         tiles in f32, skipping tiles past the deepest filled position.
-        Returns ``[B, S, H, hd]`` f32, NaN where a write ran past
-        ``max_len`` (contiguous: every row; slot: the row; paged: the
-        query)."""
+        ``H`` is the query heads this module computes: all of them, or
+        this rank's under tensor parallelism. Returns ``[B, S, H, hd]``
+        f32, NaN where a write ran past ``max_len`` (contiguous: every
+        row; slot: the row; paged: the query)."""
         b, s = q.shape[:2]
         tile, cap = step.tile, step.cap
         if step.mode == "paged":
@@ -251,22 +271,21 @@ class CausalSelfAttention(nn.Module):
 
             def kv_tile(src, st):
                 return src[:, st:st + tile]
-        hd, dev = self.head_dim, q.device
+        hd, dev, heads = self.head_dim, q.device, q.shape[2]
         q32 = (q.to(torch.float32) / float(hd) ** 0.5).transpose(1, 2)
         qpos = step.qpos                     # [S] or [B, S]
-        m = torch.full((b, self.num_heads, s), _NEG, device=dev)
-        l = torch.zeros((b, self.num_heads, s), device=dev)
-        o = torch.zeros((b, self.num_heads, s, hd), device=dev)
+        m = torch.full((b, heads, s), _NEG, device=dev)
+        l = torch.zeros((b, heads, s), device=dev)
+        o = torch.zeros((b, heads, s, hd), device=dev)
         tiles = 0
         for t in range(cap // tile):
             st = t * tile
             if st > step.last:
                 break
-            k_t = kv_tile(ck, st).to(torch.float32)
-            v_t = kv_tile(cv, st).to(torch.float32)
-            if self.groups > 1:
-                k_t = k_t.repeat_interleave(self.groups, dim=2)
-                v_t = v_t.repeat_interleave(self.groups, dim=2)
+            k_t = self._kv_for_queries(kv_tile(ck, st).to(torch.float32),
+                                       heads)
+            v_t = self._kv_for_queries(kv_tile(cv, st).to(torch.float32),
+                                       heads)
             s_t = torch.einsum("bhqd,bkhd->bhqk", q32, k_t)
             kpos = st + torch.arange(tile, device=dev)
             if qpos.dim() == 2:
@@ -427,6 +446,17 @@ class TransformerLM(nn.Module):
         if remat not in ("none", "full", "dots"):
             raise ValueError(f"unknown remat {remat!r}; use 'none', 'full' or "
                              f"'dots'")
+        # the constructor's arguments: another rank builds the same
+        # skeleton from them (serve.tp), then takes its shard of the weights
+        self.init_kwargs = dict(
+            vocab_size=vocab_size, max_len=max_len, hidden=hidden,
+            depth=depth, num_heads=num_heads, mlp_dim=mlp_dim,
+            dropout=dropout, dtype=dtype, seq_axis=seq_axis,
+            num_experts=num_experts, num_kv_heads=num_kv_heads,
+            lora_rank=lora_rank, lora_alpha=lora_alpha,
+            lora_targets=tuple(lora_targets), pos_encoding=pos_encoding,
+            remat=remat, expert_axis=expert_axis,
+            capacity_factor=capacity_factor, moe_router=moe_router)
         self.vocab_size, self.max_len, self.hidden = vocab_size, max_len, hidden
         self.depth, self.num_heads, self.dropout = depth, num_heads, dropout
         self.dtype, self.pos_encoding = dtype, pos_encoding
@@ -642,12 +672,18 @@ def init_slot_cache(model: TransformerLM, n_slots: int) -> dict:
 
 
 def init_paged_cache(model: TransformerLM, kv_cache_blocks: int,
-                     block_size: int) -> dict:
+                     block_size: int, mesh=None,
+                     kv_sharded: bool = True) -> dict:
     """The paged-mode cache (``paged_decode``): per layer
     ``kv_block_key``/``kv_block_value [kv_cache_blocks, block_size,
     kv_heads, head_dim]`` (block 0 the null block) and ``tiles_computed``.
     Depths are host state of the caller, passed per call, so the same cache
-    serves a prefill group and the decode batch."""
+    serves a prefill group and the decode batch.
+
+    With a ``mesh`` (tensor-parallel serving) each leaf holds this rank's
+    block of :func:`~ddw_tpu_torch.parallel.sharding.
+    decode_cache_shardings`: the K/V pools ``kv_heads / tp`` heads a rank,
+    or all of them when ``kv_sharded`` is False (the GQA fallback)."""
     tile = min(_TILE, model.max_len)
     if block_size < 1 or tile % block_size:
         raise ValueError(f"kv_block_size {block_size} must be >= 1 and "
@@ -661,10 +697,22 @@ def init_paged_cache(model: TransformerLM, kv_cache_blocks: int,
     cache: dict = {}
     for i in range(model.depth):
         cache[f"backbone_block{i}"] = {"attn": {
-            "kv_block_key": torch.zeros(shape, dtype=model.dtype, device=dev),
-            "kv_block_value": torch.zeros(shape, dtype=model.dtype,
-                                          device=dev),
+            "kv_block_key": torch.empty(shape, device="meta"),
+            "kv_block_value": torch.empty(shape, device="meta"),
             "tiles_computed": 0}}
+    specs = {}
+    if mesh is not None:
+        from ddw_tpu_torch.parallel.sharding import decode_cache_shardings
+
+        specs = decode_cache_shardings(cache, mesh, kv_sharded)
+    for name, layer in cache.items():
+        for leaf in ("kv_block_key", "kv_block_value"):
+            local = list(shape)
+            for d, axis in enumerate(specs.get(f"{name}/attn/{leaf}", ())):
+                if axis is not None:
+                    local[d] //= mesh.shape[axis]
+            layer["attn"][leaf] = torch.zeros(local, dtype=model.dtype,
+                                              device=dev)
     return cache
 
 

@@ -161,12 +161,16 @@ def _group(group):
 
 
 def group_size_rank(group=None) -> tuple[int, int]:
-    """``(size, rank in the group)``; ``(1, 0)`` when no process group is
-    initialized (a world of one)."""
-    if not (dist.is_available() and dist.is_initialized()):
-        return 1, 0
-    g = _group(group)
-    return dist.get_world_size(g), dist.get_rank(g)
+    """``(size, rank in the group)``, read from the group itself: a group
+    built outside the default one (a replica's private gloo group, with no
+    ``init_process_group`` at all) answers for itself. ``(1, 0)`` only for
+    ``group=None`` when no default group is initialized (a world of
+    one)."""
+    if group is None:
+        if not (dist.is_available() and dist.is_initialized()):
+            return 1, 0
+        group = dist.group.WORLD
+    return group.size(), group.rank()
 
 
 def _host_p2p(device, group) -> bool:

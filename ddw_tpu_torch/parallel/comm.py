@@ -113,7 +113,7 @@ class _GatherFromGroup(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        me = dist.get_rank(ctx.group)
+        me = group_size_rank(ctx.group)[1]
         return g.narrow(ctx.dim, me * ctx.size, ctx.size), None, None
 
 

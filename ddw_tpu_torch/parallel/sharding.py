@@ -190,12 +190,33 @@ def shardings_for_params(tree, mesh, rules: PartitionRules) -> dict:
     return out
 
 
+def specs_by_name(model: nn.Module, rules: PartitionRules, mesh) -> dict:
+    """The spec of every parameter of ``model`` by its torch name (over
+    its flax dims, as :func:`tp_shard_module` takes them), from ``rules``
+    matched against the flax path; raises on a dim its axis does not
+    divide."""
+    from ddw_tpu_torch.models.convert import flax_leaf_index, flax_shape
+
+    params = dict(model.named_parameters())
+    out = {}
+    for name, (_, path, _, _, to_flax) in flax_leaf_index(model).items():
+        if name not in params:
+            continue
+        key = "/".join(path)
+        shape = flax_shape(params[name].shape, to_flax)
+        spec = rules.spec_for(key, len(shape))
+        check_spec_divisibility(key, shape, spec, mesh)
+        out[name] = spec
+    return out
+
+
 def decode_cache_shardings(cache: dict, mesh, kv_sharded: bool = True):
     """The spec of every leaf of a paged-decode cache: the KV block pools
     (``kv_block_key`` / ``kv_block_value [n_blocks, block_size, KV, hd]``)
     on the heads axis, everything else replicated; all replicated when
-    ``kv_sharded`` is False (the GQA fallback). The engine does not take
-    it yet: tensor-parallel serving is ``ROADMAP.md`` item 12b."""
+    ``kv_sharded`` is False (the GQA fallback).
+    :func:`~ddw_tpu_torch.models.lm.init_paged_cache` sizes a
+    tensor-parallel serving pool by it."""
     out = {}
     for path, leaf in _flat_paths(cache):
         key = "/".join(path)
@@ -211,9 +232,13 @@ def decode_cache_shardings(cache: dict, mesh, kv_sharded: bool = True):
 
 # -- the tensor-parallel module ------------------------------------------------
 
-def local_block(t: torch.Tensor, spec: P, dims: tuple, mesh) -> torch.Tensor:
+def local_block(t: torch.Tensor, spec: P, dims: tuple, mesh,
+                coords: dict | None = None) -> torch.Tensor:
     """The block of a port-layout tensor that this rank owns under ``spec``
-    (over flax dims; ``dims[port_dim] = flax_dim``): a view."""
+    (over flax dims; ``dims[port_dim] = flax_dim``): a view. ``coords``
+    overrides this rank's coordinate along some axes (the block another
+    rank owns)."""
+    coords = coords or {}
     for fd, axis in enumerate(spec):
         if axis is None:
             continue
@@ -221,7 +246,8 @@ def local_block(t: torch.Tensor, spec: P, dims: tuple, mesh) -> torch.Tensor:
         names = axis if isinstance(axis, tuple) else (axis,)
         n, idx = 1, 0
         for a in names:
-            idx = idx * mesh.shape[a] + mesh.axis_index(a)
+            c = coords[a] if a in coords else mesh.axis_index(a)
+            idx = idx * mesh.shape[a] + c
             n *= mesh.shape[a]
         size = t.shape[pd] // n
         t = t.narrow(pd, idx * size, size)
@@ -309,6 +335,13 @@ def tp_shard_module(model: nn.Module, specs: dict, mesh,
             roles[mod_name] = role
     for mod_name, role in roles.items():
         _install_role(mods[mod_name], role, group, index)
+    for mod_name, mod in mods.items():
+        # the GQA fallback: query heads split, K/V replicated, so each
+        # rank's query heads must know where they start
+        q = specs.get(f"{mod_name}.query.kernel", P())
+        k = specs.get(f"{mod_name}.key.kernel", P())
+        if hasattr(mod, "q_head_offset") and axis in q and axis not in k:
+            mod.q_head_offset = index * (mod.num_heads // mesh.shape[axis])
     model._tp_axis = axis
     return model
 

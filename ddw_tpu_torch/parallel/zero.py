@@ -53,8 +53,8 @@ import torch.distributed as dist
 from ddw_tpu_torch.models.layers import batch_moments_reduced
 from ddw_tpu_torch.parallel.comm import all_reduce_sum_grad
 
-from ddw_tpu_torch.parallel.sharding import (P, check_spec_divisibility,
-                                             local_block, tp_shard_module)
+from ddw_tpu_torch.parallel.sharding import (P, local_block, specs_by_name,
+                                             tp_shard_module)
 from ddw_tpu_torch.runtime.collectives import all_gather_axis
 from ddw_tpu_torch.runtime.dist import all_reduce_mean_
 from ddw_tpu_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS
@@ -212,19 +212,12 @@ def _global_flax_shapes(model) -> dict:
 
 def _specs(mode: str, model, mesh, axis: str, rules=None):
     """``(compute, rest, moment)`` specs by parameter name."""
-    from ddw_tpu_torch.models.convert import flax_leaf_index
-
     shapes = _global_flax_shapes(model)
-    idx = flax_leaf_index(model)
+    bases = specs_by_name(model, rules, mesh) if rules is not None else {}
     n = mesh.shape[axis] if axis in mesh.axis_names else 1
     compute, rest, moment = {}, {}, {}
     for name, shape in shapes.items():
-        key = "/".join(idx[name][1])
-        if rules is not None:
-            base = rules.spec_for(key, len(shape))
-            check_spec_divisibility(key, shape, base, mesh)
-        else:
-            base = P()
+        base = bases.get(name, P())
         if mode == "tp":
             compute[name] = rest[name] = moment[name] = base
             continue

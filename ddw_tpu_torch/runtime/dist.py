@@ -99,9 +99,9 @@ def all_reduce_mean_(tensors: list[torch.Tensor], group=None) -> None:
     default; ``lax.pmean``). One collective per dtype: the tensors are
     packed into one flat buffer, summed, divided by the group size and
     unpacked."""
-    _, world = group_topology()
-    if world > 1 and group is not None:
-        world = dist.get_world_size(group)
+    from ddw_tpu_torch.ops.ring_reduce import group_size_rank
+
+    world = group_size_rank(group)[0]
     if world == 1 or not tensors:
         return
     by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}

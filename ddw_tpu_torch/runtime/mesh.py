@@ -39,6 +39,7 @@ from typing import Sequence
 import numpy as np
 import torch.distributed as dist
 
+from ddw_tpu_torch.ops.ring_reduce import group_size_rank
 from ddw_tpu_torch.runtime import dist as _dist
 
 DATA_AXIS = "data"
@@ -124,11 +125,26 @@ def global_device_count() -> int:
 class Mesh:
     """Ranks laid out on named axes. ``ranks`` is the grid of world ranks
     (shape ``shape``); :meth:`group` is this rank's process group along an
-    axis, ``None`` in a world of one (the collectives' world)."""
+    axis, ``None`` in a world of one (the collectives' world). ``rank`` is
+    this process's entry of the grid; ``None`` reads it from the default
+    group (:func:`process_index`). A mesh over a group that is not the
+    default one (:meth:`over_group`) numbers the grid by the group's own
+    ranks and carries this process's rank in it."""
 
     axis_names: tuple[str, ...]
     ranks: np.ndarray
     groups: dict
+    rank: int | None = None
+
+    @classmethod
+    def over_group(cls, group, axis: str) -> "Mesh":
+        """A 1-D mesh over every rank of ``group`` along ``axis``: the
+        grid is the group's ranks ``0..size-1``, and :meth:`axis_index`
+        reads this process's rank in the group, not in the default group
+        (which need not exist)."""
+        size, rank = group_size_rank(group)
+        return cls((axis,), np.arange(size, dtype=np.int64),
+                   {axis: group}, rank)
 
     @property
     def shape(self) -> dict[str, int]:
@@ -142,7 +158,8 @@ class Mesh:
 
     def axis_index(self, axis: str) -> int:
         """This rank's coordinate along ``axis``."""
-        where = np.argwhere(self.ranks == process_index())
+        me = process_index() if self.rank is None else self.rank
+        where = np.argwhere(self.ranks == me)
         return int(where[0][self.axis_names.index(axis)])
 
 
@@ -316,7 +333,8 @@ def axis_group(axis):
             raise ValueError(f"axis {axis!r} is not bound: run the model "
                              f"inside runtime.mesh.bind_mesh(mesh)")
     else:
-        if axis is None or not dist.is_initialized():
+        if axis is None:
             return axis, 1, 0
-        return axis, dist.get_world_size(axis), dist.get_rank(axis)
+        size, rank = group_size_rank(axis)
+        return axis, size, rank
     return mesh.group(name), mesh.shape[name], mesh.axis_index(name)

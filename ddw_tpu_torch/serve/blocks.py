@@ -46,8 +46,24 @@ allocator preempts the YOUNGEST stream of the lowest lane by recompute.
 With an :class:`~ddw_tpu_torch.serve.adapters.AdapterPool` attached
 (``adapters=``) every prefill, decode and verify forward takes its stacks
 and the rows' slot indices (slot 0 the null adapter for base, free and
-warmup rows). Not ported (refused by name, ``ROADMAP.md``): tensor
-parallelism (a ``mesh``).
+warmup rows).
+
+Tensor parallelism (``mesh=`` with a ``model`` axis wider than 1): the
+parameters shard by ``LM_TP_RULES`` (:func:`~ddw_tpu_torch.parallel.
+sharding.lm_tp_rules_for`; the GQA fallback replicates K/V) and the block
+pool on its heads axis (:func:`~ddw_tpu_torch.parallel.sharding.
+decode_cache_shardings`). The pool on group rank 0 takes the full model and
+schedules; the other ranks follow it (:func:`ddw_tpu_torch.serve.tp.
+follow`): every device program above, and the copy, the block import and
+export, warmup, reset and close, is one dispatch — a header of host
+arguments to the followers, then this rank's shard. Every dispatch but
+warmup's (one that runs the whole program lattice, seconds long) is
+metered into ``tp_dispatches`` / ``tp_dispatch_us``, so their ratio is
+the cost of a serving dispatch. Every host structure is
+mesh-blind. The wire format carries full-shape payloads: export gathers the
+exported blocks' heads from the followers, import scatters them, so a wire
+moves between pools of any ``tp``. Adapters under tensor parallelism are
+refused by name (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -56,12 +72,15 @@ import base64
 import collections
 import hashlib
 import threading
+import time
+import warnings
 
 import numpy as np
 import torch
 
 from ddw_tpu_torch.models.lm import (TransformerLM, host_to_device,
                                      init_paged_cache)
+from ddw_tpu_torch.runtime.mesh import MODEL_AXIS
 from ddw_tpu_torch.serve.bucketing import batch_bucket
 from ddw_tpu_torch.serve.slots import _pick
 from ddw_tpu_torch.utils.device import torch_dtype
@@ -123,6 +142,13 @@ class BlockPool:
     ``overcommit`` scales the admission budget: 1.0 (default) pre-commits
     every stream's worst-case remaining blocks, so mid-decode allocation
     never fails; > 1.0 oversubscribes and relies on preemption.
+
+    ``mesh`` (a :class:`~ddw_tpu_torch.runtime.mesh.Mesh` whose ``model``
+    axis lists its ranks in increasing order) makes the pool
+    tensor-parallel (module docstring): on group rank 0 it takes the full
+    model, sends each other rank its shard and keeps its own; the other
+    ranks run :func:`ddw_tpu_torch.serve.tp.follow`, which builds their
+    pools (:meth:`build_follower`).
     """
 
     def __init__(self, model: TransformerLM, n_blocks: int,
@@ -130,9 +156,6 @@ class BlockPool:
                  steps_per_tick: int = 4, overcommit: float = 1.0,
                  interactive_reserve: int = 0, decode_buckets: bool = True,
                  mesh=None, adapters=None):
-        if mesh is not None:
-            raise _not_ported("tensor-parallel serving (a BlockPool mesh, "
-                              "tp > 1)")
         if n_blocks < 1:
             raise ValueError(f"n_blocks must be >= 1, got {n_blocks}")
         if interactive_reserve < 0:
@@ -165,20 +188,119 @@ class BlockPool:
         self.decode_buckets = decode_buckets  # shrink each decode tick to
         #                             the smallest pow2 row bucket covering
         #                             live rows
-        self.model = model
         self.device = model.head.kernel.device
         self._adapters = adapters       # optional AdapterPool: stacks and
         #                                 per-row slots ride every forward
         cap = -(-model.max_len // tile) * tile
         self.n_tbl = cap // block_size    # block-table width (cap coverage)
         self._cap = cap
+        self.record_logits: list | None = None   # diagnostics: a list that
+        #                             every prefill, decode and verify
+        #                             program appends the logits it picked
+        #                             from to (host f32); None = off
+        # tensor parallelism: the model group, this rank's role in it, and
+        # whether the K/V pool shards on the heads axis
+        self._mesh = None
+        self._group = None
+        self._lead = True
+        self._kv_sharded = False
+        self._pool_id = 0
+        if mesh is not None:
+            if MODEL_AXIS not in mesh.axis_names:
+                raise ValueError(
+                    f"serving mesh must carry a '{MODEL_AXIS}' axis, got "
+                    f"axes {tuple(mesh.axis_names)}")
+            if mesh.shape[MODEL_AXIS] > 1:
+                model = self._shard(model, mesh, adapters)
+        self.model = model
         self.cache = self._init_cache()
         self._ev_lock = threading.Lock()   # event log is read off-thread
         self._reset_host()
 
+    def _pool_spec(self) -> dict:
+        """The geometry a follower's pool is built with."""
+        return dict(n_blocks=self.n_blocks, block_size=self.block_size,
+                    max_resident=self.max_resident,
+                    steps_per_tick=self.steps_per_tick,
+                    overcommit=self.overcommit,
+                    interactive_reserve=self.interactive_reserve,
+                    decode_buckets=self.decode_buckets)
+
+    def _shard(self, model: TransformerLM, mesh, adapters) -> TransformerLM:
+        """Join ``mesh``'s model group: group rank 0 sends the followers a
+        ``build`` header and each its shard of every weight, and returns
+        its own shard; a follower's model arrives sharded already."""
+        from ddw_tpu_torch.ops.ring_reduce import group_size_rank
+        from ddw_tpu_torch.parallel.sharding import lm_tp_rules_for
+        from ddw_tpu_torch.serve import tp as _tp
+
+        if adapters is not None:
+            raise _not_ported("LoRA adapter pools under tensor parallelism "
+                              "(adapter_slots > 0 with tp > 1)")
+        tp_n = int(mesh.shape[MODEL_AXIS])
+        lines = np.moveaxis(mesh.ranks, mesh.axis_names.index(MODEL_AXIS),
+                            -1).reshape(-1, tp_n)
+        if (np.diff(lines, axis=1) <= 0).any():
+            raise ValueError("the mesh's model axis must list its ranks in "
+                             "increasing order (group rank = coordinate)")
+        self._mesh = mesh
+        self._group = mesh.group(MODEL_AXIS)
+        self._lead = group_size_rank(self._group)[1] == 0
+        sharded = getattr(model, "_tp_axis", None) is not None
+        if not self._lead:
+            if not sharded:
+                raise ValueError("a follower rank's pool takes the sharded "
+                                 "model serve.tp.follow builds")
+            with warnings.catch_warnings():   # rank 0 warned already
+                warnings.simplefilter("ignore", RuntimeWarning)
+                _, self._kv_sharded = lm_tp_rules_for(
+                    model.num_heads, model.kv_heads, tp_n)
+            return model
+        if sharded:
+            raise ValueError("group rank 0 of a tensor-parallel pool takes "
+                             "the full model")
+        rules, self._kv_sharded = lm_tp_rules_for(
+            model.num_heads, model.kv_heads, tp_n)
+        self._pool_id = _tp.next_pool_id()
+        _tp.check_group(self._group)
+        try:
+            _tp.send_header(self._group, (
+                "build", self._pool_id,
+                {"model": model.init_kwargs, "pool": self._pool_spec()}))
+            local, shards = _sharded_skeleton(model.init_kwargs, rules,
+                                              mesh, self.device, full=model)
+            for r in range(1, tp_n):
+                _tp.send_tensors(self._group, r, shards(r))
+        except RuntimeError as e:
+            _tp.mark_broken(self._group)
+            raise _tp.TPGroupFailed(
+                f"building a tensor-parallel pool failed: {e}") from e
+        return local
+
+    @classmethod
+    def build_follower(cls, spec: dict, mesh, device) -> "BlockPool":
+        """A follower's pool for rank 0's ``build`` header: the model's
+        skeleton sharded by the same rules, this rank's weights received
+        from rank 0."""
+        from ddw_tpu_torch.parallel.sharding import lm_tp_rules_for
+        from ddw_tpu_torch.serve import tp as _tp
+
+        kw = spec["model"]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            rules, _ = lm_tp_rules_for(kw["num_heads"], kw["num_kv_heads"],
+                                       int(mesh.shape[MODEL_AXIS]))
+        local, _ = _sharded_skeleton(kw, rules, mesh, device)
+        params = [p for _, p in local.named_parameters()]
+        for p, t in zip(params, _tp.recv_tensors(mesh.group(MODEL_AXIS), 0,
+                                                 params)):
+            p.copy_(t)
+        return cls(local, mesh=mesh, **spec["pool"])
+
     def _init_cache(self) -> dict:
         return init_paged_cache(self.model, self.n_blocks + 1,
-                                self.block_size)
+                                self.block_size, mesh=self._mesh,
+                                kv_sharded=self._kv_sharded)
 
     # -- host accounting ------------------------------------------------------
     def _reset_host(self) -> None:
@@ -199,7 +321,12 @@ class BlockPool:
         self.stats = {"prefix_hit_tokens": 0, "prefix_hit_blocks": 0,
                       "prefix_miss_blocks": 0, "cow_copies": 0,
                       "preemptions": 0, "batch_preemptions": 0,
-                      "decode_rows_skipped": 0}
+                      "decode_rows_skipped": 0,
+                      # tensor-parallel dispatch accounting (0 at tp=1):
+                      # count and accumulated wall-µs of the dispatches
+                      # but warmup's, result on the host, so
+                      # tp_dispatch_us / tp_dispatches is the cost of one
+                      "tp_dispatches": 0, "tp_dispatch_us": 0}
         self.last_decode_bucket = 0   # rows the last decode tick dispatched
         # prefix-index feed: a bounded register/evict event log, plus the
         # token prefix behind every registered full-block chain
@@ -211,9 +338,21 @@ class BlockPool:
 
     def reset(self) -> None:
         """Fresh device + host state after an engine failure (the
-        :meth:`SlotPool.reset` contract)."""
-        self.cache = self._init_cache()
+        :meth:`SlotPool.reset` contract); followers re-zero their shards."""
+        self._dispatch("reset")
         self._reset_host()
+
+    def close(self) -> None:
+        """Drop the device state here and on the followers (a pool being
+        replaced: a weight swap, a closed engine)."""
+        if self.cache is not None:
+            self._dispatch("close")
+
+    @property
+    def tp_degree(self) -> int:
+        """Model-axis width this pool's programs shard over (1 = the
+        single-device path)."""
+        return 1 if self._mesh is None else int(self._mesh.shape[MODEL_AXIS])
 
     @property
     def free_slots(self) -> int:
@@ -297,7 +436,7 @@ class BlockPool:
                 max(0, min(self.interactive_reserve, avail))),
             "prefix_cache_keys": float(len(self._full_map)),
             "decode_bucket": float(self.last_decode_bucket),
-            "tp_degree": 1.0,
+            "tp_degree": float(self.tp_degree),
         }
 
     # -- allocator ------------------------------------------------------------
@@ -464,7 +603,7 @@ class BlockPool:
                     chain = hashes[j - 1] if j else salt
                     src = self._tail_map[(chain, prompt[j * bs:].tobytes())]
                 dst = self._alloc()
-                self._copy(dst, src)
+                self._dispatch("copy", dst, src)
                 self.stats["cow_copies"] += 1
                 blocks.append(dst)
             # fresh blocks for the uncovered prompt tail
@@ -563,8 +702,11 @@ class BlockPool:
     def _leaf_meta(self) -> list[tuple[tuple[int, ...], str]]:
         """Per-block payload geometry: for every leaf the shape and dtype
         name of one block's slice ``leaf[blk]`` (numpy's names:
-        ``bfloat16``, ``float32``)."""
-        return [(tuple(leaf.shape[1:]), str(leaf.dtype).removeprefix("torch."))
+        ``bfloat16``, ``float32``), with every head: a head-sharded pool
+        reports the full shape its wire carries."""
+        heads = self.tp_degree if self._kv_sharded else 1
+        return [((leaf.shape[1], leaf.shape[2] * heads, *leaf.shape[3:]),
+                 str(leaf.dtype).removeprefix("torch."))
                 for leaf in self._leaves()]
 
     def export_blocks(self, prompt, skip_hashes=()) -> dict | None:
@@ -590,18 +732,14 @@ class BlockPool:
         start = 0
         while start < n and hashes[start].hex() in skip:
             start += 1
-        leaves = self._leaves()
-        payload = []
-        for j in range(start, n):
-            blk = self._full_map[hashes[j]]
-            payload.append([
-                base64.b64encode(leaf[blk].contiguous().view(torch.uint8)
-                                 .cpu().numpy().tobytes()).decode("ascii")
-                for leaf in leaves])
+        blocks = [self._full_map[hashes[j]] for j in range(start, n)]
+        arrays = self._dispatch("export", blocks) if blocks else []
+        payload = [[base64.b64encode(a[i].tobytes()).decode("ascii")
+                    for a in arrays] for i in range(len(blocks))]
         return {
             "version": KV_WIRE_VERSION,
             "block_size": bs,
-            "tp": 1,                  # tensor parallelism is not ported
+            "tp": self.tp_degree,     # advisory: payloads are full-shape
             "leaves": [[list(s), d] for s, d in self._leaf_meta()],
             "hashes": [h.hex() for h in hashes[:n]],
             "tokens": [int(t) for t in prompt[:n * bs]],
@@ -693,9 +831,9 @@ class BlockPool:
                 f"pool cannot hold {len(new_hashes)} imported blocks "
                 f"({self.free_blocks_effective} reclaimable)")
         landed: list[int] = []
+        writes: list = []
         skipped = 0
         nbytes = 0
-        leaves = self._leaves()
         try:
             for j in range(start, n):
                 h = chain[j]
@@ -703,8 +841,7 @@ class BlockPool:
                     skipped += 1
                     continue
                 blk = self._alloc()
-                for leaf, arr in zip(leaves, decoded[j - start]):
-                    leaf[blk].copy_(arr)
+                writes.append(decoded[j - start])
                 self._full_map[h] = blk
                 self._block_keys.setdefault(blk, []).append(("full", h))
                 toks = tuple(int(t) for t in tokens[:(j + 1) * bs])
@@ -721,6 +858,8 @@ class BlockPool:
                 self._unregister(blk)
                 self._decref(blk)
             raise
+        if landed:
+            self._dispatch("import", landed, local={"arrays": writes})
         # ref 1 -> 0: registered blocks park in the idle LRU, hittable by
         # the next admit. Held at ref 1 during the loop so allocation
         # pressure can never reclaim an earlier block of this very chain.
@@ -836,10 +975,9 @@ class BlockPool:
                 starts[i] = st.filled
         return tables, starts
 
-    def _adapter_extras(self, rows):
-        """The forward's ``adapters`` argument: ``(stacks, idx[R])`` with
-        ``idx[i]`` the row's adapter slot (0 = base / free / warmup row →
-        the null stack row, delta exactly 0); None when no pool is
+    def _adapter_idx(self, rows):
+        """Each row's adapter slot ``[R]`` (0 = base / free / warmup row →
+        the null stack row, delta exactly 0); None when no adapter pool is
         attached."""
         if self._adapters is None:
             return None
@@ -848,16 +986,109 @@ class BlockPool:
             st = self._streams.get(row) if row is not None else None
             if st is not None:
                 idx[i] = st.adapter_slot
+        return idx
+
+    def _adapters_for(self, idx):
+        """The forward's ``adapters`` argument for slot vector ``idx``:
+        ``(stacks, idx)``, or None."""
+        if idx is None:
+            return None
         return (self._adapters.stacks(), host_to_device(idx, self.device))
 
     # -- device work ----------------------------------------------------------
+    # Every device program is one dispatch: the methods below work out the
+    # host arguments, _dispatch hands them to the followers (tensor
+    # parallelism) and runs the program (_prog_<op>) on this rank's shard.
+    def _dispatch(self, op: str, *args, local: dict | None = None):
+        if self._group is None:
+            return self.run_program(op, args, local)
+        from ddw_tpu_torch.serve import tp as _tp
+
+        _tp.check_group(self._group)
+        t0 = time.perf_counter()
+        try:
+            _tp.send_header(self._group, ("pool", self._pool_id, op, args))
+            out = self.run_program(op, args, local)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        except Exception as e:
+            # the ranks no longer agree on which program runs next
+            _tp.mark_broken(self._group)
+            raise _tp.TPGroupFailed(
+                f"tensor-parallel dispatch {op!r} failed: {e}") from e
+        if not op.startswith("warmup"):
+            self.stats["tp_dispatches"] += 1
+            self.stats["tp_dispatch_us"] += int(
+                (time.perf_counter() - t0) * 1e6)
+        return out
+
     @torch.no_grad()
-    def _copy(self, dst: int, src: int) -> None:
+    def run_program(self, op: str, args, local: dict | None = None):
+        """Run device program ``op`` on this rank's shard: what a dispatch
+        runs here, and what a follower runs for rank 0's header."""
+        return getattr(self, f"_prog_{op}")(*args, **(local or {}))
+
+    def _record(self, logits: torch.Tensor) -> None:
+        if self.record_logits is not None:
+            self.record_logits.append(logits.float().cpu().numpy())
+
+    def _prog_copy(self, dst: int, src: int) -> None:
         """Clone block ``src`` into ``dst`` in every layer (copy-on-write)."""
         for leaf in self._leaves():
             leaf[dst].copy_(leaf[src])
 
-    @torch.no_grad()
+    def _prog_reset(self) -> None:
+        self.cache = self._init_cache()
+
+    def _prog_close(self) -> None:
+        self.cache = None
+
+    def _heads(self, a: torch.Tensor, coord: int) -> torch.Tensor:
+        """Rank ``coord``'s heads of one full-shape block ``[bs, KV, hd]``
+        (all of them when the pool is not head-sharded)."""
+        if not self._kv_sharded or self._group is None:
+            return a
+        kvl = self._leaves()[0].shape[2]
+        return a.narrow(1, coord * kvl, kvl)
+
+    def _prog_export(self, blocks) -> list[np.ndarray]:
+        """Per leaf, the raw bytes of ``blocks`` as ``[n, bs, KV, hd *
+        itemsize]`` uint8 with every head: a head-sharded pool gathers the
+        followers' heads."""
+        from ddw_tpu_torch.runtime.collectives import all_gather_axis
+
+        idx = torch.as_tensor(blocks, dtype=torch.long, device=self.device)
+        out = []
+        for leaf in self._leaves():
+            x = leaf[idx].contiguous().view(torch.uint8)
+            if self._kv_sharded and self._group is not None:
+                x = all_gather_axis(x, self._group, tiled=True, axis=2)
+            out.append(x.cpu().numpy())
+        return out
+
+    def _prog_import(self, blocks, arrays=None) -> None:
+        """Write full-shape block payloads (``arrays[i][leaf]``, group rank
+        0's) into ``blocks``: rank 0 sends each follower its heads and
+        keeps its own."""
+        from ddw_tpu_torch.serve import tp as _tp
+
+        leaves = self._leaves()
+        if self._group is not None and self._lead:
+            for r in range(1, self.tp_degree):
+                _tp.send_tensors(self._group, r, [
+                    self._heads(a, r) for row in arrays for a in row])
+            rows = [[self._heads(a, 0) for a in row] for row in arrays]
+        elif self._group is not None:
+            got = _tp.recv_tensors(self._group, 0, [
+                leaf[0] for _ in blocks for leaf in leaves])
+            rows = [got[i:i + len(leaves)]
+                    for i in range(0, len(got), len(leaves))]
+        else:
+            rows = arrays
+        for blk, row in zip(blocks, rows):
+            for leaf, a in zip(leaves, row):
+                leaf[blk].copy_(a)
+
     def prefill(self, rows, padded_suffixes, true_lens, temps, keys
                 ) -> np.ndarray:
         """One grouped suffix-prefill forward: ``padded_suffixes [G, S]``
@@ -867,8 +1098,6 @@ class BlockPool:
         offset and writes straight into its blocks; the returned
         ``first_tokens [G]`` (host) are picked from the last REAL suffix
         position's logits."""
-        padded_suffixes = np.asarray(padded_suffixes, np.int64)
-        g = padded_suffixes.shape[0]
         tables, starts = self._tables_starts(rows)
         # starts for prefill are the HIT offsets, not filled (filled is 0
         # until note_prefilled); hit = prompt_len - true suffix len
@@ -876,14 +1105,22 @@ class BlockPool:
             if row is not None:
                 starts[i] = (self._streams[row].prompt_len
                              - int(true_lens[i]))
-        logits = self.model(host_to_device(padded_suffixes, self.device),
+        return self._dispatch(
+            "prefill", tables, starts, np.asarray(padded_suffixes, np.int64),
+            np.asarray(true_lens, np.int64), np.asarray(temps),
+            np.asarray(keys), self._adapter_idx(rows))
+
+    def _prog_prefill(self, tables, starts, suffixes, true_lens, temps,
+                      keys, adapter_idx) -> np.ndarray:
+        g = suffixes.shape[0]
+        logits = self.model(host_to_device(suffixes, self.device),
                             cache=self.cache,
-                            adapters=self._adapter_extras(rows),
+                            adapters=self._adapters_for(adapter_idx),
                             block_tables=host_to_device(tables, self.device),
                             start_pos=starts)
-        idx = host_to_device(np.asarray(true_lens, np.int64) - 1,
-                             self.device)
+        idx = host_to_device(true_lens - 1, self.device)
         last = logits[torch.arange(g, device=self.device), idx]
+        self._record(last)
         return _pick(last, temps, keys).cpu().numpy().astype(np.int32)
 
     def _live_bucket(self) -> int:
@@ -920,21 +1157,29 @@ class BlockPool:
             st.filled = min(st.filled + k, st.total)
         return toks
 
-    @torch.no_grad()
     def _decode_dispatch(self, tokens, temps, keys, rows) -> np.ndarray:
         """One decode chain over ``rows`` (``None`` = null-table warmup
-        row): the tick's table goes to the device once, the depths stay
-        host ints, the picks stay on the device until the one fetch."""
+        row)."""
         tables, starts = self._tables_starts(rows)
+        return self._dispatch("decode", tables, starts,
+                              np.asarray(tokens, np.int64),
+                              np.asarray(temps), np.asarray(keys),
+                              self._adapter_idx(rows))
+
+    def _prog_decode(self, tables, starts, tokens, temps, keys,
+                     adapter_idx) -> np.ndarray:
+        """The chain: the tick's table goes to the device once, the depths
+        stay host ints, the picks stay on the device until the one
+        fetch."""
         tables_d = host_to_device(tables, self.device)
         tok = host_to_device(tokens, self.device)
-        keys = np.asarray(keys)
-        adapters = self._adapter_extras(rows)
+        adapters = self._adapters_for(adapter_idx)
         out = []
         for j in range(self.steps_per_tick):
             logits = self.model(tok[:, None], cache=self.cache,
                                 adapters=adapters,
                                 block_tables=tables_d, start_pos=starts + j)
+            self._record(logits[:, 0])
             tok = _pick(logits[:, 0], temps, keys[:, j])
             out.append(tok)
         return torch.stack(out, 1).cpu().numpy().astype(np.int32)
@@ -961,15 +1206,19 @@ class BlockPool:
             drafts = out
         return drafts
 
-    @torch.no_grad()
     def _spec_draft_dispatch(self, prev, cur, temps, keys, rows
                              ) -> np.ndarray:
         tables, starts = self._tables_starts(rows)
+        return self._dispatch("spec_draft", tables, starts,
+                              np.stack([prev, cur], axis=1).astype(np.int64),
+                              np.asarray(temps), np.asarray(keys))
+
+    def _prog_spec_draft(self, tables, starts, pair, temps, keys
+                         ) -> np.ndarray:
         tables_d = host_to_device(tables, self.device)
-        keys = np.asarray(keys)
         k = keys.shape[1]
-        pair = host_to_device(np.stack([prev, cur], axis=1), self.device)
-        logits = self.model(pair, cache=self.cache, block_tables=tables_d,
+        logits = self.model(host_to_device(pair, self.device),
+                            cache=self.cache, block_tables=tables_d,
                             start_pos=starts)
         tok = _pick(logits[:, 1], temps, keys[:, 0])
         out = [tok]
@@ -1006,34 +1255,51 @@ class BlockPool:
             picks = out
         return picks
 
-    @torch.no_grad()
     def _spec_verify_dispatch(self, tokens, temps, keys, rows) -> np.ndarray:
         tables, starts = self._tables_starts(rows)
-        keys = np.asarray(keys)
+        return self._dispatch("spec_verify", tables, starts,
+                              np.asarray(tokens, np.int64),
+                              np.asarray(temps), np.asarray(keys),
+                              self._adapter_idx(rows))
+
+    def _prog_spec_verify(self, tables, starts, tokens, temps, keys,
+                          adapter_idx) -> np.ndarray:
         logits = self.model(host_to_device(tokens, self.device),
                             cache=self.cache,
-                            adapters=self._adapter_extras(rows),
+                            adapters=self._adapters_for(adapter_idx),
                             block_tables=host_to_device(tables, self.device),
                             start_pos=starts)
-        picks = [_pick(logits[:, j], temps, keys[:, j])
-                 for j in range(logits.shape[1])]
+        picks = []
+        for j in range(logits.shape[1]):
+            self._record(logits[:, j])
+            picks.append(_pick(logits[:, j], temps, keys[:, j]))
         return torch.stack(picks, 1).cpu().numpy().astype(np.int32)
+
+    def _null_rows(self, nb: int) -> tuple[np.ndarray, np.ndarray]:
+        return (np.zeros((nb, self.n_tbl), np.int32),
+                np.zeros((nb,), np.int32))
 
     def warmup_spec(self, spec_k: int, role: str) -> None:
         """Run one spec program per resident bucket of the ladder
         (null-table rows, like :meth:`warmup`): the verify pass on the
         target pool, the lagged draft chain on the draft pool."""
+        self._dispatch("warmup_spec", spec_k, role)
+
+    def _prog_warmup_spec(self, spec_k: int, role: str) -> None:
         for nb in self.resident_ladder():
+            tables, starts = self._null_rows(nb)
             if role == "verify":
-                self._spec_verify_dispatch(
-                    np.zeros((nb, spec_k + 1), np.int32),
+                self._prog_spec_verify(
+                    tables, starts, np.zeros((nb, spec_k + 1), np.int64),
                     np.zeros((nb,), np.float32),
-                    np.zeros((nb, spec_k + 1), np.int64), [None] * nb)
+                    np.zeros((nb, spec_k + 1), np.int64),
+                    None if self._adapters is None
+                    else np.zeros((nb,), np.int64))
             else:
-                self._spec_draft_dispatch(
-                    np.zeros((nb,), np.int32), np.zeros((nb,), np.int32),
+                self._prog_spec_draft(
+                    tables, starts, np.zeros((nb, 2), np.int64),
                     np.zeros((nb,), np.float32),
-                    np.zeros((nb, spec_k), np.int64), [None] * nb)
+                    np.zeros((nb, spec_k), np.int64))
 
     def resident_ladder(self) -> tuple[int, ...]:
         """Decode-batch bucket ladder: pow2 row counts up to
@@ -1054,20 +1320,69 @@ class BlockPool:
         bucket of the ladder, and the CoW copy. Warmup rows use the null
         table, so every write lands in the null block — pool state stays
         clean, no reset needed."""
-        cap_g = max_group or min(8, self.max_resident)
-        for bucket in sorted(set(buckets)):
+        self._dispatch("warmup", sorted(set(buckets)),
+                       max_group or min(8, self.max_resident))
+
+    def _prog_warmup(self, buckets, cap_g: int) -> None:
+        adapter = self._adapters is not None
+        for bucket in buckets:
             g = 1
             while True:
-                self.prefill([None] * g, np.zeros((g, bucket), np.int32),
-                             np.ones((g,), np.int32),
-                             np.zeros((g,), np.float32),
-                             np.zeros((g,), np.int64))
+                tables, starts = self._null_rows(g)
+                self._prog_prefill(
+                    tables, starts, np.zeros((g, bucket), np.int64),
+                    np.ones((g,), np.int64), np.zeros((g,), np.float32),
+                    np.zeros((g,), np.int64),
+                    np.zeros((g,), np.int64) if adapter else None)
                 if g >= cap_g:
                     break
                 g = min(g * 2, cap_g)
         k = self.steps_per_tick
         for nb in self.resident_ladder():
-            self._decode_dispatch(np.zeros((nb,), np.int32),
-                                  np.zeros((nb,), np.float32),
-                                  np.zeros((nb, k), np.int64), [None] * nb)
-        self._copy(0, 0)
+            tables, starts = self._null_rows(nb)
+            self._prog_decode(tables, starts, np.zeros((nb,), np.int64),
+                              np.zeros((nb,), np.float32),
+                              np.zeros((nb, k), np.int64),
+                              np.zeros((nb,), np.int64) if adapter else None)
+        self._prog_copy(0, 0)
+
+
+def _sharded_skeleton(init_kwargs: dict, rules, mesh, device,
+                      full: TransformerLM | None = None):
+    """The model of ``init_kwargs`` sharded over ``mesh``'s model axis by
+    ``rules`` on ``device``: built on the meta device, sharded
+    (:func:`~ddw_tpu_torch.parallel.sharding.tp_shard_module`), then
+    allocated. With ``full`` (group rank 0's whole model) this rank's shard
+    is copied in, and the second value gives rank ``r``'s shards in
+    parameter order (what :func:`ddw_tpu_torch.serve.tp.send_tensors`
+    sends it); without, the weights are left for the caller."""
+    from ddw_tpu_torch.models.convert import flax_leaf_index
+    from ddw_tpu_torch.parallel.sharding import (P, local_block,
+                                                 specs_by_name,
+                                                 tp_shard_module)
+
+    with torch.device("meta"):
+        local = TransformerLM(**init_kwargs)
+    specs = specs_by_name(local, rules, mesh)
+    tp_shard_module(local, specs, mesh)
+    local.to_empty(device=device)
+    local.eval().requires_grad_(False)
+    if full is None:
+        return local, None
+    dims = {n: v[2] for n, v in flax_leaf_index(full).items()}
+    full_params = dict(full.named_parameters())
+
+    def shards(r: int) -> list[torch.Tensor]:
+        out = []
+        for n, p in local.named_parameters():
+            only = P(*[a if a == MODEL_AXIS else None
+                       for a in specs.get(n, P())])
+            out.append(local_block(full_params[n].data, only, dims[n], mesh,
+                                   {MODEL_AXIS: r}).to(p.dtype))
+        return out
+
+    with torch.no_grad():
+        for (_, p), t in zip(local.named_parameters(),
+                             shards(mesh.axis_index(MODEL_AXIS))):
+            p.copy_(t)
+    return local, shards

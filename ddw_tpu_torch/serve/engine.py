@@ -71,8 +71,21 @@ counts that restart every generation.
 
 The loop is a background thread: it enters ``torch.no_grad()`` itself
 (grad mode is thread-local), and its device work runs on that thread's
-current stream. Not yet ported, refused at construction with an error
-naming ``ROADMAP.md``: tensor parallelism (``tp > 1``, ``mesh=``).
+current stream.
+
+Tensor parallelism (``EngineCfg(tp=N)`` or ``mesh=``): one replica spans
+``N`` rank processes (:mod:`ddw_tpu_torch.serve.tp`). This process is rank
+0 and schedules; parameters shard by ``LM_TP_RULES``, the KV block pools
+on their heads axis, and every device program of the paged pools is one
+dispatch the other ranks follow; the logits are gathered, so every rank
+picks the same tokens, and the replica serves the tokens a ``tp=1``
+engine serves. ``tp=N`` without a mesh builds a replica-private group and
+starts ``N - 1`` follower processes (:class:`~ddw_tpu_torch.serve.tp.
+TPGroup`); an explicit mesh adopts its ``model`` axis, and its other ranks
+construct the same engine, which then follows (:meth:`ServingEngine.
+follow`). The image lane stays on rank 0, unsharded. Adapter pools under
+``tp > 1`` are refused at construction with an error naming
+``ROADMAP.md``.
 """
 
 from __future__ import annotations
@@ -92,6 +105,7 @@ from ddw_tpu_torch.models.spec_decode import match_length
 from ddw_tpu_torch.obs.telemetry import TelemetryHub
 from ddw_tpu_torch.obs.trace import Tracer
 from ddw_tpu_torch.runtime.faults import ServeCrash, maybe_serve_fault
+from ddw_tpu_torch.runtime.mesh import MODEL_AXIS
 from ddw_tpu_torch.serve.adapters import (AdapterError, AdapterPool,
                                           UnknownAdapter,
                                           load_adapter as load_adapter_file)
@@ -139,7 +153,7 @@ def draw_step_seeds(rng: torch.Generator, num_steps: int) -> np.ndarray:
 @dataclasses.dataclass
 class EngineCfg:
     """Batching / admission policy knobs (every field of ``ddw_tpu``'s,
-    with its default; ``tp > 1`` is refused by :class:`ServingEngine`)."""
+    with its default)."""
 
     n_slots: int = 8            # concurrent LM sequences on device
     steps_per_tick: int = 4     # decode chain length per tick
@@ -188,7 +202,11 @@ class EngineCfg:
     telemetry: bool = False
     telemetry_interval_s: float = 0.25
     telemetry_capacity: int = 4096  # sample ring bound (drop-oldest)
-    tp: int = 1                 # tensor parallelism (not ported: refused)
+    # tensor parallelism: one replica spans tp rank processes — params
+    # shard per LM_TP_RULES, the KV block pool on the heads axis, and the
+    # tokens are tp=1's (greedy and seeded). Requires paged=True; the head
+    # count must divide by tp.
+    tp: int = 1
     # heterogeneous LoRA adapters (serve/adapters AdapterPool): slot 0 is
     # the null adapter, so tenant-less traffic gives adapter_slots=0's
     # tokens. Requires paged=True.
@@ -376,7 +394,18 @@ class ServingEngine:
         if lm is None and image is None:
             raise ValueError("engine needs an lm and/or image model")
         self.cfg = cfg or EngineCfg()
-        self._refuse_unported(mesh)
+        self.mesh = self._resolve_mesh(mesh)
+        self._tp_degree = (int(self.mesh.shape[MODEL_AXIS])
+                           if self.mesh is not None else self.cfg.tp)
+        self._tp_group = None       # the replica-private group this engine
+        #                             built (tp > 1 without a mesh)
+        self._follower = False      # an explicit mesh's rank other than 0
+        if self.mesh is not None:
+            from ddw_tpu_torch.ops.ring_reduce import group_size_rank
+
+            self._follower = group_size_rank(
+                self.mesh.group(MODEL_AXIS))[1] != 0
+        self._closed = False
         self.run = run
         self.metrics = EngineMetrics()
         # the tracer object always exists (drains and summaries stay cheap
@@ -443,11 +472,39 @@ class ServingEngine:
         if self._image is not None:
             self._image_apply = self._image.apply
 
-    def _refuse_unported(self, mesh) -> None:
-        """What of ``ddw_tpu``'s engine this port lacks raises here, at
-        construction, naming ``ROADMAP.md`` — never ignored."""
-        if self.cfg.tp > 1 or mesh is not None:
-            raise _not_ported("tensor-parallel serving (tp > 1, mesh=)")
+    def _resolve_mesh(self, mesh):
+        """Reconcile ``EngineCfg.tp`` with an explicit mesh, with
+        ``ddw_tpu``'s rules and messages: an explicit mesh with ``tp`` left
+        at 1 is adopted (its ``model`` axis IS the degree), a degenerate
+        one of size 1 keeps the ``tp=1`` path, and conflicts fail here, at
+        construction. ``tp > 1`` without a mesh returns None: the engine
+        builds its replica-private group after the head checks
+        (:meth:`_init_lm`). ``ddw_tpu`` refuses ``tp`` above the local
+        device count; the port runs a rank process per shard, ranks sharing
+        cards, so what it can place is one rank per CPU core
+        (``os.cpu_count()``), and ``tp`` above that is refused with the
+        same message."""
+        tp = self.cfg.tp
+        if mesh is not None:
+            if MODEL_AXIS not in mesh.shape:
+                raise ValueError(
+                    f"serving mesh must carry a '{MODEL_AXIS}' axis, got "
+                    f"axes {tuple(mesh.shape)}")
+            size = int(mesh.shape[MODEL_AXIS])
+            if tp > 1 and size != tp:
+                raise ValueError(
+                    f"EngineCfg(tp={tp}) conflicts with the mesh's "
+                    f"'{MODEL_AXIS}' axis size {size}")
+            if size == 1 and tp == 1:
+                return None        # degenerate slice: keep the tp=1 path
+            return mesh
+        ndev = os.cpu_count() or 1
+        if tp > ndev:
+            raise ValueError(
+                f"tp {tp} exceeds the local device count {ndev}: a "
+                f"tensor-parallel replica runs a rank process per shard on "
+                f"this host, at most one per CPU core")
+        return None
 
     @property
     def device(self) -> torch.device:
@@ -456,9 +513,15 @@ class ServingEngine:
 
     @property
     def tp_degree(self) -> int:
-        """Model-axis width this replica's programs shard over — always 1
-        here (tensor parallelism is refused at construction)."""
-        return 1
+        """Model-axis width this replica's programs shard over (1 = the
+        single-device path)."""
+        return self._tp_degree
+
+    @property
+    def follower_pids(self) -> list[int]:
+        """The follower processes this engine started (tp > 1 without a
+        mesh); empty otherwise."""
+        return self._tp_group.pids if self._tp_group is not None else []
 
     @property
     def role(self) -> str:
@@ -478,10 +541,15 @@ class ServingEngine:
         else:
             draft = _handle(draft)
         self._draft = draft
+        for old in (getattr(self, "_draft_pool", None),
+                    getattr(self, "pool", None)):
+            if isinstance(old, BlockPool) and old.tp_degree > 1 \
+                    and old.cache is not None:
+                old.close()     # the followers drop the replaced pool
         self._draft_pool: BlockPool | None = None
         self.adapters: AdapterPool | None = None
-        if self._lm is None:
-            self.pool = None
+        if self._lm is None or self._follower:
+            self.pool = None    # a follower's pools are rank 0's to build
             return
         spec = self.cfg.spec_k > 0
         if self.cfg.spec_k < 0:
@@ -501,6 +569,29 @@ class ServingEngine:
             raise ValueError(f"draft on {draft.device} but target on "
                              f"{self._lm.device}: both pools must live on "
                              f"one device")
+        tp = self.tp_degree
+        if tp > 1:
+            # the attention head axis is the tensor-parallel shard axis: a
+            # head count the group cannot split fails here, before any
+            # follower starts
+            roles = [("target", self._lm)] + ([("draft", draft)]
+                                              if spec else [])
+            for role, h in roles:
+                heads = h.model.num_heads
+                if heads % tp:
+                    raise ValueError(
+                        f"tp {tp} does not divide the {role} model's "
+                        f"num_heads {heads}: attention heads are the "
+                        f"tensor-parallel shard axis")
+            if self.cfg.adapter_slots > 0:
+                raise _not_ported("LoRA adapter pools under tensor "
+                                  "parallelism (adapter_slots > 0 with "
+                                  "tp > 1)")
+            if self.mesh is None:
+                from ddw_tpu_torch.serve.tp import TPGroup
+
+                self._tp_group = TPGroup(tp, self._lm.device)
+                self.mesh = self._tp_group.mesh
         if self.cfg.paged:
             # the adapter pool is built BEFORE the block pool, which takes
             # its stacks into every forward. The DRAFT pool never gets one:
@@ -568,7 +659,8 @@ class ServingEngine:
             steps_per_tick=steps_per_tick,
             overcommit=self.cfg.block_overcommit,
             interactive_reserve=reserve,
-            decode_buckets=self.cfg.decode_buckets, adapters=adapters)
+            decode_buckets=self.cfg.decode_buckets, mesh=self.mesh,
+            adapters=adapters)
 
     # -- checkpoint hot-swap --------------------------------------------------
     @property
@@ -616,6 +708,15 @@ class ServingEngine:
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> "ServingEngine":
+        if self._follower:
+            # an explicit mesh's other rank: its thread follows rank 0
+            if self._thread is None:
+                self._thread = threading.Thread(
+                    target=self.follow, name="ddw-tp-follow", daemon=True)
+                self._thread.start()
+            return self
+        if self._closed:
+            raise RuntimeError("engine closed")
         if self._thread is None:
             self._stop.clear()
             self._stopped = False
@@ -638,7 +739,50 @@ class ServingEngine:
                     device=self.device).start()
         return self
 
+    def follow(self) -> int:
+        """On an explicit mesh's rank other than 0: run the programs rank
+        0 dispatches until rank 0 closes the replica (:func:`ddw_tpu_torch.
+        serve.tp.follow`); 0 on ``close``, 1 when rank 0 is gone."""
+        if not self._follower:
+            raise RuntimeError("only a rank other than 0 of the mesh's "
+                               "model axis follows")
+        from ddw_tpu_torch.serve.tp import follow
+
+        return follow(self.mesh, self.device)
+
+    def close(self) -> None:
+        """:meth:`stop`, then release the other ranks: the pools are
+        dropped on every rank, the followers this engine started exit, and
+        an explicit mesh's other ranks return from :meth:`follow`. A
+        closed engine does not restart. Idempotent; at ``tp=1`` the same as
+        :meth:`stop`."""
+        if self._follower:
+            if self._thread is not None:
+                self._thread.join(timeout=60.0)
+            return
+        self.stop()
+        if self._closed or self.tp_degree == 1:
+            self._closed = True
+            return
+        self._closed = True
+        from ddw_tpu_torch.serve import tp as _tp
+
+        try:
+            for pool in (self._draft_pool, self.pool):
+                if isinstance(pool, BlockPool) and pool.cache is not None:
+                    pool.close()
+            if self._tp_group is None:
+                _tp.check_group(self.mesh.group(MODEL_AXIS))
+                _tp.send_header(self.mesh.group(MODEL_AXIS), ("close",))
+        except (ServeCrash, RuntimeError):
+            pass                # a broken group: nothing left to release
+        if self._tp_group is not None:
+            self._tp_group.close()
+
     def stop(self) -> None:
+        if self._follower:
+            self._stopped = True
+            return
         self._stop.set()
         with self._cv:
             self._cv.notify_all()
@@ -906,7 +1050,10 @@ class ServingEngine:
         """Bring a ``failed`` (or stopped) replica back in place: the dead
         thread is joined, the pool re-initialized, the generation bumped,
         the loop restarted. Raises if the old thread is still running —
-        use :meth:`clone_fresh` then."""
+        use :meth:`clone_fresh` then. A tensor-parallel replica whose group
+        failed gets new followers and its pools rebuilt over them."""
+        if self._closed:
+            raise RuntimeError("engine closed: build a new one")
         if self._thread is not None:
             self._thread.join(timeout=join_timeout_s)
             if self._thread.is_alive():
@@ -921,6 +1068,17 @@ class ServingEngine:
         self.generation += 1
         self._fault_n = {}
         self._inflight_admit = []
+        group = self._tp_group
+        if group is not None and group.broken:
+            # a follower died, or a dispatch left the ranks out of step:
+            # new followers, and the pools rebuilt over them (on the
+            # staged checkpoint when one is pending)
+            group.close()
+            self._tp_group, self.mesh = None, None
+            self.pool = self._draft_pool = None
+            if self._pending_checkpoint is None:
+                self._init_lm(self._lm)
+            self._pool_stats_seen = {}
         if self._pending_checkpoint is not None:
             self._apply_pending_checkpoint()
             self._pool_stats_seen = {}
@@ -982,13 +1140,22 @@ class ServingEngine:
 
     def clone_fresh(self) -> "ServingEngine":
         """A replacement replica over the same handles and config, carrying
-        the replica identity, the next generation and the failover hook."""
+        the replica identity, the next generation and the failover hook. A
+        tensor-parallel clone keeps the degree: over the same explicit
+        mesh, or over followers of its own when this engine started its
+        own (this engine's followers are closed)."""
+        owned = self._tp_group
         eng = ServingEngine(lm=self._lm, image=self._image, cfg=self.cfg,
-                            replica_id=self.replica_id, draft=self._draft)
+                            replica_id=self.replica_id, draft=self._draft,
+                            mesh=None if owned is not None else self.mesh)
         eng.generation = self.generation + 1
         eng.on_failure = self.on_failure
         eng.model_dir = self.model_dir
         eng.draft_dir = self.draft_dir
+        if owned is not None:
+            # the clone started followers of its own; this engine's go (a
+            # thread wedged in one of their collectives gets its error)
+            owned.close(grace_s=1.0)
         return eng
 
     def adopt(self, kind: str, req) -> None:
@@ -1291,6 +1458,9 @@ class ServingEngine:
 
     # -- internals ----------------------------------------------------------
     def _offer(self, kind: str, req) -> None:
+        if self._follower:
+            raise RuntimeError("this rank follows rank 0 of the mesh's "
+                               "model axis; submit there")
         if self._failure is not None:   # a failed replica refuses instantly
             raise self._refusal()
         if self._draining.is_set():
@@ -1732,6 +1902,11 @@ class ServingEngine:
                 # unwound cleanly; head-of-line waits for releases
                 self._ctrl.requeue_front(kind, req)
                 break
+            except BaseException:
+                # a failed device dispatch (the CoW copy): every request
+                # claimed so far must resolve with the failure
+                self._inflight_admit = [r for r, *_ in picked] + [req]
+                raise
             if self._draft_pool is not None:
                 dp, dns = self._draft_admit_shape(len(eff), ns)
                 try:
@@ -1741,6 +1916,9 @@ class ServingEngine:
                     pool.release(row)   # clean unwind: mirror preserved
                     self._ctrl.requeue_front(kind, req)
                     break
+                except BaseException:
+                    self._inflight_admit = [r for r, *_ in picked] + [req]
+                    raise
                 if drow != row:
                     raise AssertionError(
                         f"draft row {drow} diverged from target row {row}")

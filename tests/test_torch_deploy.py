@@ -480,8 +480,18 @@ def test_process_fleet_serves_the_in_thread_tokens_and_restarts(
         assert lonely.last_exit_code not in (None, 0)
     finally:
         lonely.stop()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ProcessReplica(pkgs["a"][0], tp=2)
+    # tensor parallelism rides in through the kwarg or engine_cfg, the
+    # kwarg winning, and the clone keeps it (the tp=2 fleet itself is the
+    # slow drill of test_torch_tp_serve.py)
+    for kw, want in ((dict(tp=2), 2), (dict(engine_cfg={"tp": 2}), 2),
+                     (dict(engine_cfg={"tp": 4}, tp=2), 2)):
+        rep = ProcessReplica(pkgs["a"][0], **kw)
+        clone = rep.clone_fresh()
+        try:
+            assert rep.tp == want and clone.tp == want
+        finally:
+            rep.stop()
+            clone.stop()
 
 
 @pytest.mark.slow

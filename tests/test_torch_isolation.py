@@ -99,7 +99,8 @@ def test_every_port_module_imports_with_jax_blocked():
                  "parallel.pipeline", "parallel.zero", "parallel.sharding",
                  "parallel.comm", "models.moe", "checkpoint.sharded",
                  "dryrun", "runtime.elastic", "runtime.launcher",
-                 "runtime._launch_worker", "runtime.supervisor"):
+                 "runtime._launch_worker", "runtime.supervisor",
+                 "serve.tp"):
         assert f"ddw_tpu_torch.{name}" in modules
     modules += ["examples_torch." + os.path.basename(p)[:-3]
                 for p in _example_sources()]

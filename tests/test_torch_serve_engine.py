@@ -387,11 +387,11 @@ def test_unported_features_are_refused_naming_the_roadmap(pm, monkeypatch):
     tracing, telemetry, the monitor, bulk jobs, the disaggregation roles
     and serve faults landed (their cases moved to test_torch_serve_spec.py,
     test_torch_serve_adapters.py, test_torch_serve_tenancy_lanes.py,
-    test_torch_obs.py, test_torch_kv_disagg.py and test_torch_faults.py):
-    tensor parallelism and a mesh."""
-    for kw in (dict(cfg=EngineCfg(tp=2)), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ServingEngine(lm=pm, **kw)
+    test_torch_obs.py, test_torch_kv_disagg.py and test_torch_faults.py)
+    and tensor parallelism (test_torch_tp_serve.py): adapter pools under
+    tensor parallelism."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ServingEngine(lm=pm, cfg=EngineCfg(tp=2, adapter_slots=2))
     monkeypatch.delenv("DDW_FAULT", raising=False)
     with ServingEngine(lm=pm) as eng:
         with pytest.raises(ValueError, match="exceeds max_len"):
