@@ -22,17 +22,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the reference's PIL closeness (mean |diff| < 0.08), and the images/s of
    one batch call at 224 px beside the host's core count (a host number).
 3. kernel — at the six stride-1 shapes of MobileNetV2-224 at batch 128, in
-   bf16 and f32 (TF32 off): the depthwise 3x3 kernel (K1, the ``"tma"``
-   variant of ``depthwise_sm90.cu`` that the shape picks) equal to its plain
-   PyTorch version bit for bit, with and without ``flip``; the
-   weight-gradient kernel (K2, ``"tma"``) against its plain version within
-   1e-5 * sum|xpad*g| per (dy, dx, c) (the sum in float64), and two K2
-   launches bit-identical; the same at the tile plan's edges (B = 1, 15x13
+   bf16, f32 (TF32 off) and f16: the depthwise 3x3 kernel (K1, the
+   ``"tma"`` variant of ``depthwise_sm90.cu`` that the shape picks, and the
+   ``"simt"`` one) equal to its plain PyTorch version bit for bit, with and
+   without ``flip``; the weight-gradient kernel (K2, both variants) against
+   its plain version within 1e-5 * sum|xpad*g| per (dy, dx, c) (the sum in
+   float64), and two K2 launches bit-identical; the same at the tile plan's
+   edges (B = 1, 15x13
    and 9x7 at C = 64, C = 40, 200 and 48 not multiples of the channel
    block; tiles on every border), every launch counted on ``"tma"``; the
    C = 13 scalar case on ``"simt"``; the autograd Function's dx
-   bit-identical and dw within one bf16 ulp (f32: 1e-5 * sum|xpad*g|) of
-   the plain path's autograd. Times (CUDA events, median of 25 single
+   bit-identical and dw within one bf16 ulp (f32: 1e-5 * sum|xpad*g|; f16:
+   that plus one f16 ulp, the cast of K2's f32 sum) of the plain path's
+   autograd. Times (CUDA events, median of 25 single
    launches, L2 flushed before each) for each kernel, ``"tma"`` and
    ``"simt"`` in turns (tma, simt, simt, tma; the faster median of each),
    its plain version and one library call (timed only, the yardstick:
@@ -68,7 +70,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``dw3x3_wgrad_tma_kernel`` once per K2 launch), the ``trace_dir`` param
    and the ``sys.device_hbm_*`` series in the run; the traced epoch's
    seconds beside the untraced one's.
-5b. workshop — the workshop chain (BASELINE.json configs 1, 3, 4, 5)
+5b. workshop (a drill: 10d) — the workshop chain (BASELINE.json configs
+   1, 3, 4, 5)
    through ``examples_torch``'s ``main(argv)`` in this process, on a seeded
    synthetic flowers tree (5 classes x 64 JPEGs at 256 px; 288 train, 32 val
    at 224x224), at full width (MobileNetV2 1.0, bf16, ``dw_impl="pallas"``):
@@ -107,7 +110,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    relative, the logits of the package it trained within 0.1 x std (rms)
    of the xla-trained one's, and the same package's logits within 2e-2
    (rms) and 1e-1 (max) x std; its own loss falling.
-5d. pretrained — ``examples_torch/08_pretrained_transfer.py``'s ``main`` at
+5d. pretrained (a drill: 10d) —
+   ``examples_torch/08_pretrained_transfer.py``'s ``main`` at
    its quick size (32x32, MobileNetV2 0.35 in f32, batch 8) with
    ``model.dw_impl=pallas``: pretrain 6 epochs, export both layouts,
    convert (the two artifacts agree), frozen transfer from the artifact
@@ -119,8 +123,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 6. lm_kernel — the flash-attention forward kernel (K3) against its plain
    PyTorch version. Three variants, chosen by shape (``_fwd_variant``): sm90
    (TMA and wgmma, ``flash_fwd_sm90.cu``) for bf16 at block_k 128 and head
-   dim 64 or 128, mma (``mma.sync``) for other bf16 blocks of 16k keys and
-   head dim 32, CUDA cores for f32 and other bf16 blocks. Cases: the LM
+   dim 64 or 128, mma (``mma.sync``) for other bf16 and f16 blocks of 16k
+   keys at head dims up to 256, CUDA cores for f32 and the rest. Cases: the LM
    slice's shape [512, 2048, 64] causal in bf16 and f32, a ring hop's offset
    (keys from global 192: query rows 0-191 see no key and must give out 0,
    lse <= -1e29), non-causal at head dim 128, a short block with a key mask
@@ -181,6 +185,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
    computes; K and V read at their 196 valid rows, every other tensor at
    256), the plain versions and SDPA on the unpadded [128, 4, 196, 48]
    (forward, and its whole backward beside K4's and K5's).
+8c. coverage — K3, K4 and K5 at head dims 16, 40, 80, 96, 256 and 512 in
+   bf16, f16 and f32, at [16, 512, D], causal with keys from global 64
+   (query rows 0-63 see no key: out 0, lse <= -1e29, dq exactly 0) and a
+   key mask at 448, on the variant each shape picks (mma for 16-bit up to
+   256, CUDA cores for f32 and above 256), against their plain versions
+   with lm_kernel's and lm_bwd_kernel's tolerances in ulps of the dtype,
+   every launch twice with the same bits; each timed (median of 10, L2
+   flushed) beside the bound (the pairs the masks leave; bf16/f16 at 989
+   TFLOP/s, f32 at 67), the plain version and SDPA with the same mask
+   (forward, and its whole backward beside K4 and K5). Then head dim 256
+   bf16 causal at the lm_wide path's shapes, [128, 2048, 256] (K3) and
+   [64, 2048, 256] (K4, K5), beside SDPA on [64|32, 2, 2048, 256]. Launch
+   counts by kernel, variant and dtype. (K1/K2 in f16: the kernel phase.)
 9. lm_train — the same full-width bf16 LM from ``init_lm_weights`` with a
    seeded generator, trained by ``LMTrainer.fit_tables`` on a seeded,
    learnable ``tokens_i32`` table (arithmetic sequences mod the vocab, 160
@@ -203,13 +220,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
    spans are ``ddw_tpu``'s chain-boundary ``train_chain`` spans, one per
    step, and its K3-K5 counts and variants (all sm90) those of the untraced
    resumed epoch.
+9a. lm_wide — the LM path at head dim 256: ``lm_flash`` with 2 heads of 256
+   (bench.py's ``DDW_BENCH_LM_HEADS=2`` arm, the same FLOPs and bytes per
+   attention call as 8 heads of 64), seeded weights, the kernel tier forced
+   (both thresholds 0: 64 rows of 2 heads would take ``xla_ckpt``):
+   ``save_lm_package`` -> ``LMPackagedModel`` -> ``LMBatchScorer`` over a
+   64 x 2,049 ``tokens_i32`` table, 6 K3 launches all on mma, every NLL
+   within 2e-2 of the xla tier's on the same weights; then
+   ``LMTrainer.fit_tables`` for 3 steps at 32 x 2,048 and one val batch, 6
+   K3 + 6 K4 + 6 K5 a step and 6 K3 a val batch, all mma, finite losses;
+   one step from the seeded weights against the xla tier's step, the loss
+   within 5e-3 relative and every leaf's gradient within 5e-2 RMS gap over
+   RMS (lm_train's bf16 bounds).
 9b. serve — the online serving engine (``ServingEngine``) on the card. The
    same full-width bf16 LM (another seed) through ``save_lm_package`` ->
    ``LMPackagedModel`` -> ``ServingEngine`` with the default ``EngineCfg``
    (paged KV blocks of 16, n_slots 8, 16 resident rows, steps_per_tick 4):
    ``warmup`` over every prompt bucket, then 32 seeded greedy requests from
    4 threads with staggered arrivals (prompts of 16-1,024 tokens, 8 of them
-   on one 256-token prefix; 32-128 new tokens each), then a repeat of the
+   on one 256-token prefix; 16-64 new tokens each), then a repeat of the
    last to finish (its cached tail is cloned). Each stream's tokens must
    equal ``LMPackagedModel.generate``'s, or first differ where the
    sequential path's top-2 margin is under 0.05 of its max |logit| (a bf16
@@ -271,15 +300,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
    context) behind a gateway: the mix within the rule, the seeded request
    the in-thread tokens again, directly and over HTTP; the cold start,
    spawn to ``/readyz``. (c) ``DDW_FAULT=serve:crash:site=decode:replica=1``
-   armed on child 1 through a supervised respawn: 8 unary requests sent to
-   it (the router's canary weight at 1.0), child 1 dies at its first
-   decode tick, the supervisor restarts it, the clients' retries after 503
-   fail over to child 0, every request answered within the rule; the
-   restart seconds. (d) A canary roll (fraction 0.5, a 2 s
-   judgment) to a second seeded package under steady load from 2 threads:
-   zero failed requests, both children on the new digest, tokens after the
-   roll within the rule of the new package's sequential ``generate``, the
-   rollout journal terminal; the roll's seconds. (e) A ``role="prefill"``
+   armed on child 1 through a supervised respawn: 8 unary requests of
+   fresh seeded prompts (the mix's first 8 lengths; a prefix cached on
+   child 0 would outbid the canary weight) sent to it (the router's canary
+   weight at 1.0), child 1 dies at its first decode tick, the supervisor
+   restarts it, the clients' retries after 503 fail over to child 0, every
+   request answered, every token within the rule of the logits it was
+   picked from; the restart seconds. (d) A canary roll (fraction 0.5, a 2 s
+   judgment) to a second seeded package under steady load from 2 threads,
+   held to the canary child (``only=[0]``: one respawn, not two): zero
+   failed requests, child 0 on the new digest and child 1 on the old, the
+   canary's tokens after the roll within the rule of the new package's
+   sequential ``generate``, the rollout journal terminal; the roll's
+   seconds. (e) A ``role="prefill"``
    and a ``role="decode"`` replica: 8 requests each handed off (the KV
    wire), the prefill replica never decoding, every token within the rule;
    handoffs and mean handoff ms. (f) Autoscale (queue per replica out at
@@ -294,8 +327,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    this process is rank 0 and schedules, one follower process on the same
    card runs every paged program on its shard (``ddw_tpu_torch/serve/
    tp.py``; gloo between the two). (a) The first 16 requests of serve's mix
-   (prompts of 16-1,024 tokens, some on the shared 256-token prefix), new
-   tokens cut to 32-64, plus the repeat: every token within serve's 0.05
+   (prompts of 16-1,024 tokens, some on the shared 256-token prefix, 16-64
+   new tokens), plus the repeat: every token within serve's 0.05
    rule of the sequential path's argmax; the streams that differ from
    serve's tp=1 engine printed; the pool drained (``blocks_used`` 0,
    refcounts and commitments 0); ``serve.tp_degree`` 2 and
@@ -303,7 +336,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the follower. Tokens/s beside a tp=1 engine on the same cut (run just
    before it) and beside serve's tp=1 engine on the whole mix, the cost of
    a serving dispatch (``tp_dispatch_cost_us``, warmup's not counted),
-   rank 0's build and the follower's start seconds, TTFT. (b) One
+   rank 0's build and the follower's start seconds, TTFT. (b), a drill
+   (10d), on serve's package saved again from its seed: one
    ``ProcessReplica(tp=2)`` child behind a ``Gateway`` (its follower its
    own child): 4 requests (prompts cut to
    128, 16 new tokens) within the rule; SIGKILL the child: its follower
@@ -326,7 +360,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
    n*128-7 values and an int32 leaf; a tree of f32, bf16 and int32 leaves
    with a view at a 4-byte offset in two launches (one per ring dtype); a
    300-leaf tree in the two launches its plan makes (256 arrays a launch);
-   a pack that a small-slot ``RingComm`` splits into 3+ launches; at N = 4
+   a pack that a small-slot ``RingComm`` splits into 3+ launches; a tree
+   of int8, uint8, int16, uint32 and bool leaves whose sums overflow, one
+   launch per dtype, bit-equal to the plain version and to the wrapped
+   int64 sums (bool: logical or), and the LM tree's shapes in int8 timed
+   (3 calls, max over ranks) beside gloo's per-leaf ``all_reduce``; at N = 4
    a (data=2, seq=2) mesh whose seq rings stay in their rows; a size-1
    axis launches nothing; at N = 2, last, a peer that never arrives makes
    K6 trap and the rank fail within 5 s of a 2 s wait bound. Times: CUDA
@@ -339,8 +377,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    on each CUDA leaf by the same protocol (median of 3 calls, held to K6's
    sum), or its error if gloo refuses. The ranks are time-sliced on the
    card, so the times include the scheduling. The phase's wall seconds.
-10b. parallel — LM training across ranks that share the card (gloo,
-   ``spawn_cpu``). (a) Two ranks with both attention thresholds at 0 (the
+10b. parallel (two drills: 10d) — LM training across ranks that share the
+   card (gloo, ``spawn_cpu``). (a) Two ranks with both attention thresholds at 0 (the
    kernel tier), at the full width of lm_flash: SP over ``seq=2`` — a bare
    ``ring_attention`` call against full attention (bf16 at [8, 8, 2048,
    64] on sm90 within 1e-2 x max|ref|, f32 at [1, 2, 512, 64] on the CUDA
@@ -357,10 +395,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    on the same microbatches (loss 1e-5, the weights within two ulp plus
    1e-4 of each leaf's update), then a GPipe fit.
    Tokens/s of each arm's step beside rank 0's single-process step on the
-   same rows (the ranks are time-sliced: no multi-card speed). (b)
-   ``dryrun_multichip(4, "cuda")``: every arm's OK line, and the ZeRO
-   arm's sharded checkpoint restored in this process to the state the
-   four ranks wrote. The phase's wall seconds.
+   same rows (the ranks are time-sliced, beside the other drills: no
+   multi-card speed). (b) ``dryrun_multichip(4, "cuda")``: every arm's OK
+   line, and the ZeRO arm's sharded checkpoint restored in the drill's
+   process to the state the four ranks wrote. Each drill's wall seconds.
 10c. gang — the fault-tolerant runtime (``ddw_tpu_torch.runtime``'s
    ``Launcher``, ``GangSupervisor`` and elastic rendezvous) with 2 ranks
    that share the card (gloo), every rank started as a process of the
@@ -391,8 +429,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
    launcher forwards SIGTERM, the supervisor restarts outside the crash
    budget, generation 1 resumes at step 2 and completes; rank 0 launched
    exactly 12 K3, K4 and K5 (2 steps) in generation 0 and 30 K3, 24 K4 and
-   24 K5 (4 steps, 1 val batch) in generation 1, all sm90. Each arm's wall
-   seconds.
+   24 K5 (4 steps, 1 val batch) in generation 1, all sm90. Each arm, and
+   the uninterrupted fit, is a drill (10d); each arm's wall seconds.
+10d. drills — workshop, pretrained, tp_serve (b), parallel's two drills
+   and the gang's four runs, each in a child process of its own (``python3
+   chip_smoke.py --drill NAME WORK OUT``), all started together after ring,
+   the last phase that times a kernel or a path; their lines are printed
+   when they end, and any left running when the script fails is killed
+   with every process below it. Their numbers are checks, launch counts
+   and seconds (of processes that share the host and the card, so no
+   rate of theirs is a speed of the path).
 11. The ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
    line ``{"ok": true, "device": {...}}``.
 """
@@ -418,7 +464,13 @@ DW_SHAPES = (((112, 112, 32), 1), ((56, 56, 144), 1), ((28, 28, 192), 2),
 LAYERS_PER_FORWARD = sum(n for _, n in DW_SHAPES)
 
 
+_T0 = time.perf_counter()
+
+
 def emit(**row) -> None:
+    """One JSON line; ``at_s`` is the seconds since this process started,
+    so the gaps between lines show where a phase spends its time."""
+    row["at_s"] = round(time.perf_counter() - _T0, 3)
     print(json.dumps(row), flush=True)
 
 
@@ -448,12 +500,14 @@ def median_ms(fn, flush, reps: int = 25, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def bf16_ulp(t):
-    """One bf16 ulp at each element of ``t`` (float32 tensor)."""
+def half_ulp(t, dtype):
+    """One ulp of the 16-bit ``dtype`` at each element of ``t`` (float32
+    tensor): 8 significant bits for bf16, 11 for f16."""
     import torch
 
-    mag = t.abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
-    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    bits = 7 if dtype == torch.bfloat16 else 10
+    mag = t.abs().clamp_min(torch.finfo(dtype).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - bits)
 
 
 def phase_device():
@@ -555,8 +609,9 @@ def tma_check(x, taps, g, what: str, plan=None) -> tuple[float, float]:
 
 def phase_kernel(flush):
     """K1 and K2, and the autograd Function, against their plain versions at
-    the main path's shapes and at the tile plan's edges; both variants timed
-    in turns."""
+    the main path's shapes (bf16, the main path's dtype, then f32 and f16)
+    and at the tile plan's edges; both variants held and timed in turns.
+    Per-pass sums: ``k1``/``k2`` in bf16, ``k1_f16``/``k2_f16`` in f16."""
     import torch
     import torch.nn.functional as F
 
@@ -567,10 +622,11 @@ def phase_kernel(flush):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     keys = ("ms", "ms_simt", "plain_ms", "library_ms", "bound_ms")
-    per_pass = {"k1": dict.fromkeys(keys, 0.0), "k2": dict.fromkeys(keys, 0.0)}
+    per_pass = {k: dict.fromkeys(keys, 0.0)
+                for k in ("k1", "k2", "k1_f16", "k2_f16")}
     per_layer = {"k1": [], "k2": []}
-    max_err = {"k1": 0.0, "k2": 0.0}
-    for dtype in (torch.bfloat16, torch.float32):
+    max_err = {"k1": 0.0, "k2": 0.0, "k2_f16": 0.0}
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
         for (h, w, c), layers in DW_SHAPES:
             x = torch.randn(BATCH, h, w, c, device="cuda", generator=gen)
             taps = torch.randn(3, 3, c, device="cuda", generator=gen)
@@ -581,6 +637,15 @@ def phase_kernel(flush):
             flops = 2 * 9 * elems
             plan = dw_tile_plan(BATCH, h, w, c, dtype)
             k2_err, k2_ratio = tma_check(x, taps, g, f"{dtype} {(h, w, c)}")
+            for flip in (False, True):  # the timing's other variant
+                check(torch.equal(depthwise_conv3x3_cuda(
+                    x, taps, flip=flip, _variant="simt"),
+                    depthwise_conv3x3_plain(x, taps, flip=flip)),
+                    f"K1 simt {dtype} {(h, w, c)} flip={flip}: bit for bit")
+            simt = (depthwise_conv3x3_wgrad_cuda(x, g, _variant="simt")
+                    .double() - depthwise_conv3x3_wgrad_plain(x, g).double())
+            check(bool((simt.abs() <= wgrad_tolerance(x, g)).all()),
+                  f"K2 simt {dtype} {(h, w, c)} within 1e-5*sum|xpad*g|")
 
             # -- K1 --------------------------------------------------------
             cl = x.permute(0, 3, 1, 2)           # channels_last view
@@ -605,7 +670,8 @@ def phase_kernel(flush):
                  bytes=nbytes, flops=flops)
 
             # -- K2 --------------------------------------------------------
-            max_err["k2"] = max(max_err["k2"], k2_err)
+            err_key = "k2_f16" if dtype == torch.float16 else "k2"
+            max_err[err_key] = max(max_err[err_key], k2_err)
             gl = g.permute(0, 3, 1, 2)
             k2nbytes = 2 * elems * x.element_size() + 9 * c * 4
             turns = k1_k2_turns({v: (lambda v=v: depthwise_conv3x3_wgrad_cuda(
@@ -628,10 +694,13 @@ def phase_kernel(flush):
                  bound_by="bytes" if k2nbytes / HBM_BYTES_PER_S
                  >= flops / F32_FLOPS else "operations",
                  bytes=k2nbytes, flops=flops, deterministic=True)
-            if dtype == torch.bfloat16:  # the main path's dtype
+            if dtype != torch.float32:  # bf16 (the main path's), f16
+                tag = "" if dtype == torch.bfloat16 else "_f16"
                 for kern, vals in (("k1", k1), ("k2", k2)):
                     for key in keys:
-                        per_pass[kern][key] += layers * vals[key]
+                        per_pass[kern + tag][key] += layers * vals[key]
+            if dtype == torch.bfloat16:
+                for kern, vals in (("k1", k1), ("k2", k2)):
                     per_layer[kern].append(
                         {"shape": [BATCH, h, w, c], "layers": layers,
                          "tiles": [plan.th, plan.tw, plan.cb],
@@ -655,8 +724,12 @@ def phase_kernel(flush):
             if dtype == torch.float32:
                 dw_ok = bool((dw_err.double()
                               <= wgrad_tolerance(x, g)).all())
-            else:
-                dw_ok = bool((dw_err <= bf16_ulp(dw_p.float())).all())
+            elif dtype == torch.bfloat16:
+                dw_ok = bool((dw_err <= half_ulp(dw_p.float(), dtype)).all())
+            else:  # f16's ulp is 8x bf16's: K2's own f32 bound, then the cast
+                dw_ok = bool((dw_err.double() <= half_ulp(
+                    dw_p.float(), dtype).double() + wgrad_tolerance(x, g))
+                    .all())
             check(dw_ok and dw_k.dtype == dtype,
                   f"Function dw {dtype} {(h, w, c)} against the plain path")
             emit(phase="kernel", kernel="DepthwiseKernelFn", dtype=name,
@@ -664,7 +737,7 @@ def phase_kernel(flush):
                  dw_max_abs_diff=dw_err.max().item())
             del x, taps, g, cl, wl, gl, grads, dx_k, dw_k, dx_p, dw_p
     # the tile plan's edges, on the tma variant
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
         for shape, tiles in DW_EDGES:
             x, g = (torch.randn(*shape, device="cuda", generator=gen).to(dtype)
                     for _ in range(2))
@@ -684,7 +757,7 @@ def phase_kernel(flush):
     x = torch.randn(2, 9, 7, 13, device="cuda", generator=gen)
     taps = torch.randn(3, 3, 13, device="cuda", generator=gen)
     g = torch.randn(2, 9, 7, 13, device="cuda", generator=gen)
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
         xd, td, gd = x.to(dtype), taps.to(dtype), g.to(dtype)
         before = (depthwise_conv3x3_cuda.launches_by_variant["simt"],
                   depthwise_conv3x3_wgrad_cuda.launches_by_variant["simt"])
@@ -763,12 +836,12 @@ def k3_check(name, q, k, v, *, causal, q_offset=0, k_offset=0, k_valid=None,
         lse_ok = lse_err.max().item() <= 1e-5
         tol = "|dout| <= 1e-5*max|v|, |dlse| <= 1e-5*max(1,|lse|)"
     else:
-        elt = torch.maximum(2 * bf16_ulp(ref.float()),
+        elt = torch.maximum(2 * half_ulp(ref.float(), q.dtype),
                             torch.full_like(err, 1e-3 * vmax))
         ok = bool((err <= elt).all())
         lse_ok = lse_err.max().item() <= 1e-4
-        tol = ("|dout| <= max(2 bf16 ulp, 1e-3*max|v|), "
-               "|dlse| <= 1e-4*max(1,|lse|)")
+        tol = (f"|dout| <= max(2 {dtype_name(q.dtype)} ulp, 1e-3*max|v|), "
+               f"|dlse| <= 1e-4*max(1,|lse|)")
     check(ok and bool(torch.isfinite(out).all()), f"K3 {name}: out within {tol}")
     check(lse_ok and bool(torch.isfinite(lse).all()),
           f"K3 {name}: lse within {tol}")
@@ -898,7 +971,7 @@ def phase_lm_kernel(flush):
     err = (out.float() - ref.float()).abs()
     vmax = v.float().abs().max().item()
     check(out.shape == q.shape and bool(
-        (err <= torch.maximum(2 * bf16_ulp(ref.float()),
+        (err <= torch.maximum(2 * half_ulp(ref.float(), torch.bfloat16),
                               torch.full_like(err, 1e-3 * vmax))).all()),
         "K3 padded S=2047 through flash_mha within max(2 bf16 ulp, "
         "1e-3*max|v|)")
@@ -929,8 +1002,8 @@ def bwd_inputs(q, k, v, gen, causal, q_offset=0, k_offset=0, k_valid=None,
 
 
 def bwd_close(got, ref):
-    """The slice's tolerance: f32 within 1e-5 * max|ref|, bf16 within
-    max(2 bf16 ulp, 5e-3 * max|ref|) elementwise."""
+    """The slice's tolerance: f32 within 1e-5 * max|ref|, bf16 and f16
+    within max(2 ulp of the dtype, 5e-3 * max|ref|) elementwise."""
     import torch
 
     err = (got.float() - ref.float()).abs()
@@ -939,7 +1012,7 @@ def bwd_close(got, ref):
         ok = err.max().item() <= 1e-5 * top
     else:
         ok = bool((err <= torch.maximum(
-            2 * bf16_ulp(ref.float()),
+            2 * half_ulp(ref.float(), got.dtype),
             torch.full_like(err, 5e-3 * top))).all())
     return ok and bool(torch.isfinite(got).all()), err.max().item(), \
         err.max().item() / max(top, 1e-30)
@@ -1281,6 +1354,180 @@ def phase_vit_kernel(flush):
     return times, errs
 
 
+# -- coverage: the head dims and dtypes the TPU kernels take ------------------
+
+# K3-K5 at head dims no LM path of the main phases runs, in every dtype, at
+# [COVERAGE_BH, COVERAGE_S, D], causal with keys from global 64 (query rows
+# 0-63 see no key) and a key mask at 448; then head dim 256 at the shapes of
+# the lm_wide path (2 heads of 256 of lm_flash), against SDPA.
+COVERAGE_HEAD_DIMS = (16, 40, 80, 96, 256, 512)
+COVERAGE_BH, COVERAGE_S = 16, 512
+COVERAGE_MASKS = dict(causal=True, q_offset=0, k_offset=64, k_valid=448)
+COVERAGE_DEAD_ROWS = 64
+WIDE_HEADS, WIDE_HEAD_DIM = 2, 256     # lm_flash with num_heads=2
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def attention_times(q, k, v, gen, flush, *, causal, q_offset=0, k_offset=0,
+                    k_valid=None, heads=1, phase="coverage"):
+    """K3, K4 and K5 on the variant the shape picks, timed with the L2
+    flushed beside the bound (the pairs these masks leave, the bytes of one
+    read of each input and one write of each output, the dtype's peak:
+    bf16/f16 tensor cores, f32 CUDA cores), their plain versions and SDPA
+    on the same [B, heads, S, D] (forward; its whole backward beside K4 and
+    K5), with the same mask (``is_causal`` where there are no offsets)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ddw_tpu_torch.ops.flash_attention import (
+        _bwd_variant, _fwd_variant, compiled_width, flash_attention_cuda,
+        flash_attention_dkv_cuda, flash_attention_dkv_plain,
+        flash_attention_dq_cuda, flash_attention_dq_plain,
+        flash_attention_plain)
+
+    bh, s, d = q.shape
+    sk = k.shape[1]
+    el = q.element_size()
+    peak = F32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
+    pairs = bh * causal_pairs(s, sk, q_offset, k_offset, causal, k_valid)
+    do = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
+    out, lse = flash_attention_cuda(q, k, v, causal, q_offset, k_offset,
+                                    k_valid=k_valid)
+    delta = (do.float() * out.float()).sum(-1).contiguous()
+    args = (q, k, v, do, lse, delta, causal, q_offset, k_offset, None)
+    block_q = next(b for b in (128, 64, s) if s % b == 0)
+    to4 = lambda t: t.view(bh // heads, heads, t.shape[1], d)  # noqa: E731
+    q4, k4, v4, do4 = (to4(t).detach().requires_grad_(t is not do)
+                       for t in (q, k, v, do))
+    if q_offset == k_offset == 0 and k_valid is None:
+        sdpa_kw = {"is_causal": causal}
+    else:
+        qpos = q_offset + torch.arange(s, device="cuda")
+        kpos = k_offset + torch.arange(sk, device="cuda")
+        keep = torch.ones(s, sk, dtype=torch.bool, device="cuda")
+        if causal:
+            keep &= kpos[None, :] <= qpos[:, None]
+        if k_valid is not None:
+            keep &= (kpos < k_valid)[None, :]
+        sdpa_kw = {"attn_mask": keep}
+    sdpa = F.scaled_dot_product_attention(q4, k4, v4, **sdpa_kw)
+    sdpa_bwd_ms = median_ms(lambda: torch.autograd.grad(
+        sdpa, (q4, k4, v4), do4, retain_graph=True), flush, reps=10)
+    rows = {}
+    for key, fn, plain, products, outs, library_ms, variant in (
+            ("fwd", lambda: flash_attention_cuda(
+                q, k, v, causal, q_offset, k_offset, k_valid=k_valid),
+             lambda: flash_attention_plain(
+                 q, k, v, causal, q_offset, k_offset, block_q=block_q,
+                 k_valid=k_valid), 2, 1,
+             median_ms(lambda: F.scaled_dot_product_attention(
+                 q4, k4, v4, **sdpa_kw), flush, reps=10),
+             _fwd_variant(q.dtype, d, 128)),
+            ("dq", lambda: flash_attention_dq_cuda(*args, k_valid),
+             lambda: flash_attention_dq_plain(*args, block_q, 128, k_valid),
+             3, 1, sdpa_bwd_ms, _bwd_variant(q.dtype, d)),
+            ("dkv", lambda: flash_attention_dkv_cuda(*args, k_valid),
+             lambda: flash_attention_dkv_plain(*args, block_q, 128, k_valid),
+             4, 2, sdpa_bwd_ms, _bwd_variant(q.dtype, d))):
+        flops = products * 2 * d * pairs
+        ins = (3 if key == "fwd" else 4)          # q, k, v (and do)
+        nbytes = (ins + outs) * bh * s * d * el + \
+            (1 if key == "fwd" else 2) * bh * s * 4   # lse (and delta)
+        rows[key] = {
+            "ms": median_ms(fn, flush, reps=10),
+            "plain_ms": median_ms(plain, flush, reps=3, warmup=1),
+            "library_ms": library_ms,
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / peak
+            else "operations",
+            "variant": variant,
+            "compiled_width": compiled_width(variant, d)}
+        rows[key]["share_of_bound"] = rows[key]["bound_ms"] / rows[key]["ms"]
+        emit(phase=phase, kernel=key, dtype=dtype_name(q.dtype),
+             shape=[bh, s, d], causal=causal, q_offset=q_offset,
+             k_offset=k_offset, k_valid=k_valid, **rows[key], flops=flops,
+             bytes=nbytes,
+             library=f"F.scaled_dot_product_attention at "
+                     f"{list(q4.shape)}" + (" (forward)" if key == "fwd"
+                                           else ": its whole backward"))
+    return rows
+
+
+def phase_coverage(flush):
+    """K3-K5 at every head dim of COVERAGE_HEAD_DIMS in bf16, f16 and f32
+    against their plain versions (the lm_kernel / lm_bwd_kernel tolerances,
+    in ulps of the dtype; two launches bit-identical; rows that see no key
+    at 0), each timed beside its bound, plain version and SDPA; head dim 256
+    at the lm_wide path's scoring and training shapes. Launch counts by
+    variant and dtype. (K1/K2 in f16 run in the kernel phase's dtype
+    loop.)"""
+    import torch
+
+    from ddw_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    counters = (fa.flash_attention_cuda, fa.flash_attention_dq_cuda,
+                fa.flash_attention_dkv_cuda)
+    errs = {"k3": 0.0, "dq": 0.0, "dkv": 0.0}
+    cases = []
+    launches = {}
+    for d in COVERAGE_HEAD_DIMS:
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            fa.reset_forward_counts()
+            fa.reset_backward_counts()
+            q, k, v = (torch.randn(COVERAGE_BH, COVERAGE_S, d, device="cuda",
+                                   generator=gen).to(dtype)
+                       for _ in range(3))
+            name = f"coverage_{dtype_name(dtype)}_d{d}"
+            errs["k3"] = max(errs["k3"], k3_check(
+                name, q, k, v, fully_masked_rows=COVERAGE_DEAD_ROWS,
+                phase="coverage", **COVERAGE_MASKS))
+            for key, e in k45_check(name, q, k, v, gen,
+                                    fully_masked_rows=COVERAGE_DEAD_ROWS,
+                                    phase="coverage",
+                                    **COVERAGE_MASKS).items():
+                errs[key] = max(errs[key], e)
+            rows = attention_times(q, k, v, gen, flush, **COVERAGE_MASKS)
+            cases.append({"dtype": dtype_name(dtype), "head_dim": d,
+                          **{key: {f: rows[key][f] for f in (
+                              "ms", "plain_ms", "library_ms", "bound_ms",
+                              "variant", "compiled_width")}
+                             for key in rows}})
+            for c, kern in zip(counters, ("k3", "k4", "k5")):
+                for var, n in c.launches_by_variant.items():
+                    if n:
+                        key = f"{kern}/{var}/{dtype_name(dtype)}"
+                        launches[key] = launches.get(key, 0) + n
+            del q, k, v
+    # head dim 256 at the lm_wide path's shapes: its scoring batch of 64
+    # rows and its training batch of 32, 2 heads a row, causal
+    wide = {}
+    for key, rows_ in (("scoring", LM_BATCH), ("training", TRAIN_LM_BATCH)):
+        q, k, v = (torch.randn(rows_ * WIDE_HEADS, LM_SEQ, WIDE_HEAD_DIM,
+                               device="cuda", generator=gen).bfloat16()
+                   for _ in range(3))
+        if key == "scoring":
+            errs["k3"] = max(errs["k3"], k3_check(
+                "wide_scoring", q, k, v, causal=True, phase="coverage"))
+        else:
+            for k_, e in k45_check("wide_training", q, k, v, gen,
+                                   causal=True, phase="coverage").items():
+                errs[k_] = max(errs[k_], e)
+        wide[key] = attention_times(q, k, v, gen, flush, causal=True,
+                                    heads=WIDE_HEADS)
+        del q, k, v
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    emit(phase="coverage", seconds=seconds, max_abs_err=errs,
+         launches_by_kernel_variant_dtype=launches)
+    return {"cases": cases, "wide": wide, "errs": errs, "launches": launches,
+            "seconds": seconds}
+
+
 def arithmetic_tokens(n: int, seed: int, vocab: int, seq: int):
     """A learnable corpus: arithmetic sequences mod the vocab."""
     import numpy as np
@@ -1569,6 +1816,177 @@ def phase_lm_train(tmp: str):
              "k4_by_variant": k4_by_variant, "k5_by_variant": k5_by_variant,
              "traced": traced, "traced_by_variant": traced_by},
             step_ms, tokens_per_s)
+
+
+# the slice's path at head dim 256: scoring rows and training steps
+WIDE_TRAIN_STEPS = 3
+WIDE_NLL_TOL = 2e-2       # |NLL| kernel tier against xla tier (lm's bound)
+
+
+def phase_lm_wide(tmp: str) -> dict:
+    """The LM path at head dim 256: lm_flash with ``num_heads=2`` (bench.py's
+    ``DDW_BENCH_LM_HEADS=2`` arm: hidden 512 over 2 heads of 256) at full
+    width from seeded weights, the kernel tier forced as a caller forces it
+    with ``DDW_ATTN_XLA_PLAIN_MAX=0 DDW_ATTN_XLA_CKPT_MAX=0`` (64 rows of 2
+    heads make a 2 GiB score matrix, which the default thresholds send to
+    ``xla_ckpt``). ``save_lm_package`` -> ``LMPackagedModel`` ->
+    ``LMBatchScorer`` over a 64 x 2,049 ``tokens_i32`` table: 6 K3
+    launches, all ``mma``, the NLLs within WIDE_NLL_TOL of the xla tier's
+    on the same weights. ``LMTrainer.fit_tables``, 3 steps at 32 x 2,048
+    and one val batch: 6 K3 + 6 K4 + 6 K5 a step and 6 K3 a val batch, all
+    ``mma``; one step from the seeded weights, its loss and per-leaf
+    gradients against the xla tier's step (BF16_LOSS_TOL,
+    BF16_GRAD_RMS_TOL)."""
+    import numpy as np
+    import torch
+
+    from ddw_tpu_torch.data.prep import write_token_table
+    from ddw_tpu_torch.data.store import TableStore
+    from ddw_tpu_torch.models.convert import (init_lm_weights,
+                                              to_flax_variables)
+    from ddw_tpu_torch.models.lm import build_lm
+    from ddw_tpu_torch.ops import flash_attention as fa
+    from ddw_tpu_torch.serving.batch import LMBatchScorer
+    from ddw_tpu_torch.serving.lm_package import (LMPackagedModel,
+                                                  save_lm_package)
+    from ddw_tpu_torch.train.lm_trainer import LMTrainer
+    from ddw_tpu_torch.utils.config import LMCfg, TrainCfg
+
+    t_phase = time.perf_counter()
+    depth, vocab = LM_CFG["depth"], LM_CFG["vocab_size"]
+    lm_cfg = LMCfg(**dict(LM_CFG, num_heads=WIDE_HEADS))
+    check(lm_cfg.hidden // lm_cfg.num_heads == WIDE_HEAD_DIM,
+          "lm_flash over 2 heads: head dim 256")
+    counters = (fa.flash_attention_cuda, fa.flash_attention_dq_cuda,
+                fa.flash_attention_dkv_cuda)
+
+    def zero_counts():
+        fa.reset_forward_counts()
+        fa.reset_backward_counts()
+
+    def counts():
+        return tuple(c.launches for c in counters)
+
+    def by_variant():
+        return [dict(c.launches_by_variant) for c in counters]
+
+    def tier(kernel: bool):
+        fa._XLA_PLAIN_MAX = fa._XLA_CKPT_MAX = 0 if kernel else 1 << 62
+
+    saved = fa._XLA_PLAIN_MAX, fa._XLA_CKPT_MAX
+    out = {}
+    try:
+        tier(kernel=True)
+        params = to_flax_variables(init_lm_weights(
+            build_lm(lm_cfg), torch.Generator().manual_seed(SEED + 20)))[
+                "params"]
+        pm = LMPackagedModel(save_lm_package(os.path.join(tmp, "lm_wide"),
+                                             lm_cfg, params))
+        check(pm.device.type == "cuda", "LMPackagedModel on the card")
+        store = TableStore(os.path.join(tmp, "lm_wide_tables"))
+        toks = np.random.RandomState(SEED + 20).randint(
+            0, vocab, (LM_BATCH, LM_SEQ + 1)).astype(np.int32)
+        table = write_token_table(store, "wide_tokens", toks, shard_size=64)
+
+        # --- scoring, counted ---------------------------------------------
+        scorer = LMBatchScorer(pm)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = scorer.score_table(table)
+        score_s = time.perf_counter() - t0
+        k3_scoring = by_variant()[0]
+        check(counts()[0] == depth and k3_scoring["mma"] == depth,
+              f"scoring 64 rows launched K3 {k3_scoring}: expected {depth}, "
+              f"all mma (head dim 256)")
+        nll = np.array([v for _, v in rows])
+        check(len(rows) == LM_BATCH and bool(np.isfinite(nll).all()),
+              "64 finite NLLs")
+        tier(kernel=False)
+        nll_x = pm.score(toks)
+        check(counts()[0] == depth, "the xla tier launched no K3")
+        tier(kernel=True)
+        nll_gap = float(np.abs(nll - nll_x).max())
+        emit(phase="lm_wide", arm="scoring", rows=len(rows),
+             head_dim=WIDE_HEAD_DIM, k3_launches_by_variant=k3_scoring,
+             score_table_seconds=score_s,
+             tokens_per_s=LM_BATCH * LM_SEQ / score_s,
+             nll_mean=float(nll.mean()), nll_max_gap_to_xla=nll_gap,
+             tolerance=WIDE_NLL_TOL)
+        check(nll_gap <= WIDE_NLL_TOL, f"scored NLLs within {WIDE_NLL_TOL} "
+              f"of the xla tier's ({nll_gap:.3g})")
+        out.update(k3_scoring=k3_scoring, score_tokens_per_s=LM_BATCH
+                   * LM_SEQ / score_s, nll_gap=nll_gap)
+        del pm, scorer
+        torch.cuda.empty_cache()
+
+        # --- training, counted ------------------------------------------
+        n_train = WIDE_TRAIN_STEPS * TRAIN_LM_BATCH
+        tr = arithmetic_tokens(n_train + TRAIN_LM_BATCH, SEED + 21, vocab,
+                               LM_SEQ)
+        train_t = write_token_table(store, "wide_train", tr[:n_train],
+                                    shard_size=TRAIN_LM_BATCH)
+        val_t = write_token_table(store, "wide_val", tr[n_train:],
+                                  shard_size=TRAIN_LM_BATCH)
+        train_cfg = TrainCfg(batch_size=TRAIN_LM_BATCH, epochs=1,
+                             warmup_epochs=0, optimizer="adam",
+                             learning_rate=3e-4, seed=SEED,
+                             checkpoint_dir=os.path.join(tmp, "wide_ckpt"))
+        trainer = LMTrainer(lm_cfg, train_cfg)
+        check(trainer.device.type == "cuda", "LMTrainer on the card")
+        zero_counts()
+        t0 = time.perf_counter()
+        res = trainer.fit_tables(train_t, val_t)
+        fit_s = time.perf_counter() - t0
+        launches, variants = counts(), by_variant()
+        want = (depth * (WIDE_TRAIN_STEPS + 1), depth * WIDE_TRAIN_STEPS,
+                depth * WIDE_TRAIN_STEPS)
+        emit(phase="lm_wide", arm="training", fit_seconds=fit_s,
+             history=res.history, launches=list(launches),
+             launches_by_variant=variants, expected=list(want))
+        check(launches == want and all(v["mma"] == n for v, n in
+                                       zip(variants, launches)),
+              f"fit launches K3/K4/K5 {launches} {variants}: expected "
+              f"{want}, all mma")
+        check(all(np.isfinite([r["loss"], r["val_loss"]]).all()
+                  for r in res.history), "finite train and val losses")
+        out.update(train_launches=launches, train_by_variant=variants,
+                   fit_seconds=fit_s,
+                   tokens_per_s=res.history[-1]["tokens_per_sec"])
+        del trainer, res
+        torch.cuda.empty_cache()
+
+        # --- one step from the seeded weights, kernel tier against xla ---
+        batch = torch.from_numpy(tr[:TRAIN_LM_BATCH]).long().cuda()
+        inputs, targets = batch[:, :-1], batch[:, 1:]
+        zero_counts()
+        loss_k, g_k = lm_grads(lm_cfg, params, inputs, targets)
+        check(counts() == (depth, depth, depth)
+              and by_variant()[1]["mma"] == depth,
+              f"the kernel step ran 6 K3, 6 K4, 6 K5 on mma {by_variant()}")
+        tier(kernel=False)
+        loss_x, g_x = lm_grads(lm_cfg, params, inputs, targets)
+        check(counts() == (depth, depth, depth), "the xla step ran no kernel")
+        loss_rel = abs(loss_k - loss_x) / max(abs(loss_x), 1e-12)
+        (rms, rms_leaf), (mx, mx_leaf) = grad_gaps(g_k, g_x)
+        emit(phase="lm_wide", arm="step_vs_xla", loss=[loss_k, loss_x],
+             loss_rel_diff=loss_rel, loss_tolerance=BF16_LOSS_TOL,
+             grad_rms_gap_over_rms_max=rms, worst_rms_leaf=rms_leaf,
+             grad_rms_tolerance=BF16_GRAD_RMS_TOL, grad_max_gap_over_max=mx,
+             worst_max_leaf=mx_leaf, left_out=list(ZERO_GRAD_LEAVES),
+             peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+        check(loss_rel <= BF16_LOSS_TOL, f"the first step's loss within "
+              f"{BF16_LOSS_TOL} of the xla tier's ({loss_rel:.3g})")
+        check(rms <= BF16_GRAD_RMS_TOL, f"per-leaf gradients within "
+              f"{BF16_GRAD_RMS_TOL} RMS gap of the xla tier's ({rms:.3g})")
+        out.update(loss_rel=loss_rel, grad_rms_gap=rms)
+        del g_k, g_x
+    finally:
+        fa._XLA_PLAIN_MAX, fa._XLA_CKPT_MAX = saved
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(phase="lm_wide", seconds=out["seconds"])
+    return out
 
 
 def make_package(root: str, dtype: str, dw_impl: str, variables) -> str:
@@ -2623,13 +3041,14 @@ def ring_rank(seed: int) -> dict:
     # A pack wider than a small slot: several launches along the plan.
     comm = rr.RingComm(None, torch.device("cuda", 0),
                        slot_bytes=RING_SMALL_SLOT_BYTES)
-    xs = [edge(n * 3 * comm.slot_elems + 77, torch.float32, rank),
+    cols = comm.slot_cols(torch.float32)
+    xs = [edge(n * 3 * cols + 77, torch.float32, rank),
           edge(33, torch.float32, rank), edge(n * 700, torch.float32, rank)]
     before = k6.launches
     got = rr.ring_all_reduce_tree_pallas([x.cuda() for x in xs], comm=comm)
     segments = k6.launches - before
     check(segments == len(rr.ring_pack_plan(
-        [x.numel() for x in xs], n, comm.slot_elems).launches) >= 3,
+        [x.numel() for x in xs], n, cols).launches) >= 3,
         f"{n} ranks: the small-slot pack ran as {segments} launches (>= 3, "
         f"the plan's)")
     check(all(bits_equal(g.cpu(), p) for g, p in zip(
@@ -2637,6 +3056,55 @@ def ring_rank(seed: int) -> dict:
             xs, None, slot_bytes=RING_SMALL_SLOT_BYTES))),
         f"{n} ranks: the small-slot pack equals the plain version")
     comm.close()
+
+    # The integer and bool ring dtypes: a tree whose sums overflow every
+    # integer dtype, one launch per dtype, bit-equal to the plain version
+    # and to the wrapped int64 sums (bool: any); then the LM tree's shapes
+    # in int8, K6 beside gloo's per-leaf all_reduce.
+    ints = {k: ring_int_leaf(dt, size, seed + 7 * size + rank)
+            for k, (dt, size) in RING_INT_TREE.items()}
+    before = k6.launches
+    got = all_reduce_sum({k: v.cuda() for k, v in ints.items()},
+                         impl="pallas")
+    int_launches = k6.launches - before
+    check(int_launches == len(RING_INT_TREE), f"{n} ranks: the integer tree "
+          f"took {int_launches} launches, one per ring dtype")
+    plain = all_reduce_sum(ints, impl="pallas")
+    for k, (dt, size) in RING_INT_TREE.items():
+        check(bits_equal(got[k].cpu(), plain[k]), f"{n} ranks: the {dt} "
+              f"leaf equals the plain version bit for bit")
+        every_rank = np.stack([ring_int_leaf(dt, size, seed + 7 * size + r)
+                               .numpy() for r in range(n)])
+        want = every_rank.any(0) if dt == "bool" else \
+            every_rank.astype(np.int64).sum(0).astype(dt)
+        check(np.array_equal(got[k].cpu().numpy(), want),
+              f"{n} ranks: the {dt} sum wraps as the int64 sum modulo "
+              f"2**bits (bool: logical or)")
+    int8 = {k: ring_int_leaf("int8", grads[k].numel(), seed + 31 * i + rank)
+            .reshape(grads[k].shape) for i, k in enumerate(names)}
+    int8_card = {k: v.cuda() for k, v in int8.items()}
+    int8_out = all_reduce_sum(int8_card, impl="pallas")
+    check(all(bits_equal(int8_out[k].cpu(), v) for k, v in all_reduce_sum(
+        int8, impl="pallas").items()), f"{n} ranks: the int8 LM-shaped tree "
+        f"equals the plain version")
+    int8_ms = []
+    for _ in range(RING_LIBRARY_CALLS):
+        synced()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        again = all_reduce_sum(int8_card, impl="pallas")
+        end.record()
+        end.synchronize()
+        int8_ms.append(start.elapsed_time(end))
+        check(all(bits_equal(again[k], int8_out[k]) for k in names),
+              f"{n} ranks: every int8 call gives identical bits")
+    int8_gloo = gloo_all_reduce_times(int8_card, int8_out, names, synced)
+    every = [None] * n
+    dist.all_gather_object(every, int8_ms)
+    int8_ms = [max(t) for t in zip(*every)]
+    del int8, int8_card, int8_out, again
+    step("integer_dtypes")
 
     # A size-1 mesh axis is a world of one: the input back, no launch.
     solo = make_mesh(MeshSpec((("data", -1), ("seq", 1))))
@@ -2703,10 +3171,29 @@ def ring_rank(seed: int) -> dict:
             "per_leaf_ms_max_over_ranks": [
                 max(t) for t in zip(*(e["per_leaf"] for e in every))],
             "library": library, "seq_group": sub, "trap": trap,
-            "host_s_by_step": steps}
+            "int_launches": int_launches, "int8_ms_max_over_ranks": int8_ms,
+            "int8_gloo": int8_gloo, "host_s_by_step": steps}
 
 
 RING_LIBRARY_CALLS = 3
+# The integer and bool leaves of the ring phase's integer tree: dtype, size
+RING_INT_TREE = {"b": ("bool", 4097), "i16": ("int16", 5000),
+                 "i8": ("int8", 1000), "u32": ("uint32", 777),
+                 "u8": ("uint8", 999)}
+
+
+def ring_int_leaf(dtype: str, size: int, seed: int):
+    """``size`` seeded values of ``dtype`` from its whole range (bool: about
+    a third True), so that sums over 2 or 4 ranks overflow."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    if dtype == "bool":
+        return torch.from_numpy(rng.rand(size) < 0.3)
+    info = np.iinfo(dtype)
+    return torch.from_numpy(rng.randint(info.min, int(info.max) + 1, size,
+                                        dtype=np.int64).astype(dtype))
 
 
 def gloo_all_reduce_times(grads, out, names, synced):
@@ -2810,13 +3297,21 @@ def phase_ring():
                / NVLINK_BYTES_PER_S * 1e3,
                "launches": r["launches"],
                "max_abs_err": max(x["max_abs_err"] for x in res),
-               "library": r["library"]}
+               "library": r["library"],
+               # the LM tree's shapes in int8: K6 beside gloo
+               "int8_ms": statistics.median(r["int8_ms_max_over_ranks"]),
+               "int8_library_ms": r["int8_gloo"].get("ms"),
+               "int8_bound_ms": 2 * n * r["values"] / HBM_BYTES_PER_S * 1e3,
+               "int_launches": r["int_launches"]}
         emit(phase="ring", ranks=n, leaves=r["leaves"], values=r["values"],
              tree_bytes=tree_bytes,
              call_ms_max_over_ranks=r["call_ms_max_over_ranks"],
              per_leaf_ms_max_over_ranks=r["per_leaf_ms_max_over_ranks"],
              segments_small_slot=r["segments_small_slot"],
              mixed_tree_launches=r["mixed_launches"],
+             integer_tree_launches=r["int_launches"],
+             int8_ms_max_over_ranks=r["int8_ms_max_over_ranks"],
+             int8_gloo=r["int8_gloo"],
              many_leaves_launches=r["many_leaves_launches"],
              worst_gap_over_sum_abs=max(x["worst_gap_over_sum_abs"]
                                         for x in res),
@@ -3191,22 +3686,18 @@ def parallel_rank(work: str, tables: dict) -> dict:
     return out
 
 
-def phase_parallel(tmp: str) -> dict:
-    """LM training across ranks that share the card: (a) two ranks at the
-    full width, SP / EP / PP through ``LMTrainer.fit_tables`` and against
-    single-process steps; (b) the four-rank dry run of every strategy, and
-    its ZeRO checkpoint restored in this process."""
+def drill_parallel(work: str) -> dict:
+    """LM training across ranks that share the card: two ranks at the full
+    width, SP / EP / PP through ``LMTrainer.fit_tables`` and against
+    single-process steps."""
     import numpy as np
     import torch
 
-    from ddw_tpu_torch.checkpoint.sharded import restore_sharded
     from ddw_tpu_torch.data.prep import write_token_table
     from ddw_tpu_torch.data.store import TableStore
-    from ddw_tpu_torch.dryrun import dryrun_multichip
     from ddw_tpu_torch.runtime.dist import spawn_cpu
 
     t_phase = time.perf_counter()
-    work = os.path.join(tmp, "parallel")
     store = TableStore(os.path.join(work, "tables"))
     vocab = LM_CFG["vocab_size"]
     tables = {"sp_train": 2 * PAR_SP_ROWS, "sp_val": PAR_SP_ROWS,
@@ -3217,18 +3708,9 @@ def phase_parallel(tmp: str) -> dict:
         write_token_table(store, name, toks, shard_size=rows)
         np.save(os.path.join(work, f"{name}.npy"), toks)
     torch.cuda.empty_cache()
-    env = {k: os.environ.get(k) for k in ("DDW_ATTN_XLA_PLAIN_MAX",
-                                          "DDW_ATTN_XLA_CKPT_MAX")}
     os.environ.update(DDW_ATTN_XLA_PLAIN_MAX="0", DDW_ATTN_XLA_CKPT_MAX="0")
     t0 = time.perf_counter()
-    try:
-        ranks = spawn_cpu(parallel_rank, 2, work, tables, timeout_s=600)
-    finally:
-        for k, v in env.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+    ranks = spawn_cpu(parallel_rank, 2, work, tables, timeout_s=600)
     two_s = time.perf_counter() - t0
     for rk in ranks:
         emit(phase="parallel", arm="two_ranks", **rk)
@@ -3244,9 +3726,20 @@ def phase_parallel(tmp: str) -> dict:
     emit(phase="parallel", arm="two_ranks", seconds=two_s, rates=rates,
          sp_fit_launches_both_ranks=fit,
          host_staged=[rk["host_staged"] for rk in ranks],
-         note="two ranks time-sliced on one card: no multi-card speed")
+         note="two ranks time-sliced on one card, beside the other "
+              "drills: no multi-card speed")
+    seconds = time.perf_counter() - t_phase
+    emit(phase="parallel", seconds=seconds)
+    return {"fit": fit, "rates": rates, "two_rank_seconds": two_s}
 
-    # --- (b) the four-rank dry run, and its ZeRO checkpoint here ----------
+
+def drill_dryrun(work: str) -> dict:
+    """``dryrun_multichip(4, "cuda")``, every arm's OK line, and its ZeRO
+    checkpoint restored in this process to the state the four ranks
+    wrote."""
+    from ddw_tpu_torch.checkpoint.sharded import restore_sharded
+    from ddw_tpu_torch.dryrun import dryrun_multichip
+
     t0 = time.perf_counter()
     zdir = os.path.join(work, "dryrun_zero")
     runs = dryrun_multichip(4, "cuda", ckpt_dir=zdir)
@@ -3272,10 +3765,7 @@ def phase_parallel(tmp: str) -> dict:
     check(at == 1 and got == checks[0]["params"] and mu_gap <= 1e-12,
           "the dry run's sharded ZeRO checkpoint, written by four ranks, "
           "restores in this process to the state they wrote")
-    seconds = time.perf_counter() - t_phase
-    emit(phase="parallel", seconds=seconds)
-    return {"fit": fit, "rates": rates, "seconds": seconds,
-            "dryrun_seconds": dry_s, "two_rank_seconds": two_s}
+    return {"dryrun_seconds": dry_s}
 
 
 def par_single_process_rates(work: str) -> dict:
@@ -3867,6 +4357,32 @@ def phase_pretrained(tmp: str) -> dict:
     return k1k2
 
 
+def wide_and_coverage(wide: dict, coverage: dict, key: str, idx: int) -> dict:
+    """A flash kernel's numbers at head dim 256 on the lm_wide path's shapes
+    and at the coverage phase's head dims and dtypes, for the kernels
+    line: times beside bound, plain and SDPA, launches by variant and
+    dtype."""
+    shape = "scoring" if key == "fwd" else "training"
+    fields = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+              "variant", "compiled_width", "share_of_bound")
+    kern = ("k3", "k4", "k5")[idx]
+    return {
+        "at_head_dim_256": {f: coverage["wide"][shape][key][f]
+                            for f in fields},
+        "coverage": [{"dtype": c["dtype"], "head_dim": c["head_dim"],
+                      **c[key]} for c in coverage["cases"]],
+        "max_abs_err_coverage": coverage["errs"][
+            "k3" if key == "fwd" else key],
+        "launches_by_variant_and_dtype": {
+            "lm_wide": {f"{var}/bfloat16": n for var, n in (
+                wide["k3_scoring"].items() if idx == 0 else ())
+                if n} | {f"{var}/bfloat16 (training)": n for var, n in
+                         wide["train_by_variant"][idx].items() if n},
+            "coverage": {k.split("/", 1)[1]: n for k, n in
+                         coverage["launches"].items()
+                         if k.startswith(kern + "/")}}}
+
+
 def vit_paths(vision: dict, kern: str) -> dict:
     """A flash kernel's launches on the ViT paths of the vision phase (the
     child run with both thresholds at 0)."""
@@ -3905,7 +4421,7 @@ SERVE_SMALL_POOL = 256       # blocks of the preemption run (the largest
 
 def serve_mix():
     """32 seeded prompts of 16-1,024 tokens (8 of them, every fourth, start
-    with one 256-token prefix), each asking for 32-128 new tokens."""
+    with one 256-token prefix), each asking for 16-64 new tokens."""
     import numpy as np
 
     rng = np.random.RandomState(SEED + 12)
@@ -3919,7 +4435,7 @@ def serve_mix():
         else:
             prompts.append(rng.randint(0, vocab, rng.randint(16, 1025)
                                        ).astype(np.int32))
-        steps.append(int(rng.randint(32, 129)))
+        steps.append(int(rng.randint(16, 65)))
     return prompts, steps
 
 
@@ -4067,6 +4583,20 @@ def forced_check(pm, prompts, got, adapters=None) -> dict:
             "all_near_ties": bool(d.max() <= SERVE_TOKEN_TIE)}
 
 
+def serve_params() -> dict:
+    """The serving LM's seeded flax-layout weights (full width)."""
+    import torch
+
+    from ddw_tpu_torch.models.convert import (init_lm_weights,
+                                              to_flax_variables)
+    from ddw_tpu_torch.models.lm import build_lm
+    from ddw_tpu_torch.utils.config import LMCfg
+
+    return to_flax_variables(init_lm_weights(build_lm(LMCfg(**LM_CFG)),
+                                             torch.Generator().manual_seed(
+                                                 SEED + 11)))["params"]
+
+
 def phase_serve(tmp: str) -> tuple[dict, dict]:
     """The online serving engine on the card: the full-width bf16 LM
     through the paged engine (default EngineCfg), under preemption and on
@@ -4091,8 +4621,7 @@ def phase_serve(tmp: str) -> tuple[dict, dict]:
 
     t_phase = time.perf_counter()
     lm_cfg = LMCfg(**LM_CFG)
-    params = to_flax_variables(init_lm_weights(
-        build_lm(lm_cfg), torch.Generator().manual_seed(SEED + 11)))["params"]
+    params = serve_params()
     pkg = save_lm_package(os.path.join(tmp, "serve_lm"), lm_cfg, params)
     pm = LMPackagedModel(pkg)                   # the card, by default
     check(pm.device.type == "cuda", "LMPackagedModel resolved to the card")
@@ -4763,14 +5292,16 @@ def child_logs(reps, tail: int = 3000) -> str:
     return "\n".join(out)
 
 
-def await_cond(cond, timeout_s: float, what: str) -> float:
-    """Seconds until ``cond()`` holds; a check failure past the timeout."""
+def await_cond(cond, timeout_s: float, what: str, state=None) -> float:
+    """Seconds until ``cond()`` holds; a check failure past the timeout,
+    naming what ``state()`` reads then."""
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < timeout_s:
         if cond():
             return time.perf_counter() - t0
         time.sleep(0.05)
-    check(False, f"{what} within {timeout_s} s")
+    check(False, f"{what} within {timeout_s} s"
+          + (f" ({state()})" if state is not None else ""))
 
 
 def phase_fleet(tmp: str, ctx: dict, serve: dict) -> dict:
@@ -4948,9 +5479,14 @@ def phase_fleet(tmp: str, ctx: dict, serve: dict) -> dict:
             os.environ.pop("DDW_FAULT", None)
         base = pgw.replica_set.restarts[1]
         gen = reps[1].generation
-        crash_prompts = prompts[:8]
-        # the router's canary weighting at 1.0 sends the drill to child 1
-        # while it stands; once its circuit opens the retries go to child 0
+        # fresh seeded prompts of the mix's first 8 lengths: no replica
+        # holds a prefix of them, so the router's canary weighting at 1.0
+        # sends the drill to child 1 while it stands (a cached prefix on
+        # child 0 would outbid it); once its circuit opens the retries go
+        # to child 0
+        rng = np.random.RandomState(SEED + 44)
+        crash_prompts = [rng.randint(0, LM_CFG["vocab_size"], len(p)).astype(
+            np.int32) for p in prompts[:8]]
         pgw.replica_set.set_canary(1, 1.0)
         t0 = time.perf_counter()
         try:
@@ -4962,12 +5498,19 @@ def phase_fleet(tmp: str, ctx: dict, serve: dict) -> dict:
             lambda: (pgw.replica_set.restarts[1] > base
                      and pgw.replica_set.fleet_health()[1]["state"] == "alive"
                      and pgw.replica_set.breakers[1].state == "closed"),
-            300.0, "the supervisor restarted child 1")
+            300.0, "the supervisor restarted child 1", lambda: {
+                "restarts": list(pgw.replica_set.restarts), "base": base,
+                "states": [h["state"] for h in
+                           pgw.replica_set.fleet_health()],
+                "breakers": [b.state for b in pgw.replica_set.breakers],
+                "attempts": [(a.replica, a.kind, a.action, a.readmit)
+                             for a in pgw.supervisor.attempts],
+                "mix_errors": cmix["errors"][:3],
+                "mix_retries": cmix["retries"]})
         if cmix["errors"]:
             check(False, f"every request of the crash drill answered, "
                   f"failed over ({cmix['errors'][:3]})")
-        ctie = stream_check(pm, crash_prompts, refs[:8], cmix["tokens"],
-                            ref_readings)
+        ctie = forced_check(pm, crash_prompts, cmix["tokens"])
         kinds = [(a.replica, a.kind, a.action)
                  for a in pgw.supervisor.attempts]
         out.update(restart_s=restart_s)
@@ -4984,6 +5527,10 @@ def phase_fleet(tmp: str, ctx: dict, serve: dict) -> dict:
               f"tokens within {SERVE_TOKEN_TIE} ({ctie})")
 
         # --- (d) a canary roll to a second seeded package under load --------
+        # held to the canary (only=[0]): child 0 respawns on the new
+        # package, is judged and promoted, child 1 keeps the old one (the
+        # second respawn is the same recycle again, and costs the phase its
+        # time)
         lm_cfg = LMCfg(**LM_CFG)
         new_dir = save_lm_package(
             os.path.join(tmp, "fleet_lm_new"), lm_cfg, to_flax_variables(
@@ -5020,7 +5567,7 @@ def phase_fleet(tmp: str, ctx: dict, serve: dict) -> dict:
             t0 = time.perf_counter()
             check(pgw.start_deploy(new_dir, strategy="canary",
                                    canary_fraction=0.5,
-                                   judge_window_s=FLEET_JUDGE_S),
+                                   judge_window_s=FLEET_JUDGE_S, only=[0]),
                   "the canary roll started")
             await_cond(lambda: not pgw.deploy_view()["deploying"], 600.0,
                        "the roll ended")
@@ -5031,8 +5578,9 @@ def phase_fleet(tmp: str, ctx: dict, serve: dict) -> dict:
             for t in load:
                 t.join(timeout=600)
         dv = pgw.deploy_view()
-        after = [np.asarray(pcli.generate(p.tolist(), FLEET_LOAD_STEPS * 4)[
-            "tokens"], np.int32) for p in chk]
+        canary = pgw.replica_set.replicas[0]
+        after = [canary.submit_generate(p, FLEET_LOAD_STEPS * 4).result(
+            timeout=300).tokens for p in chk]
         ntie = stream_check(new_pm, chk, new_refs, after, {})
         journal_left = RolloutJournal.load(jdir)
         out.update(roll_s=roll_s)
@@ -5044,13 +5592,14 @@ def phase_fleet(tmp: str, ctx: dict, serve: dict) -> dict:
              journal_terminal=journal_left is None, **ntie)
         check(dv["status"] == "done" and dv["fleet_generation"] >= 1,
               f"the canary roll finished ({dv['status']})")
-        check(dv["checkpoints"] == [new_pm.content_digest] * 2,
-              "both children on the new package")
+        check(dv["checkpoints"] == [new_pm.content_digest,
+                                    pm.content_digest],
+              "the canary child on the new package, child 1 on the old")
         check(not failures and during > 0, f"zero failed requests under the "
               f"roll, {during} served ({failures[:3]})")
-        check(ntie["all_near_ties"], f"after the roll, tokens within "
-              f"{SERVE_TOKEN_TIE} of the new package's sequential generate "
-              f"({ntie})")
+        check(ntie["all_near_ties"], f"after the roll, the canary's tokens "
+              f"within {SERVE_TOKEN_TIE} of the new package's sequential "
+              f"generate ({ntie})")
         check(journal_left is None, "the rollout journal ended terminal")
         del new_pm
     except BaseException:
@@ -5195,7 +5744,6 @@ def phase_fleet(tmp: str, ctx: dict, serve: dict) -> dict:
 # the tp_serve phase: a tensor-parallel replica over two rank processes
 TP_SERVE_DEGREE = 2
 TP_SERVE_REQUESTS = 16      # serve's mix cut: its first 16 requests
-TP_SERVE_MAX_STEPS = 64     # their new tokens cut to 32-64
 TP_FLEET_PROMPT = 128       # the process drill: the mix's prompts cut to
 TP_FLEET_STEPS = 16         # 128 tokens, 16 new tokens each, 4 requests a
 TP_FLEET_REQUESTS = 4       # round (one warmup bucket, two cold starts)
@@ -5227,26 +5775,22 @@ def pid_alive(pid: int) -> bool:
         return False
 
 
-def phase_tp_serve(tmp: str, ctx: dict, serve: dict, smi: str) -> dict:
+def phase_tp_serve(ctx: dict, serve: dict, smi: str) -> dict:
     """Tensor-parallel serving on the card (the module docstring's 9e):
     ``EngineCfg(tp=2)`` over serve's package, this process rank 0 and one
-    follower process on the same card, on a 16-request cut of serve's mix;
-    then a ``ProcessReplica(tp=2)`` child behind a ``Gateway``, SIGKILLed
-    and restarted by the supervisor."""
+    follower process on the same card, on a 16-request cut of serve's mix.
+    (The ``ProcessReplica(tp=2)`` child is a drill: ``drill_tp_process``.)"""
     import numpy as np
     import torch
 
-    from ddw_tpu_torch.deploy import ProcessReplica
-    from ddw_tpu_torch.gateway import Gateway, GatewayClient
     from ddw_tpu_torch.serve import EngineCfg, ServingEngine
 
     t_phase = time.perf_counter()
     pm, ref_readings = ctx["pm"], ctx["ref_readings"]
     n = TP_SERVE_REQUESTS
     prompts = ctx["prompts"][:n]
-    steps = [min(s, TP_SERVE_MAX_STEPS) for s in ctx["steps"][:n]]
-    refs = [r[:k] for r, k in zip(ctx["refs"][:n], steps)]
-    tp1 = [t[:k] for t, k in zip(ctx["paged_tokens"][:n], steps)]
+    steps, refs = ctx["steps"][:n], ctx["refs"][:n]
+    tp1 = ctx["paged_tokens"][:n]
 
     # --- (a) EngineCfg(tp=2) in this process, after tp=1 on the same cut ---
     cut1 = serve_engine_run(pm, prompts, steps, EngineCfg())
@@ -5311,14 +5855,34 @@ def phase_tp_serve(tmp: str, ctx: dict, serve: dict, smi: str) -> dict:
     check(tie["all_near_ties"], f"tp_serve: every token within "
           f"{SERVE_TOKEN_TIE} of the sequential path's argmax ({tie})")
 
-    # --- (b) a ProcessReplica(tp=2) child behind a Gateway ------------------
-    fprompts = [p[:TP_FLEET_PROMPT] for p in prompts[:TP_FLEET_REQUESTS]]
+    out["wall_seconds"] = time.perf_counter() - t_phase
+    emit(phase="tp_serve", wall_seconds=out["wall_seconds"])
+    torch.cuda.empty_cache()
+    return out
+
+
+def drill_tp_process(work: str) -> dict:
+    """tp_serve (b): one ``ProcessReplica(tp=2)`` child behind a
+    ``Gateway`` on serve's package (saved again here from its seed), 4
+    requests of serve's mix cut, SIGKILLed and restarted by the
+    supervisor."""
+    from ddw_tpu_torch.deploy import ProcessReplica
+    from ddw_tpu_torch.gateway import Gateway
+    from ddw_tpu_torch.serving.lm_package import (LMPackagedModel,
+                                                  save_lm_package)
+    from ddw_tpu_torch.utils.config import LMCfg
+
+    pkg = save_lm_package(os.path.join(work, "serve_lm"), LMCfg(**LM_CFG),
+                          serve_params())
+    pm = LMPackagedModel(pkg)
+    prompts = serve_mix()[0][:TP_FLEET_REQUESTS]
+    fprompts = [p[:TP_FLEET_PROMPT] for p in prompts]
     frefs = [pm.generate(p[None], TP_FLEET_STEPS)[0] for p in fprompts]
-    rep = ProcessReplica(ctx["pkg_dir"], replica_id=0,
+    rep = ProcessReplica(pkg, replica_id=0,
                          device=pm.device.type, tp=TP_SERVE_DEGREE,
                          warmup_lens=(TP_FLEET_PROMPT,),
                          spawn_timeout_s=300.0, request_timeout_s=600.0,
-                         workdir=os.path.join(tmp, "tp_fleet"))
+                         workdir=os.path.join(work, "tp_fleet"))
     os.makedirs(rep._workdir, exist_ok=True)
     gw = Gateway([rep], grace_s=60.0,
                  supervisor_kw={"poll_interval_s": 0.1,
@@ -5361,7 +5925,6 @@ def phase_tp_serve(tmp: str, ctx: dict, serve: dict, smi: str) -> dict:
     errors = first["errors"] + second["errors"]
     ftie = stream_check(pm, fprompts * 2, frefs * 2,
                         first["tokens"] + second["tokens"], {})
-    out.update(process_cold_start_s=cold, process_restart_s=restart_s)
     emit(phase="tp_serve", arm="process", cold_start_s=cold,
          restart_s=restart_s, killed_follower_gone_s=orphans_s,
          followers_before=before, followers_after=after,
@@ -5377,10 +5940,7 @@ def phase_tp_serve(tmp: str, ctx: dict, serve: dict, smi: str) -> dict:
     check(tp_child == TP_SERVE_DEGREE, "the respawn kept tp")
     check(ftie["all_near_ties"], f"tp=2 process replica: every token within "
           f"{SERVE_TOKEN_TIE} of the sequential path's argmax ({ftie})")
-    out["wall_seconds"] = time.perf_counter() - t_phase
-    emit(phase="tp_serve", wall_seconds=out["wall_seconds"])
-    torch.cuda.empty_cache()
-    return out
+    return {"process_cold_start_s": cold, "process_restart_s": restart_s}
 
 
 # the gang phase: ranks of the port's Launcher that share the card (gloo)
@@ -5538,90 +6098,91 @@ def gang_all_on(counts: dict, kerns, variant: str) -> bool:
                for k in kerns)
 
 
-def phase_gang(tmp: str) -> dict:
-    """The fault-tolerant runtime on the card: 2 ranks of the port's
-    Launcher that share it (gloo). (a) a supervised vision fit with a crash,
-    restarted from its checkpoint; (b) an elastic single-rank respawn, the
-    survivor re-running in its process; (c) a preempted LM fit restarted
-    outside the crash budget."""
-    import numpy as np
-
-    from ddw_tpu_torch.checkpoint.ckpt import CheckpointManager
+def gang_tables(tmp: str) -> str:
+    """The gang drills' work directory with its two class tables."""
     from ddw_tpu_torch.data.store import TableStore
-    from ddw_tpu_torch.runtime import (GangRendezvous, GangSupervisor,
-                                       Launcher)
-    from ddw_tpu_torch.runtime.faults import EXIT_FAULT_CRASH
 
-    t_phase = time.perf_counter()
     work = os.path.join(tmp, "gang")
     os.makedirs(work)
     store = TableStore(os.path.join(work, "tables"))
     class_table(store, "gang_train", GANG_TRAIN, SEED + 70)
     class_table(store, "gang_val", GANG_VAL, SEED + 71)
+    return work
 
-    def supervised(fn, *args, fault: str, **sup_kw):
-        os.environ["DDW_FAULT"] = fault
-        try:
-            sup = GangSupervisor(Launcher(np=2, timeout_s=GANG_TIMEOUT_S),
-                                 backoff_base_s=0.5, jitter=0.0, **sup_kw)
-            t0 = time.perf_counter()
-            return sup.run(fn, *args), sup, time.perf_counter() - t0
-        finally:
-            os.environ.pop("DDW_FAULT", None)
 
-    # --- (a) a crash, the supervisor's restart from the checkpoint --------
-    res, sup, a_s = supervised(gang_vision_rank, work, "a", GANG_EPOCHS,
-                               False, fault=GANG_CRASH, max_restarts=1)
-    t0 = time.perf_counter()
-    ref = Launcher(np=2, timeout_s=GANG_TIMEOUT_S).run(
-        gang_vision_rank, work, "a_ref", GANG_EPOCHS, False)
-    ref_s = time.perf_counter() - t0
+def attempt_rows(sup) -> list:
+    return [{"kind": a.kind, "exit_codes": list(a.exit_codes), "text": str(a)}
+            for a in sup.attempts]
+
+
+def drill_gang_crash(work: str) -> dict:
+    """(a) A crash, the supervisor's restart from the checkpoint."""
+    import numpy as np
+
+    from ddw_tpu_torch.runtime import GangSupervisor, Launcher
+    from ddw_tpu_torch.runtime.faults import EXIT_FAULT_CRASH
+
+    os.environ["DDW_FAULT"] = GANG_CRASH
+    sup = GangSupervisor(Launcher(np=2, timeout_s=GANG_TIMEOUT_S),
+                         backoff_base_s=0.5, jitter=0.0, max_restarts=1)
+    res = sup.run(gang_vision_rank, work, "a", GANG_EPOCHS, False)
+    attempts = attempt_rows(sup)
     notes = gang_notes(work, "a")
     counts = {f"gen{g}_rank{r}": n for (g, _, r), n in sorted(notes.items())}
-    last, want = res["history"][-1], ref["history"][-1]
-    gaps = {k: abs(last[k] - want[k]) / abs(want[k])
-            for k in ("loss", "val_loss")}
     emit(phase="gang", arm="supervised_crash", fault=GANG_CRASH,
-         attempts=[str(a) for a in sup.attempts], generation=
-         res["generation"], resume_step=res["resume_step"], step=res["step"],
-         history=res["history"], uninterrupted_history=ref["history"],
-         last_epoch_rel_gaps=gaps, tolerance=GANG_LOSS_TOL,
-         k1_k2_by_generation_and_rank=counts, device=res["device"],
-         seconds=a_s, uninterrupted_seconds=ref_s)
+         attempts=[a["text"] for a in attempts], generation=res["generation"],
+         resume_step=res["resume_step"], step=res["step"],
+         history=res["history"], k1_k2_by_generation_and_rank=counts,
+         device=res["device"])
     check(res["device"].startswith("cuda"), "the gang's ranks trained on "
           "the card")
-    check(len(sup.attempts) == 1 and sup.attempts[0].kind == "crash"
-          and sup.attempts[0].exit_codes[1] == EXIT_FAULT_CRASH,
+    check(len(attempts) == 1 and attempts[0]["kind"] == "crash"
+          and attempts[0]["exit_codes"][1] == EXIT_FAULT_CRASH,
           f"one crash attempt, rank 1 exited {EXIT_FAULT_CRASH} (the gang "
-          f"kill took rank 0): {[str(a) for a in sup.attempts]}")
+          f"kill took rank 0): {[a['text'] for a in attempts]}")
     check(res["generation"] == 1 and (res["resume_step"] or 0) > 0
           and [r["epoch"] for r in res["history"]] == list(
               range(res["resume_step"] // GANG_STEPS, GANG_EPOCHS)),
           f"generation 1 resumed at step {res['resume_step']} > 0 and "
           f"completed")
     check(all(np.isfinite([r["loss"], r["val_loss"]]).all()
-              for r in res["history"] + ref["history"]), "finite losses")
-    check(max(gaps.values()) <= GANG_LOSS_TOL,
-          f"the restarted fit's last epoch within {GANG_LOSS_TOL} of an "
-          f"uninterrupted fit's: {gaps}")
+              for r in res["history"]), "finite losses")
     check(sorted(counts) == ["gen0_rank0", "gen0_rank1", "gen1_rank0",
                              "gen1_rank1"]
           and all(gang_all_on(n, ("k1", "k2"), "tma")
                   for n in counts.values()),
           f"every rank launched K1 and K2, all tma, in both generations: "
           f"{counts}")
+    return {"history": res["history"],
+            "k1": sum(n["k1"]["total"] for n in counts.values()),
+            "k2": sum(n["k2"]["total"] for n in counts.values())}
 
-    # --- (b) an elastic single-rank respawn --------------------------------
+
+def drill_gang_uninterrupted(work: str) -> dict:
+    """(a)'s yardstick: the same 2-rank fit with no fault."""
+    import numpy as np
+
+    from ddw_tpu_torch.runtime import Launcher
+
+    ref = Launcher(np=2, timeout_s=GANG_TIMEOUT_S).run(
+        gang_vision_rank, work, "a_ref", GANG_EPOCHS, False)
+    check(all(np.isfinite([r["loss"], r["val_loss"]]).all()
+              for r in ref["history"]), "finite losses")
+    return {"history": ref["history"]}
+
+
+def drill_gang_elastic(work: str) -> dict:
+    """(b) An elastic single-rank respawn."""
+    import numpy as np
+
+    from ddw_tpu_torch.runtime import GangRendezvous, Launcher
+    from ddw_tpu_torch.runtime.faults import EXIT_FAULT_CRASH
+
     os.environ["DDW_FAULT"] = GANG_ELASTIC_CRASH
     launcher = Launcher(np=2, timeout_s=GANG_TIMEOUT_S, elastic_restarts=1,
                         rendezvous_dir=os.path.join(work, "rdzv"))
-    t0 = time.perf_counter()
-    try:
-        res_b = launcher.run(gang_vision_rank, work, "b", GANG_ELASTIC_EPOCHS,
-                             True)
-    finally:
-        os.environ.pop("DDW_FAULT", None)
-    b_s = time.perf_counter() - t0
+    res_b = launcher.run(gang_vision_rank, work, "b", GANG_ELASTIC_EPOCHS,
+                         True)
     events = [{"kind": e.kind, "generation": e.generation,
                "dead_rank": e.dead_rank, "exit_code": e.exit_code}
               for e in launcher.elastic_events]
@@ -5636,8 +6197,7 @@ def phase_gang(tmp: str) -> dict:
          state_bytes=res_b["state_bytes"],
          world=res_b["world"], egen=res_b["egen"],
          rerun_history=res_b["history"],
-         pids={f"egen{g}_rank{r}": p for (g, r), p in pids.items()},
-         seconds=b_s)
+         pids={f"egen{g}_rank{r}": p for (g, r), p in pids.items()})
     check(events == [{"kind": "respawn", "generation": 1, "dead_rank": 1,
                       "exit_code": EXIT_FAULT_CRASH}],
           f"elastic_events records one respawn of rank 1: {events}")
@@ -5654,32 +6214,33 @@ def phase_gang(tmp: str) -> dict:
     check(res_b["world"] == 2 and res_b["history"]
           and all(np.isfinite(r["loss"]) for r in res_b["history"]),
           "the gang finished at world 2, the re-run trained")
+    return {"entries": entries}
 
-    # --- (c) a preempted LM fit --------------------------------------------
-    env = {k: os.environ.get(k) for k in ("DDW_ATTN_XLA_PLAIN_MAX",
-                                          "DDW_ATTN_XLA_CKPT_MAX")}
-    os.environ.update(DDW_ATTN_XLA_PLAIN_MAX="0", DDW_ATTN_XLA_CKPT_MAX="0")
-    try:
-        res_c, sup_c, c_s = supervised(gang_lm_rank, work, "c",
-                                       fault=GANG_PREEMPT, max_restarts=0)
-    finally:
-        for k, v in env.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+
+def drill_gang_preemption(work: str) -> dict:
+    """(c) A preempted LM fit, restarted outside the crash budget."""
+    import numpy as np
+
+    from ddw_tpu_torch.checkpoint.ckpt import CheckpointManager
+    from ddw_tpu_torch.runtime import GangSupervisor, Launcher
+
+    os.environ.update(DDW_FAULT=GANG_PREEMPT, DDW_ATTN_XLA_PLAIN_MAX="0",
+                      DDW_ATTN_XLA_CKPT_MAX="0")
+    sup_c = GangSupervisor(Launcher(np=2, timeout_s=GANG_TIMEOUT_S),
+                           backoff_base_s=0.5, jitter=0.0, max_restarts=0)
+    res_c = sup_c.run(gang_lm_rank, work, "c")
+    attempts = attempt_rows(sup_c)
     lm_notes = gang_notes(work, "c")
     lm_counts = {f"gen{g}_rank{r}": n for (g, _, r), n in
                  sorted(lm_notes.items())}
     meta = CheckpointManager(os.path.join(work, "c_ckpt")).read_metadata(2)
     depth = LM_CFG["depth"]
     emit(phase="gang", arm="preemption", fault=GANG_PREEMPT,
-         attempts=[str(a) for a in sup_c.attempts],
+         attempts=[a["text"] for a in attempts],
          generation=res_c["generation"], resume_step=res_c["resume_step"],
          history=res_c["history"], step2_metadata_preempted=meta.get(
-             "preempted"), k3_k5_by_generation_and_rank=lm_counts,
-         seconds=c_s)
-    check(len(sup_c.attempts) == 1 and sup_c.attempts[0].kind == "preempted"
+             "preempted"), k3_k5_by_generation_and_rank=lm_counts)
+    check(len(attempts) == 1 and attempts[0]["kind"] == "preempted"
           and res_c["generation"] == 1 and res_c["resume_step"] == 2,
           "the preempted gang restarted outside the crash budget "
           "(max_restarts=0) and resumed at step 2")
@@ -5699,15 +6260,141 @@ def phase_gang(tmp: str) -> dict:
           and gang_all_on(g1, ("k3", "k4", "k5"), "sm90"),
           f"generation 1 launched K3-K5 on sm90 over its 4 steps and 1 "
           f"val batch: {g1}")
-    seconds = time.perf_counter() - t_phase
-    emit(phase="gang", seconds=seconds)
-    return {"k1": sum(n["k1"]["total"] for n in counts.values()),
-            "k2": sum(n["k2"]["total"] for n in counts.values()),
-            **{k: sum(n[k]["total"] for n in lm_counts.values())
-               for k in ("k3", "k4", "k5")},
-            "seconds": seconds, "supervised_s": a_s, "elastic_s": b_s,
-            "preemption_s": c_s, "last_epoch_rel_gaps": gaps,
-            "memory_allocated_at_entries": entries}
+    return {k: sum(n[k]["total"] for n in lm_counts.values())
+            for k in ("k3", "k4", "k5")}
+
+
+def gang_finish(done: dict) -> dict:
+    """The gang phase's result from its drills: (a)'s restarted fit against
+    the uninterrupted one, and the launches and seconds of every arm."""
+    a, ref = done["gang_crash"], done["gang_uninterrupted"]
+    last, want = a["history"][-1], ref["history"][-1]
+    gaps = {k: abs(last[k] - want[k]) / abs(want[k])
+            for k in ("loss", "val_loss")}
+    emit(phase="gang", arm="supervised_crash_vs_uninterrupted",
+         history=a["history"], uninterrupted_history=ref["history"],
+         last_epoch_rel_gaps=gaps, tolerance=GANG_LOSS_TOL,
+         seconds=a["seconds"], uninterrupted_seconds=ref["seconds"])
+    check(max(gaps.values()) <= GANG_LOSS_TOL,
+          f"the restarted fit's last epoch within {GANG_LOSS_TOL} of an "
+          f"uninterrupted fit's: {gaps}")
+    c = done["gang_preemption"]
+    arms = ("gang_crash", "gang_uninterrupted", "gang_elastic",
+            "gang_preemption")
+    seconds = max(done[n]["seconds"] for n in arms)
+    emit(phase="gang", seconds=seconds,
+         note="the four arms ran side by side, each in its own process")
+    return {"k1": a["k1"], "k2": a["k2"],
+            **{k: c[k] for k in ("k3", "k4", "k5")},
+            "seconds": seconds, "supervised_s": a["seconds"],
+            "uninterrupted_s": ref["seconds"],
+            "elastic_s": done["gang_elastic"]["seconds"],
+            "preemption_s": c["seconds"], "last_epoch_rel_gaps": gaps,
+            "memory_allocated_at_entries": done["gang_elastic"]["entries"]}
+
+
+# Drills: runs whose numbers are their checks, launch counts and seconds,
+# most of them of several processes. Each runs in a child process of its
+# own (``python3 chip_smoke.py --drill NAME WORK OUT``), all side by side
+# after the last phase that times a kernel or a path. The workshop drill
+# goes first: it is the longest.
+DRILLS = {"workshop": phase_workshop, "pretrained": phase_pretrained,
+          "tp_process": drill_tp_process,
+          "gang_crash": drill_gang_crash,
+          "gang_uninterrupted": drill_gang_uninterrupted,
+          "gang_elastic": drill_gang_elastic,
+          "gang_preemption": drill_gang_preemption,
+          "parallel": drill_parallel, "dryrun": drill_dryrun}
+DRILL_TIMEOUT_S = 600.0
+
+
+def drill_child(name: str, work: str, out: str) -> int:
+    """One drill in this process; its result and seconds go to ``out``."""
+    t0 = time.perf_counter()
+    res = DRILLS[name](work)
+    res["seconds"] = time.perf_counter() - t0
+    with open(out + ".tmp", "w") as f:
+        json.dump(res, f)
+    os.replace(out + ".tmp", out)
+    return 0
+
+
+def start_drills(tmp: str) -> dict:
+    """Every drill started in a child process; {name: (process, path stem
+    of its result and logs)}."""
+    gang = gang_tables(tmp)
+    here = os.path.abspath(__file__)
+    procs = {}
+    for name in DRILLS:
+        work = gang if name.startswith("gang_") else os.path.join(tmp, name)
+        os.makedirs(work, exist_ok=True)
+        stem = os.path.join(tmp, f"drill_{name}")
+        with open(stem + ".out", "w") as out, open(stem + ".err", "w") as err:
+            procs[name] = (subprocess.Popen(
+                [sys.executable, here, "--drill", name, work, stem + ".json"],
+                cwd=os.path.dirname(here), stdout=out, stderr=err), stem)
+    return procs
+
+
+def finish_drills(procs: dict) -> dict:
+    """Wait for every drill (DRILL_TIMEOUT_S in all), pass on its output
+    lines and its standard error, and return {name: result}; fails if a
+    drill failed or did not end."""
+    deadline = time.monotonic() + DRILL_TIMEOUT_S
+    done, failed = {}, []
+    for name, (proc, stem) in procs.items():
+        try:
+            rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            rc = None
+        with open(stem + ".out") as f:
+            sys.stdout.write(f.read())
+        sys.stdout.flush()
+        with open(stem + ".err") as f:
+            err = f.read()
+        if err:
+            print(err[-8000:], file=sys.stderr, flush=True)
+        if rc != 0:
+            failed.append(f"{name} ({'not ended' if rc is None else rc})")
+            continue
+        with open(stem + ".json") as f:
+            done[name] = json.load(f)
+    check(not failed, f"every drill passed: {failed} did not")
+    return done
+
+
+def process_tree(pid: int) -> list[int]:
+    """The live processes below ``pid``."""
+    kids: dict = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue
+        kids.setdefault(ppid, []).append(int(d))
+    out, todo = [], [pid]
+    while todo:
+        for c in kids.get(todo.pop(), []):
+            out.append(c)
+            todo.append(c)
+    return out
+
+
+def stop_drills(procs: dict) -> None:
+    """Kill every drill still running, with every process below it."""
+    import signal
+
+    for proc, _ in procs.values():
+        if proc.poll() is None:
+            for pid in [proc.pid, *process_tree(proc.pid)]:
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+            proc.wait()
 
 
 def main() -> int:
@@ -5724,49 +6411,72 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
-    name, smi = phase_device()
-    phase_build()
-    decoder = phase_decode()
+    t_main = time.perf_counter()
+    seconds: dict = {}
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[label] = round(time.perf_counter() - t0, 3)
+
+    name, smi = timed("device", phase_device)
+    timed("build", phase_build)
+    decoder = timed("decode", phase_decode)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     torch.backends.cudnn.allow_tf32 = False
-    per_pass, per_layer, max_err = phase_kernel(flush)
+    per_pass, per_layer, max_err = timed("kernel", phase_kernel, flush)
     torch.backends.cudnn.allow_tf32 = True
-    k3_times, k3_err = phase_lm_kernel(flush)
+    k3_times, k3_err = timed("lm_kernel", phase_lm_kernel, flush)
     torch.backends.cuda.matmul.allow_tf32 = False
-    bwd_times, bwd_err = phase_lm_bwd_kernel(flush)
-    vit_times, vit_err = phase_vit_kernel(flush)
+    bwd_times, bwd_err = timed("lm_bwd_kernel", phase_lm_bwd_kernel, flush)
+    vit_times, vit_err = timed("vit_kernel", phase_vit_kernel, flush)
+    coverage = timed("coverage", phase_coverage, flush)
     del flush
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="ddw_chip_smoke_") as tmp:
-        serving_k1, serving_k1_by = phase_main(tmp)
-        train_launches, step_ms = phase_train(tmp)
+        serving_k1, serving_k1_by = timed("main", phase_main, tmp)
+        train_launches, step_ms = timed("train", phase_train, tmp)
         torch.cuda.empty_cache()
-        workshop = phase_workshop(tmp)
+        vision = timed("vision", phase_vision, tmp)
         torch.cuda.empty_cache()
-        vision = phase_vision(tmp)
+        k3_launches, score_runs = timed("lm", phase_lm, tmp)
         torch.cuda.empty_cache()
-        pretrained = phase_pretrained(tmp)
+        lm_train_launches, lm_step_ms, lm_tokens_per_s = timed(
+            "lm_train", phase_lm_train, tmp)
         torch.cuda.empty_cache()
-        k3_launches, score_runs = phase_lm(tmp)
+        wide = timed("lm_wide", phase_lm_wide, tmp)
         torch.cuda.empty_cache()
-        lm_train_launches, lm_step_ms, lm_tokens_per_s = phase_lm_train(tmp)
+        serve, serve_ctx = timed("serve", phase_serve, tmp)
         torch.cuda.empty_cache()
-        serve, serve_ctx = phase_serve(tmp)
+        serve_plus = timed("serve_plus", phase_serve_plus, tmp, serve_ctx)
         torch.cuda.empty_cache()
-        serve_plus = phase_serve_plus(tmp, serve_ctx)
+        fleet = timed("fleet", phase_fleet, tmp, serve_ctx, serve)
         torch.cuda.empty_cache()
-        fleet = phase_fleet(tmp, serve_ctx, serve)
-        torch.cuda.empty_cache()
-        tp_serve = phase_tp_serve(tmp, serve_ctx, serve, smi)
+        tp_serve = timed("tp_serve", phase_tp_serve, serve_ctx, serve, smi)
         del serve_ctx
     torch.cuda.empty_cache()
-    ring = phase_ring()
+    ring = timed("ring", phase_ring)
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="ddw_chip_parallel_") as tmp:
-        parallel = phase_parallel(tmp)
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="ddw_chip_gang_") as tmp:
-        gang = phase_gang(tmp)
+    # the drills, each in a child process, side by side
+    with tempfile.TemporaryDirectory(prefix="ddw_chip_drills_") as tmp:
+        drills = start_drills(tmp)
+        try:
+            done = timed("drills", finish_drills, drills)
+        finally:
+            stop_drills(drills)
+    workshop, pretrained = done["workshop"], done["pretrained"]
+    tp_serve.update(process_cold_start_s=done["tp_process"][
+        "process_cold_start_s"], process_restart_s=done["tp_process"][
+            "process_restart_s"])
+    gang = gang_finish(done)
+    parallel = dict(done["parallel"],
+                    dryrun_seconds=done["dryrun"]["dryrun_seconds"])
+    seconds["each_drill"] = {name: round(r["seconds"], 3)
+                             for name, r in done.items()}
+    emit(phase="seconds", by_phase=seconds,
+         total=round(time.perf_counter() - t_main, 3))
     src = "ddw_tpu_torch/ops/csrc/depthwise_sm90.cu"
     simt = {"simt": "ddw_tpu_torch/ops/csrc/depthwise_conv.cu (C * bytes "
                     "not a multiple of 16, or unaligned pointers)"}
@@ -5809,6 +6519,9 @@ def main() -> int:
                "turns with it",
         "layers": per_layer["k1"],
         "other_variants": simt,
+        "coverage_f16": {**per_pass["k1_f16"], "max_abs_err": 0.0,
+                         "per": "one f16 pass at batch 128 over the 13 "
+                                "stride-1 layers, bit for bit"},
     }, {
         "name": "depthwise_conv3x3_wgrad",
         "route": "cuda",
@@ -5835,6 +6548,10 @@ def main() -> int:
                "layers; ms_simt as for the forward",
         "layers": per_layer["k2"],
         "other_variants": simt,
+        "coverage_f16": {**per_pass["k2_f16"],
+                         "max_abs_err": max_err["k2_f16"],
+                         "per": "one f16 backward at batch 128 over the 13 "
+                                "stride-1 layers"},
     }, {
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -5849,13 +6566,19 @@ def main() -> int:
                              **vit_paths(vision, "k3"),
                              "ring_attention_sp_fit": parallel["fit"]["k3"][
                                  "total"],
-                             "gang": gang["k3"]},
+                             "gang": gang["k3"],
+                             "lm_wide_scoring": sum(
+                                 wide["k3_scoring"].values()),
+                             "lm_wide_training": wide["train_launches"][0]},
         "launches_by_variant": {
             "lm_training": lm_train_launches["k3_by_variant"],
             "lm_batch_scoring": k3_launches,
             "lm_training_traced": lm_train_launches["traced_by_variant"][0],
             **vit_variants(vision, "k3"),
-            "ring_attention_sp_fit": parallel["fit"]["k3"]},
+            "ring_attention_sp_fit": parallel["fit"]["k3"],
+            "lm_wide_scoring": wide["k3_scoring"],
+            "lm_wide_training": wide["train_by_variant"][0]},
+        **wide_and_coverage(wide, coverage, "fwd", 0),
         "max_abs_err": k3_err,
         **{k: k3_times["scoring"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -5865,10 +6588,10 @@ def main() -> int:
                "replaces on this path, timed in turns with it",
         "other_variants": {
             "mma": "ddw_tpu_torch/ops/csrc/flash_attention.cu "
-                   "(bf16, block_k a multiple of 16 other than 128, or D 32 "
-                   "or 48: ViT's)",
+                   "(bf16 and f16, block_k a multiple of 16, every other "
+                   "head dim up to 256: ViT's 48, lm_wide's 256)",
             "cuda_cores": "ddw_tpu_torch/ops/csrc/flash_attention.cu "
-                          "(f32, other bf16 blocks)"},
+                          "(f32, other 16-bit blocks, head dims above 256)"},
         "at_train_shape": {k: k3_times["training"][k] for k in (
             "ms", "ms_mma", "library_ms", "bound_ms", "sm90_tflops")},
         "at_vit_shape": at_vit_shape(vit_times["fwd"]),
@@ -5886,13 +6609,16 @@ def main() -> int:
                              **vit_paths(vision, kern),
                              "ring_attention_sp_fit": parallel["fit"][kern][
                                  "total"],
-                             "gang": gang[kern]},
+                             "gang": gang[kern],
+                             "lm_wide_training": wide["train_launches"][idx]},
         "launches_by_variant": {
             "lm_training": lm_train_launches[f"{kern}_by_variant"],
             "lm_training_traced": lm_train_launches["traced_by_variant"][
                 idx],
             **vit_variants(vision, kern),
-            "ring_attention_sp_fit": parallel["fit"][kern]},
+            "ring_attention_sp_fit": parallel["fit"][kern],
+            "lm_wide_training": wide["train_by_variant"][idx]},
+        **wide_and_coverage(wide, coverage, key, idx),
         "max_abs_err": bwd_err[key],
         **{k: bwd_times[key][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_mma",
@@ -5905,9 +6631,11 @@ def main() -> int:
                "runs them); ms_mma is the mma.sync kernel it replaces on "
                "this path, timed in turns with it",
         "other_variants": {
-            "mma": "ddw_tpu_torch/ops/csrc/flash_attention.cu (bf16, D 32 "
-                   "or 48: ViT's)",
-            "cuda_cores": "ddw_tpu_torch/ops/csrc/flash_attention.cu (f32)"},
+            "mma": "ddw_tpu_torch/ops/csrc/flash_attention_bwd.cu (bf16 "
+                   "and f16 at every other head dim up to 256: ViT's 48, "
+                   "lm_wide's 256)",
+            "cuda_cores": "ddw_tpu_torch/ops/csrc/flash_attention_bwd.cu "
+                          "(f32, 16-bit head dims above 256)"},
         "at_vit_shape": at_vit_shape(vit_times[key]),
         "max_abs_err_at_vit_shape": vit_err[key],
     } for key, line, kern, idx in (("dq", 425, "k4", 1),
@@ -5936,6 +6664,12 @@ def main() -> int:
         **{f"{k}_2_ranks": ring[2][k] for k in ("ms", "plain_ms",
                                                  "bound_ms")},
         "bound_ms_4_cards_nvlink": ring[4]["bound_ms_4_cards_nvlink"],
+        "integer_tree_launches": {f"{n}_ranks": ring[n]["int_launches"]
+                                  for n in RING_RANKS},
+        "int8_tree": {f"{n}_ranks": {
+            "ms": ring[n]["int8_ms"], "library_ms": ring[n][
+                "int8_library_ms"], "bound_ms": ring[n]["int8_bound_ms"]}
+            for n in RING_RANKS},
         "per": "one all_reduce_sum(impl='pallas') of the full-width LM's f32 "
                "gradient tree (102 leaves, 28,360,704 values) at 4 ranks "
                "that share the card (max over ranks; *_2_ranks at 2); "
@@ -5978,4 +6712,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--drill"]:
+        sys.exit(drill_child(*sys.argv[2:5]))
     sys.exit(main())

@@ -2,10 +2,14 @@
 
 Each ``.cu`` under ``ops/csrc`` exposes a plain C interface and is compiled on
 its own into a shared library (``nvcc -gencode arch=compute_90a,code=sm_90a
--O3 -shared -Xcompiler -fPIC``), loaded with ``ctypes``. Libraries land in
-``ops/build/`` (git-ignored), named by a hash of the source and the flags, so
-an edited source rebuilds and an unchanged one is reused. There is no fallback:
-a missing ``nvcc`` or a failed build raises.
+-O3 -shared -Xcompiler -fPIC``), loaded with ``ctypes``; sources may share
+``.cuh`` headers of the same directory. Libraries land in ``ops/build/``
+(git-ignored), named by a hash of the source, the headers it includes and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused. A source that declares ``// nvcc parts: N`` is compiled N times at
+once, with ``-DDDW_PART=p``, into objects linked into its one library (each
+part instantiates a share of its kernels; see ``csrc/flash_common.cuh``).
+There is no fallback: a missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -13,10 +17,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -35,10 +41,26 @@ def find_nvcc() -> str:
                        "built from source at first use")
 
 
+def local_headers(source: str) -> list[str]:
+    """The ``csrc`` headers ``csrc/<source>`` includes by ``#include "..."``
+    (one level: the headers include none of their own)."""
+    with open(os.path.join(CSRC, source)) as f:
+        return re.findall(r'^#include "([^"]+)"', f.read(), re.M)
+
+
+def parts(source: str) -> int:
+    """How many translation units ``csrc/<source>`` is compiled as."""
+    with open(os.path.join(CSRC, source)) as f:
+        m = re.search(r"^// nvcc parts: (\d+)$", f.read(), re.M)
+    return int(m.group(1)) if m else 1
+
+
 def library_path(source: str) -> str:
     """Where the library built from ``csrc/<source>`` lives."""
-    with open(os.path.join(CSRC, source), "rb") as f:
-        h = hashlib.sha256(f.read())
+    h = hashlib.sha256()
+    for name in (source, *local_headers(source)):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")
@@ -54,21 +76,36 @@ def build(source: str) -> tuple[str, float, str]:
         with open(log) as f:
             return out, 0.0, f.read()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, source)]
-    t0 = time.perf_counter()
+    nvcc, src, n = find_nvcc(), os.path.join(CSRC, source), parts(source)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        tmp = os.path.join(work, "lib.so")
+        t0 = time.perf_counter()
+        if n == 1:
+            report = _run([nvcc, *NVCC_FLAGS, "-o", tmp, src], source)
+        else:
+            flags = ["-c" if f == "-shared" else f for f in NVCC_FLAGS]
+            objs = [os.path.join(work, f"part{p}.o") for p in range(n)]
+            with ThreadPoolExecutor(max_workers=n) as pool:
+                reports = list(pool.map(lambda p: _run(
+                    [nvcc, *flags, f"-DDDW_PART={p}", "-o", objs[p], src],
+                    source), range(n)))
+            report = "".join(reports) + _run(
+                [nvcc, "-shared", "-o", tmp, *objs], source)
+        seconds = time.perf_counter() - t0
+        with open(log, "w") as f:
+            f.write(report)
+        os.replace(tmp, out)  # atomic: a concurrent builder sees all or none
+    return out, seconds, report
+
+
+def _run(cmd: list, source: str) -> str:
+    """One nvcc command; its output, or a raise naming the source."""
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
     report = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        os.unlink(tmp)
         raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
                            f"{source}:\n{' '.join(cmd)}\n{report}")
-    with open(log, "w") as f:
-        f.write(report)
-    os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
-    return out, seconds, report
+    return report
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -26,7 +26,7 @@
 // kRows = 4 output pixels (same w, rows h0..h0+3), with the channel index
 // innermost in the thread numbering, so that neighbouring threads read
 // neighbouring addresses (16-byte vector loads when C and the pointers allow:
-// V = 8 for bf16, V = 4 for f32; else V = 1). The thread walks the 6 input
+// V = 8 for bf16 and f16, V = 4 for f32; else V = 1). The thread walks the 6 input
 // rows h0-1..h0+4 once, each row feeding up to three output rows, so it loads
 // 18 input vectors for 4 outputs instead of 36; the left and right taps are
 // the neighbouring threads' columns, served by L1. Index arithmetic is 32-bit
@@ -35,6 +35,7 @@
 // covers the tensor. The C entry returns cudaGetLastError() after the launch.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -47,11 +48,17 @@ template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; 
 template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+template <> __device__ __forceinline__ float to_f32<__half>(__half v) {
+  return __half2float(v);
+}
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);
 }
 
 // V elements of T loaded or stored as one aligned vector.
@@ -330,13 +337,15 @@ extern "C" int ddw_dw3x3_wgrad(const void* x, const void* g, void* part,
     return launch_wgrad<__nv_bfloat16, 8>(x, g, p, d, B, H, W, C, s);
   if (dtype == 1 && vec == 1)
     return launch_wgrad<__nv_bfloat16, 1>(x, g, p, d, B, H, W, C, s);
+  if (dtype == 2 && vec == 8) return launch_wgrad<__half, 8>(x, g, p, d, B, H, W, C, s);
+  if (dtype == 2 && vec == 1) return launch_wgrad<__half, 1>(x, g, p, d, B, H, W, C, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. vec: channels per thread (f32: 4 or 1,
-// bf16: 8 or 1); the caller guarantees C % vec == 0 and 16-byte aligned
-// pointers when vec > 1. flip != 0 reads the taps w[2-dy][2-dx] (the input
-// gradient). Returns the cudaError_t of the launch (0 = success).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. vec: channels per thread
+// (f32: 4 or 1, bf16 and f16: 8 or 1); the caller guarantees C % vec == 0
+// and 16-byte aligned pointers when vec > 1. flip != 0 reads the taps
+// w[2-dy][2-dx] (the input gradient). Returns the cudaError_t of the launch (0 = success).
 extern "C" int ddw_dw3x3_fwd(const void* x, const void* w, void* y, int B,
                              int H, int W, int C, int dtype, int vec,
                              int flip, void* stream) {
@@ -345,5 +354,7 @@ extern "C" int ddw_dw3x3_fwd(const void* x, const void* w, void* y, int B,
   if (dtype == 0 && vec == 1) return launch<float, 1>(x, w, y, B, H, W, C, flip, s);
   if (dtype == 1 && vec == 8) return launch<__nv_bfloat16, 8>(x, w, y, B, H, W, C, flip, s);
   if (dtype == 1 && vec == 1) return launch<__nv_bfloat16, 1>(x, w, y, B, H, W, C, flip, s);
+  if (dtype == 2 && vec == 8) return launch<__half, 8>(x, w, y, B, H, W, C, flip, s);
+  if (dtype == 2 && vec == 1) return launch<__half, 1>(x, w, y, B, H, W, C, flip, s);
   return (int)cudaErrorInvalidValue;
 }

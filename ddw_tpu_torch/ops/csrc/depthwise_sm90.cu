@@ -60,6 +60,7 @@
 
 #include <cuda.h>  // CUtensorMap and its enums: types only, nothing linked
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -81,6 +82,10 @@ template <> struct Traits<float> {
 template <> struct Traits<__nv_bfloat16> {
   static constexpr int V = 8;
   static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <> struct Traits<__half> {
+  static constexpr int V = 8;
+  static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
 };
 
 // The launch's geometry, derived on the host from the plan (see make_plan).
@@ -152,36 +157,60 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
 
 // ---- vectors of V channels --------------------------------------------------
 
-__device__ __forceinline__ void unpack(const uint4& r, float (&f)[4]) {
-  f[0] = __uint_as_float(r.x);
-  f[1] = __uint_as_float(r.y);
-  f[2] = __uint_as_float(r.z);
-  f[3] = __uint_as_float(r.w);
-}
+// The V channels of a 16-byte vector as f32 (exact for every input dtype),
+// and V f32 values rounded to T (nearest even) into one vector.
+template <typename T> struct Vec;
 
-__device__ __forceinline__ void unpack(const uint4& r, float (&f)[8]) {
-  const uint32_t u[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {  // bf16 -> f32 is exact: the high 16 bits
-    f[2 * i] = __uint_as_float(u[i] << 16);
-    f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+template <> struct Vec<float> {
+  static __device__ __forceinline__ void unpack(const uint4& r, float (&f)[4]) {
+    f[0] = __uint_as_float(r.x);
+    f[1] = __uint_as_float(r.y);
+    f[2] = __uint_as_float(r.z);
+    f[3] = __uint_as_float(r.w);
   }
-}
+  static __device__ __forceinline__ uint4 pack(const float (&f)[4]) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
+};
 
-__device__ __forceinline__ uint4 pack(const float (&f)[4]) {
-  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
-                    __float_as_uint(f[2]), __float_as_uint(f[3]));
-}
+template <> struct Vec<__nv_bfloat16> {
+  static __device__ __forceinline__ void unpack(const uint4& r, float (&f)[8]) {
+    const uint32_t u[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // bf16 -> f32 is exact: the high 16 bits
+      f[2 * i] = __uint_as_float(u[i] << 16);
+      f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+    }
+  }
+  static __device__ __forceinline__ uint32_t pair(float lo, float hi) {
+    return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+           ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&f)[8]) {
+    return make_uint4(pair(f[0], f[1]), pair(f[2], f[3]), pair(f[4], f[5]),
+                      pair(f[6], f[7]));
+  }
+};
 
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
-         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
-}
-
-__device__ __forceinline__ uint4 pack(const float (&f)[8]) {
-  return make_uint4(bf16x2(f[0], f[1]), bf16x2(f[2], f[3]), bf16x2(f[4], f[5]),
-                    bf16x2(f[6], f[7]));
-}
+template <> struct Vec<__half> {
+  static __device__ __forceinline__ void unpack(const uint4& r, float (&f)[8]) {
+    const uint32_t u[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // f16 -> f32 is exact
+      f[2 * i] = __half2float(__ushort_as_half((unsigned short)(u[i] & 0xffffu)));
+      f[2 * i + 1] = __half2float(__ushort_as_half((unsigned short)(u[i] >> 16)));
+    }
+  }
+  static __device__ __forceinline__ uint32_t pair(float lo, float hi) {
+    return (uint32_t)__half_as_ushort(__float2half_rn(lo)) |
+           ((uint32_t)__half_as_ushort(__float2half_rn(hi)) << 16);
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&f)[8]) {
+    return make_uint4(pair(f[0], f[1]), pair(f[2], f[3]), pair(f[4], f[5]),
+                      pair(f[6], f[7]));
+  }
+};
 
 
 // ---- the tile walk ----------------------------------------------------------
@@ -278,7 +307,7 @@ dw3x3_fwd_tma_kernel(const __grid_constant__ CUtensorMap xmap, const T* __restri
   for (int k = 0; k < 9; ++k) {
     if (cvalid) {
       const int src = flip ? 8 - k : k;  // w[2-dy][2-dx] for the input gradient
-      unpack(*reinterpret_cast<const uint4*>(w + (long long)src * p.C + c), wt[k]);
+      Vec<T>::unpack(*reinterpret_cast<const uint4*>(w + (long long)src * p.C + c), wt[k]);
     } else {
 #pragma unroll
       for (int v = 0; v < V; ++v) wt[k][v] = 0.0f;
@@ -304,7 +333,7 @@ dw3x3_fwd_tma_kernel(const __grid_constant__ CUtensorMap xmap, const T* __restri
 #pragma unroll
         for (int dx = 0; dx < 3; ++dx) {
           float xv[V];
-          unpack(*reinterpret_cast<const uint4*>(
+          Vec<T>::unpack(*reinterpret_cast<const uint4*>(
                      tile + (((r0 + rr) * (p.tw + 2) + col + dx) * p.cb + cv * V) * sizeof(T)),
                  xv);
 #pragma unroll
@@ -326,7 +355,7 @@ dw3x3_fwd_tma_kernel(const __grid_constant__ CUtensorMap xmap, const T* __restri
           const int h = h0 + r0 + o;
           if (r0 + o >= p.th || h >= p.H) break;
           *reinterpret_cast<uint4*>(y + (((long long)b * p.H + h) * p.W + wo) * p.C + c) =
-              pack(acc[o]);
+              Vec<T>::pack(acc[o]);
         }
       }
     }
@@ -372,7 +401,7 @@ dw3x3_wgrad_tma_kernel(const __grid_constant__ CUtensorMap xmap,
       for (int rr = 0; rr < kRows + 2; ++rr) {
         if (rr < kRows) {
           if (r0 + rr < p.th) {
-            unpack(*reinterpret_cast<const uint4*>(
+            Vec<T>::unpack(*reinterpret_cast<const uint4*>(
                        gt + (((r0 + rr) * p.tw + col) * p.cb + cv * V) * sizeof(T)),
                    gv[rr]);
           } else {
@@ -384,7 +413,7 @@ dw3x3_wgrad_tma_kernel(const __grid_constant__ CUtensorMap xmap,
 #pragma unroll
         for (int dx = 0; dx < 3; ++dx) {
           float xv[V];
-          unpack(*reinterpret_cast<const uint4*>(
+          Vec<T>::unpack(*reinterpret_cast<const uint4*>(
                      xt + (((r0 + rr) * (p.tw + 2) + col + dx) * p.cb + cv * V) * sizeof(T)),
                  xv);
 #pragma unroll
@@ -576,7 +605,7 @@ extern "C" {
 
 // K1, the "tma" variant: y = depthwise 3x3 of x with taps w (w[2-dy][2-dx]
 // when flip is non-zero). x and y [B, H, W, C], w [3, 3, C], contiguous,
-// 16-byte aligned, of one dtype (0 = float32, 1 = bfloat16), C * bytes a
+// 16-byte aligned, of one dtype (0 = float32, 1 = bfloat16, 2 = float16), C * bytes a
 // multiple of 16. th, tw, cb, stages and parts are `dw_tile_plan`'s.
 // Returns a cudaError_t code, or 1000 + the CUresult of a failed encode.
 int ddw_dw3x3_fwd_tma(const void* x, const void* w, void* y, int B, int H, int W, int C,
@@ -588,6 +617,8 @@ int ddw_dw3x3_fwd_tma(const void* x, const void* w, void* y, int B, int H, int W
   if (dtype == 1)
     return launch_fwd<__nv_bfloat16>(x, w, y, B, H, W, C, th, tw, cb, stages, parts, flip,
                                      s);
+  if (dtype == 2)
+    return launch_fwd<__half>(x, w, y, B, H, W, C, th, tw, cb, stages, parts, flip, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -605,6 +636,8 @@ int ddw_dw3x3_wgrad_tma(const void* x, const void* g, void* part, void* dw, int 
   if (dtype == 1)
     return launch_wgrad<__nv_bfloat16>(x, g, pp, d, B, H, W, C, th, tw, cb, stages, parts,
                                        s);
+  if (dtype == 2)
+    return launch_wgrad<__half>(x, g, pp, d, B, H, W, C, th, tw, cb, stages, parts, s);
   return (int)cudaErrorInvalidValue;
 }
 

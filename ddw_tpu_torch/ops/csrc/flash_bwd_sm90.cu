@@ -4,12 +4,12 @@
 // Replaces ddw_tpu/ops/flash_attention.py `_partitioned_bwd` (:397): K4 its
 // `_dq_kernel` (:307, pallas_call :425), K5 its `_dkv_kernel` (:350,
 // pallas_call :445), on the main path's shapes: bf16 at head dim 64 or 128.
-// Head dim 32 stays on the mma.sync kernels of flash_attention.cu and f32 on
-// its CUDA-core kernels; the choice is made in Python (`_bwd_variant` in
-// ops/flash_attention.py).
+// Every other head dim and f16 stay on the mma.sync kernels of
+// flash_attention_bwd.cu and f32 on its CUDA-core kernels; the choice is made
+// in Python (`_bwd_variant` in ops/flash_attention.py).
 //
 // What they compute is the TPU kernels' function, pair by (query, key) pair
-// (the K4/K5 section of flash_attention.cu spells it out): s = (q . k) *
+// (the header of flash_attention_bwd.cu spells it out): s = (q . k) *
 // sm_scale in f32, masked (causal by global position q_offset / k_offset,
 // keys at or past k_valid); p = exp(s - lse), zero where s was masked
 // (`_guarded_exp`); dp = do . v; ds = p * (dp - delta); dq = sm_scale * sum_k

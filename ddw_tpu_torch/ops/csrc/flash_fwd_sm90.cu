@@ -4,9 +4,10 @@
 // Replaces ddw_tpu/ops/flash_attention.py `_flash_kernel` (:161) /
 // `_flash_forward` (:217), the Pallas TPU kernel whose pallas_call is at :232,
 // on the main path's attention: bf16, block_k = 128 keys, head dim 64 or 128.
-// Every other shape stays on flash_attention.cu (`mma.sync` for bf16 blocks of
-// other multiples of 16 and for head dim 32, CUDA cores for f32); the choice is
-// made in Python (`_fwd_variant` in ops/flash_attention.py).
+// Every other shape stays on flash_attention.cu (`mma.sync` for bf16 and f16
+// blocks of multiples of 16 at other head dims up to 256, CUDA cores for f32
+// and the rest); the choice is made in Python (`_fwd_variant` in
+// ops/flash_attention.py).
 //
 // What it computes is K3's online softmax, block for block (the header of
 // flash_attention.cu spells it out): per K block of 128 keys, s = (q . k) *

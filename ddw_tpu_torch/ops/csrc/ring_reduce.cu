@@ -10,7 +10,9 @@
 //     k; out[(me-k) mod n] = arriving.
 // Each f32 sum is rounded on its own (__fadd_rn, no FMA contraction), so the
 // result equals the plain PyTorch version and ddw_tpu's kernel bit for bit.
-// int32 adds wrap modulo 2^32, as torch's do.
+// Integer adds wrap modulo 2^bits, as torch's and the TPU kernel's do (int32,
+// int16, int8; uint32 and uint8 ring as int32 and int8, whose wrapping adds
+// give the same bits), and bool adds as logical or, as jnp's add of bools.
 //
 // Ranks are processes. Each allocates one buffer (ddw_ring_alloc): flag words
 // and two sets of 2(n-1) slots, exported with cudaIpcGetMemHandle; each
@@ -45,10 +47,14 @@
 //   own flags, so no block ever waits on another block of its launch. The
 //   arrays' descriptors are the launch's __grid_constant__ parameters; a
 //   block walks them in order, the same for all its threads.
-// - 16-byte loads and stores, kUnroll of them in flight per thread: every
-//   row starts 512-byte aligned (the wrapper gives 16-byte-aligned arrays)
-//   and every range is a multiple of four values; a row's last partial
-//   vector is masked value by value.
+// - 16-byte loads and stores (4 four-byte, 8 two-byte or 16 one-byte values),
+//   kUnroll of them in flight per thread: every row and range is a multiple
+//   of 128 values, so at least 128 bytes, and the wrapper gives 16-byte-
+//   aligned arrays; a row's last partial vector is masked value by value.
+//   Two-byte values add in pairs (__vadd2), one-byte values in fours
+//   (__vadd4), bools by a bitwise or of the 0/1 bytes.
+// - Slots count bytes, not values: one comm serves every ring dtype, and a
+//   slot of B bytes carries B / sizeof(value) pack columns.
 // - A hop: every thread stores its values into the right neighbour's slot
 //   and runs __threadfence_system(); after __syncthreads() thread 0 stores
 //   seq (a call number all ranks of the group advance together) into the
@@ -103,8 +109,8 @@ constexpr int kUnroll = 4;           // vectors in flight per thread
 
 // Flag words of one rank's buffer: entry from the left neighbour [block],
 // entry from the right [block] (leaf_ring_kernel's), reduce-scatter
-// [hop][block], all-gather [hop][block]. Two sets of 2(n-1) slots follow,
-// 256-byte aligned.
+// [hop][block], all-gather [hop][block]. Two sets of 2(n-1) slots of
+// slot_bytes each follow, 256-byte aligned.
 __host__ __device__ inline long long flag_words(int n) {
   return (2LL + 2LL * (n - 1)) * kMaxBlocks;
 }
@@ -130,10 +136,10 @@ __device__ __forceinline__ unsigned load_acquire_sys(const unsigned* p) {
   return v;
 }
 
-// The first of call seq's slots in a buffer's data: set seq % 2.
+// The byte offset of call seq's first slot in a buffer's data: set seq % 2.
 __device__ __forceinline__ long long slot_set(unsigned seq, int n,
-                                              long long slot_elems) {
-  return (seq & 1u) * 2LL * (n - 1) * slot_elems;
+                                              long long slot_bytes) {
+  return (seq & 1u) * 2LL * (n - 1) * slot_bytes;
 }
 
 // Thread 0 only: spin until *flag reaches seq (flags only grow; the
@@ -152,12 +158,54 @@ __device__ void wait_flag(const unsigned* flag, unsigned seq,
   }
 }
 
-__device__ __forceinline__ float ring_add(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ int ring_add(int a, int b) {
-  return (int)((unsigned)a + (unsigned)b);
-}
+// The ring dtypes: T the value as stored, N values in a 16-byte vector,
+// add1 one value's sum, add a vector's (lane by lane, in the same bits).
+struct F32Op {
+  using T = float;
+  static constexpr int N = 4;
+  static __device__ __forceinline__ T add1(T a, T b) { return __fadd_rn(a, b); }
+  static __device__ __forceinline__ unsigned add_word(unsigned a, unsigned b) {
+    return __float_as_uint(__fadd_rn(__uint_as_float(a), __uint_as_float(b)));
+  }
+};
+struct I32Op {
+  using T = int;
+  static constexpr int N = 4;
+  static __device__ __forceinline__ T add1(T a, T b) {
+    return (int)((unsigned)a + (unsigned)b);
+  }
+  static __device__ __forceinline__ unsigned add_word(unsigned a, unsigned b) {
+    return a + b;
+  }
+};
+struct I16Op {
+  using T = short;
+  static constexpr int N = 8;
+  static __device__ __forceinline__ T add1(T a, T b) {
+    return (short)(unsigned short)((unsigned)a + (unsigned)b);
+  }
+  static __device__ __forceinline__ unsigned add_word(unsigned a, unsigned b) {
+    return __vadd2(a, b);
+  }
+};
+struct I8Op {
+  using T = signed char;
+  static constexpr int N = 16;
+  static __device__ __forceinline__ T add1(T a, T b) {
+    return (signed char)(unsigned char)((unsigned)a + (unsigned)b);
+  }
+  static __device__ __forceinline__ unsigned add_word(unsigned a, unsigned b) {
+    return __vadd4(a, b);
+  }
+};
+struct BoolOp {
+  using T = unsigned char;  // torch's bool: one byte, 0 or 1
+  static constexpr int N = 16;
+  static __device__ __forceinline__ T add1(T a, T b) { return a | b; }
+  static __device__ __forceinline__ unsigned add_word(unsigned a, unsigned b) {
+    return a | b;
+  }
+};
 
 // The flags of one block: thread 0 tells both neighbours this block entered
 // call seq and waits until both have (the TPU kernel's barrier semaphore).
@@ -204,75 +252,71 @@ struct Leaf {
 struct PackArgs {
   char* own;    // this rank's buffer
   char* right;  // the right neighbour's buffer (mapped)
-  long long p0, len, per, slot_elems;  // pack columns [p0, p0+len), per block
+  long long p0, len, per;  // pack columns [p0, p0+len), per block
+  long long slot_bytes;
   int n, me, nleaves;
   unsigned seq;
   unsigned long long timeout_ns;
   Leaf leaf[kMaxLeaves];  // in pack order, covering [p0, p0+len)
 };
 
-template <typename T> struct Vec4;
-template <> struct Vec4<float> { using type = float4; };
-template <> struct Vec4<int> { using type = int4; };
-
-// Four values of an array from flat index i (a multiple of four); those at
-// or past `size` read as zero.
-template <typename T>
-__device__ __forceinline__ typename Vec4<T>::type load4(const T* p,
-                                                        long long i,
-                                                        long long size) {
-  using V = typename Vec4<T>::type;
-  if (i + 4 <= size) return *reinterpret_cast<const V*>(p + i);
-  V v;
+// N values of an array from flat index i (a multiple of N); those at or
+// past `size` read as zero.
+template <typename Op>
+__device__ __forceinline__ uint4 loadv(const typename Op::T* p, long long i,
+                                       long long size) {
+  using T = typename Op::T;
+  if (i + Op::N <= size) return *reinterpret_cast<const uint4*>(p + i);
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
   T* e = reinterpret_cast<T*>(&v);
 #pragma unroll
-  for (int t = 0; t < 4; ++t) e[t] = i + t < size ? p[i + t] : T(0);
+  for (int t = 0; t < Op::N; ++t)
+    if (i + t < size) e[t] = p[i + t];
   return v;
 }
 
-// Store four values at flat index i, none at or past `size`.
-template <typename T>
-__device__ __forceinline__ void store4(T* p, long long i, long long size,
-                                       typename Vec4<T>::type v) {
-  using V = typename Vec4<T>::type;
-  if (i + 4 <= size) {
-    *reinterpret_cast<V*>(p + i) = v;
+// Store N values at flat index i, none at or past `size`.
+template <typename Op>
+__device__ __forceinline__ void storev(typename Op::T* p, long long i,
+                                       long long size, uint4 v) {
+  using T = typename Op::T;
+  if (i + Op::N <= size) {
+    *reinterpret_cast<uint4*>(p + i) = v;
     return;
   }
   const T* e = reinterpret_cast<const T*>(&v);
 #pragma unroll
-  for (int t = 0; t < 4; ++t)
+  for (int t = 0; t < Op::N; ++t)
     if (i + t < size) p[i + t] = e[t];
 }
 
-template <typename T>
-__device__ __forceinline__ typename Vec4<T>::type add4(
-    typename Vec4<T>::type a, typename Vec4<T>::type b) {
-  a.x = ring_add(a.x, b.x);
-  a.y = ring_add(a.y, b.y);
-  a.z = ring_add(a.z, b.z);
-  a.w = ring_add(a.w, b.w);
+template <typename Op>
+__device__ __forceinline__ uint4 addv(uint4 a, uint4 b) {
+  a.x = Op::add_word(a.x, b.x);
+  a.y = Op::add_word(a.y, b.y);
+  a.z = Op::add_word(a.z, b.z);
+  a.w = Op::add_word(a.w, b.w);
   return a;
 }
 
 // One pass of a hop over this block's pack columns [c0, c1): for every
-// fourth column j of each array's row that falls there (s its column in the
+// N-th column j of each array's row that falls there (s its column in the
 // slot), v = load(leaf, j, s), then store(leaf, j, s, v), kUnroll vectors in
 // flight per thread. Arrays from `first`, in pack order; the mapping of
 // columns to threads is the same at every hop.
-template <typename T, typename Load, typename Store>
+template <typename Op, typename Load, typename Store>
 __device__ __forceinline__ void hop_pass(const PackArgs& a, int first,
                                          long long c0, long long c1,
                                          Load load, Store store) {
-  using V = typename Vec4<T>::type;
-  const long long step = 4LL * blockDim.x;
+  const long long step = (long long)Op::N * blockDim.x;
   for (int l = first; l < a.nleaves && a.leaf[l].off < c1; ++l) {
     const Leaf& L = a.leaf[l];
     const long long j0 = (c0 > L.off ? c0 : L.off) - L.off;
     const long long j1 =
         (c1 < L.off + L.chunk ? c1 : L.off + L.chunk) - L.off;
-    for (long long j = j0 + 4LL * threadIdx.x; j < j1; j += kUnroll * step) {
-      V v[kUnroll];
+    for (long long j = j0 + (long long)Op::N * threadIdx.x; j < j1;
+         j += kUnroll * step) {
+      uint4 v[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const long long ju = j + u * step;
@@ -287,10 +331,10 @@ __device__ __forceinline__ void hop_pass(const PackArgs& a, int first,
   }
 }
 
-template <typename T>
+template <typename Op>
 __global__ void __launch_bounds__(kPackThreads)
     pack_ring_kernel(const __grid_constant__ PackArgs a) {
-  using V = typename Vec4<T>::type;
+  using T = typename Op::T;
   const int n = a.n, me = a.me;
   const long long c0 = a.p0 + blockIdx.x * a.per;
   const long long c1 =
@@ -299,20 +343,21 @@ __global__ void __launch_bounds__(kPackThreads)
 
   unsigned* own_flags = reinterpret_cast<unsigned*>(a.own);
   unsigned* right_flags = reinterpret_cast<unsigned*>(a.right);
-  const long long set = slot_set(a.seq, n, a.slot_elems);
-  const V* own_slots =
-      reinterpret_cast<const V*>(a.own + data_offset(n)) + set / 4;
-  V* right_slots = reinterpret_cast<V*>(a.right + data_offset(n)) + set / 4;
-  const long long slot_vecs = a.slot_elems / 4;
+  const long long set = data_offset(n) + slot_set(a.seq, n, a.slot_bytes);
+  const uint4* own_slots = reinterpret_cast<const uint4*>(a.own + set);
+  uint4* right_slots = reinterpret_cast<uint4*>(a.right + set);
+  const long long slot_vecs = a.slot_bytes / 16;
   int first = 0;  // the first array with a column in [c0, c1)
   while (first < a.nleaves && a.leaf[first].off + a.leaf[first].chunk <= c0)
     ++first;
-  auto to_slot = [](V* dst) {
-    return [=](const Leaf&, long long, long long s, V v) { dst[s / 4] = v; };
+  auto to_slot = [](uint4* dst) {
+    return [=](const Leaf&, long long, long long s, uint4 v) {
+      dst[s / Op::N] = v;
+    };
   };
   auto to_row = [](int c) {
-    return [=](const Leaf& L, long long j, long long, V v) {
-      store4(static_cast<T*>(L.out), c * L.chunk + j, L.size, v);
+    return [=](const Leaf& L, long long j, long long, uint4 v) {
+      storev<Op>(static_cast<T*>(L.out), c * L.chunk + j, L.size, v);
     };
   };
 
@@ -321,39 +366,39 @@ __global__ void __launch_bounds__(kPackThreads)
   // and sent on at the next hop by the same thread.
   for (int k = 0; k < n - 1; ++k) {
     const int c_send = (me - k + n) % n, c_recv = (me - k - 1 + n) % n;
-    hop_pass<T>(a, first, c0, c1,
-                [=](const Leaf& L, long long j, long long) {
-                  return load4(static_cast<const T*>(k == 0 ? L.x : L.out),
-                               c_send * L.chunk + j, L.size);
-                },
-                to_slot(right_slots + k * slot_vecs));
+    hop_pass<Op>(a, first, c0, c1,
+                 [=](const Leaf& L, long long j, long long) {
+                   return loadv<Op>(static_cast<const T*>(k == 0 ? L.x : L.out),
+                                    c_send * L.chunk + j, L.size);
+                 },
+                 to_slot(right_slots + k * slot_vecs));
     hop_sync(right_flags, own_flags, k, a.seq, deadline);
-    const V* slot = own_slots + k * slot_vecs;
-    hop_pass<T>(a, first, c0, c1,
-                [=](const Leaf& L, long long j, long long s) {
-                  return add4<T>(load4(static_cast<const T*>(L.x),
-                                       c_recv * L.chunk + j, L.size),
-                                 __ldcg(slot + s / 4));
-                },
-                to_row(c_recv));
+    const uint4* slot = own_slots + k * slot_vecs;
+    hop_pass<Op>(a, first, c0, c1,
+                 [=](const Leaf& L, long long j, long long s) {
+                   return addv<Op>(loadv<Op>(static_cast<const T*>(L.x),
+                                             c_recv * L.chunk + j, L.size),
+                                   __ldcg(slot + s / Op::N));
+                 },
+                 to_row(c_recv));
   }
   // Row (me + 1) mod n now holds the full sum. All-gather: hop k sends row
   // (me + 1 - k) and receives row (me - k) into place.
   for (int k = 0; k < n - 1; ++k) {
     const int c_send = (me + 1 - k + n) % n, c_recv = (me - k + n) % n;
-    hop_pass<T>(a, first, c0, c1,
-                [=](const Leaf& L, long long j, long long) {
-                  return load4(static_cast<const T*>(L.out),
-                               c_send * L.chunk + j, L.size);
-                },
-                to_slot(right_slots + (n - 1 + k) * slot_vecs));
+    hop_pass<Op>(a, first, c0, c1,
+                 [=](const Leaf& L, long long j, long long) {
+                   return loadv<Op>(static_cast<const T*>(L.out),
+                                    c_send * L.chunk + j, L.size);
+                 },
+                 to_slot(right_slots + (n - 1 + k) * slot_vecs));
     hop_sync(right_flags, own_flags, n - 1 + k, a.seq, deadline);
-    const V* slot = own_slots + (n - 1 + k) * slot_vecs;
-    hop_pass<T>(a, first, c0, c1,
-                [=](const Leaf&, long long, long long s) {
-                  return __ldcg(slot + s / 4);
-                },
-                to_row(c_recv));
+    const uint4* slot = own_slots + (n - 1 + k) * slot_vecs;
+    hop_pass<Op>(a, first, c0, c1,
+                 [=](const Leaf&, long long, long long s) {
+                   return __ldcg(slot + s / Op::N);
+                 },
+                 to_row(c_recv));
   }
 }
 
@@ -365,14 +410,15 @@ struct LeafArgs {
   char* own;
   char* left;
   char* right;
-  long long chunk, seg_start, seg_len, slot_elems;
+  long long chunk, seg_start, seg_len, slot_bytes;
   int n, me;
   unsigned seq;
   unsigned long long timeout_ns;
 };
 
-template <typename T>
+template <typename Op>
 __global__ void __launch_bounds__(kLeafThreads) leaf_ring_kernel(LeafArgs a) {
+  using T = typename Op::T;
   const int b = blockIdx.x, n = a.n, me = a.me;
   const long long per = (a.seg_len + gridDim.x - 1) / gridDim.x;
   const long long c0 = b * per;
@@ -382,10 +428,10 @@ __global__ void __launch_bounds__(kLeafThreads) leaf_ring_kernel(LeafArgs a) {
   unsigned* own_flags = reinterpret_cast<unsigned*>(a.own);
   unsigned* left_flags = reinterpret_cast<unsigned*>(a.left);
   unsigned* right_flags = reinterpret_cast<unsigned*>(a.right);
-  const long long set = slot_set(a.seq, n, a.slot_elems);
-  const T* own_slots =
-      reinterpret_cast<const T*>(a.own + data_offset(n)) + set;
-  T* right_slots = reinterpret_cast<T*>(a.right + data_offset(n)) + set;
+  const long long set = data_offset(n) + slot_set(a.seq, n, a.slot_bytes);
+  const T* own_slots = reinterpret_cast<const T*>(a.own + set);
+  T* right_slots = reinterpret_cast<T*>(a.right + set);
+  const long long slot_vals = a.slot_bytes / (long long)sizeof(T);
   const T* x = static_cast<const T*>(a.x) + a.seg_start;
   T* out = static_cast<T*>(a.out) + a.seg_start;
 
@@ -393,27 +439,63 @@ __global__ void __launch_bounds__(kLeafThreads) leaf_ring_kernel(LeafArgs a) {
   for (int k = 0; k < n - 1; ++k) {
     const int c_send = (me - k + n) % n, c_recv = (me - k - 1 + n) % n;
     const T* src = (k == 0 ? x : out) + c_send * a.chunk;
-    T* dst = right_slots + k * a.slot_elems;
+    T* dst = right_slots + k * slot_vals;
     for (long long j = c0 + threadIdx.x; j < c1; j += blockDim.x)
       dst[j] = src[j];
     hop_sync(right_flags, own_flags, k, a.seq, deadline);
-    const T* slot = own_slots + k * a.slot_elems;
+    const T* slot = own_slots + k * slot_vals;
     const T* loc = x + c_recv * a.chunk;
     T* o = out + c_recv * a.chunk;
     for (long long j = c0 + threadIdx.x; j < c1; j += blockDim.x)
-      o[j] = ring_add(loc[j], __ldcg(slot + j));
+      o[j] = Op::add1(loc[j], __ldcg(slot + j));
   }
   for (int k = 0; k < n - 1; ++k) {
     const int c_send = (me + 1 - k + n) % n, c_recv = (me - k + n) % n;
     const T* src = out + c_send * a.chunk;
-    T* dst = right_slots + (n - 1 + k) * a.slot_elems;
+    T* dst = right_slots + (n - 1 + k) * slot_vals;
     for (long long j = c0 + threadIdx.x; j < c1; j += blockDim.x)
       dst[j] = src[j];
     hop_sync(right_flags, own_flags, n - 1 + k, a.seq, deadline);
-    const T* slot = own_slots + (n - 1 + k) * a.slot_elems;
+    const T* slot = own_slots + (n - 1 + k) * slot_vals;
     T* o = out + c_recv * a.chunk;
     for (long long j = c0 + threadIdx.x; j < c1; j += blockDim.x)
       o[j] = __ldcg(slot + j);
+  }
+}
+
+// The kernel of a dtype code: 0 float32, 1 int32 (and uint32), 2 int8 (and
+// uint8), 3 int16, 4 bool.
+template <template <typename> class Kernel, typename Args>
+int launch_by_code(int dtype, int blocks, int threads, const Args& a,
+                   cudaStream_t s) {
+  switch (dtype) {
+    case 0: Kernel<F32Op>::launch(blocks, threads, a, s); break;
+    case 1: Kernel<I32Op>::launch(blocks, threads, a, s); break;
+    case 2: Kernel<I8Op>::launch(blocks, threads, a, s); break;
+    case 3: Kernel<I16Op>::launch(blocks, threads, a, s); break;
+    case 4: Kernel<BoolOp>::launch(blocks, threads, a, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename Op> struct PackKernel {
+  static void launch(int blocks, int threads, const PackArgs& a, cudaStream_t s) {
+    pack_ring_kernel<Op><<<blocks, threads, 0, s>>>(a);
+  }
+};
+template <typename Op> struct LeafKernel {
+  static void launch(int blocks, int threads, const LeafArgs& a, cudaStream_t s) {
+    leaf_ring_kernel<Op><<<blocks, threads, 0, s>>>(a);
+  }
+};
+
+int value_bytes(int dtype) {
+  switch (dtype) {
+    case 0: case 1: return 4;
+    case 3: return 2;
+    case 2: case 4: return 1;
+    default: return 0;
   }
 }
 
@@ -421,10 +503,10 @@ __global__ void __launch_bounds__(kLeafThreads) leaf_ring_kernel(LeafArgs a) {
 
 extern "C" {
 
-// Bytes of one rank's buffer for a group of n with slots of slot_elems
-// four-byte values: the flags, then two sets of 2(n-1) slots.
-long long ddw_ring_buffer_bytes(int n, long long slot_elems) {
-  return data_offset(n) + 4LL * (n - 1) * slot_elems * 4;
+// Bytes of one rank's buffer for a group of n with slots of slot_bytes:
+// the flags, then two sets of 2(n-1) slots.
+long long ddw_ring_buffer_bytes(int n, long long slot_bytes) {
+  return data_offset(n) + 4LL * (n - 1) * slot_bytes;
 }
 
 // cudaMalloc a zeroed buffer on the current device and export it. `handle`
@@ -455,15 +537,17 @@ int ddw_ring_free(void* ptr) { return (int)cudaFree(ptr); }
 
 // One ring over pack columns [p0, p0 + len) of `nleaves` arrays. `table`
 // holds five 64-bit words per array, in pack order: x, out, size, chunk,
-// off. dtype 0: float32, 1: int32.
+// off. dtype: 0 float32, 1 int32 or uint32, 2 int8 or uint8, 3 int16,
+// 4 bool. slot_bytes: a slot's bytes, a multiple of 512, holding len values.
 int ddw_ring_pack_all_reduce(const long long* table, int nleaves, void* own,
                              void* right, long long p0,
-                             long long len, long long slot_elems, int n,
+                             long long len, long long slot_bytes, int n,
                              int me, unsigned seq, int dtype,
                              double timeout_s, void* stream) {
+  const int vb = value_bytes(dtype);
   if (n < 2 || me < 0 || me >= n || nleaves < 1 || nleaves > kMaxLeaves ||
-      len < 1 || len > slot_elems || p0 % kLane || len % kLane ||
-      slot_elems % kLane)
+      vb == 0 || len < 1 || len * vb > slot_bytes || p0 % kLane ||
+      len % kLane || slot_bytes % 512)
     return (int)cudaErrorInvalidValue;
   PackArgs a;  // 10 KB of kernel parameters (CUDA 12.1+ takes 32 KB)
   a.own = static_cast<char*>(own);
@@ -486,31 +570,27 @@ int ddw_ring_pack_all_reduce(const long long* table, int nleaves, void* own,
   a.p0 = p0;
   a.len = len;
   a.per = per_block * kLane;
-  a.slot_elems = slot_elems;
+  a.slot_bytes = slot_bytes;
   a.n = n;
   a.me = me;
   a.nleaves = nleaves;
   a.seq = seq;
   a.timeout_ns = (unsigned long long)(timeout_s * 1e9);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    pack_ring_kernel<float><<<blocks, kPackThreads, 0, s>>>(a);
-  else if (dtype == 1)
-    pack_ring_kernel<int><<<blocks, kPackThreads, 0, s>>>(a);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return launch_by_code<PackKernel>(dtype, blocks, kPackThreads, a,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 // The earlier design: one ring over columns [seg_start, seg_start + seg_len)
-// of one array's (n, chunk) rows x -> out.
+// of one array's (n, chunk) rows x -> out. dtype and slot_bytes as above.
 int ddw_ring_leaf_all_reduce(const void* x, void* out, void* own, void* left,
                              void* right, long long chunk, long long seg_start,
-                             long long seg_len, long long slot_elems, int n,
+                             long long seg_len, long long slot_bytes, int n,
                              int me, unsigned seq, int blocks, int dtype,
                              double timeout_s, void* stream) {
+  const int vb = value_bytes(dtype);
   if (n < 2 || me < 0 || me >= n || blocks < 1 || blocks > kLeafMaxBlocks ||
-      seg_len < 1 || seg_len > slot_elems || seg_start + seg_len > chunk)
+      vb == 0 || seg_len < 1 || seg_len * vb > slot_bytes ||
+      seg_start + seg_len > chunk)
     return (int)cudaErrorInvalidValue;
   LeafArgs a;
   a.x = x;
@@ -521,19 +601,13 @@ int ddw_ring_leaf_all_reduce(const void* x, void* out, void* own, void* left,
   a.chunk = chunk;
   a.seg_start = seg_start;
   a.seg_len = seg_len;
-  a.slot_elems = slot_elems;
+  a.slot_bytes = slot_bytes;
   a.n = n;
   a.me = me;
   a.seq = seq;
   a.timeout_ns = (unsigned long long)(timeout_s * 1e9);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    leaf_ring_kernel<float><<<blocks, kLeafThreads, 0, s>>>(a);
-  else if (dtype == 1)
-    leaf_ring_kernel<int><<<blocks, kLeafThreads, 0, s>>>(a);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return launch_by_code<LeafKernel>(dtype, blocks, kLeafThreads, a,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -46,7 +46,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-_KERNEL_DTYPES = {torch.float32: (0, 4), torch.bfloat16: (1, 8)}  # code, vec
+_KERNEL_DTYPES = {torch.float32: (0, 4), torch.bfloat16: (1, 8),
+                  torch.float16: (2, 8)}  # code, vec
 _VARIANTS = ("tma", "simt")
 
 
@@ -232,11 +233,11 @@ def dw_tile_plan(b: int, h: int, w: int, c: int,
     cheapest tile shape by :func:`_plan_cost` among those the TMA and two
     blocks an SM allow, with a channel block of at least 128 bytes and a
     multiple of 32 (or all of ``c``). A function of the shape alone. Raises
-    where ``c * bytes`` is not a multiple of 16 or the dtype is not float32
-    or bfloat16."""
+    where ``c * bytes`` is not a multiple of 16 or the dtype is not float32,
+    bfloat16 or float16 (f16 plans as bf16 does: 8 channels a vector)."""
     if dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"the depthwise kernel takes float32 or bfloat16, "
-                         f"got {dtype}")
+        raise ValueError(f"the depthwise kernel takes float32, bfloat16 or "
+                         f"float16, got {dtype}")
     nbytes = torch.finfo(dtype).bits // 8
     vec = 16 // nbytes
     if c % vec or min(b, h, w, c) < 1:
@@ -318,15 +319,15 @@ def _tma_lib() -> ctypes.CDLL:
 
 def _check_kernel_input(x: torch.Tensor, other: torch.Tensor, name: str,
                         other_shape: tuple) -> None:
-    """The refusals K1 and K2 share: one CUDA device, f32 or bf16 of one
-    dtype, NHWC ``x``, contiguity, and 32-bit indexing."""
+    """The refusals K1 and K2 share: one CUDA device, f32, bf16 or f16 of
+    one dtype, NHWC ``x``, contiguity, and 32-bit indexing."""
     if not (x.is_cuda and other.is_cuda and x.device == other.device):
         raise ValueError(f"the depthwise kernel needs x and {name} on one "
                          f"CUDA device, got {x.device} and {other.device}")
     if x.dtype not in _KERNEL_DTYPES or other.dtype != x.dtype:
-        raise ValueError(f"the depthwise kernel takes float32 or bfloat16 x "
-                         f"and {name} of the same dtype, got {x.dtype}, "
-                         f"{other.dtype}")
+        raise ValueError(f"the depthwise kernel takes float32, bfloat16 or "
+                         f"float16 x and {name} of the same dtype, got "
+                         f"{x.dtype}, {other.dtype}")
     if x.dim() != 4 or tuple(other.shape) != other_shape:
         raise ValueError(f"need x [B, H, W, C] and {name} "
                          f"{list(other_shape)}, got {tuple(x.shape)} and "
@@ -369,9 +370,9 @@ def depthwise_conv3x3_cuda(x: torch.Tensor, w: torch.Tensor, *,
                            flip: bool = False, _variant: str | None = None,
                            _plan: DwTilePlan | None = None) -> torch.Tensor:
     """Launch K1 (stride 1) on the current stream, without synchronising.
-    ``x`` is an NHWC-contiguous CUDA tensor in float32 or bfloat16, ``w`` the
-    contiguous ``[3, 3, C]`` taps in the same dtype; ``flip=True`` computes
-    with ``w[2-dy, 2-dx]``. The kernel is :func:`_dw_variant`'s;
+    ``x`` is an NHWC-contiguous CUDA tensor in float32, bfloat16 or float16,
+    ``w`` the contiguous ``[3, 3, C]`` taps in the same dtype; ``flip=True``
+    computes with ``w[2-dy, 2-dx]``. The kernel is :func:`_dw_variant`'s;
     ``_variant="simt"`` forces the older kernel and ``_plan`` another tile
     plan of the ``"tma"`` one (timing only). Raises on anything else; never
     falls back. ``launches`` counts every launch, ``launches_by_variant``
@@ -404,7 +405,8 @@ def depthwise_conv3x3_wgrad_cuda(x: torch.Tensor, g: torch.Tensor, *,
                                  ) -> torch.Tensor:
     """Launch K2 on the current stream, without synchronising: the f32
     ``[3, 3, C]`` weight gradient from ``x`` and the output gradient ``g``,
-    both NHWC-contiguous CUDA tensors of one shape in float32 or bfloat16.
+    both NHWC-contiguous CUDA tensors of one shape in float32, bfloat16 or
+    float16.
     Variants, ``_plan`` and counts as for :func:`depthwise_conv3x3_cuda`.
     Raises on anything else; never falls back. Deterministic: the partition
     and every order of summation depend on the shape alone, so two launches

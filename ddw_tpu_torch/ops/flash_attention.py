@@ -7,14 +7,17 @@ package's ``[B, H, S, D]`` layout at the public entries:
   ``[B*H, S, D]`` tensors. It replaces the Pallas kernel
   ``ddw_tpu/ops/flash_attention.py`` ``_flash_kernel`` / ``_flash_forward``.
   It is bound by operations (a causal call at the LM's ``[512, 2048, 64]`` is
-  2.75e11 FLOP against 537 MB). Three variants, chosen by shape in
+  2.75e11 FLOP against 537 MB). Like the TPU kernel it takes any head dim
+  and float32, bfloat16 or float16. Three variants, chosen by shape in
   :func:`_fwd_variant`: ``sm90`` (``csrc/flash_fwd_sm90.cu``: TMA loads fed
   by a producer warp, ``wgmma`` on two consumer warpgroups) for bf16 with
   ``block_k`` = 128 at head dim 64 or 128, the main path's attention; ``mma``
-  (``mma.sync`` in ``csrc/flash_attention.cu``) for bf16 with other
-  ``block_k`` multiples of 16 and for head dims 32 and 48 (ViT's);
-  ``cuda_cores`` (the same file) for f32 and for other bf16 blocks. The
-  design notes are in the sources.
+  (``mma.sync`` in ``csrc/flash_attention.cu``) for bf16 and f16 at every
+  other head dim up to 256 with ``block_k`` a multiple of 16; ``cuda_cores``
+  (the same file) for f32, for 16-bit blocks of other sizes and for head
+  dims above 256. The head dim is rounded up to a compiled width inside the
+  kernels (:data:`_MMA_WIDTHS`, :data:`_CC_WIDTHS`), the tail zero-filled in
+  shared memory, never padded here. The design notes are in the sources.
 - :func:`flash_attention_dq_cuda` (K4) and :func:`flash_attention_dkv_cuda`
   (K5) launch the backward kernels, which replace ``_dq_kernel`` and
   ``_dkv_kernel`` (``_partitioned_bwd``): dQ, and dK/dV, from the saved
@@ -22,9 +25,9 @@ package's ``[B, H, S, D]`` layout at the public entries:
   shape in :func:`_bwd_variant`: ``sm90`` (``csrc/flash_bwd_sm90.cu``: TMA
   loads fed by a producer warp, ``wgmma`` on two consumer warpgroups) for
   bf16 at head dim 64 or 128, the main path's; ``mma`` (``mma.sync`` in
-  ``csrc/flash_attention.cu``) for bf16 at head dims 32 and 48; ``cuda_cores``
-  (the same file) for f32. None uses float atomics, so two launches give the
-  same bits.
+  ``csrc/flash_attention_bwd.cu``) for bf16 and f16 at every other head dim
+  up to 256; ``cuda_cores`` (the same file) for f32 and for head dims above
+  256. None uses float atomics, so two launches give the same bits.
 - :func:`flash_attention_plain`, :func:`flash_attention_dq_plain` and
   :func:`flash_attention_dkv_plain`, their plain PyTorch versions: the TPU
   kernels' arithmetic block by block, vectorised over every (batch*head,
@@ -57,8 +60,15 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 _NEG_INF = -1e30
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_HEAD_DIMS = (32, 48, 64, 128)
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_HALF_DTYPES = (torch.bfloat16, torch.float16)
+# The kernels' compiled head dims (csrc/flash_common.cuh mma_width and
+# cc_width): the mma kernels round D up to the next of _MMA_WIDTHS (D up to
+# _MMA_MAX_HEAD_DIM), the CUDA-core ones to 16 or 32, or to slabs of 64
+# above 32.
+_MMA_WIDTHS = (16, 32, 48, 64, 96, 128, 256)
+_MMA_MAX_HEAD_DIM = _MMA_WIDTHS[-1]
+_CC_WIDTHS = (16, 32, 64)
 _KERNEL_MAX_BLOCK_K = 128
 _SM90_HEAD_DIMS = (64, 128)
 _SM90_BLOCK_K = 128
@@ -288,6 +298,14 @@ def _kernel_lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float]
         + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     lib.ddw_flash_fwd.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    from ddw_tpu_torch.ops import _build
+
+    lib = _build.load("flash_attention_bwd.cu")
     # q, k, v, do, lse, delta, then dq or (dk, dv); bh, sq, sk, d, dtype,
     # causal, q_offset, k_offset; sm_scale; k_valid; the stream
     for fn, outs in ((lib.ddw_flash_bwd_dq, 1), (lib.ddw_flash_bwd_dkv, 2)):
@@ -331,11 +349,14 @@ def _fwd_variant(dtype: torch.dtype, head_dim: int, block_k: int) -> str:
     """Which K3 kernel a forward of this shape launches: ``"sm90"`` (TMA and
     ``wgmma``, ``csrc/flash_fwd_sm90.cu``) for bf16 with ``block_k`` = 128 at
     head dim 64 or 128 (a 96-byte row of head dim 48 fits no TMA swizzle
-    mode); ``"mma"`` (``mma.sync``) for bf16 with another ``block_k``
-    multiple of 16, or head dim 32 or 48; ``"cuda_cores"`` for f32 and for
-    bf16 blocks that are not multiples of 16."""
-    if dtype == torch.bfloat16 and block_k % 16 == 0:
-        if block_k == _SM90_BLOCK_K and head_dim in _SM90_HEAD_DIMS:
+    mode; f16 never); ``"mma"`` (``mma.sync``) for bf16 and f16 with
+    ``block_k`` a multiple of 16 at every other head dim up to 256;
+    ``"cuda_cores"`` for f32, for 16-bit blocks that are not multiples of 16
+    and for head dims above 256."""
+    if dtype in _HALF_DTYPES and block_k % 16 == 0 and \
+            head_dim <= _MMA_MAX_HEAD_DIM:
+        if dtype == torch.bfloat16 and block_k == _SM90_BLOCK_K and \
+                head_dim in _SM90_HEAD_DIMS:
             return "sm90"
         return "mma"
     return "cuda_cores"
@@ -345,34 +366,50 @@ def _bwd_variant(dtype: torch.dtype, head_dim: int) -> str:
     """Which K4 and K5 kernels a backward of this shape launches (the two
     always take the same): ``"sm90"`` (TMA and ``wgmma``,
     ``csrc/flash_bwd_sm90.cu``) for bf16 at head dim 64 or 128; ``"mma"``
-    (``mma.sync``) for bf16 at head dim 32 or 48; ``"cuda_cores"`` for f32.
-    The kernels pick their own tiles, so no block size enters."""
-    if dtype == torch.bfloat16:
-        return "sm90" if head_dim in _SM90_HEAD_DIMS else "mma"
+    (``mma.sync``) for bf16 and f16 at every other head dim up to 256;
+    ``"cuda_cores"`` for f32 and for head dims above 256. The kernels pick
+    their own tiles, so no block size enters."""
+    if dtype in _HALF_DTYPES and head_dim <= _MMA_MAX_HEAD_DIM:
+        if dtype == torch.bfloat16 and head_dim in _SM90_HEAD_DIMS:
+            return "sm90"
+        return "mma"
     return "cuda_cores"
+
+
+def compiled_width(variant: str, head_dim: int) -> int:
+    """The head dim a variant's kernel is compiled for and stages at (the
+    columns past ``head_dim`` zero-filled in shared memory): the next of
+    :data:`_MMA_WIDTHS` on ``mma``, 16 or 32 on ``cuda_cores`` up to 32 and
+    whole slabs of 64 above, ``head_dim`` itself on ``sm90``."""
+    if variant == "mma":
+        return next(w for w in _MMA_WIDTHS if w >= head_dim)
+    if variant == "cuda_cores":
+        if head_dim <= _CC_WIDTHS[-2]:
+            return next(w for w in _CC_WIDTHS if w >= head_dim)
+        return -(-head_dim // _CC_WIDTHS[-1]) * _CC_WIDTHS[-1]
+    return head_dim
 
 
 def _check_kernel_inputs(q, k, v, *extra) -> None:
     """The contract every flash-attention kernel checks before it launches:
     contiguous, 16-byte aligned ``q [BH, Sq, D]``, ``k``/``v [BH, Sk, D]``
-    CUDA tensors of one dtype, float32 or bfloat16, D in (32, 48, 64, 128),
+    CUDA tensors of one dtype, float32, bfloat16 or float16, any D >= 1,
     non-empty and under 2**31 elements; ``extra`` tensors on the same
     device, contiguous and aligned too. The dtype and shape are checked
-    first, so a head dim no kernel takes is named wherever the tensors lie."""
+    first, so a dtype no kernel takes is named wherever the tensors lie:
+    64-bit types, which ``ddw_tpu`` (run without x64) never holds."""
     tensors = (q, k, v, *extra)
     if q.dtype not in _KERNEL_DTYPES or any(t.dtype != q.dtype
                                             for t in (k, v)):
-        raise ValueError(f"the flash-attention kernel takes float32 or "
-                         f"bfloat16 q, k, v of one dtype, got "
+        raise ValueError(f"the flash-attention kernels take float32, "
+                         f"bfloat16 or float16 q, k, v of one dtype, as "
+                         f"ddw_tpu's do (it runs without 64-bit types), got "
                          f"{[t.dtype for t in (q, k, v)]}")
     if q.dim() != 3 or k.shape != v.shape or k.dim() != 3 or \
-            k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
-        raise ValueError(f"need q [BH, Sq, D] and k, v [BH, Sk, D], got "
-                         f"{[tuple(t.shape) for t in (q, k, v)]}")
-    if q.shape[2] not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"the flash-attention kernels take head dims "
-                         f"{_KERNEL_HEAD_DIMS}; head dim {q.shape[2]} has no "
-                         f"kernel")
+            k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2] or \
+            q.shape[2] < 1:
+        raise ValueError(f"need q [BH, Sq, D] and k, v [BH, Sk, D] with "
+                         f"D >= 1, got {[tuple(t.shape) for t in (q, k, v)]}")
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError(f"the flash-attention kernel needs q, k, v on one "
                          f"CUDA device, got {[str(t.device) for t in tensors]}")
@@ -517,7 +554,7 @@ def flash_attention_dq_cuda(q, k, v, do, lse, delta, causal: bool = False,
                 *ptrs, bh, sq, k.shape[1], d, int(causal), q_offset, k_offset,
                 scale, kv, _stream(q.device))
         else:
-            err = _kernel_lib().ddw_flash_bwd_dq(
+            err = _bwd_lib().ddw_flash_bwd_dq(
                 *ptrs, bh, sq, k.shape[1], d, _KERNEL_DTYPES[q.dtype],
                 int(causal), q_offset, k_offset, scale, kv, _stream(q.device))
     _check_launch(err, f"flash-attention dQ (K4, {variant})")
@@ -549,7 +586,7 @@ def flash_attention_dkv_cuda(q, k, v, do, lse, delta, causal: bool = False,
                 *ptrs, bh, sq, k.shape[1], d, int(causal), q_offset, k_offset,
                 scale, kv, _stream(q.device))
         else:
-            err = _kernel_lib().ddw_flash_bwd_dkv(
+            err = _bwd_lib().ddw_flash_bwd_dkv(
                 *ptrs, bh, sq, k.shape[1], d, _KERNEL_DTYPES[q.dtype],
                 int(causal), q_offset, k_offset, scale, kv, _stream(q.device))
     _check_launch(err, f"flash-attention dK/dV (K5, {variant})")

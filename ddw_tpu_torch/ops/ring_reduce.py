@@ -30,7 +30,12 @@ segments under its VMEM budget; ranges change the order of no sum.
 
 :func:`ring_all_reduce_tree_pallas` is the entry ``all_reduce_sum`` takes:
 bf16 and f16 ring in f32, each ring dtype is one group, a CUDA tree launches
-K6, a CPU tree runs the plain version. :func:`ring_all_reduce_pallas` and
+K6, a CPU tree runs the plain version. The ring dtypes are ``ddw_tpu``'s:
+float32, int32, uint32, int16, int8, uint8 (integer sums wrap, as the
+reference's do) and bool (adds as logical or, as ``jnp.add`` of bools); the
+kernel rings uint32 and uint8 as int32 and int8, whose wrapping adds give the
+same bits. A comm slot counts bytes, so it carries four times as many int8
+columns as f32 ones. :func:`ring_all_reduce_pallas` and
 :func:`ring_all_reduce_plain` are its one-array forms.
 
 Point-to-point (:func:`send`, :func:`recv` and the hop :func:`ring_shift`
@@ -55,7 +60,10 @@ import torch.distributed as dist
 
 _LANE = 128        # rows are padded to this multiple, as on the TPU
 SLOT_BYTES = 64 << 20   # one comm slot of a RingComm: 16 Mi four-byte values
-_RING_DTYPES = {torch.float32: 0, torch.int32: 1}  # dtype -> kernel code
+# dtype -> kernel code (csrc/ring_reduce.cu's add): uint32 and uint8 take the
+# int32 and int8 codes, whose wrapping adds give their bits
+_RING_DTYPES = {torch.float32: 0, torch.int32: 1, torch.uint32: 1,
+                torch.int8: 2, torch.uint8: 2, torch.int16: 3, torch.bool: 4}
 _MAX_LEAVES = 256  # arrays in one K6 launch (kMaxLeaves)
 _LEAF_BLOCKS = 32  # per-leaf K6 grid at most (kLeafMaxBlocks)
 _WIDE = (torch.bfloat16, torch.float16)  # cast to f32 around the ring
@@ -95,9 +103,11 @@ def ring_segments(chunk: int, slot_elems: int) -> list[tuple[int, int]]:
             for s in range(0, chunk, slot_elems)]
 
 
-def slot_elems_of(slot_bytes: int) -> int:
-    """Four-byte values in a slot of ``slot_bytes``, a multiple of 128."""
-    return max(_LANE, slot_bytes // 4 // _LANE * _LANE)
+def slot_elems_of(slot_bytes: int, itemsize: int = 4) -> int:
+    """Values of ``itemsize`` bytes in a slot of ``slot_bytes``: the slot
+    is rounded down to a multiple of 512 bytes (128 four-byte values), at
+    least 512, so it holds a multiple of 128 values of every ring dtype."""
+    return max(_LANE, slot_bytes // 4 // _LANE * _LANE) * 4 // itemsize
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,8 +156,9 @@ def ring_pack_plan(sizes, n: int, slot_elems: int) -> PackPlan:
 
 def ring_dtype_groups(dtypes) -> list[tuple[torch.dtype, list[int]]]:
     """``(ring dtype, array indices)`` per group, in order of first
-    appearance: bf16 and f16 ring in f32 beside the f32 arrays; int32 rings
-    apart; other dtypes raise."""
+    appearance: bf16 and f16 ring in f32 beside the f32 arrays; every other
+    ring dtype (int32, uint32, int16, int8, uint8, bool) rings apart; other
+    dtypes raise."""
     groups: dict[torch.dtype, list[int]] = {}
     for i, dt in enumerate(dtypes):
         acc = torch.float32 if dt in _WIDE else dt
@@ -220,9 +231,18 @@ def ring_shift(t: torch.Tensor, group=None, step: int = 1) -> torch.Tensor:
 
 def _check_ring_dtype(dtype: torch.dtype) -> None:
     if dtype not in _RING_DTYPES:
-        raise TypeError(f"the ring all-reduce takes float32 and int32 (bf16 "
-                        f"and f16 ring in float32), got {dtype}; other dtypes "
-                        f"are not ported yet (ROADMAP.md)")
+        raise TypeError(f"the ring all-reduce takes float32, int32, uint32, "
+                        f"int16, int8, uint8 and bool (bf16 and f16 ring in "
+                        f"float32), got {dtype}: ddw_tpu rings no other dtype "
+                        f"(it runs without 64-bit types)")
+
+
+def ring_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a + b`` as K6 adds: wrapping for integers (uint32 through an int32
+    view, which torch can add), logical or for bools."""
+    if a.dtype == torch.uint32:
+        return (a.view(torch.int32) + b.view(torch.int32)).view(torch.uint32)
+    return a + b
 
 
 def ring_all_reduce_tree_plain(xs: list[torch.Tensor], group=None,
@@ -231,8 +251,8 @@ def ring_all_reduce_tree_plain(xs: list[torch.Tensor], group=None,
     """Plain PyTorch version of K6: the kernel's pack plan, hop schedule and
     additions (``out[c_recv] = local + arriving``) over point-to-point sends
     to the right and receives from the left, one send per hop carrying the
-    rows of every array of the launch. ``xs`` share one dtype, float32 or
-    int32; every rank of ``group`` passes the same shapes."""
+    rows of every array of the launch. ``xs`` share one ring dtype; every
+    rank of ``group`` passes the same shapes."""
     for x in xs:
         _check_ring_dtype(x.dtype)
     n, me = group_size_rank(group)
@@ -241,7 +261,8 @@ def ring_all_reduce_tree_plain(xs: list[torch.Tensor], group=None,
     rows = [ring_chunks(x, n, lane=_LANE) for x in xs]
     outs = [torch.empty_like(r) for r in rows]
     plan = ring_pack_plan([x.numel() for x in xs], n, slot_elems_of(
-        SLOT_BYTES if slot_bytes is None else slot_bytes))
+        SLOT_BYTES if slot_bytes is None else slot_bytes,
+        xs[0].element_size()))
     for launch in plan.launches:
         parts = []  # (rows, out, columns) of each array in the launch
         for i in launch.leaves:
@@ -259,7 +280,7 @@ def ring_all_reduce_tree_plain(xs: list[torch.Tensor], group=None,
         for k in range(n - 1):
             c_send, c_recv = (me - k) % n, (me - k - 1) % n
             for (r, o, c), arriving in zip(parts, hop(c_send, k > 0)):
-                o[c_recv, c] = r[c_recv, c] + arriving
+                o[c_recv, c] = ring_add(r[c_recv, c], arriving)
         for k in range(n - 1):
             c_send, c_recv = (me + 1 - k) % n, (me - k) % n
             for (_, o, c), arriving in zip(parts, hop(c_send, True)):
@@ -312,7 +333,8 @@ class RingComm:
     ``[hop][block]`` and two entry flags per block (the per-leaf design's),
     then two sets (by call parity) of ``n - 1`` reduce-scatter and ``n - 1``
     all-gather slots of ``slot_bytes`` each (by default ``SLOT_BYTES``,
-    which holds the lm_flash LM's whole gradient pack at 2 ranks and up). The 64-byte IPC
+    which holds the lm_flash LM's whole gradient pack at 2 ranks and up;
+    a slot carries ``slot_bytes / itemsize`` columns of a ring dtype). The 64-byte IPC
     handles are exchanged with ``all_gather_object`` over the group (the
     only use of the group besides barriers, so a gloo group serves ranks
     that share a card, where NCCL refuses), and each rank opens its left
@@ -338,7 +360,7 @@ class RingComm:
             raise ValueError(f"RingComm maps CUDA memory, got {self.device}")
         if self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
-        self.slot_elems = slot_elems_of(
+        self.slot_bytes = 4 * slot_elems_of(
             SLOT_BYTES if slot_bytes is None else slot_bytes)
         self.timeout_s, self.seq = timeout_s, 0
         self.own = self.left = self.right = None
@@ -346,7 +368,7 @@ class RingComm:
         handle = ctypes.create_string_buffer(64)
         own = ctypes.c_void_p()
         with torch.cuda.device(self.device):
-            nbytes = lib.ddw_ring_buffer_bytes(self.n, self.slot_elems)
+            nbytes = lib.ddw_ring_buffer_bytes(self.n, self.slot_bytes)
             _cuda_check(lib.ddw_ring_alloc(nbytes, ctypes.byref(own), handle),
                         "cudaMalloc / cudaIpcGetMemHandle")
             self.own = own.value
@@ -367,6 +389,11 @@ class RingComm:
     def _stream(self) -> int:
         return torch.cuda.current_stream(self.device).cuda_stream
 
+    def slot_cols(self, dtype: torch.dtype) -> int:
+        """Columns of ``dtype`` one slot carries: its bytes over the value's,
+        a multiple of 128."""
+        return self.slot_bytes // torch.empty((), dtype=dtype).element_size()
+
     def launch_pack(self, xs, outs, plan: PackPlan,
                     launch: PackLaunch) -> None:
         """One K6 launch over pack columns ``[launch.p0, launch.p1)`` of the
@@ -380,7 +407,7 @@ class RingComm:
         with torch.cuda.device(self.device):
             err = _kernel_lib().ddw_ring_pack_all_reduce(
                 words, len(launch.leaves), self.own, self.right, launch.p0,
-                launch.p1 - launch.p0, self.slot_elems, self.n, self.me,
+                launch.p1 - launch.p0, self.slot_bytes, self.n, self.me,
                 self.seq, _RING_DTYPES[xs[0].dtype], self.timeout_s,
                 self._stream())
         _cuda_check(err, "kernel launch")
@@ -394,7 +421,7 @@ class RingComm:
         with torch.cuda.device(self.device):
             err = _kernel_lib().ddw_ring_leaf_all_reduce(
                 x2d.data_ptr(), out.data_ptr(), self.own, self.left,
-                self.right, x2d.shape[1], start, seg, self.slot_elems, self.n,
+                self.right, x2d.shape[1], start, seg, self.slot_bytes, self.n,
                 self.me, self.seq, blocks, _RING_DTYPES[x2d.dtype],
                 self.timeout_s, self._stream())
         _cuda_check(err, "kernel launch")
@@ -441,21 +468,21 @@ def ring_all_reduce_cuda(xs: list[torch.Tensor], comm: RingComm,
                          _variant: str = "packed") -> list[torch.Tensor]:
     """Launch K6 on the current stream, once per launch of the pack plan,
     without synchronising: the sums of the arrays ``xs`` over ``comm``'s
-    group, new tensors. ``xs`` are CUDA tensors of one dtype, float32 or
-    int32, on ``comm``'s device, the same shapes on every rank. Raises on
+    group, new tensors. ``xs`` are CUDA tensors of one ring dtype on
+    ``comm``'s device, the same shapes on every rank. Raises on
     anything else; never falls back. ``_variant="per_leaf"`` runs the
     earlier design (one launch per array and slot-wide segment), for timing
     beside it only."""
     if _variant not in _VARIANTS:
         raise ValueError(f"unknown K6 variant {_variant!r}")
-    for x in xs:
-        if not x.is_cuda or x.device != comm.device:
-            raise ValueError(f"K6 needs tensors on {comm.device}, got "
-                             f"{x.device}")
     if len({x.dtype for x in xs}) > 1:
         raise ValueError("one K6 launch takes arrays of one dtype")
     for x in xs:
         _check_ring_dtype(x.dtype)
+    for x in xs:
+        if not x.is_cuda or x.device != comm.device:
+            raise ValueError(f"K6 needs tensors on {comm.device}, got "
+                             f"{x.device}")
     if comm.own is None:
         raise RuntimeError("RingComm is closed")
     if comm.n == 1:
@@ -466,7 +493,8 @@ def ring_all_reduce_cuda(xs: list[torch.Tensor], comm: RingComm,
         for x in xs:
             x2d = ring_chunks(x, comm.n, lane=_LANE)
             out = torch.empty_like(x2d)
-            for start, seg in ring_segments(x2d.shape[1], comm.slot_elems):
+            for start, seg in ring_segments(x2d.shape[1],
+                                            comm.slot_cols(x.dtype)):
                 comm.launch_leaf(x2d, out, start, seg)
                 ring_all_reduce_cuda.launches += 1
                 count["per_leaf"] += 1
@@ -477,7 +505,8 @@ def ring_all_reduce_cuda(xs: list[torch.Tensor], comm: RingComm,
     xs = [x.contiguous() for x in xs]
     xs = [x if x.data_ptr() % 16 == 0 else x.clone() for x in xs]
     outs = [torch.empty_like(x) for x in xs]
-    plan = ring_pack_plan([x.numel() for x in xs], comm.n, comm.slot_elems)
+    plan = ring_pack_plan([x.numel() for x in xs], comm.n,
+                          comm.slot_cols(xs[0].dtype))
     for launch in plan.launches:
         comm.launch_pack(xs, outs, plan, launch)
         ring_all_reduce_cuda.launches += 1
@@ -497,8 +526,8 @@ def ring_all_reduce_tree_pallas(xs: list[torch.Tensor], group=None,
     on the ring, one ring per ring dtype (:func:`ring_dtype_groups`): K6 for
     CUDA arrays (through ``comm``, default the group's cached
     :class:`RingComm`), the plain version for CPU arrays. bf16 and f16 ring
-    in f32 and are cast back. The arrays must lie on one device; other
-    dtypes raise. A world of one returns ``xs`` and launches nothing."""
+    in f32 and are cast back. The arrays must lie on one device; dtypes
+    ``ddw_tpu`` does not ring (64-bit ones) raise. A world of one returns ``xs`` and launches nothing."""
     devices = {x.device for x in xs}
     if len(devices) > 1:
         raise ValueError(f"the ring all-reduce takes arrays on one device, "

@@ -66,8 +66,22 @@ def tree_unflatten(tree: T, leaves: list) -> T:
 
 
 def _sum(x: torch.Tensor, g) -> torch.Tensor:
-    out = x.clone()
+    """``lax.psum`` of one tensor. gloo's ``all_reduce`` takes neither int16
+    nor uint32: int16 sums in int32 and wraps back (the sum modulo 2**16, as
+    ``ddw_tpu``'s), uint32 sums through an int32 view (the same bits). A bool
+    tensor sums to the int32 count of True values, as ``lax.psum`` of bools
+    does."""
+    if x.dtype in (torch.bool, torch.int16):
+        out = x.to(torch.int32)
+    elif x.dtype == torch.uint32:
+        out = x.view(torch.int32).clone()
+    else:
+        out = x.clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=g)
+    if x.dtype == torch.int16:
+        return out.to(torch.int16)
+    if x.dtype == torch.uint32:
+        return out.view(torch.uint32)
     return out
 
 
@@ -80,9 +94,11 @@ def all_reduce_sum(tree: T, group=None, impl: str = "psum") -> T:
     CUDA kernel on CUDA tensors, its plain version on CPU tensors). ``psum``
     and ``ring`` reduce leaf by leaf; ``pallas`` rings every leaf of a ring
     dtype together, one K6 launch per dtype group (f32 with bf16 and f16
-    widened, int32) while the pack fits a comm slot, each leaf keeping its
-    own framing, so the bits are those of a ring per leaf. Its leaves must
-    lie on one device."""
+    widened; int32, uint32, int16, int8, uint8 and bool each apart) while
+    the pack fits a comm slot, each leaf keeping its own framing, so the
+    bits are those of a ring per leaf. Its leaves must lie on one device.
+    ``psum`` of a bool leaf gives the int32 count of True values, the rings
+    a bool (logical or), as in ``ddw_tpu``."""
     fns = {"psum": _sum, "ring": ring_all_reduce}
     if impl not in (*fns, "pallas"):
         raise KeyError(f"unknown allreduce impl {impl!r} (have psum, ring, "
@@ -143,7 +159,7 @@ def ring_all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
     """Explicit ring allreduce over point-to-point sends — ``ddw_tpu``'s
     ``ppermute`` ring, with its framing (chunks padded to a multiple of 1,
     not 128) and its order of additions: the arriving partial sum plus this
-    rank's copy of that chunk. Reduce-scatter, then all-gather, ``n - 1``
+    rank's copy of that chunk (integers wrap, bools add as logical or). Reduce-scatter, then all-gather, ``n - 1``
     hops each; returns the full sum on every participant."""
     g = _resolve_group(group)
     n, me = _rr.group_size_rank(g)
@@ -152,7 +168,7 @@ def ring_all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
     chunks = _rr.ring_chunks(x, n)  # chunk c is reduced by rank (c-1) % n
     acc = chunks[me]
     for k in range(n - 1):
-        acc = _rr.ring_shift(acc, g) + chunks[(me - k - 1) % n]
+        acc = _rr.ring_add(_rr.ring_shift(acc, g), chunks[(me - k - 1) % n])
     # acc on rank r is now the full sum of chunk (r + 1) % n; circulate the
     # completed chunks: gathered[k] is chunk (r - k + 1) % n.
     out = torch.empty_like(chunks)

@@ -74,7 +74,14 @@ class GangError(RuntimeError):
     drained within the grace window). ``exit_codes`` is per-rank
     (``None`` = still running when the gang was killed); ``rank0_traceback``
     is rank 0's formatted traceback when it got far enough to report one.
+    ``killed_ranks`` (set by the launcher after construction, so the
+    signature stays ``ddw_tpu``'s) are the ranks it SIGKILLed itself when it
+    killed the gang: their ``-9`` is collateral, never a root cause (a
+    survivor the kill reaches before its own collective error exits it
+    would otherwise look like a rank that died of a signal first).
     """
+
+    killed_ranks: tuple[int, ...] = ()
 
     def __init__(self, message: str, *, kind: str,
                  exit_codes: list[int | None],
@@ -456,17 +463,21 @@ class Launcher:
                             # steps were budgeted for
                             deadline = time.monotonic() + self.timeout_s
                             continue
-                    for p in procs:
+                    killed = []
+                    for i, p in enumerate(procs):
                         if p.poll() is None:
                             p.kill()
+                            killed.append(i)
                     codes = [p.wait() for p in procs]
                     suffix, tb = self._rank0_error(result)
                     kind = ("coord-bind" if EXIT_COORD_BIND in codes
                             else "crash")
-                    raise GangError(
+                    err = GangError(
                         f"worker crashed (exit codes {codes}); gang killed"
                         + suffix,
                         kind=kind, exit_codes=codes, rank0_traceback=tb)
+                    err.killed_ranks = tuple(killed)
+                    raise err
                 if any(codes[i] == EXIT_PREEMPTED for i in range(self.np)
                        if _active(i)):
                     if grace_end is None:

@@ -191,7 +191,8 @@ class GangSupervisor:
                 except GangError as e:
                     self._harvest_elastic(gen)
                     kind = "preempted" if e.is_preemption else e.kind
-                    dead, sig = self._dead_rank(e.exit_codes, kind)
+                    dead, sig = self._dead_rank(e.exit_codes, kind,
+                                                e.killed_ranks)
                     self.attempts.append(AttemptReport(
                         generation=gen, kind=kind, exit_codes=e.exit_codes,
                         rank0_traceback=e.rank0_traceback,
@@ -220,14 +221,16 @@ class GangSupervisor:
             raise
 
     @staticmethod
-    def _dead_rank(exit_codes: list, kind: str) -> tuple[int | None,
-                                                         int | None]:
+    def _dead_rank(exit_codes: list, kind: str,
+                   killed=()) -> tuple[int | None, int | None]:
         """Forensics for a whole-gang failure: which rank's death is the
         ROOT CAUSE, and the signal that killed it when the waitpid code
         says signal death. Peers dying as collective-error collateral exit
         1 (the worker's generic-error path), so among the abnormal exits a
         distinguished death — a signal, or any non-1 code — outranks an
-        exit-1 neighbor."""
+        exit-1 neighbor. Ranks the launcher killed itself (``killed``,
+        :attr:`GangError.killed_ranks`) are collateral too: their SIGKILL
+        only counts when no other rank died."""
         if kind == "preempted":
             for rank, code in enumerate(exit_codes):
                 if code == EXIT_PREEMPTED:
@@ -235,6 +238,8 @@ class GangSupervisor:
             return None, None
         abnormal = [(r, c) for r, c in enumerate(exit_codes)
                     if c is not None and c not in (0, EXIT_PREEMPTED)]
+        if any(r not in killed for r, _ in abnormal):
+            abnormal = [(r, c) for r, c in abnormal if r not in killed]
         if not abnormal:
             return None, None
         rank, code = next(((r, c) for r, c in abnormal if c != 1),

@@ -110,9 +110,11 @@ class EpochProfile:
         path = os.path.join(self.trace_dir,
                             f"trace_{os.getpid()}_{self.epoch}.json")
         self._prof.export_chrome_trace(path)
+        # the profiler's raw events: ``events()`` would first build the
+        # Python event tree of the whole epoch (tens of seconds on the card)
         if self.device.type == "cuda" and not any(
-                e.device_type == torch.autograd.DeviceType.CUDA
-                for e in self._prof.events()):
+                e.device_type() == torch.autograd.DeviceType.CUDA
+                for e in self._prof.profiler.kineto_results.events()):
             raise RuntimeError(
                 f"torch.profiler recorded no CUDA kernel over epoch "
                 f"{self.epoch} (is CUPTI available?); trace at {path}")

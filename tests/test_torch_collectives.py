@@ -37,8 +37,29 @@ MIX = {"a": (1,), "b": (33,), "c_int": (300,), "d": None, "e_bf16": (200,),
        "f": (3, 700)}
 
 
+# The integer and bool ring dtypes (numpy names), each with values that
+# overflow its range when summed over the ranks; INT_TREE mixes them with
+# f32 and f16 leaves for all_reduce_sum at every impl.
+INT_DTYPES = ("int8", "uint8", "int16", "uint32", "bool")
+INT_SHAPE = (3, 150)
+INT_TREE = {"b": "bool", "f": "float32", "h": "float16", "i16": "int16",
+            "i8": "int8", "u32": "uint32", "u8": "uint8"}
+
+
 def _mix_shape(key, n):
     return MIX[key] or (n * 128 - 7,)
+
+
+def _int_values(rng, dtype, shape):
+    """Seeded values of ``dtype`` from the whole range (bool: about a third
+    True): the sums over 2 or 4 ranks overflow every integer dtype."""
+    if dtype == "bool":
+        return rng.rand(*shape) < 0.3
+    if dtype.startswith("float"):
+        return rng.randn(*shape).astype(dtype)
+    info = np.iinfo(dtype)
+    return rng.randint(info.min, int(info.max) + 1, shape,
+                       dtype=np.int64).astype(dtype)
 
 
 @functools.cache
@@ -77,6 +98,10 @@ def _inputs(n):
         else:
             x[f"mix_{key}"] = rng.randn(n, *_mix_shape(key, n)).astype(
                 np.float32)
+    for dt in INT_DTYPES:
+        x[f"int_{dt}"] = _int_values(rng, dt, (n, *INT_SHAPE))
+    for key, dt in INT_TREE.items():
+        x[f"itree_{key}"] = _int_values(rng, dt, (n, 257))
     return x
 
 
@@ -131,6 +156,16 @@ def _jax_refs(n, x):
                                          impl="pallas"), n,
         *[_mix_leaf(k, x[f"mix_{k}"],
                     lambda v: J.jnp.asarray(v, J.jnp.bfloat16)) for k in keys])
+    ints = _smap(lambda *a: [J.rr.ring_all_reduce_pallas(t, "data")
+                             for t in a], n,
+                 *[x[f"int_{dt}"] for dt in INT_DTYPES])
+    for dt, got in zip(INT_DTYPES, ints):
+        refs[f"int_{dt}"] = got
+    tkeys = sorted(INT_TREE)
+    refs["itree"] = _smap(lambda *a: {
+        impl: J.coll.all_reduce_sum(dict(zip(tkeys, a)), "data", impl=impl)
+        for impl in ("psum", "ring", "pallas")}, n,
+        *[x[f"itree_{k}"] for k in tkeys])
     return refs
 
 
@@ -201,6 +236,16 @@ def _rank_cases(x):
                             impl="pallas")
     except ValueError as e:
         out["mixed_devices"] = str(e)
+    for dt in INT_DTYPES:
+        out[f"int_{dt}"] = coll.ring_all_reduce_pallas(t[f"int_{dt}"])
+    itree = {k: t[f"itree_{k}"] for k in INT_TREE}
+    out["itree"] = {impl: coll.all_reduce_sum(itree, impl=impl)
+                    for impl in ("psum", "ring", "pallas")}
+    slot, rr.SLOT_BYTES = rr.SLOT_BYTES, 512
+    try:  # 512 bytes: 512 int8 columns a launch, 128 uint32 ones
+        out["itree_small_slot"] = coll.all_reduce_sum(itree, impl="pallas")
+    finally:
+        rr.SLOT_BYTES = slot
     bf = t["bf16"].to(torch.bfloat16)
     out["bf16"] = coll.all_reduce_sum(bf, impl="pallas")
     out["bf16_dtype"] = str(out["bf16"].dtype)
@@ -291,6 +336,58 @@ def test_plain_k6_tree_packs_bit_equal(port, jax_refs, n):
         assert got["c_int"].dtype == np.int32
         assert port[n][r]["mix_hops"] == 2 * 2 * (n - 1)
         assert "one device" in port[n][r]["mixed_devices"]
+
+
+@pytest.mark.parametrize("dtype", INT_DTYPES)
+@pytest.mark.parametrize("n", NS)
+def test_plain_k6_integer_and_bool_rings_bit_equal(port, jax_refs, n, dtype):
+    """int8, uint8, int16, uint32 and bool ring in their own dtype, bit-equal
+    to ddw_tpu's ring_all_reduce_pallas (interpret mode): integer sums wrap
+    (the values span each dtype's range, so the sums overflow), bool adds
+    as logical or."""
+    x = _inputs(n)[f"int_{dtype}"]
+    for r in range(n):
+        got = port[n][r][f"int_{dtype}"]
+        assert got.dtype == np.dtype(dtype)
+        _bits_equal(got, jax_refs[n][f"int_{dtype}"][r])
+    if dtype == "bool":
+        np.testing.assert_array_equal(port[n][0]["int_bool"], x.any(0))
+    else:
+        wrapped = x.astype(np.int64).sum(0).astype(dtype)  # modulo 2**bits
+        np.testing.assert_array_equal(port[n][0][f"int_{dtype}"], wrapped)
+
+
+@pytest.mark.parametrize("impl", ["psum", "ring", "pallas"])
+@pytest.mark.parametrize("n", NS)
+def test_integer_tree_through_every_impl(port, jax_refs, n, impl):
+    """all_reduce_sum of a tree of int8, uint8, int16, uint32, bool, f32 and
+    f16 leaves equals ddw_tpu's all_reduce_sum at the same impl: the rings
+    (ppermute and K6) bit for bit; psum bit for bit on the integers (gloo
+    lacks int16 and uint32: they sum in int32 and through an int32 view),
+    bool as the int32 count of True values (what lax.psum returns), the
+    floats within 1e-6 (f32) and 2e-3 (f16) relative, since the reduction
+    order is the library's. K6 with a 512-byte slot (several launches per
+    dtype) gives the same bits."""
+    for r in range(n):
+        got, want = port[n][r]["itree"][impl], jax_refs[n]["itree"][impl]
+        assert sorted(got) == sorted(INT_TREE)
+        for key in INT_TREE:
+            w = want[key][r]
+            if impl == "psum" and key in ("f", "h"):
+                assert got[key].dtype == w.dtype
+                tol = 1e-6 if key == "f" else 2e-3
+                np.testing.assert_allclose(got[key].astype(np.float32),
+                                           w.astype(np.float32), rtol=tol,
+                                           atol=tol)
+            else:
+                _bits_equal(got[key], w)
+        if impl == "psum":
+            assert got["b"].dtype == np.int32
+            np.testing.assert_array_equal(
+                got["b"], _inputs(n)["itree_b"].sum(0).astype(np.int32))
+        if impl == "pallas":
+            for key in INT_TREE:
+                _bits_equal(port[n][r]["itree_small_slot"][key], got[key])
 
 
 @pytest.mark.parametrize("n", NS)
@@ -473,14 +570,20 @@ def test_pack_plan_small_slot_covers_every_column_once(n):
 
 
 def test_ring_dtype_groups():
-    """One ring per ring dtype: bf16 and f16 join f32, int32 apart, in order
-    of first appearance; other dtypes raise."""
+    """One ring per ring dtype: bf16 and f16 join f32; int32, uint32, int16,
+    int8, uint8 and bool each ring apart, in order of first appearance;
+    64-bit dtypes, which ddw_tpu never holds, raise."""
     f32, bf16, f16, i32 = (torch.float32, torch.bfloat16, torch.float16,
                            torch.int32)
     assert rr.ring_dtype_groups([bf16, i32, f32, f16, i32]) == [
         (f32, [0, 2, 3]), (i32, [1, 4])]
-    with pytest.raises(TypeError, match="ROADMAP.md"):
-        rr.ring_dtype_groups([f32, torch.float64])
+    assert rr.ring_dtype_groups([torch.int8, torch.uint32, f16, torch.bool,
+                                 torch.uint8, torch.int16, torch.int8]) == [
+        (torch.int8, [0, 6]), (torch.uint32, [1]), (f32, [2]),
+        (torch.bool, [3]), (torch.uint8, [4]), (torch.int16, [5])]
+    for wide in (torch.float64, torch.int64):
+        with pytest.raises(TypeError, match="64-bit"):
+            rr.ring_dtype_groups([f32, wide])
 
 
 def test_mesh_spec_resolves_like_jax():
@@ -495,5 +598,19 @@ def test_mesh_spec_resolves_like_jax():
 
 
 def test_unported_dtype_raises_naming_roadmap():
-    with pytest.raises(TypeError, match="ROADMAP.md"):
+    """Every dtype ddw_tpu rings passes K6's dtype check, and only the
+    device check refuses a CPU tensor; f64, which ddw_tpu (run without
+    x64) never holds, is refused by the dtype check, by name, on any
+    device. Slots count bytes: a 512-byte slot takes 512 int8 columns."""
+    comm = types.SimpleNamespace(device=torch.device("cuda", 0), own=1, n=2)
+    for dt in (torch.float32, torch.int32, torch.uint32, torch.int16,
+               torch.int8, torch.uint8, torch.bool):
+        assert rr._RING_DTYPES[dt] in range(5)
+        with pytest.raises(ValueError, match="K6 needs tensors on cuda:0"):
+            rr.ring_all_reduce_cuda([torch.zeros(3, dtype=dt)], comm)
+        assert rr.ring_all_reduce_plain(torch.zeros(3, dtype=dt)).dtype == dt
+    with pytest.raises(TypeError, match="64-bit"):
         rr.ring_all_reduce_plain(torch.zeros(3, dtype=torch.float64))
+    with pytest.raises(TypeError, match="64-bit"):
+        rr.ring_all_reduce_cuda([torch.zeros(3, dtype=torch.float64)], comm)
+    assert [rr.slot_elems_of(512, b) for b in (4, 2, 1)] == [128, 256, 512]

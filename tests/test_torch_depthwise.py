@@ -5,6 +5,8 @@ stride-2 library arm against ``impl="xla"``, and the dispatch rules. The CUDA
 kernels themselves are held against the plain versions on the card by
 ``chip_smoke.py``."""
 
+import os
+import re
 import time
 
 import jax
@@ -15,7 +17,7 @@ import torch
 from jax import lax
 
 from ddw_tpu.ops.depthwise_conv import DepthwiseConv3x3 as JaxDepthwise
-from ddw_tpu.ops.depthwise_conv import _pallas_dw
+from ddw_tpu.ops.depthwise_conv import _pallas_dw, _pallas_fwd
 from ddw_tpu.ops.depthwise_conv import depthwise_conv3x3 as jax_dw
 from ddw_tpu_torch.ops import _build
 from ddw_tpu_torch.ops import depthwise_conv as dc
@@ -38,6 +40,11 @@ def _inputs(shape, seed):
 def _bf16_ulp(a: np.ndarray) -> np.ndarray:
     mag = np.maximum(np.abs(a), np.finfo(np.float32).tiny)
     return np.exp2(np.floor(np.log2(mag)) - 7)
+
+
+def _f16_ulp(a: np.ndarray) -> np.ndarray:
+    mag = np.maximum(np.abs(a), np.finfo(np.float16).tiny)
+    return np.exp2(np.floor(np.log2(mag)) - 10)
 
 
 @pytest.mark.parametrize("shape", [(2, 8, 8, 8), (1, 14, 10, 16),
@@ -66,6 +73,55 @@ def test_plain_matches_pallas_bf16_within_one_ulp(shape):
     assert got.dtype == torch.bfloat16
     err = np.abs(got.float().numpy() - ref)
     assert (err <= _bf16_ulp(ref)).all(), err.max()
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 8, 8), (1, 14, 10, 16),
+                                   (2, 6, 5, 13)])
+def test_plain_matches_pallas_f16_within_one_ulp(shape):
+    # K1 in f16, the forward and the input gradient on flipped taps (dx, as
+    # _vjp_bwd runs it), against the Pallas kernel in interpret mode: both
+    # accumulate the f16 inputs in f32 in the same tap order and round once,
+    # so they may differ by one f16 rounding at most.
+    x, w = _inputs(shape, 11)
+    xj, wj = jnp.asarray(x, jnp.float16), jnp.asarray(w, jnp.float16)
+    xt, wt = torch.from_numpy(x).half(), torch.from_numpy(w).half()
+    for flip in (False, True):
+        ref = _pallas_fwd(xj, wj[::-1, ::-1, :] if flip else wj, True)
+        assert ref.dtype == jnp.float16
+        ref = np.asarray(ref, np.float32)
+        got = depthwise_conv3x3_plain(xt, wt, flip=flip)
+        assert got.dtype == torch.float16
+        err = np.abs(got.float().numpy() - ref)
+        assert (err <= _f16_ulp(ref)).all(), err.max()
+
+
+def test_f16_function_gradients_match_jax_grad():
+    # The Function in f16 against jax.grad through the Pallas kernels in
+    # interpret mode: dx (K1 on flipped taps, f16) within one f16 ulp, dw
+    # (K2 in f32, cast to the f16 taps as _vjp_bwd casts it) within one f16
+    # ulp plus K2's 1e-5 * sum|xpad * g|.
+    rng = np.random.RandomState(12)
+    x = rng.randn(2, 8, 8, 16).astype(np.float32)
+    w = rng.randn(3, 3, 16).astype(np.float32)
+    gy = rng.randn(2, 8, 8, 16).astype(np.float32)
+
+    def loss(x, w):
+        y = jax_dw(x, w, impl="pallas", interpret=True)
+        return jnp.sum(y.astype(jnp.float32) * gy)
+
+    gx_j, gw_j = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x, jnp.float16),
+                                               jnp.asarray(w, jnp.float16))
+    xt = torch.from_numpy(x).half().requires_grad_(True)
+    wt = torch.from_numpy(w).half().requires_grad_(True)
+    (depthwise_conv3x3(xt, wt, impl="pallas").float()
+     * torch.from_numpy(gy)).sum().backward()
+    assert xt.grad.dtype == wt.grad.dtype == torch.float16
+    gx_j, gw_j = np.asarray(gx_j, np.float32), np.asarray(gw_j, np.float32)
+    assert (np.abs(xt.grad.float().numpy() - gx_j) <= _f16_ulp(gx_j)).all()
+    bound = 1e-5 * _abs_sum_bound(x.astype(np.float16).astype(np.float32),
+                                  gy.astype(np.float16).astype(np.float32))
+    assert (np.abs(wt.grad.float().numpy() - gw_j)
+            <= _f16_ulp(gw_j) + bound).all()
 
 
 @pytest.mark.parametrize("hw", [(8, 8), (7, 9)])
@@ -149,6 +205,48 @@ def test_library_is_keyed_by_source_and_flags(tmp_path, monkeypatch):
     assert _build.library_path("k.cu") != first
 
 
+def test_a_source_in_parts_compiles_each_then_links(tmp_path, monkeypatch):
+    """``// nvcc parts: 3``: three compiles (``-c -DDDW_PART=p``) and one
+    link of their objects into the library (a stand-in nvcc records its
+    arguments and writes its ``-o`` file)."""
+    (tmp_path / "k.cu").write_text("// nvcc parts: 3\nint f();\n")
+    calls = tmp_path / "calls.txt"
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\necho "$@" >> ' + str(calls) + '\n'
+                    'while [ "$1" != "-o" ]; do shift; done\n'
+                    'echo built > "$2"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(fake))
+    assert _build.parts("k.cu") == 3
+    path, seconds, _ = _build.build("k.cu")
+    assert path == _build.library_path("k.cu") and os.path.exists(path)
+    lines = calls.read_text().splitlines()
+    compiles = sorted(ln for ln in lines if "-DDDW_PART=" in ln)
+    assert [ln.split("-DDDW_PART=")[1].split()[0] for ln in compiles] == [
+        "0", "1", "2"]
+    assert all(" -c " in ln and "-shared" not in ln for ln in compiles)
+    link = [ln for ln in lines if "-DDDW_PART=" not in ln]
+    assert len(link) == 1 and link[0].startswith("-shared -o ")
+    assert [w.rsplit("/", 1)[1] for w in link[0].split()[3:]] == [
+        "part0.o", "part1.o", "part2.o"]
+    assert _build.build("k.cu")[1] == 0.0       # reused, not rebuilt
+    assert len(calls.read_text().splitlines()) == 4
+
+
+def test_flash_sources_declare_the_parts_their_entries_ask():
+    """The two flash sources build in as many parts as flash_common.cuh's
+    kParts, whose entries each part answers; the others build whole."""
+    with open(os.path.join(_build.CSRC, "flash_common.cuh")) as f:
+        k_parts = int(re.search(r"constexpr int kParts = (\d+);",
+                                f.read()).group(1))
+    for src in sorted(os.listdir(_build.CSRC)):
+        if src.endswith(".cu"):
+            want = k_parts if src.startswith("flash_attention") else 1
+            assert _build.parts(src) == want, src
+
+
 def _abs_sum_bound(x: np.ndarray, g: np.ndarray) -> np.ndarray:
     """sum_{b,h,w} |xpad * g| per (dy, dx, c), in float64: the scale of
     K2's rounding error (the result itself can cancel to near zero)."""
@@ -159,14 +257,14 @@ def _abs_sum_bound(x: np.ndarray, g: np.ndarray) -> np.ndarray:
                      for dy in range(3) for dx in range(3)]).reshape(3, 3, -1)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("shape", [(2, 8, 8, 8), (3, 7, 5, 13)])
 def test_wgrad_plain_matches_pallas_dw(shape, dtype):
     # Both accumulate in f32 in another order: error <= 1e-5 * sum|xpad*g|.
     rng = np.random.RandomState(6)
     x = rng.randn(*shape).astype(np.float32)
     g = rng.randn(*shape).astype(np.float32)
-    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    jdt = getattr(jnp, dtype)
     xj, gj = jnp.asarray(x, jdt), jnp.asarray(g, jdt)
     ref = np.asarray(_pallas_dw(xj, gj, True))
     tdt = getattr(torch, dtype)
@@ -322,8 +420,17 @@ def test_tile_plan_is_a_function_of_the_shape_alone(monkeypatch):
 def test_tile_plan_refuses_what_the_tma_cannot_take(dtype, c):
     with pytest.raises(ValueError, match="multiple of 16"):
         dw_tile_plan(2, 8, 8, c, dtype)
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        dw_tile_plan(2, 8, 8, 16, torch.float16)
+    # f16 plans as bf16 does (8 channels a vector); f64 has no kernel
+    assert dw_tile_plan(2, 8, 8, 16, torch.float16) == \
+        dw_tile_plan(2, 8, 8, 16, torch.bfloat16)
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        dw_tile_plan(2, 8, 8, 16, torch.float64)
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_tile_plan_takes_f16_as_bf16(shape):
+    assert dw_tile_plan(*shape, torch.float16) == \
+        dw_tile_plan(*shape, torch.bfloat16)
 
 
 def test_dw_variant_rules():
@@ -333,6 +440,10 @@ def test_dw_variant_rules():
     assert dc._dw_variant(torch.bfloat16, 12, True) == "simt"   # 24 bytes
     assert dc._dw_variant(torch.float32, 13, True) == "simt"
     assert dc._dw_variant(torch.bfloat16, 32, False) == "simt"  # unaligned
+    assert dc._dw_variant(torch.float16, 32, True) == "tma"
+    assert dc._dw_variant(torch.float16, 40, True) == "tma"
+    assert dc._dw_variant(torch.float16, 12, True) == "simt"    # 24 bytes
+    assert dc._dw_variant(torch.float16, 32, False) == "simt"
 
 
 class _FakeLib:

@@ -309,9 +309,19 @@ def test_plain_forward_bits_do_not_depend_on_block_q(dtype, causal, q_offset,
 def test_forward_variant_by_shape():
     """K3's kernel is a pure function of (dtype, head dim, block_k): sm90
     (TMA, wgmma) for bf16 at block_k 128 and head dim 64 or 128, mma.sync
-    for other bf16 multiples of 16 and head dim 32, CUDA cores for f32 and
-    for other bf16 blocks. The LM's S = 2,048 takes sm90."""
-    bf, f32 = torch.bfloat16, torch.float32
+    for other bf16 and f16 multiples of 16 at head dims up to 256, CUDA
+    cores for f32, for other 16-bit blocks and above head dim 256. f16
+    never takes sm90. The LM's S = 2,048 takes sm90."""
+    bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
+    for d in (1, 16, 40, 64, 80, 96, 128, 200, 256):
+        assert tfa._fwd_variant(f16, d, 128) == "mma"
+        assert tfa._fwd_variant(f16, d, 40) == "cuda_cores"
+        assert tfa._fwd_variant(f32, d, 128) == "cuda_cores"
+        if d not in (64, 128):
+            assert tfa._fwd_variant(bf, d, 128) == "mma"
+    for dtype in (bf, f16, f32):
+        assert tfa._fwd_variant(dtype, 257, 128) == "cuda_cores"
+        assert tfa._fwd_variant(dtype, 512, 64) == "cuda_cores"
     assert tfa._fwd_variant(bf, 64, 128) == "sm90"
     assert tfa._fwd_variant(bf, 128, 128) == "sm90"
     assert tfa._fwd_variant(bf, 32, 128) == "mma"
@@ -351,8 +361,16 @@ def test_forward_counts_reset_and_refuse_bad_variants():
 def test_backward_variant_by_shape():
     """K4's and K5's kernel is a pure function of (dtype, head dim), the
     same for both: sm90 (TMA, wgmma) for bf16 at head dim 64 and 128,
-    mma.sync for bf16 at head dim 32, CUDA cores for f32."""
-    bf, f32 = torch.bfloat16, torch.float32
+    mma.sync for bf16 and f16 at every other head dim up to 256 (f16 at 64
+    and 128 too), CUDA cores for f32 and above 256."""
+    bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
+    for d in (1, 16, 40, 80, 96, 200, 256):
+        assert tfa._bwd_variant(bf, d) == "mma"
+        assert tfa._bwd_variant(f16, d) == "mma"
+        assert tfa._bwd_variant(f32, d) == "cuda_cores"
+    assert tfa._bwd_variant(f16, 64) == tfa._bwd_variant(f16, 128) == "mma"
+    for dtype in (bf, f16, f32):
+        assert tfa._bwd_variant(dtype, 257) == "cuda_cores"
     assert tfa._bwd_variant(bf, 32) == "mma"
     assert tfa._bwd_variant(bf, 64) == "sm90"
     assert tfa._bwd_variant(bf, 128) == "sm90"
@@ -705,7 +723,7 @@ def test_head_dim_48_takes_mma_or_cuda_cores():
     96-byte bf16 row fits no TMA swizzle mode), and forcing sm90 is
     refused."""
     bf, f32 = torch.bfloat16, torch.float32
-    assert 48 in tfa._KERNEL_HEAD_DIMS
+    assert tfa.compiled_width("mma", 48) == 48
     assert tfa._fwd_variant(bf, 48, 128) == "mma"
     assert tfa._fwd_variant(bf, 48, 64) == "mma"
     assert tfa._fwd_variant(bf, 48, 40) == "cuda_cores"
@@ -720,22 +738,27 @@ def test_head_dim_48_takes_mma_or_cuda_cores():
 
 @pytest.mark.parametrize("d", [40, 96])
 def test_kernel_inputs_refuse_other_head_dims_by_name(d):
-    """A head dim no kernel takes is refused by name before anything
-    launches, on any device; head dim 48 passes the shape checks and only
-    the device check refuses a CPU tensor."""
-    for dtype in (torch.float32, torch.bfloat16):
+    """Every head dim is a kernel's now (the TPU kernel takes any): head
+    dims 40 and 96, and 48, pass the dtype and shape checks in f32, bf16
+    and f16, and only the device check refuses a CPU tensor, before
+    anything launches. f64, which ddw_tpu (run without x64) never holds, is
+    refused by name on any device."""
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         q = torch.zeros(2, 64, d, dtype=dtype)
         lse = torch.zeros(2, 64)
         before = (tfa.flash_attention_cuda.launches,
                   tfa.flash_attention_dq_cuda.launches)
-        with pytest.raises(ValueError, match=f"head dim {d} has no kernel"):
+        with pytest.raises(ValueError, match="one CUDA device"):
             tfa._check_kernel_inputs(q, q, q)
-        with pytest.raises(ValueError, match=f"head dim {d} has no kernel"):
+        with pytest.raises(ValueError, match="one CUDA device"):
             tfa.flash_attention_cuda(q, q, q)
-        with pytest.raises(ValueError, match=f"head dim {d} has no kernel"):
+        with pytest.raises(ValueError, match="one CUDA device"):
             tfa.flash_attention_dq_cuda(q, q, q, q, lse, lse)
         assert (tfa.flash_attention_cuda.launches,
                 tfa.flash_attention_dq_cuda.launches) == before
         q48 = torch.zeros(2, 64, 48, dtype=dtype)
         with pytest.raises(ValueError, match="one CUDA device"):
             tfa._check_kernel_inputs(q48, q48, q48)
+    q64 = torch.zeros(2, 64, d, dtype=torch.float64)
+    with pytest.raises(ValueError, match="64-bit"):
+        tfa.flash_attention_cuda(q64, q64, q64)

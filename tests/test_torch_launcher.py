@@ -60,9 +60,13 @@ def test_multiprocess_worker_error_propagates(worker_pythonpath):
 
 def test_worker_error_is_structured_gangerror(worker_pythonpath):
     """Crash failures carry machine-readable exit codes + rank-0 traceback
-    (what GangSupervisor classifies on), not only a message string."""
+    (what GangSupervisor classifies on), not only a message string. Only
+    rank 0 raises (``_boom_on_rank0``): were both to raise, a rank 1 that
+    exited first would have the gang killed before rank 0 wrote its error
+    result, and the traceback would depend on the scheduler."""
     with pytest.raises(GangError) as exc:
-        Launcher(np=2, devices_per_proc=1, timeout_s=300).run(_boom)
+        Launcher(np=2, devices_per_proc=1, timeout_s=300).run(
+            _boom_on_rank0)
     assert exc.value.kind == "crash"
     assert len(exc.value.exit_codes) == 2
     assert exc.value.rank0_traceback is not None
@@ -71,6 +75,18 @@ def test_worker_error_is_structured_gangerror(worker_pythonpath):
 
 def _boom():
     raise ValueError("intentional worker failure")
+
+
+def _boom_on_rank0():
+    """Rank 0 raises; every other rank waits until the launcher kills the
+    gang, so rank 0's error result is on disk before any rank exits."""
+    import time
+
+    from ddw_tpu_torch.runtime.dist import group_topology
+
+    if group_topology()[0] == 0:
+        _boom()
+    time.sleep(600)
 
 
 @pytest.mark.faults

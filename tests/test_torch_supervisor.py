@@ -341,6 +341,25 @@ def test_classification_and_forensics_equal_ddw_tpu(codes):
             JSup._dead_rank(codes, kind)
 
 
+def test_ranks_the_launcher_killed_are_never_the_root_cause():
+    """A survivor the gang kill reaches before its own collective error
+    exits it leaves -9, indistinguishable by exit code from a rank killed
+    from outside: the launcher names the ranks it killed
+    (GangError.killed_ranks) and the forensics pass over them, so rank 1's
+    injected crash (77) is the root cause whichever exit the scheduler
+    lets land first. Without the record the answer is ddw_tpu's."""
+    from ddw_tpu.runtime.supervisor import GangSupervisor as JSup
+
+    assert GangSupervisor._dead_rank([-9, 77], "crash", (0,)) == (1, None)
+    assert GangSupervisor._dead_rank([1, 77], "crash", ()) == (1, None)
+    assert GangSupervisor._dead_rank([-9, 77], "crash") == \
+        JSup._dead_rank([-9, 77], "crash") == (0, 9)
+    # a kill that took every abnormal rank leaves the kill as the answer
+    assert GangSupervisor._dead_rank([-9, 0], "crash", (0,)) == (0, 9)
+    assert GangError("x", kind="crash", exit_codes=[-9, 77]
+                     ).killed_ranks == ()
+
+
 def test_attempt_report_and_gangfailure_text_equal_ddw_tpu():
     from ddw_tpu.runtime import supervisor as jsup
 

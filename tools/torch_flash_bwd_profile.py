@@ -3,9 +3,10 @@
 (ddw_tpu_torch).
 
     python3 tools/torch_flash_bwd_profile.py [--reps N] [--check-only]
-                                             [--out DIR]
+                                             [--out DIR] [--head-dim D]
+                                             [--dtype bfloat16|float16|float32]
 
-Builds ``csrc/flash_bwd_sm90.cu`` and ``csrc/flash_attention.cu`` (one
+Builds ``csrc/flash_bwd_sm90.cu`` and ``csrc/flash_attention_bwd.cu`` (one
 ``nvcc`` each, together), prints ptxas's register, spill and shared-memory
 report of the sm90 kernels and writes both sources' full reports (with any
 note that it serialised ``wgmma``) to ``--out``, by default the git-ignored
@@ -25,6 +26,13 @@ K5, as ``FlashAttentionFn.backward`` runs it), beside the backward of
 bounds (CUDA events, median of N single launches, the L2 flushed before
 each). Prints one JSON line per result and the card's name and power limit.
 Needs a CUDA card; exits 2 without one.
+
+``--head-dim D`` and ``--dtype`` run the same checks and times at another
+head dim or dtype, on the kernels that shape takes (``_bwd_variant``: sm90
+and mma side by side only where sm90 takes it, else its one kernel), at
+[32 * 512 / D, 2048, D] (the LM's hidden width over D-wide heads, so a
+call's FLOPs stay the LM's), with the tolerance in ulps of the dtype (f32:
+1e-5 * max|ref|).
 """
 
 from __future__ import annotations
@@ -106,11 +114,25 @@ def close(got, ref):
 
     err = (got.float() - ref.float()).abs()
     top = ref.float().abs().max().item()
-    mag = ref.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
-    tol = torch.maximum(2 * torch.exp2(torch.floor(torch.log2(mag)) - 7),
-                        torch.full_like(err, 5e-3 * top))
+    if got.dtype == torch.float32:
+        tol = torch.full_like(err, 1e-5 * top)
+    else:
+        mag = ref.float().abs().clamp_min(torch.finfo(got.dtype).tiny)
+        bits = 7 if got.dtype == torch.bfloat16 else 10
+        tol = torch.maximum(
+            2 * torch.exp2(torch.floor(torch.log2(mag)) - bits),
+            torch.full_like(err, 5e-3 * top))
     ok = bool((err <= tol).all()) and bool(torch.isfinite(got).all())
     return ok, err.max().item(), (err / tol).max().item()
+
+
+def kernels_for(dtype, d: int) -> tuple[str, ...]:
+    """The kernels to hold and time at this dtype and head dim: sm90 and
+    mma in turns where the shape takes sm90, else the one it takes."""
+    from ddw_tpu_torch.ops.flash_attention import _bwd_variant
+
+    variant = _bwd_variant(dtype, d)
+    return KERNELS if variant == "sm90" else (variant,)
 
 
 def check_case(name, q, k, v, gen, *, causal, q_offset=0, k_offset=0,
@@ -128,7 +150,7 @@ def check_case(name, q, k, v, gen, *, causal, q_offset=0, k_offset=0,
     ref = {"dq": flash_attention_dq_plain(*args, *blocks)}
     ref["dk"], ref["dv"] = flash_attention_dkv_plain(*args, *blocks)
     ok = True
-    for kernel in KERNELS:
+    for kernel in kernels_for(q.dtype, q.shape[2]):
         runs = []
         for _ in range(2):
             dq = flash_attention_dq_cuda(*args, k_valid, _variant=kernel)
@@ -167,6 +189,9 @@ def main() -> int:
                         os.path.dirname(os.path.dirname(os.path.abspath(
                             __file__))), "ddw_tpu_torch", "ops", "build"),
                     help="directory for the full ptxas reports")
+    ap.add_argument("--head-dim", type=int, default=HEAD_DIM)
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=("bfloat16", "float16", "float32"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -186,7 +211,7 @@ def main() -> int:
                                                    flash_attention_dq_cuda,
                                                    flash_attention_plain)
 
-    sources = ["flash_bwd_sm90.cu", "flash_attention.cu"]
+    sources = ["flash_bwd_sm90.cu", "flash_attention_bwd.cu"]
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(_build.build, sources))
     os.makedirs(args.out, exist_ok=True)
@@ -198,16 +223,19 @@ def main() -> int:
         # ptxas's (serialised wgmma, for one)
         emit(phase="build", source=src, nvcc_seconds=round(seconds, 3),
              report=path, ptxas=[ln.strip()[:160] for ln in report.splitlines()
-                                 if src != "flash_attention.cu" and not any(
+                                 if src != "flash_attention_bwd.cu" and not any(
                                      w in ln for w in ("Function properties",
                                                        "Compile time"))])
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    d_arg, dtype = args.head_dim, getattr(torch, args.dtype)
+    kernels = kernels_for(dtype, d_arg)
+    heads = max(1, HEADS * HEAD_DIM // d_arg)
+    peak = 67e12 if dtype == torch.float32 else BF16_FLOPS  # f32: CUDA cores
 
     def qkv(bh, sq, sk, d):
         mk = lambda s: torch.randn(bh, s, d, device="cuda", generator=gen)
-        return (mk(sq).to(torch.bfloat16), mk(sk).to(torch.bfloat16),
-                mk(sk).to(torch.bfloat16))
+        return mk(sq).to(dtype), mk(sk).to(dtype), mk(sk).to(dtype)
 
     ok = True
     cases = [
@@ -233,6 +261,9 @@ def main() -> int:
         ("train_shape_causal", (BATCH * HEADS, SEQ, SEQ, HEAD_DIM),
          dict(causal=True)),
     ]
+    if (d_arg, dtype) != (HEAD_DIM, torch.bfloat16):  # the same cases at D
+        cases = [(name, (bh * HEAD_DIM // d_arg or 1, sq, sk, d_arg), kw)
+                 for name, (bh, sq, sk, d), kw in cases if d == HEAD_DIM]
     for name, (bh, sq, sk, d), kw in cases:
         q, k, v = qkv(bh, sq, sk, d)
         ok &= check_case(name, q, k, v, gen, **kw)
@@ -244,7 +275,7 @@ def main() -> int:
         return 0 if ok else 1
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    bh, s, d = BATCH * HEADS, SEQ, HEAD_DIM
+    bh, s, d = BATCH * heads, SEQ, d_arg
     q, k, v = qkv(bh, s, s, d)
     for causal in (True, False):
         do = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
@@ -264,31 +295,34 @@ def main() -> int:
             "dq": lambda kn: flash_attention_dq_cuda(*a, _variant=kn),
             "dkv": lambda kn: flash_attention_dkv_cuda(*a, _variant=kn),
             "backward_total": backward_total}
-        times = {key: {kn: [] for kn in KERNELS} for key in fns}
-        for kn in KERNELS + KERNELS[::-1]:
+        times = {key: {kn: [] for kn in kernels} for key in fns}
+        for kn in kernels + kernels[::-1]:
             for key, fn in fns.items():
                 times[key][kn].append(median_ms(lambda: fn(kn), flush,
                                                 args.reps))
-        q4, k4, v4, do4 = (t.view(BATCH, HEADS, s, d).detach()
+        q4, k4, v4, do4 = (t.view(BATCH, heads, s, d).detach()
                            .requires_grad_(t is not do)
                            for t in (q, k, v, do))
         o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
         sdpa = median_ms(lambda: torch.autograd.grad(
             o4, (q4, k4, v4), do4, retain_graph=True), flush, args.reps)
-        row = {"shape": [bh, s, d], "causal": causal, "ms": times,
+        row = {"shape": [bh, s, d], "dtype": args.dtype, "causal": causal,
+               "ms": times,
                "sdpa_backward_ms": sdpa, "reps": args.reps}
         for key, products, outs in (("dq", 3, 1), ("dkv", 4, 2)):
             flops = products * 2 * d * pairs
-            nbytes = (4 + outs) * bh * s * d * 2 + 2 * bh * s * 4
-            bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+            nbytes = (4 + outs) * bh * s * d * q.element_size() \
+                + 2 * bh * s * 4
+            bound = max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
             best = {kn: min(t) for kn, t in times[key].items()}
             row[key] = {"bound_ms": bound, "flops": flops, "bytes": nbytes,
                         "best_ms": best,
                         "tflops": {kn: flops / t / 1e9
                                    for kn, t in best.items()},
                         "share_of_bound": {kn: bound / t
-                                           for kn, t in best.items()},
-                        "sm90_speedup_over_mma": best["mma"] / best["sm90"]}
+                                           for kn, t in best.items()}}
+            if kernels == KERNELS:
+                row[key]["sm90_speedup_over_mma"] = best["mma"] / best["sm90"]
         total = {kn: min(t) for kn, t in times["backward_total"].items()}
         row["backward_total"] = {"best_ms": total,
                                  "over_sdpa": {kn: t / sdpa

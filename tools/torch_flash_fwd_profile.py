@@ -2,7 +2,8 @@
 """K3, the flash-attention forward, by variant on the card (ddw_tpu_torch).
 
     python3 tools/torch_flash_fwd_profile.py [--reps N] [--check-only]
-                                             [--out DIR]
+                                             [--out DIR] [--head-dim D]
+                                             [--dtype bfloat16|float16|float32]
 
 Builds ``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_attention.cu`` (one
 ``nvcc`` each, together), prints ptxas's register, spill and shared-memory
@@ -21,6 +22,13 @@ a ring hop with fully masked rows, a key mask inside a block, head dim
 single launches, the L2 flushed before each). Prints one JSON line per
 result and the card's name and power limit. Needs a CUDA card; exits 2
 without one.
+
+``--head-dim D`` and ``--dtype`` run the same checks and times at another
+head dim or dtype, on the kernels that shape takes (``_fwd_variant``: sm90
+and mma side by side only where sm90 takes it, else its one kernel), at
+[batch * 512 / D, 2048, D]: the LM's hidden width of 512 over D-wide heads,
+so the FLOPs of a call stay the LM's. Tolerances as ``chip_smoke.py``'s
+coverage phase: 2 ulp of the dtype or 1e-3 * max|v| (f32: 1e-5 * max|v|).
 """
 
 from __future__ import annotations
@@ -77,9 +85,18 @@ def visible_pairs(sq, sk, causal, q_offset=0, k_offset=0, k_valid=None):
 KERNELS = ("sm90", "mma")
 
 
-def flops_full(bh: int) -> int:
+def kernels_for(dtype, d: int) -> tuple[str, ...]:
+    """The kernels to hold and time at this dtype and head dim: sm90 and
+    mma in turns where the shape takes sm90, else the one it takes."""
+    from ddw_tpu_torch.ops.flash_attention import _fwd_variant
+
+    variant = _fwd_variant(dtype, d, 128)
+    return KERNELS if variant == "sm90" else (variant,)
+
+
+def flops_full(bh: int, d: int = HEAD_DIM) -> int:
     """Q.K^T and P.V over every (query, key) pair at the LM's shape."""
-    return 2 * 2 * bh * SEQ * SEQ * HEAD_DIM
+    return 2 * 2 * bh * SEQ * SEQ * d
 
 
 def ref_block_q(sq: int) -> int:
@@ -111,10 +128,14 @@ def check_case(name, q, k, v, variant, *, causal, q_offset=0, k_offset=0,
                                          block_q=ref_block_q(q.shape[1]),
                                          k_valid=k_valid)
     err = (out.float() - ref.float()).abs()
-    mag = ref.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
-    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-    tol = torch.maximum(2 * ulp, torch.full_like(err, 1e-3 * v.float().abs()
-                                                 .max().item()))
+    vmax = v.float().abs().max().item()
+    if q.dtype == torch.float32:
+        tol = torch.full_like(err, 1e-5 * vmax)
+    else:
+        mag = ref.float().abs().clamp_min(torch.finfo(q.dtype).tiny)
+        bits = 7 if q.dtype == torch.bfloat16 else 10
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - bits)
+        tol = torch.maximum(2 * ulp, torch.full_like(err, 1e-3 * vmax))
     live = slice(fully_masked_rows, None)
     lse_err = ((lse - ref_lse).abs() / ref_lse.abs().clamp_min(1.0))[:, live]
     row = {"case": name, "variant": variant, "shape": list(q.shape),
@@ -153,7 +174,13 @@ def main() -> int:
                         os.path.dirname(os.path.dirname(os.path.abspath(
                             __file__))), "ddw_tpu_torch", "ops", "build"),
                     help="directory for the full ptxas reports")
+    ap.add_argument("--head-dim", type=int, default=HEAD_DIM)
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=("bfloat16", "float16", "float32"))
     args = ap.parse_args()
+    d_arg, dtype = args.head_dim, getattr(torch, args.dtype)
+    kernels = kernels_for(dtype, d_arg)
+    heads = max(1, HEADS * HEAD_DIM // d_arg)
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 2
@@ -188,8 +215,7 @@ def main() -> int:
 
     def qkv(bh, sq, sk, d):
         mk = lambda s: torch.randn(bh, s, d, device="cuda", generator=gen)
-        return (mk(sq).to(torch.bfloat16), mk(sk).to(torch.bfloat16),
-                mk(sk).to(torch.bfloat16))
+        return mk(sq).to(dtype), mk(sk).to(dtype), mk(sk).to(dtype)
 
     ok = True
     cases = [
@@ -207,9 +233,12 @@ def main() -> int:
         ("noncausal_d128", (16, 1024, 1024, 128), dict(causal=False)),
         ("slice_causal", (512, SEQ, SEQ, HEAD_DIM), dict(causal=True)),
     ]
+    if (d_arg, dtype) != (HEAD_DIM, torch.bfloat16):  # the same cases at D
+        cases = [(name, (bh * HEAD_DIM // d_arg or 1, sq, sk, d_arg), kw)
+                 for name, (bh, sq, sk, d), kw in cases if d == HEAD_DIM]
     for name, (bh, sq, sk, d), kw in cases:
         q, k, v = qkv(bh, sq, sk, d)
-        for kernel in KERNELS:
+        for kernel in kernels:
             ok &= check_case(name, q, k, v, kernel, **kw)
         del q, k, v
     emit(phase="check", all_ok=ok)
@@ -218,33 +247,37 @@ def main() -> int:
         return 0 if ok else 1
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    peak = 67e12 if dtype == torch.float32 else BF16_FLOPS  # f32: CUDA cores
     for batch in (64, 32):
-        bh = batch * HEADS
-        q, k, v = qkv(bh, SEQ, SEQ, HEAD_DIM)
-        flops = 4 * HEAD_DIM * bh * visible_pairs(SEQ, SEQ, True)
-        nbytes = 4 * bh * SEQ * HEAD_DIM * 2 + bh * SEQ * 4
-        times = {kernel: [] for kernel in KERNELS}
-        for kernel in KERNELS + KERNELS[::-1]:
+        bh = batch * heads
+        q, k, v = qkv(bh, SEQ, SEQ, d_arg)
+        flops = 4 * d_arg * bh * visible_pairs(SEQ, SEQ, True)
+        nbytes = 4 * bh * SEQ * d_arg * q.element_size() + bh * SEQ * 4
+        times = {kernel: [] for kernel in kernels}
+        for kernel in kernels + kernels[::-1]:
             times[kernel].append(median_ms(
                 lambda: launch(kernel, q, k, v, True), flush, args.reps))
-        q4, k4, v4 = (t.view(batch, HEADS, SEQ, HEAD_DIM) for t in (q, k, v))
+        q4, k4, v4 = (t.view(batch, heads, SEQ, d_arg) for t in (q, k, v))
         sdpa = median_ms(lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=True), flush, args.reps)
-        bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
         best = {kernel: min(t) for kernel, t in times.items()}
+        first = kernels[0]
         noncausal = {kernel: median_ms(lambda: launch(kernel, q, k, v, False),
                                        flush, args.reps)
-                     for kernel in KERNELS}
+                     for kernel in kernels}
         noncausal["sdpa"] = median_ms(
             lambda: F.scaled_dot_product_attention(q4, k4, v4), flush,
             args.reps)
-        emit(phase="time", shape=[bh, SEQ, HEAD_DIM], causal=True,
-             ms=times, sdpa_ms=sdpa, bound_ms=bound, flops=flops,
-             tflops={kn: flops / t / 1e9 for kn, t in best.items()},
-             sm90_speedup_over_mma=best["mma"] / best["sm90"],
-             sm90_over_sdpa=best["sm90"] / sdpa,
-             sm90_share_of_bound=bound / best["sm90"],
-             noncausal_ms=noncausal, noncausal_flops=flops_full(bh),
+        extra = ({"sm90_speedup_over_mma": best["mma"] / best["sm90"]}
+                 if kernels == KERNELS else {})
+        emit(phase="time", shape=[bh, SEQ, d_arg], dtype=args.dtype,
+             causal=True, ms=times, sdpa_ms=sdpa, bound_ms=bound,
+             flops=flops, tflops={kn: flops / t / 1e9
+                                  for kn, t in best.items()},
+             **extra, over_sdpa=best[first] / sdpa,
+             share_of_bound=bound / best[first], kernel=first,
+             noncausal_ms=noncausal, noncausal_flops=flops_full(bh, d_arg),
              reps=args.reps)
         del q, k, v, q4, k4, v4
     print(smi, flush=True)
