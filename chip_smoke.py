@@ -344,6 +344,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
    dies with it, the supervisor restarts the child at tp=2 with a new
    follower, the same requests within the rule again; after the gateway
    stops no follower process is left. Cold start and restart seconds.
+   (c) LoRA adapter pools at tp=2, over one ``TPGroup`` follower that (c)
+   and (d) share: an ``EngineCfg(adapter_slots=2, adapter_rank=8)`` engine
+   loads two of serve_plus's seeded adapters (all six targets) from their
+   .npz files and serves serve_plus's prompt cut, 6 adapted rows and 2
+   base rows, after a tp=1 adapter engine on the same cut (tokens/s of
+   both); every token within the 0.05 rule of the tp=1 teacher-forced
+   forward carrying its row's adapter; rank 0's query B stack at 4 heads;
+   a third adapter evicts one in one slot-write dispatch and its two
+   requests pass the same rule; blocks and pins drain to 0. (d) the
+   LoRA-built lm_flash of 10b's TP arm, saved as a package: 4 requests at
+   tp=2 (half the query heads a rank, B whole) under the same rule against
+   its tp=1 forward. ``close()`` of the group ends the follower.
 10. ring — the collective layer (K6, the ring all-reduce) at N = 2, then
    N = 4 ranks: processes from ``spawn_cpu`` joined by gloo, all on this
    one card (NCCL refuses two ranks on one device; K6 maps its neighbours'
@@ -393,7 +405,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
    over ``pipe=2``, f32: GPipe with 4 microbatches and interleaved with
    v=3 and 2 microbatches, each one SGD step against the unpipelined step
    on the same microbatches (loss 1e-5, the weights within two ulp plus
-   1e-4 of each leaf's update), then a GPipe fit.
+   1e-4 of each leaf's update), then a GPipe fit; TP over ``model=2``:
+   lm_flash built with LoRA (rank 8, all six targets, a seeded nonzero B),
+   2 SGD steps at 8 x 2,048 of ``make_sharded_train_step`` on the adapter
+   leaves and the head, each rank computing 4 of the 8 heads through
+   exactly 6 K3, 6 K4 and 6 K5 a step, all sm90, held to the
+   single-process step on the same rows in the drill's process (each
+   step's loss within 5e-3 relative, the adapter leaves' update within
+   5e-2 RMS gap over RMS).
    Tokens/s of each arm's step beside rank 0's single-process step on the
    same rows (the ranks are time-sliced, beside the other drills: no
    multi-card speed). (b) ``dryrun_multichip(4, "cuda")``: every arm's OK
@@ -3341,6 +3360,10 @@ PAR_RING_F32_TOL = 1e-4          # max |diff| against full attention
 PAR_RING_BF16_TOL = 1e-2         # of max |full attention| on the rank's shard
 PAR_F32_LOSS_TOL, PAR_F32_GRAD_TOL = 1e-5, 1e-4
 PAR_TIMED_STEPS = 3
+PAR_TP_ROWS = 8           # rows of 2,048 tokens of the TP LoRA arm's batch
+PAR_TP_STEPS = 2
+PAR_TP_LORA_RANK = 8
+PAR_TP_LR = 0.1           # sgd (momentum 0.9) on the adapter leaves and head
 
 
 def par_expect(counts: dict, k3: int, k45: int, variant: str, what: str):
@@ -3682,7 +3705,179 @@ def parallel_rank(work: str, tables: dict) -> dict:
     out["pp"] = {"history": res.history, "step_s": pp_s,
                  "tokens_per_s": PAR_PP_ROWS * LM_SEQ / pp_s}
     del res, pstep, pp_trainer
+    torch.cuda.empty_cache()
+
+    out.update(tp_lora_rank(toks, r))
     out["host_staged"] = dict(HOST_STAGED)
+    return out
+
+
+def tp_lora_rank(toks: dict, r: int) -> dict:
+    """The parallel drill's TP arm on rank ``r``: a LoRA-built lm_flash over
+    model=2, each rank 4 of the 8 heads through K3-K5 (PAR_TP_STEPS steps
+    of sgd on the adapter leaves and the head, the kernel tier). The
+    adapter leaves stay whole, each layer computes with its block of them,
+    and their gradients are the model group's sum; rank 0 returns their
+    update for :func:`tp_lora_reference`."""
+    import numpy as np
+    import torch
+
+    from ddw_tpu_torch.models.convert import load_flax_variables
+    from ddw_tpu_torch.models.lm import build_lm
+    from ddw_tpu_torch.models.lora import lora_optimizer
+    from ddw_tpu_torch.parallel.sharding import (LM_TP_RULES,
+                                                 make_sharded_train_step)
+    from ddw_tpu_torch.runtime.mesh import MeshSpec, make_mesh
+    from ddw_tpu_torch.train.step import Optimizer, init_state
+
+    out = {}
+    depth = LM_CFG["depth"]
+    tp_mesh = make_mesh(MeshSpec((("data", 1), ("model", 2))))
+    lcfg, lparams = tp_lora_params()
+    model = load_flax_variables(build_lm(lcfg), {"params": lparams}).cuda()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()
+              if "lora_" in n}
+    tx = lora_optimizer(Optimizer("sgd", PAR_TP_LR))
+    state = init_state(model, tx)
+    step = make_sharded_train_step(model, tx, tp_mesh, LM_TP_RULES)
+    tp_toks = toks["sp_train"][:PAR_TP_ROWS]
+    x, y = (torch.from_numpy(np.ascontiguousarray(a)).cuda()
+            for a in (tp_toks[:, :-1], tp_toks[:, 1:]))
+    losses, step_s, tp_counts = [], [], []
+    for i in range(PAR_TP_STEPS):
+        reset_flash_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        met = step(state, x, y, SEED)
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        tp_counts.append(flash_counts())
+        par_expect(tp_counts[-1], depth, depth, "sm90",
+                   f"TP LoRA step {i} on rank {r}")
+    q = model.backbone_block0.attn.query
+    out["tp_lora"] = {"losses": losses, "step_s": step_s,
+                      "counts": tp_counts,
+                      "local_query_kernel": list(q.kernel.shape),
+                      "query_lora_b": list(q.lora_b.shape),
+                      "grad_sum_leaves": len(model._tp_grad_sum)}
+    check(list(q.kernel.shape) == [LM_CFG["hidden"], LM_HEADS // 2,
+                                   LM_HEAD_DIM]
+          and list(q.lora_b.shape) == [PAR_TP_LORA_RANK, LM_HEADS,
+                                       LM_HEAD_DIM],
+          f"rank {r} holds half the query heads and query's B whole "
+          f"({out['tp_lora']})")
+    if r == 0:
+        out["tp_lora_updates"] = {
+            n: (p.detach() - before[n]).float().cpu().numpy()
+            for n, p in model.named_parameters() if n in before}
+    del model, state, step, before
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_lora_params():
+    """The parallel drill's TP arm: lm_flash built with LoRA (rank 8, all
+    six targets), seeded, with a nonzero B ~ N(0, SERVE_ADAPTER_B_STD^2)
+    (at init B is zero, and with it every gradient of A)."""
+    import numpy as np
+    import torch
+
+    from ddw_tpu_torch.models.convert import (init_lm_weights,
+                                              to_flax_variables)
+    from ddw_tpu_torch.models.lm import build_lm
+    from ddw_tpu_torch.models.lora import LM_LORA_TARGETS
+    from ddw_tpu_torch.utils.config import LMCfg
+
+    cfg = LMCfg(**dict(LM_CFG, lora_rank=PAR_TP_LORA_RANK,
+                       lora_targets=LM_LORA_TARGETS))
+    params = to_flax_variables(init_lm_weights(
+        build_lm(cfg), torch.Generator().manual_seed(SEED + 55)))["params"]
+    rng = np.random.RandomState(SEED + 56)
+
+    def walk(node):
+        return {k: walk(v) if isinstance(v, dict) else
+                (SERVE_ADAPTER_B_STD * rng.standard_normal(v.shape)).astype(
+                    np.float32) if k == "lora_b" else v
+                for k, v in node.items()}
+
+    return cfg, walk(params)
+
+
+def tp_lora_reference(work: str, ranks) -> dict:
+    """The TP LoRA arm against the single-process step (this process, the
+    same seeded weights and rows, the kernel tier): each step's loss and
+    the adapter leaves' update after PAR_TP_STEPS steps."""
+    import numpy as np
+    import torch
+
+    from ddw_tpu_torch.models.convert import load_flax_variables
+    from ddw_tpu_torch.models.lm import build_lm
+    from ddw_tpu_torch.models.lora import lora_optimizer
+    from ddw_tpu_torch.ops import flash_attention as fa
+    from ddw_tpu_torch.train.step import (Optimizer, init_state,
+                                          make_train_step)
+
+    lcfg, lparams = tp_lora_params()
+    model = load_flax_variables(build_lm(lcfg), {"params": lparams}).cuda()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()
+              if "lora_" in n}
+    tx = lora_optimizer(Optimizer("sgd", PAR_TP_LR))
+    state = init_state(model, tx)
+    step = make_train_step(tx)
+    toks = torch.from_numpy(np.load(os.path.join(
+        work, "sp_train.npy"))[:PAR_TP_ROWS]).cuda()
+    saved = fa._XLA_PLAIN_MAX, fa._XLA_CKPT_MAX
+    losses, step_s = [], []
+    try:
+        fa._XLA_PLAIN_MAX = fa._XLA_CKPT_MAX = 0
+        for _ in range(PAR_TP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(state, toks[:, :-1], toks[:, 1:],
+                                     SEED)["loss"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+    finally:
+        fa._XLA_PLAIN_MAX, fa._XLA_CKPT_MAX = saved
+    ref = {n: p.detach() - before[n] for n, p in model.named_parameters()
+           if n in before}
+    got = {n: torch.from_numpy(a).cuda()
+           for n, a in ranks[0].pop("tp_lora_updates").items()}
+    (rms, rms_leaf), (mx, _) = grad_gaps(got, ref)
+    tp = [rk["tp_lora"] for rk in ranks]
+    loss_rel = max(abs(a - b) / abs(b) for rk in tp
+                   for a, b in zip(rk["losses"], losses))
+    same = all(rk["losses"] == tp[0]["losses"] for rk in tp)
+    out = {"losses": [rk["losses"] for rk in tp],
+           "single_process_losses": losses, "loss_rel_diff": loss_rel,
+           "loss_tolerance": BF16_LOSS_TOL,
+           "update_rms_gap_over_rms_max": rms, "worst_rms_leaf": rms_leaf,
+           "update_rms_tolerance": BF16_GRAD_RMS_TOL,
+           "update_max_gap_over_max": mx,
+           "update_rms": float(torch.stack([
+               u.float().square().mean() for u in ref.values()]).mean()
+               .sqrt()),
+           "step_s": [rk["step_s"] for rk in tp],
+           "single_process_step_s": step_s,
+           "tokens_per_s": PAR_TP_ROWS * LM_SEQ / tp[0]["step_s"][-1],
+           "single_process_tokens_per_s": PAR_TP_ROWS * LM_SEQ / step_s[-1],
+           "k3_k4_k5_per_step_per_rank": [
+               {k: c[-1][k] for k in ("k3", "k4", "k5")}
+               for c in (rk["counts"] for rk in tp)],
+           "launches_both_ranks": {
+               kern: {v: sum(c[kern].get(v, 0) for rk in tp
+                             for c in rk["counts"]) for v in ("total", "sm90")}
+               for kern in ("k3", "k4", "k5")}}
+    emit(phase="parallel", arm="tp_lora", **out)
+    check(same, f"TP LoRA: both model ranks compute one loss ({out})")
+    check(loss_rel <= BF16_LOSS_TOL, f"TP LoRA loss within {BF16_LOSS_TOL} "
+          f"of the single-process step's ({loss_rel:.3g})")
+    check(rms <= BF16_GRAD_RMS_TOL, f"TP LoRA adapter updates within "
+          f"{BF16_GRAD_RMS_TOL} RMS gap over RMS of the single-process "
+          f"step's ({rms:.3g}, {rms_leaf})")
+    del model, state
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3712,6 +3907,7 @@ def drill_parallel(work: str) -> dict:
     t0 = time.perf_counter()
     ranks = spawn_cpu(parallel_rank, 2, work, tables, timeout_s=600)
     two_s = time.perf_counter() - t0
+    tp_lora = tp_lora_reference(work, ranks)
     for rk in ranks:
         emit(phase="parallel", arm="two_ranks", **rk)
     single = par_single_process_rates(work)
@@ -3730,7 +3926,12 @@ def drill_parallel(work: str) -> dict:
               "drills: no multi-card speed")
     seconds = time.perf_counter() - t_phase
     emit(phase="parallel", seconds=seconds)
-    return {"fit": fit, "rates": rates, "two_rank_seconds": two_s}
+    return {"fit": fit, "rates": rates, "two_rank_seconds": two_s,
+            "tp_lora": {k: tp_lora[k] for k in (
+                "k3_k4_k5_per_step_per_rank", "launches_both_ranks",
+                "tokens_per_s",
+                "single_process_tokens_per_s", "loss_rel_diff",
+                "update_rms_gap_over_rms_max")}}
 
 
 def drill_dryrun(work: str) -> dict:
@@ -5280,14 +5481,21 @@ def replica_set_mix(rs, prompts, steps) -> dict:
 
 
 def child_logs(reps, tail: int = 3000) -> str:
-    """The end of each process replica's child log (printed on a failure:
-    the children's stderr goes nowhere else)."""
+    """The end of every child log of each process replica, one a
+    generation (printed on a failure: the children's stderr goes nowhere
+    else, and a child that failed was replaced by the next generation)."""
     out = []
     for r in reps:
         path = getattr(r, "log_path", None)
-        if path and os.path.exists(path):
-            with open(path, errors="replace") as f:
-                out.append(f"--- replica {r.replica_id} ({path}) ---\n"
+        if not path:
+            continue
+        logs = sorted((f for f in os.listdir(os.path.dirname(path))
+                       if f.startswith("child.gen") and f.endswith(".log")),
+                      key=lambda f: int(f[len("child.gen"):-len(".log")]))
+        for name in logs:
+            with open(os.path.join(os.path.dirname(path), name),
+                      errors="replace") as f:
+                out.append(f"--- replica {r.replica_id} ({name}) ---\n"
                            + f.read()[-tail:])
     return "\n".join(out)
 
@@ -5747,6 +5955,8 @@ TP_SERVE_REQUESTS = 16      # serve's mix cut: its first 16 requests
 TP_FLEET_PROMPT = 128       # the process drill: the mix's prompts cut to
 TP_FLEET_STEPS = 16         # 128 tokens, 16 new tokens each, 4 requests a
 TP_FLEET_REQUESTS = 4       # round (one warmup bucket, two cold starts)
+TP_ADAPTER_SLOTS = 2        # (c): two resident adapters, a third evicts one
+TP_LORA_REQUESTS = 4        # (d): requests to the LoRA-built package
 
 
 def tp_followers_of(pid: int) -> list[int]:
@@ -5775,11 +5985,12 @@ def pid_alive(pid: int) -> bool:
         return False
 
 
-def phase_tp_serve(ctx: dict, serve: dict, smi: str) -> dict:
+def phase_tp_serve(tmp: str, ctx: dict, serve: dict, smi: str) -> dict:
     """Tensor-parallel serving on the card (the module docstring's 9e):
     ``EngineCfg(tp=2)`` over serve's package, this process rank 0 and one
-    follower process on the same card, on a 16-request cut of serve's mix.
-    (The ``ProcessReplica(tp=2)`` child is a drill: ``drill_tp_process``.)"""
+    follower process on the same card, on a 16-request cut of serve's mix;
+    then LoRA at tp=2 (:func:`tp_serve_lora`). (The ``ProcessReplica(tp=2)``
+    child is a drill: ``drill_tp_process``.)"""
     import numpy as np
     import torch
 
@@ -5854,10 +6065,167 @@ def phase_tp_serve(ctx: dict, serve: dict, smi: str) -> dict:
           "prefix hit the cache")
     check(tie["all_near_ties"], f"tp_serve: every token within "
           f"{SERVE_TOKEN_TIE} of the sequential path's argmax ({tie})")
+    torch.cuda.empty_cache()
+    out.update(tp_serve_lora(tmp, pm, prompts))
 
     out["wall_seconds"] = time.perf_counter() - t_phase
     emit(phase="tp_serve", wall_seconds=out["wall_seconds"])
     torch.cuda.empty_cache()
+    return out
+
+
+def tp_serve_lora(tmp: str, pm, prompts) -> dict:
+    """tp_serve (c) and (d): LoRA at tp=2 over one follower (a ``TPGroup``
+    whose mesh both engines take, one after the other).
+
+    (c) An ``EngineCfg(adapter_slots=2, adapter_rank=8)`` engine loads two
+    of serve_plus's seeded adapters (all six targets) from their .npz files
+    and serves serve_plus's prompt cut: 6 adapted rows and 2 base rows,
+    after a tp=1 adapter engine on the same cut. Every token is held to the
+    argmax of the tp=1 teacher-forced forward carrying its row's adapter
+    (forced_check). A third adapter evicts an unpinned one in one slot
+    write, and its two requests pass the same rule (the write reached the
+    follower). (d) The LoRA-built lm_flash of the parallel drill's TP arm
+    (tp_lora_params), saved as a package, serves 4 requests at tp=2 under
+    the same rule against its tp=1 forward."""
+    import numpy as np
+    import torch
+
+    from ddw_tpu_torch.serve import EngineCfg, ServingEngine, save_adapter
+    from ddw_tpu_torch.serve.adapters import AdapterPool, load_adapter
+    from ddw_tpu_torch.serve.tp import TPGroup
+    from ddw_tpu_torch.serving.lm_package import (LMPackagedModel,
+                                                  save_lm_package)
+
+    t0 = time.perf_counter()
+    short = [p[:SERVE_PLUS_PROMPT] for p in prompts]
+    paths = []
+    for i in range(3):
+        paths.append(os.path.join(tmp, f"tp_adapter_{i}.npz"))
+        save_adapter(paths[-1], seeded_adapter(pm.model, SEED + 30 + i),
+                     rank=SERVE_ADAPTER_RANK, alpha=16.0)
+    names = ["a0", "a1"] * 3 + [None, None]
+    ad_prompts = short[:6] + short[:2]
+    cfg = EngineCfg(adapter_slots=TP_ADAPTER_SLOTS,
+                    adapter_rank=SERVE_ADAPTER_RANK)
+
+    def run(eng):
+        for i in range(2):
+            eng.load_adapter(f"a{i}", path=paths[i])
+        eng.warmup([SERVE_PLUS_PROMPT])
+        eng.start()
+        t = time.perf_counter()
+        futs = [eng.submit_generate(p, SERVE_PLUS_STEPS, adapter_id=n)
+                for p, n in zip(ad_prompts, names)]
+        got = [f.result(timeout=600).tokens for f in futs]
+        return got, len(names) * SERVE_PLUS_STEPS / (time.perf_counter() - t)
+
+    eng1 = ServingEngine(lm=pm, cfg=cfg)
+    try:
+        tp1_tokens, tp1_rate = run(eng1)
+        slots = [0 if n is None else eng1.adapters.slot_of(n) for n in names]
+        stacks = eng1.adapters.stacks()
+    finally:
+        eng1.stop()
+    third_pool = AdapterPool(pm.model, slots=1, rank=SERVE_ADAPTER_RANK)
+    tree, header = load_adapter(paths[2])
+    third_pool.load("a2", tree, alpha=header["alpha"], rank=header["rank"])
+    lcfg, lparams = tp_lora_params()
+    lpm = LMPackagedModel(save_lm_package(os.path.join(tmp, "tp_lora_lm"),
+                                          lcfg, lparams), device=pm.device)
+    group = TPGroup(TP_SERVE_DEGREE, pm.device)
+    followers = group.pids
+    try:
+        eng = ServingEngine(lm=pm, cfg=cfg, mesh=group.mesh)
+        try:
+            q_b = eng.adapters.stacks()["backbone_block0"]["query"][1]
+            got, rate = run(eng)
+            eng.stop()
+            n0 = eng.pool.stats["tp_dispatches"]
+            eng.load_adapter("a2", path=paths[2])
+            slot_writes = eng.pool.stats["tp_dispatches"] - n0
+            resident = eng.adapters.loaded()
+            eng.start()
+            futs = [eng.submit_generate(p, SERVE_PLUS_STEPS, adapter_id="a2")
+                    for p in short[6:8]]
+            third = [f.result(timeout=600).tokens for f in futs]
+            eng.stop()
+            snap = eng.snapshot()
+            pool = eng.pool
+            leak = (int(pool._ref.sum()), pool._committed, pool.free_slots,
+                    pool.max_resident,
+                    eng.adapters.gauges()["serve.adapter.pins_inflight"])
+            pool.close()
+        finally:
+            eng.stop()
+        leng = ServingEngine(lm=lpm, cfg=EngineCfg(), mesh=group.mesh)
+        try:
+            lq = leng.pool.model.backbone_block0.attn.query
+            lora_shapes = (list(lq.kernel.shape), list(lq.lora_b.shape))
+            leng.warmup([SERVE_PLUS_PROMPT])
+            leng.start()
+            t = time.perf_counter()
+            futs = [leng.submit_generate(p, SERVE_PLUS_STEPS)
+                    for p in short[:TP_LORA_REQUESTS]]
+            lgot = [f.result(timeout=600).tokens for f in futs]
+            lrate = (TP_LORA_REQUESTS * SERVE_PLUS_STEPS
+                     / (time.perf_counter() - t))
+            leng.stop()
+            lsnap = leng.snapshot()
+            leng.pool.close()
+        finally:
+            leng.stop()
+    finally:
+        group.close()
+    gone_s = await_cond(lambda: not any(pid_alive(p) for p in followers),
+                        30.0, "the LoRA arms' follower exited on close()")
+    tie = forced_check(pm, ad_prompts, got, (stacks, slots))
+    tie_third = forced_check(pm, short[6:8], third,
+                             (third_pool.stacks(), [1, 1]))
+    tie_lora = forced_check(lpm, short[:TP_LORA_REQUESTS], lgot)
+    differ = sum(not np.array_equal(a, b) for a, b in zip(got, tp1_tokens))
+    changed = sum(not np.array_equal(got[i], got[6 + i]) for i in (0, 1))
+    out = {"tp2_adapter_tokens_per_s": rate,
+           "tp1_adapter_tokens_per_s": tp1_rate,
+           "tp2_over_tp1_adapters": rate / tp1_rate,
+           "adapter_streams_differing_from_tp1": differ,
+           "adapter_slot_write_dispatches": slot_writes,
+           "lora_built_tokens_per_s": lrate,
+           "lora_arms_seconds": time.perf_counter() - t0}
+    emit(phase="tp_serve", arm="adapters", rows=len(names),
+         adapters_resident_after_third=list(resident),
+         query_b_stack_shape=list(q_b.shape),
+         rows_changed_by_their_adapter=changed,
+         tp_dispatch_cost_us=snap.get("serve.tp_dispatch_cost_us"),
+         leak=leak, follower_exit_s=gone_s, forced=tie,
+         third_adapter=tie_third, **out)
+    emit(phase="tp_serve", arm="lora_built", requests=TP_LORA_REQUESTS,
+         local_query_kernel_and_lora_b=lora_shapes,
+         completed=lsnap.get("serve.completed"),
+         tp_dispatch_cost_us=lsnap.get("serve.tp_dispatch_cost_us"),
+         **tie_lora)
+    check(list(q_b.shape)[2] == LM_HEADS // TP_SERVE_DEGREE,
+          f"rank 0's query B stack holds half the heads ({list(q_b.shape)})")
+    check(slot_writes == 1 and "a2" in resident and len(resident) == 2,
+          f"the third adapter evicted one in one slot write ({slot_writes}, "
+          f"{resident})")
+    check(leak[:2] == (0, 0) and leak[2] == leak[3] and leak[4] == 0,
+          f"tp_serve adapters: blocks and pins drained ({leak})")
+    check(tie["all_near_ties"], f"tp=2 adapters: every token within "
+          f"{SERVE_TOKEN_TIE} of the argmax of its adapter's tp=1 forward "
+          f"({tie})")
+    check(tie_third["all_near_ties"], f"tp=2: the evicting adapter's tokens "
+          f"within {SERVE_TOKEN_TIE} of its tp=1 forward's ({tie_third})")
+    check(changed >= 1, "the adapters change the tokens of their rows")
+    check(lora_shapes == ([LM_CFG["hidden"], LM_HEADS // TP_SERVE_DEGREE,
+                           LM_HEAD_DIM],
+                          [PAR_TP_LORA_RANK, LM_HEADS, LM_HEAD_DIM]),
+          f"the LoRA-built package: half the query heads a rank, its B "
+          f"whole ({lora_shapes})")
+    check(lsnap["serve.completed"] == TP_LORA_REQUESTS
+          and tie_lora["all_near_ties"], f"the LoRA-built package at tp=2: "
+          f"every token within {SERVE_TOKEN_TIE} of the argmax of its tp=1 "
+          f"forward ({tie_lora})")
     return out
 
 
@@ -6454,7 +6822,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         fleet = timed("fleet", phase_fleet, tmp, serve_ctx, serve)
         torch.cuda.empty_cache()
-        tp_serve = timed("tp_serve", phase_tp_serve, serve_ctx, serve, smi)
+        tp_serve = timed("tp_serve", phase_tp_serve, tmp, serve_ctx, serve,
+                         smi)
         del serve_ctx
     torch.cuda.empty_cache()
     ring = timed("ring", phase_ring)
@@ -6566,6 +6935,8 @@ def main() -> int:
                              **vit_paths(vision, "k3"),
                              "ring_attention_sp_fit": parallel["fit"]["k3"][
                                  "total"],
+                             "lm_tp_lora_training": parallel["tp_lora"][
+                                 "launches_both_ranks"]["k3"]["total"],
                              "gang": gang["k3"],
                              "lm_wide_scoring": sum(
                                  wide["k3_scoring"].values()),
@@ -6576,6 +6947,8 @@ def main() -> int:
             "lm_training_traced": lm_train_launches["traced_by_variant"][0],
             **vit_variants(vision, "k3"),
             "ring_attention_sp_fit": parallel["fit"]["k3"],
+            "lm_tp_lora_training": parallel["tp_lora"][
+                "launches_both_ranks"]["k3"],
             "lm_wide_scoring": wide["k3_scoring"],
             "lm_wide_training": wide["train_by_variant"][0]},
         **wide_and_coverage(wide, coverage, "fwd", 0),
@@ -6609,6 +6982,8 @@ def main() -> int:
                              **vit_paths(vision, kern),
                              "ring_attention_sp_fit": parallel["fit"][kern][
                                  "total"],
+                             "lm_tp_lora_training": parallel["tp_lora"][
+                                 "launches_both_ranks"][kern]["total"],
                              "gang": gang[kern],
                              "lm_wide_training": wide["train_launches"][idx]},
         "launches_by_variant": {
@@ -6617,6 +6992,8 @@ def main() -> int:
                 idx],
             **vit_variants(vision, kern),
             "ring_attention_sp_fit": parallel["fit"][kern],
+            "lm_tp_lora_training": parallel["tp_lora"][
+                "launches_both_ranks"][kern],
             "lm_wide_training": wide["train_by_variant"][idx]},
         **wide_and_coverage(wide, coverage, key, idx),
         "max_abs_err": bwd_err[key],
@@ -6700,7 +7077,8 @@ def main() -> int:
                   if not k.startswith("k1_")},
         "tp_serve": tp_serve,
         "parallel": {k: parallel[k] for k in (
-            "rates", "seconds", "two_rank_seconds", "dryrun_seconds")},
+            "rates", "seconds", "two_rank_seconds", "dryrun_seconds",
+            "tp_lora")},
         "gang": {k: v for k, v in gang.items()
                  if k not in ("k1", "k2", "k3", "k4", "k5")}}),
         flush=True)

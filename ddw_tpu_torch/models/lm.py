@@ -46,9 +46,12 @@ masks of the first run.
 Heterogeneous-adapter serving: ``forward(adapters=(stacks, idx))`` gathers
 each row's ``(A, B)`` pair from the adapter stacks of
 :class:`~ddw_tpu_torch.serve.adapters.AdapterPool` by the row's slot index
-and adds its delta (:func:`~ddw_tpu_torch.models.lora.row_lora_delta`) after
-the base projection, never folded into its weight, so a slot-0 row (the
-null adapter, all zeros) gives the adapter-free model's bits.
+and adds its delta (:func:`~ddw_tpu_torch.models.lora.row_lora_delta`) to
+the base projection's biased output, never folded into its weight, so a
+slot-0 row (the null adapter, all zeros) gives the adapter-free model's
+bits. The projection adds it itself (``DenseGeneral.forward(x, delta)``):
+under tensor parallelism a row-parallel layer's delta, from this rank's
+block of A, then rides the sum its products already take.
 
 Sequence parallelism: built with ``seq_axis`` (an axis name of the mesh
 bound by :func:`ddw_tpu_torch.runtime.mesh.bind_mesh`), full mode takes
@@ -84,9 +87,15 @@ _TILE = 256
 class DenseGeneral(nn.Module):
     """flax ``nn.DenseGeneral`` (and ``nn.Dense``): ``kernel [*in, *feats]``
     in flax's layout contracts the last ``len(in_dims)`` axes of x; inputs,
-    kernel and bias are cast to ``dtype`` first."""
+    kernel and bias are cast to ``dtype`` first. ``delta`` (a per-row
+    adapter delta) is added to the biased output, inside the module, so a
+    row-parallel layer sums it with its partial products."""
 
     flax_layout = True
+    # (split flax dim of the kernel, this rank's index, ranks) when tensor
+    # parallelism splits the layer (parallel.sharding.tp_shard_module sets
+    # it); in_dims and features stay the whole layer's
+    tp_split = None
 
     def __init__(self, in_dims: tuple[int, ...], features: tuple[int, ...],
                  dtype: torch.dtype = torch.bfloat16):
@@ -98,9 +107,11 @@ class DenseGeneral(nn.Module):
     def project(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return torch.tensordot(x, w.to(self.dtype), dims=len(self.in_dims))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.project(x.to(self.dtype), self.kernel) \
+    def forward(self, x: torch.Tensor,
+                delta: torch.Tensor | None = None) -> torch.Tensor:
+        y = self.project(x.to(self.dtype), self.kernel) \
             + self.bias.to(self.dtype)
+        return y if delta is None else y + delta.to(y.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -139,18 +150,21 @@ class Embed(nn.Module):
         return F.embedding(tokens, self.embedding).to(self.dtype)
 
 
-def _add_delta(y: torch.Tensor, adapters: dict | None, name: str,
-               x_in: torch.Tensor, contract_ndim: int = 1) -> torch.Tensor:
-    """``y`` plus the per-row adapter delta of projection ``name`` (its
-    gathered ``(a [B, *in, r], b [B, r, *feats])`` in ``adapters``) on the
-    projection's input ``x_in``, cast to ``y``'s dtype as ``ddw_tpu`` adds
-    it — before RoPE and before the cache write."""
+def _delta(adapters: dict | None, name: str, x_in: torch.Tensor,
+           contract_ndim: int = 1) -> torch.Tensor | None:
+    """The per-row adapter delta of projection ``name`` (its gathered
+    ``(a [B, *in, r], b [B, r, *feats])`` in ``adapters``) on the
+    projection's input ``x_in``, or None. The projection adds it to its
+    output, cast to that dtype as ``ddw_tpu`` adds it — before RoPE and
+    before the cache write. Under tensor parallelism the pair is this
+    rank's block, so a row-parallel layer's delta is a partial sum that
+    joins its products' sum."""
     ab = adapters.get(name) if adapters else None
     if ab is None:
-        return y
+        return None
     from ddw_tpu_torch.models.lora import row_lora_delta
 
-    return y + row_lora_delta(x_in, ab[0], ab[1], contract_ndim).to(y.dtype)
+    return row_lora_delta(x_in, ab[0], ab[1], contract_ndim)
 
 
 class CausalSelfAttention(nn.Module):
@@ -206,9 +220,9 @@ class CausalSelfAttention(nn.Module):
                 cache: dict | None = None,
                 step: "_DecodeStep | None" = None,
                 adapters: dict | None = None) -> torch.Tensor:
-        q = _add_delta(self.query(x), adapters, "query", x)  # [B, S, H, hd]
-        k = _add_delta(self.key(x), adapters, "key", x)
-        v = _add_delta(self.value(x), adapters, "value", x)
+        q = self.query(x, _delta(adapters, "query", x))  # [B, S, H, hd]
+        k = self.key(x, _delta(adapters, "key", x))
+        v = self.value(x, _delta(adapters, "value", x))
         if positions is not None:
             q = apply_rope(q, positions, seq_axis=1)
             k = apply_rope(k, positions, seq_axis=1)
@@ -229,7 +243,7 @@ class CausalSelfAttention(nn.Module):
                 out = flash_mha(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), causal=True
                                 ).transpose(1, 2)
-        return _add_delta(self.out(out), adapters, "out", out, 2)
+        return self.out(out, _delta(adapters, "out", out, 2))
 
     def _decode(self, q, k, v, cache: dict, step: "_DecodeStep"
                 ) -> torch.Tensor:
@@ -397,9 +411,9 @@ class DecoderBlock(nn.Module):
         if hasattr(self, "moe"):
             h = self.moe(h, no_drop=cache is not None)
         else:
-            h = F.gelu(_add_delta(self.fc1(h), adapters, "fc1", h),
+            h = F.gelu(self.fc1(h, _delta(adapters, "fc1", h)),
                        approximate="tanh")
-            h = _add_delta(self.fc2(h), adapters, "fc2", h)
+            h = self.fc2(h, _delta(adapters, "fc2", h))
         if gen is not None:
             h = dropout(h, self.dropout_rate, gen)
         return x + h

@@ -33,7 +33,10 @@ LORA_PARAM_NAMES = ("lora_a", "lora_b")
 
 class LoRADenseGeneral(DenseGeneral):
     """``DenseGeneral`` plus a rank-``rank`` adapter, in ``dtype``:
-    ``y = x.kernel + (x.lora_a).lora_b * (alpha / rank) + bias``."""
+    ``y = x.kernel + (x.lora_a).lora_b * (alpha / rank) + bias``. Under
+    tensor parallelism both leaves stay whole (replicated, ``ddw_tpu``'s
+    placement) and the layer computes with its block of them
+    (:func:`tp_lora_block`)."""
 
     def __init__(self, in_dims: tuple[int, ...], features: tuple[int, ...],
                  rank: int, alpha: float = 16.0,
@@ -45,12 +48,40 @@ class LoRADenseGeneral(DenseGeneral):
         self.lora_a = nn.Parameter(torch.zeros(*in_dims, rank))
         self.lora_b = nn.Parameter(torch.zeros(rank, *features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                delta: torch.Tensor | None = None) -> torch.Tensor:
         x = x.to(self.dtype)
-        a = self.project(x, self.lora_a)                     # [..., rank]
-        delta = torch.tensordot(a, self.lora_b.to(self.dtype), dims=1)
-        y = self.project(x, self.kernel) + delta * (self.alpha / self.rank)
-        return y + self.bias.to(self.dtype)
+        lora_a, lora_b = tp_lora_block(self, self.lora_a, self.lora_b)
+        a = self.project(x, lora_a)                          # [..., rank]
+        lora = torch.tensordot(a, lora_b.to(self.dtype), dims=1)
+        y = self.project(x, self.kernel) + lora * (self.alpha / self.rank)
+        y = y + self.bias.to(self.dtype)
+        return y if delta is None else y + delta.to(y.dtype)
+
+
+def tp_lora_block(mod: DenseGeneral, a: torch.Tensor, b: torch.Tensor,
+                  lead: int = 0, index: int | None = None):
+    """The block of a LoRA pair ``(a [*lead, *in_dims, r], b [*lead, r,
+    *features])`` that projection ``mod`` computes with under tensor
+    parallelism (its ``tp_split``; ``lead`` leading dims, e.g. an adapter
+    stack's slots; ``index`` another rank's block): a column-parallel
+    layer, its kernel split on a feature dim, takes A whole and B's
+    matching features, so its output columns come out exact; a
+    row-parallel layer, split on an input dim, takes A's matching input
+    slice and B whole, a partial delta its row sum completes. An unsplit
+    layer takes the pair whole. Views."""
+    if mod.tp_split is None:
+        return a, b
+    d, me, n = mod.tp_split
+    idx = me if index is None else index
+    n_in = len(mod.in_dims)
+    if d < n_in:
+        dim = lead + d
+        size = a.shape[dim] // n
+        return a.narrow(dim, idx * size, size), b
+    dim = lead + 1 + d - n_in
+    size = b.shape[dim] // n
+    return a, b.narrow(dim, idx * size, size)
 
 
 def row_lora_delta(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,

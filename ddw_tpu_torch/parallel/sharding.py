@@ -23,9 +23,26 @@ layers take Megatron's roles from where their kernel is split:
 - a vocab-split embedding looks up its own rows and sums over the group; a
   vocab-split head gathers its logits.
 
-Replicated leaves then see the same activations and gradients on every
-``model`` rank, so the data-parallel mean runs over the ``data`` group
-only. The step is :func:`ddw_tpu_torch.parallel.zero.make_sharded_state_step`
+Replicated leaves then see the same activations on every ``model`` rank.
+Most see the same gradients too, so the data-parallel mean runs over the
+``data`` group only. Two kinds do not, and the module lists them in
+``model._tp_grad_sum`` (their gradient on a rank is a partial sum, which
+the step sums over the ``model`` group before the optimizer reads it):
+
+- LoRA leaves (``lora_a`` / ``lora_b``), which stay whole, as ``ddw_tpu``
+  places them (``P()``), while their layer computes with its block of them
+  (:func:`ddw_tpu_torch.models.lora.tp_lora_block`): a column layer B's
+  columns of its features and A whole, a row layer A's rows of its input
+  and B whole. A rank's dA (column) or dB (row) is then its share of the
+  sum, and the other leaf's gradient is nonzero only on the rank's block.
+  Keeping the leaves whole costs one small sum a step and keeps every
+  placement, checkpoint and ``to_flax`` read of them ``ddw_tpu``'s.
+- K/V projections replicated under the GQA fallback: each rank's query
+  heads read only their own K/V heads, so the K/V layers take the column
+  role's input hook (their input gradient summed) and their leaves'
+  gradients are summed.
+
+The step is :func:`ddw_tpu_torch.parallel.zero.make_sharded_state_step`
 with these specs (the FSDP x TP step adds a data split on another dim).
 """
 
@@ -264,9 +281,6 @@ def _role(mod: nn.Module, leaf: str, spec: P, axis: str, top_head: bool):
     if isinstance(mod, Embed):
         return "vocab"
     if isinstance(mod, DenseGeneral):
-        if getattr(mod, "lora_a", None) is not None:
-            raise ValueError("tensor parallelism does not take LoRA "
-                             "adapters")
         if split[0] < len(mod.in_dims):
             return "row"
         return "gather" if top_head else "column"
@@ -275,7 +289,7 @@ def _role(mod: nn.Module, leaf: str, spec: P, axis: str, top_head: bool):
 
 
 def _install_role(mod: nn.Module, role: str, group, index: int) -> None:
-    if role == "column":
+    if role in ("column", "replicated"):
         mod.register_forward_pre_hook(
             lambda m, args: (comm.copy_to_group(args[0], group),)
             + tuple(args[1:]))
@@ -314,12 +328,14 @@ def tp_shard_module(model: nn.Module, specs: dict, mesh,
     """Shard ``model`` in place over ``axis``: each parameter keeps the
     block of its spec (``specs`` by torch name, over flax dims) that this
     rank owns, and the layers take their Megatron roles (module
-    docstring)."""
+    docstring). A split ``DenseGeneral`` records its split in
+    ``tp_split``; LoRA leaves stay whole."""
     from ddw_tpu_torch.models.convert import flax_leaf_index
 
     if axis not in mesh.axis_names or mesh.shape[axis] == 1:
         return model
     group, index = mesh.group(axis), mesh.axis_index(axis)
+    n = mesh.shape[axis]
     idx = flax_leaf_index(model)
     mods = dict(model.named_modules())
     roles = {}
@@ -333,16 +349,29 @@ def tp_shard_module(model: nn.Module, specs: dict, mesh,
         role = _role(mods[mod_name], leaf, spec, axis, mod_name == "head")
         if role is not None:
             roles[mod_name] = role
-    for mod_name, role in roles.items():
-        _install_role(mods[mod_name], role, group, index)
+            if role in ("column", "row"):
+                mods[mod_name].tp_split = (spec.index(axis), index, n)
     for mod_name, mod in mods.items():
         # the GQA fallback: query heads split, K/V replicated, so each
-        # rank's query heads must know where they start
+        # rank's query heads must know where they start, and the K/V
+        # layers' gradients are partial sums
         q = specs.get(f"{mod_name}.query.kernel", P())
         k = specs.get(f"{mod_name}.key.kernel", P())
         if hasattr(mod, "q_head_offset") and axis in q and axis not in k:
-            mod.q_head_offset = index * (mod.num_heads // mesh.shape[axis])
+            mod.q_head_offset = index * (mod.num_heads // n)
+            roles[f"{mod_name}.key"] = roles[f"{mod_name}.value"] = \
+                "replicated"
+    for mod_name, role in roles.items():
+        _install_role(mods[mod_name], role, group, index)
+    partial = []
+    for name, _ in model.named_parameters():
+        mod_name, _, leaf = name.rpartition(".")
+        if roles.get(mod_name) == "replicated" or (
+                leaf in ("lora_a", "lora_b")
+                and mods[mod_name].tp_split is not None):
+            partial.append(name)
     model._tp_axis = axis
+    model._tp_grad_sum = tuple(partial)
     return model
 
 

@@ -56,7 +56,7 @@ from ddw_tpu_torch.parallel.comm import all_reduce_sum_grad
 from ddw_tpu_torch.parallel.sharding import (P, local_block, specs_by_name,
                                              tp_shard_module)
 from ddw_tpu_torch.runtime.collectives import all_gather_axis
-from ddw_tpu_torch.runtime.dist import all_reduce_mean_
+from ddw_tpu_torch.runtime.dist import all_reduce_mean_, all_reduce_sum_
 from ddw_tpu_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS
 
 
@@ -316,6 +316,13 @@ def _sharded_body(tx, grad_accum_steps: int, state, images, labels,
             loss, acc, _, grads = forward_and_grads(
                 state, images, labels,
                 dropout_generator(seed, shard, state.step))
+        # the leaves tensor parallelism leaves with partial gradients
+        # (LoRA leaves, K/V replicated under the GQA fallback): the sum of
+        # the model group's shares, then the data mean like every leaf
+        partial = [grads[n] for n in getattr(model, "_tp_grad_sum", ())
+                   if grads.get(n) is not None]
+        if partial:
+            all_reduce_sum_(partial, mesh.group(MODEL_AXIS))
         all_reduce_mean_([g for g in grads.values() if g is not None],
                          data_g)
         metrics = torch.stack([loss.float(), acc.float()])

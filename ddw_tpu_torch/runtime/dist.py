@@ -99,6 +99,16 @@ def all_reduce_mean_(tensors: list[torch.Tensor], group=None) -> None:
     default; ``lax.pmean``). One collective per dtype: the tensors are
     packed into one flat buffer, summed, divided by the group size and
     unpacked."""
+    _all_reduce_(tensors, group, mean=True)
+
+
+def all_reduce_sum_(tensors: list[torch.Tensor], group=None) -> None:
+    """In place: each tensor becomes its sum over ``group``
+    (:func:`all_reduce_mean_` without the division)."""
+    _all_reduce_(tensors, group, mean=False)
+
+
+def _all_reduce_(tensors: list[torch.Tensor], group, mean: bool) -> None:
     from ddw_tpu_torch.ops.ring_reduce import group_size_rank
 
     world = group_size_rank(group)[0]
@@ -110,7 +120,8 @@ def all_reduce_mean_(tensors: list[torch.Tensor], group=None) -> None:
     for same in by_dtype.values():
         flat = torch.cat([t.reshape(-1) for t in same])
         dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-        flat /= world
+        if mean:
+            flat /= world
         offset = 0
         for t in same:
             n = t.numel()

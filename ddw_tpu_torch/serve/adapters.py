@@ -24,6 +24,17 @@ mechanism mirrors the paged KV pool one layer up:
   would corrupt the prefix cache, whose chain hashes are salted by this
   digest — see ``BlockPool._chain_hashes``).
 
+Under tensor parallelism (a :class:`~ddw_tpu_torch.serve.blocks.BlockPool`
+over a ``model`` axis wider than 1) group rank 0's pool keeps the host
+registry (ids, pins, LRU, digests) and each resident adapter's validated
+host rows; every rank's stacks hold only its block of each projection's
+pair, split as that projection's kernel is split
+(:func:`ddw_tpu_torch.models.lora.tp_lora_block`: B's features for a
+column-parallel layer, A's input rows for a row-parallel one, the pair
+whole for a replicated layer). A slot write (a load, a load into an
+evicted slot, an unload) is then one dispatch of the block pool, which
+hands each follower its block of the slot's rows.
+
 The ``.npz`` package of :func:`save_adapter` is ``ddw_tpu``'s byte for byte
 (the same flattened leaf keys and JSON header, ``ddw_tpu.adapter.v1``), so a
 file saved by either package loads in the other. Ranks smaller than the pool
@@ -173,9 +184,10 @@ def load_adapter(path) -> tuple[dict, dict]:
 
 class _Entry:
     __slots__ = ("adapter_id", "digest", "slot", "pins", "last_use",
-                 "rank", "alpha")
+                 "rank", "alpha", "rows")
 
-    def __init__(self, adapter_id, digest, slot, rank, alpha, last_use):
+    def __init__(self, adapter_id, digest, slot, rank, alpha, last_use,
+                 rows):
         self.adapter_id = adapter_id
         self.digest = digest
         self.slot = slot
@@ -183,6 +195,9 @@ class _Entry:
         self.last_use = last_use
         self.rank = rank
         self.alpha = alpha
+        self.rows = rows        # {(block, target): (a, b) | None}: the
+        #                         slot's whole rows, host f32 (what a new
+        #                         tensor-parallel group is sent again)
 
 
 def _target_module(block: nn.Module, target: str) -> nn.Module:
@@ -220,21 +235,96 @@ class AdapterPool:
         self.loads = 0
         self.evictions = 0
         self.pin_events = 0
-        # the stack shapes come from the model's own projections: lora_a is
-        # [*in_dims, rank], lora_b [rank, *features], as a LoRA clone of the
-        # model would hold them
+        self.dtype = dtype
+        self._shapes = {}   # (block, target) -> whole (a, b) row shapes
+        for i, blk in enumerate(model.blocks()):
+            for target in self.targets:
+                mod = _target_module(blk, target)
+                self._shapes[f"backbone_block{i}", target] = (
+                    (*mod.in_dims, self.rank), (self.rank, *mod.features))
+        self._alloc(model)
+        # how a slot's rows reach the stacks: here, or (tensor
+        # parallelism) one dispatch of the block pool (BlockPool._shard)
+        self.write_slot = self._write_local
+
+    def _alloc(self, model) -> None:
+        """Zero stacks over ``model``'s projections (``[slots+1, *in_dims,
+        rank]`` / ``[slots+1, rank, *features]``, as a LoRA clone of the
+        model would hold them), each this rank's block when the model is
+        sharded."""
+        from ddw_tpu_torch.models.lora import tp_lora_block
+
         dev = model.head.kernel.device
         n = self.slots + 1
-        self._stacks = {
-            f"backbone_block{i}": {
-                target: (
-                    torch.zeros((n, *mod.in_dims, self.rank), dtype=dtype,
-                                device=dev),
-                    torch.zeros((n, self.rank, *mod.features), dtype=dtype,
-                                device=dev))
-                for target in self.targets
-                for mod in (_target_module(blk, target),)}
-            for i, blk in enumerate(model.blocks())}
+        self._stacks, self._mods = {}, {}
+        for (block, target), (a_shape, b_shape) in self._shapes.items():
+            mod = _target_module(model.get_submodule(block), target)
+            a, b = tp_lora_block(
+                mod, torch.empty((n, *a_shape), device="meta"),
+                torch.empty((n, *b_shape), device="meta"), lead=1)
+            self._stacks.setdefault(block, {})[target] = (
+                torch.zeros(a.shape, dtype=self.dtype, device=dev),
+                torch.zeros(b.shape, dtype=self.dtype, device=dev))
+            self._mods[block, target] = mod
+
+    @torch.no_grad()
+    def shard(self, model) -> None:
+        """Re-allocate the stacks as this rank's blocks over the sharded
+        ``model`` and write every resident adapter back into its slot (a
+        tensor-parallel pool joining a group, a new one included)."""
+        with self._lock:
+            self._alloc(model)
+            for ent in self._by_id.values():
+                self.write_blocks(ent.slot, self.row_blocks(ent.rows))
+
+    def row_blocks(self, rows, index: int | None = None
+                   ) -> list[torch.Tensor]:
+        """One slot's rows as host tensors, stack by stack (a, then b, in
+        stack order): rank ``index``'s blocks (this rank's by default), a
+        null row's zeros; ``rows`` None nulls every row."""
+        from ddw_tpu_torch.models.lora import tp_lora_block
+
+        out = []
+        for (block, target), (a_shape, b_shape) in self._shapes.items():
+            ab = None if rows is None else rows[block, target]
+            if ab is None:
+                ab = (np.zeros(a_shape, np.float32),
+                      np.zeros(b_shape, np.float32))
+            a, b = tp_lora_block(self._mods[block, target],
+                                 torch.from_numpy(ab[0]),
+                                 torch.from_numpy(ab[1]), index=index)
+            out += [a.to(self.dtype), b.to(self.dtype)]
+        return out
+
+    def row_like(self) -> list[torch.Tensor]:
+        """Tensors of :meth:`row_blocks`'s shapes and dtypes on this rank
+        (what a follower receives a slot write into)."""
+        return [s[0] for targets in self._stacks.values()
+                for pair in targets.values() for s in pair]
+
+    @torch.no_grad()
+    def write_blocks(self, slot: int, tensors) -> None:
+        """Copy one slot's blocks (:meth:`row_blocks`'s order) into the
+        stacks."""
+        it = iter(tensors)
+        for targets in self._stacks.values():
+            for a_stack, b_stack in targets.values():
+                a_stack[slot].copy_(next(it))
+                b_stack[slot].copy_(next(it))
+
+    def _write_local(self, slot: int, rows) -> None:
+        self.write_blocks(slot, self.row_blocks(rows))
+
+    def spec(self) -> dict:
+        """What a follower's pool is built with (``AdapterPool(model,
+        **spec)``)."""
+        return {"slots": self.slots, "rank": self.rank,
+                "targets": self.targets, "dtype": self.dtype}
+
+    def resident(self) -> list[tuple[int, dict]]:
+        """``(slot, rows)`` of every resident adapter, by slot."""
+        with self._lock:
+            return sorted((e.slot, e.rows) for e in self._by_id.values())
 
     # ---------------------------------------------------------------- load
     @torch.no_grad()
@@ -268,42 +358,33 @@ class AdapterPool:
                     f"{self.rank}")
             scale = float(alpha) / float(a_rank)
             rows = {}                # validated before any slot changes
-            for block, targets in self._stacks.items():
-                for target, (a_stack, b_stack) in targets.items():
-                    leaf = adapter.get(block, {}).get(target)
-                    if leaf is None:        # untargeted projection: null row
-                        rows[block, target] = None
-                        continue
-                    a = _pad_rank(_leaf_numpy(leaf["lora_a"])
-                                  .astype(np.float32), self.rank, axis=-1)
-                    # alpha/rank folds into B here, once, so the per-row
-                    # delta needs no per-row scale
-                    b = _pad_rank(_leaf_numpy(leaf["lora_b"])
-                                  .astype(np.float32) * scale,
-                                  self.rank, axis=0)
-                    if a.shape != tuple(a_stack.shape[1:]):
-                        raise ValueError(
-                            f"adapter {adapter_id!r} {block}/{target} "
-                            f"lora_a shape {a.shape} != pool "
-                            f"{tuple(a_stack.shape[1:])}")
-                    if b.shape != tuple(b_stack.shape[1:]):
-                        raise ValueError(
-                            f"adapter {adapter_id!r} {block}/{target} "
-                            f"lora_b shape {b.shape} != pool "
-                            f"{tuple(b_stack.shape[1:])}")
-                    rows[block, target] = (a, b)
+            for (block, target), (a_shape, b_shape) in self._shapes.items():
+                leaf = adapter.get(block, {}).get(target)
+                if leaf is None:        # untargeted projection: null row
+                    rows[block, target] = None
+                    continue
+                a = _pad_rank(_leaf_numpy(leaf["lora_a"])
+                              .astype(np.float32), self.rank, axis=-1)
+                # alpha/rank folds into B here, once, so the per-row delta
+                # needs no per-row scale
+                b = _pad_rank(_leaf_numpy(leaf["lora_b"])
+                              .astype(np.float32) * scale, self.rank, axis=0)
+                if a.shape != a_shape:
+                    raise ValueError(
+                        f"adapter {adapter_id!r} {block}/{target} lora_a "
+                        f"shape {a.shape} != pool {a_shape}")
+                if b.shape != b_shape:
+                    raise ValueError(
+                        f"adapter {adapter_id!r} {block}/{target} lora_b "
+                        f"shape {b.shape} != pool {b_shape}")
+                rows[block, target] = (a, b)
+            # an evicted victim's slot is not zeroed first: the write below
+            # sets every row of it, so a load is one slot write
             slot = self._free_slot()
-            for (block, target), ab in rows.items():
-                a_stack, b_stack = self._stacks[block][target]
-                if ab is None:
-                    a_stack[slot].zero_()
-                    b_stack[slot].zero_()
-                else:
-                    a_stack[slot].copy_(torch.from_numpy(ab[0]))
-                    b_stack[slot].copy_(torch.from_numpy(ab[1]))
+            self.write_slot(slot, rows)
             self._seq += 1
             self._by_id[adapter_id] = _Entry(adapter_id, want, slot,
-                                             a_rank, alpha, self._seq)
+                                             a_rank, alpha, self._seq, rows)
             self.loads += 1
             return slot
 
@@ -317,17 +398,9 @@ class AdapterPool:
         if victim is None:
             raise AdapterPoolFull(
                 f"all {self.slots} adapter slots pinned; cannot evict")
-        self._evict(victim)
-        return victim.slot
-
-    @torch.no_grad()
-    def _evict(self, ent: _Entry) -> None:
-        del self._by_id[ent.adapter_id]
-        for targets in self._stacks.values():
-            for a_stack, b_stack in targets.values():
-                a_stack[ent.slot].zero_()
-                b_stack[ent.slot].zero_()
+        del self._by_id[victim.adapter_id]
         self.evictions += 1
+        return victim.slot
 
     def unload(self, adapter_id: str) -> None:
         """Explicit eviction. Refuses while pinned — in-flight rows hold the
@@ -338,8 +411,8 @@ class AdapterPool:
                 raise AdapterError(
                     f"adapter {adapter_id!r} has {ent.pins} in-flight pins; "
                     f"refusing unload")
-            self._evict(ent)
-            self.evictions -= 1   # explicit unload is not an LRU eviction
+            self.write_slot(ent.slot, None)     # the slot back to zeros
+            del self._by_id[adapter_id]         # not an LRU eviction
 
     # ----------------------------------------------------------- pin/unpin
     def pin(self, adapter_id: str) -> int:

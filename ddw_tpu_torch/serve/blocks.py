@@ -62,8 +62,11 @@ metered into ``tp_dispatches`` / ``tp_dispatch_us``, so their ratio is
 the cost of a serving dispatch. Every host structure is
 mesh-blind. The wire format carries full-shape payloads: export gathers the
 exported blocks' heads from the followers, import scatters them, so a wire
-moves between pools of any ``tp``. Adapters under tensor parallelism are
-refused by name (``ROADMAP.md``).
+moves between pools of any ``tp``. An attached adapter pool shards with
+the model: every rank's stacks hold its block of each projection's pair
+(:mod:`ddw_tpu_torch.serve.adapters`), the ``build`` message carries the
+pool's spec and the followers receive the resident adapters' blocks after
+their weights, and a slot write is one ``adapter_write`` dispatch.
 """
 
 from __future__ import annotations
@@ -98,11 +101,6 @@ class KVWireError(ValueError):
     mismatch, hash-chain corruption, or truncation. Raised BEFORE any
     pool state changes: a rejected import leaves the pool bit-identical
     to before the call (no partial import, ever)."""
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to ddw_tpu_torch; "
-                               f"see ROADMAP.md for the slice that brings it")
 
 
 class _Stream:
@@ -234,9 +232,6 @@ class BlockPool:
         from ddw_tpu_torch.parallel.sharding import lm_tp_rules_for
         from ddw_tpu_torch.serve import tp as _tp
 
-        if adapters is not None:
-            raise _not_ported("LoRA adapter pools under tensor parallelism "
-                              "(adapter_slots > 0 with tp > 1)")
         tp_n = int(mesh.shape[MODEL_AXIS])
         lines = np.moveaxis(mesh.ranks, mesh.axis_names.index(MODEL_AXIS),
                             -1).reshape(-1, tp_n)
@@ -263,14 +258,27 @@ class BlockPool:
             model.num_heads, model.kv_heads, tp_n)
         self._pool_id = _tp.next_pool_id()
         _tp.check_group(self._group)
+        spec = {"model": model.init_kwargs, "pool": self._pool_spec()}
+        if adapters is not None:
+            resident = adapters.resident()
+            spec["adapters"] = dict(adapters.spec(),
+                                    resident=[slot for slot, _ in resident])
         try:
-            _tp.send_header(self._group, (
-                "build", self._pool_id,
-                {"model": model.init_kwargs, "pool": self._pool_spec()}))
+            _tp.send_header(self._group, ("build", self._pool_id, spec))
             local, shards = _sharded_skeleton(model.init_kwargs, rules,
                                               mesh, self.device, full=model)
             for r in range(1, tp_n):
                 _tp.send_tensors(self._group, r, shards(r))
+            if adapters is not None:
+                # this rank's blocks of the stacks, then each follower its
+                # blocks of every resident adapter; from here on a slot
+                # write is a dispatch of this pool
+                adapters.shard(local)
+                for r in range(1, tp_n):
+                    _tp.send_tensors(self._group, r, [
+                        t for _, rows in resident
+                        for t in adapters.row_blocks(rows, r)])
+                adapters.write_slot = self._write_adapter_slot
         except RuntimeError as e:
             _tp.mark_broken(self._group)
             raise _tp.TPGroupFailed(
@@ -291,11 +299,23 @@ class BlockPool:
             rules, _ = lm_tp_rules_for(kw["num_heads"], kw["num_kv_heads"],
                                        int(mesh.shape[MODEL_AXIS]))
         local, _ = _sharded_skeleton(kw, rules, mesh, device)
+        group = mesh.group(MODEL_AXIS)
         params = [p for _, p in local.named_parameters()]
-        for p, t in zip(params, _tp.recv_tensors(mesh.group(MODEL_AXIS), 0,
-                                                 params)):
+        for p, t in zip(params, _tp.recv_tensors(group, 0, params)):
             p.copy_(t)
-        return cls(local, mesh=mesh, **spec["pool"])
+        adapters = None
+        if "adapters" in spec:
+            from ddw_tpu_torch.serve.adapters import AdapterPool
+
+            kw = dict(spec["adapters"])
+            resident = kw.pop("resident")
+            adapters = AdapterPool(local, **kw)
+            like = adapters.row_like()
+            got = _tp.recv_tensors(group, 0, like * len(resident))
+            for i, slot in enumerate(resident):
+                adapters.write_blocks(
+                    slot, got[i * len(like):(i + 1) * len(like)])
+        return cls(local, mesh=mesh, adapters=adapters, **spec["pool"])
 
     def _init_cache(self) -> dict:
         return init_paged_cache(self.model, self.n_blocks + 1,
@@ -1031,6 +1051,25 @@ class BlockPool:
     def _record(self, logits: torch.Tensor) -> None:
         if self.record_logits is not None:
             self.record_logits.append(logits.float().cpu().numpy())
+
+    def _write_adapter_slot(self, slot: int, rows) -> None:
+        """The adapter pool's slot write under tensor parallelism: one
+        dispatch (``rows`` by ``(block, target)``, or None for zeros)."""
+        self._dispatch("adapter_write", slot, local={"rows": rows})
+
+    def _prog_adapter_write(self, slot: int, rows=None) -> None:
+        """Write slot ``slot`` of every stack: group rank 0 sends each
+        follower its blocks of ``rows`` and keeps its own."""
+        from ddw_tpu_torch.serve import tp as _tp
+
+        ad = self._adapters
+        if self._lead:
+            for r in range(1, self.tp_degree):
+                _tp.send_tensors(self._group, r, ad.row_blocks(rows, r))
+            ad.write_blocks(slot, ad.row_blocks(rows))
+        else:
+            ad.write_blocks(slot, _tp.recv_tensors(self._group, 0,
+                                                   ad.row_like()))
 
     def _prog_copy(self, dst: int, src: int) -> None:
         """Clone block ``src`` into ``dst`` in every layer (copy-on-write)."""

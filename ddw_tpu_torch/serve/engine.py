@@ -135,11 +135,6 @@ _UNSET = object()        # set_checkpoint(draft_dir=...) sentinel: "leave
 #                          the currently staged/serving draft alone"
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to ddw_tpu_torch; "
-                               f"see ROADMAP.md for the slice that brings it")
-
-
 def draw_step_seeds(rng: torch.Generator, num_steps: int) -> np.ndarray:
     """The per-step key schedule of a sampled request (``jax.random.
     split``'s role): ``num_steps`` int64 seeds drawn from ``rng``; token
@@ -530,11 +525,13 @@ class ServingEngine:
         ProcessReplica` relays the same property)."""
         return self.cfg.role
 
-    def _init_lm(self, lm, draft=_UNSET) -> None:
+    def _init_lm(self, lm, draft=_UNSET, adapters=None) -> None:
         """Build (or rebuild) the LM handle + KV pool(s). Called at
         construction and by :meth:`restart` when a staged checkpoint
-        (:meth:`set_checkpoint`) replaces the weights. ``draft`` left unset
-        keeps the current draft handle."""
+        (:meth:`set_checkpoint`) replaces the weights, or a broken
+        tensor-parallel group is replaced. ``draft`` left unset keeps the
+        current draft handle; ``adapters`` (the current adapter pool) keeps
+        its adapters resident in the rebuilt pool."""
         self._lm = _handle(lm)
         if draft is _UNSET:
             draft = getattr(self, "_draft", None)
@@ -583,10 +580,6 @@ class ServingEngine:
                         f"tp {tp} does not divide the {role} model's "
                         f"num_heads {heads}: attention heads are the "
                         f"tensor-parallel shard axis")
-            if self.cfg.adapter_slots > 0:
-                raise _not_ported("LoRA adapter pools under tensor "
-                                  "parallelism (adapter_slots > 0 with "
-                                  "tp > 1)")
             if self.mesh is None:
                 from ddw_tpu_torch.serve.tp import TPGroup
 
@@ -599,7 +592,7 @@ class ServingEngine:
             # verify-based commit keeps output identity with an
             # adapter-free draft.
             if self.cfg.adapter_slots > 0:
-                self.adapters = AdapterPool(
+                self.adapters = adapters or AdapterPool(
                     self._lm.model, self.cfg.adapter_slots,
                     self.cfg.adapter_rank,
                     targets=(tuple(self.cfg.adapter_targets)
@@ -1077,7 +1070,9 @@ class ServingEngine:
             self._tp_group, self.mesh = None, None
             self.pool = self._draft_pool = None
             if self._pending_checkpoint is None:
-                self._init_lm(self._lm)
+                # as a tp=1 restart does, the adapters stay resident: the
+                # new followers receive their blocks with the weights
+                self._init_lm(self._lm, adapters=self.adapters)
             self._pool_stats_seen = {}
         if self._pending_checkpoint is not None:
             self._apply_pending_checkpoint()

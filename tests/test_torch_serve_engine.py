@@ -383,15 +383,16 @@ def test_image_lane_matches_predict_logits(tmp_path, name, quantize):
 
 
 def test_unported_features_are_refused_naming_the_roadmap(pm, monkeypatch):
-    """What stays refused after the speculative tick, adapters, tenants,
-    tracing, telemetry, the monitor, bulk jobs, the disaggregation roles
-    and serve faults landed (their cases moved to test_torch_serve_spec.py,
-    test_torch_serve_adapters.py, test_torch_serve_tenancy_lanes.py,
-    test_torch_obs.py, test_torch_kv_disagg.py and test_torch_faults.py)
-    and tensor parallelism (test_torch_tp_serve.py): adapter pools under
-    tensor parallelism."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ServingEngine(lm=pm, cfg=EngineCfg(tp=2, adapter_slots=2))
+    """Nothing stays refused as unported: the speculative tick, adapters,
+    tenants, tracing, telemetry, the monitor, bulk jobs, the disaggregation
+    roles and serve faults landed (their cases are in
+    test_torch_serve_spec.py, test_torch_serve_adapters.py,
+    test_torch_serve_tenancy_lanes.py, test_torch_obs.py,
+    test_torch_kv_disagg.py and test_torch_faults.py), tensor parallelism
+    (test_torch_tp_serve.py), and last adapter pools under tensor
+    parallelism (test_torch_tp_lora.py, where the refusal this test held
+    became the tp=2 adapter engine's parity cases). What is left are the
+    request and config errors ddw_tpu raises too."""
     monkeypatch.delenv("DDW_FAULT", raising=False)
     with ServingEngine(lm=pm) as eng:
         with pytest.raises(ValueError, match="exceeds max_len"):

@@ -294,17 +294,14 @@ def test_block_pool_refusals():
         BlockPool(tm, n_blocks=4, block_size=4, max_resident=2,
                   overcommit=0.5)
     # a mesh is ported (test_torch_tp_serve.py); what stays refused is a
-    # mesh without a model axis, and adapter stacks under tensor parallelism
-    from ddw_tpu_torch.runtime.mesh import MODEL_AXIS, Mesh
+    # mesh without a model axis. Adapter stacks under tensor parallelism,
+    # refused here before, shard with the model (test_torch_tp_lora.py)
+    from ddw_tpu_torch.runtime.mesh import Mesh
     from ddw_tpu_torch.serve.adapters import AdapterPool
 
     with pytest.raises(ValueError, match="must carry a 'model' axis"):
         BlockPool(tm, n_blocks=4, block_size=4, max_resident=2,
                   mesh=Mesh(("data",), np.arange(2), {}, rank=0))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        BlockPool(tm, n_blocks=4, block_size=4, max_resident=2,
-                  mesh=Mesh((MODEL_AXIS,), np.arange(2), {}, rank=0),
-                  adapters=AdapterPool(tm, slots=1, rank=2))
     # adapter stacks are ported (test_torch_serve_adapters.py): a pool
     # takes an AdapterPool and hands its slot 0 to a row without one
 

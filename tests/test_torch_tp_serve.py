@@ -226,9 +226,10 @@ def test_private_group_collectives_see_the_whole_group():
 
 def test_tp_validation_messages(pm, jpm, tmp_path):
     """Each of ddw_tpu's construction-time refusals with its port
-    counterpart, and what the port adds: adapters under TP are refused by
-    name, a draft whose heads the degree cannot split is refused, and
-    nothing spawns a follower on the way."""
+    counterpart, and what the port adds: a draft whose heads the degree
+    cannot split is refused, and nothing spawns a follower on the way.
+    (Adapter pools under TP, refused here before, serve: their parity
+    cases are in test_torch_tp_lora.py.)"""
     jmesh = lambda n, ax=(MODEL_AXIS,): JaxMesh(  # noqa: E731
         np.asarray(jax.devices()[:n]), ax)
     for cfg_cls in (JaxEngineCfg, EngineCfg):
@@ -249,8 +250,6 @@ def test_tp_validation_messages(pm, jpm, tmp_path):
             eng_cls(lm=lm, cfg=cfg_cls(tp=2), mesh=mesh(4))
         with pytest.raises(ValueError, match="must carry a"):
             eng_cls(lm=lm, cfg=cfg_cls(tp=2), mesh=mesh(2, ("data",)))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ServingEngine(lm=pm, cfg=EngineCfg(tp=2, adapter_slots=2))
     draft = LMPackagedModel(_save_pkg(tmp_path / "draft", num_heads=1),
                             device="cpu")
     with pytest.raises(ValueError, match="does not divide the draft "
