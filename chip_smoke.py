@@ -103,7 +103,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    runs at the default attention thresholds (the xla tier, as in the
    reference: no flash launch) and again in a child process with
    ``DDW_ATTN_XLA_PLAIN_MAX=0 DDW_ATTN_XLA_CKPT_MAX=0``: 6 K3 launches per
-   forward and 6 K4 + 6 K5 per train step, all on mma; against the xla
+   forward, all on sm90, and 6 K4 + 6 K5 per train step, all on mma;
+   against the xla
    tier from the same weights and batch, the one-step loss within 5e-3
    relative and every leaf's gradient within 5e-2 RMS gap over RMS (the
    lm_train bf16 bounds), each epoch's train and val loss within 2e-2
@@ -122,19 +123,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
    [8, 1, 1, 336].
 6. lm_kernel — the flash-attention forward kernel (K3) against its plain
    PyTorch version. Three variants, chosen by shape (``_fwd_variant``): sm90
-   (TMA and wgmma, ``flash_fwd_sm90.cu``) for bf16 at block_k 128 and head
-   dim 64 or 128, mma (``mma.sync``) for other bf16 and f16 blocks of 16k
-   keys at head dims up to 256, CUDA cores for f32 and the rest. Cases: the LM
+   (TMA and wgmma, ``flash_fwd_sm90.cu``) for bf16 and f16 at block_k 128
+   and every head dim up to 256 that is a multiple of 8, mma (``mma.sync``)
+   for other bf16 and f16 blocks of 16k keys at head dims up to 256, CUDA
+   cores for f32 and the rest. Every sm90 case also launches once into a
+   NaN-filled buffer one compiled width longer than out: the same bits,
+   and the tail untouched (no column at or past d written). Cases: the LM
    slice's shape [512, 2048, 64] causal in bf16 and f32, a ring hop's offset
    (keys from global 192: query rows 0-191 see no key and must give out 0,
-   lse <= -1e29), non-causal at head dim 128, a short block with a key mask
+   lse <= -1e29), non-causal at head dim 128 (on sm90, and on mma
+   forced), a short block with a key mask
    at head dim 32, a bf16 block of 40 keys (CUDA cores) and one of 64 keys
    (mma), and S=2047 padded through ``flash_mha``; on the sm90 path also a
    query tail tile inside a head (sq 200 against sk 256), sq 2112 against sk
    2048 at q_offset 64, a ring hop at q_offset 1000 and k_offset 1152 (152
    fully masked rows), k_valid 1000 inside a K block, and head dim 128
    causal. Every case runs twice and must give the same bits, on the variant
-   its shape picks. f32 within 1e-5 * max|v| (lse 1e-5 * max(1, |lse|)),
+   its shape picks (or mma, where a case forces it). f32 within 1e-5 * max|v| (lse 1e-5 * max(1, |lse|)),
    bf16 within max(2 bf16 ulp, 1e-3 * max|v|) elementwise (lse 1e-4). Times
    at [512, 2048, 64] and at the training shape [256, 2048, 64], causal
    bf16 (median of 10, L2 flushed), of the sm90 and mma kernels in turns
@@ -175,29 +180,38 @@ Phases, each printing one JSON line; any failure exits non-zero:
    backward of causal ``F.scaled_dot_product_attention`` (timed only, the
    yardstick; one call gives dq, dk and dv).
 8b. vit_kernel — K3, K4 and K5 at ViT's shape: 196 tokens padded to 256
-   with k_valid 196, [512, 256, 48], non-causal, in bf16 (the mma.sync
-   kernels) and f32 (CUDA cores), and a ragged case (192 queries against
-   320 keys at k_offset 64, causal: the first 64-row block sees no key),
-   each against its plain version with lm_kernel's and lm_bwd_kernel's
-   tolerances, two launches bit-identical, every launch counted on its
-   variant. Times (median of 10, L2 flushed) of one bf16 call of each at
-   ViT's shape beside the bound (the 256 x 196 pairs a head the call
-   computes; K and V read at their 196 valid rows, every other tensor at
-   256), the plain versions and SDPA on the unpadded [128, 4, 196, 48]
-   (forward, and its whole backward beside K4's and K5's).
+   with k_valid 196, [512, 256, 48], non-causal, in bf16 (K3 on sm90 at
+   width 64, K4 and K5 on mma.sync) and f32 (CUDA cores), and two ragged
+   cases (192 queries against 384 keys at block_k 128, sm90 in bf16, and
+   against 320 keys at block_k 64, mma; k_offset 64, causal: the first
+   64-row block sees no key), each against its plain version with
+   lm_kernel's and lm_bwd_kernel's tolerances, two launches bit-identical,
+   every launch counted on its variant; K3 in bf16 at ViT's shape again on
+   mma forced. Times (median of 10, L2 flushed)
+   of one bf16 call of each at ViT's shape, K3's sm90 and mma kernels in
+   turns (sm90, mma, mma, sm90), beside the bound (the 256 x 196 pairs a
+   head the call computes; K and V read at their 196 valid rows, every
+   other tensor at 256), the plain versions and SDPA on the unpadded [128,
+   4, 196, 48] (forward, and its whole backward beside K4's and K5's).
 8c. coverage — K3, K4 and K5 at head dims 16, 40, 80, 96, 256 and 512 in
    bf16, f16 and f32, at [16, 512, D], causal with keys from global 64
    (query rows 0-63 see no key: out 0, lse <= -1e29, dq exactly 0) and a
-   key mask at 448, on the variant each shape picks (mma for 16-bit up to
-   256, CUDA cores for f32 and above 256), against their plain versions
-   with lm_kernel's and lm_bwd_kernel's tolerances in ulps of the dtype,
-   every launch twice with the same bits; each timed (median of 10, L2
-   flushed) beside the bound (the pairs the masks leave; bf16/f16 at 989
-   TFLOP/s, f32 at 67), the plain version and SDPA with the same mask
-   (forward, and its whole backward beside K4 and K5). Then head dim 256
-   bf16 causal at the lm_wide path's shapes, [128, 2048, 256] (K3) and
-   [64, 2048, 256] (K4, K5), beside SDPA on [64|32, 2, 2048, 256]. Launch
-   counts by kernel, variant and dtype. (K1/K2 in f16: the kernel phase.)
+   key mask at 448, on the variant each shape picks (K3 on sm90 for 16-bit
+   up to 256, K4 and K5 on mma there; CUDA cores for f32 and above 256),
+   against their plain versions with lm_kernel's and lm_bwd_kernel's
+   tolerances in ulps of the dtype, every launch twice with the same bits
+   (sm90: and no column past d written), and K3 again on mma forced
+   wherever it picks sm90 (mma still runs 16-bit blocks other than 128);
+   each timed (median of 10, L2
+   flushed; K3's sm90 and mma kernels in turns, sm90, mma, mma, sm90)
+   beside the bound (the pairs the masks leave; bf16/f16 at 989 TFLOP/s,
+   f32 at 67), the plain version and SDPA with the same mask (forward, and
+   its whole backward beside K4 and K5). Then head dim 256 bf16 causal at
+   the lm_wide path's shapes, [128, 2048, 256] (K3 held to its plain
+   version on sm90 and on mma, and timed on both in turns) and [64, 2048,
+   256] (K4, K5), beside SDPA on [64|32, 2, 2048, 256].
+   Launch counts by kernel, variant and dtype. (K1/K2 in f16: the kernel
+   phase.)
 9. lm_train — the same full-width bf16 LM from ``init_lm_weights`` with a
    seeded generator, trained by ``LMTrainer.fit_tables`` on a seeded,
    learnable ``tokens_i32`` table (arithmetic sequences mod the vocab, 160
@@ -225,10 +239,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
    attention call as 8 heads of 64), seeded weights, the kernel tier forced
    (both thresholds 0: 64 rows of 2 heads would take ``xla_ckpt``):
    ``save_lm_package`` -> ``LMPackagedModel`` -> ``LMBatchScorer`` over a
-   64 x 2,049 ``tokens_i32`` table, 6 K3 launches all on mma, every NLL
+   64 x 2,049 ``tokens_i32`` table, 6 K3 launches all on sm90, every NLL
    within 2e-2 of the xla tier's on the same weights; then
    ``LMTrainer.fit_tables`` for 3 steps at 32 x 2,048 and one val batch, 6
-   K3 + 6 K4 + 6 K5 a step and 6 K3 a val batch, all mma, finite losses;
+   K3 + 6 K4 + 6 K5 a step and 6 K3 a val batch, K3 on sm90 and K4, K5 on
+   mma, finite losses;
    one step from the seeded weights against the xla tier's step, the loss
    within 5e-3 relative and every leaf's gradient within 5e-2 RMS gap over
    RMS (lm_train's bf16 bounds).
@@ -303,7 +318,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    armed on child 1 through a supervised respawn: 8 unary requests of
    fresh seeded prompts (the mix's first 8 lengths; a prefix cached on
    child 0 would outbid the canary weight) sent to it (the router's canary
-   weight at 1.0), child 1 dies at its first decode tick, the supervisor
+   weight at 1.0) once child 1 reads idle (a round none of whose requests
+   reached child 1 is sent again with fresh prompts, at most 3 rounds),
+   child 1 dies at its first decode tick, the supervisor
    restarts it, the clients' retries after 503 fail over to child 0, every
    request answered, every token within the rule of the logits it was
    picked from; the restart seconds. (d) A canary roll (fraction 0.5, a 2 s
@@ -466,6 +483,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -557,6 +575,51 @@ def phase_build():
         emit(phase="build", source=src, library=os.path.basename(path),
              nvcc_seconds=round(seconds, 3), ptxas=regs)
     emit(phase="build", wall_seconds=round(time.perf_counter() - t0, 3))
+    return sm90_fwd_build(dict(zip(sources, built))["flash_fwd_sm90.cu"][2])
+
+
+def ptxas_kernels(report: str) -> list:
+    """Each kernel of an ``nvcc -Xptxas -v`` report: its name, registers and
+    spill bytes."""
+    rows = []
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            rows.append({"kernel": m.group(1)})
+        elif rows and (m := re.search(r"(\d+) bytes spill stores, (\d+) "
+                                      r"bytes spill loads", ln)):
+            rows[-1]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        elif rows and (m := re.search(r"Used (\d+) registers", ln)):
+            rows[-1]["registers"] = int(m.group(1))
+    return rows
+
+
+def sm90_fwd_build(report: str) -> list:
+    """K3's sm90 instantiations (bf16 and f16 at widths 64, 128, 256): the
+    registers ptxas gives each (the consumer warpgroups then take 240 a
+    thread by setmaxnreg), its spill bytes, which must be 0, and the dynamic
+    shared memory a launch asks for."""
+    from ddw_tpu_torch.ops.flash_attention import _sm90_lib
+
+    rows = []
+    for k in ptxas_kernels(report):
+        m = re.search(r"flash_fwd_sm90_kernelI(\d+__\w+?)Li(\d+)E",
+                      k["kernel"])
+        if m:
+            width = int(m.group(2))
+            rows.append({"dtype": "float16" if "half" in m.group(1)
+                         else "bfloat16", "width": width,
+                         "registers": k.get("registers"),
+                         "spill_bytes": k.get("spill_bytes"),
+                         "smem_bytes": _sm90_lib().ddw_flash_fwd_sm90_smem(
+                             width)})
+    emit(phase="build", source="flash_fwd_sm90.cu", instantiations=rows)
+    check(sorted((r["dtype"], r["width"]) for r in rows) == sorted(
+        (t, w) for t in ("bfloat16", "float16") for w in (64, 128, 256)),
+        f"K3 sm90 built at widths 64, 128, 256 in bf16 and f16: {rows}")
+    check(all(r["spill_bytes"] == 0 for r in rows),
+          f"ptxas reports no spill in any K3 sm90 instantiation: {rows}")
+    return rows
 
 
 def wgrad_tolerance(x, g):
@@ -817,28 +880,36 @@ def causal_pairs(sq: int, sk: int, q_offset: int, k_offset: int,
 
 
 def k3_check(name, q, k, v, *, causal, q_offset=0, k_offset=0, k_valid=None,
-             block_k=128, fully_masked_rows=0, phase="lm_kernel"):
+             block_k=128, fully_masked_rows=0, phase="lm_kernel",
+             variant=None):
     """K3 against its plain version on the same inputs, with the slice's
     tolerances, launched twice (the same bits, on the variant its shape
-    picks); returns the max |out| error."""
+    picks, or ``variant="mma"`` where it picks sm90); returns the max |out|
+    error."""
     import torch
 
-    from ddw_tpu_torch.ops.flash_attention import (_fwd_variant,
+    from ddw_tpu_torch.ops.flash_attention import (_forced_variant,
                                                    flash_attention_cuda,
                                                    flash_attention_plain)
 
-    variant = _fwd_variant(q.dtype, q.shape[2], block_k)
+    variant = _forced_variant(q.dtype, q.shape[2], block_k, variant)
     before = flash_attention_cuda.launches_by_variant[variant]
     out, lse = flash_attention_cuda(q, k, v, causal, q_offset, k_offset,
-                                    block_k=block_k, k_valid=k_valid)
+                                    block_k=block_k, k_valid=k_valid,
+                                    _variant=variant)
     out2, lse2 = flash_attention_cuda(q, k, v, causal, q_offset, k_offset,
-                                      block_k=block_k, k_valid=k_valid)
+                                      block_k=block_k, k_valid=k_valid,
+                                      _variant=variant)
     torch.cuda.synchronize()
     check(flash_attention_cuda.launches_by_variant[variant] == before + 2,
           f"K3 {name}: both launches on the {variant} variant")
     check(torch.equal(out, out2) and torch.equal(lse, lse2),
           f"K3 {name}: two launches give the same bits")
     del out2, lse2
+    if variant == "sm90":
+        sm90_guard_check(name, q, k, v, out, lse, causal=causal,
+                         q_offset=q_offset, k_offset=k_offset,
+                         k_valid=k_valid)
     # the plain version needs a query block that divides Sq; its numerics
     # do not depend on which (tests/test_torch_flash_attention.py)
     block_q = next(b for b in (128, 64, q.shape[1]) if q.shape[1] % b == 0)
@@ -878,6 +949,50 @@ def k3_check(name, q, k, v, *, causal, q_offset=0, k_offset=0, k_valid=None,
     return err.max().item()
 
 
+def fwd_turns(launch, flush) -> dict:
+    """K3's sm90 and mma kernels on one shape, timed in turns (sm90, mma,
+    mma, sm90; median of 10 each, L2 flushed): ``launch(variant)`` runs one
+    call. The faster median of each, and all four."""
+    turns = {"sm90": [], "mma": []}
+    for var in ("sm90", "mma", "mma", "sm90"):
+        turns[var].append(median_ms(lambda: launch(var), flush, reps=10))
+    return {"ms": min(turns["sm90"]), "ms_mma": min(turns["mma"]),
+            "turns_ms": turns}
+
+
+def sm90_guard_check(name, q, k, v, out, lse, *, causal, q_offset, k_offset,
+                     k_valid) -> None:
+    """K3's sm90 kernel writes no column at or past d: one more launch of the
+    C entry (not counted: a comparison launch) into a NaN-filled buffer one
+    compiled width longer than out gives out's and lse's bits, and leaves the
+    tail NaN. (A column past d of a row would land on the next row's first
+    columns, which the bits compare, or past the last row, in the tail.)"""
+    import torch
+
+    from ddw_tpu_torch.ops.flash_attention import (_KERNEL_DTYPES,
+                                                   _default_scale,
+                                                   _sm90_lib, compiled_width)
+
+    bh, sq, d = q.shape
+    width = compiled_width("sm90", d)
+    buf = torch.full((out.numel() + width,), float("nan"), dtype=q.dtype,
+                     device=q.device)
+    lse_g = torch.empty_like(lse)
+    err = _sm90_lib().ddw_flash_fwd_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(),
+        lse_g.data_ptr(), bh, sq, k.shape[1], d, _KERNEL_DTYPES[q.dtype],
+        int(causal), q_offset, k_offset, _default_scale(None, d),
+        -1 if k_valid is None else k_valid,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    check(err == 0, f"K3 {name}: the sm90 guard launch returned {err}")
+    check(torch.equal(buf[:out.numel()].view_as(out), out)
+          and torch.equal(lse_g, lse)
+          and bool(buf[out.numel():].isnan().all()),
+          f"K3 {name}: sm90 at d={d} (width {width}) writes no column at or "
+          f"past d")
+
+
 def k3_times(q, k, v, flush, batch):
     """K3's sm90 and mma kernels at one causal bf16 shape, timed in turns
     (sm90, mma, mma, sm90), beside the bound, the plain version and SDPA."""
@@ -889,15 +1004,10 @@ def k3_times(q, k, v, flush, batch):
     bh, s, d = q.shape
     flops = 4 * d * bh * causal_pairs(s, s, 0, 0, True, None)
     nbytes = 4 * bh * s * d * 2 + bh * s * 4
-    turns = {"sm90": [], "mma": []}
-    for var in ("sm90", "mma", "mma", "sm90"):
-        turns[var].append(median_ms(lambda: flash_attention_cuda(
-            q, k, v, True, _variant=var), flush, reps=10))
     q4, k4, v4 = (t.view(batch, LM_HEADS, s, d) for t in (q, k, v))
     times = {
-        "ms": min(turns["sm90"]),
-        "ms_mma": min(turns["mma"]),
-        "turns_ms": turns,
+        **fwd_turns(lambda var: flash_attention_cuda(
+            q, k, v, True, _variant=var), flush),
         "plain_ms": median_ms(lambda: flash_attention_plain(q, k, v, True),
                               flush, reps=3, warmup=1),
         "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
@@ -958,6 +1068,8 @@ def phase_lm_kernel(flush):
                                     k_offset=192, fully_masked_rows=192))
     case("noncausal_d128_bf16", (64, 1024, 1024, 128), torch.bfloat16,
          causal=False)
+    case("noncausal_d128_bf16_mma", (64, 1024, 1024, 128), torch.bfloat16,
+         causal=False, variant="mma")
     case("d32_block40_kvalid70_f32", (6, 48, 80, 32), torch.float32,
          causal=False, block_k=40, k_valid=70)
     # bf16 blocks that are not a multiple of 16 take the CUDA-core path,
@@ -1262,20 +1374,24 @@ def phase_lm_bwd_kernel(flush):
 # k_valid 196; at the vision phase's batch of 128 the kernels see [512, 256,
 # 48]
 VIT_BATCH, VIT_HEADS, VIT_TOKENS, VIT_HEAD_DIM, VIT_PADDED = 128, 4, 196, 48, 256
+# the variant each flash kernel takes there in bf16 (_fwd_variant at block_k
+# 128, _bwd_variant)
+VIT_VARIANTS = {"k3": "sm90", "k4": "mma", "k5": "mma"}
 
 
 def vit_kernel_times(q, k, v, gen, flush):
-    """K3, K4 and K5 (mma, bf16) at ViT's padded shape, non-causal with
-    k_valid 196: CUDA events with the L2 flushed, beside the bound (the
-    pairs this call computes: 256 query rows x 196 keys a head; the bytes
-    of K and V at their 196 valid rows, of Q, dO and the outputs at all
-    256), the plain versions and SDPA (forward, and its whole backward) on
-    the unpadded [128, 4, 196, 48]."""
+    """K3 (sm90, and mma in turns with it), K4 and K5 (mma) in bf16 at ViT's
+    padded shape, non-causal with k_valid 196: CUDA events with the L2
+    flushed, beside the bound (the pairs this call computes: 256 query rows
+    x 196 keys a head; the bytes of K and V at their 196 valid rows, of Q,
+    dO and the outputs at all 256), the plain versions and SDPA (forward,
+    and its whole backward) on the unpadded [128, 4, 196, 48]."""
     import torch
     import torch.nn.functional as F
 
     from ddw_tpu_torch.ops.flash_attention import (
-        flash_attention_cuda, flash_attention_dkv_cuda,
+        _bwd_variant, _fwd_variant, flash_attention_cuda,
+        flash_attention_dkv_cuda,
         flash_attention_dkv_plain, flash_attention_dq_cuda,
         flash_attention_dq_plain, flash_attention_plain)
 
@@ -1293,17 +1409,18 @@ def vit_kernel_times(q, k, v, gen, flush):
     sdpa_bwd_ms = median_ms(lambda: torch.autograd.grad(
         sdpa, (q4, k4, v4), do4, retain_graph=True), flush, reps=10)
     rows = {}
-    for key, fn, plain, products, outs, library_ms in (
+    fwd_var, bwd_var = _fwd_variant(q.dtype, d, 128), _bwd_variant(q.dtype, d)
+    for key, fn, plain, products, outs, library_ms, variant in (
             ("fwd", lambda: flash_attention_cuda(q, k, v, False, k_valid=kv),
              lambda: flash_attention_plain(q, k, v, False, k_valid=kv),
              2, 1, median_ms(lambda: F.scaled_dot_product_attention(
-                 q4, k4, v4), flush, reps=10)),
+                 q4, k4, v4), flush, reps=10), fwd_var),
             ("dq", lambda: flash_attention_dq_cuda(*args, kv),
              lambda: flash_attention_dq_plain(*args, 128, 128, kv), 3, 1,
-             sdpa_bwd_ms),
+             sdpa_bwd_ms, bwd_var),
             ("dkv", lambda: flash_attention_dkv_cuda(*args, kv),
              lambda: flash_attention_dkv_plain(*args, 128, 128, kv), 4, 2,
-             sdpa_bwd_ms)):
+             sdpa_bwd_ms, bwd_var)):
         flops = products * 2 * d * pairs
         # K and V read at their kv valid rows (no output depends on the
         # padded ones); Q, dO and every output at all s rows; lse (and
@@ -1312,8 +1429,13 @@ def vit_kernel_times(q, k, v, gen, flush):
         nbytes = ((q_rows + outs) * s + 2 * kv) * bh * d * 2 \
             + (1 if key == "fwd" else 2) * bh * s * 4
         bound_s = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS)
+        if variant == "sm90":  # the mma.sync kernel it replaces, in turns
+            timed_ = fwd_turns(lambda var: flash_attention_cuda(
+                q, k, v, False, k_valid=kv, _variant=var), flush)
+        else:
+            timed_ = {"ms": median_ms(fn, flush, reps=10)}
         rows[key] = {
-            "ms": median_ms(fn, flush, reps=10),
+            **timed_, "variant": variant,
             "plain_ms": median_ms(plain, flush, reps=3, warmup=1),
             "library_ms": library_ms,
             "bound_ms": bound_s * 1e3,
@@ -1321,7 +1443,7 @@ def vit_kernel_times(q, k, v, gen, flush):
             >= flops / BF16_FLOPS else "operations",
             "flops": flops, "bytes": nbytes}
         rows[key]["share_of_bound"] = rows[key]["bound_ms"] / rows[key]["ms"]
-        emit(phase="vit_kernel", kernel=key, variant="mma", dtype="bfloat16",
+        emit(phase="vit_kernel", kernel=key, dtype="bfloat16",
              shape=[bh, s, d], k_valid=kv, causal=False, **rows[key],
              library="F.scaled_dot_product_attention at [128, 4, 196, 48]"
                      + (" (forward)" if key == "fwd" else
@@ -1349,9 +1471,11 @@ def phase_vit_kernel(flush):
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype).removeprefix("torch.")
         q, k, v = qkv(bh, s, s, d, dtype)
-        errs["k3"] = max(errs["k3"], k3_check(
-            f"vit_{tag}", q, k, v, causal=False, k_valid=VIT_TOKENS,
-            phase="vit_kernel"))
+        for var in k3_variants(dtype, d):
+            errs["k3"] = max(errs["k3"], k3_check(
+                f"vit_{tag}" if var is None else f"vit_{tag}_{var}", q, k, v,
+                causal=False, k_valid=VIT_TOKENS, phase="vit_kernel",
+                variant=var))
         for key, err in k45_check(f"vit_{tag}", q, k, v, gen, causal=False,
                                   k_valid=VIT_TOKENS,
                                   phase="vit_kernel").items():
@@ -1359,6 +1483,12 @@ def phase_vit_kernel(flush):
         if dtype == torch.bfloat16:
             times = vit_kernel_times(q, k, v, gen, flush)
         del q, k, v
+        # the same ragged queries at block_k 128 (sm90 in bf16): a query
+        # tail tile (192 = 128 + 64 rows) under TMA's bounds, 384 keys
+        q, k, v = qkv(64, 192, 384, d, dtype)
+        errs["k3"] = max(errs["k3"], k3_check(
+            f"vit_ragged_block128_{tag}", q, k, v, causal=True, k_offset=64,
+            fully_masked_rows=64, phase="vit_kernel"))
         q, k, v = qkv(64, 192, 320, d, dtype)
         errs["k3"] = max(errs["k3"], k3_check(
             f"vit_ragged_{tag}", q, k, v, causal=True, k_offset=64,
@@ -1384,6 +1514,9 @@ COVERAGE_BH, COVERAGE_S = 16, 512
 COVERAGE_MASKS = dict(causal=True, q_offset=0, k_offset=64, k_valid=448)
 COVERAGE_DEAD_ROWS = 64
 WIDE_HEADS, WIDE_HEAD_DIM = 2, 256     # lm_flash with num_heads=2
+# the variants K3, K4 and K5 take there in bf16: the sm90 forward, the
+# mma.sync backward (the sm90 backward is at 64 and 128 only)
+WIDE_VARIANTS = ("sm90", "mma", "mma")
 
 
 def dtype_name(dtype) -> str:
@@ -1455,8 +1588,14 @@ def attention_times(q, k, v, gen, flush, *, causal, q_offset=0, k_offset=0,
         ins = (3 if key == "fwd" else 4)          # q, k, v (and do)
         nbytes = (ins + outs) * bh * s * d * el + \
             (1 if key == "fwd" else 2) * bh * s * 4   # lse (and delta)
+        if key == "fwd" and variant == "sm90":  # and mma.sync, in turns
+            timed_ = fwd_turns(lambda var: flash_attention_cuda(
+                q, k, v, causal, q_offset, k_offset, k_valid=k_valid,
+                _variant=var), flush)
+        else:
+            timed_ = {"ms": median_ms(fn, flush, reps=10)}
         rows[key] = {
-            "ms": median_ms(fn, flush, reps=10),
+            **timed_,
             "plain_ms": median_ms(plain, flush, reps=3, warmup=1),
             "library_ms": library_ms,
             "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3,
@@ -1473,6 +1612,14 @@ def attention_times(q, k, v, gen, flush, *, causal, q_offset=0, k_offset=0,
                      f"{list(q4.shape)}" + (" (forward)" if key == "fwd"
                                            else ": its whole backward"))
     return rows
+
+
+def k3_variants(dtype, d: int) -> tuple:
+    """The K3 variants to check at a shape: the one it picks (None), and
+    ``"mma"`` beside it where it picks sm90."""
+    from ddw_tpu_torch.ops.flash_attention import _fwd_variant
+
+    return (None, "mma") if _fwd_variant(dtype, d, 128) == "sm90" else (None,)
 
 
 def phase_coverage(flush):
@@ -1502,9 +1649,13 @@ def phase_coverage(flush):
                                    generator=gen).to(dtype)
                        for _ in range(3))
             name = f"coverage_{dtype_name(dtype)}_d{d}"
-            errs["k3"] = max(errs["k3"], k3_check(
-                name, q, k, v, fully_masked_rows=COVERAGE_DEAD_ROWS,
-                phase="coverage", **COVERAGE_MASKS))
+            # where sm90 takes the shape, mma.sync is held to the plain
+            # version too: it still runs 16-bit blocks other than 128
+            for var in k3_variants(dtype, d):
+                errs["k3"] = max(errs["k3"], k3_check(
+                    name if var is None else f"{name}_{var}", q, k, v,
+                    fully_masked_rows=COVERAGE_DEAD_ROWS, phase="coverage",
+                    variant=var, **COVERAGE_MASKS))
             for key, e in k45_check(name, q, k, v, gen,
                                     fully_masked_rows=COVERAGE_DEAD_ROWS,
                                     phase="coverage",
@@ -1513,8 +1664,9 @@ def phase_coverage(flush):
             rows = attention_times(q, k, v, gen, flush, **COVERAGE_MASKS)
             cases.append({"dtype": dtype_name(dtype), "head_dim": d,
                           **{key: {f: rows[key][f] for f in (
-                              "ms", "plain_ms", "library_ms", "bound_ms",
-                              "variant", "compiled_width")}
+                              "ms", "ms_mma", "plain_ms", "library_ms",
+                              "bound_ms", "variant", "compiled_width")
+                              if f in rows[key]}
                              for key in rows}})
             for c, kern in zip(counters, ("k3", "k4", "k5")):
                 for var, n in c.launches_by_variant.items():
@@ -1530,8 +1682,10 @@ def phase_coverage(flush):
                                device="cuda", generator=gen).bfloat16()
                    for _ in range(3))
         if key == "scoring":
-            errs["k3"] = max(errs["k3"], k3_check(
-                "wide_scoring", q, k, v, causal=True, phase="coverage"))
+            for var in k3_variants(q.dtype, WIDE_HEAD_DIM):
+                errs["k3"] = max(errs["k3"], k3_check(
+                    "wide_scoring" if var is None else f"wide_scoring_{var}",
+                    q, k, v, causal=True, phase="coverage", variant=var))
         else:
             for k_, e in k45_check("wide_training", q, k, v, gen,
                                    causal=True, phase="coverage").items():
@@ -1850,12 +2004,12 @@ def phase_lm_wide(tmp: str) -> dict:
     heads make a 2 GiB score matrix, which the default thresholds send to
     ``xla_ckpt``). ``save_lm_package`` -> ``LMPackagedModel`` ->
     ``LMBatchScorer`` over a 64 x 2,049 ``tokens_i32`` table: 6 K3
-    launches, all ``mma``, the NLLs within WIDE_NLL_TOL of the xla tier's
+    launches, all ``sm90``, the NLLs within WIDE_NLL_TOL of the xla tier's
     on the same weights. ``LMTrainer.fit_tables``, 3 steps at 32 x 2,048
-    and one val batch: 6 K3 + 6 K4 + 6 K5 a step and 6 K3 a val batch, all
-    ``mma``; one step from the seeded weights, its loss and per-leaf
-    gradients against the xla tier's step (BF16_LOSS_TOL,
-    BF16_GRAD_RMS_TOL)."""
+    and one val batch: 6 K3 + 6 K4 + 6 K5 a step and 6 K3 a val batch, K3
+    on ``sm90``, K4 and K5 on ``mma``; one step from the seeded weights,
+    its loss and per-leaf gradients against the xla tier's step
+    (BF16_LOSS_TOL, BF16_GRAD_RMS_TOL)."""
     import numpy as np
     import torch
 
@@ -1915,9 +2069,9 @@ def phase_lm_wide(tmp: str) -> dict:
         rows = scorer.score_table(table)
         score_s = time.perf_counter() - t0
         k3_scoring = by_variant()[0]
-        check(counts()[0] == depth and k3_scoring["mma"] == depth,
+        check(counts()[0] == depth and k3_scoring["sm90"] == depth,
               f"scoring 64 rows launched K3 {k3_scoring}: expected {depth}, "
-              f"all mma (head dim 256)")
+              f"all sm90 (head dim 256)")
         nll = np.array([v for _, v in rows])
         check(len(rows) == LM_BATCH and bool(np.isfinite(nll).all()),
               "64 finite NLLs")
@@ -1963,10 +2117,11 @@ def phase_lm_wide(tmp: str) -> dict:
         emit(phase="lm_wide", arm="training", fit_seconds=fit_s,
              history=res.history, launches=list(launches),
              launches_by_variant=variants, expected=list(want))
-        check(launches == want and all(v["mma"] == n for v, n in
-                                       zip(variants, launches)),
+        check(launches == want and all(
+            v[var] == n for v, n, var in zip(variants, launches,
+                                             WIDE_VARIANTS)),
               f"fit launches K3/K4/K5 {launches} {variants}: expected "
-              f"{want}, all mma")
+              f"{want}, K3 on sm90, K4 and K5 on mma")
         check(all(np.isfinite([r["loss"], r["val_loss"]]).all()
                   for r in res.history), "finite train and val losses")
         out.update(train_launches=launches, train_by_variant=variants,
@@ -1981,8 +2136,10 @@ def phase_lm_wide(tmp: str) -> dict:
         zero_counts()
         loss_k, g_k = lm_grads(lm_cfg, params, inputs, targets)
         check(counts() == (depth, depth, depth)
-              and by_variant()[1]["mma"] == depth,
-              f"the kernel step ran 6 K3, 6 K4, 6 K5 on mma {by_variant()}")
+              and all(v[var] == depth for v, var in zip(by_variant(),
+                                                        WIDE_VARIANTS)),
+              f"the kernel step ran 6 K3 on sm90, 6 K4 and 6 K5 on mma "
+              f"{by_variant()}")
         tier(kernel=False)
         loss_x, g_x = lm_grads(lm_cfg, params, inputs, targets)
         check(counts() == (depth, depth, depth), "the xla step ran no kernel")
@@ -4293,8 +4450,8 @@ def phase_vision(tmp: str) -> dict:
     f32 (TF32 off); images/s trained and scored. ViT runs at the default
     attention thresholds (the xla tier, as the reference: no flash launch)
     and again in a child process with both thresholds at 0, where K3 must
-    launch 6 times per forward and K4 and K5 6 times each per train step,
-    all on mma. Against the default run: the one-step loss and every
+    launch 6 times per forward, all on sm90, and K4 and K5 6 times each per
+    train step, all on mma. Against the default run: the one-step loss and every
     leaf's gradient from the same weights and batch within lm_train's bf16
     bounds (5e-3 relative, 5e-2 RMS gap over RMS), each epoch's train and
     val loss of the fit within 2e-2 relative, the logits of the package it
@@ -4422,16 +4579,18 @@ def phase_vision(tmp: str) -> dict:
     check(hist[-1]["loss"] < hist[0]["loss"],
           f"vit (kernel tier): last epoch's loss {hist[-1]['loss']:.4f} "
           f"below the first's {hist[0]['loss']:.4f}")
-    check(st["k3"] == {"total": 6, "sm90": 0, "mma": 6, "cuda_cores": 0}
+    check(st["k3"] == {"total": 6, "sm90": 6, "mma": 0, "cuda_cores": 0}
           and st["k4"]["mma"] == st["k4"]["total"] == 6
           and st["k5"]["mma"] == st["k5"]["total"] == 6,
-          f"one ViT train step: 6 K3 + 6 K4 + 6 K5 launches, all mma: {st}")
-    check(all(tc[k]["total"] == tc[k]["mma"] == n
+          f"one ViT train step: 6 K3 (sm90) + 6 K4 + 6 K5 (mma) launches: "
+          f"{st}")
+    check(all(tc[k]["total"] == tc[k][VIT_VARIANTS[k]] == n
               for k, n in exp_train.items()),
-          f"ViT Trainer.fit: {exp_train} launches, all mma: {tc}")
-    check(sc["k3"]["total"] == sc["k3"]["mma"] == 6 * forwards
+          f"ViT Trainer.fit: {exp_train} launches, K3 on sm90 and K4, K5 "
+          f"on mma: {tc}")
+    check(sc["k3"]["total"] == sc["k3"]["sm90"] == 6 * forwards
           and sc["k4"]["total"] == sc["k5"]["total"] == 0,
-          f"ViT scoring: 6 K3 launches per forward of 128, all mma: {sc}")
+          f"ViT scoring: 6 K3 launches per forward of 128, all sm90: {sc}")
     check(rel <= BF16_LOSS_TOL, f"ViT one-step loss through K3-K5 within "
           f"{BF16_LOSS_TOL} of the xla tier's ({rel:.3g})")
     check(g_rms <= BF16_GRAD_RMS_TOL,
@@ -4564,12 +4723,13 @@ def wide_and_coverage(wide: dict, coverage: dict, key: str, idx: int) -> dict:
     line: times beside bound, plain and SDPA, launches by variant and
     dtype."""
     shape = "scoring" if key == "fwd" else "training"
-    fields = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-              "variant", "compiled_width", "share_of_bound")
+    fields = ("ms", "ms_mma", "turns_ms", "plain_ms", "library_ms",
+              "bound_ms", "bound_by", "variant", "compiled_width",
+              "share_of_bound")
     kern = ("k3", "k4", "k5")[idx]
+    wide_row = coverage["wide"][shape][key]
     return {
-        "at_head_dim_256": {f: coverage["wide"][shape][key][f]
-                            for f in fields},
+        "at_head_dim_256": {f: wide_row[f] for f in fields if f in wide_row},
         "coverage": [{"dtype": c["dtype"], "head_dim": c["head_dim"],
                       **c[key]} for c in coverage["cases"]],
         "max_abs_err_coverage": coverage["errs"][
@@ -4601,8 +4761,10 @@ def vit_variants(vision: dict, kern: str) -> dict:
 
 def at_vit_shape(row: dict) -> dict:
     return {"shape": [VIT_BATCH * VIT_HEADS, VIT_PADDED, VIT_HEAD_DIM],
-            "k_valid": VIT_TOKENS, "causal": False, "variant": "mma",
-            **{k: row[k] for k in ("ms", "plain_ms", "library_ms",
+            "k_valid": VIT_TOKENS, "causal": False,
+            **{k: row[k] for k in ("variant", *(("ms_mma", "turns_ms")
+                                                if "ms_mma" in row else ()),
+                                   "ms", "plain_ms", "library_ms",
                                    "bound_ms", "bound_by",
                                    "share_of_bound")}}
 
@@ -5692,14 +5854,30 @@ def phase_fleet(tmp: str, ctx: dict, serve: dict) -> dict:
         # sends the drill to child 1 while it stands (a cached prefix on
         # child 0 would outbid it); once its circuit opens the retries go
         # to child 0
+        # The router still gives child 0 a request whose projected wait
+        # there is shorter (child 1's load is read from its last health
+        # poll, which can still show its warm replay): each round first
+        # polls child 1 until it reads idle, and a round no request of
+        # which reached child 1 (no retry) is sent again with fresh
+        # prompts, at most three times.
+        def child1_idle():
+            reps[1].health()              # a fresh poll behind load()
+            load = reps[1].load()
+            return load["depth"] + load["busy"] == 0
+
         rng = np.random.RandomState(SEED + 44)
-        crash_prompts = [rng.randint(0, LM_CFG["vocab_size"], len(p)).astype(
-            np.int32) for p in prompts[:8]]
         pgw.replica_set.set_canary(1, 1.0)
-        t0 = time.perf_counter()
         try:
-            cmix = fleet_mix(pgw.port, crash_prompts, steps[:8],
-                             stream=False)
+            for drill_round in range(1, 4):
+                crash_prompts = [rng.randint(0, LM_CFG["vocab_size"], len(
+                    p)).astype(np.int32) for p in prompts[:8]]
+                await_cond(child1_idle, 60.0, "child 1 reads idle",
+                           reps[1].load)
+                t0 = time.perf_counter()
+                cmix = fleet_mix(pgw.port, crash_prompts, steps[:8],
+                                 stream=False)
+                if cmix["retries"] or cmix["errors"]:
+                    break
         finally:
             pgw.replica_set.clear_canary()
         restart_s = time.perf_counter() - t0 + await_cond(
@@ -5723,6 +5901,7 @@ def phase_fleet(tmp: str, ctx: dict, serve: dict) -> dict:
                  for a in pgw.supervisor.attempts]
         out.update(restart_s=restart_s)
         emit(phase="fleet", arm="supervision", restart_s=restart_s,
+             drill_rounds=drill_round,
              attempts=kinds[-4:], exit_code=reps[1].last_exit_code,
              generation=reps[1].generation, client_retries=cmix["retries"],
              **ctie)
@@ -6790,7 +6969,7 @@ def main() -> int:
             seconds[label] = round(time.perf_counter() - t0, 3)
 
     name, smi = timed("device", phase_device)
-    timed("build", phase_build)
+    sm90_build = timed("build", phase_build)
     decoder = timed("decode", phase_decode)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     torch.backends.cudnn.allow_tf32 = False
@@ -6959,10 +7138,15 @@ def main() -> int:
         "per": "one bf16 causal call at [512, 2048, 64]: one layer of a "
                "64-row LM scoring batch; ms_mma is the mma.sync kernel it "
                "replaces on this path, timed in turns with it",
+        "variant_widths": "sm90 at bf16 and f16, block_k 128, every head "
+                          "dim up to 256 that is a multiple of 8 (compiled "
+                          "widths 64, 128, 256: ViT's 48 at 64, lm_wide's "
+                          "256 at 256)",
+        "sm90_build": sm90_build,
         "other_variants": {
             "mma": "ddw_tpu_torch/ops/csrc/flash_attention.cu "
-                   "(bf16 and f16, block_k a multiple of 16, every other "
-                   "head dim up to 256: ViT's 48, lm_wide's 256)",
+                   "(bf16 and f16, block_k another multiple of 16, or a "
+                   "head dim up to 256 that is not a multiple of 8)",
             "cuda_cores": "ddw_tpu_torch/ops/csrc/flash_attention.cu "
                           "(f32, other 16-bit blocks, head dims above 256)"},
         "at_train_shape": {k: k3_times["training"][k] for k in (

@@ -10,14 +10,16 @@ package's ``[B, H, S, D]`` layout at the public entries:
   2.75e11 FLOP against 537 MB). Like the TPU kernel it takes any head dim
   and float32, bfloat16 or float16. Three variants, chosen by shape in
   :func:`_fwd_variant`: ``sm90`` (``csrc/flash_fwd_sm90.cu``: TMA loads fed
-  by a producer warp, ``wgmma`` on two consumer warpgroups) for bf16 with
-  ``block_k`` = 128 at head dim 64 or 128, the main path's attention; ``mma``
-  (``mma.sync`` in ``csrc/flash_attention.cu``) for bf16 and f16 at every
-  other head dim up to 256 with ``block_k`` a multiple of 16; ``cuda_cores``
-  (the same file) for f32, for 16-bit blocks of other sizes and for head
-  dims above 256. The head dim is rounded up to a compiled width inside the
-  kernels (:data:`_MMA_WIDTHS`, :data:`_CC_WIDTHS`), the tail zero-filled in
-  shared memory, never padded here. The design notes are in the sources.
+  by a producer warp, ``wgmma`` on two consumer warpgroups) for bf16 and f16
+  with ``block_k`` = 128 at every head dim up to 256 that is a multiple of 8,
+  the main path's attention (the LM's 64, the lm_wide path's 256, ViT's 48);
+  ``mma`` (``mma.sync`` in ``csrc/flash_attention.cu``) for the other bf16
+  and f16 shapes up to head dim 256 with ``block_k`` a multiple of 16;
+  ``cuda_cores`` (the same file) for f32, for 16-bit blocks of other sizes
+  and for head dims above 256. The head dim is rounded up to a compiled
+  width inside the kernels (:func:`compiled_width`), never padded here: the
+  ``sm90`` tensor maps zero-fill the columns past it, the others zero-fill
+  them in shared memory. The design notes are in the sources.
 - :func:`flash_attention_dq_cuda` (K4) and :func:`flash_attention_dkv_cuda`
   (K5) launch the backward kernels, which replace ``_dq_kernel`` and
   ``_dkv_kernel`` (``_partitioned_bwd``): dQ, and dK/dV, from the saved
@@ -70,8 +72,13 @@ _MMA_WIDTHS = (16, 32, 48, 64, 96, 128, 256)
 _MMA_MAX_HEAD_DIM = _MMA_WIDTHS[-1]
 _CC_WIDTHS = (16, 32, 64)
 _KERNEL_MAX_BLOCK_K = 128
-_SM90_HEAD_DIMS = (64, 128)
+# K3's sm90 kernel: compiled for head dims 64, 128 and 256 (a multiple of
+# _SM90_HEAD_DIM_STEP up to 256 runs at the next; csrc/flash_fwd_sm90.cu
+# sm90_width), block_k 128. K4's and K5's: bf16 at 64 and 128 only.
+_SM90_WIDTHS = (64, 128, 256)
+_SM90_HEAD_DIM_STEP = 8
 _SM90_BLOCK_K = 128
+_SM90_BWD_HEAD_DIMS = (64, 128)
 _FWD_VARIANTS = ("sm90", "mma", "cuda_cores")
 _BWD_VARIANTS = _FWD_VARIANTS
 
@@ -320,13 +327,15 @@ def _sm90_lib() -> ctypes.CDLL:
     from ddw_tpu_torch.ops import _build
 
     lib = _build.load("flash_fwd_sm90.cu")
-    # q, k, v, out, lse; bh, sq, sk, d, causal, q_offset, k_offset;
+    # q, k, v, out, lse; bh, sq, sk, d, dtype, causal, q_offset, k_offset;
     # sm_scale; k_valid; the stream
     lib.ddw_flash_fwd_sm90.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float,
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float,
                                                      ctypes.c_int,
                                                      ctypes.c_void_p])
     lib.ddw_flash_fwd_sm90.restype = ctypes.c_int
+    lib.ddw_flash_fwd_sm90_smem.argtypes = [ctypes.c_int]
+    lib.ddw_flash_fwd_sm90_smem.restype = ctypes.c_int
     return lib
 
 
@@ -347,16 +356,17 @@ def _sm90_bwd_lib() -> ctypes.CDLL:
 
 def _fwd_variant(dtype: torch.dtype, head_dim: int, block_k: int) -> str:
     """Which K3 kernel a forward of this shape launches: ``"sm90"`` (TMA and
-    ``wgmma``, ``csrc/flash_fwd_sm90.cu``) for bf16 with ``block_k`` = 128 at
-    head dim 64 or 128 (a 96-byte row of head dim 48 fits no TMA swizzle
-    mode; f16 never); ``"mma"`` (``mma.sync``) for bf16 and f16 with
-    ``block_k`` a multiple of 16 at every other head dim up to 256;
-    ``"cuda_cores"`` for f32, for 16-bit blocks that are not multiples of 16
-    and for head dims above 256."""
+    ``wgmma``, ``csrc/flash_fwd_sm90.cu``) for bf16 and f16 with ``block_k``
+    = 128 at every head dim up to 256 that is a multiple of 8 (a row of
+    ``head_dim * 2`` bytes is then 16-byte aligned, as a tensor map needs;
+    the 64-column boxes read zeros past the row's end, so a 96-byte row of
+    head dim 48 runs at width 64); ``"mma"`` (``mma.sync``) for the other
+    bf16 and f16 shapes with ``block_k`` a multiple of 16 up to head dim
+    256; ``"cuda_cores"`` for f32, for 16-bit blocks that are not multiples
+    of 16 and for head dims above 256."""
     if dtype in _HALF_DTYPES and block_k % 16 == 0 and \
             head_dim <= _MMA_MAX_HEAD_DIM:
-        if dtype == torch.bfloat16 and block_k == _SM90_BLOCK_K and \
-                head_dim in _SM90_HEAD_DIMS:
+        if block_k == _SM90_BLOCK_K and head_dim % _SM90_HEAD_DIM_STEP == 0:
             return "sm90"
         return "mma"
     return "cuda_cores"
@@ -370,7 +380,7 @@ def _bwd_variant(dtype: torch.dtype, head_dim: int) -> str:
     ``"cuda_cores"`` for f32 and for head dims above 256. The kernels pick
     their own tiles, so no block size enters."""
     if dtype in _HALF_DTYPES and head_dim <= _MMA_MAX_HEAD_DIM:
-        if dtype == torch.bfloat16 and head_dim in _SM90_HEAD_DIMS:
+        if dtype == torch.bfloat16 and head_dim in _SM90_BWD_HEAD_DIMS:
             return "sm90"
         return "mma"
     return "cuda_cores"
@@ -380,14 +390,16 @@ def compiled_width(variant: str, head_dim: int) -> int:
     """The head dim a variant's kernel is compiled for and stages at (the
     columns past ``head_dim`` zero-filled in shared memory): the next of
     :data:`_MMA_WIDTHS` on ``mma``, 16 or 32 on ``cuda_cores`` up to 32 and
-    whole slabs of 64 above, ``head_dim`` itself on ``sm90``."""
+    whole slabs of 64 above, the next of :data:`_SM90_WIDTHS` (64, 128 or
+    256) on ``sm90``, K3's forward; K4's and K5's ``sm90`` kernels take 64
+    and 128 only, at their own width."""
     if variant == "mma":
         return next(w for w in _MMA_WIDTHS if w >= head_dim)
     if variant == "cuda_cores":
         if head_dim <= _CC_WIDTHS[-2]:
             return next(w for w in _CC_WIDTHS if w >= head_dim)
         return -(-head_dim // _CC_WIDTHS[-1]) * _CC_WIDTHS[-1]
-    return head_dim
+    return next(w for w in _SM90_WIDTHS if w >= head_dim)
 
 
 def _check_kernel_inputs(q, k, v, *extra) -> None:
@@ -491,8 +503,9 @@ def flash_attention_cuda(q, k, v, causal: bool = False, q_offset: int = 0,
         if variant == "sm90":
             err = _sm90_lib().ddw_flash_fwd_sm90(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), bh, sq, sk, d, int(causal), q_offset,
-                k_offset, scale, kv, _stream(q.device))
+                lse.data_ptr(), bh, sq, sk, d, _KERNEL_DTYPES[q.dtype],
+                int(causal), q_offset, k_offset, scale, kv,
+                _stream(q.device))
         else:
             err = _kernel_lib().ddw_flash_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -239,17 +239,30 @@ def test_flash_mha_pallas_takes_any_head_dim(d):
 def test_compiled_widths_match_the_cuda_source():
     """ops/flash_attention.py names the head dims the CUDA kernels are
     compiled for (compiled_width); csrc/flash_common.cuh's mma_width and
-    cc_width hold the same ladders."""
-    src = open(os.path.join(REPO, "ddw_tpu_torch", "ops", "csrc",
-                            "flash_common.cuh")).read()
+    cc_width, and csrc/flash_fwd_sm90.cu's sm90_width and the head dims its
+    C entry takes, hold the same ladders."""
+    csrc = os.path.join(REPO, "ddw_tpu_torch", "ops", "csrc")
+    src = open(os.path.join(csrc, "flash_common.cuh")).read()
+    sm90 = open(os.path.join(csrc, "flash_fwd_sm90.cu")).read()
 
-    def ladder(fn):
-        body = re.search(fn + r"\(int d\) \{(.*?)\}", src, re.S).group(1)
+    def ladder(fn, text=src):
+        body = re.search(fn + r"\(int d\) \{(.*?)\}", text, re.S).group(1)
         return tuple(int(x) for x in re.findall(r"\? (\d+)", body)) + (
             int(re.search(r": (\d+);", body).group(1)),)
 
     assert ladder("mma_width") == tfa._MMA_WIDTHS
     assert ladder("cc_width") == tfa._CC_WIDTHS
+    assert ladder("sm90_width", sm90) == tfa._SM90_WIDTHS
+    # the widths each part instantiates, and the entry's bounds on d
+    assert tuple(int(w) for w in re.findall(r"case (\d+): return run<\1>",
+                                            sm90)) + (256,) == \
+        tfa._SM90_WIDTHS
+    assert int(re.search(r"kMaxD = (\d+);", sm90).group(1)) == \
+        tfa._SM90_WIDTHS[-1] == tfa._MMA_MAX_HEAD_DIM
+    assert "d % 8 != 0" in sm90 and tfa._SM90_HEAD_DIM_STEP == 8
+    assert [tfa.compiled_width("sm90", d) for d in (8, 40, 64, 80, 96, 128,
+                                                    136, 256)] == \
+        [64, 64, 64, 128, 128, 128, 256, 256]
     assert int(re.search(r"kMmaMaxD = (\d+);", src).group(1)) == \
         tfa._MMA_MAX_HEAD_DIM
     assert [tfa.compiled_width("mma", d) for d in (1, 16, 17, 40, 80, 96,

@@ -236,14 +236,23 @@ def test_a_source_in_parts_compiles_each_then_links(tmp_path, monkeypatch):
 
 
 def test_flash_sources_declare_the_parts_their_entries_ask():
-    """The two flash sources build in as many parts as flash_common.cuh's
-    kParts, whose entries each part answers; the others build whole."""
+    """The two mma.sync / CUDA-core flash sources build in as many parts as
+    flash_common.cuh's kParts, whose entries each part answers; the sm90
+    forward in as many as its entry asks, one a compiled width; the others
+    build whole."""
     with open(os.path.join(_build.CSRC, "flash_common.cuh")) as f:
         k_parts = int(re.search(r"constexpr int kParts = (\d+);",
                                 f.read()).group(1))
+    with open(os.path.join(_build.CSRC, "flash_fwd_sm90.cu")) as f:
+        sm90 = f.read()
+    sm90_parts = len(set(re.findall(r"int ddw_flash_fwd_sm90_part(\d+)\(",
+                                    sm90)))
+    # the widths the entry dispatches: each case, and the default (256)
+    assert sm90_parts == len(re.findall(r"case \d+: return run<", sm90)) + 1
     for src in sorted(os.listdir(_build.CSRC)):
         if src.endswith(".cu"):
-            want = k_parts if src.startswith("flash_attention") else 1
+            want = (k_parts if src.startswith("flash_attention") else
+                    sm90_parts if src == "flash_fwd_sm90.cu" else 1)
             assert _build.parts(src) == want, src
 
 

@@ -308,32 +308,41 @@ def test_plain_forward_bits_do_not_depend_on_block_q(dtype, causal, q_offset,
 
 def test_forward_variant_by_shape():
     """K3's kernel is a pure function of (dtype, head dim, block_k): sm90
-    (TMA, wgmma) for bf16 at block_k 128 and head dim 64 or 128, mma.sync
-    for other bf16 and f16 multiples of 16 at head dims up to 256, CUDA
-    cores for f32, for other 16-bit blocks and above head dim 256. f16
-    never takes sm90. The LM's S = 2,048 takes sm90."""
+    (TMA, wgmma) for bf16 and f16 at block_k 128 and every head dim up to
+    256 that is a multiple of 8, mma.sync for the other bf16 and f16 blocks
+    of multiples of 16 at head dims up to 256, CUDA cores for f32, for other
+    16-bit blocks and above head dim 256. The LM's S = 2,048 takes sm90; a
+    short sequence's smaller block takes mma.sync."""
     bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
-    for d in (1, 16, 40, 64, 80, 96, 128, 200, 256):
-        assert tfa._fwd_variant(f16, d, 128) == "mma"
-        assert tfa._fwd_variant(f16, d, 40) == "cuda_cores"
+    for d in range(8, 257, 8):  # 16, 40, 48, 80, 96, 256 among them
+        for dtype in (bf, f16):
+            assert tfa._fwd_variant(dtype, d, 128) == "sm90"
+            assert tfa._fwd_variant(dtype, d, 64) == "mma"
+            assert tfa._fwd_variant(dtype, d, 40) == "cuda_cores"
         assert tfa._fwd_variant(f32, d, 128) == "cuda_cores"
-        if d not in (64, 128):
-            assert tfa._fwd_variant(bf, d, 128) == "mma"
+    for d in (1, 12, 36, 100, 200 + 4, 255):  # not multiples of 8
+        for dtype in (bf, f16):
+            assert tfa._fwd_variant(dtype, d, 128) == "mma"
+            assert tfa._fwd_variant(dtype, d, 48) == "mma"
     for dtype in (bf, f16, f32):
         assert tfa._fwd_variant(dtype, 257, 128) == "cuda_cores"
+        assert tfa._fwd_variant(dtype, 264, 128) == "cuda_cores"
         assert tfa._fwd_variant(dtype, 512, 64) == "cuda_cores"
-    assert tfa._fwd_variant(bf, 64, 128) == "sm90"
-    assert tfa._fwd_variant(bf, 128, 128) == "sm90"
-    assert tfa._fwd_variant(bf, 32, 128) == "mma"
     assert tfa._fwd_variant(bf, 64, 48) == "mma"
     assert tfa._fwd_variant(bf, 64, 64) == "mma"
     assert tfa._fwd_variant(bf, 64, 40) == "cuda_cores"
-    assert tfa._fwd_variant(f32, 64, 128) == "cuda_cores"
     assert tfa._fwd_variant(f32, 64, 48) == "cuda_cores"
-    block = tfa._pick_block(2048, 128, bf)
-    assert block == 128 and tfa._fwd_variant(bf, 64, block) == "sm90"
-    # a short sequence pads to a smaller block and stays on mma.sync
-    assert tfa._fwd_variant(bf, 64, tfa._pick_block(100, 128, bf)) == "mma"
+    for dtype in (bf, f16):
+        block = tfa._pick_block(2048, 128, dtype)
+        assert block == 128 and tfa._fwd_variant(dtype, 64, block) == "sm90"
+        assert tfa._fwd_variant(dtype, 256, block) == "sm90"
+        # a short sequence pads to a smaller block and stays on mma.sync
+        assert tfa._fwd_variant(dtype, 64, tfa._pick_block(
+            100, 128, dtype)) == "mma"
+    # the sm90 forward's compiled widths
+    assert [tfa.compiled_width("sm90", d) for d in (8, 16, 48, 64, 72, 128,
+                                                    136, 256)] == \
+        [64, 64, 64, 64, 128, 128, 256, 256]
 
 
 def test_forward_counts_reset_and_refuse_bad_variants():
@@ -352,8 +361,9 @@ def test_forward_counts_reset_and_refuse_bad_variants():
     assert tfa._forced_variant(bf, 64, 128, None) == "sm90"
     assert tfa._forced_variant(bf, 64, 128, "mma") == "mma"
     assert tfa._forced_variant(bf, 64, 48, "mma") == "mma"
+    assert tfa._forced_variant(torch.float16, 256, 128, "mma") == "mma"
     for args in ((bf, 64, 48, "sm90"), (torch.float32, 64, 128, "sm90"),
-                 (bf, 64, 128, "cuda_cores"), (bf, 32, 128, "sm90")):
+                 (bf, 64, 128, "cuda_cores"), (bf, 36, 128, "sm90")):
         with pytest.raises(ValueError, match="cannot run"):
             tfa._forced_variant(*args)
 
@@ -718,20 +728,23 @@ def test_vit_attention_through_the_kernel_tier_matches_jax(monkeypatch):
 
 
 def test_head_dim_48_takes_mma_or_cuda_cores():
-    """Head dim 48 runs the mma.sync kernels in bf16 and the CUDA-core ones
-    in f32, forward and backward: the sm90 kernels stay at 64 and 128 (a
-    96-byte bf16 row fits no TMA swizzle mode), and forcing sm90 is
-    refused."""
+    """Head dim 48 (ViT's) runs the sm90 forward in bf16 at block_k 128 (its
+    96-byte rows read as 64-column boxes, zero past the row), the mma.sync
+    forward at other 16-bit blocks and the mma.sync backward; the CUDA-core
+    kernels in f32. The sm90 backward stays at 64 and 128, so forcing it is
+    refused, and mma.sync can be forced in place of the sm90 forward."""
     bf, f32 = torch.bfloat16, torch.float32
     assert tfa.compiled_width("mma", 48) == 48
-    assert tfa._fwd_variant(bf, 48, 128) == "mma"
+    assert tfa.compiled_width("sm90", 48) == 64
+    assert tfa._fwd_variant(bf, 48, 128) == "sm90"
     assert tfa._fwd_variant(bf, 48, 64) == "mma"
     assert tfa._fwd_variant(bf, 48, 40) == "cuda_cores"
     assert tfa._fwd_variant(f32, 48, 128) == "cuda_cores"
     assert tfa._bwd_variant(bf, 48) == "mma"
     assert tfa._bwd_variant(f32, 48) == "cuda_cores"
+    assert tfa._forced_variant(bf, 48, 128, "mma") == "mma"
     with pytest.raises(ValueError, match="cannot run"):
-        tfa._forced_variant(bf, 48, 128, "sm90")
+        tfa._forced_variant(bf, 48, 64, "sm90")
     with pytest.raises(ValueError, match="cannot run"):
         tfa._forced_bwd_variant(bf, 48, "sm90")
 

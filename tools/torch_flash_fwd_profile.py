@@ -4,6 +4,9 @@
     python3 tools/torch_flash_fwd_profile.py [--reps N] [--check-only]
                                              [--out DIR] [--head-dim D]
                                              [--dtype bfloat16|float16|float32]
+    python3 tools/torch_flash_fwd_profile.py --tree LABEL=DIR [--tree ...]
+                                             [--order L1,L2,L2,L1]
+                                             [--shapes 512x64 256x128 ...]
 
 Builds ``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_attention.cu`` (one
 ``nvcc`` each, together), prints ptxas's register, spill and shared-memory
@@ -29,6 +32,21 @@ and mma side by side only where sm90 takes it, else its one kernel), at
 [batch * 512 / D, 2048, D]: the LM's hidden width of 512 over D-wide heads,
 so the FLOPs of a call stay the LM's. Tolerances as ``chip_smoke.py``'s
 coverage phase: 2 ulp of the dtype or 1e-3 * max|v| (f32: 1e-5 * max|v|).
+
+``--tree LABEL=DIR`` (given twice or more) times K3 of several checkouts
+in turns instead: each DIR is the root of a checkout of this repository
+(``.`` for this one; another commit unpacked with ``git archive`` into a
+git-ignored directory, or a copy with an edited kernel). Every tree builds
+its own ``flash_fwd_sm90.cu`` (all at once, before any timing; the line
+counts ptxas's spill-free kernels and injected-fence notes), then each
+label of ``--order`` (default: each label, then each again in reverse)
+runs in a fresh process that imports that tree's ``ddw_tpu_torch`` and
+times ``flash_attention_cuda`` (the variant its own ``_fwd_variant``
+picks) at each ``BHxD`` shape of ``--shapes`` over 2,048 tokens in bf16,
+causal and non-causal, with this tool's timer (``--reps`` launches, 40 by
+default here). The last line before the card's name pairs the n-th run of
+each label with the n-th run of the first label and counts, for each
+shape, the pairs in which that label was faster.
 """
 
 from __future__ import annotations
@@ -163,12 +181,93 @@ def check_case(name, q, k, v, variant, *, causal, q_offset=0, k_offset=0,
         row.get("masked_rows_ok", True)
 
 
+TREE_SHAPES = ("512x64", "256x128", "128x256", "640x48")
+
+
+def tree_child(tree: str, label: str, shapes: list, reps: int) -> None:
+    """Time one tree's K3 (in a process of its own, which imports that
+    tree's package): one JSON line."""
+    sys.path.insert(0, tree)
+    import torch
+
+    from ddw_tpu_torch.ops import flash_attention as fa
+
+    if not fa.__file__.startswith(tree):
+        raise RuntimeError(f"imported {fa.__file__}, not the tree {tree}")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    row = {"phase": "tree", "label": label, "tree": tree}
+    for shape in shapes:
+        bh, d = (int(x) for x in shape.split("x"))
+        q, k, v = (torch.randn(bh, SEQ, d, device="cuda", generator=gen)
+                   .bfloat16() for _ in range(3))
+        row[f"{shape}_variant"] = fa._fwd_variant(q.dtype, d, 128)
+        for causal in (True, False):
+            row[f"{shape}_{'causal' if causal else 'noncausal'}_ms"] = \
+                median_ms(lambda: fa.flash_attention_cuda(q, k, v, causal),
+                          flush, reps)
+        del q, k, v
+    emit(**row)
+
+
+def tree_build(tree: str) -> dict:
+    """Build one tree's sm90 forward in a process of its own: seconds,
+    spill-free kernels and ptxas's injected-fence notes (C7519)."""
+    code = ("import json; from ddw_tpu_torch.ops import _build; "
+            "_, s, r = _build.build('flash_fwd_sm90.cu'); "
+            "print(json.dumps({'seconds': s, 'spill_free_kernels': "
+            "r.count(' 0 bytes spill stores, 0 bytes spill loads'), "
+            "'injected_fences': r.count('C7519')}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=tree,
+                         capture_output=True, text=True, check=True)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def compare_trees(specs: list, order: str | None, shapes: list,
+                  reps: int) -> dict:
+    """Build every tree, time each label of the order in a fresh process,
+    and count the pairs each label wins against the first."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    trees = {label: os.path.abspath(path)
+             for label, path in (t.split("=", 1) for t in specs)}
+    with ThreadPoolExecutor(len(trees)) as pool:
+        for label, report in zip(trees, pool.map(tree_build, trees.values())):
+            emit(phase="tree_build", label=label, **report)
+    labels = list(trees)
+    runs = {label: [] for label in labels}
+    for label in (order.split(",") if order else labels + labels[::-1]):
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--tree-child",
+             trees[label], label, "--shapes", *shapes, "--reps", str(reps)],
+            capture_output=True, text=True, check=True).stdout
+        print(out, end="", flush=True)
+        runs[label].append(next(row for row in map(json.loads,
+                                                   out.splitlines())
+                                if row.get("phase") == "tree"))
+    first = labels[0]
+    wins = {}
+    for label in labels[1:]:
+        pairs = list(zip(runs[first], runs[label]))
+        wins[label] = {key: sum(b[key] < a[key] for a, b in pairs)
+                       for key in runs[first][0] if key.endswith("_ms")}
+        wins[label]["pairs"] = len(pairs)
+    return {"against": first, "wins": wins}
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--reps", type=int, default=None,
+                    help="launches a median (default 20; 40 with --tree)")
+    ap.add_argument("--tree", action="append", default=[],
+                    metavar="LABEL=DIR")
+    ap.add_argument("--order", default=None)
+    ap.add_argument("--shapes", nargs="+", default=list(TREE_SHAPES))
+    ap.add_argument("--tree-child", nargs=2, metavar=("DIR", "LABEL"),
+                    help=argparse.SUPPRESS)
     ap.add_argument("--check-only", action="store_true")
     ap.add_argument("--out", default=os.path.join(
                         os.path.dirname(os.path.dirname(os.path.abspath(
@@ -178,9 +277,11 @@ def main() -> int:
     ap.add_argument("--dtype", default="bfloat16",
                     choices=("bfloat16", "float16", "float32"))
     args = ap.parse_args()
-    d_arg, dtype = args.head_dim, getattr(torch, args.dtype)
-    kernels = kernels_for(dtype, d_arg)
-    heads = max(1, HEADS * HEAD_DIM // d_arg)
+    if args.reps is None:
+        args.reps = 40 if args.tree or args.tree_child else 20
+    if args.tree_child:
+        tree_child(*args.tree_child, args.shapes, args.reps)
+        return 0
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 2
@@ -188,6 +289,16 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
+    if args.tree:
+        if len(args.tree) < 2:
+            ap.error("--tree needs two trees or more")
+        emit(phase="tree_wins", **compare_trees(
+            args.tree, args.order, args.shapes, args.reps))
+        print(smi, flush=True)
+        return 0
+    d_arg, dtype = args.head_dim, getattr(torch, args.dtype)
+    kernels = kernels_for(dtype, d_arg)
+    heads = max(1, HEADS * HEAD_DIM // d_arg)
     emit(phase="device", name=torch.cuda.get_device_name(0), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
 
