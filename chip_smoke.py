@@ -103,7 +103,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    runs at the default attention thresholds (the xla tier, as in the
    reference: no flash launch) and again in a child process with
    ``DDW_ATTN_XLA_PLAIN_MAX=0 DDW_ATTN_XLA_CKPT_MAX=0``: 6 K3 launches per
-   forward, all on sm90, and 6 K4 + 6 K5 per train step, all on mma;
+   forward and 6 K4 + 6 K5 per train step, all on sm90;
    against the xla
    tier from the same weights and batch, the one-step loss within 5e-3
    relative and every leaf's gradient within 5e-2 RMS gap over RMS (the
@@ -164,52 +164,63 @@ Phases, each printing one JSON line; any failure exits non-zero:
    (dK/dV), against their plain PyTorch versions on the same inputs (q, k,
    v, do, the forward's lse and delta = rowsum(do * out) - g_lse with a
    nonzero g_lse). Three variants, chosen by shape (``_bwd_variant``): sm90
-   (TMA and wgmma, ``flash_bwd_sm90.cu``) for bf16 at head dim 64 or 128,
-   mma (``mma.sync``) for bf16 at head dim 32, CUDA cores for f32. Cases:
-   the LM-training shape [256, 2048, 64] causal in bf16 (sm90, and mma
-   forced) and f32 (TF32 off), a ring hop's offset (query rows that see no
-   key must get exactly zero dq), non-causal at head dim 128, head dim 32
-   with a key mask, 100 queries at global 100 against 200 keys on the CUDA
-   cores (f32) and on sm90 (bf16: query and key tail tiles), and S=2047
-   padded through ``flash_mha``'s backward. f32 within 1e-5 * max|ref|,
-   bf16 within max(2 bf16 ulp, 5e-3 * max|ref|) elementwise; two launches
-   of each bit-identical, on the variant the case names. Times at [256,
-   2048, 64] bf16 causal (median of 10, L2 flushed) of the sm90 and mma
-   kernels in turns (sm90, mma, mma, sm90), and of the whole backward
-   (delta, K4, K5) on each, beside the bounds, the plain versions and the
-   backward of causal ``F.scaled_dot_product_attention`` (timed only, the
-   yardstick; one call gives dq, dk and dv).
+   (TMA and wgmma, ``flash_bwd_sm90.cu``) for bf16 and f16 at every head
+   dim up to 256 that is a multiple of 8 (compiled widths 64, 128, 256),
+   mma (``mma.sync``) for the other 16-bit head dims, CUDA cores for f32.
+   Wherever a shape takes sm90, mma is held to the plain version too
+   (``_variant="mma"``: it still runs the head dims that are not a
+   multiple of 8), and every sm90 case also launches once more into
+   NaN-filled buffers one compiled width longer than dq, dk and dv: the
+   same bits, the tails untouched (no column at or past d written). Cases:
+   the LM-training shape [256, 2048, 64] causal in bf16, f16 and f32 (TF32
+   off), a ring hop's offset (query rows that see no key must get exactly
+   zero dq), non-causal at head dim 128, head dim 32 with a key mask, 100
+   queries at global 100 against 200 keys on the CUDA cores (f32) and on
+   sm90 (bf16: query and key tail tiles), the sm90 widths' edges (head dim
+   256 with a key mask inside a 64-key block and query and key tail tiles,
+   a ring hop at head dim 256 in f16, head dims 48, 136 and 8: a box wholly
+   or mostly past d), and S=2047 padded through ``flash_mha``'s backward.
+   f32 within 1e-5 * max|ref|, bf16 and f16 within max(2 ulp of the dtype,
+   5e-3 * max|ref|) elementwise; two launches of each bit-identical, on the
+   variant the case names. Times at [256, 2048, 64] causal in bf16 and f16
+   (median of 10, L2 flushed) of the sm90 and mma kernels in turns (sm90,
+   mma, mma, sm90), and of the whole backward (delta, K4, K5) on each,
+   beside the bounds, the plain versions and the backward of causal
+   ``F.scaled_dot_product_attention`` (timed only, the yardstick; one call
+   gives dq, dk and dv).
 8b. vit_kernel — K3, K4 and K5 at ViT's shape: 196 tokens padded to 256
-   with k_valid 196, [512, 256, 48], non-causal, in bf16 (K3 on sm90 at
-   width 64, K4 and K5 on mma.sync) and f32 (CUDA cores), and two ragged
-   cases (192 queries against 384 keys at block_k 128, sm90 in bf16, and
-   against 320 keys at block_k 64, mma; k_offset 64, causal: the first
-   64-row block sees no key), each against its plain version with
-   lm_kernel's and lm_bwd_kernel's tolerances, two launches bit-identical,
-   every launch counted on its variant; K3 in bf16 at ViT's shape again on
-   mma forced. Times (median of 10, L2 flushed)
-   of one bf16 call of each at ViT's shape, K3's sm90 and mma kernels in
-   turns (sm90, mma, mma, sm90), beside the bound (the 256 x 196 pairs a
+   with k_valid 196, [512, 256, 48], non-causal, in bf16 (K3, K4 and K5 on
+   sm90 at width 64) and f32 (CUDA cores), and two ragged cases (192
+   queries against 384 keys at block_k 128, sm90 in bf16, and against 320
+   keys at block_k 64, K3 on mma; k_offset 64, causal: the first 64-row
+   block sees no key), each against its plain version with lm_kernel's and
+   lm_bwd_kernel's tolerances, two launches bit-identical, every launch
+   counted on its variant; every bf16 case again on mma forced where it
+   picks sm90. Times (median of 10, L2 flushed)
+   of one bf16 call of each at ViT's shape, the sm90 and mma kernels in
+   turns (sm90, mma, mma, sm90; for K4 and K5 also the whole backward),
+   beside the bound (the 256 x 196 pairs a
    head the call computes; K and V read at their 196 valid rows, every
    other tensor at 256), the plain versions and SDPA on the unpadded [128,
    4, 196, 48] (forward, and its whole backward beside K4's and K5's).
 8c. coverage — K3, K4 and K5 at head dims 16, 40, 80, 96, 256 and 512 in
    bf16, f16 and f32, at [16, 512, D], causal with keys from global 64
    (query rows 0-63 see no key: out 0, lse <= -1e29, dq exactly 0) and a
-   key mask at 448, on the variant each shape picks (K3 on sm90 for 16-bit
-   up to 256, K4 and K5 on mma there; CUDA cores for f32 and above 256),
-   against their plain versions with lm_kernel's and lm_bwd_kernel's
-   tolerances in ulps of the dtype, every launch twice with the same bits
-   (sm90: and no column past d written), and K3 again on mma forced
-   wherever it picks sm90 (mma still runs 16-bit blocks other than 128);
-   each timed (median of 10, L2
-   flushed; K3's sm90 and mma kernels in turns, sm90, mma, mma, sm90)
+   key mask at 448, on the variant each shape picks (K3, K4 and K5 on sm90
+   for 16-bit up to 256; CUDA cores for f32 and above 256), against their
+   plain versions with lm_kernel's and lm_bwd_kernel's tolerances in ulps
+   of the dtype, every launch twice with the same bits (sm90: and no column
+   past d written), and again on mma forced wherever they pick sm90 (mma
+   still runs 16-bit blocks other than 128 and head dims that are not a
+   multiple of 8); each timed (median of 10, L2
+   flushed; the sm90 and mma kernels in turns, sm90, mma, mma, sm90)
    beside the bound (the pairs the masks leave; bf16/f16 at 989 TFLOP/s,
    f32 at 67), the plain version and SDPA with the same mask (forward, and
    its whole backward beside K4 and K5). Then head dim 256 bf16 causal at
    the lm_wide path's shapes, [128, 2048, 256] (K3 held to its plain
    version on sm90 and on mma, and timed on both in turns) and [64, 2048,
-   256] (K4, K5), beside SDPA on [64|32, 2, 2048, 256].
+   256] (K4, K5 on sm90 and on mma, and the whole backward on each, timed
+   in turns), beside SDPA on [64|32, 2, 2048, 256].
    Launch counts by kernel, variant and dtype. (K1/K2 in f16: the kernel
    phase.)
 9. lm_train — the same full-width bf16 LM from ``init_lm_weights`` with a
@@ -242,8 +253,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    64 x 2,049 ``tokens_i32`` table, 6 K3 launches all on sm90, every NLL
    within 2e-2 of the xla tier's on the same weights; then
    ``LMTrainer.fit_tables`` for 3 steps at 32 x 2,048 and one val batch, 6
-   K3 + 6 K4 + 6 K5 a step and 6 K3 a val batch, K3 on sm90 and K4, K5 on
-   mma, finite losses;
+   K3 + 6 K4 + 6 K5 a step and 6 K3 a val batch, all on sm90, finite
+   losses;
    one step from the seeded weights against the xla tier's step, the loss
    within 5e-3 relative and every leaf's gradient within 5e-2 RMS gap over
    RMS (lm_train's bf16 bounds).
@@ -575,7 +586,9 @@ def phase_build():
         emit(phase="build", source=src, library=os.path.basename(path),
              nvcc_seconds=round(seconds, 3), ptxas=regs)
     emit(phase="build", wall_seconds=round(time.perf_counter() - t0, 3))
-    return sm90_fwd_build(dict(zip(sources, built))["flash_fwd_sm90.cu"][2])
+    reports = {src: report for src, (_, _, report) in zip(sources, built)}
+    return (sm90_fwd_build(reports["flash_fwd_sm90.cu"]),
+            sm90_bwd_build(reports["flash_bwd_sm90.cu"]))
 
 
 def ptxas_kernels(report: str) -> list:
@@ -620,6 +633,41 @@ def sm90_fwd_build(report: str) -> list:
     check(all(r["spill_bytes"] == 0 for r in rows),
           f"ptxas reports no spill in any K3 sm90 instantiation: {rows}")
     return rows
+
+
+def sm90_bwd_build(report: str) -> list:
+    """K4's and K5's sm90 instantiations (dq and dkv, bf16 and f16, widths
+    64, 128, 256; K5's at 256 the split kernel): the registers ptxas gives
+    each, its spill bytes, which must be 0, and the dynamic shared memory a
+    launch asks for; and how many notes ptxas printed of serialised wgmma
+    (C7510) or injected warpgroup fences (C7519)."""
+    from ddw_tpu_torch.ops.flash_attention import _sm90_bwd_lib
+
+    rows = []
+    for k in ptxas_kernels(report):
+        m = re.search(r"flash_bwd_(dq|dkv)_sm90(_split)?_kernelI(\d+__\w+?)"
+                      r"Li(\d+)E", k["kernel"])
+        if m:
+            width, dkv = int(m.group(4)), m.group(1) == "dkv"
+            rows.append({"kernel": "K5" if dkv else "K4",
+                         "split": bool(m.group(2)),
+                         "dtype": "float16" if "half" in m.group(3)
+                         else "bfloat16", "width": width,
+                         "registers": k.get("registers"),
+                         "spill_bytes": k.get("spill_bytes"),
+                         "smem_bytes": _sm90_bwd_lib().ddw_flash_bwd_sm90_smem(
+                             width, int(dkv))})
+    notes = {"serialised_wgmma": report.count("C7510"),
+             "injected_fences": report.count("C7519")}
+    emit(phase="build", source="flash_bwd_sm90.cu", instantiations=rows,
+         ptxas_notes=notes)
+    check(sorted((r["kernel"], r["dtype"], r["width"]) for r in rows)
+          == sorted((kn, t, w) for kn in ("K4", "K5")
+                    for t in ("bfloat16", "float16") for w in (64, 128, 256)),
+          f"K4/K5 sm90 built at widths 64, 128, 256 in bf16 and f16: {rows}")
+    check(all(r["spill_bytes"] == 0 for r in rows),
+          f"ptxas reports no spill in any K4/K5 sm90 instantiation: {rows}")
+    return {"instantiations": rows, **notes}
 
 
 def wgrad_tolerance(x, g):
@@ -950,9 +998,10 @@ def k3_check(name, q, k, v, *, causal, q_offset=0, k_offset=0, k_valid=None,
 
 
 def fwd_turns(launch, flush) -> dict:
-    """K3's sm90 and mma kernels on one shape, timed in turns (sm90, mma,
-    mma, sm90; median of 10 each, L2 flushed): ``launch(variant)`` runs one
-    call. The faster median of each, and all four."""
+    """A flash kernel's sm90 and mma variants (K3's, or K4's or K5's) on one
+    shape, timed in turns (sm90, mma, mma, sm90; median of 10 each, L2
+    flushed): ``launch(variant)`` runs one call. The faster median of each,
+    and all four."""
     turns = {"sm90": [], "mma": []}
     for var in ("sm90", "mma", "mma", "sm90"):
         turns[var].append(median_ms(lambda: launch(var), flush, reps=10))
@@ -1149,13 +1198,60 @@ def bwd_close(got, ref):
         err.max().item() / max(top, 1e-30)
 
 
+def k45_variants(dtype, d: int) -> tuple:
+    """The K4/K5 variants to check at a shape: the one it picks (None), and
+    ``"mma"`` beside it where it picks sm90."""
+    from ddw_tpu_torch.ops.flash_attention import _bwd_variant
+
+    return (None, "mma") if _bwd_variant(dtype, d) == "sm90" else (None,)
+
+
+def sm90_bwd_guard_check(name, args, k_valid, dq, dk, dv) -> None:
+    """K4's and K5's sm90 kernels write no column at or past d: one more
+    launch of each C entry (not counted: a comparison launch) into
+    NaN-filled buffers one compiled width longer than dq, dk and dv gives
+    their bits and leaves the tails NaN. (A column past d of a row would
+    land on the next row's first columns, which the bits compare, or past
+    the last row, in the tail.)"""
+    import torch
+
+    from ddw_tpu_torch.ops.flash_attention import (_KERNEL_DTYPES,
+                                                   _default_scale,
+                                                   _sm90_bwd_lib,
+                                                   compiled_width)
+
+    q, k, v, do, lse, delta, causal, q_offset, k_offset, _ = args
+    bh, sq, d = q.shape
+    width = compiled_width("sm90", d)
+    bufs = [torch.full((t.numel() + width,), float("nan"), dtype=t.dtype,
+                       device=t.device) for t in (dq, dk, dv)]
+    common = (bh, sq, k.shape[1], d, _KERNEL_DTYPES[q.dtype], int(causal),
+              q_offset, k_offset, _default_scale(None, d),
+              -1 if k_valid is None else k_valid,
+              torch.cuda.current_stream().cuda_stream)
+    ins = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
+    lib = _sm90_bwd_lib()
+    errs = (lib.ddw_flash_bwd_dq_sm90(*ins, bufs[0].data_ptr(), *common),
+            lib.ddw_flash_bwd_dkv_sm90(*ins, bufs[1].data_ptr(),
+                                       bufs[2].data_ptr(), *common))
+    torch.cuda.synchronize()
+    check(errs == (0, 0), f"K4/K5 {name}: the sm90 guard launches returned "
+          f"{errs}")
+    check(all(torch.equal(buf[:t.numel()].view_as(t), t)
+              and bool(buf[t.numel():].isnan().all())
+              for buf, t in zip(bufs, (dq, dk, dv))),
+          f"K4/K5 {name}: sm90 at d={d} (width {width}) writes no column at "
+          f"or past d")
+
+
 def k45_check(name, q, k, v, gen, *, causal, q_offset=0, k_offset=0,
               k_valid=None, block_q=128, block_k=128, fully_masked_rows=0,
-              variants=(None,), phase="lm_bwd_kernel"):
+              variants=None, phase="lm_bwd_kernel"):
     """K4 and K5 against their plain versions on the same inputs; two
     launches of each bit-identical, on the variant its shape picks (None)
-    or on each forced one of ``variants``. Returns K4's and K5's max
-    |error| on the variant the shape picks."""
+    and on mma forced where it picks sm90 (``k45_variants``), or on each of
+    ``variants``; sm90's output columns past d untouched. Returns K4's and
+    K5's max |error| on the variant the shape picks."""
     import torch
 
     from ddw_tpu_torch.ops.flash_attention import (
@@ -1168,6 +1264,8 @@ def k45_check(name, q, k, v, gen, *, causal, q_offset=0, k_offset=0,
     rq = flash_attention_dq_plain(*args, block_q, block_k, k_valid)
     rk, rv = flash_attention_dkv_plain(*args, block_q, block_k, k_valid)
     errs = {"dq": 0.0, "dkv": 0.0}
+    if variants is None:
+        variants = k45_variants(q.dtype, q.shape[2])
     for forced in variants:
         variant = forced or _bwd_variant(q.dtype, q.shape[2])
         before = (flash_attention_dq_cuda.launches_by_variant[variant],
@@ -1186,6 +1284,8 @@ def k45_check(name, q, k, v, gen, *, causal, q_offset=0, k_offset=0,
               and torch.equal(dv, dv2),
               f"K4/K5 {name} ({variant}): two launches give the same bits")
         del dq2, dk2, dv2
+        if variant == "sm90":
+            sm90_bwd_guard_check(name, args, k_valid, dq, dk, dv)
         row = {}
         for out_name, got, ref in (("dq", dq, rq), ("dk", dk, rk),
                                    ("dv", dv, rv)):
@@ -1202,7 +1302,7 @@ def k45_check(name, q, k, v, gen, *, causal, q_offset=0, k_offset=0,
              shape=list(q.shape), sk=k.shape[1],
              dtype=str(q.dtype).removeprefix("torch."), causal=causal,
              q_offset=q_offset, k_offset=k_offset, k_valid=k_valid,
-             bit_identical_relaunch=True,
+             bit_identical_relaunch=True, no_column_past_d=variant == "sm90",
              fully_masked_rows=fully_masked_rows, **row)
         if forced is None:  # the kernel this shape runs on the main path
             errs["dq"] = max(errs["dq"], row["dq"]["max_abs_err"])
@@ -1211,11 +1311,15 @@ def k45_check(name, q, k, v, gen, *, causal, q_offset=0, k_offset=0,
     return errs
 
 
-def k45_times(q, k, v, gen, flush):
-    """K4's and K5's sm90 and mma kernels at the training shape (bf16,
-    causal), timed in turns (sm90, mma, mma, sm90), beside the bounds, the
-    plain versions and SDPA's whole backward; and the whole backward as
-    FlashAttentionFn runs it (delta, K4, K5) on each variant."""
+def k45_times(q, k, v, gen, flush, *, heads=LM_HEADS, causal=True,
+              k_valid=None, phase="lm_bwd_kernel"):
+    """K4's and K5's sm90 and mma kernels at one shape ([B * heads, S, D],
+    non-causal where ``causal`` is false, keys masked at ``k_valid``),
+    timed in turns (sm90, mma, mma, sm90), beside the bounds (the pairs the
+    masks leave; K and V read at their valid rows), the plain versions and
+    SDPA's whole backward on the unpadded [B, heads, k_valid or S, D]; and
+    the whole backward as FlashAttentionFn runs it (delta, K4, K5) on each
+    variant, in the same turns."""
     import torch
     import torch.nn.functional as F
 
@@ -1225,25 +1329,31 @@ def k45_times(q, k, v, gen, flush):
         flash_attention_dq_plain)
 
     bh, s, d = q.shape
+    kv = s if k_valid is None else k_valid
     do = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
-    out, lse = flash_attention_cuda(q, k, v, True)
+    out, lse = flash_attention_cuda(q, k, v, causal, k_valid=k_valid)
     g_lse = 0.1 * torch.randn(lse.shape, device="cuda", generator=gen)
     delta = ((do.float() * out.float()).sum(-1) - g_lse).contiguous()
-    args = (q, k, v, do, lse, delta, True, 0, 0, None)
-    pairs = bh * causal_pairs(s, s, 0, 0, True, None)
-    q4, k4, v4, do4 = (t.view(TRAIN_LM_BATCH, LM_HEADS, s, d).detach()
-                       .requires_grad_(t is not do) for t in (q, k, v, do))
-    sdpa = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    args = (q, k, v, do, lse, delta, causal, 0, 0, None)
+    pairs = bh * causal_pairs(s, s, 0, 0, causal, k_valid)
+    q4, k4, v4, do4 = (t.view(bh // heads, heads, s, d)[:, :, :kv].detach()
+                       .contiguous().requires_grad_(t is not do)
+                       for t in (q, k, v, do))
+    sdpa = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
     library_ms = median_ms(lambda: torch.autograd.grad(
         sdpa, (q4, k4, v4), do4, retain_graph=True), flush, reps=10)
 
     def backward_total(variant):  # FlashAttentionFn.backward's kernel work
         dl = ((do.float() * out.float()).sum(-1) - g_lse).contiguous()
-        flash_attention_dq_cuda(q, k, v, do, lse, dl, True, _variant=variant)
-        flash_attention_dkv_cuda(q, k, v, do, lse, dl, True, _variant=variant)
+        flash_attention_dq_cuda(q, k, v, do, lse, dl, causal,
+                                k_valid=k_valid, _variant=variant)
+        flash_attention_dkv_cuda(q, k, v, do, lse, dl, causal,
+                                 k_valid=k_valid, _variant=variant)
 
-    fns = {"dq": lambda var: flash_attention_dq_cuda(*args, _variant=var),
-           "dkv": lambda var: flash_attention_dkv_cuda(*args, _variant=var),
+    fns = {"dq": lambda var: flash_attention_dq_cuda(*args, k_valid,
+                                                     _variant=var),
+           "dkv": lambda var: flash_attention_dkv_cuda(*args, k_valid,
+                                                       _variant=var),
            "total": backward_total}
     turns = {key: {"sm90": [], "mma": []} for key in fns}
     for var in ("sm90", "mma", "mma", "sm90"):
@@ -1252,11 +1362,17 @@ def k45_times(q, k, v, gen, flush):
     total = {var: min(t) for var, t in turns["total"].items()}
     times = {}
     for key, plain, products, outs in (
-            ("dq", lambda: flash_attention_dq_plain(*args), 3, 1),
-            ("dkv", lambda: flash_attention_dkv_plain(*args), 4, 2)):
+            ("dq", lambda: flash_attention_dq_plain(*args, 128, 128,
+                                                    k_valid), 3, 1),
+            ("dkv", lambda: flash_attention_dkv_plain(*args, 128, 128,
+                                                      k_valid), 4, 2)):
         flops = products * 2 * d * pairs
-        nbytes = (4 + outs) * bh * s * d * 2 + 2 * bh * s * 4
+        # Q, dO and the outputs at all S rows, K and V at their valid rows;
+        # lse and delta f32 per query row
+        nbytes = ((2 + outs) * s + 2 * kv) * bh * d * q.element_size() \
+            + 2 * bh * s * 4
         times[key] = {
+            "variant": "sm90",
             "ms": min(turns[key]["sm90"]),
             "ms_mma": min(turns[key]["mma"]),
             "turns_ms": turns[key],
@@ -1271,19 +1387,20 @@ def k45_times(q, k, v, gen, flush):
         times[key]["tflops"] = flops / times[key]["ms"] / 1e9
         times[key]["share_of_bound"] = (times[key]["bound_ms"]
                                         / times[key]["ms"])
-        emit(phase="lm_bwd_kernel", kernel=f"flash_attention_{key}",
-             variant="sm90", dtype="bfloat16", shape=[bh, s, d], causal=True,
-             **times[key], bytes=nbytes, flops=flops,
+        emit(phase=phase, kernel=f"flash_attention_{key}",
+             dtype=dtype_name(q.dtype), shape=[bh, s, d], causal=causal,
+             k_valid=k_valid, **times[key], bytes=nbytes, flops=flops,
              backward_total_turns_ms=turns["total"],
-             library="backward of F.scaled_dot_product_attention"
-                     "(is_causal=True): dq, dk and dv in one call")
+             library=f"backward of F.scaled_dot_product_attention"
+                     f"(is_causal={causal}) at {list(q4.shape)}: dq, dk and "
+                     f"dv in one call")
     return times
 
 
 def phase_lm_bwd_kernel(flush):
     """K4 and K5 against their plain versions at the training shape and the
-    edge cases; times at the training shape beside the bounds, the plain
-    versions and SDPA's backward."""
+    edge cases; times at the training shape in bf16 and f16 beside the
+    bounds, the plain versions and SDPA's backward."""
     import torch
 
     from ddw_tpu_torch.ops.flash_attention import (
@@ -1302,13 +1419,15 @@ def phase_lm_bwd_kernel(flush):
         for key, err in k45_check(*a, **kw).items():
             errs[key] = max(errs[key], err)
 
-    q, k, v = qkv(bh, s, s, d, torch.bfloat16)
-    # the sm90 kernels this shape runs, and the mma.sync ones timed beside
-    case("train_shape_bf16_causal", q, k, v, gen, causal=True,
-         variants=(None, "mma"))
-    times = k45_times(q, k, v, gen, flush)
-    del q, k, v
-    torch.cuda.empty_cache()
+    times = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        q, k, v = qkv(bh, s, s, d, dtype)
+        # the sm90 kernels this shape runs, and the mma.sync ones beside
+        case(f"train_shape_{dtype_name(dtype)}_causal", q, k, v, gen,
+             causal=True)
+        times[dtype_name(dtype)] = k45_times(q, k, v, gen, flush)
+        del q, k, v
+        torch.cuda.empty_cache()
 
     q, k, v = qkv(bh, s, s, d, torch.float32)
     case("train_shape_f32_causal", q, k, v, gen, causal=True)
@@ -1335,6 +1454,22 @@ def phase_lm_bwd_kernel(flush):
     q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
     case("ragged_bf16_d64_sm90", q, k, v, gen, causal=True, q_offset=100,
          block_q=100, block_k=40)
+    # the other widths' edges: at 256 a key mask inside a 64-key block with
+    # query and key tail tiles (K4's slots and K5's split tiles are 64
+    # keys), a ring hop whose first 152 rows see no key (f16); head dims 48
+    # (ViT's), 136 (its last 64-column box wholly past d) and 8, ragged
+    q, k, v = qkv(8, 300, 320, 256, torch.bfloat16)
+    case("d256_kvalid200_sq300_sk320_bf16", q, k, v, gen, causal=False,
+         k_valid=200, block_q=100, block_k=64)
+    q, k, v = qkv(8, 1024, 1024, 256, torch.float16)
+    case("d256_ring_hop_q1000_k1152_f16", q, k, v, gen, causal=True,
+         q_offset=1000, k_offset=1152, fully_masked_rows=152)
+    for dd, dtype in ((48, torch.float16), (136, torch.bfloat16),
+                      (8, torch.float16)):
+        q, k, v = qkv(6, 100, 200, dd, dtype)
+        case(f"d{dd}_ragged_q100_at100_k200_{dtype_name(dtype)}", q, k, v,
+             gen, causal=True, q_offset=100, block_q=100, block_k=40)
+    del q, k, v
     # S=2047 padded through flash_mha's backward (K4/K5 against the plain
     # path inside the same padding)
     q, k, v = (t.view(8, LM_HEADS, s, d)[:, :, :s - 1].contiguous()
@@ -1376,85 +1511,61 @@ def phase_lm_bwd_kernel(flush):
 VIT_BATCH, VIT_HEADS, VIT_TOKENS, VIT_HEAD_DIM, VIT_PADDED = 128, 4, 196, 48, 256
 # the variant each flash kernel takes there in bf16 (_fwd_variant at block_k
 # 128, _bwd_variant)
-VIT_VARIANTS = {"k3": "sm90", "k4": "mma", "k5": "mma"}
+VIT_VARIANTS = {"k3": "sm90", "k4": "sm90", "k5": "sm90"}
 
 
 def vit_kernel_times(q, k, v, gen, flush):
-    """K3 (sm90, and mma in turns with it), K4 and K5 (mma) in bf16 at ViT's
+    """K3, K4 and K5 (sm90, and mma in turns with it) in bf16 at ViT's
     padded shape, non-causal with k_valid 196: CUDA events with the L2
     flushed, beside the bound (the pairs this call computes: 256 query rows
     x 196 keys a head; the bytes of K and V at their 196 valid rows, of Q,
     dO and the outputs at all 256), the plain versions and SDPA (forward,
-    and its whole backward) on the unpadded [128, 4, 196, 48]."""
-    import torch
+    and its whole backward) on the unpadded [128, 4, 196, 48]; K4 and K5
+    through ``k45_times``, with the whole backward on each variant."""
     import torch.nn.functional as F
 
-    from ddw_tpu_torch.ops.flash_attention import (
-        _bwd_variant, _fwd_variant, flash_attention_cuda,
-        flash_attention_dkv_cuda,
-        flash_attention_dkv_plain, flash_attention_dq_cuda,
-        flash_attention_dq_plain, flash_attention_plain)
+    from ddw_tpu_torch.ops.flash_attention import (_bwd_variant,
+                                                   _fwd_variant,
+                                                   flash_attention_cuda,
+                                                   flash_attention_plain)
 
     bh, s, d = q.shape
     kv = VIT_TOKENS
-    pairs = bh * causal_pairs(s, s, 0, 0, False, kv)
-    do = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
-    out, lse = flash_attention_cuda(q, k, v, False, k_valid=kv)
-    delta = (do.float() * out.float()).sum(-1).contiguous()
-    args = (q, k, v, do, lse, delta, False, 0, 0, None)
-    unpad = lambda t: t.view(VIT_BATCH, VIT_HEADS, s, d)[:, :, :kv]
-    q4, k4, v4, do4 = (unpad(t).detach().contiguous().requires_grad_(
-        t is not do) for t in (q, k, v, do))
-    sdpa = F.scaled_dot_product_attention(q4, k4, v4)
-    sdpa_bwd_ms = median_ms(lambda: torch.autograd.grad(
-        sdpa, (q4, k4, v4), do4, retain_graph=True), flush, reps=10)
-    rows = {}
-    fwd_var, bwd_var = _fwd_variant(q.dtype, d, 128), _bwd_variant(q.dtype, d)
-    for key, fn, plain, products, outs, library_ms, variant in (
-            ("fwd", lambda: flash_attention_cuda(q, k, v, False, k_valid=kv),
-             lambda: flash_attention_plain(q, k, v, False, k_valid=kv),
-             2, 1, median_ms(lambda: F.scaled_dot_product_attention(
-                 q4, k4, v4), flush, reps=10), fwd_var),
-            ("dq", lambda: flash_attention_dq_cuda(*args, kv),
-             lambda: flash_attention_dq_plain(*args, 128, 128, kv), 3, 1,
-             sdpa_bwd_ms, bwd_var),
-            ("dkv", lambda: flash_attention_dkv_cuda(*args, kv),
-             lambda: flash_attention_dkv_plain(*args, 128, 128, kv), 4, 2,
-             sdpa_bwd_ms, bwd_var)):
-        flops = products * 2 * d * pairs
-        # K and V read at their kv valid rows (no output depends on the
-        # padded ones); Q, dO and every output at all s rows; lse (and
-        # delta) f32 per query row
-        q_rows = 1 if key == "fwd" else 2
-        nbytes = ((q_rows + outs) * s + 2 * kv) * bh * d * 2 \
-            + (1 if key == "fwd" else 2) * bh * s * 4
-        bound_s = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS)
-        if variant == "sm90":  # the mma.sync kernel it replaces, in turns
-            timed_ = fwd_turns(lambda var: flash_attention_cuda(
-                q, k, v, False, k_valid=kv, _variant=var), flush)
-        else:
-            timed_ = {"ms": median_ms(fn, flush, reps=10)}
-        rows[key] = {
-            **timed_, "variant": variant,
-            "plain_ms": median_ms(plain, flush, reps=3, warmup=1),
-            "library_ms": library_ms,
-            "bound_ms": bound_s * 1e3,
-            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
-            >= flops / BF16_FLOPS else "operations",
-            "flops": flops, "bytes": nbytes}
-        rows[key]["share_of_bound"] = rows[key]["bound_ms"] / rows[key]["ms"]
-        emit(phase="vit_kernel", kernel=key, dtype="bfloat16",
-             shape=[bh, s, d], k_valid=kv, causal=False, **rows[key],
-             library="F.scaled_dot_product_attention at [128, 4, 196, 48]"
-                     + (" (forward)" if key == "fwd" else
-                        ": its whole backward, dq, dk and dv in one call"))
+    check(_fwd_variant(q.dtype, d, 128) == _bwd_variant(q.dtype, d) == "sm90",
+          "ViT's K3, K4 and K5 take sm90 in bf16")
+    rows = k45_times(q, k, v, gen, flush, heads=VIT_HEADS, causal=False,
+                     k_valid=kv, phase="vit_kernel")
+    q4, k4, v4 = (t.view(VIT_BATCH, VIT_HEADS, s, d)[:, :, :kv].contiguous()
+                  for t in (q, k, v))
+    flops = 2 * 2 * d * bh * causal_pairs(s, s, 0, 0, False, kv)
+    # K and V read at their kv valid rows (no output depends on the padded
+    # ones); Q and out at all s rows; lse f32 per query row
+    nbytes = (2 * s + 2 * kv) * bh * d * 2 + bh * s * 4
+    rows["fwd"] = {
+        **fwd_turns(lambda var: flash_attention_cuda(
+            q, k, v, False, k_valid=kv, _variant=var), flush),
+        "variant": "sm90",
+        "plain_ms": median_ms(lambda: flash_attention_plain(
+            q, k, v, False, k_valid=kv), flush, reps=3, warmup=1),
+        "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4), flush, reps=10),
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+        >= flops / BF16_FLOPS else "operations",
+        "flops": flops, "bytes": nbytes}
+    rows["fwd"]["share_of_bound"] = rows["fwd"]["bound_ms"] / rows["fwd"]["ms"]
+    emit(phase="vit_kernel", kernel="fwd", dtype="bfloat16", shape=[bh, s, d],
+         k_valid=kv, causal=False, **rows["fwd"],
+         library="F.scaled_dot_product_attention at [128, 4, 196, 48] "
+                 "(forward)")
     return rows
 
 
 def phase_vit_kernel(flush):
     """K3, K4 and K5 at ViT's shape ([512, 196->256, 48], non-causal,
-    k_valid 196) in bf16 (mma) and f32 (CUDA cores) against their plain
-    versions with lm_kernel's and lm_bwd_kernel's tolerances, a ragged case
+    k_valid 196) in bf16 (sm90, and mma forced beside it) and f32 (CUDA
+    cores) against their plain versions with lm_kernel's and
+    lm_bwd_kernel's tolerances, a ragged case
     (Sq 192 against Sk 320 at k_offset 64, causal: the first 64-row block
     sees no key), and the times at ViT's shape."""
     import torch
@@ -1514,9 +1625,8 @@ COVERAGE_BH, COVERAGE_S = 16, 512
 COVERAGE_MASKS = dict(causal=True, q_offset=0, k_offset=64, k_valid=448)
 COVERAGE_DEAD_ROWS = 64
 WIDE_HEADS, WIDE_HEAD_DIM = 2, 256     # lm_flash with num_heads=2
-# the variants K3, K4 and K5 take there in bf16: the sm90 forward, the
-# mma.sync backward (the sm90 backward is at 64 and 128 only)
-WIDE_VARIANTS = ("sm90", "mma", "mma")
+# the variants K3, K4 and K5 take there in bf16
+WIDE_VARIANTS = ("sm90", "sm90", "sm90")
 
 
 def dtype_name(dtype) -> str:
@@ -1569,6 +1679,14 @@ def attention_times(q, k, v, gen, flush, *, causal, q_offset=0, k_offset=0,
     sdpa_bwd_ms = median_ms(lambda: torch.autograd.grad(
         sdpa, (q4, k4, v4), do4, retain_graph=True), flush, reps=10)
     rows = {}
+    fn_by_variant = {
+        "fwd": lambda var: flash_attention_cuda(
+            q, k, v, causal, q_offset, k_offset, k_valid=k_valid,
+            _variant=var),
+        "dq": lambda var: flash_attention_dq_cuda(*args, k_valid,
+                                                  _variant=var),
+        "dkv": lambda var: flash_attention_dkv_cuda(*args, k_valid,
+                                                    _variant=var)}
     for key, fn, plain, products, outs, library_ms, variant in (
             ("fwd", lambda: flash_attention_cuda(
                 q, k, v, causal, q_offset, k_offset, k_valid=k_valid),
@@ -1588,10 +1706,8 @@ def attention_times(q, k, v, gen, flush, *, causal, q_offset=0, k_offset=0,
         ins = (3 if key == "fwd" else 4)          # q, k, v (and do)
         nbytes = (ins + outs) * bh * s * d * el + \
             (1 if key == "fwd" else 2) * bh * s * 4   # lse (and delta)
-        if key == "fwd" and variant == "sm90":  # and mma.sync, in turns
-            timed_ = fwd_turns(lambda var: flash_attention_cuda(
-                q, k, v, causal, q_offset, k_offset, k_valid=k_valid,
-                _variant=var), flush)
+        if variant == "sm90":  # and mma.sync, in turns
+            timed_ = fwd_turns(lambda var: fn_by_variant[key](var), flush)
         else:
             timed_ = {"ms": median_ms(fn, flush, reps=10)}
         rows[key] = {
@@ -1690,6 +1806,10 @@ def phase_coverage(flush):
             for k_, e in k45_check("wide_training", q, k, v, gen,
                                    causal=True, phase="coverage").items():
                 errs[k_] = max(errs[k_], e)
+            # K4, K5 and the whole backward on sm90 and mma in turns
+            wide["training_turns"] = k45_times(q, k, v, gen, flush,
+                                               heads=WIDE_HEADS,
+                                               phase="coverage")
         wide[key] = attention_times(q, k, v, gen, flush, causal=True,
                                     heads=WIDE_HEADS)
         del q, k, v
@@ -2006,8 +2126,8 @@ def phase_lm_wide(tmp: str) -> dict:
     ``LMBatchScorer`` over a 64 x 2,049 ``tokens_i32`` table: 6 K3
     launches, all ``sm90``, the NLLs within WIDE_NLL_TOL of the xla tier's
     on the same weights. ``LMTrainer.fit_tables``, 3 steps at 32 x 2,048
-    and one val batch: 6 K3 + 6 K4 + 6 K5 a step and 6 K3 a val batch, K3
-    on ``sm90``, K4 and K5 on ``mma``; one step from the seeded weights,
+    and one val batch: 6 K3 + 6 K4 + 6 K5 a step and 6 K3 a val batch, all
+    on ``sm90``; one step from the seeded weights,
     its loss and per-leaf gradients against the xla tier's step
     (BF16_LOSS_TOL, BF16_GRAD_RMS_TOL)."""
     import numpy as np
@@ -2121,7 +2241,7 @@ def phase_lm_wide(tmp: str) -> dict:
             v[var] == n for v, n, var in zip(variants, launches,
                                              WIDE_VARIANTS)),
               f"fit launches K3/K4/K5 {launches} {variants}: expected "
-              f"{want}, K3 on sm90, K4 and K5 on mma")
+              f"{want}, all on sm90")
         check(all(np.isfinite([r["loss"], r["val_loss"]]).all()
                   for r in res.history), "finite train and val losses")
         out.update(train_launches=launches, train_by_variant=variants,
@@ -2138,7 +2258,7 @@ def phase_lm_wide(tmp: str) -> dict:
         check(counts() == (depth, depth, depth)
               and all(v[var] == depth for v, var in zip(by_variant(),
                                                         WIDE_VARIANTS)),
-              f"the kernel step ran 6 K3 on sm90, 6 K4 and 6 K5 on mma "
+              f"the kernel step ran 6 K3, 6 K4 and 6 K5, all on sm90 "
               f"{by_variant()}")
         tier(kernel=False)
         loss_x, g_x = lm_grads(lm_cfg, params, inputs, targets)
@@ -4451,7 +4571,7 @@ def phase_vision(tmp: str) -> dict:
     attention thresholds (the xla tier, as the reference: no flash launch)
     and again in a child process with both thresholds at 0, where K3 must
     launch 6 times per forward, all on sm90, and K4 and K5 6 times each per
-    train step, all on mma. Against the default run: the one-step loss and every
+    train step, all on sm90. Against the default run: the one-step loss and every
     leaf's gradient from the same weights and batch within lm_train's bf16
     bounds (5e-3 relative, 5e-2 RMS gap over RMS), each epoch's train and
     val loss of the fit within 2e-2 relative, the logits of the package it
@@ -4579,15 +4699,14 @@ def phase_vision(tmp: str) -> dict:
     check(hist[-1]["loss"] < hist[0]["loss"],
           f"vit (kernel tier): last epoch's loss {hist[-1]['loss']:.4f} "
           f"below the first's {hist[0]['loss']:.4f}")
-    check(st["k3"] == {"total": 6, "sm90": 6, "mma": 0, "cuda_cores": 0}
-          and st["k4"]["mma"] == st["k4"]["total"] == 6
-          and st["k5"]["mma"] == st["k5"]["total"] == 6,
-          f"one ViT train step: 6 K3 (sm90) + 6 K4 + 6 K5 (mma) launches: "
+    check(all(st[k] == {"total": 6, "sm90": 6, "mma": 0, "cuda_cores": 0}
+              for k in ("k3", "k4", "k5")),
+          f"one ViT train step: 6 K3 + 6 K4 + 6 K5 launches, all sm90: "
           f"{st}")
     check(all(tc[k]["total"] == tc[k][VIT_VARIANTS[k]] == n
               for k, n in exp_train.items()),
-          f"ViT Trainer.fit: {exp_train} launches, K3 on sm90 and K4, K5 "
-          f"on mma: {tc}")
+          f"ViT Trainer.fit: {exp_train} launches, K3, K4 and K5 on sm90: "
+          f"{tc}")
     check(sc["k3"]["total"] == sc["k3"]["sm90"] == 6 * forwards
           and sc["k4"]["total"] == sc["k5"]["total"] == 0,
           f"ViT scoring: 6 K3 launches per forward of 128, all sm90: {sc}")
@@ -4717,6 +4836,12 @@ def phase_pretrained(tmp: str) -> dict:
     return k1k2
 
 
+# K4's and K5's numbers at a timed shape (k45_times), for the kernels line
+K45_TIME_FIELDS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                   "ms_mma", "turns_ms", "tflops", "share_of_bound",
+                   "backward_total_ms", "backward_total_ms_mma")
+
+
 def wide_and_coverage(wide: dict, coverage: dict, key: str, idx: int) -> dict:
     """A flash kernel's numbers at head dim 256 on the lm_wide path's shapes
     and at the coverage phase's head dims and dtypes, for the kernels
@@ -4764,6 +4889,9 @@ def at_vit_shape(row: dict) -> dict:
             "k_valid": VIT_TOKENS, "causal": False,
             **{k: row[k] for k in ("variant", *(("ms_mma", "turns_ms")
                                                 if "ms_mma" in row else ()),
+                                   *(("backward_total_ms",
+                                      "backward_total_ms_mma")
+                                     if "backward_total_ms" in row else ()),
                                    "ms", "plain_ms", "library_ms",
                                    "bound_ms", "bound_by",
                                    "share_of_bound")}}
@@ -6969,7 +7097,7 @@ def main() -> int:
             seconds[label] = round(time.perf_counter() - t0, 3)
 
     name, smi = timed("device", phase_device)
-    sm90_build = timed("build", phase_build)
+    sm90_build, sm90_bwd_build = timed("build", phase_build)
     decoder = timed("decode", phase_decode)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     torch.backends.cudnn.allow_tf32 = False
@@ -7181,22 +7309,30 @@ def main() -> int:
             "lm_wide_training": wide["train_by_variant"][idx]},
         **wide_and_coverage(wide, coverage, key, idx),
         "max_abs_err": bwd_err[key],
-        **{k: bwd_times[key][k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_mma",
-            "tflops", "share_of_bound", "backward_total_ms",
-            "backward_total_ms_mma")},
+        **{k: bwd_times["bfloat16"][key][k] for k in K45_TIME_FIELDS},
         "per": "one bf16 causal call at [256, 2048, 64]: one layer of a "
                "32-row LM train step; library_ms is SDPA's whole backward "
                "(dq, dk and dv in one call), to be compared with "
                "backward_total_ms (delta, K4 and K5 as FlashAttentionFn "
                "runs them); ms_mma is the mma.sync kernel it replaces on "
                "this path, timed in turns with it",
+        "variant_widths": "sm90 at bf16 and f16, every head dim up to 256 "
+                          "that is a multiple of 8 (compiled widths 64, 128, "
+                          "256: ViT's 48 at 64, lm_wide's 256 at 256, where "
+                          "K5's two consumer warpgroups split dK and dV)",
+        "sm90_build": sm90_bwd_build,
         "other_variants": {
             "mma": "ddw_tpu_torch/ops/csrc/flash_attention_bwd.cu (bf16 "
-                   "and f16 at every other head dim up to 256: ViT's 48, "
-                   "lm_wide's 256)",
+                   "and f16 at head dims up to 256 that are not a multiple "
+                   "of 8)",
             "cuda_cores": "ddw_tpu_torch/ops/csrc/flash_attention_bwd.cu "
                           "(f32, 16-bit head dims above 256)"},
+        "at_f16_train_shape": {k: bwd_times["float16"][key][k]
+                               for k in K45_TIME_FIELDS},
+        "at_wide_training_shape": {
+            "shape": [TRAIN_LM_BATCH * WIDE_HEADS, LM_SEQ, WIDE_HEAD_DIM],
+            **{k: coverage["wide"]["training_turns"][key][k]
+               for k in K45_TIME_FIELDS}},
         "at_vit_shape": at_vit_shape(vit_times[key]),
         "max_abs_err_at_vit_shape": vit_err[key],
     } for key, line, kern, idx in (("dq", 425, "k4", 1),

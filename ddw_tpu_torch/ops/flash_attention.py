@@ -26,10 +26,12 @@ package's ``[B, H, S, D]`` layout at the public entries:
   logsumexp, with ``p`` rebuilt tile by tile. Three variants, chosen by
   shape in :func:`_bwd_variant`: ``sm90`` (``csrc/flash_bwd_sm90.cu``: TMA
   loads fed by a producer warp, ``wgmma`` on two consumer warpgroups) for
-  bf16 at head dim 64 or 128, the main path's; ``mma`` (``mma.sync`` in
-  ``csrc/flash_attention_bwd.cu``) for bf16 and f16 at every other head dim
-  up to 256; ``cuda_cores`` (the same file) for f32 and for head dims above
-  256. None uses float atomics, so two launches give the same bits.
+  bf16 and f16 at every head dim up to 256 that is a multiple of 8, the
+  main path's (the LM's 64, the lm_wide path's 256, ViT's 48); ``mma``
+  (``mma.sync`` in ``csrc/flash_attention_bwd.cu``) for the other bf16 and
+  f16 head dims up to 256; ``cuda_cores`` (the same file) for f32 and for
+  head dims above 256. None uses float atomics, so two launches give the
+  same bits. The head dim is rounded up to the forward's compiled widths.
 - :func:`flash_attention_plain`, :func:`flash_attention_dq_plain` and
   :func:`flash_attention_dkv_plain`, their plain PyTorch versions: the TPU
   kernels' arithmetic block by block, vectorised over every (batch*head,
@@ -72,13 +74,13 @@ _MMA_WIDTHS = (16, 32, 48, 64, 96, 128, 256)
 _MMA_MAX_HEAD_DIM = _MMA_WIDTHS[-1]
 _CC_WIDTHS = (16, 32, 64)
 _KERNEL_MAX_BLOCK_K = 128
-# K3's sm90 kernel: compiled for head dims 64, 128 and 256 (a multiple of
-# _SM90_HEAD_DIM_STEP up to 256 runs at the next; csrc/flash_fwd_sm90.cu
-# sm90_width), block_k 128. K4's and K5's: bf16 at 64 and 128 only.
+# The sm90 kernels of K3, K4 and K5: compiled for head dims 64, 128 and 256
+# (a multiple of _SM90_HEAD_DIM_STEP up to 256 runs at the next;
+# csrc/flash_fwd_sm90.cu and csrc/flash_bwd_sm90.cu sm90_width), in bf16 and
+# f16; K3's at block_k 128.
 _SM90_WIDTHS = (64, 128, 256)
 _SM90_HEAD_DIM_STEP = 8
 _SM90_BLOCK_K = 128
-_SM90_BWD_HEAD_DIMS = (64, 128)
 _FWD_VARIANTS = ("sm90", "mma", "cuda_cores")
 _BWD_VARIANTS = _FWD_VARIANTS
 
@@ -344,13 +346,15 @@ def _sm90_bwd_lib() -> ctypes.CDLL:
     from ddw_tpu_torch.ops import _build
 
     lib = _build.load("flash_bwd_sm90.cu")
-    # q, k, v, do, lse, delta, then dq or (dk, dv); bh, sq, sk, d, causal,
-    # q_offset, k_offset; sm_scale; k_valid; the stream
+    # q, k, v, do, lse, delta, then dq or (dk, dv); bh, sq, sk, d, dtype,
+    # causal, q_offset, k_offset; sm_scale; k_valid; the stream
     for fn, outs in ((lib.ddw_flash_bwd_dq_sm90, 1),
                      (lib.ddw_flash_bwd_dkv_sm90, 2)):
-        fn.argtypes = ([ctypes.c_void_p] * (6 + outs) + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * (6 + outs) + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    lib.ddw_flash_bwd_sm90_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.ddw_flash_bwd_sm90_smem.restype = ctypes.c_int
     return lib
 
 
@@ -375,12 +379,13 @@ def _fwd_variant(dtype: torch.dtype, head_dim: int, block_k: int) -> str:
 def _bwd_variant(dtype: torch.dtype, head_dim: int) -> str:
     """Which K4 and K5 kernels a backward of this shape launches (the two
     always take the same): ``"sm90"`` (TMA and ``wgmma``,
-    ``csrc/flash_bwd_sm90.cu``) for bf16 at head dim 64 or 128; ``"mma"``
-    (``mma.sync``) for bf16 and f16 at every other head dim up to 256;
-    ``"cuda_cores"`` for f32 and for head dims above 256. The kernels pick
-    their own tiles, so no block size enters."""
+    ``csrc/flash_bwd_sm90.cu``) for bf16 and f16 at every head dim up to 256
+    that is a multiple of 8 (the tensor maps' 16-byte row stride, as in
+    :func:`_fwd_variant`); ``"mma"`` (``mma.sync``) for the other bf16 and
+    f16 head dims up to 256; ``"cuda_cores"`` for f32 and for head dims
+    above 256. The kernels pick their own tiles, so no block size enters."""
     if dtype in _HALF_DTYPES and head_dim <= _MMA_MAX_HEAD_DIM:
-        if dtype == torch.bfloat16 and head_dim in _SM90_BWD_HEAD_DIMS:
+        if head_dim % _SM90_HEAD_DIM_STEP == 0:
             return "sm90"
         return "mma"
     return "cuda_cores"
@@ -391,8 +396,8 @@ def compiled_width(variant: str, head_dim: int) -> int:
     columns past ``head_dim`` zero-filled in shared memory): the next of
     :data:`_MMA_WIDTHS` on ``mma``, 16 or 32 on ``cuda_cores`` up to 32 and
     whole slabs of 64 above, the next of :data:`_SM90_WIDTHS` (64, 128 or
-    256) on ``sm90``, K3's forward; K4's and K5's ``sm90`` kernels take 64
-    and 128 only, at their own width."""
+    256) on ``sm90``, K3's forward and K4's and K5's backward alike (their
+    tensor maps zero-fill the columns past ``head_dim``)."""
     if variant == "mma":
         return next(w for w in _MMA_WIDTHS if w >= head_dim)
     if variant == "cuda_cores":
@@ -564,8 +569,8 @@ def flash_attention_dq_cuda(q, k, v, do, lse, delta, causal: bool = False,
     with torch.cuda.device(q.device):
         if variant == "sm90":
             err = _sm90_bwd_lib().ddw_flash_bwd_dq_sm90(
-                *ptrs, bh, sq, k.shape[1], d, int(causal), q_offset, k_offset,
-                scale, kv, _stream(q.device))
+                *ptrs, bh, sq, k.shape[1], d, _KERNEL_DTYPES[q.dtype],
+                int(causal), q_offset, k_offset, scale, kv, _stream(q.device))
         else:
             err = _bwd_lib().ddw_flash_bwd_dq(
                 *ptrs, bh, sq, k.shape[1], d, _KERNEL_DTYPES[q.dtype],
@@ -596,8 +601,8 @@ def flash_attention_dkv_cuda(q, k, v, do, lse, delta, causal: bool = False,
     with torch.cuda.device(q.device):
         if variant == "sm90":
             err = _sm90_bwd_lib().ddw_flash_bwd_dkv_sm90(
-                *ptrs, bh, sq, k.shape[1], d, int(causal), q_offset, k_offset,
-                scale, kv, _stream(q.device))
+                *ptrs, bh, sq, k.shape[1], d, _KERNEL_DTYPES[q.dtype],
+                int(causal), q_offset, k_offset, scale, kv, _stream(q.device))
         else:
             err = _bwd_lib().ddw_flash_bwd_dkv(
                 *ptrs, bh, sq, k.shape[1], d, _KERNEL_DTYPES[q.dtype],

@@ -239,11 +239,13 @@ def test_flash_mha_pallas_takes_any_head_dim(d):
 def test_compiled_widths_match_the_cuda_source():
     """ops/flash_attention.py names the head dims the CUDA kernels are
     compiled for (compiled_width); csrc/flash_common.cuh's mma_width and
-    cc_width, and csrc/flash_fwd_sm90.cu's sm90_width and the head dims its
-    C entry takes, hold the same ladders."""
+    cc_width, and the sm90_width of csrc/flash_fwd_sm90.cu (K3) and
+    csrc/flash_bwd_sm90.cu (K4, K5) and the head dims their C entries take,
+    hold the same ladders."""
     csrc = os.path.join(REPO, "ddw_tpu_torch", "ops", "csrc")
     src = open(os.path.join(csrc, "flash_common.cuh")).read()
     sm90 = open(os.path.join(csrc, "flash_fwd_sm90.cu")).read()
+    sm90_bwd = open(os.path.join(csrc, "flash_bwd_sm90.cu")).read()
 
     def ladder(fn, text=src):
         body = re.search(fn + r"\(int d\) \{(.*?)\}", text, re.S).group(1)
@@ -260,6 +262,14 @@ def test_compiled_widths_match_the_cuda_source():
     assert int(re.search(r"kMaxD = (\d+);", sm90).group(1)) == \
         tfa._SM90_WIDTHS[-1] == tfa._MMA_MAX_HEAD_DIM
     assert "d % 8 != 0" in sm90 and tfa._SM90_HEAD_DIM_STEP == 8
+    # the backward's: the same ladder, widths and bounds on d
+    assert ladder("sm90_width", sm90_bwd) == tfa._SM90_WIDTHS
+    assert tuple(int(w) for w in re.findall(
+        r"case (\d+): return run<\1, kDkv>", sm90_bwd)) + (256,) == \
+        tfa._SM90_WIDTHS
+    assert int(re.search(r"kMaxD = (\d+);", sm90_bwd).group(1)) == \
+        tfa._SM90_WIDTHS[-1]
+    assert "d < 8 || d > kMaxD || d % 8 != 0" in sm90_bwd
     assert [tfa.compiled_width("sm90", d) for d in (8, 40, 64, 80, 96, 128,
                                                     136, 256)] == \
         [64, 64, 64, 128, 128, 128, 256, 256]

@@ -238,21 +238,26 @@ def test_a_source_in_parts_compiles_each_then_links(tmp_path, monkeypatch):
 def test_flash_sources_declare_the_parts_their_entries_ask():
     """The two mma.sync / CUDA-core flash sources build in as many parts as
     flash_common.cuh's kParts, whose entries each part answers; the sm90
-    forward in as many as its entry asks, one a compiled width; the others
-    build whole."""
+    forward in as many as its entry asks, one a compiled width; the sm90
+    backward in as many as its entries ask, one a kernel (K4, K5) and
+    compiled width; the others build whole."""
     with open(os.path.join(_build.CSRC, "flash_common.cuh")) as f:
         k_parts = int(re.search(r"constexpr int kParts = (\d+);",
                                 f.read()).group(1))
-    with open(os.path.join(_build.CSRC, "flash_fwd_sm90.cu")) as f:
-        sm90 = f.read()
-    sm90_parts = len(set(re.findall(r"int ddw_flash_fwd_sm90_part(\d+)\(",
-                                    sm90)))
-    # the widths the entry dispatches: each case, and the default (256)
-    assert sm90_parts == len(re.findall(r"case \d+: return run<", sm90)) + 1
+    sm90_parts = {}
+    for src, entry, per_width in (("flash_fwd_sm90.cu", "fwd", 1),
+                                  ("flash_bwd_sm90.cu", "bwd", 2)):
+        with open(os.path.join(_build.CSRC, src)) as f:
+            text = f.read()
+        sm90_parts[src] = len(set(re.findall(
+            rf"int ddw_flash_{entry}_sm90_part(\d+)\(", text)))
+        # the widths the entries dispatch: each case, and the default (256)
+        widths = len(re.findall(r"case \d+: return run<", text)) + 1
+        assert sm90_parts[src] == per_width * widths, src
     for src in sorted(os.listdir(_build.CSRC)):
         if src.endswith(".cu"):
             want = (k_parts if src.startswith("flash_attention") else
-                    sm90_parts if src == "flash_fwd_sm90.cu" else 1)
+                    sm90_parts.get(src, 1))
             assert _build.parts(src) == want, src
 
 

@@ -370,22 +370,26 @@ def test_forward_counts_reset_and_refuse_bad_variants():
 
 def test_backward_variant_by_shape():
     """K4's and K5's kernel is a pure function of (dtype, head dim), the
-    same for both: sm90 (TMA, wgmma) for bf16 at head dim 64 and 128,
-    mma.sync for bf16 and f16 at every other head dim up to 256 (f16 at 64
-    and 128 too), CUDA cores for f32 and above 256."""
+    same for both: sm90 (TMA, wgmma) for bf16 and f16 at every head dim up
+    to 256 that is a multiple of 8, mma.sync for the other bf16 and f16 head
+    dims up to 256, CUDA cores for f32 and above 256."""
     bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
-    for d in (1, 16, 40, 80, 96, 200, 256):
+    for d in (8, 16, 32, 40, 48, 64, 80, 96, 128, 136, 200, 256):
+        assert tfa._bwd_variant(bf, d) == "sm90"
+        assert tfa._bwd_variant(f16, d) == "sm90"
+        assert tfa._bwd_variant(f32, d) == "cuda_cores"
+    for d in (1, 4, 12, 36, 100, 129, 250, 255):
         assert tfa._bwd_variant(bf, d) == "mma"
         assert tfa._bwd_variant(f16, d) == "mma"
         assert tfa._bwd_variant(f32, d) == "cuda_cores"
-    assert tfa._bwd_variant(f16, 64) == tfa._bwd_variant(f16, 128) == "mma"
     for dtype in (bf, f16, f32):
         assert tfa._bwd_variant(dtype, 257) == "cuda_cores"
-    assert tfa._bwd_variant(bf, 32) == "mma"
-    assert tfa._bwd_variant(bf, 64) == "sm90"
-    assert tfa._bwd_variant(bf, 128) == "sm90"
-    for d in (32, 64, 128):
-        assert tfa._bwd_variant(f32, d) == "cuda_cores"
+        assert tfa._bwd_variant(dtype, 264) == "cuda_cores"
+    # the forward takes sm90 at the same head dims, at block_k 128
+    for d in range(1, 300):
+        for dtype in (bf, f16, f32):
+            assert (tfa._bwd_variant(dtype, d) == "sm90") == \
+                (tfa._fwd_variant(dtype, d, 128) == "sm90")
 
 
 def test_backward_counts_reset_and_refuse_bad_variants():
@@ -411,17 +415,22 @@ def test_backward_counts_reset_and_refuse_bad_variants():
     assert tfa._forced_bwd_variant(bf, 64, "mma") == "mma"
     assert tfa._forced_bwd_variant(bf, 32, "mma") == "mma"
     assert tfa._forced_bwd_variant(torch.float32, 64, None) == "cuda_cores"
-    for args in ((bf, 32, "sm90"), (torch.float32, 64, "sm90"),
+    assert tfa._forced_bwd_variant(bf, 32, None) == "sm90"
+    assert tfa._forced_bwd_variant(torch.float16, 256, "mma") == "mma"
+    assert tfa._forced_bwd_variant(bf, 36, None) == "mma"
+    for args in ((bf, 36, "sm90"), (torch.float32, 64, "sm90"),
                  (torch.float32, 64, "mma"), (bf, 64, "cuda_cores"),
-                 (bf, 128, "fast")):
+                 (bf, 128, "fast"), (bf, 264, "sm90")):
         with pytest.raises(ValueError, match="cannot run"):
             tfa._forced_bwd_variant(*args)
 
 
 # -- the backward: K4 (dQ) and K5 (dK/dV) ------------------------------------
 
-def _bf16_tol(want, ref_max):
-    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+def _bf16_tol(want, ref_max, bits=7):
+    """max(2 ulp, 5e-3 * ref_max) elementwise: ``bits`` 7 is bf16's ulp,
+    10 f16's."""
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - bits)
     return np.maximum(2 * ulp, 5e-3 * ref_max)
 
 
@@ -459,6 +468,26 @@ def test_plain_backward_matches_jax_partitioned_bwd_at_sm90_tiles(
                           seed=block_q + k_offset)
 
 
+@pytest.mark.parametrize(
+    "dtype,d,s,block_q,block_k,causal,q_offset,k_offset,k_valid", [
+        ("bfloat16", 256, 128, 64, 64, True, 0, 64, None),
+        ("bfloat16", 48, 256, 128, 128, False, 0, 0, 196),
+        ("float16", 64, 256, 128, 128, True, 0, 0, None),
+        ("float16", 256, 128, 64, 64, False, 0, 0, 100)])
+def test_plain_backward_matches_jax_partitioned_bwd_at_sm90_wide_tiles(
+        dtype, d, s, block_q, block_k, causal, q_offset, k_offset, k_valid):
+    """The same comparison at the tiles of the sm90 backward's other widths
+    and in f16: head dim 256 at 64-key blocks (K4's K/V slots and K5's split
+    key tiles at width 256), causal with keys from global 64 (rows 0-63 get
+    exactly zero dq) and in f16 with a key mask at 100; ViT's head dim 48
+    with its 196 valid keys of 256; f16 at head dim 64 on the 128-key
+    blocks. f16 within max(2 f16 ulp, 5e-3 * max|ref|), the bf16 bound in
+    f16's ulps."""
+    _check_plain_backward(dtype, d, causal, q_offset, k_offset, k_valid,
+                          s=s, sk=s, block_q=block_q, block_k=block_k,
+                          seed=d + s)
+
+
 def _check_plain_backward(dtype, d, causal, q_offset, k_offset, k_valid, *,
                           s, sk, block_q, block_k, seed):
     b, h = 1, 2
@@ -493,7 +522,7 @@ def _check_plain_backward(dtype, d, causal, q_offset, k_offset, k_valid, *,
         want = _np(want)
         ref_max = np.abs(want).max()
         tol = 1e-5 * ref_max if dtype == "float32" else \
-            _bf16_tol(want, ref_max)
+            _bf16_tol(want, ref_max, 7 if dtype == "bfloat16" else 10)
         assert (np.abs(got - want) <= tol).all(), np.abs(got - want).max()
     if k_offset > q_offset and causal:  # rows that see no key
         assert (_np(dq)[:, :k_offset - q_offset] == 0).all()
@@ -728,25 +757,27 @@ def test_vit_attention_through_the_kernel_tier_matches_jax(monkeypatch):
 
 
 def test_head_dim_48_takes_mma_or_cuda_cores():
-    """Head dim 48 (ViT's) runs the sm90 forward in bf16 at block_k 128 (its
-    96-byte rows read as 64-column boxes, zero past the row), the mma.sync
-    forward at other 16-bit blocks and the mma.sync backward; the CUDA-core
-    kernels in f32. The sm90 backward stays at 64 and 128, so forcing it is
-    refused, and mma.sync can be forced in place of the sm90 forward."""
-    bf, f32 = torch.bfloat16, torch.float32
+    """Head dim 48 (ViT's) runs the sm90 forward in bf16 and f16 at block_k
+    128 and the sm90 backward in both (its 96-byte rows read as 64-column
+    boxes, zero past the row, at compiled width 64), the mma.sync forward at
+    other 16-bit blocks; the CUDA-core kernels in f32. mma.sync can be
+    forced in place of either sm90 kernel, sm90 nowhere else."""
+    bf, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     assert tfa.compiled_width("mma", 48) == 48
     assert tfa.compiled_width("sm90", 48) == 64
     assert tfa._fwd_variant(bf, 48, 128) == "sm90"
     assert tfa._fwd_variant(bf, 48, 64) == "mma"
     assert tfa._fwd_variant(bf, 48, 40) == "cuda_cores"
     assert tfa._fwd_variant(f32, 48, 128) == "cuda_cores"
-    assert tfa._bwd_variant(bf, 48) == "mma"
+    assert tfa._bwd_variant(bf, 48) == tfa._bwd_variant(f16, 48) == "sm90"
     assert tfa._bwd_variant(f32, 48) == "cuda_cores"
     assert tfa._forced_variant(bf, 48, 128, "mma") == "mma"
+    assert tfa._forced_bwd_variant(bf, 48, "mma") == "mma"
+    assert tfa._forced_bwd_variant(f16, 48, None) == "sm90"
     with pytest.raises(ValueError, match="cannot run"):
         tfa._forced_variant(bf, 48, 64, "sm90")
     with pytest.raises(ValueError, match="cannot run"):
-        tfa._forced_bwd_variant(bf, 48, "sm90")
+        tfa._forced_bwd_variant(f32, 48, "sm90")
 
 
 @pytest.mark.parametrize("d", [40, 96])

@@ -171,7 +171,7 @@ def _run_ranks(code: str, n: int, **env) -> list[dict]:
 
 
 _PRIVATE_GROUP_RANK = """
-import datetime, json, os
+import datetime, gc, json, os
 import torch, torch.distributed as dist
 from ddw_tpu_torch.parallel import comm
 from ddw_tpu_torch.runtime.collectives import (all_gather_axis,
@@ -197,6 +197,15 @@ res = {"initialized": dist.is_initialized(),
        "gather_grp": comm.gather_from_group(x, pg, 0),
        "axis_index": mesh.axis_index(MODEL_AXIS),
        "shape": mesh.shape}
+# gloo's own teardown at exit aborts a rank now and then (terminate called
+# without an active exception), in a process that holds nothing but a
+# ProcessGroupGloo and its collectives too: end the collectives together,
+# then close the group and free it and its store while the interpreter is
+# whole
+pg.barrier().wait()
+pg.shutdown()
+del pg, mesh, store
+gc.collect()
 print(json.dumps({k: v.tolist() if isinstance(v, torch.Tensor) else v
                   for k, v in res.items()}))
 """
