@@ -10,8 +10,9 @@ end.
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
-1. device — the card's name, and ``nvidia-smi``'s name and power limit.
-   Without CUDA the script exits 2 at once.
+1. device — the card's name, and ``nvidia-smi``'s name and power limit;
+   ``require_gpu_or_exit("smoke")`` under ``DDW_REQUIRE_GPU=1`` returns the
+   card's name. Without CUDA the script exits 2 at once.
 2. build  — compile every kernel of the path from ``ddw_tpu_torch/ops/csrc``
    with ``nvcc`` (one process per source, all started together).
 2b. decode — the JPEG decoder this machine resolves (``native``: the libjpeg
@@ -383,7 +384,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
    requests pass the same rule; blocks and pins drain to 0. (d) the
    LoRA-built lm_flash of 10b's TP arm, saved as a package: 4 requests at
    tp=2 (half the query heads a rank, B whole) under the same rule against
-   its tp=1 forward. ``close()`` of the group ends the follower.
+   its tp=1 forward. ``close()`` of the group ends the follower. After
+   every clean close — (a) and the group of (c) and (d) — each follower's
+   exit code is recorded and must be 0; (b)'s stopped child must exit 0,
+   which its worker does only when its followers did; the follower of
+   (b)'s SIGKILLed child is counted apart. One ``follower_exits`` line
+   gives the counts.
 10. ring — the collective layer (K6, the ring all-reduce) at N = 2, then
    N = 4 ranks: processes from ``spawn_cpu`` joined by gloo, all on this
    one card (NCCL refuses two ranks on one device; K6 maps its neighbours'
@@ -559,15 +565,24 @@ def half_ulp(t, dtype):
 
 
 def phase_device():
+    from unittest import mock
+
     import torch
 
+    from ddw_tpu_torch.utils.config import require_gpu_or_exit
+
     name = torch.cuda.get_device_name(0)
+    with mock.patch.dict(os.environ, {"DDW_REQUIRE_GPU": "1"}):
+        required = require_gpu_or_exit("smoke")
+    check(required == name, f"require_gpu_or_exit returned {required!r}, "
+                            f"not the card's name {name!r}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
     emit(phase="device", name=name, count=torch.cuda.device_count(),
-         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
+         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
+         require_gpu_or_exit=required)
     return name, smi
 
 
@@ -6331,6 +6346,7 @@ def phase_tp_serve(tmp: str, ctx: dict, serve: dict, smi: str) -> dict:
                 pool.max_resident)
     finally:
         eng.close()
+    exits = {"engine": eng.follower_exit_codes}
     gone_s = await_cond(lambda: not any(pid_alive(p) for p in followers),
                         30.0, "the follower exited on close()")
     snap, again = run["snap"], run["repeat"]
@@ -6373,7 +6389,10 @@ def phase_tp_serve(tmp: str, ctx: dict, serve: dict, smi: str) -> dict:
     check(tie["all_near_ties"], f"tp_serve: every token within "
           f"{SERVE_TOKEN_TIE} of the sequential path's argmax ({tie})")
     torch.cuda.empty_cache()
-    out.update(tp_serve_lora(tmp, pm, prompts))
+    out.update(tp_serve_lora(tmp, pm, prompts, exits))
+    # every follower's exit code after a clean close, checked in main
+    # beside the drill's ProcessReplica child's
+    out["follower_exits"] = exits
 
     out["wall_seconds"] = time.perf_counter() - t_phase
     emit(phase="tp_serve", wall_seconds=out["wall_seconds"])
@@ -6381,7 +6400,7 @@ def phase_tp_serve(tmp: str, ctx: dict, serve: dict, smi: str) -> dict:
     return out
 
 
-def tp_serve_lora(tmp: str, pm, prompts) -> dict:
+def tp_serve_lora(tmp: str, pm, prompts, exits: dict) -> dict:
     """tp_serve (c) and (d): LoRA at tp=2 over one follower (a ``TPGroup``
     whose mesh both engines take, one after the other).
 
@@ -6484,6 +6503,7 @@ def tp_serve_lora(tmp: str, pm, prompts) -> dict:
             leng.stop()
     finally:
         group.close()
+    exits["lora"] = group.exit_codes
     gone_s = await_cond(lambda: not any(pid_alive(p) for p in followers),
                         30.0, "the LoRA arms' follower exited on close()")
     tie = forced_check(pm, ad_prompts, got, (stacks, slots))
@@ -6604,7 +6624,10 @@ def drill_tp_process(work: str) -> dict:
          restart_s=restart_s, killed_follower_gone_s=orphans_s,
          followers_before=before, followers_after=after,
          all_followers_gone_s=left_s, attempts=kinds[-2:], tp=tp_child,
-         errors=errors[:3], **ftie)
+         child_exit=rep._proc.returncode,
+         followers_killed_on_purpose=len(before), errors=errors[:3], **ftie)
+    check(rep._proc.returncode == 0, f"the stopped tp=2 child exited "
+                                     f"{rep._proc.returncode}")
     check(not errors, f"tp=2 process replica: every request answered "
           f"({errors[:3]})")
     check(len(before) == len(after) == TP_SERVE_DEGREE - 1
@@ -6615,7 +6638,9 @@ def drill_tp_process(work: str) -> dict:
     check(tp_child == TP_SERVE_DEGREE, "the respawn kept tp")
     check(ftie["all_near_ties"], f"tp=2 process replica: every token within "
           f"{SERVE_TOKEN_TIE} of the sequential path's argmax ({ftie})")
-    return {"process_cold_start_s": cold, "process_restart_s": restart_s}
+    return {"process_cold_start_s": cold, "process_restart_s": restart_s,
+            "child_exit": rep._proc.returncode,
+            "followers_killed_on_purpose": len(before)}
 
 
 # the gang phase: ranks of the port's Launcher that share the card (gloo)
@@ -7143,9 +7168,24 @@ def main() -> int:
         finally:
             stop_drills(drills)
     workshop, pretrained = done["workshop"], done["pretrained"]
-    tp_serve.update(process_cold_start_s=done["tp_process"][
-        "process_cold_start_s"], process_restart_s=done["tp_process"][
-            "process_restart_s"])
+    tp_proc = done["tp_process"]
+    tp_serve.update(process_cold_start_s=tp_proc["process_cold_start_s"],
+                    process_restart_s=tp_proc["process_restart_s"])
+    # the stopped ProcessReplica child's 0 (checked in its drill) says its
+    # followers exited 0 too: its worker returns non-zero otherwise
+    exits = tp_serve["follower_exits"]
+    codes = [c for arm in exits.values() for c in arm.values()]
+    tp_serve["follower_exits"] = {
+        "clean_closes": len(exits) + 1, "followers": len(codes),
+        "nonzero": sum(c != 0 for c in codes),
+        "process_child_exit": tp_proc["child_exit"],
+        "killed_on_purpose": tp_proc["followers_killed_on_purpose"],
+        "by_arm": exits}
+    emit(phase="tp_serve", arm="follower_exits",
+         **tp_serve["follower_exits"])
+    check(all(exits.values()) and not tp_serve["follower_exits"]["nonzero"],
+          f"every tensor-parallel follower exited 0 after a clean close "
+          f"({exits})")
     gang = gang_finish(done)
     parallel = dict(done["parallel"],
                     dryrun_seconds=done["dryrun"]["dryrun_seconds"])

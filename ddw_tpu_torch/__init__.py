@@ -6,18 +6,15 @@ of JAX: host logic it needs is kept here as its own copy. Every Pallas kernel
 on a ported path becomes a hand-written CUDA kernel for ``sm_90a``
 (``ddw_tpu_torch/ops/csrc``), with a plain PyTorch version beside it.
 
-Ported so far: packaged-model serving of MobileNetV2 (``serving.package``,
-``serving.batch``) and its data-parallel training (``train.trainer``, with
-``train.step``, ``data.loader``, ``checkpoint.ckpt``, ``runtime.dist``), with
-the stride-1 depthwise 3x3 layers on the CUDA kernels of
-``ops/csrc/depthwise_conv.cu`` forward and backward; TransformerLM scoring,
-generation and training with the flash-attention kernels of
-``ops/csrc/flash_attention.cu``; the collective layer (``runtime``),
-whose kernel ring all-reduce is ``ops/csrc/ring_reduce.cu``; and
-multi-device training over gloo or NCCL ranks (``parallel``: ring
-attention, expert and pipeline parallelism, ZeRO/FSDP, tensor parallelism;
-``checkpoint.sharded``; ``dryrun``). What remains is listed in
-``ROADMAP.md``.
+The port does all that ``ddw_tpu`` does: every public name a ``ddw_tpu``
+module defines is bound in its counterpart here, or, where the port answers
+it differently, listed with its counterpart in ``tests/test_torch_names.py``,
+which holds the two packages together name by name. Serving, training,
+the collectives, multi-device parallelism, the fleet and the fault-tolerant
+runtime all run on the card, with the depthwise (``depthwise_conv.cu``,
+``depthwise_sm90.cu``), flash-attention (``flash_attention*.cu``,
+``flash_fwd_sm90.cu``, ``flash_bwd_sm90.cu``) and ring all-reduce
+(``ring_reduce.cu``) kernels.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with no
 CUDA device and no explicit CPU request they raise.

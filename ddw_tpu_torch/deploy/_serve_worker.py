@@ -19,7 +19,9 @@ the compile and gate readiness on ``/readyz`` like any load balancer.
 Exit codes: 0 = clean drain (SIGTERM honored), ``EXIT_ENGINE_FAILED`` (13)
 = the engine went terminal (``DDW_FAULT=serve:crash`` inherited through
 the environment lands here — the fault spec's ``replica=N`` matches this
-process's ``--replica-id``), anything else = startup error (a child
+process's ``--replica-id``), ``EXIT_FOLLOWER_FAILED`` (14) = a clean
+drain after which a tensor-parallel follower exited non-zero, anything
+else = startup error (a child
 asked for the card — ``--device`` unset or ``cuda`` — that finds none
 exits here and never carries on on the CPU). The parent keeps the raw code
 as restart forensics. ``--device cpu`` serves on the CPU (the tests);
@@ -28,6 +30,10 @@ as restart forensics. ``--device cpu`` serves on the CPU (the tests);
 ``--tp N`` (folded into ``EngineCfg.tp``): the child is rank 0 of a
 ``N``-wide tensor-parallel replica and starts its ``N - 1`` follower
 processes itself (:mod:`ddw_tpu_torch.serve.tp`), which die with it.
+After a clean drain the child closes its engine, so the followers leave
+and the group ends before it exits; a failed engine ends the process at
+once, with no handshake over a group whose last program may never have
+finished.
 ``ddw_tpu``'s worker also forces ``N`` fake host devices into
 ``XLA_FLAGS`` before JAX loads; the port has no counterpart, since its
 shards are processes, not devices.
@@ -45,6 +51,7 @@ import sys
 import time
 
 EXIT_ENGINE_FAILED = 13
+EXIT_FOLLOWER_FAILED = 14
 
 
 def _write_atomic(path: str, text: str) -> None:
@@ -135,15 +142,24 @@ def main(argv=None) -> int:
     # Serve until drained (SIGTERM) or the engine goes terminal. The parent
     # supervises the PROCESS: a dead engine here must become a dead process,
     # so the one recovery path (respawn) covers both.
-    while True:
-        state = gw.lifecycle.state
-        if state == "stopped":
-            return 0
+    while gw.lifecycle.state != "stopped":
         if eng.state == "failed":
             _dump_flight(eng, args.port_file)
             gw.drain(grace_s=1.0)           # 503 stragglers, close listener
-            return EXIT_ENGINE_FAILED
+            # no close() over a group whose follower may still run the
+            # program this engine abandoned, and no interpreter teardown
+            # with that gloo group alive: the process ends here, and its
+            # followers die with it (their parent-death signal)
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os._exit(EXIT_ENGINE_FAILED)
         time.sleep(0.05)
+    # the drain only stopped the engine: closing it releases a tp replica's
+    # followers and ends its group before this process exits
+    eng.close()
+    if any(c != 0 for c in eng.follower_exit_codes.values()):
+        return EXIT_FOLLOWER_FAILED
+    return 0
 
 
 if __name__ == "__main__":

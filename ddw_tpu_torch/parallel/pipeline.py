@@ -45,6 +45,7 @@ import torch.distributed as dist
 from ddw_tpu_torch.ops.ring_reduce import recv, send
 from ddw_tpu_torch.runtime.dist import all_reduce_mean_
 from ddw_tpu_torch.train.lm_step import lm_loss, token_accuracy
+from ddw_tpu_torch.train.step import apply_gradients
 
 PIPE_AXIS = "pipe"
 
@@ -367,10 +368,9 @@ def make_pp_lm_train_step(model, tx, mesh, pipe_axis: str = PIPE_AXIS,
             dist.all_reduce(g, group=group)
         if data_g is not None:
             all_reduce_mean_(list(grads.values()), data_g)
-        tx.update(state.params, grads, state.opt_state)
+        apply_gradients(state, tx, grads)
         for p in lm.parameters():
             p.grad = None
-        state.step += 1
         metrics["pp_bubble_fraction"] = torch.tensor(bubble)
         return metrics
 

@@ -329,6 +329,8 @@ def _sharded_body(tx, grad_accum_steps: int, state, images, labels,
         all_reduce_mean_([metrics], data_g)
         params = {n: p.data for n, p in model.named_parameters()}
         views = lay.views(params)
+        # not apply_gradients: the update runs on this rank's views with the
+        # whole tree's clipping norm, then the slices go back to the params
         tx.update(views, lay.views(grads), state.opt_state, lay.sq_norm)
         for n, p in model.named_parameters():
             sliced = _minus(lay.moment[n], lay.compute[n])

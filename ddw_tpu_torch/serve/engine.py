@@ -83,9 +83,9 @@ engine serves. ``tp=N`` without a mesh builds a replica-private group and
 starts ``N - 1`` follower processes (:class:`~ddw_tpu_torch.serve.tp.
 TPGroup`); an explicit mesh adopts its ``model`` axis, and its other ranks
 construct the same engine, which then follows (:meth:`ServingEngine.
-follow`). The image lane stays on rank 0, unsharded. Adapter pools under
-``tp > 1`` are refused at construction with an error naming
-``ROADMAP.md``.
+follow`). The image lane stays on rank 0, unsharded. Adapter pools serve
+under ``tp > 1`` too: their stacks shard like the weights they adapt, and a
+slot write is one more dispatch.
 """
 
 from __future__ import annotations
@@ -517,6 +517,13 @@ class ServingEngine:
         """The follower processes this engine started (tp > 1 without a
         mesh); empty otherwise."""
         return self._tp_group.pids if self._tp_group is not None else []
+
+    @property
+    def follower_exit_codes(self) -> dict[int, int | None]:
+        """Each follower's exit code by rank (None while it runs), for the
+        followers :attr:`follower_pids` lists."""
+        return (self._tp_group.exit_codes if self._tp_group is not None
+                else {})
 
     @property
     def role(self) -> str:

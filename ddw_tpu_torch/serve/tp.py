@@ -30,7 +30,8 @@ the replica's own, on this host):
   shard of every weight, point to point (:func:`send_tensors`), so no file
   is needed;
 - ``("pool", pool_id, op, args)``: one device program of that pool;
-- ``("close",)``: the follower exits.
+- ``("close",)``: the follower leaves :func:`follow`; both sides then end
+  the group together (:func:`_end_group`) and the follower exits.
 
 :class:`TPGroup` is the replica-private group an engine builds for
 ``EngineCfg(tp=N)`` without a mesh: a gloo group over its own
@@ -53,6 +54,7 @@ import argparse
 import ctypes
 import ctypes.util
 import datetime
+import gc
 import itertools
 import os
 import pickle
@@ -191,6 +193,23 @@ def follow(mesh: Mesh, device) -> int:
             pools[pool_id].run_program(op, args)
             if op == "close":
                 del pools[pool_id]
+
+
+def _end_group(pg, handshake: bool) -> None:
+    """End ``pg``'s work before this process exits: with ``handshake`` (the
+    ``close`` header went through), a barrier both sides reach, so neither
+    rank tears down a connection the other still reads; then ``shutdown()``.
+    A process that exits while a ``ProcessGroupGloo`` is still busy or alive
+    can die in gloo's own teardown ("terminate called without an active
+    exception"), after a clean close too. A follower then drops its last
+    references to the group and its store while the interpreter is whole;
+    on rank 0 the engine's mesh keeps the shut-down group."""
+    if handshake:
+        try:
+            pg.barrier().wait()
+        except RuntimeError:
+            pass            # the other side died: its exit code says so
+    pg.shutdown()
 
 
 def _follower_log_tail(path: str, n: int = 2000) -> str:
@@ -338,20 +357,32 @@ class TPGroup:
                     f"with code {p.returncode}; its log is "
                     f"{self.log_paths[r]}")
 
+    @property
+    def exit_codes(self) -> dict[int, int | None]:
+        """Each follower's exit code by rank (None while it runs)."""
+        return {r: p.poll() for r, p in self.procs.items()}
+
     def close(self, grace_s: float = 10.0) -> None:
-        """Send ``close`` (when the group is sound), wait for the followers
-        to exit, kill what is left; remove the group's own log directory
-        when every follower exited cleanly (a failure keeps the logs its
-        error names). Idempotent."""
+        """Send ``close`` (when the group is sound) and end the group with
+        the followers (:func:`_end_group`), wait for them to exit, kill what
+        is left; remove the group's own log directory when every follower
+        exited cleanly (a failure keeps the logs its error names).
+        Idempotent."""
         if not self._finalizer.alive:
             return
+        closed = False
         if not self.broken and all(p.poll() is None
                                    for p in self.procs.values()):
             try:
                 send_header(self.pg, ("close",))
+                closed = True
             except RuntimeError:
                 pass
         self._finalizer.detach()
+        if closed:
+            # a broken group may still run a wedged thread's collective:
+            # only a clean close ends it here
+            _end_group(self.pg, handshake=True)
         _shutdown(self.procs, grace_s)
         mark_broken(self.pg)
         if self._own_log_dir and all(p.returncode == 0
@@ -403,7 +434,13 @@ def main(argv=None) -> int:
                           timeout=timeout)
     store.set(_READY.format(args.rank), "1")
     pg = dist.ProcessGroupGloo(store, args.rank, args.world, timeout)
-    return follow(Mesh.over_group(pg, MODEL_AXIS), device)
+    code = follow(Mesh.over_group(pg, MODEL_AXIS), device)
+    # follow's pools are gone with it: the group and its store are this
+    # frame's to end and free (rank 0 meets the barrier after ``close``)
+    _end_group(pg, handshake=code == 0)
+    del pg, store
+    gc.collect()
+    return code
 
 
 if __name__ == "__main__":

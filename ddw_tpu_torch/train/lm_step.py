@@ -39,7 +39,7 @@ import contextlib
 from ddw_tpu_torch.runtime.dist import all_reduce_mean_, group_topology
 from ddw_tpu_torch.runtime.mesh import bind_mesh
 from ddw_tpu_torch.train.step import (TrainState, _swap_params,
-                                      dropout_generator)
+                                      apply_gradients, dropout_generator)
 
 
 def lm_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -197,8 +197,7 @@ def _lm_step_body(tx, grad_accum_steps: int, state: TrainState, inputs,
     all_reduce_mean_([g for g in grads.values() if g is not None])
     metrics = torch.stack([loss.float(), acc.float(), aux.float()])
     all_reduce_mean_([metrics])
-    tx.update(state.params, grads, state.opt_state)
-    state.step += 1
+    apply_gradients(state, tx, grads)
     return metrics[0], metrics[1], metrics[2]
 
 

@@ -321,6 +321,16 @@ def scan_microbatches(state: TrainState, im: torch.Tensor, lb: torch.Tensor,
     return lsum * inv, asum * inv, state.batch_stats, grads
 
 
+def apply_gradients(state: TrainState, tx, grads) -> TrainState:
+    """Shared step core: ``tx``'s update of the parameters and optimizer
+    state, in place, then the step advanced. BatchNorm statistics live in
+    the model's buffers, so unlike ``ddw_tpu``'s none are passed in.
+    Returns ``state``."""
+    tx.update(state.params, grads, state.opt_state)
+    state.step += 1
+    return state
+
+
 def _dp_step_body(tx, grad_accum_steps: int, state: TrainState,
                   images: torch.Tensor, labels: torch.Tensor, seed: int):
     """One optimizer update on this rank's batch, in ``_dp_step_body``'s
@@ -336,8 +346,7 @@ def _dp_step_body(tx, grad_accum_steps: int, state: TrainState,
     all_reduce_mean_(list(bstats.values()))  # world-consistent BN statistics
     metrics = torch.stack([loss.float(), acc.float()])
     all_reduce_mean_([metrics])
-    tx.update(state.params, grads, state.opt_state)
-    state.step += 1
+    apply_gradients(state, tx, grads)
     return metrics[0], metrics[1]
 
 

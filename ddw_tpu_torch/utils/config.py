@@ -1,11 +1,18 @@
 """The port's copy of ``ddw_tpu.utils.config``: ``DataCfg``, ``ModelCfg``,
-``TrainCfg``, ``TuneCfg``, ``LMCfg`` and the ``section.key=value`` overrides.
+``TrainCfg``, ``TuneCfg``, ``LMCfg``, the ``section.key=value`` overrides
+and the environment helpers the benchmark and measurement tools share
+(:func:`env_flag`, :func:`require_gpu_or_exit`). ``ddw_tpu``'s ViT and LM
+tile-geometry overrides (``DDW_BENCH_VIT_HIDDEN``, ``DDW_BENCH_VIT_HEADS``,
+``DDW_BENCH_LM_HEADS``) have no counterpart: a benchmark's widths come from
+its configuration files, never from the environment.
 
 Every field keeps the original's name and default, so configs (and a
 packaged model's ``package.json``, which stores ``dataclasses.asdict(
-model_cfg)``) mean the same in both packages. Fields of model features not
-yet ported are refused by :func:`ddw_tpu_torch.models.registry.build_model`
-when set, naming ``ROADMAP.md`` — never silently ignored.
+model_cfg)``) mean the same in both packages. A field a model cannot honour
+is refused by :func:`ddw_tpu_torch.models.registry.build_model` when set,
+never silently ignored: ``dw_impl`` other than ``"xla"`` on ConvNeXt (its
+7x7 depthwise is not the 3x3 kernel's) and ``lora_rank`` on a model
+without adapters.
 """
 
 from __future__ import annotations
@@ -169,6 +176,44 @@ class TuneCfg:
 
 _TYPES = {"data": DataCfg, "model": ModelCfg, "train": TrainCfg,
           "tune": TuneCfg, "lm": LMCfg}
+
+
+def require_gpu_or_exit(verb: str = "measure") -> str:
+    """The card's counterpart of ``ddw_tpu``'s ``require_tpu_or_exit``:
+    when ``DDW_REQUIRE_GPU`` is set and no CUDA card is visible, print one
+    refusal to stderr and exit 4, so a measurement never records CPU
+    timings as the card's. Returns the card's name, or ``"cpu"`` where
+    there is none."""
+    import sys
+
+    import torch
+
+    required = env_flag("DDW_REQUIRE_GPU")      # a typo raises on the card too
+    if torch.cuda.is_available():
+        return torch.cuda.get_device_name(0)
+    if required:
+        print(f"DDW_REQUIRE_GPU set but torch sees no CUDA card; refusing "
+              f"to {verb}", file=sys.stderr)
+        sys.exit(4)
+    return "cpu"
+
+
+def env_flag(name: str) -> bool:
+    """Boolean environment flag shared by the benchmark and the perf tools.
+
+    Accepts the common spellings both ways; anything else raises — a typo
+    must not silently flip a flag in either direction (enabling
+    DDW_BENCH_SMOKE degrades measurements; disabling DDW_REQUIRE_GPU records
+    CPU timings as the card's)."""
+    import os
+
+    val = os.environ.get(name, "").strip().lower()
+    if val in ("", "0", "false", "no", "off"):
+        return False
+    if val in ("1", "true", "yes", "on"):
+        return True
+    raise ValueError(f"{name} must be a boolean flag "
+                     f"(1/true/yes/on or 0/false/no/off), got {val!r}")
 
 
 def apply_overrides(cfgs: dict[str, Any],

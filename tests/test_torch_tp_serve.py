@@ -21,6 +21,8 @@ rank 0 and schedules, followers run every paged program on their shards
   ends the follower;
 - an explicit two-rank mesh (``mesh=``) adopts its degree on rank 0 while
   rank 1 follows, also under the GQA fallback;
+- a tp=2 serve worker whose engine fails exits 13 within seconds, and its
+  follower with it;
 - ``slow``: out-of-blocks preemption, a rejecting spec tick with a warm
   restart, the ``ProcessReplica(tp=2)`` fleet through a SIGKILL, and the
   KV wire between pools of any ``tp`` and across the two packages.
@@ -133,6 +135,23 @@ def _alive(pid: int) -> bool:
             return f.read().split(")")[-1].split()[0] != "Z"
     except OSError:
         return False
+
+
+def _followers_of(pid: int) -> list[int]:
+    out = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().split(")")[-1].split()[1])
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read()
+        except (OSError, ValueError, IndexError):
+            continue
+        if ppid == pid and b"ddw_tpu_torch.serve.tp" in cmd:
+            out.append(int(d))
+    return out
 
 
 def _fake_mesh(n, axes=(MODEL_AXIS,)):
@@ -287,6 +306,7 @@ def test_a_cleanly_closed_group_removes_its_own_logs():
     assert os.path.isfile(os.path.join(log_dir, "follower1.log"))
     group.close()
     assert group.procs[1].returncode == 0
+    assert group.exit_codes == {1: 0}
     assert not os.path.exists(log_dir)
 
 
@@ -431,6 +451,8 @@ def test_tp2_engine_serves_tp1_tokens_with_telemetry(pm, jpm):
         finally:
             eng.close()
         if tp == 2:
+            # the killed follower's code is reported, not hidden
+            assert eng.follower_exit_codes == {1: -signal.SIGKILL}
             assert snap["serve.tp_dispatches"] > 0
             assert snap["serve.tp_dispatch_us"] > 0
             assert snap["serve.tp_dispatch_cost_us"] > 0
@@ -463,17 +485,17 @@ def test_tp2_engine_serves_tp1_tokens_with_telemetry(pm, jpm):
 
 
 _EXPLICIT_MESH_RANK = """
-import json, os, warnings
+import gc, json, os, warnings
 import numpy as np, torch, torch.distributed as dist
 from ddw_tpu_torch.runtime.mesh import MODEL_AXIS, make_mesh
 from ddw_tpu_torch.serve import EngineCfg, ServingEngine
 from ddw_tpu_torch.serving.lm_package import LMPackagedModel
 
 torch.set_num_threads(1)
+store = dist.TCPStore("127.0.0.1", int(os.environ["PORT"]), 2, False)
 dist.init_process_group(
-    "gloo", store=dist.TCPStore("127.0.0.1", int(os.environ["PORT"]), 2,
-                                False),
-    rank=int(os.environ["RANK"]), world_size=int(os.environ["WORLD"]))
+    "gloo", store=store, rank=int(os.environ["RANK"]),
+    world_size=int(os.environ["WORLD"]))
 mesh = make_mesh([(MODEL_AXIS, 2)])
 rank = mesh.axis_index(MODEL_AXIS)
 rng = np.random.RandomState(4)
@@ -505,6 +527,12 @@ for name in ("mha", "gqa"):
                            for a, b in zip(got, refs + refs[:1])]}
     eng.stop()
     clone.close()
+# as _PRIVATE_GROUP_RANK: end the collectives together, then end the
+# groups and free them and the store while the interpreter is whole
+dist.barrier()
+dist.destroy_process_group()
+del mesh, eng, store
+gc.collect()
 print(json.dumps(out))
 """
 
@@ -524,6 +552,49 @@ def test_explicit_mesh_adopts_its_degree_and_follows(pkg_dir, tmp_path):
     assert r0["gqa"]["kv_heads"] == 3          # replicated
     for name in ("mha", "gqa"):
         assert all(r0[name]["equal"]), (name, r0[name])
+
+
+def test_a_failed_tp2_worker_exits_at_once(pkg_dir, tmp_path):
+    """A tp=2 serve worker whose engine goes terminal
+    (``DDW_FAULT=serve:crash`` at its first admission) exits
+    ``EXIT_ENGINE_FAILED`` within seconds: no handshake over a group whose
+    last program may never have finished. Its follower dies with it."""
+    from ddw_tpu_torch.deploy._serve_worker import EXIT_ENGINE_FAILED
+    from ddw_tpu_torch.gateway import GatewayClient
+
+    port_file = str(tmp_path / "port.json")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["DDW_FAULT"] = "serve:crash"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ddw_tpu_torch.deploy._serve_worker",
+         "--model-dir", pkg_dir, "--port-file", port_file, "--tp", "2",
+         "--device", "cpu", "--threads", "1", "--warmup", "[4]",
+         "--engine-cfg", json.dumps({"n_slots": 2, "steps_per_tick": 2})],
+        cwd=REPO, env=env, stdout=subprocess.DEVNULL,
+        stderr=subprocess.DEVNULL)
+    try:
+        deadline = time.monotonic() + WAIT
+        while not os.path.exists(port_file) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        with open(port_file) as f:
+            cli = GatewayClient("127.0.0.1", json.load(f)["port"],
+                                timeout_s=60.0, max_retries=0)
+        assert cli.wait_ready(WAIT)
+        followers = _followers_of(proc.pid)
+        assert len(followers) == 1, followers
+        try:
+            cli.generate([1, 2, 3], 4)
+        except Exception:           # noqa: BLE001 — answered 5xx or cut off
+            pass
+        assert proc.wait(timeout=10) == EXIT_ENGINE_FAILED
+        deadline = time.monotonic() + 10
+        while _alive(followers[0]) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert not _alive(followers[0])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 # -- tier-2 drills (test_tp_serve.py's slow drills) -------------------------
@@ -562,6 +633,7 @@ def test_tp2_identity_through_out_of_blocks_preemption(pm):
             _pool_clean(eng.pool)
     finally:
         eng.close()
+    assert eng.follower_exit_codes == {1: 0}
     assert snap["serve.preemptions"] > 0, "overcommit never ran out"
     assert snap["serve.tp_dispatches"] > 0
     for j, (r, ref) in enumerate(zip(out, refs)):
@@ -620,23 +692,6 @@ def test_tp2_identity_through_spec_tick_and_warm_restart(pm, dm, dm_dir):
                               dm.generate(prompts[1][None], steps[1])[0])
     finally:
         eng.close()
-
-
-def _followers_of(pid: int) -> list[int]:
-    out = []
-    for d in os.listdir("/proc"):
-        if not d.isdigit():
-            continue
-        try:
-            with open(f"/proc/{d}/stat") as f:
-                ppid = int(f.read().split(")")[-1].split()[1])
-            with open(f"/proc/{d}/cmdline", "rb") as f:
-                cmd = f.read()
-        except (OSError, ValueError, IndexError):
-            continue
-        if ppid == pid and b"ddw_tpu_torch.serve.tp" in cmd:
-            out.append(int(d))
-    return out
 
 
 @pytest.mark.slow
